@@ -1,0 +1,144 @@
+"""RoBW — Row Block-Wise partitioning (paper Algorithm 1 + Fig. 4).
+
+Given CSR A and a per-segment device budget M_A, greedily pack *complete
+rows* into segments such that calcMem(k, q) ≤ M_A. Segment boundaries never
+split a row, and concatenating the segments reproduces A exactly — this is
+what removes the merge overhead of Fig. 3.
+
+Segment boundaries are additionally aligned to a row-block multiple `align`
+so every streamed segment densifies into whole BlockELL bricks. Alignment
+can only shrink a segment, so the calcMem budget still holds.
+
+A copy of the serving half of `repro.core.robw`; the tests hold the plans
+and bricks equal.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+from repro_torch.core.memory_model import calc_mem, ell_bucket_capacity
+from repro_torch.sparse.blocking import tile_csr_to_block_ell
+from repro_torch.sparse.formats import (
+    CSR, BlockELL, csr_row_slice, csr_transpose,
+)
+
+
+@dataclasses.dataclass
+class RoBWSegment:
+    """One aligned segment: complete rows [row_start, row_end)."""
+
+    row_start: int
+    row_end: int
+    nnz: int
+    nbytes: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.row_end - self.row_start
+
+
+@dataclasses.dataclass
+class RoBWPlan:
+    segments: List[RoBWSegment]
+    align: int
+    budget_bytes: int
+
+
+def robw_partition(
+    a: CSR,
+    m_a_bytes: int,
+    align: int = 1,
+    value_bytes: Optional[int] = None,
+    index_bytes: int = 4,
+) -> RoBWPlan:
+    """Algorithm 1, vectorized per segment.
+
+    Walks rows, extending the block while calcMem(k, q) ≤ M_A; emits the
+    block, then continues from the next row (never mid-row). With align>1,
+    the emitted boundary is rounded *down* to the alignment grid unless that
+    would make the block empty.
+    """
+    if value_bytes is None:
+        value_bytes = int(a.data.dtype.itemsize)
+    n = a.n_rows
+    segments: List[RoBWSegment] = []
+    start = 0
+    indptr = a.indptr
+    while start < n:
+        # Largest end with calcMem(end-start, indptr[end]-indptr[start]) <= M_A.
+        k = np.arange(1, n - start + 1, dtype=np.int64)
+        q = indptr[start + 1 : n + 1] - indptr[start]
+        mem = (k + 1) * index_bytes + q * (index_bytes + value_bytes)
+        fits = np.nonzero(mem <= m_a_bytes)[0]
+        if fits.shape[0] == 0:
+            # A single row exceeds the budget: emit it alone (callers check
+            # plan feasibility upstream).
+            end = start + 1
+        else:
+            end = start + int(fits[-1]) + 1
+            if align > 1 and end < n:
+                aligned = start + ((end - start) // align) * align
+                if aligned > start:
+                    end = aligned
+        nnz = int(indptr[end] - indptr[start])
+        segments.append(RoBWSegment(
+            row_start=start, row_end=end, nnz=nnz,
+            nbytes=calc_mem(end - start, nnz, value_bytes, index_bytes)))
+        start = end
+    return RoBWPlan(segments=segments, align=align, budget_bytes=m_a_bytes)
+
+
+def robw_transpose_plan(
+    a: CSR,
+    m_a_bytes: int,
+    align: int = 1,
+    value_bytes: Optional[int] = None,
+    index_bytes: int = 4,
+    a_t: Optional[CSR] = None,
+) -> tuple:
+    """RoBW plan over Aᵀ — the backward-pass streaming schedule.
+
+    Complete *columns* of A become complete rows of Aᵀ, so the no-merge
+    invariant carries over to the backward stream. Returns (a_t, plan);
+    pass a precomputed `a_t` to skip the transpose.
+    """
+    if a_t is None:
+        a_t = csr_transpose(a)
+    plan = robw_partition(a_t, m_a_bytes, align=align,
+                          value_bytes=value_bytes, index_bytes=index_bytes)
+    return a_t, plan
+
+
+def densify_segment(
+    a: CSR,
+    seg: RoBWSegment,
+    bm: int = 128,
+    bk: int = 128,
+    dtype: np.dtype = np.float32,
+) -> BlockELL:
+    """Tile-densify one RoBW segment of `a` into a BlockELL brick, its
+    ell_width padded to the power-of-two bucket (`ell_bucket_capacity`)."""
+    sub = csr_row_slice(a, seg.row_start, seg.row_end)
+    ell = tile_csr_to_block_ell(sub, bm=bm, bk=bk, ell_width=None, dtype=dtype)
+    cap = ell_bucket_capacity(ell.ell_width)
+    if cap != ell.ell_width:
+        pad = cap - ell.ell_width
+        ell.blocks = np.pad(ell.blocks, ((0, 0), (0, pad), (0, 0), (0, 0)))
+        ell.col_tile = np.pad(ell.col_tile, ((0, 0), (0, pad)),
+                              constant_values=-1)
+    return ell
+
+
+def segments_to_block_ell(
+    a: CSR,
+    plan: RoBWPlan,
+    bm: int = 128,
+    bk: int = 128,
+    dtype: np.dtype = np.float32,
+) -> Iterator[BlockELL]:
+    """Phase-I host preprocessing: stream of tile-densified segments."""
+    for seg in plan.segments:
+        yield densify_segment(a, seg, bm=bm, bk=bk, dtype=dtype)

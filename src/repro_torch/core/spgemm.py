@@ -1,0 +1,312 @@
+"""AiresSpGEMM — the paper's technique as a composable API, forward pass.
+
+`AiresSpGEMM` wraps the pipeline: Eq. 5-7 planning → RoBW partitioning →
+tile densification → double-buffered streaming → the Block-ELL SpMM kernel.
+X = A @ H runs on `AiresConfig.device` ("cuda" unless the caller asks for
+"cpu"); on the CPU the kernel's plain version computes each segment.
+
+The transposed (backward) stream, `gcn_layer` and edge updates belong to
+later slices; `transpose_of` and the transposed `_prepare` are here because
+the plan and its bricks are host work shared with them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Literal, Optional
+
+import torch
+
+from repro_torch.core.memory_model import FeatureSpec, plan_memory_unified
+from repro_torch.core.pipeline import (
+    LANE_COMPUTE,
+    LANE_DMA,
+    CacheProbeOp,
+    ComputeOp,
+    ExecuteInterpreter,
+    PhaseSpec,
+    PipelinePlan,
+    TransferOp,
+    modeled_spgemm_seconds,
+)
+from repro_torch.core.robw import (
+    robw_partition,
+    robw_transpose_plan,
+    segments_to_block_ell,
+)
+from repro_torch.io.segment_cache import SegmentKey, TieredSegmentCache
+from repro_torch.io.streamer import StreamStats
+from repro_torch.io.tiers import MemoryTier, Path, TierSpec, TPU_V5E_SYSTEM
+from repro_torch.kernels.ops import bcsr_spmm
+from repro_torch.sparse.formats import (
+    CSR,
+    BlockELL,
+    csr_fingerprint,
+    csr_transpose,
+    graph_cache_prefix,
+    segment_fingerprint,
+)
+
+
+def resolve_device(device: "str | torch.device") -> torch.device:
+    """The torch device for `device`; asking for CUDA without a card raises
+    instead of quietly running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(device)!r}")
+    return dev
+
+
+@dataclasses.dataclass
+class AiresConfig:
+    device_budget_bytes: int
+    bm: int = 128
+    bk: int = 128
+    align: int = 8
+    stream_depth: int = 2            # double buffering (Phase II)
+    straggler_deadline_s: Optional[float] = None
+    wire_format: Literal["csr", "bricks"] = "bricks"
+    device: str = "cuda"
+    # Plan (and densify) as if the feature matrix were this wide, whatever
+    # H is passed: one RoBW plan then serves every layer width and every
+    # batched request width ≤ plan_features, so the segment cache hits
+    # across layers, epochs and requests. Wider H gets its own plan.
+    plan_features: Optional[int] = None
+
+
+@dataclasses.dataclass
+class _Prepared:
+    """Host-side artifacts of one streaming direction for one graph."""
+
+    a: CSR                    # the matrix actually streamed (A or Aᵀ)
+    mem: object               # MemoryEstimate
+    plan: object              # RoBWPlan
+    segs: List[object]
+    ells: List[BlockELL]
+    # Host tensors of each brick (blocks, col_tile, n_tiles), pinned once
+    # here when streaming to a CUDA device so every upload is asynchronous.
+    host: List[tuple] = dataclasses.field(default_factory=list)
+    cache_ns: str = ""        # segment-cache namespace (graph+direction+plan)
+    fps: List[str] = dataclasses.field(default_factory=list)
+
+
+def _host_tensors(ell: BlockELL, pin: bool) -> tuple:
+    """The brick as CPU tensors; pinned copies when `pin`, and the
+    BlockELL's arrays then become views of them (one host copy, not two)."""
+    tensors = [torch.from_numpy(arr) for arr in
+               (ell.blocks, ell.col_tile, ell.n_tiles)]
+    if pin:
+        tensors = [t.pin_memory() for t in tensors]
+        ell.blocks, ell.col_tile, ell.n_tiles = (t.numpy() for t in tensors)
+    return tuple(tensors)
+
+
+class AiresSpGEMM:
+    """Out-of-core X = A @ H with the AIRES schedule, executing for real.
+
+    Per-call `StreamStats` accumulate in `forward_stats_log`, the most
+    recent also on `last_stream_stats`.
+    """
+
+    # Per-engine cap on cached (graph × shape × direction) preparations:
+    # densified bricks outweigh the source CSR, so the memo is a small LRU.
+    PREPARED_CACHE_MAX = 8
+
+    def __init__(self, config: AiresConfig,
+                 segment_cache: Optional[TieredSegmentCache] = None):
+        self.config = config
+        self.device = resolve_device(config.device)
+        self.segment_cache = segment_cache
+        self._prepared: Dict[tuple, _Prepared] = {}
+        self._transposes: Dict[tuple, CSR] = {}
+        self.forward_stats_log: List[StreamStats] = []
+        self.last_stream_stats: Optional[StreamStats] = None
+
+    def plan(self, a: CSR, h_shape) -> tuple:
+        mem = plan_memory_unified(
+            a, FeatureSpec(h_shape[0], h_shape[1], 4, 0.0),
+            m_total=self.config.device_budget_bytes)
+        if not mem.feasible:
+            raise MemoryError(
+                f"AIRES plan infeasible: budget {self.config.device_budget_bytes}"
+                f" < M_B+M_C = {mem.m_b + mem.m_c:.0f}")
+        plan = robw_partition(a, int(mem.m_a), align=self.config.align)
+        return mem, plan
+
+    # ---- host-side preparation (cached per graph × feature shape) --------
+    #
+    # CSR inputs are IMMUTABLE: the memo keys are content fingerprints,
+    # memoized on the instance.
+
+    def transpose_of(self, a: CSR) -> CSR:
+        """Memoized Aᵀ, content-addressed and LRU-bounded like `_prepared`."""
+        key = (csr_fingerprint(a), a.nnz, a.shape)
+        hit = self._transposes.pop(key, None)
+        if hit is not None:
+            self._transposes[key] = hit  # re-insert: most-recently-used
+            return hit
+        a_t = csr_transpose(a)
+        self._transposes[key] = a_t
+        while len(self._transposes) > self.PREPARED_CACHE_MAX:
+            self._transposes.pop(next(iter(self._transposes)))
+        return a_t
+
+    def _prepare(self, a: CSR, dense_shape, transpose: bool) -> _Prepared:
+        """Plan + densify one streaming direction; LRU-cached for epoch
+        reuse."""
+        cfg = self.config
+        # Plan at the pinned width when configured (conservative for any
+        # narrower H): one plan, and one set of cacheable bricks.
+        plan_shape = (dense_shape[0],
+                      max(cfg.plan_features or 0, dense_shape[1]))
+        key = (csr_fingerprint(a), a.nnz, a.shape, plan_shape, transpose)
+        hit = self._prepared.pop(key, None)
+        if hit is not None:
+            self._prepared[key] = hit  # re-insert: most-recently-used
+            return hit
+        if transpose:
+            # Plan on Aᵀ: the backward output dH is (n_cols, F), so M_C and
+            # the Eq. 7 budget are sized for the transposed orientation.
+            a_t = self.transpose_of(a)
+            mem = plan_memory_unified(
+                a_t, FeatureSpec(plan_shape[0], plan_shape[1], 4, 0.0),
+                m_total=cfg.device_budget_bytes)
+            if not mem.feasible:
+                raise MemoryError(
+                    "AIRES backward plan infeasible: budget "
+                    f"{cfg.device_budget_bytes} < M_B+M_C = "
+                    f"{mem.m_b + mem.m_c:.0f}")
+            _, plan = robw_transpose_plan(a, int(mem.m_a), align=cfg.align,
+                                          a_t=a_t)
+            stream_a = a_t
+        else:
+            mem, plan = self.plan(a, plan_shape)
+            stream_a = a
+        cache_ns = (f"{graph_cache_prefix(a)}"
+                    f":{'bwd' if transpose else 'fwd'}"
+                    f":w{plan_shape[1]}:b{cfg.device_budget_bytes}")
+        ells = list(segments_to_block_ell(stream_a, plan, bm=cfg.bm,
+                                          bk=cfg.bk))
+        pin = self.device.type == "cuda"
+        prepared = _Prepared(
+            a=stream_a, mem=mem, plan=plan, segs=list(plan.segments),
+            ells=ells, host=[_host_tensors(ell, pin) for ell in ells],
+            cache_ns=cache_ns,
+            fps=[segment_fingerprint(stream_a, s.row_start, s.row_end)
+                 for s in plan.segments])
+        if self.segment_cache is not None:
+            self.segment_cache.pin(cache_ns, a)
+        self._prepared[key] = prepared
+        while len(self._prepared) > self.PREPARED_CACHE_MAX:
+            self._prepared.pop(next(iter(self._prepared)))
+        return prepared
+
+    # ---- pipeline-plan building + streaming executors --------------------
+
+    def device_payload(self, host: tuple, ell: BlockELL) -> tuple:
+        """Upload one brick: `(blocks, col_tile, n_tiles, ell)` with the
+        tensors on this engine's device — the payload format shared by the
+        streamer and the segment cache. From pinned host tensors the copies
+        are asynchronous on the caller's (copy) stream."""
+        return tuple(t.to(self.device, non_blocking=True)
+                     for t in host) + (ell,)
+
+    def _build_stream_plan(self, prepared: _Prepared,
+                           feat: Optional[FeatureSpec] = None,
+                           spec: Optional[TierSpec] = None) -> PipelinePlan:
+        """Phase II of one streamed pass as a `PipelinePlan`: the execute
+        interpreter streams its `(i, ell)` payloads, `estimate()` reads its
+        modeled cost."""
+        cfg = self.config
+        spec = spec if spec is not None else TPU_V5E_SYSTEM
+        if feat is None:
+            feat = FeatureSpec(prepared.a.shape[0],
+                               cfg.plan_features or 1, 4, 0.0)
+        plan = PipelinePlan(scheduler="aires-stream")
+        plan.phases = [PhaseSpec("stream")]
+        plan.mem = prepared.mem
+        plan.robw = prepared.plan
+        plan.segments = len(prepared.ells)
+        cached = self.segment_cache is not None
+        for i, (seg, ell) in enumerate(zip(prepared.segs, prepared.ells)):
+            nbytes = ell.nbytes()
+            miss = TransferOp(Path.DMA, MemoryTier.HOST, MemoryTier.DEVICE,
+                              nbytes, tag="phaseII/seg", payload=(i, ell))
+            if cached:
+                key = SegmentKey(prepared.cache_ns, i, cfg.wire_format,
+                                 tuple(ell.blocks.shape),
+                                 fingerprint=prepared.fps[i])
+                i_io = plan.add(CacheProbeOp(key, nbytes, miss,
+                                             payload=(i, ell)),
+                                "stream", LANE_DMA)
+            else:
+                i_io = plan.add(miss, "stream", LANE_DMA)
+            plan.add(ComputeOp(modeled_spgemm_seconds(seg.nnz, feat, spec)),
+                     "stream", LANE_COMPUTE, deps=(i_io,))
+        return plan
+
+    def stream_plan(self, a: CSR, h_shape,
+                    spec: Optional[TierSpec] = None) -> PipelinePlan:
+        """Plan (and prepare) one streamed pass of `a` at `h_shape`."""
+        h_shape = tuple(int(s) for s in h_shape)
+        feat = FeatureSpec(h_shape[0], h_shape[1], 4, 0.0)
+        prepared = self._prepare(a, h_shape, transpose=False)
+        return self._build_stream_plan(prepared, feat=feat, spec=spec)
+
+    def _stream(self, prepared: _Prepared, consume_one: Callable,
+                feat: Optional[FeatureSpec] = None) -> tuple:
+        """One double-buffered pass over `prepared`'s segments through the
+        execute interpreter. consume_one(ell_dev, i) -> per-segment device
+        result. Returns (row-concatenated output, StreamStats)."""
+        cfg = self.config
+        plan = self._build_stream_plan(prepared, feat=feat)
+
+        def upload(payload):
+            i, ell = payload
+            return self.device_payload(prepared.host[i], ell)
+
+        def consume(dev_payload, i):
+            blocks, col_tile, n_tiles, ell = dev_payload
+            return consume_one(dataclasses.replace(
+                ell, blocks=blocks, col_tile=col_tile, n_tiles=n_tiles), i)
+
+        cache = self.segment_cache
+        # Copy, not alias: the cache mutates its stats in place.
+        before = (dataclasses.replace(cache.stats)
+                  if cache is not None else None)
+        parts, stats = ExecuteInterpreter(segment_cache=cache).stream(
+            plan, upload, consume, depth=cfg.stream_depth,
+            deadline_s=cfg.straggler_deadline_s, device=self.device)
+        if cache is not None:
+            # Host-tier hits re-crossed the bus as promotions; surface them
+            # so uploaded_bytes=0 cannot read as zero traffic.
+            stats.promoted_bytes = (cache.stats.promoted_bytes
+                                    - before.promoted_bytes)
+        out = torch.cat([p[: s.n_rows] for p, s in zip(parts, prepared.segs)],
+                        dim=0)
+        return out, stats
+
+    def _stream_spmm(self, prepared: _Prepared, dense: torch.Tensor) -> tuple:
+        """X = stream(A) @ dense."""
+        # Phase I: the resident feature matrix.
+        dense_dev = dense.to(self.device).contiguous()
+        feat = FeatureSpec(int(dense.shape[0]), int(dense.shape[1]), 4, 0.0)
+        return self._stream(
+            prepared, lambda ell_dev, i: bcsr_spmm(ell_dev, dense_dev),
+            feat=feat)
+
+    def __call__(self, a: CSR, h) -> torch.Tensor:
+        """X = A @ H on this engine's device (forward only)."""
+        h = torch.as_tensor(h)
+        if h.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "AiresSpGEMM is forward-only in this package so far: the "
+                "transposed backward stream is not ported yet")
+        fwd = self._prepare(a, tuple(h.shape), transpose=False)
+        x, stats = self._stream_spmm(fwd, h)
+        self.last_stream_stats = stats
+        self.forward_stats_log.append(stats)
+        return x

@@ -1,0 +1,19 @@
+"""The out-of-core GCN serving engine."""
+from repro_torch.runtime.engine import (
+    AdmissionError,
+    BatchReport,
+    EngineConfig,
+    GroupStats,
+    InferenceRequest,
+    InferenceResult,
+    RejectedRequest,
+    RequestLatency,
+    ServingEngine,
+    SubmitReceipt,
+)
+
+__all__ = [
+    "AdmissionError", "BatchReport", "EngineConfig", "GroupStats",
+    "InferenceRequest", "InferenceResult", "RejectedRequest",
+    "RequestLatency", "ServingEngine", "SubmitReceipt",
+]

@@ -1,0 +1,32 @@
+"""Sparse matrix substrate: host formats, tile densification, oracles.
+
+Host-side structures are numpy (they live on the CPU tier of the memory
+hierarchy, like the paper's CSR-A host staging); the stream uploads
+BlockELL bricks as torch tensors.
+"""
+from repro_torch.sparse.formats import (
+    CSR,
+    COO,
+    BlockELL,
+    csr_from_dense,
+    csr_to_dense,
+    csr_transpose,
+    csr_row_slice,
+    csr_fingerprint,
+    segment_fingerprint,
+    graph_cache_prefix,
+)
+from repro_torch.sparse.blocking import (
+    tile_csr_to_block_ell,
+    block_ell_to_dense,
+    round_up,
+)
+from repro_torch.sparse.ref_spgemm import spgemm_csr_dense, spmm_dense_ref
+
+__all__ = [
+    "CSR", "COO", "BlockELL",
+    "csr_from_dense", "csr_to_dense", "csr_transpose", "csr_row_slice",
+    "csr_fingerprint", "segment_fingerprint", "graph_cache_prefix",
+    "tile_csr_to_block_ell", "block_ell_to_dense", "round_up",
+    "spgemm_csr_dense", "spmm_dense_ref",
+]

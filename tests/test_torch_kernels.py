@@ -1,0 +1,128 @@
+"""The port's Block-ELL SpMM module on the CPU against the JAX package's
+Pallas kernel in interpret mode, on the cases of tests/test_kernels.py.
+
+On CPU tensors `ops.bcsr_spmm` runs the kernel's plain PyTorch version;
+the CUDA kernel itself is held against that version on the card
+(tests/test_torch_gpu.py and chip_smoke.py). Tolerances are the reference
+tests' own: 1e-4 for float32, 1e-2 for float16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels as r_kernels
+import repro.sparse as r_sparse
+from repro_torch.kernels import bcsr_spmm as kmod
+from repro_torch.kernels.ops import bcsr_spmm
+from repro_torch.kernels.ref import bcsr_spmm_ref
+from repro_torch.sparse import (
+    csr_from_dense, spmm_dense_ref, tile_csr_to_block_ell,
+)
+
+
+def _rand_sparse(n, m, density, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return ((rng.random((n, m)) < density)
+            * rng.standard_normal((n, m))).astype(dtype)
+
+
+def _both(dense, h, dtype=np.float32, bm=8, bk=8):
+    """(port output, reference Pallas output) for the same inputs."""
+    ell = tile_csr_to_block_ell(csr_from_dense(dense), bm=bm, bk=bk,
+                                dtype=dtype)
+    port = bcsr_spmm(ell, torch.from_numpy(h)).numpy()
+    r_ell = r_sparse.tile_csr_to_block_ell(r_sparse.csr_from_dense(dense),
+                                           bm=bm, bk=bk, dtype=dtype)
+    ref = np.asarray(r_kernels.bcsr_spmm(r_ell, jnp.asarray(h), bn=8))
+    return port, ref
+
+
+@pytest.mark.parametrize("n,m,f", [(16, 16, 8), (40, 24, 16), (64, 64, 32),
+                                   (33, 57, 24)])
+@pytest.mark.parametrize("density", [0.05, 0.3])
+def test_bcsr_spmm_matches_pallas_shapes(n, m, f, density):
+    dense = _rand_sparse(n, m, density, np.float32, seed=n * m + f)
+    h = np.random.default_rng(1).standard_normal((m, f)).astype(np.float32)
+    port, ref = _both(dense, h)
+    assert port.shape == ref.shape == (n, f)
+    np.testing.assert_allclose(port, ref, atol=1e-4)
+    np.testing.assert_allclose(port, dense @ h, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_bcsr_spmm_matches_pallas_dtypes(dtype):
+    dense = _rand_sparse(32, 32, 0.2, np.float32, seed=7).astype(dtype)
+    h = np.random.default_rng(2).standard_normal((32, 16)).astype(dtype)
+    port, ref = _both(dense, h, dtype=dtype)
+    tol = 1e-2 if dtype == np.float16 else 1e-4
+    assert port.dtype == np.float32
+    np.testing.assert_allclose(port, ref, atol=tol)
+    np.testing.assert_allclose(
+        port, dense.astype(np.float32) @ h.astype(np.float32), atol=tol)
+
+
+def test_bcsr_spmm_matches_pallas_empty_rows():
+    dense = np.zeros((24, 24), np.float32)
+    dense[3, 5] = 2.0  # single nonzero: two of three row blocks are empty
+    port, ref = _both(dense, np.ones((24, 8), np.float32))
+    np.testing.assert_allclose(port, ref, atol=1e-5)
+    np.testing.assert_allclose(port, dense @ np.ones((24, 8)), atol=1e-5)
+
+
+@pytest.mark.parametrize("n,m,f,bm,bk", [(50, 70, 40, 12, 8),
+                                         (96, 96, 20, 16, 16),
+                                         (33, 57, 24, 8, 8)])
+def test_plain_version_matches_densify_oracle(n, m, f, bm, bk):
+    dense = _rand_sparse(n, m, 0.2, np.float32, seed=n + f)
+    ell = tile_csr_to_block_ell(csr_from_dense(dense), bm=bm, bk=bk)
+    h = np.random.default_rng(3).standard_normal((m, f)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
+                                          ell.n_tiles)]
+    plain = kmod.bcsr_spmm_plain(*args, torch.from_numpy(h), bm=bm, bk=bk)
+    h_pad = np.zeros((-(-m // bk) * bk, f), np.float32)
+    h_pad[:m] = h
+    oracle = bcsr_spmm_ref(*args, torch.from_numpy(h_pad), bm=bm, bk=bk)
+    np.testing.assert_allclose(plain.numpy(), oracle.numpy(), atol=1e-4)
+    dense_ref = spmm_dense_ref(torch.from_numpy(dense), torch.from_numpy(h))
+    np.testing.assert_allclose(plain[:n].numpy(), dense_ref.numpy(),
+                               atol=1e-4)
+
+
+def test_plain_version_skips_padding_slots_and_short_h():
+    """Slots past n_tiles and negative ids contribute nothing; tiles past
+    H's last row read zeros (the reference pads H with zeros)."""
+    blocks = torch.ones((2, 3, 8, 8))
+    col_tile = torch.tensor([[0, 1, 5], [-1, 0, 0]], dtype=torch.int32)
+    n_tiles = torch.tensor([3, 2], dtype=torch.int32)
+    h = torch.ones((12, 4))   # tile 1 is half past the end, tile 5 beyond it
+    out = kmod.bcsr_spmm_plain(blocks, col_tile, n_tiles, h, bm=8, bk=8)
+    np.testing.assert_allclose(out[:8].numpy(), 12.0)
+    np.testing.assert_allclose(out[8:].numpy(), 8.0)
+
+
+def test_wrapper_rejects_bad_operands():
+    blocks = torch.zeros((2, 1, 8, 8))
+    col_tile = torch.zeros((2, 1), dtype=torch.int32)
+    n_tiles = torch.ones((2,), dtype=torch.int32)
+    h = torch.zeros((8, 4))
+    with pytest.raises(TypeError):
+        kmod.bcsr_spmm_blocks(blocks.double(), col_tile, n_tiles, h,
+                              bm=8, bk=8)
+    with pytest.raises(TypeError):
+        kmod.bcsr_spmm_blocks(blocks, col_tile.long(), n_tiles, h, bm=8, bk=8)
+    with pytest.raises(ValueError):
+        kmod.bcsr_spmm_blocks(blocks, col_tile, n_tiles, h, bm=8, bk=4)
+    with pytest.raises(ValueError):
+        kmod.bcsr_spmm_blocks(blocks, col_tile[:1], n_tiles, h, bm=8, bk=8)
+    with pytest.raises(ValueError):   # the CUDA path never takes CPU tensors
+        kmod.bcsr_spmm_cuda(blocks, col_tile, n_tiles, h, bm=8, bk=8)
+
+
+@pytest.mark.parametrize("f,bm,expected", [(1024, 8, 128), (16, 8, 32),
+                                           (100, 8, 128), (64, 128, 64),
+                                           (1024, 256, 32)])
+def test_feature_tile_fits_a_thread_block(f, bm, expected):
+    bn = kmod._feature_tile(f, bm)
+    assert bn == expected
+    assert bn * -(-bm // 8) <= 1024
