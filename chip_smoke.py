@@ -7,22 +7,38 @@ Phases, one JSON line each; any failure raises and the script exits
 non-zero without a result line:
 
   1. env     — versions and the card; TF32 is switched off for matmuls.
-  2. build   — nvcc builds the Block-ELL SpMM kernel from this checkout.
-  3. kernel  — the kernel against its plain PyTorch version on the card:
-               at the main path's shape (the rUSA graph's first streamed
-               segment against its resident H) and on a ragged shape, f16
-               operands and an empty row block.
-  4. serve   — the port's `ServingEngine` on the card, two gcn_paper-width
+  2. build   — nvcc builds the kernel library from this checkout's sources.
+  3. host    — the rUSA plans: serving at width 1024, training at 256 in
+               both directions.
+  4. kernel  — the SpMM kernel against its plain PyTorch version on the
+               card: at the serving path's shape (the rUSA graph's first
+               streamed segment against its resident H), on the training
+               plan's first transposed segment, on a ragged shape, f16
+               operands and empty row blocks.
+  5. fused   — the fused GCN-layer kernel against its plain version: the
+               training plan's first segment at gcn_paper width (F_out 256
+               and 64), a ragged shape and empty row blocks.
+  6. serve   — the port's `ServingEngine` on the card, two gcn_paper-width
                graphs, two epochs of four requests each, every output held
                against a float64 scipy reference of the request semantics;
                the kernel's launch count must equal the segments streamed.
-  5. timing  — kernel, plain version and `torch.sparse.mm` (a yardstick the
-               port never calls) at the main path's shape, and the bound.
-  6. kernels — the summary line, then the card's name and power limit, then
+  7. layer   — `AiresSpGEMM.gcn_layer` at gcn_paper width on rUSA, forward
+               and backward of Σ tanh(y), against a float64 autograd
+               reference; the fused kernel runs once per forward segment,
+               the SpMM once per recompute and transposed segment.
+  8. train   — `gcn_train_loop`, gcn_paper (256→256→256→64) on rUSA, three
+               AdamW steps; the first step's loss and gradients against
+               float64, the loss must fall, SpMM launches must equal the
+               segments streamed forward and backward.
+  9. timing  — each kernel, its plain version and a PyTorch yardstick the
+               port never calls, at the main paths' shapes, with the bound.
+ 10. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
-It needs no network and one card, and exits non-zero when no card is
-visible or when the package is not beside it.
+Each main path (serve, layer, train) runs with the launch counters set to
+0 just before it and read just after. It needs no network and one card,
+and exits non-zero when no card is visible or when the package is not
+beside it.
 """
 from __future__ import annotations
 
@@ -34,11 +50,21 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEV = "cuda"
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
 MAIN_TOL = 1e-4                # f32, sums in another order
 F16_TOL = 1e-2
 SERVE_TOL = 1e-3               # f32 engine vs float64 after three layers
+# f32 training path vs float64, as max |Δ| over the reference's largest
+# magnitude: dW and db sum up to 239,400 row terms, whose rounding error
+# grows like sqrt(n)·2^-24 ≈ 3e-5 of that scale. The float64 reference
+# takes its relu masks from the card's forward: an f32 pre-activation
+# within rounding of 0 may fall on the other side of the kink, which
+# changes that row's gradient by O(1) at any precision.
+REL_TOL = 1e-4
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-3
 
 
 def emit(obj) -> None:
@@ -50,6 +76,12 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    import torch
+    if DEV == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, repeats: int, warmup: int = 2) -> float:
@@ -82,44 +114,105 @@ def serve_budget(a, width: int) -> int:
     return int(est.m_b + est.m_c + 0.6 * a.nbytes())
 
 
-def phase_kernel(kmod, main_ell, h_main):
+def brick_tensors(ell):
+    import numpy as np
+    import torch
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+            for x in (ell.blocks, ell.col_tile, ell.n_tiles)]
+
+
+def phase_kernel(kmod, main_ell, h_main, bwd_ell, g_bwd):
     """Kernel vs plain version on the card; returns the main-shape error."""
     import numpy as np
     import torch
     from repro_torch.sparse import csr_from_dense, tile_csr_to_block_ell
 
-    def compare(ell, h, tol, label):
-        args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
-                for x in (ell.blocks, ell.col_tile, ell.n_tiles)]
+    def compare(ell, h, tol, label, relative=False):
+        args = brick_tensors(ell)
         out = kmod.bcsr_spmm_cuda(*args, h, bm=ell.bm, bk=ell.bk)
         plain = kmod.bcsr_spmm_plain(*args, h, bm=ell.bm, bk=ell.bk)
-        torch.cuda.synchronize()
+        sync()
         err = float((out - plain).abs().max())
-        if not err <= tol:
-            raise AssertionError(f"{label}: max |kernel - plain| {err} > {tol}")
+        scale = float(plain.abs().max())
+        limit = tol * scale if relative else tol
+        if not err <= limit:
+            raise AssertionError(f"{label}: max |kernel - plain| {err} > "
+                                 f"{limit}")
         return {"case": label, "blocks": list(ell.blocks.shape),
                 "blocks_dtype": str(ell.blocks.dtype),
                 "h": list(h.shape), "h_dtype": str(h.dtype).split(".")[-1],
-                "max_abs_err": err, "tol": tol}
+                "max_abs_err": err, "max_abs_plain": scale,
+                "tol": f"{tol} x max |plain|" if relative else tol}
 
     rng = np.random.default_rng(1)
-    cases = [compare(main_ell, h_main, MAIN_TOL, "main-path rUSA segment 0")]
+    cases = [compare(main_ell, h_main, MAIN_TOL, "main-path rUSA segment 0"),
+             # Aᵀ's hub row blocks sum up to 422 bricks (3,376 terms) per
+             # output: f32 rounding, held to the output's scale.
+             compare(bwd_ell, g_bwd, REL_TOL,
+                     "training plan's transposed rUSA segment 0, F=256",
+                     relative=True)]
     dense = ((rng.random((1003, 997)) < 0.01)
              * rng.standard_normal((1003, 997))).astype(np.float32)
     ragged = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
-    cases.append(compare(ragged, torch.randn(997, 200, device="cuda"),
+    cases.append(compare(ragged, torch.randn(997, 200, device=DEV),
                          MAIN_TOL, "ragged 1003x997, F=200"))
     f16 = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8,
                                 dtype=np.float16)
-    cases.append(compare(f16, torch.randn(997, 256, device="cuda").half(),
+    cases.append(compare(f16, torch.randn(997, 256, device=DEV).half(),
                          F16_TOL, "f16 blocks and H"))
     dense = np.zeros((40, 40), np.float32)
     dense[3, 5], dense[33, 39] = 2.0, -1.0      # row blocks 1-3 empty
     empty = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
-    cases.append(compare(empty, torch.randn(40, 64, device="cuda"),
+    cases.append(compare(empty, torch.randn(40, 64, device=DEV),
                          MAIN_TOL, "empty row blocks"))
     emit({"phase": "kernel", "cases": cases})
-    return cases[0]["max_abs_err"]
+    return max(c["max_abs_err"] for c in cases[:2])
+
+
+def phase_fused(kmod, main_ell, h_main):
+    """Fused kernel vs plain version on the card; returns the largest
+    error at the main path's shape."""
+    import numpy as np
+    import torch
+    from repro_torch.sparse import csr_from_dense, tile_csr_to_block_ell
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+
+    def compare(ell, h, f_out, label):
+        f = h.shape[1]
+        w = torch.randn((f, f_out), device=DEV, generator=gen) * f ** -0.5
+        b = 0.1 * torch.randn((f_out,), device=DEV, generator=gen)
+        args = brick_tensors(ell)
+        out = kmod.fused_gcn_layer_cuda(*args, h, w, b, bm=ell.bm, bk=ell.bk)
+        plain = kmod.fused_gcn_layer_plain(*args, h, w, b, bm=ell.bm,
+                                           bk=ell.bk)
+        sync()
+        err = float((out - plain).abs().max())
+        if not err <= MAIN_TOL:
+            raise AssertionError(f"{label}: max |kernel - plain| {err} > "
+                                 f"{MAIN_TOL}")
+        return {"case": label, "blocks": list(ell.blocks.shape),
+                "h": list(h.shape), "w": [f, f_out], "max_abs_err": err,
+                "tol": MAIN_TOL}
+
+    rng = np.random.default_rng(3)
+    cases = [compare(main_ell, h_main, h_main.shape[1],
+                     "main-path rUSA training segment 0"),
+             compare(main_ell, h_main, 64, "F_out=64, last gcn_paper layer")]
+    dense = ((rng.random((1003, 997)) < 0.01)
+             * rng.standard_normal((1003, 997))).astype(np.float32)
+    ragged = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
+    cases.append(compare(ragged, torch.randn(997, 200, device=DEV,
+                                             generator=gen),
+                         120, "ragged 1003x997, F=200"))
+    dense = np.zeros((40, 40), np.float32)
+    dense[3, 5], dense[33, 39] = 2.0, -1.0      # row blocks 1-3 empty
+    empty = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
+    cases.append(compare(empty, torch.randn(40, 64, device=DEV,
+                                            generator=gen),
+                         48, "empty row blocks"))
+    emit({"phase": "fused", "cases": cases})
+    return max(c["max_abs_err"] for c in cases[:2])
 
 
 def reference_outputs(a, features, weights):
@@ -218,50 +311,331 @@ def phase_serve(kmod, graphs, args):
     return launches
 
 
-def phase_timing(kmod, main_ell, main_csr, h_main):
+def f64_adjacency(a):
+    """Ã as a float64 sparse COO tensor on the CPU: the yardstick of the
+    training checks, never called by the port."""
     import numpy as np
     import torch
+    rows = np.repeat(np.arange(a.n_rows, dtype=np.int64), np.diff(a.indptr))
+    idx = torch.from_numpy(np.stack([rows, a.indices.astype(np.int64)]))
+    return torch.sparse_coo_tensor(
+        idx, torch.from_numpy(a.data.astype(np.float64)), a.shape,
+        check_invariants=True).coalesce()
 
-    args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
-            for x in (main_ell.blocks, main_ell.col_tile, main_ell.n_tiles)]
-    bm, bk = main_ell.bm, main_ell.bk
-    k_rows, f = h_main.shape
-    ms = cuda_ms(lambda: kmod.bcsr_spmm_cuda(*args, h_main, bm=bm, bk=bk), 20)
-    plain_ms = cuda_ms(lambda: kmod.bcsr_spmm_plain(*args, h_main, bm=bm,
-                                                    bk=bk), 3, warmup=1)
-    a_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(main_csr.indptr.astype(np.int64)),
-        torch.from_numpy(main_csr.indices.astype(np.int64)),
-        torch.from_numpy(main_csr.data.copy()), size=main_csr.shape,
-        check_invariants=True).cuda()
-    library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, h_main), 20)
 
-    # Least work for these inputs: the valid bricks read once, the H tiles
-    # they reference read once, col_tile and n_tiles read once, X written
-    # once; 2*bm*bk FLOPs per valid brick and feature column.
-    n_tiles, col_tile = args[2].long(), args[1]
-    slots = torch.arange(col_tile.shape[1], device="cuda")[None, :]
-    valid = (slots < n_tiles[:, None]) & (col_tile >= 0)
+def rel_err(out, ref) -> float:
+    """max |out - ref| over the reference's largest magnitude."""
+    import torch
+    out = out.detach().cpu().to(torch.float64)
+    ref = ref.detach().cpu().to(torch.float64)
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"bad output {tuple(out.shape)} vs "
+                             f"{tuple(ref.shape)}")
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def check_errors(label: str, errs: dict) -> None:
+    bad = {k: e for k, e in errs.items() if not e <= REL_TOL}
+    if bad:
+        raise AssertionError(f"{label}: relative error above {REL_TOL}: "
+                             f"{bad}")
+
+
+def engine_at(a, width: int):
+    """An `AiresSpGEMM` planned at width `width`, with launch/serve.py's
+    budget rule at that width."""
+    from repro_torch.core import AiresConfig, AiresSpGEMM
+    return AiresSpGEMM(AiresConfig(
+        device_budget_bytes=serve_budget(a, width), bm=8, bk=8,
+        plan_features=width, device=DEV))
+
+
+def phase_layer(kmod, eng, a, a64, seed: int):
+    """gcn_layer forward and backward at gcn_paper width; returns the
+    fused and SpMM launches of the run."""
+    import torch
+    from repro_torch.configs.gcn_paper import CONFIG
+
+    width = CONFIG.feature_dim
+    eng.reset_stats_logs()
+    gen = torch.Generator().manual_seed(seed + 1)
+    h = torch.randn((a.n_rows, width), generator=gen)
+    w = torch.randn((width, width), generator=gen) * width ** -0.5
+    b = 0.1 * torch.randn((width,), generator=gen)
+    leaves = [t.to(DEV).requires_grad_(True) for t in (h, w, b)]
+    sync()
+
+    kmod.LAUNCHES = kmod.FUSED_LAUNCHES = 0       # the main path starts here
+    t0 = time.perf_counter()
+    y = eng.gcn_layer(a, *leaves)
+    sync()
+    t1 = time.perf_counter()
+    torch.sum(torch.tanh(y)).backward()
+    sync()
+    t2 = time.perf_counter()
+    fused, launches = kmod.FUSED_LAUNCHES, kmod.LAUNCHES   # ... and ends here
+
+    fwd = [s.segments for s in eng.forward_stats_log]
+    bwd = [s.segments for s in eng.backward_stats_log]   # recompute, Aᵀ
+    if fused != sum(fwd) or fused == 0:
+        raise AssertionError(f"fused launches {fused} != forward segments "
+                             f"{fwd}")
+    if len(bwd) != 2 or launches != sum(bwd):
+        raise AssertionError(f"SpMM launches {launches} != recompute + "
+                             f"transposed segments {bwd}")
+    ref = [t.detach().to(torch.float64).requires_grad_(True)
+           for t in (h, w, b)]
+    mask = (y.detach() > 0).cpu()                 # see REL_TOL
+    y64 = (torch.sparse.mm(a64, ref[0]) @ ref[1] + ref[2]) * mask
+    torch.sum(torch.tanh(y64)).backward()
+    errs = {"y": rel_err(y, y64)}
+    errs.update({f"d{n}": rel_err(t.grad, r.grad)
+                 for n, t, r in zip("Wb", leaves[1:], ref[1:])})
+    errs["dH"] = rel_err(leaves[0].grad, ref[0].grad)
+    check_errors("layer", errs)
+    emit({"phase": "layer", "n": a.n_rows, "width": width,
+          "forward_segments": fwd, "backward_segments": bwd,
+          "fused_launches": fused, "spmm_launches": launches,
+          "forward_s": t1 - t0, "backward_s": t2 - t1,
+          "rel_err_vs_float64": errs, "tol": REL_TOL})
+    return fused, launches
+
+
+def relu_masks(eng, a, params, h0):
+    """The relu masks of gcn_forward's hidden layers on the card, from the
+    same operations in the same order."""
+    import torch
+    n_layers = len([k for k in params if k.startswith("w")])
+    masks, h = [], h0
+    with torch.no_grad():
+        for i in range(n_layers - 1):
+            z = eng(a, h) @ params[f"w{i}"] + params[f"b{i}"]
+            masks.append((z > 0).cpu())
+            h = torch.relu(z)
+    return masks
+
+
+def f64_gcn_grads(a64, params, h0, labels, masks):
+    """Loss and parameter gradients of gcn_loss in float64 on the CPU, the
+    hidden relus given by `masks` (see REL_TOL)."""
+    import torch
+    p64 = {k: v.detach().to(torch.float64).requires_grad_(True)
+           for k, v in params.items()}
+    n_layers = len([k for k in p64 if k.startswith("w")])
+    h = h0.to(torch.float64)
+    for i in range(n_layers):
+        h = torch.sparse.mm(a64, h) @ p64[f"w{i}"] + p64[f"b{i}"]
+        if i < n_layers - 1:
+            h = h * masks[i]
+    gold = torch.gather(h, 1, labels.long()[:, None])[:, 0]
+    loss = torch.mean(torch.logsumexp(h, dim=-1) - gold)
+    grads = torch.autograd.grad(loss, list(p64.values()))
+    return loss.detach(), dict(zip(p64, grads))
+
+
+def phase_train(kmod, eng, a, a64, seed: int):
+    """gcn_train_loop with gcn_paper on `a`; returns the SpMM launches."""
+    import torch
+    from repro_torch.configs.gcn_paper import CONFIG
+    from repro_torch.models import gcn_init, gcn_loss
+    from repro_torch.train import gcn_train_loop
+
+    width = CONFIG.feature_dim
+    eng.reset_stats_logs()
+    gen = torch.Generator().manual_seed(seed + 2)
+    params = gcn_init(CONFIG, gen, device="cpu")
+    h0 = torch.randn((a.n_rows, width), generator=gen)
+    labels = torch.randint(0, CONFIG.n_classes, (a.n_rows,), generator=gen)
+    h0_dev, labels_dev = h0.to(DEV), labels.to(DEV)
+    fwd_segs = len(eng.stream_plan(a, h0.shape).robw.segments)
+    bwd_segs = len(eng.stream_plan(a, h0.shape, transpose=True).robw.segments)
+    if fwd_segs < 2 or bwd_segs < 2:
+        raise AssertionError(f"the budget must stream both directions: "
+                             f"{fwd_segs} forward, {bwd_segs} backward "
+                             "segments")
+
+    # The first step's gradient, timed by direction, against float64.
+    leaves = {k: v.to(DEV).requires_grad_(True) for k, v in params.items()}
+    sync()
+    t0 = time.perf_counter()
+    loss = gcn_loss(CONFIG, leaves, a, h0_dev, labels_dev, engine=eng)
+    sync()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    sync()
+    t2 = time.perf_counter()
+    masks = relu_masks(eng, a, leaves, h0_dev)
+    ref_loss, ref_grads = f64_gcn_grads(a64, params, h0, labels, masks)
+    errs = {"loss": rel_err(loss, ref_loss)}
+    errs.update({f"d{k}": rel_err(g, ref_grads[k])
+                 for k, g in zip(leaves, grads)})
+    check_errors("train", errs)
+
+    kmod.LAUNCHES = 0                             # the main path starts here
+    trained, info = gcn_train_loop(CONFIG, eng, a, h0_dev, labels_dev,
+                                   {k: v.to(DEV) for k, v in params.items()},
+                                   n_epochs=TRAIN_STEPS, lr=TRAIN_LR)
+    launches = kmod.LAUNCHES                      # ... and ends here
+
+    # One more step's gradient, warm, timed by direction.
+    leaves = {k: v.requires_grad_(True) for k, v in trained.items()}
+    sync()
+    t3 = time.perf_counter()
+    loss = gcn_loss(CONFIG, leaves, a, h0_dev, labels_dev, engine=eng)
+    sync()
+    t4 = time.perf_counter()
+    torch.autograd.grad(loss, list(leaves.values()))
+    sync()
+    t5 = time.perf_counter()
+    segments = sum(s.segments for ep in info["epochs"]
+                   for s in ep["forward_stream"] + ep["backward_stream"])
+    if launches != segments or launches == 0:
+        raise AssertionError(f"SpMM launches {launches} != segments "
+                             f"streamed {segments}")
+    losses = [loss for _, loss in info["history"]]
+    if abs(losses[0] - float(ref_loss)) > REL_TOL * abs(float(ref_loss)):
+        raise AssertionError(f"first loss {losses[0]} vs float64 "
+                             f"{float(ref_loss)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    emit({"phase": "train", "config": CONFIG.name,
+          "layers": CONFIG.layer_dims(), "n": a.n_rows,
+          "budget_bytes": eng.config.device_budget_bytes,
+          "steps": TRAIN_STEPS, "optimizer": "adamw", "lr": TRAIN_LR,
+          "first_step": {"forward_s": t1 - t0, "backward_s": t2 - t1},
+          "warm_step": {"forward_s": t4 - t3, "backward_s": t5 - t4},
+          "seconds_per_step": info["seconds"] / TRAIN_STEPS,
+          "losses": losses, "float64_loss": float(ref_loss),
+          "rel_err_vs_float64": errs, "tol": REL_TOL,
+          "epochs": [{"forward_segments": [s.segments for s in
+                                           ep["forward_stream"]],
+                      "backward_segments": [s.segments for s in
+                                            ep["backward_stream"]],
+                      "uploaded_bytes": sum(
+                          s.uploaded_bytes for s in
+                          ep["forward_stream"] + ep["backward_stream"])}
+                     for ep in info["epochs"]],
+          "spmm_launches": launches, "segments_streamed": segments})
+    return launches
+
+
+def brick_work(args, ell, k_rows: int, f: int, h_itemsize: int) -> tuple:
+    """(valid bricks, distinct H tiles, bytes, FLOPs) of the aggregation
+    for these inputs: the valid bricks read once, the H tiles they reference
+    read once, col_tile and n_tiles read once; 2*bm*bk FLOPs per valid brick
+    and feature column. The output is the caller's to add."""
+    import torch
+    blocks, col_tile, n_tiles = args
+    slots = torch.arange(col_tile.shape[1], device=col_tile.device)[None, :]
+    valid = (slots < n_tiles.long()[:, None]) & (col_tile >= 0)
     n_valid = int(valid.sum())
     h_tiles = int(torch.unique(col_tile[valid]).numel())
-    item = main_ell.blocks.dtype.itemsize
-    nbytes = (n_valid * bm * bk * item + col_tile.numel() * 4
-              + n_tiles.numel() * 4
-              + min(h_tiles * bk, k_rows) * f * h_main.element_size()
-              + main_ell.n_row_blocks * bm * f * 4)
-    flops = 2.0 * n_valid * bm * bk * f
+    nbytes = (n_valid * ell.bm * ell.bk * ell.blocks.dtype.itemsize
+              + col_tile.numel() * 4 + n_tiles.numel() * 4
+              + min(h_tiles * ell.bk, k_rows) * f * h_itemsize)
+    return n_valid, h_tiles, nbytes, 2.0 * n_valid * ell.bm * ell.bk * f
+
+
+def bound(nbytes: float, flops: float) -> tuple:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    emit({"phase": "timing", "shape": {"blocks": list(main_ell.blocks.shape),
-                                       "h": [k_rows, f]},
-          "valid_bricks": n_valid, "h_tiles_referenced": h_tiles,
-          "min_bytes": nbytes, "flops": flops, "ms": ms,
-          "plain_ms": plain_ms, "library_ms": library_ms,
-          "library_call": "torch.sparse.mm (CUDA CSR)",
-          "bound_ms": bound_ms, "bound_by": bound_by,
-          "bound_share": bound_ms / ms})
-    return ms, plain_ms, library_ms, bound_ms, bound_by
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def csr_on_card(a):
+    import numpy as np
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.from_numpy(a.data.copy()), size=a.shape,
+        check_invariants=True).to(DEV)
+
+
+def time_spmm(kmod, ell, csr, h) -> dict:
+    """The SpMM kernel on one segment, its plain version and
+    `torch.sparse.mm` (a yardstick the port never calls), with the bound."""
+    import torch
+    args = brick_tensors(ell)
+    bm, bk = ell.bm, ell.bk
+    k_rows, f = h.shape
+    ms = cuda_ms(lambda: kmod.bcsr_spmm_cuda(*args, h, bm=bm, bk=bk), 20)
+    plain_ms = cuda_ms(lambda: kmod.bcsr_spmm_plain(*args, h, bm=bm, bk=bk),
+                       3, warmup=1)
+    a_csr = csr_on_card(csr)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, h), 20)
+    n_valid, h_tiles, nbytes, flops = brick_work(args, ell, k_rows, f,
+                                                 h.element_size())
+    nbytes += ell.n_row_blocks * bm * f * 4                  # X written
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"shape": {"blocks": list(ell.blocks.shape), "h": [k_rows, f]},
+            "valid_bricks": n_valid, "h_tiles_referenced": h_tiles,
+            "min_bytes": nbytes, "flops": flops, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "torch.sparse.mm (CUDA CSR)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def time_fused(kmod, ell, csr, h, f_out: int) -> dict:
+    """The fused kernel on one segment, its plain version and the two-call
+    yardstick `torch.sparse.mm` then `addmm` + `relu` (no single PyTorch
+    call computes the fused function), with the bound."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    k_rows, f = h.shape
+    w = torch.randn((f, f_out), device=DEV, generator=gen) * f ** -0.5
+    b = 0.1 * torch.randn((f_out,), device=DEV, generator=gen)
+    args = brick_tensors(ell)
+    bm, bk = ell.bm, ell.bk
+    ms = cuda_ms(lambda: kmod.fused_gcn_layer_cuda(*args, h, w, b, bm=bm,
+                                                   bk=bk), 20)
+    plain_ms = cuda_ms(lambda: kmod.fused_gcn_layer_plain(
+        *args, h, w, b, bm=bm, bk=bk), 3, warmup=1)
+    a_csr = csr_on_card(csr)
+    yardstick_ms = cuda_ms(lambda: torch.relu(torch.addmm(
+        b, torch.sparse.mm(a_csr, h), w)), 20)
+    n_valid, h_tiles, nbytes, flops = brick_work(args, ell, k_rows, f,
+                                                 h.element_size())
+    rows = ell.n_row_blocks * bm
+    nbytes += (f * f_out + f_out) * 4 + rows * f_out * 4    # W, b; Y
+    flops += 2.0 * rows * f * f_out                          # X W
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"shape": {"blocks": list(ell.blocks.shape), "h": [k_rows, f],
+                      "w": [f, f_out]},
+            "valid_bricks": n_valid, "h_tiles_referenced": h_tiles,
+            "min_bytes": nbytes, "flops": flops, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "yardstick_ms": yardstick_ms,
+            "yardstick_call": "torch.sparse.mm (CUDA CSR), then addmm + relu",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def phase_timing(kmod, plans, h_main, h_train, g_train) -> dict:
+    timing = {
+        "bcsr_spmm": time_spmm(kmod, plans["serve"]["ell"],
+                               plans["serve"]["csr"], h_main),
+        "bcsr_spmm_transposed": time_spmm(kmod, plans["bwd"]["ell"],
+                                          plans["bwd"]["csr"], g_train),
+        "fused_gcn_layer": time_fused(kmod, plans["fwd"]["ell"],
+                                      plans["fwd"]["csr"], h_train,
+                                      h_train.shape[1]),
+    }
+    emit({"phase": "timing", **timing})
+    return timing
+
+
+def first_segment(plan, a_streamed) -> dict:
+    """Segment 0 of a stream plan: its bricks and its rows of the streamed
+    matrix as a CSR."""
+    from repro_torch.sparse import csr_row_slice
+    seg = plan.robw.segments[0]
+    return {"ell": plan.stream_payloads()[0][1],
+            "csr": csr_row_slice(a_streamed, seg.row_start, seg.row_end),
+            "segments": [list(e.blocks.shape)
+                         for _, e in plan.stream_payloads()]}
 
 
 def run(args) -> None:
@@ -284,38 +658,51 @@ def run(args) -> None:
           "ptxas": [ln.strip() for ln in info.ptxas.splitlines()
                     if "registers" in ln or "smem" in ln or "spill" in ln]})
 
-    from repro_torch.core import AiresConfig, AiresSpGEMM
-    from repro_torch.sparse import csr_row_slice
-
     t0 = time.perf_counter()
     # Seeds follow launch/serve.py: graphs in ("socLJ1", "rUSA") order.
     graphs = {"rUSA": paper_graph("rUSA", args.rusa_scale, 1),
               "socLJ1": paper_graph("socLJ1", args.lj_scale, 0)}
     a = graphs["rUSA"]
-    width = 1024
-    plan = AiresSpGEMM(AiresConfig(
-        device_budget_bytes=serve_budget(a, width), bm=8, bk=8,
-        plan_features=width, device="cuda")).stream_plan(a, (a.n_rows, width))
-    main_ell = plan.stream_payloads()[0][1]
-    seg0 = plan.robw.segments[0]
-    main_csr = csr_row_slice(a, seg0.row_start, seg0.row_end)
+    width, train_width = 1024, 256
+    shape, train_shape = (a.n_rows, width), (a.n_rows, train_width)
+    serve_eng, train_eng = engine_at(a, width), engine_at(
+        a, train_width)
+    plans = {"serve": first_segment(serve_eng.stream_plan(a, shape), a),
+             "fwd": first_segment(train_eng.stream_plan(a, train_shape), a),
+             "bwd": first_segment(train_eng.stream_plan(
+                 a, train_shape, transpose=True), train_eng.transpose_of(a))}
     emit({"phase": "host", "seconds": time.perf_counter() - t0,
-          "rUSA_segments": [list(e.blocks.shape)
-                            for _, e in plan.stream_payloads()]})
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    h_main = torch.randn((a.n_rows, width), device="cuda", generator=gen)
+          "rUSA_segments": {k: v["segments"] for k, v in plans.items()}})
+    gen = torch.Generator(device=DEV).manual_seed(args.seed)
+    h_main = torch.randn(shape, device=DEV, generator=gen)
+    h_train = torch.randn(train_shape, device=DEV, generator=gen)
+    g_train = torch.randn(train_shape, device=DEV, generator=gen)
 
-    max_err = phase_kernel(kmod, main_ell, h_main)
-    launches = phase_serve(kmod, graphs, args)
-    ms, plain_ms, library_ms, bound_ms, bound_by = phase_timing(
-        kmod, main_ell, main_csr, h_main)
-    emit({"kernels": [{
-        "name": "bcsr_spmm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
-        "replaces": "src/repro/kernels/bcsr_spmm.py:50",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]})
+    spmm_err = phase_kernel(kmod, plans["serve"]["ell"], h_main,
+                            plans["bwd"]["ell"], g_train)
+    fused_err = phase_fused(kmod, plans["fwd"]["ell"], h_train)
+    launches = {"serve": phase_serve(kmod, graphs, args)}
+    a64 = f64_adjacency(a)
+    fused_launches, launches["layer"] = phase_layer(kmod, train_eng, a, a64,
+                                                    args.seed)
+    launches["train"] = phase_train(kmod, train_eng, a, a64, args.seed)
+    timing = phase_timing(kmod, plans, h_main, h_train, g_train)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [
+        {"name": "bcsr_spmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
+         "replaces": "src/repro/kernels/bcsr_spmm.py:50",
+         "launches": sum(launches.values()), "launches_by_path": launches,
+         "max_abs_err": spmm_err,
+         **{k: timing["bcsr_spmm"][k] for k in keys}},
+        {"name": "fused_gcn_layer", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_gcn_layer.cu",
+         "replaces": "src/repro/kernels/bcsr_spmm.py:127",
+         "launches": fused_launches,
+         "launches_by_path": {"layer": fused_launches},
+         "max_abs_err": fused_err,
+         **{k: timing["fused_gcn_layer"][k] for k in keys},
+         "yardstick_ms": timing["fused_gcn_layer"]["yardstick_ms"]}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """AIRES core: the Eq. 5-7 memory model, RoBW partitioning, the pipeline
-plan IR and the streamed out-of-core SpGEMM."""
+plan IR and the streamed, differentiable out-of-core SpGEMM."""
 from repro_torch.core.memory_model import (
     FeatureSpec,
     MemoryEstimate,

@@ -1,13 +1,17 @@
-"""AiresSpGEMM — the paper's technique as a composable API, forward pass.
+"""AiresSpGEMM — the paper's technique as a composable, differentiable API.
 
 `AiresSpGEMM` wraps the pipeline: Eq. 5-7 planning → RoBW partitioning →
-tile densification → double-buffered streaming → the Block-ELL SpMM kernel.
+tile densification → double-buffered streaming → the Block-ELL kernels.
 X = A @ H runs on `AiresConfig.device` ("cuda" unless the caller asks for
-"cpu"); on the CPU the kernel's plain version computes each segment.
+"cpu"); on the CPU each kernel's plain version computes each segment.
 
-The transposed (backward) stream, `gcn_layer` and edge updates belong to
-later slices; `transpose_of` and the transposed `_prepare` are here because
-the plan and its bricks are host work shared with them.
+Both entry points are `torch.autograd.Function`s. The backward of
+`engine(a, h)` computes dH = Aᵀ dX by streaming the transposed RoBW plan
+(`robw_transpose_plan`) through the same stream and SpMM kernel, so a
+gradient through a GCN layer really moves the bricks of Aᵀ. `gcn_layer`
+streams the fused kernel forward, relu((A H) W + b) with X kept on chip,
+and its backward recomputes X with one forward stream. Edge updates and
+`gcn_epoch` belong to later slices.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from repro_torch.core.robw import (
 from repro_torch.io.segment_cache import SegmentKey, TieredSegmentCache
 from repro_torch.io.streamer import StreamStats
 from repro_torch.io.tiers import MemoryTier, Path, TierSpec, TPU_V5E_SYSTEM
-from repro_torch.kernels.ops import bcsr_spmm
+from repro_torch.kernels.ops import bcsr_spmm, fused_gcn_layer
 from repro_torch.sparse.formats import (
     CSR,
     BlockELL,
@@ -107,8 +111,9 @@ def _host_tensors(ell: BlockELL, pin: bool) -> tuple:
 class AiresSpGEMM:
     """Out-of-core X = A @ H with the AIRES schedule, executing for real.
 
-    Per-call `StreamStats` accumulate in `forward_stats_log`, the most
-    recent also on `last_stream_stats`.
+    Per-call `StreamStats` accumulate in `forward_stats_log` and
+    `backward_stats_log` (cleared by `reset_stats_logs`), the most recent
+    also on `last_stream_stats` and `last_backward_stream_stats`.
     """
 
     # Per-engine cap on cached (graph × shape × direction) preparations:
@@ -123,7 +128,9 @@ class AiresSpGEMM:
         self._prepared: Dict[tuple, _Prepared] = {}
         self._transposes: Dict[tuple, CSR] = {}
         self.forward_stats_log: List[StreamStats] = []
+        self.backward_stats_log: List[StreamStats] = []
         self.last_stream_stats: Optional[StreamStats] = None
+        self.last_backward_stream_stats: Optional[StreamStats] = None
 
     def plan(self, a: CSR, h_shape) -> tuple:
         mem = plan_memory_unified(
@@ -135,6 +142,10 @@ class AiresSpGEMM:
                 f" < M_B+M_C = {mem.m_b + mem.m_c:.0f}")
         plan = robw_partition(a, int(mem.m_a), align=self.config.align)
         return mem, plan
+
+    def reset_stats_logs(self) -> None:
+        self.forward_stats_log = []
+        self.backward_stats_log = []
 
     # ---- host-side preparation (cached per graph × feature shape) --------
     #
@@ -248,12 +259,13 @@ class AiresSpGEMM:
                      "stream", LANE_COMPUTE, deps=(i_io,))
         return plan
 
-    def stream_plan(self, a: CSR, h_shape,
-                    spec: Optional[TierSpec] = None) -> PipelinePlan:
-        """Plan (and prepare) one streamed pass of `a` at `h_shape`."""
+    def stream_plan(self, a: CSR, h_shape, spec: Optional[TierSpec] = None,
+                    transpose: bool = False) -> PipelinePlan:
+        """Plan (and prepare) one streamed pass of `a` (of Aᵀ with
+        `transpose`, the backward direction) at `h_shape`."""
         h_shape = tuple(int(s) for s in h_shape)
         feat = FeatureSpec(h_shape[0], h_shape[1], 4, 0.0)
-        prepared = self._prepare(a, h_shape, transpose=False)
+        prepared = self._prepare(a, h_shape, transpose)
         return self._build_stream_plan(prepared, feat=feat, spec=spec)
 
     def _stream(self, prepared: _Prepared, consume_one: Callable,
@@ -298,15 +310,92 @@ class AiresSpGEMM:
             prepared, lambda ell_dev, i: bcsr_spmm(ell_dev, dense_dev),
             feat=feat)
 
+    # ---- differentiable public API --------------------------------------
+
     def __call__(self, a: CSR, h) -> torch.Tensor:
-        """X = A @ H on this engine's device (forward only)."""
+        """X = A @ H on this engine's device, differentiable w.r.t. H (dH
+        streams Aᵀ). X is float32; dH comes back in H's dtype, on H's
+        device."""
         h = torch.as_tensor(h)
-        if h.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "AiresSpGEMM is forward-only in this package so far: the "
-                "transposed backward stream is not ported yet")
         fwd = self._prepare(a, tuple(h.shape), transpose=False)
-        x, stats = self._stream_spmm(fwd, h)
-        self.last_stream_stats = stats
-        self.forward_stats_log.append(stats)
+        return _SpGEMM.apply(h, self, a, fwd)
+
+    def _backward_stream(self, a: CSR, g: torch.Tensor) -> torch.Tensor:
+        """dH = Aᵀ @ g via the transposed RoBW plan, with stats recorded."""
+        bwd = self._prepare(a, tuple(g.shape), transpose=True)
+        dh, stats = self._stream_spmm(bwd, g)
+        self.last_backward_stream_stats = stats
+        self.backward_stats_log.append(stats)
+        return dh
+
+    def gcn_layer(self, a: CSR, h, w, b) -> torch.Tensor:
+        """Differentiable fused layer Y = relu((A H) W + b), Fig. 1 chain.
+
+        Forward streams the fused kernel: the aggregation X never reaches
+        device memory. Backward therefore recomputes X with one forward
+        stream (activation recomputation), then:
+            dXW = dY ⊙ 1[Y>0];  dW = Xᵀ dXW;  db = Σ dXW;
+            dH  = Aᵀ (dXW Wᵀ)   — one transposed stream.
+        Y is float32 on this engine's device; each gradient comes back in
+        its input's dtype, on its input's device.
+        """
+        h, w, b = (torch.as_tensor(t) for t in (h, w, b))
+        fwd = self._prepare(a, tuple(h.shape), transpose=False)
+        return _GCNLayer.apply(h, w, b, self, a, fwd)
+
+
+class _SpGEMM(torch.autograd.Function):
+    """X = A @ H through the forward stream; dH = Aᵀ dX through the
+    transposed one."""
+
+    @staticmethod
+    def forward(ctx, h, engine, a, fwd):
+        x, stats = engine._stream_spmm(fwd, h)
+        engine.last_stream_stats = stats
+        engine.forward_stats_log.append(stats)
+        ctx.engine, ctx.a = engine, a
+        ctx.h_dtype, ctx.h_device = h.dtype, h.device
         return x
+
+    @staticmethod
+    def backward(ctx, g):
+        dh = ctx.engine._backward_stream(ctx.a, g)
+        return dh.to(device=ctx.h_device, dtype=ctx.h_dtype), None, None, None
+
+
+class _GCNLayer(torch.autograd.Function):
+    """Y = relu((A H) W + b) through the fused kernel; the backward of
+    `repro.core.spgemm.AiresSpGEMM.gcn_layer`, with the dense products as
+    plain `torch.matmul` (the reference leaves them to XLA)."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, engine, a, fwd):
+        h_dev, w_dev, b_dev = (t.to(device=engine.device,
+                                    dtype=torch.float32).contiguous()
+                               for t in (h, w, b))
+        y, stats = engine._stream(fwd, lambda ell_dev, i: fused_gcn_layer(
+            ell_dev, h_dev, w_dev, b_dev))
+        engine.last_stream_stats = stats
+        engine.forward_stats_log.append(stats)
+        ctx.save_for_backward(h_dev, w_dev, y)
+        ctx.engine, ctx.a, ctx.fwd = engine, a, fwd
+        ctx.like = [(t.dtype, t.device) for t in (h, w, b)]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        engine = ctx.engine
+        h_dev, w_dev, y = ctx.saved_tensors
+        # Recompute X = A H with one forward stream (counted in the
+        # backward log: it is backward-phase I/O).
+        x, stats = engine._stream_spmm(ctx.fwd, h_dev)
+        engine.backward_stats_log.append(stats)
+        dxw = (dy * (y > 0)).to(torch.float32)
+        dw = torch.matmul(x.T, dxw)
+        db = torch.sum(dxw, dim=0)
+        dx = torch.matmul(dxw, w_dev.T)
+        dh = engine._backward_stream(ctx.a, dx)
+        # All three, always: the stats logs then match the reference's.
+        grads = tuple(g.to(device=device, dtype=dtype)
+                      for g, (dtype, device) in zip((dh, dw, db), ctx.like))
+        return grads + (None, None, None)

@@ -1,16 +1,26 @@
-"""Block-ELL × dense SpMM: the hand-written CUDA kernel and its plain version.
+"""The Block-ELL kernels: each hand-written CUDA kernel beside its plain
+PyTorch version.
 
-X[rb*bm:(rb+1)*bm, :] = Σ_{s < n_tiles[rb], col_tile[rb, s] >= 0}
-                        blocks[rb, s] @ H[col_tile[rb, s]*bk : +bk, :]
+SpMM (`csrc/bcsr_spmm.cu`, replaces the TPU kernel
+`repro.kernels.bcsr_spmm.bcsr_spmm_pallas`):
 
-accumulated in float32. The CUDA kernel (`csrc/bcsr_spmm.cu`, which says
-what bounds it and how its design answers) replaces the TPU kernel
-`repro.kernels.bcsr_spmm.bcsr_spmm_pallas`. It is compiled with nvcc for
-sm_90a into a shared library with a plain C entry point at first use, from
-the source in this package, and loaded with ctypes.
+    X[rb*bm:(rb+1)*bm, :] = Σ_{s < n_tiles[rb], col_tile[rb, s] >= 0}
+                            blocks[rb, s] @ H[col_tile[rb, s]*bk : +bk, :]
 
-`bcsr_spmm_blocks` dispatches on where its tensors lie: CPU tensors take the
-plain PyTorch version, CUDA tensors launch the kernel or raise.
+accumulated in float32. Fused GCN layer (`csrc/fused_gcn_layer.cu`,
+replaces `repro.kernels.bcsr_spmm.fused_gcn_layer_pallas`):
+
+    Y[rb*bm:(rb+1)*bm, :] = relu(X[rb*bm:(rb+1)*bm, :] @ W + b)
+
+in float32, with X kept on chip. Each source says what bounds its kernel
+and how its design answers. Every source under `csrc/` is compiled with
+nvcc for sm_90a at first use, one nvcc per source started together, and
+linked into one shared library with plain C entry points, loaded with
+ctypes.
+
+`bcsr_spmm_blocks` and `fused_gcn_layer_blocks` dispatch on where their
+tensors lie: CPU tensors take the plain PyTorch version, CUDA tensors
+launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -27,14 +37,17 @@ from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).with_name("csrc") / "bcsr_spmm.cu"
+CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
-# Kernel launches made by `bcsr_spmm_cuda` in this process. Callers that
-# need to show a path ran through the kernel reset it and read it back.
+# Kernel launches made by `bcsr_spmm_cuda` and `fused_gcn_layer_cuda` in
+# this process. Callers that need to show a path ran through a kernel reset
+# its counter and read it back.
 LAUNCHES = 0
+FUSED_LAUNCHES = 0
 
 _BRICK_DTYPES = (torch.float32, torch.float16)
 _MAX_THREADS = 1024
@@ -65,30 +78,43 @@ def _nvcc() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile the kernel library if this source and these flags have not
-    been built yet; returns where it is and what the compiler reported.
-    The library name carries a hash of both, so a stale build is never
-    loaded."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libbcsr_spmm_{digest}.so"
+    """Compile the kernel library if these sources and flags have not been
+    built yet; returns where it is and what the compiler reported. Each
+    `csrc/*.cu` gets its own nvcc, all started together, and one link joins
+    the objects. The library name carries a hash of every file under
+    `csrc/` and of the flags, so a stale build is never loaded."""
+    files = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    sources = [p for p in files if p.suffix == ".cu"]
+    digest = hashlib.sha256(
+        b"".join(p.name.encode() + p.read_bytes() for p in files)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libblock_ell_{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         return BuildInfo(lib, 0.0, log.read_text() if log.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{proc.stderr}")
-    report = proc.stdout + proc.stderr
-    log.write_text(report)
-    os.replace(tmp, lib)  # atomic: no process loads a half-written file
-    return BuildInfo(lib, seconds, report)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        reports = [proc.communicate()[0] for proc in procs]
+        for src, proc, report in zip(sources, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed building {src}:\n{report}")
+        so = os.path.join(tmp, lib.name)
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed linking {lib.name}:\n"
+                               f"{link.stderr}")
+        report = "".join(reports)
+        log.write_text(report)
+        os.replace(so, lib)  # atomic: no process loads a half-written file
+    return BuildInfo(lib, time.perf_counter() - t0, report)
 
 
 def _library() -> ctypes.CDLL:
@@ -99,6 +125,11 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 4 + [ctypes.c_int64]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.fused_gcn_layer_launch
+        fn.argtypes = ([ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 4 + [ctypes.c_int64]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -211,3 +242,98 @@ def bcsr_spmm_blocks(blocks: torch.Tensor, col_tile: torch.Tensor,
     if h.device.type == "cpu":
         return bcsr_spmm_plain(blocks, col_tile, n_tiles, h, bm=bm, bk=bk)
     return bcsr_spmm_cuda(blocks, col_tile, n_tiles, h, bm=bm, bk=bk)
+
+
+def _check_fused(blocks, col_tile, n_tiles, h, w, b, bm, bk) -> None:
+    _check(blocks, col_tile, n_tiles, h, bm, bk)
+    if w.dim() != 2 or w.shape[0] != h.shape[1]:
+        raise ValueError(f"w must be ({h.shape[1]}, F_out), "
+                         f"got {tuple(w.shape)}")
+    if tuple(b.shape) != (w.shape[1],):
+        raise ValueError(f"b must be ({w.shape[1]},), got {tuple(b.shape)}")
+    for name, t in (("blocks", blocks), ("h", h), ("w", w), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused layer takes float32 only; {name} is "
+                            f"{t.dtype}")
+    devices = {h.device, w.device, b.device}
+    if len(devices) != 1:
+        raise ValueError(f"all operands must lie on one device, got {devices}")
+
+
+def fused_gcn_layer_plain(blocks: torch.Tensor, col_tile: torch.Tensor,
+                          n_tiles: torch.Tensor, h: torch.Tensor,
+                          w: torch.Tensor, b: torch.Tensor, *,
+                          bm: int, bk: int) -> torch.Tensor:
+    """The plain PyTorch version of the fused kernel: the plain SpMM, then
+    `addmm` and `relu`. Returns (n_rb*bm, F_out) float32."""
+    _check_fused(blocks, col_tile, n_tiles, h, w, b, bm, bk)
+    x = bcsr_spmm_plain(blocks, col_tile, n_tiles, h, bm=bm, bk=bk)
+    return torch.relu(torch.addmm(b, x, w))
+
+
+def _fused_tile(f: int, f_out: int, bm: int) -> int:
+    """Threads per row of the block (columns per pass): a multiple of 32 up
+    to 256, fewer for narrow layers or tall bricks (ceil(bm / 8) rows of
+    threads)."""
+    row_groups = -(-bm // _ROWS_PER_THREAD)
+    bn = min(256, -(-max(f, f_out) // 32) * 32,
+             _MAX_THREADS // row_groups // 32 * 32)
+    if bn < 32:
+        raise ValueError(f"bm={bm} needs more than {_MAX_THREADS} threads "
+                         "per block")
+    return bn
+
+
+def fused_gcn_layer_cuda(blocks: torch.Tensor, col_tile: torch.Tensor,
+                         n_tiles: torch.Tensor, h: torch.Tensor,
+                         w: torch.Tensor, b: torch.Tensor, *,
+                         bm: int, bk: int) -> torch.Tensor:
+    """Launch the fused CUDA kernel on PyTorch's current stream (no
+    synchronise). Returns (n_rb*bm, F_out) float32; raises on any operand
+    the kernel does not take."""
+    global FUSED_LAUNCHES
+    _check_fused(blocks, col_tile, n_tiles, h, w, b, bm, bk)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_gcn_layer_cuda needs CUDA tensors, got "
+                         f"{h.device}")
+    for name, t in (("blocks", blocks), ("col_tile", col_tile),
+                    ("n_tiles", n_tiles), ("h", h), ("w", w), ("b", b)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n_rb, ell_w = blocks.shape[:2]
+    k, f = h.shape
+    f_out = w.shape[1]
+    row_groups = -(-bm // _ROWS_PER_THREAD)
+    smem = (row_groups * _ROWS_PER_THREAD * f + bm * bk) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"X ({bm}x{f}) and a {bm}x{bk} brick need {smem} B "
+                         "of shared memory, more than a block can use")
+    out = torch.empty((n_rb * bm, f_out), dtype=torch.float32,
+                      device=h.device)
+    if out.numel() == 0:
+        return out
+    bn = _fused_tile(f, f_out, bm)
+    fn = _library().fused_gcn_layer_launch
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = fn(blocks.data_ptr(), col_tile.data_ptr(), n_tiles.data_ptr(),
+                 h.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 n_rb, ell_w, bm, bk, k, f, f_out, bn, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_gcn_layer kernel launch failed: CUDA "
+                           f"error {err}")
+    FUSED_LAUNCHES += 1
+    return out
+
+
+def fused_gcn_layer_blocks(blocks: torch.Tensor, col_tile: torch.Tensor,
+                           n_tiles: torch.Tensor, h: torch.Tensor,
+                           w: torch.Tensor, b: torch.Tensor, *,
+                           bm: int, bk: int) -> torch.Tensor:
+    """The fused kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if h.device.type == "cpu":
+        return fused_gcn_layer_plain(blocks, col_tile, n_tiles, h, w, b,
+                                     bm=bm, bk=bk)
+    return fused_gcn_layer_cuda(blocks, col_tile, n_tiles, h, w, b,
+                                bm=bm, bk=bk)

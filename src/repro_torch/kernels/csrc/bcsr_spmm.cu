@@ -30,16 +30,16 @@
 //     neighbouring columns of one H row, so the gather is coalesced;
 //   * rows of H past k_rows read as zero: the bound check replaces the
 //     host-side max over col_tile that padding H would need.
+// The slot loop lives in block_ell.cuh, shared with fused_gcn_layer.cu.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_ell.cuh"
+
 namespace {
 
-constexpr int ROWS_PER_THREAD = 8;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+using block_ell::ROWS_PER_THREAD;
 
 template <typename TA, typename TH>
 __global__ void bcsr_spmm_kernel(const TA* __restrict__ blocks,
@@ -54,40 +54,13 @@ __global__ void bcsr_spmm_kernel(const TA* __restrict__ blocks,
   const int col = blockIdx.y * blockDim.x + threadIdx.x;
   const int row0 = threadIdx.y * ROWS_PER_THREAD;
   const int n_rows = min(ROWS_PER_THREAD, bm - row0);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_threads = blockDim.x * blockDim.y;
-  const int brick_elems = bm * bk;
 
   float acc[ROWS_PER_THREAD];
 #pragma unroll
   for (int r = 0; r < ROWS_PER_THREAD; ++r) acc[r] = 0.0f;
-
-  const int n_slots = min(n_tiles[rb], ell_w);
-  for (int s = 0; s < n_slots; ++s) {
-    const int t = col_tile[rb * ell_w + s];
-    if (t < 0) continue;  // same value for the whole block: no divergence
-    __syncthreads();      // the previous brick is fully consumed
-    const TA* src = blocks + (rb * ell_w + s) * brick_elems;
-    for (int i = tid; i < brick_elems; i += n_threads) brick[i] = to_f32(src[i]);
-    __syncthreads();
-    if (col >= f) continue;
-    const int64_t k0 = static_cast<int64_t>(t) * bk;
-    const int64_t k_left = k_rows - k0;
-    const int k_end = k_left < bk ? static_cast<int>(k_left) : bk;
-    const float* a = brick + row0 * bk;
-    if (n_rows == ROWS_PER_THREAD) {
-      for (int k = 0; k < k_end; ++k) {
-        const float hv = to_f32(h[(k0 + k) * f + col]);
-#pragma unroll
-        for (int r = 0; r < ROWS_PER_THREAD; ++r) acc[r] += a[r * bk + k] * hv;
-      }
-    } else {
-      for (int k = 0; k < k_end; ++k) {
-        const float hv = to_f32(h[(k0 + k) * f + col]);
-        for (int r = 0; r < n_rows; ++r) acc[r] += a[r * bk + k] * hv;
-      }
-    }
-  }
+  block_ell::accumulate_row_block(blocks, col_tile, n_tiles, h, brick, rb,
+                                  ell_w, bm, bk, k_rows, f, col, row0, n_rows,
+                                  acc);
   if (col >= f) return;
   float* o = out + (rb * bm + row0) * static_cast<int64_t>(f) + col;
 #pragma unroll

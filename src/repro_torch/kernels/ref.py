@@ -1,9 +1,9 @@
-"""Torch oracle for the Block-ELL SpMM kernel (ground truth for tests).
+"""Torch oracles for the Block-ELL kernels (ground truth for tests).
 
-Densifies the bricks into one matrix, then multiplies: the kernel's exact
+Densifies the bricks into one matrix, then multiplies: the kernels' exact
 semantics, at a memory cost only small test shapes can afford. The plain
-version that `kernels.bcsr_spmm` keeps beside the kernel computes the same
-function without densifying.
+versions that `kernels.bcsr_spmm` keeps beside the kernels compute the same
+functions without densifying.
 """
 from __future__ import annotations
 
@@ -26,3 +26,13 @@ def bcsr_spmm_ref(blocks: torch.Tensor, col_tile: torch.Tensor,
                 a_dense[rb * bm:(rb + 1) * bm, t * bk:(t + 1) * bk] += \
                     blocks[rb, s].to(torch.float32)
     return a_dense @ h.to(torch.float32)
+
+
+def fused_gcn_layer_ref(blocks: torch.Tensor, col_tile: torch.Tensor,
+                        n_tiles: torch.Tensor, h: torch.Tensor,
+                        w: torch.Tensor, b: torch.Tensor, *,
+                        bm: int, bk: int) -> torch.Tensor:
+    """relu((A @ H) @ W + b) for Block-ELL A, through `bcsr_spmm_ref`."""
+    x = bcsr_spmm_ref(blocks, col_tile, n_tiles, h, bm=bm, bk=bk)
+    return torch.clamp_min(x @ w.to(torch.float32) + b.to(torch.float32),
+                           0.0)

@@ -1,10 +1,11 @@
-"""The port's Block-ELL SpMM module on the CPU against the JAX package's
-Pallas kernel in interpret mode, on the cases of tests/test_kernels.py.
+"""The port's Block-ELL kernel module on the CPU against the JAX package's
+Pallas kernels in interpret mode, on the cases of tests/test_kernels.py.
 
-On CPU tensors `ops.bcsr_spmm` runs the kernel's plain PyTorch version;
-the CUDA kernel itself is held against that version on the card
-(tests/test_torch_gpu.py and chip_smoke.py). Tolerances are the reference
-tests' own: 1e-4 for float32, 1e-2 for float16.
+On CPU tensors `ops.bcsr_spmm` and `ops.fused_gcn_layer` run the kernels'
+plain PyTorch versions; the CUDA kernels themselves are held against those
+versions on the card (tests/test_torch_gpu.py and chip_smoke.py).
+Tolerances: 1e-4 for float32 (sums in another order), 1e-2 for float16;
+against the dense product, the reference tests' own.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +15,8 @@ import torch
 import repro.kernels as r_kernels
 import repro.sparse as r_sparse
 from repro_torch.kernels import bcsr_spmm as kmod
-from repro_torch.kernels.ops import bcsr_spmm
-from repro_torch.kernels.ref import bcsr_spmm_ref
+from repro_torch.kernels.ops import bcsr_spmm, fused_gcn_layer
+from repro_torch.kernels.ref import bcsr_spmm_ref, fused_gcn_layer_ref
 from repro_torch.sparse import (
     csr_from_dense, spmm_dense_ref, tile_csr_to_block_ell,
 )
@@ -124,5 +125,90 @@ def test_wrapper_rejects_bad_operands():
                                            (1024, 256, 32)])
 def test_feature_tile_fits_a_thread_block(f, bm, expected):
     bn = kmod._feature_tile(f, bm)
+    assert bn == expected
+    assert bn * -(-bm // 8) <= 1024
+
+
+@pytest.mark.parametrize("n,f,fo", [(24, 16, 8), (40, 24, 16)])
+def test_fused_gcn_layer_matches_pallas(n, f, fo):
+    """ops.fused_gcn_layer (the plain version on CPU tensors) against the
+    reference's fused Pallas kernel in interpret mode, on
+    tests/test_kernels.py's cases."""
+    dense = _rand_sparse(n, n, 0.2, np.float32, seed=n)
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((n, f)).astype(np.float32)
+    w = rng.standard_normal((f, fo)).astype(np.float32)
+    b = rng.standard_normal((fo,)).astype(np.float32)
+    ell = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
+    port = fused_gcn_layer(ell, *(torch.from_numpy(x) for x in (h, w, b)))
+    r_ell = r_sparse.tile_csr_to_block_ell(r_sparse.csr_from_dense(dense),
+                                           bm=8, bk=8)
+    ref = np.asarray(r_kernels.fused_gcn_layer(
+        r_ell, jnp.asarray(h), jnp.asarray(w), jnp.asarray(b)))
+    assert port.shape == ref.shape == (n, fo)
+    np.testing.assert_allclose(port.numpy(), ref, atol=1e-4)
+    np.testing.assert_allclose(port.numpy(), np.maximum(dense @ h @ w + b, 0),
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("n,m,f,fo,bm,bk", [(50, 70, 40, 24, 12, 8),
+                                            (96, 96, 20, 64, 16, 16),
+                                            (33, 57, 24, 5, 8, 8)])
+def test_fused_plain_version_matches_densify_oracle(n, m, f, fo, bm, bk):
+    dense = _rand_sparse(n, m, 0.2, np.float32, seed=n + f)
+    ell = tile_csr_to_block_ell(csr_from_dense(dense), bm=bm, bk=bk)
+    rng = np.random.default_rng(3)
+    h, w, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((m, f), (f, fo), (fo,)))
+    args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
+                                          ell.n_tiles)]
+    plain = kmod.fused_gcn_layer_plain(*args, h, w, b, bm=bm, bk=bk)
+    h_pad = torch.zeros((-(-m // bk) * bk, f))
+    h_pad[:m] = h
+    oracle = fused_gcn_layer_ref(*args, h_pad, w, b, bm=bm, bk=bk)
+    assert plain.shape == (ell.n_row_blocks * bm, fo)
+    np.testing.assert_allclose(plain.numpy(), oracle.numpy(), atol=1e-4)
+
+
+def test_fused_plain_version_empty_row_blocks_give_relu_b():
+    """A row block with no valid slot yields relu(b), as on the TPU."""
+    dense = np.zeros((24, 24), np.float32)
+    dense[3, 5] = 2.0
+    ell = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
+    args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
+                                          ell.n_tiles)]
+    b = torch.tensor([1.0, -1.0, 0.5])
+    out = kmod.fused_gcn_layer_plain(*args, torch.ones((24, 4)),
+                                     torch.ones((4, 3)), b, bm=8, bk=8)
+    np.testing.assert_allclose(out[8:].numpy(),
+                               np.tile([1.0, 0.0, 0.5], (16, 1)))
+
+
+def test_fused_wrapper_rejects_bad_operands():
+    blocks = torch.zeros((2, 1, 8, 8))
+    col_tile = torch.zeros((2, 1), dtype=torch.int32)
+    n_tiles = torch.ones((2,), dtype=torch.int32)
+    h, w, b = torch.zeros((8, 4)), torch.zeros((4, 3)), torch.zeros(3)
+    fn = kmod.fused_gcn_layer_blocks
+    with pytest.raises(TypeError):     # float32 only, f16 included
+        fn(blocks.half(), col_tile, n_tiles, h, w, b, bm=8, bk=8)
+    with pytest.raises(TypeError):
+        fn(blocks, col_tile, n_tiles, h, w.double(), b, bm=8, bk=8)
+    with pytest.raises(ValueError):
+        fn(blocks, col_tile, n_tiles, h, w.T, b, bm=8, bk=8)
+    with pytest.raises(ValueError):
+        fn(blocks, col_tile, n_tiles, h, w, b[:2], bm=8, bk=8)
+    with pytest.raises(ValueError):   # the CUDA path never takes CPU tensors
+        kmod.fused_gcn_layer_cuda(blocks, col_tile, n_tiles, h, w, b,
+                                  bm=8, bk=8)
+
+
+@pytest.mark.parametrize("f,fo,bm,expected", [(256, 256, 8, 256),
+                                              (256, 64, 8, 256),
+                                              (12, 6, 8, 32),
+                                              (200, 40, 128, 64),
+                                              (1024, 1024, 256, 32)])
+def test_fused_tile_fits_a_thread_block(f, fo, bm, expected):
+    bn = kmod._fused_tile(f, fo, bm)
     assert bn == expected
     assert bn * -(-bm // 8) <= 1024

@@ -235,11 +235,25 @@ def test_transposed_preparation_matches_reference(graph):
     assert pe.transpose_of(p) is pe.transpose_of(p)
 
 
-def test_spgemm_is_forward_only_for_now(graph):
+def test_spgemm_backward_streams_transposed_plan(graph):
+    """The gradient of X = A H streams the transposed plan prepared above:
+    one segment per transposed RoBW segment, the reference's dH and its
+    backward statistics."""
     p, r, budget = graph
-    pe, _ = _engines(p, r, budget)
-    with pytest.raises(NotImplementedError):
-        pe(p, torch.zeros((p.n_rows, 4), requires_grad=True))
+    pe, re = _engines(p, r, budget)
+    g = np.random.default_rng(6).standard_normal(
+        (p.n_rows, 4)).astype(np.float32)
+    h = torch.zeros((p.shape[1], 4), requires_grad=True)
+    (pe(p, h) * torch.from_numpy(g)).sum().backward()
+    dh_ref = jax.grad(lambda h_: jnp.sum(re(r, h_) * g))(
+        jnp.zeros((r.shape[1], 4), jnp.float32))
+    np.testing.assert_allclose(h.grad.numpy(), np.asarray(dh_ref),
+                               atol=1e-4, rtol=1e-5)
+    ps, rs = pe.last_backward_stream_stats, re.last_backward_stream_stats
+    assert ps.segments == len(pe._prepare(p, (p.n_rows, 4),
+                                          transpose=True).segs) >= 2
+    assert ([getattr(ps, c) for c in COUNTERS]
+            == [getattr(rs, c) for c in COUNTERS])
 
 
 @pytest.mark.parametrize("deps,phase,error", [
