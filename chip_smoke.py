@@ -30,20 +30,36 @@ non-zero without a result line:
                AdamW steps; the first step's loss and gradients against
                float64, the loss must fall, SpMM launches must equal the
                segments streamed forward and backward.
-  9. timing  — each kernel, its plain version and a PyTorch yardstick the
+  9. attn    — the flash-attention and GQA flash-decode kernels against
+               their plain versions: flash at Yi-6B's prefill shape (causal),
+               with a window of 512, at a ragged S and in f32; decode at
+               decode_32k's shape with per-sequence lengths (1 and S among
+               them), in f32, with a group of 1 (MHA) and a ragged cache.
+ 10. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
+               tokens: `forward` and a teacher-forced `decode_step` at every
+               position against the script's own float64 forward; flash
+               launches = 4, decode launches = 4 x 128.
+ 11. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
+               `serve` of 4 prompts of 128 tokens for 32 steps (decode
+               launches = 32 x 160), `forward` on one 4096-token sequence
+               (flash launches = 32), and teacher-forced decode logits
+               against that forward's over the first 128 positions.
+ 12. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound.
- 10. kernels — the summary line, then the card's name and power limit, then
+ 13. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
-Each main path (serve, layer, train) runs with the launch counters set to
-0 just before it and read just after. It needs no network and one card,
-and exits non-zero when no card is visible or when the package is not
-beside it.
+Each main path (serve, layer, train, lm_check, lm_serve) runs with the
+launch counters set to 0 just before it and read just after. It needs no
+network and one card, and exits non-zero when no card is visible or when
+the package is not beside it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,6 +69,7 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12       # H100 SXM bf16 tensor cores, dense
 MAIN_TOL = 1e-4                # f32, sums in another order
 F16_TOL = 1e-2
 SERVE_TOL = 1e-3               # f32 engine vs float64 after three layers
@@ -65,6 +82,31 @@ SERVE_TOL = 1e-3               # f32 engine vs float64 after three layers
 REL_TOL = 1e-4
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-3
+# Attention kernels against their plain versions, per element:
+# |kernel - plain| <= rtol·|plain| + atol. Both sides compute in f32 and sum
+# in other orders (a gap near 1e-6 at the shapes here: the H100 measured at
+# most 1.07e-6 in f32), then round once to the output type. Two f32 values
+# that close round to the same value or to neighbours, one ulp apart, and an
+# ulp is at most 2^-7·|x| in bf16 and 2^-10·|x| in f16; atol takes the f32
+# gap. A typical |out| is 0.01 to 0.1 at these lengths, so atol lies three
+# orders below it.
+ATTN_TOL = {"float32": (0.0, 4e-6), "float16": (2.0 ** -10, 4e-6),
+            "bfloat16": (2.0 ** -7, 4e-6)}
+# The 4-layer float32 Yi-6B-width model against float64, as max |Δ| over
+# the largest |logit|: sums of up to 11,008 f32 terms per layer, and RoPE
+# angles of up to 127 rad taken in f32 (an error near 1e-5 rad).
+LM_REL_TOL = 1e-4
+# Full-depth bf16 Yi-6B: teacher-forced decode against the prefill forward,
+# as max |Δ| over the largest |logit|. The two paths round in other places
+# (matmuls of 1 row against 4096 rows, the two attention kernels' sums), 32
+# layers deep; the first run on the H100 measured 0.0211, with the argmax
+# agreeing at 96% of positions. The limit leaves room for other seeds.
+LM_BF16_TOL = 0.05
+PROFILED_STEPS = 4
+LM_PROMPT = 128
+LM_STEPS = 32
+LM_BATCH = 4
+LM_PREFILL = 4096
 
 
 def emit(obj) -> None:
@@ -613,7 +655,449 @@ def time_fused(kmod, ell, csr, h, f_out: int) -> dict:
             "bound_share": bound_ms / ms}
 
 
-def phase_timing(kmod, plans, h_main, h_train, g_train) -> dict:
+def attn_compare(fn_cuda, fn_plain, args, kwargs, label, dtype,
+                 lens_sweep: int = 0) -> dict:
+    """One attention kernel against its plain version on the same inputs,
+    per element within ATTN_TOL. With `lens_sweep` = S the decode kernel is
+    called as `decode_step` calls it, once for each lens = t + 1 the same
+    for every sequence, t in [0, S)."""
+    import torch
+    rtol, atol = ATTN_TOL[dtype]
+    if lens_sweep:
+        q, k, v, lens = args
+        calls = [(q, k, v, torch.full_like(lens, t + 1))
+                 for t in range(lens_sweep)]
+    else:
+        calls = [args]
+    err = ratio = max_plain = sum_plain = 0.0
+    n_plain = 0
+    for call in calls:
+        out = fn_cuda(*call, **kwargs)
+        plain = fn_plain(*call, **kwargs)
+        sync()
+        if out.dtype != plain.dtype or out.shape != plain.shape:
+            raise AssertionError(f"{label}: kernel gave {out.dtype} "
+                                 f"{tuple(out.shape)}, plain {plain.dtype} "
+                                 f"{tuple(plain.shape)}")
+        delta = (out.float() - plain.float()).abs()
+        mag = plain.float().abs()
+        err = max(err, float(delta.max()))
+        ratio = max(ratio, float((delta / (rtol * mag + atol)).max()))
+        max_plain = max(max_plain, float(mag.max()))
+        sum_plain += float(mag.sum())
+        n_plain += mag.numel()
+    if not ratio <= 1.0:
+        raise AssertionError(f"{label}: |kernel - plain| exceeds {rtol}·"
+                             f"|plain| + {atol} by a factor {ratio} (max "
+                             f"|Δ| {err})")
+    case = {"case": label, "shape": [list(a.shape) for a in args[:3]],
+            "dtype": dtype, **kwargs, "max_abs_err": err,
+            "max_err_over_limit": ratio, "max_abs_plain": max_plain,
+            "mean_abs_plain": sum_plain / n_plain, "rtol": rtol,
+            "atol": atol}
+    if lens_sweep:
+        case["lens"] = f"every sequence t + 1, t in [0, {lens_sweep})"
+    return case
+
+
+def attn_inputs(shape, dtype, gen):
+    import torch
+    return [torch.randn(shape, device=DEV, generator=gen).to(
+        getattr(torch, dtype)) for _ in range(3)]
+
+
+def decode_inputs(b, n_kv, group, s_len, dtype, gen, lens=None):
+    """q (b, n_kv, group, d=128), k, v (b, n_kv, s_len, 128) and lens drawn
+    in [1, s_len] per sequence, the first s_len and the second 1."""
+    import torch
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, n_kv, group, 128), device=DEV, generator=gen).to(dt)
+    k, v = (torch.randn((b, n_kv, s_len, 128), device=DEV,
+                        generator=gen).to(dt) for _ in range(2))
+    if lens is None:
+        lens = torch.randint(1, s_len + 1, (b,), device=DEV, generator=gen,
+                             dtype=torch.int32)
+        lens[0] = s_len
+        if b > 1:
+            lens[1] = 1
+    return q, k, v, lens
+
+
+def phase_attn(fmod, dmod, seed: int) -> dict:
+    """Both attention kernels against their plain versions on the card;
+    returns each kernel's largest error at the shapes lm_check and lm_serve
+    give it."""
+    import torch
+    from repro_torch.configs import SHAPES
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    torch.cuda.reset_peak_memory_stats()
+    flash, decode = fmod.flash_attention_cuda, dmod.decode_attention_cuda
+    f_plain, d_plain = fmod.flash_attention_plain, dmod.decode_attention_plain
+    cases = [attn_compare(flash, f_plain,
+                          attn_inputs((1, 32, LM_PREFILL, 128), "bfloat16",
+                                      gen), {"causal": True},
+                          "flash: lm_serve's prefill layer (train_4k length)",
+                          "bfloat16")]
+    cases.append(attn_compare(flash, f_plain,
+                              attn_inputs((1, 8, LM_PREFILL, 128),
+                                          "bfloat16", gen),
+                              {"causal": True, "window": 512},
+                              "flash: sliding window 512", "bfloat16"))
+    cases.append(attn_compare(flash, f_plain,
+                              attn_inputs((2, 8, 1000, 128), "bfloat16",
+                                          gen), {"causal": True},
+                              "flash: ragged S = 1000", "bfloat16"))
+    cases.append(attn_compare(flash, f_plain,
+                              attn_inputs((1, 8, 1024, 128), "float32", gen),
+                              {"causal": True}, "flash: f32", "float32"))
+    cases.append(attn_compare(flash, f_plain,
+                              attn_inputs((2, 32, LM_PROMPT, 128), "float32",
+                                          gen), {"causal": True},
+                              "flash: lm_check's forward, f32", "float32"))
+    dec = SHAPES["decode_32k"]
+    cases.append(attn_compare(
+        decode, d_plain, decode_inputs(dec["global_batch"], 4, 8,
+                                       dec["seq_len"], "bfloat16", gen), {},
+        "decode: decode_32k layer, per-sequence lens", "bfloat16"))
+    cases.append(attn_compare(decode, d_plain,
+                              decode_inputs(8, 4, 8, 4096, "float32", gen),
+                              {}, "decode: f32", "float32"))
+    cases.append(attn_compare(decode, d_plain,
+                              decode_inputs(4, 32, 1, 2048, "bfloat16", gen),
+                              {}, "decode: group 1 (MHA, as DeepSeek-7B)",
+                              "bfloat16"))
+    cases.append(attn_compare(decode, d_plain,
+                              decode_inputs(4, 4, 8, 1000, "bfloat16", gen),
+                              {}, "decode: ragged cache S = 1000",
+                              "bfloat16"))
+    serve_len = LM_PROMPT + LM_STEPS + 1        # serve's max_len
+    cases.append(attn_compare(
+        decode, d_plain, decode_inputs(LM_BATCH, 4, 8, serve_len, "bfloat16",
+                                       gen), {},
+        "decode: lm_serve's cache, every position", "bfloat16",
+        lens_sweep=serve_len))
+    cases.append(attn_compare(
+        decode, d_plain, decode_inputs(2, 4, 8, LM_PROMPT, "float32", gen),
+        {}, "decode: lm_check's cache, every position", "float32",
+        lens_sweep=LM_PROMPT))
+    emit({"phase": "attn", "cases": cases,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    torch.cuda.empty_cache()
+    main = [c for c in cases if "lm_" in c["case"]]    # main-path shapes
+    return {name: max(c["max_abs_err"] for c in main
+                      if c["case"].startswith(name))
+            for name in ("flash", "decode")}
+
+
+def f64_lm_forward(cfg, params, tokens):
+    """The dense GQA stack in float64 with plain torch ops, written from the
+    architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
+    attention with KV heads repeated, SwiGLU), not from the port's code."""
+    import torch
+    import torch.nn.functional as F
+
+    def w(t):
+        return t.to(torch.float64)
+
+    def norm(x, scale):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) \
+            * (1.0 + w(scale))
+
+    b, s = tokens.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    inv = cfg.rope_theta ** (-torch.arange(0, hd, 2, dtype=torch.float64,
+                                           device=DEV) / hd)
+    ang = torch.arange(s, dtype=torch.float64, device=DEV)[:, None] * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+
+    def rope(t):
+        t1, t2 = t[..., :hd // 2], t[..., hd // 2:]
+        return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], -1)
+
+    causal = torch.ones((s, s), dtype=torch.bool, device=DEV).tril()
+    x = w(params["embed"])[tokens]
+    for p in params["layers"]:
+        a, m = p["attn"], p["mlp"]
+        h = norm(x, p["ln1"])
+        q = rope((h @ w(a["wq"])).view(b, s, hq, hd).transpose(1, 2))
+        k = rope((h @ w(a["wk"])).view(b, s, hkv, hd).transpose(1, 2))
+        v = (h @ w(a["wv"])).view(b, s, hkv, hd).transpose(1, 2)
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+        att = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+        att = torch.softmax(att.masked_fill(~causal, float("-inf")), -1)
+        o = (att @ v).transpose(1, 2).reshape(b, s, hq * hd)
+        x = x + o @ w(a["wo"])
+        h = norm(x, p["ln2"])
+        x = x + (F.silu(h @ w(m["w_gate"])) * (h @ w(m["w_up"]))) \
+            @ w(m["w_down"])
+    return norm(x, params["final_norm"]) @ w(params["lm_head"])
+
+
+def teacher_forced(cfg, params, tokens):
+    """decode_step over every position of `tokens`; logits (B, S, V)."""
+    import torch
+    from repro_torch.models import decode_step, init_decode_state
+    b, s = tokens.shape
+    state = init_decode_state(cfg, b, s, device=DEV)
+    out = []
+    for t in range(s):
+        logits, state = decode_step(cfg, params, tokens[:, t:t + 1], state)
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def phase_lm_check(fmod, dmod, seed: int) -> dict:
+    """4-layer float32 Yi-6B width: forward and teacher-forced decode
+    against float64; returns the launches of each."""
+    import torch
+    from repro_torch.configs.yi_6b import CONFIG
+    from repro_torch.models import forward, init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=4, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (2, LM_PROMPT), device=DEV,
+                           generator=gen)
+    with torch.inference_mode():
+        fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0   # main path starts
+        logits, _ = forward(cfg, params, tokens)
+        flash = fmod.FLASH_LAUNCHES
+        dmod.DECODE_LAUNCHES = 0
+        dec = teacher_forced(cfg, params, tokens)
+        decode = dmod.DECODE_LAUNCHES                    # ... and ends here
+        sync()
+        ref = f64_lm_forward(cfg, params, tokens)
+    errs = {"forward": rel_err(logits, ref), "decode": rel_err(dec, ref)}
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    if flash != cfg.n_layers or decode != cfg.n_layers * LM_PROMPT:
+        raise AssertionError(f"lm_check launches: flash {flash} (want "
+                             f"{cfg.n_layers}), decode {decode} (want "
+                             f"{cfg.n_layers * LM_PROMPT})")
+    bad = {k: e for k, e in errs.items() if not e <= LM_REL_TOL}
+    if bad:
+        raise AssertionError(f"lm_check: relative error above {LM_REL_TOL}: "
+                             f"{bad}")
+    emit({"phase": "lm_check", "config": "yi-6b width, 4 layers, float32",
+          "batch": 2, "tokens": LM_PROMPT,
+          "rel_err_vs_float64": errs, "tol": LM_REL_TOL,
+          "argmax_agreement_decode_vs_float64": agree,
+          "flash_launches": flash, "decode_launches": decode,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del params, logits, dec, ref
+    torch.cuda.empty_cache()
+    return {"flash": flash, "decode": decode}
+
+
+def profile_decode(cfg, params) -> dict:
+    """torch.profiler over PROFILED_STEPS decode steps at serve's batch
+    (outside the counted runs): kernels launched and device busy time per
+    step, from the trace's device events; the busy share of wall time
+    needs the unprofiled step time beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, init_decode_state
+    state = init_decode_state(cfg, LM_BATCH, LM_PROMPT + LM_STEPS + 1,
+                              device=DEV)
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=DEV)
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            _, state = decode_step(cfg, params, tok, state)
+        sync()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": PROFILED_STEPS,
+            "kernels_per_step": len(kernels) / PROFILED_STEPS,
+            "device_busy_ms_per_step": busy_us / 1e3 / PROFILED_STEPS,
+            "top_kernels_ms_per_step": {
+                name[:80]: us / 1e3 / PROFILED_STEPS for name, us in top}}
+
+
+def phase_lm_serve(fmod, dmod, seed: int) -> dict:
+    """Full Yi-6B in bf16: serve, prefill forward, and decode against the
+    forward; returns the launches of each path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (
+        decode_step, forward, init_decode_state, init_params, param_count,
+    )
+
+    cfg = get_config("yi_6b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed),
+                         device=DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, size=(LM_BATCH, LM_PROMPT),
+                           dtype=np.int32)
+    with torch.inference_mode():                     # warm-up, not counted
+        decode_step(cfg, params, torch.zeros((LM_BATCH, 1), dtype=torch.long,
+                                             device=DEV),
+                    init_decode_state(cfg, LM_BATCH, 2, device=DEV))
+    sync()
+
+    fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0   # serve starts here
+    t0 = time.perf_counter()
+    tokens = serve(cfg, params, prompts, steps=LM_STEPS)
+    sync()
+    serve_s = time.perf_counter() - t0
+    serve_launches = {"flash": fmod.FLASH_LAUNCHES,
+                      "decode": dmod.DECODE_LAUNCHES}  # ... and ends here
+    serve_peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * (LM_PROMPT + LM_STEPS)
+    if serve_launches != {"flash": 0, "decode": want}:
+        raise AssertionError(f"serve launches {serve_launches}, want decode "
+                             f"{want}")
+    if tokens.shape != (LM_BATCH, LM_STEPS) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"serve tokens {tokens.shape} out of range")
+
+    profile = profile_decode(cfg, params)
+
+    seq = np.concatenate([prompts[:1], rng.integers(
+        0, cfg.vocab, size=(1, LM_PREFILL - LM_PROMPT), dtype=np.int32)], 1)
+    seq = torch.from_numpy(seq).long().to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0   # prefill starts
+        sync()
+        t0 = time.perf_counter()
+        logits, _ = forward(cfg, params, seq)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_flash = fmod.FLASH_LAUNCHES              # ... and ends here
+        prefill_peak = torch.cuda.max_memory_allocated()
+        if prefill_flash != cfg.n_layers or dmod.DECODE_LAUNCHES != 0:
+            raise AssertionError(f"prefill flash launches {prefill_flash}, "
+                                 f"want {cfg.n_layers}")
+        if logits.shape != (1, LM_PREFILL, cfg.vocab) or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 "not finite")
+        dmod.DECODE_LAUNCHES = 0                     # cross-check starts
+        dec = teacher_forced(cfg, params, seq[:, :LM_PROMPT])
+        cross_decode = dmod.DECODE_LAUNCHES          # ... and ends here
+    fwd = logits[:, :LM_PROMPT]
+    gap = rel_err(dec, fwd)
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    if cross_decode != cfg.n_layers * LM_PROMPT:
+        raise AssertionError(f"cross-check decode launches {cross_decode}")
+    if not gap <= LM_BF16_TOL:
+        raise AssertionError(f"decode vs forward logits: relative gap {gap} "
+                             f"> {LM_BF16_TOL}")
+    emit({"phase": "lm_serve", "config": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "params": param_count(params),
+          "init_s": init_s,
+          "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT,
+                    "steps": LM_STEPS, "seconds": serve_s,
+                    "generated_tokens_per_s": LM_BATCH * LM_STEPS / serve_s,
+                    "processed_tokens_per_s":
+                        LM_BATCH * (LM_PROMPT + LM_STEPS) / serve_s,
+                    "ms_per_decode_step":
+                        1e3 * serve_s / (LM_PROMPT + LM_STEPS),
+                    "launches": serve_launches,
+                    "peak_allocated_bytes": serve_peak,
+                    "first_tokens": tokens[:, :8].tolist(),
+                    "profiled_decode_steps": profile},
+          "prefill": {"tokens": LM_PREFILL, "seconds": prefill_s,
+                      "tokens_per_s": LM_PREFILL / prefill_s,
+                      "flash_launches": prefill_flash,
+                      "peak_allocated_bytes": prefill_peak},
+          "decode_vs_forward": {"positions": LM_PROMPT,
+                                "rel_gap": gap, "tol": LM_BF16_TOL,
+                                "argmax_agreement": agree,
+                                "decode_launches": cross_decode}})
+    del params, logits, dec, fwd
+    torch.cuda.empty_cache()
+    return {"flash": prefill_flash, "decode": serve_launches["decode"],
+            "decode_crosscheck": cross_decode}
+
+
+def time_flash(fmod, seed: int) -> dict:
+    """The flash kernel at Yi-6B's per-layer prefill (train_4k length), its
+    plain version and SDPA (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    b, h, s_len, d = 1, 32, LM_PREFILL, 128
+    q, k, v = attn_inputs((b, h, s_len, d), "bfloat16", gen)
+    ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v, causal=True), 10)
+    plain_ms = cuda_ms(lambda: fmod.flash_attention_plain(q, k, v,
+                                                          causal=True),
+                       3, warmup=1)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 10)
+    pairs = b * h * s_len * (s_len + 1) // 2        # causal (query, key)
+    flops = 4.0 * d * pairs
+    nbytes = 4 * b * h * s_len * d * q.element_size()   # q, k, v, out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"shape": [b, h, s_len, d], "dtype": "bfloat16", "causal": True,
+            "flops": flops, "min_bytes": nbytes, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention(is_causal=True)",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_f32_fma": 1e3 * flops / PEAK_F32_FLOPS,
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
+
+
+def time_decode(dmod, seed: int) -> dict:
+    """The decode kernels at decode_32k's per-layer shape, their plain
+    version and SDPA with enable_gqa (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import SHAPES
+    gen = torch.Generator(device=DEV).manual_seed(seed + 6)
+    dec = SHAPES["decode_32k"]
+    b, s_len, n_kv, group, d = dec["global_batch"], dec["seq_len"], 4, 8, 128
+    lens = torch.full((b,), s_len, dtype=torch.int32, device=DEV)
+    q, k, v, lens = decode_inputs(b, n_kv, group, s_len, "bfloat16", gen,
+                                  lens=lens)
+    ms = cuda_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens), 10)
+    plain_ms = cuda_ms(lambda: dmod.decode_attention_plain(q, k, v, lens), 2,
+                       warmup=1)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q_sdpa = q.reshape(b, n_kv * group, 1, d)
+    # Not the math backend: it would repeat K and V to 32 heads (68 GB).
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q_sdpa, k, v, enable_gqa=True), 10)
+    n_valid = int(lens.long().sum())
+    nbytes = (2 * n_valid * n_kv * d * k.element_size()        # K, V rows
+              + 2 * q.numel() * q.element_size() + lens.numel() * 4)
+    flops = 4.0 * n_valid * n_kv * group * d
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"q": list(q.shape), "kv": list(k.shape), "dtype": "bfloat16",
+            "lens": s_len, "splits": list(dmod.split_plan(
+                b, n_kv, s_len,
+                torch.cuda.get_device_properties(0).multi_processor_count)),
+            "flops": flops, "min_bytes": nbytes, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
+            "achieved_bytes_per_s": nbytes / (ms * 1e-3)}
+
+
+def phase_timing(kmod, fmod, dmod, plans, h_main, h_train, g_train,
+                 seed: int) -> dict:
+    import torch
+    torch.cuda.reset_peak_memory_stats()
     timing = {
         "bcsr_spmm": time_spmm(kmod, plans["serve"]["ell"],
                                plans["serve"]["csr"], h_main),
@@ -622,8 +1106,11 @@ def phase_timing(kmod, plans, h_main, h_train, g_train) -> dict:
         "fused_gcn_layer": time_fused(kmod, plans["fwd"]["ell"],
                                       plans["fwd"]["csr"], h_train,
                                       h_train.shape[1]),
+        "flash_attention": time_flash(fmod, seed),
+        "decode_attention": time_decode(dmod, seed),
     }
-    emit({"phase": "timing", **timing})
+    emit({"phase": "timing", **timing,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     return timing
 
 
@@ -643,15 +1130,20 @@ def run(args) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 matmuls sum in f32 throughout (no reduced-precision split-K).
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi,
           "tf32": "off (matmul and cudnn)",
+          "bf16_reduced_precision_reduction": "off",
           "scales": {"rUSA": args.rusa_scale, "socLJ1": args.lj_scale}})
 
     from repro_torch.kernels import bcsr_spmm as kmod
+    from repro_torch.kernels import decode_attn as dmod
+    from repro_torch.kernels import flash_attn as fmod
     info = kmod.build()
     emit({"phase": "build", "seconds": info.seconds,
           "library": str(info.library.relative_to(ROOT)),
@@ -686,8 +1178,18 @@ def run(args) -> None:
     fused_launches, launches["layer"] = phase_layer(kmod, train_eng, a, a64,
                                                     args.seed)
     launches["train"] = phase_train(kmod, train_eng, a, a64, args.seed)
-    timing = phase_timing(kmod, plans, h_main, h_train, g_train)
+    attn_err = phase_attn(fmod, dmod, args.seed)
+    lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed),
+          "lm_serve": phase_lm_serve(fmod, dmod, args.seed)}
+    timing = phase_timing(kmod, fmod, dmod, plans, h_main, h_train, g_train,
+                          args.seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    flash_paths = {"lm_check": lm["lm_check"]["flash"],
+                   "lm_serve_prefill": lm["lm_serve"]["flash"]}
+    decode_paths = {"lm_check": lm["lm_check"]["decode"],
+                    "lm_serve": lm["lm_serve"]["decode"],
+                    "lm_serve_crosscheck":
+                        lm["lm_serve"]["decode_crosscheck"]}
     emit({"kernels": [
         {"name": "bcsr_spmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
@@ -702,7 +1204,22 @@ def run(args) -> None:
          "launches_by_path": {"layer": fused_launches},
          "max_abs_err": fused_err,
          **{k: timing["fused_gcn_layer"][k] for k in keys},
-         "yardstick_ms": timing["fused_gcn_layer"]["yardstick_ms"]}]})
+         "yardstick_ms": timing["fused_gcn_layer"]["yardstick_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn.py:87",
+         "launches": sum(flash_paths.values()),
+         "launches_by_path": flash_paths,
+         "max_abs_err": attn_err["flash"],
+         **{k: timing["flash_attention"][k] for k in keys},
+         "bound_ms_f32_fma": timing["flash_attention"]["bound_ms_f32_fma"]},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn.py:68",
+         "launches": sum(decode_paths.values()),
+         "launches_by_path": decode_paths,
+         "max_abs_err": attn_err["decode"],
+         **{k: timing["decode_attention"][k] for k in keys}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

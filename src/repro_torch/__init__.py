@@ -1,4 +1,5 @@
-"""AIRES out-of-core GCN serving and training on PyTorch and CUDA.
+"""AIRES out-of-core GCN serving and training, and dense GQA LM serving,
+on PyTorch and CUDA.
 
 A port of the JAX package `repro`, which stays the reference: the same
 host-side plans, bricks and byte accounting, with the TPU's Pallas kernels

@@ -1,1 +1,77 @@
-"""Model configurations the port serves."""
+"""Model configurations the port serves: `gcn_paper` (the GCN) and the LM
+architecture registry, where `--arch <id>` resolves.
+
+Each LM module defines CONFIG (full size, from public literature; served
+on the card) and SMOKE (reduced same-family config for CPU tests), the
+same values as `repro.configs`. Only the dense GQA archs run on the port's
+transformer today; `get_config` of any other id raises and names the
+ROADMAP item that brings it, so no caller gets a config the model would
+mis-run.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+_ARCH_IDS: List[str] = [
+    "xlstm_125m",
+    "kimi_k2_1t_a32b",
+    "mixtral_8x22b",
+    "gemma2_27b",
+    "yi_9b",
+    "deepseek_7b",
+    "yi_6b",
+    "seamless_m4t_medium",
+    "recurrentgemma_2b",
+    "qwen2_vl_72b",
+]
+
+_ITEM = "ROADMAP.md queue 1 item 8"
+_NOT_PORTED: Dict[str, str] = {
+    "xlstm_125m": f"mLSTM/sLSTM recurrent blocks ({_ITEM}: recurrent.py)",
+    "kimi_k2_1t_a32b": f"MoE feed-forward ({_ITEM}: moe_ffn, "
+                       "moe_shard_map.py)",
+    "mixtral_8x22b": f"MoE feed-forward and sliding-window ring caches "
+                     f"({_ITEM})",
+    "gemma2_27b": f"local/global sliding-window ring caches and softcaps "
+                  f"({_ITEM})",
+    "seamless_m4t_medium": f"the encoder-decoder and its audio frontend "
+                           f"({_ITEM})",
+    "recurrentgemma_2b": f"RG-LRU recurrent blocks and ring caches ({_ITEM})",
+    "qwen2_vl_72b": f"M-RoPE and the vision frontend ({_ITEM})",
+}
+
+ALIAS = {i.replace("_", "-"): i for i in _ARCH_IDS}
+
+
+def arch_ids() -> List[str]:
+    return list(_ARCH_IDS)
+
+
+def get_config(arch: str, smoke: bool = False):
+    arch = ALIAS.get(arch, arch)
+    if arch not in _ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {_ARCH_IDS}")
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} needs {_NOT_PORTED[arch]}, not ported to repro_torch "
+            "yet")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+# Input-shape sets shared by all LM archs (assignment spec).
+SHAPES: Dict[str, dict] = {
+    "train_4k":    dict(kind="train",  seq_len=4_096,   global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32_768, global_batch=32),
+    "decode_32k":  dict(kind="decode", seq_len=32_768,  global_batch=128),
+    "long_500k":   dict(kind="decode", seq_len=524_288, global_batch=1),
+}
+
+
+def shape_applicable(arch: str, shape: str) -> tuple:
+    """(runs: bool, reason: str) — the skip rules from the assignment."""
+    cfg = get_config(arch)
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, "full-attention arch cannot decode at 500k context"
+    return True, ""

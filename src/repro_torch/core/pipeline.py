@@ -291,7 +291,7 @@ class ExecuteInterpreter(CostInterpreter):
                depth: int = 2,
                deadline_s: Optional[float] = None,
                max_reissue: int = 1,
-               device: Any = "cpu") -> Tuple[List[Any], Any]:
+               device: Any = "cuda") -> Tuple[List[Any], Any]:
         """Run the plan's stream ops for real on `device`; returns
         (results, StreamStats).
 

@@ -109,7 +109,7 @@ class TieredSegmentCache:
         device_budget_bytes: int,
         host_budget_bytes: Optional[int] = None,
         tms: Optional[TieredMemorySystem] = None,
-        device: "str | torch.device" = "cpu",
+        device: "str | torch.device" = "cuda",
     ):
         if device_budget_bytes <= 0:
             raise ValueError("device_budget_bytes must be > 0")

@@ -72,7 +72,7 @@ class DoubleBufferedStreamer:
         payload_nbytes: Optional[Callable[[Any], int]] = None,
         cache_lookup: Optional[Callable[[Any], Optional[Any]]] = None,
         cache_store: Optional[Callable[[Any, Any], None]] = None,
-        device: "str | torch.device" = "cpu",
+        device: "str | torch.device" = "cuda",
     ):
         if depth < 1:
             raise ValueError("depth must be >= 1")

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-`ops.bcsr_spmm` and `ops.fused_gcn_layer` are the public entry points.
-Importing this package builds nothing: the kernel library is compiled at
-its first launch.
+`ops.bcsr_spmm`, `ops.fused_gcn_layer`, `ops.flash_attention` and
+`ops.decode_attention` are the public entry points. Importing this package
+builds nothing: `kernels.build` compiles the one library of every kernel at
+the first launch.
 """

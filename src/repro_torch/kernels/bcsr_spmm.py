@@ -13,10 +13,8 @@ replaces `repro.kernels.bcsr_spmm.fused_gcn_layer_pallas`):
     Y[rb*bm:(rb+1)*bm, :] = relu(X[rb*bm:(rb+1)*bm, :] @ W + b)
 
 in float32, with X kept on chip. Each source says what bounds its kernel
-and how its design answers. Every source under `csrc/` is compiled with
-nvcc for sm_90a at first use, one nvcc per source started together, and
-linked into one shared library with plain C entry points, loaded with
-ctypes.
+and how its design answers. `kernels.build` compiles them into the one
+library every kernel module shares, at first use.
 
 `bcsr_spmm_blocks` and `fused_gcn_layer_blocks` dispatch on where their
 tensors lie: CPU tensors take the plain PyTorch version, CUDA tensors
@@ -25,23 +23,11 @@ launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-from typing import Optional
 
 import torch
 
-CSRC = Path(__file__).with_name("csrc")
-BUILD_DIR = Path(__file__).with_name("build")
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+# `build` is re-exported: callers build the library through this module.
+from repro_torch.kernels.build import build, entry  # noqa: F401
 
 # Kernel launches made by `bcsr_spmm_cuda` and `fused_gcn_layer_cuda` in
 # this process. Callers that need to show a path ran through a kernel reset
@@ -54,85 +40,17 @@ _MAX_THREADS = 1024
 _MAX_SMEM = 227 * 1024
 _ROWS_PER_THREAD = 8   # must match ROWS_PER_THREAD in the CUDA source
 
-_lib: Optional[ctypes.CDLL] = None
+
+def _spmm_fn():
+    return entry("bcsr_spmm_launch",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
-@dataclasses.dataclass(frozen=True)
-class BuildInfo:
-    library: Path
-    seconds: float       # 0.0 when the library was already built
-    ptxas: str           # nvcc's -Xptxas -v report (registers, smem, spills)
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME is not None:
-            nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    if nvcc is None or not os.path.exists(nvcc):
-        raise RuntimeError(
-            "nvcc not found (neither on PATH nor under CUDA_HOME): the "
-            "bcsr_spmm CUDA kernel cannot be built")
-    return nvcc
-
-
-def build() -> BuildInfo:
-    """Compile the kernel library if these sources and flags have not been
-    built yet; returns where it is and what the compiler reported. Each
-    `csrc/*.cu` gets its own nvcc, all started together, and one link joins
-    the objects. The library name carries a hash of every file under
-    `csrc/` and of the flags, so a stale build is never loaded."""
-    files = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
-    sources = [p for p in files if p.suffix == ".cu"]
-    digest = hashlib.sha256(
-        b"".join(p.name.encode() + p.read_bytes() for p in files)
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libblock_ell_{digest}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return BuildInfo(lib, 0.0, log.read_text() if log.exists() else "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                                   str(src)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(sources, objs)]
-        reports = [proc.communicate()[0] for proc in procs]
-        for src, proc, report in zip(sources, procs, reports):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {src}:\n{report}")
-        so = os.path.join(tmp, lib.name)
-        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc failed linking {lib.name}:\n"
-                               f"{link.stderr}")
-        report = "".join(reports)
-        log.write_text(report)
-        os.replace(so, lib)  # atomic: no process loads a half-written file
-    return BuildInfo(lib, time.perf_counter() - t0, report)
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build().library))
-        fn = lib.bcsr_spmm_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 4 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.fused_gcn_layer_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 4 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _fused_fn():
+    return entry("fused_gcn_layer_launch",
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _check(blocks, col_tile, n_tiles, h, bm, bk) -> None:
@@ -222,7 +140,7 @@ def bcsr_spmm_cuda(blocks: torch.Tensor, col_tile: torch.Tensor,
     if out.numel() == 0:
         return out
     bn = _feature_tile(f, bm)
-    fn = _library().bcsr_spmm_launch
+    fn = _spmm_fn()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(blocks.data_ptr(), col_tile.data_ptr(), n_tiles.data_ptr(),
@@ -313,7 +231,7 @@ def fused_gcn_layer_cuda(blocks: torch.Tensor, col_tile: torch.Tensor,
     if out.numel() == 0:
         return out
     bn = _fused_tile(f, f_out, bm)
-    fn = _library().fused_gcn_layer_launch
+    fn = _fused_fn()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(blocks.data_ptr(), col_tile.data_ptr(), n_tiles.data_ptr(),

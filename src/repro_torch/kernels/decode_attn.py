@@ -1,0 +1,147 @@
+"""GQA flash-decode: the hand-written CUDA kernels (`csrc/decode_attn.cu`,
+replaces the TPU kernel `repro.kernels.decode_attn.decode_attention_pallas`)
+beside their plain PyTorch version.
+
+    out[b, h, g] = Σ_{t < lens[b]} softmax_t(q[b, h, g] · k[b, h, t] / √d)
+                   v[b, h, t]
+
+softmax and accumulator in float32, the output in q's dtype; a sequence
+with lens[b] = 0 gives 0. q is (B, n_kv, group, d), k and v (B, n_kv, S, d),
+one dtype (float32, float16 or bfloat16), lens (B,) int32; d <= 128,
+group <= 16. Positions at or past lens[b] are masked, never read: the cache
+needs no padding.
+
+On the card the cache axis is cut into splits, each a thread block, and a
+second kernel combines them; `DECODE_LAUNCHES` counts the pair as one.
+`decode_attention_blocks` dispatches on where the tensors lie: CPU tensors
+take the plain version, CUDA tensors launch the kernels or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import entry
+from repro_torch.kernels.flash_attn import (
+    DTYPE_CODES,
+    MAX_HEAD_DIM,
+    no_grad_guard,
+)
+
+# Calls of `decode_attention_cuda` in this process (split + combine each).
+DECODE_LAUNCHES = 0
+
+MAX_GROUP = 16         # must match MAX_GROUP in csrc/decode_attn.cu
+TILE = 64              # cache positions per shared tile (TILE in the source)
+BLOCKS_PER_SM = 4      # split blocks wanted for each SM of the card
+_MAX_CHUNK = 4096      # positions per split, so long caches split anyway
+
+
+def _check(q, k, v, lens) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, n_kv, group, d) and k, v "
+                         f"(B, n_kv, S, d), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, n_kv, _, d = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, n_kv, d):
+        raise ValueError(f"k, v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k.shape[2] < 1:
+        raise ValueError("the cache must hold at least one position")
+    if tuple(lens.shape) != (b,) or lens.dtype != torch.int32:
+        raise ValueError(f"lens must be ({b},) int32, got "
+                         f"{tuple(lens.shape)} {lens.dtype}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {list(DTYPE_CODES)}, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device, lens.device}) != 1:
+        raise ValueError("q, k, v and lens must lie on one device")
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lens: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: all S scores in float32, positions at or
+    past lens[b] masked, the kernel's guard for lens[b] = 0."""
+    _check(q, k, v, lens)
+    s_len, d = k.shape[2], q.shape[3]
+    logits = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) \
+        * (1.0 / d ** 0.5)
+    valid = torch.arange(s_len, device=q.device)[None, :] < lens[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / denom).to(q.dtype)
+
+
+def split_plan(b: int, n_kv: int, s_len: int, n_sm: int) -> tuple:
+    """(chunk, n_splits): positions per split, a multiple of TILE, and the
+    number of splits. Enough splits for BLOCKS_PER_SM blocks on each of the
+    card's `n_sm` SMs, and none longer than _MAX_CHUNK, but never less than
+    one tile each."""
+    tiles = -(-s_len // TILE)
+    want = max(-(-BLOCKS_PER_SM * n_sm // (b * n_kv)),
+               -(-s_len // _MAX_CHUNK))
+    chunk = max(1, tiles // want) * TILE
+    return chunk, -(-s_len // chunk)
+
+
+def _launch_fn():
+    return entry("decode_attn_launch",
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lens: torch.Tensor) -> torch.Tensor:
+    """Launch the split and combine kernels on PyTorch's current stream (no
+    synchronise). Returns (B, n_kv, group, d) in q's dtype; raises on any
+    operand the kernels do not take. `lens` stays on the card: no host
+    sync."""
+    global DECODE_LAUNCHES
+    _check(q, k, v, lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
+                         f"{q.device}")
+    no_grad_guard("decode_attention_cuda", q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v), ("lens", lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, n_kv, group, d = q.shape
+    s_len = k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    if group > MAX_GROUP:
+        raise ValueError(f"{group} query heads per KV head > {MAX_GROUP}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk, n_splits = split_plan(b, n_kv, s_len, n_sm)
+    part = (b, n_kv, n_splits, group)
+    m_part = torch.empty(part, dtype=torch.float32, device=q.device)
+    l_part = torch.empty(part, dtype=torch.float32, device=q.device)
+    acc_part = torch.empty((*part, d), dtype=torch.float32, device=q.device)
+    fn = _launch_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+                 out.data_ptr(), b, n_kv, group, s_len, d, chunk, n_splits,
+                 1.0 / d ** 0.5, DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attn kernel launch failed: CUDA error "
+                           f"{err}")
+    DECODE_LAUNCHES += 1
+    return out
+
+
+def decode_attention_blocks(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            lens: torch.Tensor) -> torch.Tensor:
+    """The kernels for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, lens)
+    return decode_attention_cuda(q, k, v, lens)

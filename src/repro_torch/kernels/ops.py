@@ -1,5 +1,6 @@
-"""Public wrappers around the Block-ELL kernels: natural shapes in, the
-padding rows stripped on the way out."""
+"""Public wrappers around the kernels: natural shapes in, the padding rows
+of the Block-ELL kernels stripped on the way out, the GQA grouping of the
+decode kernel done inside."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +9,8 @@ from repro_torch.kernels.bcsr_spmm import (
     bcsr_spmm_blocks,
     fused_gcn_layer_blocks,
 )
+from repro_torch.kernels.decode_attn import decode_attention_blocks
+from repro_torch.kernels.flash_attn import flash_attention_blocks
 from repro_torch.sparse.formats import BlockELL
 
 
@@ -40,3 +43,38 @@ def fused_gcn_layer(ell: BlockELL, h: torch.Tensor, w: torch.Tensor,
                                  w.contiguous(), b.contiguous(),
                                  bm=ell.bm, bk=ell.bk)
     return out[: ell.n_rows]
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lens: torch.Tensor) -> torch.Tensor:
+    """GQA flash-decode. q (B, n_q_heads, d), k and v (B, n_kv_heads, S, d),
+    lens (B,) valid positions per sequence. Returns (B, n_q_heads, d) in q's
+    dtype.
+
+    The reference's `block_s` and `interpret` arguments are TPU-only and
+    not taken; nor is the cache padded to a block multiple, as the
+    reference wrapper does: the kernel masks by `lens`.
+    """
+    b_sz, n_q, d = q.shape
+    n_kv = k.shape[1]
+    if n_q % n_kv:
+        raise ValueError(f"{n_q} query heads do not group over {n_kv} KV "
+                         "heads")
+    qg = q.reshape(b_sz, n_kv, n_q // n_kv, d).contiguous()
+    out = decode_attention_blocks(
+        qg, k.contiguous(), v.contiguous(),
+        lens.to(device=q.device, dtype=torch.int32).contiguous())
+    return out.reshape(b_sz, n_q, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal/windowed flash attention over (B, H, S, d) — the prefill hot
+    spot. Returns (B, H, S, d) in q's dtype.
+
+    The reference's `block_q`, `block_k` and `interpret` arguments are
+    TPU-only and not taken; S need not be a multiple of any block.
+    """
+    return flash_attention_blocks(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  window=window)

@@ -1,13 +1,22 @@
-"""Torch oracles for the Block-ELL kernels (ground truth for tests).
+"""Torch oracles for every kernel (ground truth for tests), the same
+functions as `repro.kernels.ref`.
 
-Densifies the bricks into one matrix, then multiplies: the kernels' exact
-semantics, at a memory cost only small test shapes can afford. The plain
-versions that `kernels.bcsr_spmm` keeps beside the kernels compute the same
-functions without densifying.
+The Block-ELL oracles densify the bricks into one matrix, then multiply:
+the kernels' exact semantics, at a memory cost only small test shapes can
+afford. The attention oracles are the plain versions kept beside their
+kernels: a full float32 softmax over all scores, 0 for a row with no valid
+key (the reference's jnp oracle gives NaN there, its kernels 0).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.decode_attn import (  # noqa: F401
+    decode_attention_plain as decode_attention_ref,
+)
+from repro_torch.kernels.flash_attn import (  # noqa: F401
+    flash_attention_plain as flash_attention_ref,
+)
 
 
 def bcsr_spmm_ref(blocks: torch.Tensor, col_tile: torch.Tensor,

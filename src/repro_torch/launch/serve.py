@@ -1,17 +1,60 @@
-"""GCN serving launcher: drives the out-of-core serving engine.
+"""Serving launcher: batched greedy LM decoding with a KV cache, or GCN
+serving.
+
+`serve(cfg, params, prompts, steps)` prefills the prompts token by token
+through `decode_step`, then decodes `steps` tokens greedily, on the device
+the params lie on.
 
 `serve_gcn` registers two scaled paper graphs, queues `batch` requests per
 graph per epoch and drains them, printing per-epoch uploaded vs cache-hit
 wire bytes. It draws its graphs and requests from the same seeded streams
 as `repro.launch.serve.serve_gcn`.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch yi_6b [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode gcn [--device cpu]
+
+`--mode lm` serves the arch's SMOKE config, as the reference's does; the
+full config is `serve(get_config(arch), init_params(...), ...)`.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
+import torch
+
+
+def serve(cfg, params, prompts: np.ndarray, steps: int = 8) -> np.ndarray:
+    """prompts (B, S0) int → generated tokens (B, steps) int32.
+
+    The prefill is teacher-forced through `decode_step`, one token at a
+    time, as in the reference (a chunked prefill through `forward` is the
+    production variant); then each step feeds back the argmax. Runs under
+    `torch.inference_mode()`; the tokens stay on the device until the end.
+    """
+    from repro_torch.models import decode_step, init_decode_state
+
+    b, s0 = prompts.shape
+    if s0 < 1:
+        raise ValueError("serve needs at least one prompt token")
+    device = params["embed"].device
+    with torch.inference_mode():
+        state = init_decode_state(cfg, b, max_len=s0 + steps + 1,
+                                  device=device)
+        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                               device=device)
+        for t in range(s0):
+            logits, state = decode_step(cfg, params, toks[:, t:t + 1], state)
+        out = []
+        tok = torch.argmax(logits, dim=-1)
+        for _ in range(steps):
+            out.append(tok[:, 0])
+            logits, state = decode_step(cfg, params, tok, state)
+            tok = torch.argmax(logits, dim=-1)
+        if not out:
+            return np.zeros((b, 0), np.int32)
+        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
 
 
 def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
@@ -80,8 +123,11 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("gcn",), default="gcn")
+    ap.add_argument("--mode", choices=("lm", "gcn"), default="gcn")
+    ap.add_argument("--arch", help="lm mode: arch id, e.g. yi_6b")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--no-cache", action="store_true",
                     help="disable the tiered segment cache")
@@ -89,6 +135,24 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
+
+    if args.mode == "lm":
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+        if args.arch is None:
+            ap.error("--arch is required in lm mode")
+        cfg = get_config(args.arch, smoke=True)
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        params = init_params(cfg, gen, device=args.device)
+        prompts = np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
+        t0 = time.perf_counter()
+        tokens = serve(cfg, params, prompts, steps=args.steps)
+        dt = time.perf_counter() - t0
+        print(f"generated {tokens.shape} in {dt:.2f}s "
+              f"({args.batch * args.steps / dt:.1f} tok/s) on {args.device}")
+        print(tokens)
+        return
 
     reports = serve_gcn(batch=args.batch, epochs=args.epochs,
                         cache=not args.no_cache, seed=args.seed,

@@ -1,0 +1,255 @@
+"""Parity of the port's attention kernels with the JAX package on the CPU.
+
+The same inputs, made from a seed with numpy, go through the reference's
+Pallas kernels (in interpret mode, as tests/test_kernels.py runs them) or
+its jnp oracles, and through the port's `ops.flash_attention` /
+`ops.decode_attention`, which on CPU tensors take the kernels' plain
+versions. The CUDA kernels themselves are held to those plain versions on
+the card (tests/test_torch_gpu.py, chip_smoke.py's `attn` phase).
+
+Tolerances: float32 atol 1e-5 (the same f32 arithmetic, summed in another
+order); bfloat16 outputs per element 2^-7·|ref| + 1e-5, one bf16 ulp, since
+both sides round once an f32 result whose last bits differ.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_attention as r_decode
+from repro.kernels import flash_attention as r_flash
+from repro.kernels import ref as r_ref
+from repro_torch.kernels import decode_attn as p_dec
+from repro_torch.kernels import flash_attn as p_flash
+from repro_torch.kernels import ops as p_ops
+from repro_torch.kernels import ref as p_ref
+
+F32_TOL = 1e-5
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _bf16_pair(x):
+    """The same bf16 values for both packages."""
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    return jnp.asarray(t.float().numpy(), jnp.bfloat16), t
+
+
+@pytest.mark.parametrize("causal,window", [
+    (True, 0), (True, 24), (False, 0), (False, 24)])
+@pytest.mark.parametrize("b,h,s,d", [(2, 3, 64, 16), (1, 2, 48, 32)])
+def test_flash_matches_pallas_kernel(b, h, s, d, causal, window):
+    rng = np.random.default_rng(b * s + d)
+    q, k, v = (_normal(rng, (b, h, s, d)) for _ in range(3))
+    ref = np.asarray(r_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, window=window, block_q=16,
+                             block_k=16))
+    out = p_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal,
+                                window=window)
+    assert out.dtype == torch.float32 and out.shape == (b, h, s, d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8),
+                                           (False, 0)])
+def test_flash_bf16_matches_pallas_kernel(causal, window):
+    rng = np.random.default_rng(5)
+    pairs = [_bf16_pair(_normal(rng, (1, 2, 32, 16))) for _ in range(3)]
+    ref = r_flash(*(j for j, _ in pairs), causal=causal, window=window,
+                  block_q=16, block_k=16)
+    out = p_ops.flash_attention(*(t for _, t in pairs), causal=causal,
+                                window=window)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 7),
+                                           (False, 0), (False, 5)])
+@pytest.mark.parametrize("s", [1, 37, 50])
+def test_flash_ragged_length_matches_oracle(s, causal, window):
+    """S a multiple of no block: the Pallas kernel asserts divisibility, so
+    the reference here is its jnp oracle."""
+    rng = np.random.default_rng(s)
+    q, k, v = (_normal(rng, (2, 2, s, 24)) for _ in range(3))
+    ref = np.asarray(r_ref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    out = p_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal,
+                                window=window)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 3)])
+def test_port_flash_oracle_matches_reference_oracle(causal, window):
+    rng = np.random.default_rng(11)
+    q, k, v = (_normal(rng, (1, 3, 20, 8)) for _ in range(3))
+    ref = np.asarray(r_ref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    out = p_ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=causal,
+                                    window=window)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_of_one_attends_to_itself(causal):
+    """window 1 keeps keys j > i - 1: causal, each row's own key alone, so
+    the output is v; not causal, the row's key and every key ahead."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(_normal(rng, (1, 2, 6, 8))) for _ in range(3))
+    out = p_ops.flash_attention(q, k, v, causal=causal, window=1)
+    ref = p_ref.flash_attention_ref(q, k, v, causal=causal, window=1)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=F32_TOL)
+    if causal:
+        np.testing.assert_allclose(out.numpy(), v.numpy(), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("b,nq,nkv,s,d", [
+    (2, 8, 2, 64, 16),     # group 4
+    (1, 4, 4, 32, 8),      # group 1 (MHA)
+    (3, 16, 2, 48, 32),    # group 8, as Yi-6B
+    (2, 4, 1, 96, 16),     # one KV head
+])
+def test_decode_matches_pallas_kernel(b, nq, nkv, s, d):
+    rng = np.random.default_rng(b * s + nq)
+    q = _normal(rng, (b, nq, d))
+    k, v = (_normal(rng, (b, nkv, s, d)) for _ in range(2))
+    lens = rng.integers(1, s + 1, size=(b,)).astype(np.int32)
+    lens[0], lens[-1] = 1, s
+    ref = np.asarray(r_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(lens), block_s=16))
+    out = p_ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), torch.from_numpy(lens))
+    assert out.dtype == torch.float32 and out.shape == (b, nq, d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 37, 161])
+def test_decode_ragged_cache_matches_reference(s):
+    """A cache length that is a multiple of no block (161 is serve's at a
+    128-token prompt and 32 steps): the reference wrapper pads it, the
+    port masks by lens."""
+    rng = np.random.default_rng(s)
+    b, nq, nkv, d = 3, 8, 2, 16
+    q = _normal(rng, (b, nq, d))
+    k, v = (_normal(rng, (b, nkv, s, d)) for _ in range(2))
+    lens = np.array([1, s, max(1, s // 2)], np.int32)
+    ref = np.asarray(r_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(lens), block_s=16))
+    out = p_ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), torch.from_numpy(lens))
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+
+
+def test_decode_bf16_matches_pallas_kernel():
+    rng = np.random.default_rng(9)
+    b, nq, nkv, s, d = 2, 8, 2, 48, 16
+    jq, tq = _bf16_pair(_normal(rng, (b, nq, d)))
+    jk, tk = _bf16_pair(_normal(rng, (b, nkv, s, d)))
+    jv, tv = _bf16_pair(_normal(rng, (b, nkv, s, d)))
+    lens = np.array([5, 48], np.int32)
+    ref = r_decode(jq, jk, jv, jnp.asarray(lens), block_s=16)
+    out = p_ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+
+
+def test_decode_zero_length_gives_zero_like_pallas_kernel():
+    rng = np.random.default_rng(4)
+    b, nq, nkv, s, d = 2, 4, 2, 32, 8
+    q = _normal(rng, (b, nq, d))
+    k, v = (_normal(rng, (b, nkv, s, d)) for _ in range(2))
+    lens = np.array([0, 7], np.int32)
+    ref = np.asarray(r_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(lens), block_s=16))
+    out = p_ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), torch.from_numpy(lens))
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+    assert not out[0].any()
+
+
+def test_decode_ignores_positions_past_lens():
+    rng = np.random.default_rng(0)
+    b, nq, nkv, s, d = 2, 4, 2, 32, 16
+    q = torch.from_numpy(_normal(rng, (b, nq, d)))
+    k, v = (torch.from_numpy(_normal(rng, (b, nkv, s, d))) for _ in range(2))
+    lens = torch.tensor([10, 20], dtype=torch.int32)
+    out1 = p_ops.decode_attention(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 25:], v2[:, :, 25:] = 999.0, -999.0
+    out2 = p_ops.decode_attention(q, k2, v2, lens)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=F32_TOL)
+
+
+def test_port_decode_oracle_matches_reference_oracle():
+    rng = np.random.default_rng(12)
+    q = _normal(rng, (2, 2, 4, 8))
+    k, v = (_normal(rng, (2, 2, 24, 8)) for _ in range(2))
+    lens = np.array([3, 24], np.int32)
+    ref = np.asarray(r_ref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens)))
+    out = p_ref.decode_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v),
+                                     torch.from_numpy(lens))
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("b,n_kv,s", [
+    (4, 4, 161),            # serve: batch 4, Yi-6B's 4 KV heads
+    (128, 4, 32768),        # decode_32k
+    (1, 4, 1), (1, 1, 64), (2, 32, 4097), (1, 4, 524288),
+])
+def test_decode_split_plan_covers_the_cache(b, n_kv, s):
+    n_sm = 132                                    # an H100 SXM
+    target = p_dec.BLOCKS_PER_SM * n_sm
+    chunk, n_splits = p_dec.split_plan(b, n_kv, s, n_sm)
+    assert chunk % p_dec.TILE == 0 and chunk > 0
+    assert n_splits * chunk >= s > (n_splits - 1) * chunk   # none empty
+    assert chunk <= max(p_dec.TILE, p_dec._MAX_CHUNK)
+    if b * n_kv < target:
+        # Split as far as one tile per split allows.
+        assert b * n_kv * n_splits >= target or chunk == p_dec.TILE
+
+
+def test_cuda_wrappers_reject_cpu_tensors_and_count_nothing():
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        p_flash.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        p_dec.decode_attention_cuda(torch.zeros((1, 2, 4, 16)), q, q,
+                                    torch.ones(1, dtype=torch.int32))
+    before = (p_flash.FLASH_LAUNCHES, p_dec.DECODE_LAUNCHES)
+    p_ops.flash_attention(q, q, q)
+    p_ops.decode_attention(torch.zeros((1, 8, 16)), q, q,
+                           torch.ones(1, dtype=torch.int32))
+    assert (p_flash.FLASH_LAUNCHES, p_dec.DECODE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "lens", "group"])
+def test_operand_checks(bad):
+    q = torch.zeros((2, 4, 16))
+    k = torch.zeros((2, 2, 8, 16))
+    lens = torch.ones(2, dtype=torch.int32)
+    if bad == "shape":
+        with pytest.raises(ValueError):
+            p_ops.flash_attention(torch.zeros((1, 2, 8, 16)), k, k)
+    elif bad == "dtype":
+        with pytest.raises(TypeError):
+            p_ops.decode_attention(q, k.double(), k.double(), lens)
+    elif bad == "lens":
+        with pytest.raises(ValueError):
+            p_dec.decode_attention_plain(q.reshape(2, 2, 2, 16), k, k,
+                                         lens.long())
+    else:
+        with pytest.raises(ValueError):
+            p_ops.decode_attention(torch.zeros((2, 5, 16)), k, k, lens)

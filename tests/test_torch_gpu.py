@@ -1,7 +1,8 @@
-"""Card tests of the port: the CUDA Block-ELL SpMM and fused GCN-layer
-kernels against their plain PyTorch versions, and the serving engine, the
-differentiable engine and its fused layer on the card against themselves
-on the CPU.
+"""Card tests of the port: the CUDA Block-ELL SpMM, fused GCN-layer,
+flash-attention and GQA flash-decode kernels against their plain PyTorch
+versions, and the serving engine, the differentiable engine and its fused
+layer, and the dense LM's forward, decode and serve on the card against
+themselves on the CPU.
 
 Marked `gpu`: each test decides inside itself whether a card is present
 and skips without one. This file imports no `jax`, so it also runs where
@@ -288,3 +289,149 @@ def test_gcn_layer_on_card_matches_cpu():
             == _stats(engines["cpu"].backward_stats_log))
     for gpu, cpu in zip(results["cuda"], results["cpu"]):
         np.testing.assert_allclose(gpu, cpu, atol=1e-4, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels and the dense LM
+# ---------------------------------------------------------------------------
+
+# (rtol, atol) per element. Both sides compute in f32, summed in another
+# order (a gap near 1e-6), then round once to the output type: to the same
+# value or to neighbours one ulp apart, at most 2^-10·|x| in f16 and
+# 2^-7·|x| in bf16. atol takes the f32 gap.
+ATTN_TOL = {torch.float32: (0.0, 4e-6), torch.float16: (2.0 ** -10, 4e-6),
+            torch.bfloat16: (2.0 ** -7, 4e-6)}
+
+
+def _attn_inputs(shape, dtype, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device=dev, dtype=dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,window", [
+    (1, 2, 64, 16, True, 0),
+    (2, 3, 130, 64, True, 0),       # ragged S
+    (1, 2, 200, 128, True, 33),     # sliding window
+    (1, 1, 77, 100, False, 0),      # d a multiple of no tile
+    (2, 2, 65, 8, False, 9),
+    (1, 4, 1, 128, True, 0),
+])
+def test_flash_kernel_matches_plain_version(b, h, s, d, causal, window,
+                                            dtype):
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d)
+    plain = fmod.flash_attention_plain(q, k, v, causal=causal, window=window)
+    before = fmod.FLASH_LAUNCHES
+    out = fmod.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fmod.FLASH_LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,n_kv,group,s,d", [
+    (4, 4, 8, 161, 128),     # serve's cache at Yi-6B width
+    (3, 2, 4, 1000, 64),
+    (2, 3, 1, 37, 16),       # MHA
+    (2, 1, 16, 5000, 72),    # the largest group; several splits
+    (1, 2, 8, 1, 128),
+])
+def test_decode_kernel_matches_plain_version(b, n_kv, group, s, d, dtype):
+    dev = _card()
+    from repro_torch.kernels import decode_attn as dmod
+    gen = torch.Generator().manual_seed(s + d)
+    q = torch.randn((b, n_kv, group, d), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((b, n_kv, s, d), generator=gen).to(dev, dtype)
+            for _ in range(2))
+    lens = torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
+    lens[0] = s
+    if b > 1:
+        lens[1] = 1
+    if b > 2:
+        lens[2] = 0                  # an empty sequence gives 0
+    lens = lens.to(dev)
+    plain = dmod.decode_attention_plain(q, k, v, lens)
+    before = dmod.DECODE_LAUNCHES
+    out = dmod.decode_attention_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert dmod.DECODE_LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+def test_attention_kernels_refuse_grad_and_cpu_tensors():
+    dev = _card()
+    from repro_torch.kernels import decode_attn as dmod
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((1, 2, 16, 32), torch.float32, dev, seed=0)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=dev)
+    qg = q[:, :, :1].contiguous()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fmod.flash_attention_cuda(q.requires_grad_(True), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dmod.decode_attention_cuda(qg.requires_grad_(True), k, v, lens)
+    with torch.no_grad():               # no graph recorded: allowed
+        fmod.flash_attention_cuda(q, k, v)
+    cpu = [t.detach().cpu() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="CUDA"):
+        fmod.flash_attention_cuda(*cpu)
+    with pytest.raises(ValueError, match="CUDA"):
+        dmod.decode_attention_cuda(qg.detach().cpu(), cpu[1], cpu[2],
+                                   lens.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        fmod.flash_attention_cuda(q.detach().transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2))
+
+
+def test_lm_on_card_matches_cpu():
+    """Forward, teacher-forced decode and serve of an f32 GQA smoke model:
+    the card (kernels) against the CPU (plain versions)."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn as dmod
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (
+        decode_step, forward, init_decode_state, init_params,
+    )
+    cfg = get_config("yi_6b", smoke=True).scaled_down(
+        dtype="float32", n_heads=8, n_kv_heads=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {k: v for k, v in params.items() if k != "layers"}
+    on_card = {k: v.to(dev) for k, v in on_card.items()}
+    on_card["layers"] = [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                              if isinstance(v, dict) else v.to(dev))
+                          for k, v in layer.items()}
+                         for layer in params["layers"]]
+    tokens = torch.randint(0, cfg.vocab, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    flash0, dec0 = fmod.FLASH_LAUNCHES, dmod.DECODE_LAUNCHES
+    with torch.inference_mode():
+        ref, _ = forward(cfg, params, tokens)
+        out, _ = forward(cfg, on_card, tokens.to(dev))
+        state = init_decode_state(cfg, 2, 12, device=dev)
+        steps = []
+        for t in range(12):
+            logits, state = decode_step(cfg, on_card,
+                                        tokens[:, t:t + 1].to(dev), state)
+            steps.append(logits[:, 0])
+    assert fmod.FLASH_LAUNCHES - flash0 == cfg.n_layers
+    assert dmod.DECODE_LAUNCHES - dec0 == 12 * cfg.n_layers
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(torch.stack(steps, 1).cpu().numpy(),
+                               ref.numpy(), atol=1e-4)
+    prompts = tokens[:, :6].numpy().astype(np.int32)
+    np.testing.assert_array_equal(serve(cfg, on_card, prompts, steps=5),
+                                  serve(cfg, params, prompts, steps=5))

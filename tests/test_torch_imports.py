@@ -11,6 +11,14 @@ import pytest
 import torch  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# The LM serving path's modules, which must be among those walked.
+LM_MODULES = [
+    "repro_torch.configs.deepseek_7b", "repro_torch.configs.yi_6b",
+    "repro_torch.configs.yi_9b", "repro_torch.kernels.build",
+    "repro_torch.kernels.decode_attn", "repro_torch.kernels.flash_attn",
+    "repro_torch.models.config", "repro_torch.models.layers",
+    "repro_torch.models.transformer",
+]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -26,13 +34,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
+        f"missing = sorted(set({LM_MODULES!r}) - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'repro')\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)

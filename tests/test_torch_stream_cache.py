@@ -61,9 +61,12 @@ def _segment_ells(seed, count=7):
 
 
 def _run_epochs(mod_stream, mod_cache, mod_tiers, ells, upload, total_of,
-                device_budget, host_budget, deadline, epochs=3):
+                device_budget, host_budget, deadline, epochs=3, **device):
+    """`device`: `device="cpu"` for the port's classes, which default to
+    the card; nothing for the reference's."""
     tms = mod_tiers.TieredMemorySystem(mod_tiers.TPU_V5E_SYSTEM)
-    cache = mod_cache.TieredSegmentCache(device_budget, host_budget, tms=tms)
+    cache = mod_cache.TieredSegmentCache(device_budget, host_budget, tms=tms,
+                                         **device)
     keys = [mod_cache.SegmentKey("g", i, "bricks", tuple(e.blocks.shape),
                                  fingerprint=f"f{i}")
             for i, e in enumerate(ells)]
@@ -76,7 +79,7 @@ def _run_epochs(mod_stream, mod_cache, mod_tiers, ells, upload, total_of,
             cache_lookup=lambda p: cache.get(keys[p[0]],
                                              nbytes=p[1].nbytes()),
             cache_store=lambda p, dev: cache.put(keys[p[0]], dev,
-                                                 p[1].nbytes()))
+                                                 p[1].nbytes()), **device)
         results = streamer.run_all(list(enumerate(ells)))
         record.append((
             [getattr(streamer.stats, c) for c in COUNTERS],
@@ -117,7 +120,7 @@ def test_stream_and_cache_counters_match_reference(device_frac, host_frac,
     port, p_tms = _run_epochs(p_stream, p_cache, p_tiers,
                               [pe for pe, _ in pairs], p_upload,
                               lambda d: float(torch.sum(d[0])), device_budget,
-                              host_budget, deadline)
+                              host_budget, deadline, device="cpu")
     for (pc, ps, pu, pt, pr), (rc, rs, ru, rt, rr) in zip(port, ref):
         assert pc == rc
         assert ps == rs
@@ -133,7 +136,7 @@ def test_stream_and_cache_counters_match_reference(device_frac, host_frac,
 
 def test_peek_cost_prices_without_mutating():
     tms = p_tiers.TieredMemorySystem(p_tiers.TPU_V5E_SYSTEM)
-    cache = p_cache.TieredSegmentCache(100, tms=tms)
+    cache = p_cache.TieredSegmentCache(100, tms=tms, device="cpu")
     keys = [p_cache.SegmentKey("g", i, "bricks", (1,)) for i in range(3)]
     for k in keys:
         cache.put(k, (torch.zeros(4),), 60)    # each put demotes the last
@@ -153,7 +156,7 @@ def _engines(p, r, budget, cache_bytes=None):
     if cache_bytes is not None:
         caches = (p_cache.TieredSegmentCache(
                       cache_bytes, tms=p_tiers.TieredMemorySystem(
-                          p_tiers.TPU_V5E_SYSTEM)),
+                          p_tiers.TPU_V5E_SYSTEM), device="cpu"),
                   r_cache.TieredSegmentCache(
                       cache_bytes, tms=r_tiers.TieredMemorySystem(
                           r_tiers.TPU_V5E_SYSTEM)))
