@@ -35,6 +35,11 @@ non-zero without a result line:
                with a window of 512, at a ragged S and in f32; decode at
                decode_32k's shape with per-sequence lengths (1 and S among
                them), in f32, with a group of 1 (MHA) and a ragged cache.
+               The 16-bit (tensor-core) kernels also at the edges of their
+               64-row tiles: flash at S = 63, 64, 65, 129, with a window
+               whose edge crosses tiles, and in f16; decode with lens one
+               below, at and one above tile and split edges, with groups of
+               1, 5 and 16, and in f16.
  10. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
@@ -43,9 +48,12 @@ non-zero without a result line:
                `serve` of 4 prompts of 128 tokens for 32 steps (decode
                launches = 32 x 160), `forward` on one 4096-token sequence
                (flash launches = 32), and teacher-forced decode logits
-               against that forward's over the first 128 positions.
+               against that forward's over the first 128 positions. Every
+               attention launch of lm_serve takes the tensor-core route,
+               every one of lm_check the f32 FMA route.
  12. timing  — each kernel, its plain version and a PyTorch yardstick the
-               port never calls, at the main paths' shapes, with the bound.
+               port never calls, at the main paths' shapes, with the bound;
+               decode also at lm_serve's own shape.
  13. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
@@ -118,6 +126,33 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_table(report: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas -v report: its name
+    (demangled where the CUDA toolkit's cu++filt is found) and what ptxas
+    said of its registers, stack and spills."""
+    import os
+    import re
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+    names, props = [], []
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            names.append(m.group(1))
+            props.append([])
+        elif names and ("Used" in ln or "spill" in ln):
+            props[-1].append(ln.split(":", 1)[-1].strip())
+    cufilt = shutil.which("cu++filt") or os.path.join(CUDA_HOME or "", "bin",
+                                                      "cu++filt")
+    if names and os.path.exists(cufilt):
+        out = subprocess.run([cufilt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                     for n in out.stdout.splitlines()]
+    return [f"{n}: {'; '.join(p)}" for n, p in zip(names, props)]
 
 
 def sync() -> None:
@@ -781,6 +816,7 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
         decode, d_plain, decode_inputs(2, 4, 8, LM_PROMPT, "float32", gen),
         {}, "decode: lm_check's cache, every position", "float32",
         lens_sweep=LM_PROMPT))
+    cases += tile_edge_cases(fmod, dmod, gen)
     emit({"phase": "attn", "cases": cases,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     torch.cuda.empty_cache()
@@ -788,6 +824,59 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
     return {name: max(c["max_abs_err"] for c in main
                       if c["case"].startswith(name))
             for name in ("flash", "decode")}
+
+
+def tile_edge_cases(fmod, dmod, gen) -> list:
+    """The 16-bit (tensor-core) kernels at the edges of their 64-row tiles
+    and of the decode splits, and in f16, against their plain versions."""
+    import torch
+    flash, decode = fmod.flash_attention_cuda, dmod.decode_attention_cuda
+    f_plain, d_plain = fmod.flash_attention_plain, dmod.decode_attention_plain
+    cases = [attn_compare(flash, f_plain,
+                          attn_inputs((2, 8, s_len, 128), "bfloat16", gen),
+                          {"causal": True}, f"flash: S = {s_len}, tile edge",
+                          "bfloat16")
+             for s_len in (63, 64, 65, 129)]
+    cases.append(attn_compare(flash, f_plain,
+                              attn_inputs((1, 8, 1000, 128), "bfloat16",
+                                          gen),
+                              {"causal": True, "window": 100},
+                              "flash: window 100, its edge across tiles",
+                              "bfloat16"))
+    cases.append(attn_compare(flash, f_plain,
+                              attn_inputs((1, 8, 2048, 128), "float16", gen),
+                              {"causal": True}, "flash: f16", "float16"))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = dmod.TILE
+
+    def lens_at(b, n_kv, s_len, edges):
+        """lens one below, at and one above each edge (the splits' own
+        among them), then 1 and s_len, cycled over the batch."""
+        chunk, _ = dmod.split_plan(b, n_kv, s_len, n_sm)
+        vals = list(dict.fromkeys(
+            [e + o for e in (*edges, chunk, 2 * chunk) for o in (-1, 0, 1)
+             if 1 <= e + o <= s_len] + [1, s_len]))
+        return torch.tensor([vals[i % len(vals)] for i in range(b)],
+                            dtype=torch.int32, device=DEV)
+
+    for b, n_kv, group, s_len, edges, label in (
+            (16, 4, 8, 4160, (tile, 2 * tile, 3 * tile),
+             "splits of a few tiles"),
+            (12, 4, 8, 32768, (4096,), "splits that wrap the ring"),
+            (8, 8, 1, 1000, (tile,), "group 1"),
+            (8, 4, 5, 1000, (tile,), "group 5"),
+            (8, 2, 16, 2048, (tile,), "group 16")):
+        args = decode_inputs(b, n_kv, group, s_len, "bfloat16", gen,
+                             lens=lens_at(b, n_kv, s_len, edges))
+        case = attn_compare(decode, d_plain, args, {},
+                            f"decode: lens at tile and split edges, {label}",
+                            "bfloat16")
+        case["lens"] = args[3].tolist()
+        cases.append(case)
+    cases.append(attn_compare(decode, d_plain,
+                              decode_inputs(8, 4, 8, 4096, "float16", gen),
+                              {}, "decode: f16", "float16"))
+    return cases
 
 
 def f64_lm_forward(cfg, params, tokens):
@@ -848,6 +937,30 @@ def teacher_forced(cfg, params, tokens):
     return torch.stack(out, dim=1)
 
 
+def zero_attn_counts(fmod, dmod) -> None:
+    """The attention kernels' launch counts, in all and by route, to 0."""
+    fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0
+    for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES):
+        for route in routes:
+            routes[route] = 0
+
+
+def attn_counts(fmod, dmod) -> dict:
+    return {"flash": fmod.FLASH_LAUNCHES,
+            "flash_routes": dict(fmod.FLASH_ROUTE_LAUNCHES),
+            "decode": dmod.DECODE_LAUNCHES,
+            "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES)}
+
+
+def check_routes(label: str, counts: dict, kernel: str, route: str) -> None:
+    """Every launch of `kernel` counted in `counts` took `route`."""
+    routes = counts[f"{kernel}_routes"]
+    if routes[route] != counts[kernel] or sum(routes.values()) != counts[
+            kernel]:
+        raise AssertionError(f"{label}: {kernel} launches by route {routes}, "
+                             f"want all {counts[kernel]} on {route}")
+
+
 def phase_lm_check(fmod, dmod, seed: int) -> dict:
     """4-layer float32 Yi-6B width: forward and teacher-forced decode
     against float64; returns the launches of each."""
@@ -862,20 +975,25 @@ def phase_lm_check(fmod, dmod, seed: int) -> dict:
     tokens = torch.randint(0, cfg.vocab, (2, LM_PROMPT), device=DEV,
                            generator=gen)
     with torch.inference_mode():
-        fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0   # main path starts
+        zero_attn_counts(fmod, dmod)                     # forward starts
         logits, _ = forward(cfg, params, tokens)
-        flash = fmod.FLASH_LAUNCHES
-        dmod.DECODE_LAUNCHES = 0
+        fwd_counts = attn_counts(fmod, dmod)             # ... and ends here
+        zero_attn_counts(fmod, dmod)                     # decode starts
         dec = teacher_forced(cfg, params, tokens)
-        decode = dmod.DECODE_LAUNCHES                    # ... and ends here
+        dec_counts = attn_counts(fmod, dmod)             # ... and ends here
         sync()
         ref = f64_lm_forward(cfg, params, tokens)
+    flash, decode = fwd_counts["flash"], dec_counts["decode"]
     errs = {"forward": rel_err(logits, ref), "decode": rel_err(dec, ref)}
     agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
-    if flash != cfg.n_layers or decode != cfg.n_layers * LM_PROMPT:
-        raise AssertionError(f"lm_check launches: flash {flash} (want "
-                             f"{cfg.n_layers}), decode {decode} (want "
-                             f"{cfg.n_layers * LM_PROMPT})")
+    if (flash, fwd_counts["decode"], dec_counts["flash"], decode) != (
+            cfg.n_layers, 0, 0, cfg.n_layers * LM_PROMPT):
+        raise AssertionError(f"lm_check launches: forward {fwd_counts}, "
+                             f"decode {dec_counts}; want flash "
+                             f"{cfg.n_layers}, decode "
+                             f"{cfg.n_layers * LM_PROMPT}")
+    check_routes("lm_check forward", fwd_counts, "flash", "f32_fma")
+    check_routes("lm_check decode", dec_counts, "decode", "f32_fma")
     bad = {k: e for k, e in errs.items() if not e <= LM_REL_TOL}
     if bad:
         raise AssertionError(f"lm_check: relative error above {LM_REL_TOL}: "
@@ -885,10 +1003,14 @@ def phase_lm_check(fmod, dmod, seed: int) -> dict:
           "rel_err_vs_float64": errs, "tol": LM_REL_TOL,
           "argmax_agreement_decode_vs_float64": agree,
           "flash_launches": flash, "decode_launches": decode,
+          "launches_by_route": {"flash": fwd_counts["flash_routes"],
+                                "decode": dec_counts["decode_routes"]},
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     del params, logits, dec, ref
     torch.cuda.empty_cache()
-    return {"flash": flash, "decode": decode}
+    return {"flash": flash, "decode": decode,
+            "flash_routes": fwd_counts["flash_routes"],
+            "decode_routes": dec_counts["decode_routes"]}
 
 
 def profile_decode(cfg, params) -> dict:
@@ -948,18 +1070,20 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
                     init_decode_state(cfg, LM_BATCH, 2, device=DEV))
     sync()
 
-    fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0   # serve starts here
+    zero_attn_counts(fmod, dmod)                     # serve starts here
     t0 = time.perf_counter()
     tokens = serve(cfg, params, prompts, steps=LM_STEPS)
     sync()
     serve_s = time.perf_counter() - t0
-    serve_launches = {"flash": fmod.FLASH_LAUNCHES,
-                      "decode": dmod.DECODE_LAUNCHES}  # ... and ends here
+    serve_counts = attn_counts(fmod, dmod)           # ... and ends here
+    serve_launches = {"flash": serve_counts["flash"],
+                      "decode": serve_counts["decode"]}
     serve_peak = torch.cuda.max_memory_allocated()
     want = cfg.n_layers * (LM_PROMPT + LM_STEPS)
     if serve_launches != {"flash": 0, "decode": want}:
         raise AssertionError(f"serve launches {serve_launches}, want decode "
                              f"{want}")
+    check_routes("lm_serve serve", serve_counts, "decode", "tensor_core")
     if tokens.shape != (LM_BATCH, LM_STEPS) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"serve tokens {tokens.shape} out of range")
@@ -971,29 +1095,35 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
     seq = torch.from_numpy(seq).long().to(DEV)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0   # prefill starts
+        zero_attn_counts(fmod, dmod)                     # prefill starts
         sync()
         t0 = time.perf_counter()
         logits, _ = forward(cfg, params, seq)
         sync()
         prefill_s = time.perf_counter() - t0
-        prefill_flash = fmod.FLASH_LAUNCHES              # ... and ends here
+        prefill_counts = attn_counts(fmod, dmod)         # ... and ends here
+        prefill_flash = prefill_counts["flash"]
         prefill_peak = torch.cuda.max_memory_allocated()
-        if prefill_flash != cfg.n_layers or dmod.DECODE_LAUNCHES != 0:
+        if prefill_flash != cfg.n_layers or prefill_counts["decode"] != 0:
             raise AssertionError(f"prefill flash launches {prefill_flash}, "
                                  f"want {cfg.n_layers}")
+        check_routes("lm_serve prefill", prefill_counts, "flash",
+                     "tensor_core")
         if logits.shape != (1, LM_PREFILL, cfg.vocab) or not torch.isfinite(
                 logits).all():
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                                  "not finite")
-        dmod.DECODE_LAUNCHES = 0                     # cross-check starts
+        zero_attn_counts(fmod, dmod)                 # cross-check starts
         dec = teacher_forced(cfg, params, seq[:, :LM_PROMPT])
-        cross_decode = dmod.DECODE_LAUNCHES          # ... and ends here
+        cross_counts = attn_counts(fmod, dmod)       # ... and ends here
+        cross_decode = cross_counts["decode"]
     fwd = logits[:, :LM_PROMPT]
     gap = rel_err(dec, fwd)
     agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
     if cross_decode != cfg.n_layers * LM_PROMPT:
         raise AssertionError(f"cross-check decode launches {cross_decode}")
+    check_routes("lm_serve cross-check", cross_counts, "decode",
+                 "tensor_core")
     if not gap <= LM_BF16_TOL:
         raise AssertionError(f"decode vs forward logits: relative gap {gap} "
                              f"> {LM_BF16_TOL}")
@@ -1008,12 +1138,16 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
                     "ms_per_decode_step":
                         1e3 * serve_s / (LM_PROMPT + LM_STEPS),
                     "launches": serve_launches,
+                    "decode_launches_by_route":
+                        serve_counts["decode_routes"],
                     "peak_allocated_bytes": serve_peak,
                     "first_tokens": tokens[:, :8].tolist(),
                     "profiled_decode_steps": profile},
           "prefill": {"tokens": LM_PREFILL, "seconds": prefill_s,
                       "tokens_per_s": LM_PREFILL / prefill_s,
                       "flash_launches": prefill_flash,
+                      "flash_launches_by_route":
+                          prefill_counts["flash_routes"],
                       "peak_allocated_bytes": prefill_peak},
           "decode_vs_forward": {"positions": LM_PROMPT,
                                 "rel_gap": gap, "tol": LM_BF16_TOL,
@@ -1022,7 +1156,11 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
     del params, logits, dec, fwd
     torch.cuda.empty_cache()
     return {"flash": prefill_flash, "decode": serve_launches["decode"],
-            "decode_crosscheck": cross_decode}
+            "decode_crosscheck": cross_decode,
+            "flash_routes": prefill_counts["flash_routes"],
+            "decode_routes": {r: serve_counts["decode_routes"][r]
+                              + cross_counts["decode_routes"][r]
+                              for r in serve_counts["decode_routes"]}}
 
 
 def time_flash(fmod, seed: int) -> dict:
@@ -1053,19 +1191,43 @@ def time_flash(fmod, seed: int) -> dict:
             "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
 
 
-def time_decode(dmod, seed: int) -> dict:
-    """The decode kernels at decode_32k's per-layer shape, their plain
-    version and SDPA with enable_gqa (a yardstick the port never calls)."""
+def device_ms(fn, repeats: int) -> float:
+    """Device time per call of `fn`, which launches each of its kernels
+    once: the mean duration of each kernel over a torch.profiler trace of
+    `repeats` calls, summed over the kernels. Unlike cuda_ms it leaves out
+    the gaps in which the card waits for the host; the mean, not the sum
+    over `repeats`, because the trace may miss a call's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        sync()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(sum(us) / len(us) for us in by_name.values()) / 1e3
+
+
+def time_decode(dmod, seed: int, b: int, s_len: int,
+                repeats: int = 10) -> dict:
+    """The decode kernels at one layer's shape, every cache full (Yi-6B's 4
+    KV heads of 8 query heads), their plain version and SDPA with
+    enable_gqa (a yardstick the port never calls)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import SHAPES
     gen = torch.Generator(device=DEV).manual_seed(seed + 6)
-    dec = SHAPES["decode_32k"]
-    b, s_len, n_kv, group, d = dec["global_batch"], dec["seq_len"], 4, 8, 128
+    n_kv, group, d = 4, 8, 128
     lens = torch.full((b,), s_len, dtype=torch.int32, device=DEV)
     q, k, v, lens = decode_inputs(b, n_kv, group, s_len, "bfloat16", gen,
                                   lens=lens)
-    ms = cuda_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens), 10)
+    ms = cuda_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens), repeats)
+    dev_ms = device_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens),
+                       repeats)
     plain_ms = cuda_ms(lambda: dmod.decode_attention_plain(q, k, v, lens), 2,
                        warmup=1)
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1086,6 +1248,7 @@ def time_decode(dmod, seed: int) -> dict:
                 b, n_kv, s_len,
                 torch.cuda.get_device_properties(0).multi_processor_count)),
             "flops": flops, "min_bytes": nbytes, "ms": ms,
+            "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -1097,6 +1260,7 @@ def time_decode(dmod, seed: int) -> dict:
 def phase_timing(kmod, fmod, dmod, plans, h_main, h_train, g_train,
                  seed: int) -> dict:
     import torch
+    from repro_torch.configs import SHAPES
     torch.cuda.reset_peak_memory_stats()
     timing = {
         "bcsr_spmm": time_spmm(kmod, plans["serve"]["ell"],
@@ -1107,7 +1271,12 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_train, g_train,
                                       plans["fwd"]["csr"], h_train,
                                       h_train.shape[1]),
         "flash_attention": time_flash(fmod, seed),
-        "decode_attention": time_decode(dmod, seed),
+        "decode_attention": time_decode(dmod, seed,
+                                        SHAPES["decode_32k"]["global_batch"],
+                                        SHAPES["decode_32k"]["seq_len"]),
+        # lm_serve's cache at its longest (serve's max_len).
+        "decode_attention_lm_serve": time_decode(
+            dmod, seed, LM_BATCH, LM_PROMPT + LM_STEPS + 1, repeats=200),
     }
     emit({"phase": "timing", **timing,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -1147,8 +1316,7 @@ def run(args) -> None:
     info = kmod.build()
     emit({"phase": "build", "seconds": info.seconds,
           "library": str(info.library.relative_to(ROOT)),
-          "ptxas": [ln.strip() for ln in info.ptxas.splitlines()
-                    if "registers" in ln or "smem" in ln or "spill" in ln]})
+          "ptxas": ptxas_table(info.ptxas)})
 
     t0 = time.perf_counter()
     # Seeds follow launch/serve.py: graphs in ("socLJ1", "rUSA") order.
@@ -1186,6 +1354,12 @@ def run(args) -> None:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
                    "lm_serve_prefill": lm["lm_serve"]["flash"]}
+
+    def by_route(kernel: str) -> dict:
+        return {route: sum(path[f"{kernel}_routes"][route]
+                           for path in lm.values())
+                for route in ("tensor_core", "f32_fma")}
+
     decode_paths = {"lm_check": lm["lm_check"]["decode"],
                     "lm_serve": lm["lm_serve"]["decode"],
                     "lm_serve_crosscheck":
@@ -1210,6 +1384,7 @@ def run(args) -> None:
          "replaces": "src/repro/kernels/flash_attn.py:87",
          "launches": sum(flash_paths.values()),
          "launches_by_path": flash_paths,
+         "launches_by_route": by_route("flash"),
          "max_abs_err": attn_err["flash"],
          **{k: timing["flash_attention"][k] for k in keys},
          "bound_ms_f32_fma": timing["flash_attention"]["bound_ms_f32_fma"]},
@@ -1218,8 +1393,11 @@ def run(args) -> None:
          "replaces": "src/repro/kernels/decode_attn.py:68",
          "launches": sum(decode_paths.values()),
          "launches_by_path": decode_paths,
+         "launches_by_route": by_route("decode"),
          "max_abs_err": attn_err["decode"],
-         **{k: timing["decode_attention"][k] for k in keys}}]})
+         **{k: timing["decode_attention"][k] for k in keys},
+         "lm_serve_shape": {k: timing["decode_attention_lm_serve"][k]
+                            for k in (*keys, "device_ms")}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,25 +13,55 @@
 //
 // What bounds it: bytes. Every valid cache row of K and V is read once for
 // 4*group*d FLOPs, 2 FLOP per byte in bf16 at group 8, far below the card's
-// ratio (at decode_32k, B = 128, S = 32768: 8.59 GB of K and V; chip_smoke.py
-// reports the bound).
+// ratio (at decode_32k, B = 128, S = 32768: 8.59 GB of K and V, 2.56 ms at
+// 3.35 TB/s; chip_smoke.py reports the bound). Scalar f32 FMA at that rate
+// would need 40% of the card's FMA peak, so the 16-bit route multiplies on
+// the tensor cores and spends its effort on keeping bytes in flight.
 //
-// Design (a simple first version, not yet tuned):
-//   * split-KV flash-decoding: (b, kv head) alone gives 16 blocks at a batch
-//     of 4, for 132 SMs, so the cache axis is cut into splits of `chunk`
-//     positions and each (split, kv head, b) is a block. A split that starts
-//     at or past lens[b] exits at once; positions >= lens[b] are masked
-//     inside, so the cache is never padded or copied;
-//   * each block stages a 64-position tile of K and V, converted to f32, in
-//     shared memory once for all `group` query heads (the point of the
-//     grouped layout), rows padded to d + 1 floats so that threads reading
-//     one column of 32 rows hit 32 banks;
-//   * scores: thread t owns position t % 64 and every other query head;
-//     softmax: one warp per query head; P.V: thread t owns column t % d of
-//     the accumulator for its query heads, in registers;
-//   * each block leaves its split's (max, sum, accumulator) in f32 scratch
-//     that the wrapper allocates; a second kernel combines the splits of each
-//     (b, kv head). The pair is one launch of the Python wrapper.
+// Both routes cut the cache axis into splits of `chunk` positions (a batch
+// of 4 gives only 16 (b, kv head) pairs for 132 SMs): each (split, kv head,
+// b) is a block; a split that starts at or past lens[b] exits at once, and
+// positions >= lens[b] are masked inside, so the cache is never padded or
+// copied and the host never syncs. Each block leaves its split's (max, sum,
+// accumulator) in f32 scratch that the wrapper allocates; a second kernel
+// combines the splits of each (b, kv head). The pair is one launch of the
+// Python wrapper.
+//
+// Two split kernels, chosen by dtype in decode_attn_launch:
+//
+// * f16 and bf16: the byte-streaming tensor-core kernel (namespace tc).
+//   - A tile is 64 positions of one (b, kv head): 64 x d contiguous
+//     elements, 16 KiB of K and 16 KiB of V at d = 128. Tiles stay in their
+//     16-bit type in XOR-swizzled shared memory, copied by 16-byte cp.async
+//     (8, 4 or 2 bytes where rows are not 16-byte aligned) into a ring of
+//     STAGES = 3: two tiles are in flight while one is consumed, 64 KiB per
+//     block and 128 KiB per SM at two blocks per SM.
+//   - The group's query heads are the 16 rows of one MMA tile, rows past
+//     `group` zero; Q stays in registers as A fragments. Each of the 4 warps
+//     takes 16 of a tile's 64 positions and keeps its own online softmax
+//     (max, sum, 16 x d accumulator in registers) over its positions of
+//     every tile: S = Q·Kᵀ and P·V by mma.sync.m16n8k16 (f32 accumulate),
+//     K through ldmatrix, V through ldmatrix.trans, P split into p_hi and
+//     p_lo as in flash_attn.cu (attention.cuh, split_pair). At group 8 that
+//     is 2 FLOP per byte; the MMAs take a small part of a tile's time.
+//   - At the end the 4 warps merge through shared memory into the split's
+//     (max, sum, accumulator).
+//   At d = 128: 100 KiB of dynamic shared memory, two blocks per SM; ptxas
+//   (CUDA 12.8) gives 199-202 registers and no spills. On an H100 80GB HBM3
+//   at 700 W it reads decode_32k's 8.59 GB cache in 2.82-2.85 ms, 3.0 TB/s
+//   and 90% of the bound.
+// * f32: the FMA kernel of the port's first version (namespace f32fma),
+//   kept as it was; the tensor cores take f32 only as TF32 (10 bits), which
+//   the f32 route's per-element limit rules out. It stages each tile widened
+//   to f32 in a (d + 1)-padded layout, one thread per position for the
+//   scores, one warp per query head for the softmax, one thread per column
+//   for P·V.
+//
+// What the first version (now the f32 route) measured when it served every
+// dtype, on an H100 80GB HBM3 at 700 W, bf16 at decode_32k: 21.09-21.33
+// ms, 405 GB/s (12% of the HBM rate), against 2.70-2.86 ms for SDPA with
+// enable_gqa. Its 2-byte synchronous loads and 66 KB f32 tiles left three
+// 128-thread blocks per SM and no second tile in flight.
 #include "attention.cuh"
 
 #include <math.h>
@@ -41,6 +71,8 @@ namespace {
 constexpr int TILE = 64;             // cache positions per shared tile
 constexpr int THREADS = 128;
 constexpr int MAX_GROUP = 16;        // query heads per KV head
+
+namespace f32fma {
 
 template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
@@ -186,6 +218,193 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+
+}  // namespace f32fma
+
+namespace tc {
+
+constexpr int STAGES = 3;            // K/V tiles in the ring
+constexpr int WARPS = THREADS / 32;  // each takes TILE / WARPS positions
+static_assert(TILE == 16 * WARPS, "one 16-position MMA step per warp");
+
+template <int NC>
+__host__ __device__ constexpr int smem_bytes() {
+  return (MAX_GROUP + 2 * STAGES * TILE) * 16 * NC * 2;  // Q, then K, V
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS, 2)
+    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int32_t* __restrict__ lens,
+                        float* __restrict__ m_part, float* __restrict__ l_part,
+                        float* __restrict__ acc_part, int S, int d, int group,
+                        int chunk, float scale, int vec) {
+  constexpr int DP = 16 * NC;                  // padded head dim
+  constexpr int TB = TILE * DP * 2;            // bytes of a K or V tile
+  constexpr int QB = MAX_GROUP * DP * 2;       // bytes of the Q tile
+  constexpr int NO = DP / 8;                   // output n-tiles
+  static_assert(smem_bytes<NC>() >= WARPS * MAX_GROUP * (DP + 2) * 4,
+                "the warps' merge fits in the ring");
+  const int split = blockIdx.x;
+  const int n_splits = gridDim.x;
+  const int64_t bh =
+      static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const int len = max(0, min(lens[blockIdx.z], S));
+  const int start = split * chunk;
+  if (start >= len) return;          // nothing valid in this split
+  const int end = min(start + chunk, len);
+  const int n_tiles = (end - start + TILE - 1) / TILE;
+
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const T* kb = k + bh * S * static_cast<int64_t>(d);
+  const T* vb = v + bh * S * static_cast<int64_t>(d);
+
+  auto stage = [&](int it) { return smem + QB + 2 * TB * (it % STAGES); };
+  auto load_kv = [&](int it) {
+    const int t0 = start + it * TILE;
+    const int64_t off = static_cast<int64_t>(t0) * d;
+    attn::load_tile<T, TILE, DP, THREADS>(stage(it), kb + off, end - t0, d,
+                                          vec, tid);
+    attn::load_tile<T, TILE, DP, THREADS>(stage(it) + TB, vb + off, end - t0,
+                                          d, vec, tid);
+  };
+  attn::load_tile<T, MAX_GROUP, DP, THREADS>(smem, q + bh * group * d, group,
+                                             d, vec, tid);
+  load_kv(0);
+  attn::cp_async_commit();
+#pragma unroll
+  for (int it = 1; it < STAGES - 1; ++it) {
+    if (it < n_tiles) load_kv(it);
+    attn::cp_async_commit();
+  }
+
+  // Per-lane ldmatrix offsets, as in flash_attn.cu; this warp's positions
+  // are kw .. kw + 15 of each tile.
+  const int kw = warp * 16;
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int k_row = kw + (lane & 7) + (lane >> 4) * 8;
+  const int k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = kw + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int v_col = (lane >> 4) * 8;
+  const int g = lane >> 2, t = lane & 3;
+
+  uint32_t qf[NC][4];
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    attn::cp_async_wait<STAGES - 2>();
+    __syncthreads();                 // tile it landed; tile it - 1 consumed
+    if (it == 0) {
+      const uint32_t qs = attn::smem_addr(smem);
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk)
+        attn::ldmatrix_x4(
+            qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2), qf[kk]);
+    }
+    if (it + STAGES - 1 < n_tiles) load_kv(it + STAGES - 1);
+    attn::cp_async_commit();
+
+    const int t0 = start + it * TILE;
+    const uint32_t ks = attn::smem_addr(stage(it));
+    const uint32_t vs = ks + TB;
+
+    float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk) {
+      uint32_t b[4];
+      attn::ldmatrix_x4(
+          ks + attn::swizzle<DP>((k_row * DP + kk * 16 + k_col) * 2), b);
+      attn::mma_16816<T>(s[0], qf[kk], b[0], b[1]);
+      attn::mma_16816<T>(s[1], qf[kk], b[2], b[3]);
+    }
+    if (t0 + TILE > end) {           // the split's last, ragged tile
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (t0 + kw + n * 8 + 2 * t + (e & 1) >= end) s[n][e] = -INFINITY;
+        }
+      }
+    }
+    attn::online_softmax(s, o, m, l, scale_log2);
+
+    uint32_t hi[4], lo[4];
+    attn::split_pair<T>(s[0][0], s[0][1], hi[0], lo[0]);
+    attn::split_pair<T>(s[0][2], s[0][3], hi[1], lo[1]);
+    attn::split_pair<T>(s[1][0], s[1][1], hi[2], lo[2]);
+    attn::split_pair<T>(s[1][2], s[1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int np = 0; np < NO / 2; ++np) {
+      uint32_t b[4];
+      attn::ldmatrix_x4_trans(
+          vs + attn::swizzle<DP>((v_row * DP + np * 16 + v_col) * 2), b);
+      attn::mma_16816<T>(o[2 * np], hi, b[0], b[1]);
+      attn::mma_16816<T>(o[2 * np], lo, b[0], b[1]);
+      attn::mma_16816<T>(o[2 * np + 1], hi, b[2], b[3]);
+      attn::mma_16816<T>(o[2 * np + 1], lo, b[2], b[3]);
+    }
+  }
+  attn::cp_async_wait<0>();
+  __syncthreads();                   // the ring is free for the merge
+
+  // Merge the warps: each leaves (max, sum, accumulator) for the 16 rows.
+  float* m_w = reinterpret_cast<float*>(smem);        // WARPS x 16
+  float* l_w = m_w + WARPS * MAX_GROUP;               // WARPS x 16
+  float* o_w = l_w + WARPS * MAX_GROUP;               // WARPS x 16 x DP
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    const float lsum = attn::quad_sum(l[r]);
+    if (t == 0) {
+      m_w[warp * MAX_GROUP + row] = m[r];
+      l_w[warp * MAX_GROUP + row] = lsum;
+    }
+    float* orow = o_w + (warp * MAX_GROUP + row) * DP;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      orow[n * 8 + 2 * t] = o[n][2 * r];
+      orow[n * 8 + 2 * t + 1] = o[n][2 * r + 1];
+    }
+  }
+  __syncthreads();
+  // m_part holds the max in units of score · scale, as the f32 kernel's
+  // does, for the combine kernel; a warp with no valid position (m = -inf)
+  // weighs 0. Every split holds a valid position, so the max is finite.
+  const int64_t row_base = (bh * n_splits + split) * group;
+  for (int e = tid; e < group * DP; e += THREADS) {
+    const int row = e / DP;
+    const int c = e % DP;
+    float big = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) big = fmaxf(big, m_w[w * MAX_GROUP + row]);
+    float den = 0.0f;
+    float num = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt =
+          exp2f((m_w[w * MAX_GROUP + row] - big) * scale_log2);
+      den = fmaf(l_w[w * MAX_GROUP + row], wt, den);
+      num = fmaf(o_w[(w * MAX_GROUP + row) * DP + c], wt, num);
+    }
+    if (c < d) acc_part[(row_base + row) * d + c] = num;
+    if (c == 0) {
+      m_part[row_base + row] = big * scale;
+      l_part[row_base + row] = den;
+    }
+  }
+}
+
+}  // namespace tc
+
 // One block per (kv head, b): out = sum_s acc_s e^(m_s - M) /
 // max(sum_s l_s e^(m_s - M), 1e-30) over the splits that hold a valid
 // position; 0 where lens[b] is 0.
@@ -232,20 +451,37 @@ struct Launch {
   float scale;
   cudaStream_t stream;
 
+  // f32 takes the FMA split kernel, f16 and bf16 the tensor-core one; both
+  // leave the same scratch for the one combine kernel.
   template <typename T, int NC>
   cudaError_t operator()() const {
-    constexpr int DP = 16 * NC;
-    const size_t smem =
-        (2 * TILE * (DP + 1) + group * DP + group * TILE + 3 * group) *
-        sizeof(float);
-    cudaError_t err = attn::allow_smem(
-        reinterpret_cast<const void*>(decode_split_kernel<T, NC>), smem);
-    if (err != cudaSuccess) return err;
-    decode_split_kernel<T, NC>
-        <<<dim3(n_splits, n_kv, b), THREADS, smem, stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), lens, m_part, l_part, acc_part, s, d,
-            group, chunk, scale);
+    const dim3 grid(n_splits, n_kv, b);
+    cudaError_t err;
+    if constexpr (std::is_same_v<T, float>) {
+      constexpr int DP = 16 * NC;
+      const size_t smem =
+          (2 * TILE * (DP + 1) + group * DP + group * TILE + 3 * group) *
+          sizeof(float);
+      err = attn::allow_smem(
+          reinterpret_cast<const void*>(f32fma::decode_split_kernel<T, NC>),
+          smem);
+      if (err != cudaSuccess) return err;
+      f32fma::decode_split_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lens, m_part, l_part, acc_part, s, d,
+          group, chunk, scale);
+    } else {
+      constexpr size_t smem = tc::smem_bytes<NC>();
+      err = attn::allow_smem(
+          reinterpret_cast<const void*>(tc::decode_split_kernel<T, NC>), smem);
+      if (err != cudaSuccess) return err;
+      const void* rows[3] = {q, k, v};
+      const int vec = attn::copy_width(d, rows, 3);
+      tc::decode_split_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lens, m_part, l_part, acc_part, s, d,
+          group, chunk, scale, vec);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     decode_combine_kernel<T><<<dim3(n_kv, b), THREADS, 0, stream>>>(

@@ -9,39 +9,70 @@
 // over the keys j <= i (causal) and j > i - window (window > 0), with an
 // online softmax whose row max, row sum and accumulator are f32. A row with
 // no valid key writes 0, as the TPU kernel's max(l, 1e-30) does. q, k, v
-// are (B, H, S, d) f32, f16 or bf16; the output is in q's type.
+// are (B, H, S, d) f32, f16 or bf16; the output is in q's type. S need not
+// be a multiple of any tile: the ragged edge is masked, never padded.
 //
-// What bounds it: with each input read once and the output written once,
-// the work is bound by operations: 4*d FLOPs per valid (query, key) pair
-// against 4*2*d bytes per row of q, k, v and out (at Yi-6B's prefill,
-// d = 128, S = 4096: 1.4e11 FLOPs against 134 MB; chip_smoke.py reports
-// the bound). The card reaches its bound only on the tensor cores; this
-// first version runs plain f32 FMA, whose peak is 67 TFLOP/s.
+// What bounds it: operations. With each input read once and the output
+// written once, the work is 4*d FLOPs per valid (query, key) pair against
+// 4*2*d bytes per row of q, k, v and out; at Yi-6B's prefill (d = 128,
+// S = 4096, 32 heads, causal) 1.37e11 FLOPs against 134 MB, 0.139 ms at the
+// card's 989 TFLOP/s bf16 and 0.040 ms at 3.35 TB/s. Only the tensor cores
+// come near that bound.
 //
-// Design (a simple first version, not yet tuned):
-//   * one thread block owns BQ = 64 query rows of one (b, h); the TPU grid's
-//     sequential key-block axis becomes a loop inside the block that starts
-//     at the window's lower edge and stops at the causal limit, so blocks
-//     above the diagonal or outside the window cost nothing;
-//   * each iteration stages a BK = 64-key tile of K and V, converted to f32,
-//     in shared memory (64 KiB at d = 128, above the 48 KB default, so the
-//     launch raises the dynamic-smem limit): every key is read from device
-//     memory once per 64 query rows;
-//   * four threads share a query row: each keeps a quarter of q and of the
-//     accumulator in registers, in float4 chunks interleaved so that the
-//     four read 64 contiguous bytes of a K or V row (the eight rows of a
-//     warp read the same key: a broadcast, no bank conflict), and two xor
-//     shuffles complete each dot product;
-//   * the online softmax advances 16 keys at a time: one rescale of the
-//     accumulator per 16 keys;
-//   * the S edge is masked (S need not be a multiple of any block; the TPU
-//     kernel asserts S % block == 0), and query tiles are scheduled longest
-//     first so that the causal triangle's long rows do not trail.
+// Two routes, chosen by dtype in flash_attn_launch:
+//
+// * f16 and bf16: the tensor-core kernel (namespace tc), FlashAttention-2's
+//   schedule written with mma.sync:
+//   - one block of 8 warps owns BQ = 128 query rows of one (b, h), 16 rows
+//     a warp; Q is copied to shared memory once and held in registers as
+//     MMA A fragments for the whole key loop;
+//   - the key loop runs from the window's lower edge to the causal limit,
+//     BK = 64 keys a tile; K and V tiles stay in their 16-bit type in
+//     XOR-swizzled shared memory, copied by cp.async (16 bytes a copy, or 8,
+//     4 or 2 bytes where rows are not 16-byte aligned, as at d = 100) into a
+//     ring of STAGES = 2, so the next tile is in flight while this one is
+//     consumed;
+//   - S = Q·Kᵀ by mma.sync.m16n8k16 (f32 accumulate; products of 16-bit
+//     values are exact in f32), K through ldmatrix; the online softmax runs
+//     on the accumulators in registers, row max and row sum by quad
+//     shuffles, and masks only the tiles that cross the causal diagonal,
+//     the window's edge or the end of S;
+//   - P·V as two MMAs per fragment, on p_hi = T(p) and p_lo = T(p - p_hi),
+//     V through ldmatrix.trans; P goes from the S accumulators to A
+//     fragments in registers, never through shared memory. P rounded once
+//     to 16 bits, as FlashAttention-2 and SDPA do, misses the port's
+//     per-element limit against the f32 plain version (one output ulp) by
+//     two orders of magnitude; hi + lo keeps it within (attention.cuh,
+//     split_pair; tests/test_torch_attention.py emulates both);
+//   - head dims d <= 128 are padded to DP = 16·NC with zeros in shared
+//     memory; query tiles are scheduled longest first.
+//   At d = 128: 32 KiB of Q and STAGES·2 tiles of 16 KiB = 96 KiB of dynamic
+//   shared memory, one block (8 warps) per SM; ptxas (CUDA 12.8) gives 255
+//   registers and 88 bytes of spill stores and loads (fewer registers and
+//   no spills at d <= 64). On an H100 80GB HBM3 at 700 W it takes 0.88-0.90
+//   ms at the prefill shape above, 15-16% of the bound. Variants with 4
+//   warps (twice the L2 traffic), 3 stages or 32-key tiles (three blocks
+//   per SM) are no faster (scripts/flash_variants.py, PERF.md), so neither
+//   L2, copy latency nor occupancy holds it back; what does is not measured
+//   (no profiler counters on that machine).
+//
+// * f32: the FMA kernel of the port's first version (namespace f32fma), kept
+//   as it was. Tensor cores take f32 only as TF32, which keeps 10 bits of
+//   mantissa: the f32 route's per-element limit (atol 4e-6, rtol 0) rules
+//   that out. One block of 256 threads per 64 query rows, four threads per
+//   row, K and V tiles widened to f32 in shared memory, scalar fmaf.
+//
+// What the first version (now the f32 route) measured when it served every
+// dtype, on an H100 80GB HBM3 at 700 W, bf16 at the prefill shape above:
+// 10.23-10.34 ms, 1.3% of the bound and 20% of the f32 FMA rate, against
+// 0.256-0.265 ms for SDPA; its 128 registers spilled 68 bytes.
 #include "attention.cuh"
 
 #include <math.h>
 
 namespace {
+
+namespace f32fma {
 
 constexpr int BQ = 64;               // query rows per block
 constexpr int BK = 64;               // keys per shared-memory tile
@@ -167,6 +198,184 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+}  // namespace f32fma
+
+namespace tc {
+
+constexpr int WARPS = 8;             // of 16 query rows each
+constexpr int BQ = 16 * WARPS;       // query rows per block
+constexpr int THREADS = 32 * WARPS;
+constexpr int BK = 64;               // keys per tile
+constexpr int STAGES = 2;            // K/V tiles in the ring
+constexpr int MIN_BLOCKS = 1;        // per SM, for the register budget
+
+template <int NC>
+__host__ __device__ constexpr int smem_bytes() {
+  return (BQ + 2 * STAGES * BK) * 16 * NC * 2;  // Q, then K, V per stage
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out, int S,
+                      int d, float scale, int causal, int window, int vec) {
+  constexpr int DP = 16 * NC;        // padded head dim
+  constexpr int QB = BQ * DP * 2;    // bytes of the Q tile
+  constexpr int TILE = BK * DP * 2;  // bytes of a K or V tile
+  constexpr int NO = DP / 8;         // output n-tiles (8 dims each)
+  extern __shared__ __align__(1024) char smem[];
+
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;
+  const int64_t base =
+      (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
+      static_cast<int64_t>(S) * d;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;   // >= 1
+
+  auto stage = [&](int it) { return smem + QB + 2 * TILE * (it % STAGES); };
+  auto load_kv = [&](int it) {
+    const int k0 = k_begin + it * BK;
+    const int64_t off = base + static_cast<int64_t>(k0) * d;
+    attn::load_tile<T, BK, DP, THREADS>(stage(it), k + off, S - k0, d, vec,
+                                        tid);
+    attn::load_tile<T, BK, DP, THREADS>(stage(it) + TILE, v + off, S - k0, d,
+                                        vec, tid);
+  };
+  attn::load_tile<T, BQ, DP, THREADS>(
+      smem, q + base + static_cast<int64_t>(q0) * d, S - q0, d, vec, tid);
+  load_kv(0);
+  attn::cp_async_commit();
+#pragma unroll
+  for (int it = 1; it < STAGES - 1; ++it) {
+    if (it < n_tiles) load_kv(it);
+    attn::cp_async_commit();
+  }
+
+  // Per-lane ldmatrix offsets: A (Q) rows lane % 16, column half lane / 16;
+  // B (K) rows lane % 8 + 8 * (lane / 16), column half (lane / 8) % 2;
+  // B (V, transposed) rows lane % 8 + 8 * ((lane / 8) % 2), column half
+  // lane / 16.
+  const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0 + 8
+
+  uint32_t qf[NC][4];
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    attn::cp_async_wait<STAGES - 2>();
+    __syncthreads();                 // tile it landed; tile it - 1 consumed
+    if (it == 0) {
+      const uint32_t qs = attn::smem_addr(smem);
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk)
+        attn::ldmatrix_x4(
+            qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2), qf[kk]);
+    }
+    if (it + STAGES - 1 < n_tiles) load_kv(it + STAGES - 1);
+    attn::cp_async_commit();
+
+    const int k0 = k_begin + it * BK;
+    const uint32_t ks = attn::smem_addr(stage(it));
+    const uint32_t vs = ks + TILE;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t b[4];
+        attn::ldmatrix_x4(
+            ks + attn::swizzle<DP>(((np * 16 + k_row) * DP + kk * 16 + k_col) * 2),
+            b);
+        attn::mma_16816<T>(s[2 * np], qf[kk], b[0], b[1]);
+        attn::mma_16816<T>(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // Masks, only on tiles that cross the causal diagonal, the window's
+    // lower edge or the end of S.
+    const bool edge = (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window) ||
+                      k0 + BK > S;
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          const int row = row0 + (e >> 1) * 8;
+          bool valid = key < S;
+          if (causal) valid = valid && key <= row;
+          if (window > 0) valid = valid && key > row - window;
+          if (!valid) s[n][e] = -INFINITY;
+        }
+      }
+    }
+    attn::online_softmax(s, o, m, l, scale_log2);
+
+    // O += P·V, P split into hi and lo, 16 keys per MMA step.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      attn::split_pair<T>(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      attn::split_pair<T>(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      attn::split_pair<T>(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      attn::split_pair<T>(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t b[4];
+        attn::ldmatrix_x4_trans(
+            vs + attn::swizzle<DP>(((kk * 16 + v_row) * DP + np * 16 + v_col) * 2),
+            b);
+        attn::mma_16816<T>(o[2 * np], hi, b[0], b[1]);
+        attn::mma_16816<T>(o[2 * np], lo, b[0], b[1]);
+        attn::mma_16816<T>(o[2 * np + 1], hi, b[2], b[3]);
+        attn::mma_16816<T>(o[2 * np + 1], lo, b[2], b[3]);
+      }
+    }
+  }
+  attn::cp_async_wait<0>();          // no copy outlives the block
+
+  const bool pairs =
+      d % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float inv_l = 1.0f / fmaxf(attn::quad_sum(l[r]), 1e-30f);
+    if (row >= S) continue;
+    T* o_row = out + base + static_cast<int64_t>(row) * d;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float x0 = o[n][2 * r] * inv_l, x1 = o[n][2 * r + 1] * inv_l;
+      if (pairs && c + 1 < d) {
+        *reinterpret_cast<uint32_t*>(o_row + c) = attn::pack_pair<T>(x0, x1);
+      } else {
+        if (c < d) o_row[c] = attn::from_f32<T>(x0);
+        if (c + 1 < d) o_row[c + 1] = attn::from_f32<T>(x1);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 struct Launch {
   const void* q;
   const void* k;
@@ -176,17 +385,32 @@ struct Launch {
   float scale;
   cudaStream_t stream;
 
+  // f32 takes the FMA kernel, f16 and bf16 the tensor-core kernel.
   template <typename T, int NC>
   cudaError_t operator()() const {
-    const size_t smem = 2 * BK * 16 * NC * sizeof(float);
-    cudaError_t err = attn::allow_smem(
-        reinterpret_cast<const void*>(flash_attn_kernel<T, NC>), smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((s + BQ - 1) / BQ, h, b);
-    flash_attn_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), s, d, scale, causal,
-        window);
+    if constexpr (std::is_same_v<T, float>) {
+      const size_t smem = 2 * f32fma::BK * 16 * NC * sizeof(float);
+      cudaError_t err = attn::allow_smem(
+          reinterpret_cast<const void*>(f32fma::flash_attn_kernel<T, NC>), smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((s + f32fma::BQ - 1) / f32fma::BQ, h, b);
+      f32fma::flash_attn_kernel<T, NC><<<grid, f32fma::THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), s, d, scale, causal,
+          window);
+    } else {
+      constexpr size_t smem = tc::smem_bytes<NC>();
+      cudaError_t err = attn::allow_smem(
+          reinterpret_cast<const void*>(tc::flash_attn_kernel<T, NC>), smem);
+      if (err != cudaSuccess) return err;
+      const void* rows[3] = {q, k, v};
+      const int vec = attn::copy_width(d, rows, 3);
+      const dim3 grid((s + tc::BQ - 1) / tc::BQ, h, b);
+      tc::flash_attn_kernel<T, NC><<<grid, tc::THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), s, d, scale, causal,
+          window, vec);
+    }
     return cudaGetLastError();
   }
 };

@@ -12,7 +12,9 @@ group <= 16. Positions at or past lens[b] are masked, never read: the cache
 needs no padding.
 
 On the card the cache axis is cut into splits, each a thread block, and a
-second kernel combines them; `DECODE_LAUNCHES` counts the pair as one.
+second kernel combines them; `DECODE_LAUNCHES` counts the pair as one. f16
+and bf16 take the tensor-core split kernel, f32 the f32 FMA one
+(`flash_attn.ROUTES`).
 `decode_attention_blocks` dispatches on where the tensors lie: CPU tensors
 take the plain version, CUDA tensors launch the kernels or raise.
 """
@@ -26,15 +28,21 @@ from repro_torch.kernels.build import entry
 from repro_torch.kernels.flash_attn import (
     DTYPE_CODES,
     MAX_HEAD_DIM,
+    ROUTES,
     no_grad_guard,
 )
 
-# Calls of `decode_attention_cuda` in this process (split + combine each).
+# Calls of `decode_attention_cuda` in this process (split + combine each),
+# in all and by route.
 DECODE_LAUNCHES = 0
+DECODE_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 
 MAX_GROUP = 16         # must match MAX_GROUP in csrc/decode_attn.cu
 TILE = 64              # cache positions per shared tile (TILE in the source)
-BLOCKS_PER_SM = 4      # split blocks wanted for each SM of the card
+# Split blocks wanted for each SM of the card: two 16-bit split blocks fit
+# on an SM at d = 128 (100 KiB of shared memory each), so 8 is four waves,
+# and the last, partly filled wave costs a quarter of one at most.
+BLOCKS_PER_SM = 8
 _MAX_CHUNK = 4096      # positions per split, so long caches split anyway
 
 
@@ -135,6 +143,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"decode_attn kernel launch failed: CUDA error "
                            f"{err}")
     DECODE_LAUNCHES += 1
+    DECODE_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
     return out
 
 

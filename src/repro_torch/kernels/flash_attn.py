@@ -10,8 +10,10 @@ accumulator in float32, the output in q's dtype; a row with no valid key
 gives 0. q, k, v are (B, H, S, d) of one dtype (float32, float16 or
 bfloat16), d <= 128; S need not be a multiple of any block.
 
-`flash_attention_blocks` dispatches on where the tensors lie: CPU tensors
-take the plain version, CUDA tensors launch the kernel or raise.
+On the card f16 and bf16 take the tensor-core kernel and f32 the f32 FMA
+kernel (`ROUTES`; the source says why). `flash_attention_blocks`
+dispatches on where the tensors lie: CPU tensors take the plain version,
+CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -21,10 +23,15 @@ import torch
 
 from repro_torch.kernels.build import entry
 
-# Kernel launches made by `flash_attention_cuda` in this process.
+# Kernel launches made by `flash_attention_cuda` in this process, in all
+# and by route.
 FLASH_LAUNCHES = 0
+FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# The kernel each dtype takes in csrc/flash_attn.cu and csrc/decode_attn.cu.
+ROUTES = {torch.float32: "f32_fma", torch.float16: "tensor_core",
+          torch.bfloat16: "tensor_core"}
 MAX_HEAD_DIM = 128     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
 
 
@@ -112,6 +119,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
                            f"{err}")
     FLASH_LAUNCHES += 1
+    FLASH_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
     return out
 
 

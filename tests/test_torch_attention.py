@@ -204,6 +204,79 @@ def test_port_decode_oracle_matches_reference_oracle():
     np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
 
 
+# The card's per-element limit on the 16-bit kernels against their plain
+# versions (chip_smoke.py ATTN_TOL, tests/test_torch_gpu.py): rtol, atol.
+ATTN_TOL = {torch.bfloat16: (2.0 ** -7, 4e-6),
+            torch.float16: (2.0 ** -10, 4e-6)}
+
+
+def _tensor_core_arithmetic(q, k, v, valid, parts):
+    """The 16-bit kernels' arithmetic, emulated on the CPU: scores as f32
+    sums of exact products of 16-bit q and k (what mma.sync accumulates),
+    the softmax in f32, and P·V as `parts` 16-bit pieces of P (p_hi =
+    T(p), p_lo = T(p - p_hi), ...), each multiplied with V in f32 and
+    summed. `valid` masks the scores (True = attend)."""
+    dt = q.dtype
+    sc = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    sc = sc.masked_fill(~valid, float("-inf"))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0))
+    rest, acc = p, torch.zeros(p.shape[:-1] + (v.shape[-1],))
+    for _ in range(parts):
+        piece = rest.to(dt).float()
+        acc = acc + piece @ v.float()
+        rest = rest - piece
+    return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(dt)
+
+
+def _over_limit(out, plain):
+    """The largest |out - plain| / (rtol·|plain| + atol)."""
+    rtol, atol = ATTN_TOL[plain.dtype]
+    delta = (out.float() - plain.float()).abs()
+    return float((delta / (rtol * plain.float().abs() + atol)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,h,s,d,window", [
+    (1, 4, 1024, 128, 0), (2, 3, 130, 64, 0), (1, 2, 200, 128, 33)])
+def test_split_p_meets_the_flash_kernels_limit(b, h, s, d, window, dtype):
+    """Why the tensor-core kernels split P: P·V on P rounded once to 16
+    bits misses the per-element limit against the f32 plain version; on
+    p_hi + p_lo it meets it (causal masks; a window where given)."""
+    rng = np.random.default_rng(b * s + d)
+    q, k, v = (torch.from_numpy(_normal(rng, (b, h, s, d))).to(dtype)
+               for _ in range(3))
+    plain = p_flash.flash_attention_plain(q, k, v, causal=True,
+                                          window=window)
+    pos = torch.arange(s)
+    valid = pos[None, :] <= pos[:, None]
+    if window:
+        valid &= pos[None, :] > pos[:, None] - window
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 2),
+                       plain) <= 1.0
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 1),
+                       plain) > 1.0
+
+
+@pytest.mark.parametrize("b,n_kv,group,s,d", [
+    (4, 4, 8, 161, 128),     # lm_serve's cache at Yi-6B width
+    (2, 2, 16, 1000, 64)])
+def test_split_p_meets_the_decode_kernels_limit(b, n_kv, group, s, d):
+    rng = np.random.default_rng(s + group)
+    q = torch.from_numpy(_normal(rng, (b, n_kv, group, d))).bfloat16()
+    k, v = (torch.from_numpy(_normal(rng, (b, n_kv, s, d))).bfloat16()
+            for _ in range(2))
+    lens = torch.from_numpy(rng.integers(1, s + 1, size=(b,)).astype(
+        np.int32))
+    lens[0] = s
+    plain = p_dec.decode_attention_plain(q, k, v, lens)
+    valid = (torch.arange(s)[None, :] < lens[:, None])[:, None, None, :]
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 2),
+                       plain) <= 1.0
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 1),
+                       plain) > 1.0
+
+
 @pytest.mark.parametrize("b,n_kv,s", [
     (4, 4, 161),            # serve: batch 4, Yi-6B's 4 KV heads
     (128, 4, 32768),        # decode_32k

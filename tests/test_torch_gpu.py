@@ -318,6 +318,13 @@ def _attn_inputs(shape, dtype, dev, seed):
     (1, 1, 77, 100, False, 0),      # d a multiple of no tile
     (2, 2, 65, 8, False, 9),
     (1, 4, 1, 128, True, 0),
+    # The edges of the 64-row query and key tiles of the 16-bit kernel.
+    (1, 4, 63, 128, True, 0),
+    (1, 4, 64, 128, True, 0),
+    (1, 4, 65, 128, True, 0),
+    (1, 4, 129, 128, True, 0),
+    (1, 2, 300, 128, True, 100),    # a window whose edge crosses tiles
+    (2, 2, 129, 64, False, 70),
 ])
 def test_flash_kernel_matches_plain_version(b, h, s, d, causal, window,
                                             dtype):
@@ -325,10 +332,12 @@ def test_flash_kernel_matches_plain_version(b, h, s, d, causal, window,
     from repro_torch.kernels import flash_attn as fmod
     q, k, v = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d)
     plain = fmod.flash_attention_plain(q, k, v, causal=causal, window=window)
-    before = fmod.FLASH_LAUNCHES
+    route = fmod.ROUTES[dtype]
+    before = fmod.FLASH_LAUNCHES, fmod.FLASH_ROUTE_LAUNCHES[route]
     out = fmod.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fmod.FLASH_LAUNCHES == before + 1
+    assert (fmod.FLASH_LAUNCHES, fmod.FLASH_ROUTE_LAUNCHES[route]) == (
+        before[0] + 1, before[1] + 1)
     assert out.dtype == dtype and out.shape == q.shape
     rtol, atol = ATTN_TOL[dtype]
     np.testing.assert_allclose(out.float().cpu().numpy(),
@@ -338,32 +347,48 @@ def test_flash_kernel_matches_plain_version(b, h, s, d, causal, window,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
-@pytest.mark.parametrize("b,n_kv,group,s,d", [
-    (4, 4, 8, 161, 128),     # serve's cache at Yi-6B width
-    (3, 2, 4, 1000, 64),
-    (2, 3, 1, 37, 16),       # MHA
-    (2, 1, 16, 5000, 72),    # the largest group; several splits
-    (1, 2, 8, 1, 128),
-])
-def test_decode_kernel_matches_plain_version(b, n_kv, group, s, d, dtype):
+@pytest.mark.parametrize("b,n_kv,group,s,d,lens", [
+    (4, 4, 8, 161, 128, None),     # serve's cache at Yi-6B width
+    (3, 2, 4, 1000, 64, None),
+    (2, 3, 1, 37, 16, None),       # MHA
+    (2, 1, 16, 5000, 72, None),    # the largest group; several splits
+    (1, 2, 8, 1, 128, None),
+    # lens one below, at and one above the edges of 64-position tiles (the
+    # 16-bit kernel's ring stages), groups of 1, 5 and 16.
+    (3, 4, 1, 257, 128, (127, 128, 129)),
+    (2, 2, 5, 300, 128, (64, 65)),
+    (2, 1, 16, 200, 128, (63, 129)),
+    # 64 (b, kv head) pairs on an H100 give splits of three tiles: lens at
+    # the splits' edges and the cache's end.
+    (8, 8, 8, 4096, 128, (191, 192, 193, 4095, 4096, 63, 64, 65)),
+], ids=lambda x: "lens" + "_".join(map(str, x)) if isinstance(x, tuple)
+    else None)
+def test_decode_kernel_matches_plain_version(b, n_kv, group, s, d, lens,
+                                             dtype):
     dev = _card()
     from repro_torch.kernels import decode_attn as dmod
     gen = torch.Generator().manual_seed(s + d)
     q = torch.randn((b, n_kv, group, d), generator=gen).to(dev, dtype)
     k, v = (torch.randn((b, n_kv, s, d), generator=gen).to(dev, dtype)
             for _ in range(2))
-    lens = torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
-    lens[0] = s
-    if b > 1:
-        lens[1] = 1
-    if b > 2:
-        lens[2] = 0                  # an empty sequence gives 0
+    if lens is None:                 # drawn; the first s, the second 1
+        lens = torch.randint(1, s + 1, (b,), generator=gen,
+                             dtype=torch.int32)
+        lens[0] = s
+        if b > 1:
+            lens[1] = 1
+        if b > 2:
+            lens[2] = 0              # an empty sequence gives 0
+    else:
+        lens = torch.tensor(lens, dtype=torch.int32)
     lens = lens.to(dev)
     plain = dmod.decode_attention_plain(q, k, v, lens)
-    before = dmod.DECODE_LAUNCHES
+    route = dmod.ROUTES[dtype]
+    before = dmod.DECODE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES[route]
     out = dmod.decode_attention_cuda(q, k, v, lens)
     torch.cuda.synchronize()
-    assert dmod.DECODE_LAUNCHES == before + 1
+    assert (dmod.DECODE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES[route]) == (
+        before[0] + 1, before[1] + 1)
     assert out.dtype == dtype and out.shape == q.shape
     rtol, atol = ATTN_TOL[dtype]
     np.testing.assert_allclose(out.float().cpu().numpy(),
