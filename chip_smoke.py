@@ -12,12 +12,17 @@ non-zero without a result line:
                both directions.
   4. kernel  — the SpMM kernel against its plain PyTorch version on the
                card: at the serving path's shape (the rUSA graph's first
-               streamed segment against its resident H), on the training
-               plan's first transposed segment, on a ragged shape, f16
-               operands and empty row blocks.
+               streamed segment against its resident H), with bf16 H over
+               f32 and over bf16 bricks there, on the training plan's first
+               transposed segment and on its 422-slot hub row block alone,
+               on socLJ1's first serving segment, on a ragged shape, with a
+               zeroed brick in every row block, with dense bricks, f16
+               operands and empty row blocks; every case must take the
+               "zero_skip" route.
   5. fused   — the fused GCN-layer kernel against its plain version: the
                training plan's first segment at gcn_paper width (F_out 256
-               and 64), a ragged shape and empty row blocks.
+               and 64), a ragged shape and empty row blocks, each on the
+               "grouped" route.
   6. serve   — the port's `ServingEngine` on the card, two gcn_paper-width
                graphs, two epochs of four requests each, every output held
                against a float64 scipy reference of the request semantics;
@@ -30,6 +35,8 @@ non-zero without a result line:
                AdamW steps; the first step's loss and gradients against
                float64, the loss must fall, SpMM launches must equal the
                segments streamed forward and backward.
+               serve, layer and train fail unless every SpMM launch took
+               the "zero_skip" route and every fused one "grouped".
   9. attn    — the flash-attention and GQA flash-decode kernels against
                their plain versions: flash at Yi-6B's prefill shape (causal),
                with a window of 512, at a ragged S and in f32; decode at
@@ -53,7 +60,11 @@ non-zero without a result line:
                every one of lm_check the f32 FMA route.
  12. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
-               decode also at lm_serve's own shape.
+               the GCN kernels' bound counted on the bricks' nonzeros and,
+               beside it, on every brick entry, and the fused layer's also
+               with X·W at the rate of its three TF32 products; the SpMM
+               also on socLJ1's first serving segment; decode also at
+               lm_serve's own shape.
  13. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
@@ -78,8 +89,13 @@ DEV = "cuda"
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12       # H100 SXM bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12       # H100 SXM TF32 tensor cores, dense
 MAIN_TOL = 1e-4                # f32, sums in another order
 F16_TOL = 1e-2
+# bf16 bricks and H against the plain version at the serving shape: every
+# bf16 value converts to f32 exactly and both sides sum f32 products, so
+# they differ only in the order of the sums, as f32 operands do.
+BF16_TOL = 1e-4
 SERVE_TOL = 1e-3               # f32 engine vs float64 after three layers
 # f32 training path vs float64, as max |Δ| over the reference's largest
 # magnitude: dW and db sum up to 239,400 row terms, whose rounding error
@@ -150,7 +166,10 @@ def ptxas_table(report: str) -> list:
         out = subprocess.run([cufilt], input="\n".join(names),
                              capture_output=True, text=True, timeout=60)
         if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
-            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+            names = [re.sub(r"\(bool\)([01])",
+                            lambda m: ("false", "true")[int(m.group(1))],
+                            n.replace("(anonymous namespace)::", "")
+                            .replace("<unnamed>::", "")).split("(")[0]
                      for n in out.stdout.splitlines()]
     return [f"{n}: {'; '.join(p)}" for n, p in zip(names, props)]
 
@@ -198,15 +217,62 @@ def brick_tensors(ell):
             for x in (ell.blocks, ell.col_tile, ell.n_tiles)]
 
 
-def phase_kernel(kmod, main_ell, h_main, bwd_ell, g_bwd):
-    """Kernel vs plain version on the card; returns the main-shape error."""
+def zero_gcn_counts(kmod) -> None:
+    """The Block-ELL kernels' launch counts, in all and by route, to 0."""
+    kmod.LAUNCHES = kmod.FUSED_LAUNCHES = 0
+    for routes in (kmod.SPMM_ROUTE_LAUNCHES, kmod.FUSED_ROUTE_LAUNCHES):
+        for route in routes:
+            routes[route] = 0
+
+
+# Launches by route of each GCN main path, as check_gcn_routes read them.
+GCN_ROUTES = {}
+
+
+def check_gcn_routes(label: str, kmod, spmm: int, fused: int = 0) -> dict:
+    """Every SpMM and fused launch counted since zero_gcn_counts took the
+    zero-skipping route; returns the launches by route and keeps them in
+    GCN_ROUTES[label]."""
+    routes = {"bcsr_spmm": dict(kmod.SPMM_ROUTE_LAUNCHES),
+              "fused_gcn_layer": dict(kmod.FUSED_ROUTE_LAUNCHES)}
+    if (routes["bcsr_spmm"]["zero_skip"], routes["fused_gcn_layer"][
+            "grouped"]) != (spmm, fused) or (
+            sum(routes["bcsr_spmm"].values()),
+            sum(routes["fused_gcn_layer"].values())) != (spmm, fused):
+        raise AssertionError(f"{label}: launches by route {routes}, want "
+                             f"{spmm} SpMM on zero_skip and {fused} fused "
+                             "on grouped")
+    GCN_ROUTES[label] = routes
+    return routes
+
+
+def launch_route(routes: dict, fn):
+    """Calls `fn` once; returns its output and the one route whose launch
+    count (in `routes`, a kernel module's counters) it raised."""
+    before = dict(routes)
+    out = fn()
+    taken = [r for r in routes if routes[r] != before[r]]
+    if len(taken) != 1:
+        raise AssertionError(f"one launch raised the counts of {taken}")
+    return out, taken[0]
+
+
+def phase_kernel(kmod, main_ell, h_main, bwd_ell, g_bwd, lj_ell, h_lj):
+    """Kernel vs plain version on the card; returns the largest error at
+    the main paths' shapes. Every case has 8 x 8 bricks and must take the
+    "zero_skip" route."""
+    import types
+
     import numpy as np
     import torch
     from repro_torch.sparse import csr_from_dense, tile_csr_to_block_ell
 
-    def compare(ell, h, tol, label, relative=False):
+    def compare(ell, h, tol, label, relative=False, blocks=None):
         args = brick_tensors(ell)
-        out = kmod.bcsr_spmm_cuda(*args, h, bm=ell.bm, bk=ell.bk)
+        if blocks is not None:
+            args[0] = blocks
+        out, route = launch_route(kmod.SPMM_ROUTE_LAUNCHES, lambda: (
+            kmod.bcsr_spmm_cuda(*args, h, bm=ell.bm, bk=ell.bk)))
         plain = kmod.bcsr_spmm_plain(*args, h, bm=ell.bm, bk=ell.bk)
         sync()
         err = float((out - plain).abs().max())
@@ -215,10 +281,12 @@ def phase_kernel(kmod, main_ell, h_main, bwd_ell, g_bwd):
         if not err <= limit:
             raise AssertionError(f"{label}: max |kernel - plain| {err} > "
                                  f"{limit}")
-        return {"case": label, "blocks": list(ell.blocks.shape),
-                "blocks_dtype": str(ell.blocks.dtype),
+        if route != "zero_skip":
+            raise AssertionError(f"{label}: took route {route}")
+        return {"case": label, "blocks": list(args[0].shape),
+                "blocks_dtype": str(args[0].dtype).split(".")[-1],
                 "h": list(h.shape), "h_dtype": str(h.dtype).split(".")[-1],
-                "max_abs_err": err, "max_abs_plain": scale,
+                "route": route, "max_abs_err": err, "max_abs_plain": scale,
                 "tol": f"{tol} x max |plain|" if relative else tol}
 
     rng = np.random.default_rng(1)
@@ -227,12 +295,43 @@ def phase_kernel(kmod, main_ell, h_main, bwd_ell, g_bwd):
              # output: f32 rounding, held to the output's scale.
              compare(bwd_ell, g_bwd, REL_TOL,
                      "training plan's transposed rUSA segment 0, F=256",
-                     relative=True)]
+                     relative=True),
+             # 107 of its 208 row blocks pass the first kernel's 64 slots
+             # and sum up to 512 bricks per output: held to its scale.
+             compare(lj_ell, h_lj, REL_TOL,
+                     "serving's socLJ1 segment 0, F=1024", relative=True)]
+    h_bf16 = h_main.bfloat16()
+    cases.append(compare(main_ell, h_bf16, BF16_TOL,
+                         "serving shape, f32 bricks, bf16 H"))
+    cases.append(compare(main_ell, h_bf16, BF16_TOL,
+                         "serving shape, bf16 bricks and H",
+                         blocks=brick_tensors(main_ell)[0].bfloat16()))
+    # The hub: Aᵀ's row block with the most slots, alone, at its ell_w, so
+    # its tail runs through the second zero-skip kernel.
+    hub = int(np.argmax(bwd_ell.n_tiles))
+    hub_ell = types.SimpleNamespace(
+        bm=bwd_ell.bm, bk=bwd_ell.bk,
+        blocks=bwd_ell.blocks[hub:hub + 1], col_tile=bwd_ell.col_tile[
+            hub:hub + 1], n_tiles=bwd_ell.n_tiles[hub:hub + 1])
+    case = compare(hub_ell, g_bwd, REL_TOL,
+                   "transposed segment's hub row block alone", relative=True)
+    case["n_tiles"] = int(bwd_ell.n_tiles[hub])
+    cases.append(case)
     dense = ((rng.random((1003, 997)) < 0.01)
              * rng.standard_normal((1003, 997))).astype(np.float32)
     ragged = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
     cases.append(compare(ragged, torch.randn(997, 200, device=DEV),
                          MAIN_TOL, "ragged 1003x997, F=200"))
+    # A valid brick of zeros: no column of it is gathered.
+    zeroed = brick_tensors(ragged)[0]
+    zeroed[:, 0] = 0.0
+    cases.append(compare(ragged, torch.randn(997, 200, device=DEV),
+                         MAIN_TOL, "first brick of every row block zeroed",
+                         blocks=zeroed))
+    full = tile_csr_to_block_ell(csr_from_dense(rng.standard_normal(
+        (64, 64)).astype(np.float32)), bm=8, bk=8)
+    cases.append(compare(full, torch.randn(64, 256, device=DEV), MAIN_TOL,
+                         "dense bricks, all 8 columns nonzero"))
     f16 = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8,
                                 dtype=np.float16)
     cases.append(compare(f16, torch.randn(997, 256, device=DEV).half(),
@@ -243,7 +342,7 @@ def phase_kernel(kmod, main_ell, h_main, bwd_ell, g_bwd):
     cases.append(compare(empty, torch.randn(40, 64, device=DEV),
                          MAIN_TOL, "empty row blocks"))
     emit({"phase": "kernel", "cases": cases})
-    return max(c["max_abs_err"] for c in cases[:2])
+    return max(c["max_abs_err"] for c in cases[:3])
 
 
 def phase_fused(kmod, main_ell, h_main):
@@ -260,7 +359,8 @@ def phase_fused(kmod, main_ell, h_main):
         w = torch.randn((f, f_out), device=DEV, generator=gen) * f ** -0.5
         b = 0.1 * torch.randn((f_out,), device=DEV, generator=gen)
         args = brick_tensors(ell)
-        out = kmod.fused_gcn_layer_cuda(*args, h, w, b, bm=ell.bm, bk=ell.bk)
+        out, route = launch_route(kmod.FUSED_ROUTE_LAUNCHES, lambda: (
+            kmod.fused_gcn_layer_cuda(*args, h, w, b, bm=ell.bm, bk=ell.bk)))
         plain = kmod.fused_gcn_layer_plain(*args, h, w, b, bm=ell.bm,
                                            bk=ell.bk)
         sync()
@@ -268,9 +368,11 @@ def phase_fused(kmod, main_ell, h_main):
         if not err <= MAIN_TOL:
             raise AssertionError(f"{label}: max |kernel - plain| {err} > "
                                  f"{MAIN_TOL}")
+        if route != "grouped":
+            raise AssertionError(f"{label}: took route {route}")
         return {"case": label, "blocks": list(ell.blocks.shape),
-                "h": list(h.shape), "w": [f, f_out], "max_abs_err": err,
-                "tol": MAIN_TOL}
+                "h": list(h.shape), "w": [f, f_out], "route": route,
+                "max_abs_err": err, "tol": MAIN_TOL}
 
     rng = np.random.default_rng(3)
     cases = [compare(main_ell, h_main, h_main.shape[1],
@@ -336,7 +438,7 @@ def phase_serve(kmod, graphs, args):
         refs[name] = reference_outputs(a, requests[name], weights)
     setup_s = time.perf_counter() - t0
 
-    kmod.LAUNCHES = 0                      # the main path starts here
+    zero_gcn_counts(kmod)                  # the main path starts here
     epochs = []
     for epoch in range(args.epochs):
         row = {"epoch": epoch, "graphs": {}}
@@ -370,6 +472,7 @@ def phase_serve(kmod, graphs, args):
     if launches != segments or launches == 0:
         raise AssertionError(f"kernel launches {launches} != segments "
                              f"streamed {segments}")
+    routes = check_gcn_routes("serve", kmod, launches)
     for name in graphs:
         first, last = (epochs[0]["graphs"][name]["uploaded_bytes"],
                        epochs[-1]["graphs"][name]["uploaded_bytes"])
@@ -384,6 +487,7 @@ def phase_serve(kmod, graphs, args):
                             "layers": [list(w.shape) for w in weights]}
                      for name, a in graphs.items()},
           "epochs": epochs, "kernel_launches": launches,
+          "launches_by_route": routes["bcsr_spmm"],
           "segments_streamed": segments})
     return launches
 
@@ -443,7 +547,7 @@ def phase_layer(kmod, eng, a, a64, seed: int):
     leaves = [t.to(DEV).requires_grad_(True) for t in (h, w, b)]
     sync()
 
-    kmod.LAUNCHES = kmod.FUSED_LAUNCHES = 0       # the main path starts here
+    zero_gcn_counts(kmod)                         # the main path starts here
     t0 = time.perf_counter()
     y = eng.gcn_layer(a, *leaves)
     sync()
@@ -461,6 +565,7 @@ def phase_layer(kmod, eng, a, a64, seed: int):
     if len(bwd) != 2 or launches != sum(bwd):
         raise AssertionError(f"SpMM launches {launches} != recompute + "
                              f"transposed segments {bwd}")
+    routes = check_gcn_routes("layer", kmod, launches, fused)
     ref = [t.detach().to(torch.float64).requires_grad_(True)
            for t in (h, w, b)]
     mask = (y.detach() > 0).cpu()                 # see REL_TOL
@@ -474,6 +579,7 @@ def phase_layer(kmod, eng, a, a64, seed: int):
     emit({"phase": "layer", "n": a.n_rows, "width": width,
           "forward_segments": fwd, "backward_segments": bwd,
           "fused_launches": fused, "spmm_launches": launches,
+          "launches_by_route": routes,
           "forward_s": t1 - t0, "backward_s": t2 - t1,
           "rel_err_vs_float64": errs, "tol": REL_TOL})
     return fused, launches
@@ -549,11 +655,12 @@ def phase_train(kmod, eng, a, a64, seed: int):
                  for k, g in zip(leaves, grads)})
     check_errors("train", errs)
 
-    kmod.LAUNCHES = 0                             # the main path starts here
+    zero_gcn_counts(kmod)                         # the main path starts here
     trained, info = gcn_train_loop(CONFIG, eng, a, h0_dev, labels_dev,
                                    {k: v.to(DEV) for k, v in params.items()},
                                    n_epochs=TRAIN_STEPS, lr=TRAIN_LR)
     launches = kmod.LAUNCHES                      # ... and ends here
+    routes = check_gcn_routes("train", kmod, launches)
 
     # One more step's gradient, warm, timed by direction.
     leaves = {k: v.requires_grad_(True) for k, v in trained.items()}
@@ -593,31 +700,59 @@ def phase_train(kmod, eng, a, a64, seed: int):
                           s.uploaded_bytes for s in
                           ep["forward_stream"] + ep["backward_stream"])}
                      for ep in info["epochs"]],
-          "spmm_launches": launches, "segments_streamed": segments})
+          "spmm_launches": launches,
+          "launches_by_route": routes["bcsr_spmm"],
+          "segments_streamed": segments})
     return launches
 
 
-def brick_work(args, ell, k_rows: int, f: int, h_itemsize: int) -> tuple:
-    """(valid bricks, distinct H tiles, bytes, FLOPs) of the aggregation
-    for these inputs: the valid bricks read once, the H tiles they reference
-    read once, col_tile and n_tiles read once; 2*bm*bk FLOPs per valid brick
-    and feature column. The output is the caller's to add."""
+def brick_work(args, ell, k_rows: int, f: int, h_itemsize: int) -> dict:
+    """What the aggregation needs for these inputs, counted two ways. Both
+    read the valid bricks, col_tile and n_tiles once. By bricks: the H tiles
+    the valid bricks reference, read once, and 2*bm*bk FLOPs per valid brick
+    and feature column. By nonzeros: the H rows under the bricks' nonzero
+    columns, read once, and 2 FLOPs per nonzero and feature column. The
+    output is the caller's to add."""
     import torch
     blocks, col_tile, n_tiles = args
     slots = torch.arange(col_tile.shape[1], device=col_tile.device)[None, :]
     valid = (slots < n_tiles.long()[:, None]) & (col_tile >= 0)
     n_valid = int(valid.sum())
-    h_tiles = int(torch.unique(col_tile[valid]).numel())
-    nbytes = (n_valid * ell.bm * ell.bk * ell.blocks.dtype.itemsize
-              + col_tile.numel() * 4 + n_tiles.numel() * 4
-              + min(h_tiles * ell.bk, k_rows) * f * h_itemsize)
-    return n_valid, h_tiles, nbytes, 2.0 * n_valid * ell.bm * ell.bk * f
+    tiles = col_tile[valid].long()
+    h_tiles = int(torch.unique(tiles).numel())
+    nz = blocks[valid] != 0                              # (n_valid, bm, bk)
+    nnz = int(nz.sum())
+    rows = tiles[:, None] * ell.bk + torch.arange(ell.bk, device=tiles.device)
+    h_rows = int(torch.unique(rows[nz.any(dim=1) & (rows < k_rows)]).numel())
+    fixed = (n_valid * ell.bm * ell.bk * blocks.element_size()
+             + col_tile.numel() * 4 + n_tiles.numel() * 4)
+    return {"valid_bricks": n_valid, "h_tiles_referenced": h_tiles,
+            "nonzeros": nnz, "h_rows_referenced": h_rows,
+            "bytes_bricks": fixed + min(h_tiles * ell.bk, k_rows) * f
+            * h_itemsize,
+            "flops_bricks": 2.0 * n_valid * ell.bm * ell.bk * f,
+            "bytes": fixed + h_rows * f * h_itemsize,
+            "flops": 2.0 * nnz * f}
 
 
 def bound(nbytes: float, flops: float) -> tuple:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bounds(work: dict, extra_bytes: float, extra_flops: float) -> dict:
+    """The bound on the nonzeros (`bound_ms`, `bound_by`) and the one on
+    every brick entry (`bound_ms_bricks`, `bound_by_bricks`), each with the
+    work beyond the aggregation added."""
+    ms, by = bound(work["bytes"] + extra_bytes, work["flops"] + extra_flops)
+    ms_b, by_b = bound(work["bytes_bricks"] + extra_bytes,
+                       work["flops_bricks"] + extra_flops)
+    return {"min_bytes": work["bytes"] + extra_bytes,
+            "flops": work["flops"] + extra_flops, "bound_ms": ms,
+            "bound_by": by, "min_bytes_bricks": work["bytes_bricks"]
+            + extra_bytes, "flops_bricks": work["flops_bricks"] + extra_flops,
+            "bound_ms_bricks": ms_b, "bound_by_bricks": by_b}
 
 
 def csr_on_card(a):
@@ -632,33 +767,37 @@ def csr_on_card(a):
 
 def time_spmm(kmod, ell, csr, h) -> dict:
     """The SpMM kernel on one segment, its plain version and
-    `torch.sparse.mm` (a yardstick the port never calls), with the bound."""
+    `torch.sparse.mm` (a yardstick the port never calls), with both
+    bounds; `bound_share` is against the one on the nonzeros."""
     import torch
     args = brick_tensors(ell)
     bm, bk = ell.bm, ell.bk
     k_rows, f = h.shape
+    _, route = launch_route(kmod.SPMM_ROUTE_LAUNCHES, lambda: (
+        kmod.bcsr_spmm_cuda(*args, h, bm=bm, bk=bk)))
     ms = cuda_ms(lambda: kmod.bcsr_spmm_cuda(*args, h, bm=bm, bk=bk), 20)
     plain_ms = cuda_ms(lambda: kmod.bcsr_spmm_plain(*args, h, bm=bm, bk=bk),
                        3, warmup=1)
     a_csr = csr_on_card(csr)
     library_ms = cuda_ms(lambda: torch.sparse.mm(a_csr, h), 20)
-    n_valid, h_tiles, nbytes, flops = brick_work(args, ell, k_rows, f,
-                                                 h.element_size())
-    nbytes += ell.n_row_blocks * bm * f * 4                  # X written
-    bound_ms, bound_by = bound(nbytes, flops)
+    work = brick_work(args, ell, k_rows, f, h.element_size())
+    b = bounds(work, ell.n_row_blocks * bm * f * 4, 0.0)      # X written
     return {"shape": {"blocks": list(ell.blocks.shape), "h": [k_rows, f]},
-            "valid_bricks": n_valid, "h_tiles_referenced": h_tiles,
-            "min_bytes": nbytes, "flops": flops, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "route": route,
+            **{k: work[k] for k in ("valid_bricks", "h_tiles_referenced",
+                                    "nonzeros", "h_rows_referenced")},
+            **b, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_call": "torch.sparse.mm (CUDA CSR)",
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / ms}
+            "bound_share": b["bound_ms"] / ms}
 
 
 def time_fused(kmod, ell, csr, h, f_out: int) -> dict:
     """The fused kernel on one segment, its plain version and the two-call
     yardstick `torch.sparse.mm` then `addmm` + `relu` (no single PyTorch
-    call computes the fused function), with the bound."""
+    call computes the fused function), with both bounds, and a third at the
+    rate of the method the kernel uses: X·W as three TF32 tensor-core
+    products (`bound_ms_split_tf32`, against which `bound_share` is
+    taken)."""
     import torch
     gen = torch.Generator(device=DEV).manual_seed(4)
     k_rows, f = h.shape
@@ -666,6 +805,8 @@ def time_fused(kmod, ell, csr, h, f_out: int) -> dict:
     b = 0.1 * torch.randn((f_out,), device=DEV, generator=gen)
     args = brick_tensors(ell)
     bm, bk = ell.bm, ell.bk
+    _, route = launch_route(kmod.FUSED_ROUTE_LAUNCHES, lambda: (
+        kmod.fused_gcn_layer_cuda(*args, h, w, b, bm=bm, bk=bk)))
     ms = cuda_ms(lambda: kmod.fused_gcn_layer_cuda(*args, h, w, b, bm=bm,
                                                    bk=bk), 20)
     plain_ms = cuda_ms(lambda: kmod.fused_gcn_layer_plain(
@@ -673,21 +814,28 @@ def time_fused(kmod, ell, csr, h, f_out: int) -> dict:
     a_csr = csr_on_card(csr)
     yardstick_ms = cuda_ms(lambda: torch.relu(torch.addmm(
         b, torch.sparse.mm(a_csr, h), w)), 20)
-    n_valid, h_tiles, nbytes, flops = brick_work(args, ell, k_rows, f,
-                                                 h.element_size())
+    work = brick_work(args, ell, k_rows, f, h.element_size())
     rows = ell.n_row_blocks * bm
-    nbytes += (f * f_out + f_out) * 4 + rows * f_out * 4    # W, b; Y
-    flops += 2.0 * rows * f * f_out                          # X W
-    bound_ms, bound_by = bound(nbytes, flops)
+    xw_flops = 2.0 * rows * f * f_out
+    bnd = bounds(work, (f * f_out + f_out) * 4 + rows * f_out * 4,  # W, b; Y
+                 xw_flops)
+    # The aggregation's FLOPs at the f32 rate, then X·W's three products
+    # at the TF32 tensor-core rate (an f32-accurate ceiling of 165 TFLOP/s).
+    t_bytes = bnd["min_bytes"] / PEAK_BYTES_PER_S
+    t_ops = work["flops"] / PEAK_F32_FLOPS + 3 * xw_flops / PEAK_TF32_FLOPS
+    split_ms = 1e3 * max(t_bytes, t_ops)
     return {"shape": {"blocks": list(ell.blocks.shape), "h": [k_rows, f],
                       "w": [f, f_out]},
-            "valid_bricks": n_valid, "h_tiles_referenced": h_tiles,
-            "min_bytes": nbytes, "flops": flops, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
+            "route": route,
+            **{k: work[k] for k in ("valid_bricks", "h_tiles_referenced",
+                                    "nonzeros", "h_rows_referenced")},
+            **bnd, "bound_ms_split_tf32": split_ms,
+            "bound_by_split_tf32": "bytes" if t_bytes >= t_ops
+            else "operations",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "yardstick_ms": yardstick_ms,
             "yardstick_call": "torch.sparse.mm (CUDA CSR), then addmm + relu",
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / ms}
+            "bound_share": split_ms / ms}
 
 
 def attn_compare(fn_cuda, fn_plain, args, kwargs, label, dtype,
@@ -1257,14 +1405,16 @@ def time_decode(dmod, seed: int, b: int, s_len: int,
             "achieved_bytes_per_s": nbytes / (ms * 1e-3)}
 
 
-def phase_timing(kmod, fmod, dmod, plans, h_main, h_train, g_train,
+def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
                  seed: int) -> dict:
     import torch
     from repro_torch.configs import SHAPES
     torch.cuda.reset_peak_memory_stats()
+    lj = plans["lj_serve"]
     timing = {
         "bcsr_spmm": time_spmm(kmod, plans["serve"]["ell"],
                                plans["serve"]["csr"], h_main),
+        "bcsr_spmm_socLJ1": time_spmm(kmod, lj["ell"], lj["csr"], h_lj),
         "bcsr_spmm_transposed": time_spmm(kmod, plans["bwd"]["ell"],
                                           plans["bwd"]["csr"], g_train),
         "fused_gcn_layer": time_fused(kmod, plans["fwd"]["ell"],
@@ -1327,19 +1477,24 @@ def run(args) -> None:
     shape, train_shape = (a.n_rows, width), (a.n_rows, train_width)
     serve_eng, train_eng = engine_at(a, width), engine_at(
         a, train_width)
+    lj = graphs["socLJ1"]
     plans = {"serve": first_segment(serve_eng.stream_plan(a, shape), a),
+             "lj_serve": first_segment(engine_at(lj, width).stream_plan(
+                 lj, (lj.n_rows, width)), lj),
              "fwd": first_segment(train_eng.stream_plan(a, train_shape), a),
              "bwd": first_segment(train_eng.stream_plan(
                  a, train_shape, transpose=True), train_eng.transpose_of(a))}
     emit({"phase": "host", "seconds": time.perf_counter() - t0,
-          "rUSA_segments": {k: v["segments"] for k, v in plans.items()}})
+          "segments": {k: v["segments"] for k, v in plans.items()}})
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     h_main = torch.randn(shape, device=DEV, generator=gen)
     h_train = torch.randn(train_shape, device=DEV, generator=gen)
     g_train = torch.randn(train_shape, device=DEV, generator=gen)
+    h_lj = torch.randn((lj.n_rows, width), device=DEV, generator=gen)
 
     spmm_err = phase_kernel(kmod, plans["serve"]["ell"], h_main,
-                            plans["bwd"]["ell"], g_train)
+                            plans["bwd"]["ell"], g_train,
+                            plans["lj_serve"]["ell"], h_lj)
     fused_err = phase_fused(kmod, plans["fwd"]["ell"], h_train)
     launches = {"serve": phase_serve(kmod, graphs, args)}
     a64 = f64_adjacency(a)
@@ -1349,9 +1504,15 @@ def run(args) -> None:
     attn_err = phase_attn(fmod, dmod, args.seed)
     lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed),
           "lm_serve": phase_lm_serve(fmod, dmod, args.seed)}
-    timing = phase_timing(kmod, fmod, dmod, plans, h_main, h_train, g_train,
-                          args.seed)
+    timing = phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train,
+                          g_train, args.seed)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    gcn_keys = (*keys, "bound_ms_bricks", "bound_by_bricks")
+
+    def gcn_by_route(kernel: str) -> dict:
+        routes = [path[kernel] for path in GCN_ROUTES.values()]
+        return {route: sum(r[route] for r in routes) for route in routes[0]}
+
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
                    "lm_serve_prefill": lm["lm_serve"]["flash"]}
 
@@ -1369,15 +1530,21 @@ def run(args) -> None:
          "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
          "replaces": "src/repro/kernels/bcsr_spmm.py:50",
          "launches": sum(launches.values()), "launches_by_path": launches,
+         "launches_by_route": gcn_by_route("bcsr_spmm"),
          "max_abs_err": spmm_err,
-         **{k: timing["bcsr_spmm"][k] for k in keys}},
+         **{k: timing["bcsr_spmm"][k] for k in gcn_keys},
+         "transposed": {k: timing["bcsr_spmm_transposed"][k]
+                        for k in gcn_keys},
+         "socLJ1": {k: timing["bcsr_spmm_socLJ1"][k] for k in gcn_keys}},
         {"name": "fused_gcn_layer", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_gcn_layer.cu",
          "replaces": "src/repro/kernels/bcsr_spmm.py:127",
          "launches": fused_launches,
          "launches_by_path": {"layer": fused_launches},
+         "launches_by_route": gcn_by_route("fused_gcn_layer"),
          "max_abs_err": fused_err,
-         **{k: timing["fused_gcn_layer"][k] for k in keys},
+         **{k: timing["fused_gcn_layer"][k] for k in (
+             *gcn_keys, "bound_ms_split_tf32", "bound_by_split_tf32")},
          "yardstick_ms": timing["fused_gcn_layer"]["yardstick_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",

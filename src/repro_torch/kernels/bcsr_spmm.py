@@ -16,6 +16,14 @@ in float32, with X kept on chip. Each source says what bounds its kernel
 and how its design answers. `kernels.build` compiles them into the one
 library every kernel module shares, at first use.
 
+Each kernel has two routes (`SPMM_ROUTES`, `FUSED_ROUTES`), which its C
+entry point chooses per launch from the operands and reports back for the
+counters. Bricks of up to 8 rows of 8 columns (the plans' 8 x 8 among them)
+take the route that skips each brick's all-zero columns: the SpMM's
+"zero_skip" and the fused layer's "grouped", which runs the same loop for 8
+row blocks at once and reads W once per group. Other shapes take the first
+version's loops, "brick_loop" and "row_block".
+
 `bcsr_spmm_blocks` and `fused_gcn_layer_blocks` dispatch on where their
 tensors lie: CPU tensors take the plain PyTorch version, CUDA tensors
 launch the kernel or raise.
@@ -30,27 +38,34 @@ import torch
 from repro_torch.kernels.build import build, entry  # noqa: F401
 
 # Kernel launches made by `bcsr_spmm_cuda` and `fused_gcn_layer_cuda` in
-# this process. Callers that need to show a path ran through a kernel reset
-# its counter and read it back.
+# this process, in all and by route. Callers that need to show a path ran
+# through a kernel reset the counters and read them back.
 LAUNCHES = 0
 FUSED_LAUNCHES = 0
+SPMM_ROUTES = ("zero_skip", "brick_loop")
+FUSED_ROUTES = ("grouped", "row_block")
+SPMM_ROUTE_LAUNCHES = dict.fromkeys(SPMM_ROUTES, 0)
+FUSED_ROUTE_LAUNCHES = dict.fromkeys(FUSED_ROUTES, 0)
 
-_BRICK_DTYPES = (torch.float32, torch.float16)
+# Type codes of the C entry points.
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _MAX_THREADS = 1024
 _MAX_SMEM = 227 * 1024
-_ROWS_PER_THREAD = 8   # must match ROWS_PER_THREAD in the CUDA source
+_ROWS_PER_THREAD = 8   # must match ROWS_PER_THREAD in csrc/block_ell.cuh
 
 
 def _spmm_fn():
     return entry("bcsr_spmm_launch",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p,
+                                                            ctypes.c_void_p])
 
 
 def _fused_fn():
     return entry("fused_gcn_layer_launch",
                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p,
+                                                            ctypes.c_void_p])
 
 
 def _check(blocks, col_tile, n_tiles, h, bm, bk) -> None:
@@ -66,9 +81,9 @@ def _check(blocks, col_tile, n_tiles, h, bm, bk) -> None:
                          f"got {tuple(n_tiles.shape)}")
     if h.dim() != 2:
         raise ValueError(f"h must be 2-D, got {tuple(h.shape)}")
-    if blocks.dtype not in _BRICK_DTYPES or h.dtype not in _BRICK_DTYPES:
-        raise TypeError(f"blocks and h must be float32 or float16, got "
-                        f"{blocks.dtype} and {h.dtype}")
+    if blocks.dtype not in _DTYPE_CODES or h.dtype not in _DTYPE_CODES:
+        raise TypeError(f"blocks and h must be float32, float16 or bfloat16, "
+                        f"got {blocks.dtype} and {h.dtype}")
     if col_tile.dtype != torch.int32 or n_tiles.dtype != torch.int32:
         raise TypeError("col_tile and n_tiles must be int32")
     devices = {t.device for t in (blocks, col_tile, n_tiles, h)}
@@ -105,8 +120,9 @@ def bcsr_spmm_plain(blocks: torch.Tensor, col_tile: torch.Tensor,
 
 
 def _feature_tile(f: int, bm: int) -> int:
-    """Columns per thread block: 128, or fewer for narrow H or tall bricks
-    (one thread per column, ceil(bm / 8) threads per column)."""
+    """Columns per thread block of the "brick_loop" route: 128, or fewer for
+    narrow H or tall bricks (one thread per column, ceil(bm / 8) threads per
+    column)."""
     row_groups = -(-bm // _ROWS_PER_THREAD)
     bn = 128 if f >= 128 else max(32, -(-f // 32) * 32)
     while bn > 32 and bn * row_groups > _MAX_THREADS:
@@ -139,17 +155,22 @@ def bcsr_spmm_cuda(blocks: torch.Tensor, col_tile: torch.Tensor,
     out = torch.empty((n_rb * bm, f), dtype=torch.float32, device=h.device)
     if out.numel() == 0:
         return out
-    bn = _feature_tile(f, bm)
+    # Scratch of the zero-skipping route: the list of row blocks longer than
+    # its first kernel takes, a count, then the row blocks.
+    tail = torch.empty((1 + n_rb,), dtype=torch.int32, device=h.device)
+    route = ctypes.c_int(-1)
     fn = _spmm_fn()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(blocks.data_ptr(), col_tile.data_ptr(), n_tiles.data_ptr(),
-                 h.data_ptr(), out.data_ptr(), n_rb, ell_w, bm, bk, k, f, bn,
-                 int(blocks.dtype == torch.float16),
-                 int(h.dtype == torch.float16), stream)
+                 h.data_ptr(), out.data_ptr(), tail.data_ptr(), n_rb, ell_w,
+                 bm, bk, k, f, _feature_tile(f, bm),
+                 _DTYPE_CODES[blocks.dtype], _DTYPE_CODES[h.dtype], stream,
+                 ctypes.addressof(route))
     if err != 0:
         raise RuntimeError(f"bcsr_spmm kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    SPMM_ROUTE_LAUNCHES[SPMM_ROUTES[route.value]] += 1
     return out
 
 
@@ -190,9 +211,9 @@ def fused_gcn_layer_plain(blocks: torch.Tensor, col_tile: torch.Tensor,
 
 
 def _fused_tile(f: int, f_out: int, bm: int) -> int:
-    """Threads per row of the block (columns per pass): a multiple of 32 up
-    to 256, fewer for narrow layers or tall bricks (ceil(bm / 8) rows of
-    threads)."""
+    """Threads per row of the "row_block" route's block (columns per pass):
+    a multiple of 32 up to 256, fewer for narrow layers or tall bricks
+    (ceil(bm / 8) rows of threads)."""
     row_groups = -(-bm // _ROWS_PER_THREAD)
     bn = min(256, -(-max(f, f_out) // 32) * 32,
              _MAX_THREADS // row_groups // 32 * 32)
@@ -221,6 +242,8 @@ def fused_gcn_layer_cuda(blocks: torch.Tensor, col_tile: torch.Tensor,
     n_rb, ell_w = blocks.shape[:2]
     k, f = h.shape
     f_out = w.shape[1]
+    # The "row_block" route's X; the "grouped" route, where the kernel
+    # takes it, keeps 8 row blocks' X, so it fits only where this does.
     row_groups = -(-bm // _ROWS_PER_THREAD)
     smem = (row_groups * _ROWS_PER_THREAD * f + bm * bk) * 4
     if smem > _MAX_SMEM:
@@ -230,17 +253,19 @@ def fused_gcn_layer_cuda(blocks: torch.Tensor, col_tile: torch.Tensor,
                       device=h.device)
     if out.numel() == 0:
         return out
-    bn = _fused_tile(f, f_out, bm)
+    route = ctypes.c_int(-1)
     fn = _fused_fn()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(blocks.data_ptr(), col_tile.data_ptr(), n_tiles.data_ptr(),
                  h.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 n_rb, ell_w, bm, bk, k, f, f_out, bn, stream)
+                 n_rb, ell_w, bm, bk, k, f, f_out, _fused_tile(f, f_out, bm),
+                 stream, ctypes.addressof(route))
     if err != 0:
         raise RuntimeError(f"fused_gcn_layer kernel launch failed: CUDA "
                            f"error {err}")
     FUSED_LAUNCHES += 1
+    FUSED_ROUTE_LAUNCHES[FUSED_ROUTES[route.value]] += 1
     return out
 
 

@@ -13,8 +13,9 @@ as `repro.launch.serve.serve_gcn`.
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch yi_6b [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode gcn [--device cpu]
 
-`--mode lm` serves the arch's SMOKE config, as the reference's does; the
-full config is `serve(get_config(arch), init_params(...), ...)`.
+`--mode lm`, the default as in the reference, serves the arch's SMOKE
+config and needs `--arch`; the full config is
+`serve(get_config(arch), init_params(...), ...)`.
 """
 from __future__ import annotations
 
@@ -123,7 +124,7 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("lm", "gcn"), default="gcn")
+    ap.add_argument("--mode", choices=("lm", "gcn"), default="lm")
     ap.add_argument("--arch", help="lm mode: arch id, e.g. yi_6b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)

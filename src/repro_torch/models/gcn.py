@@ -67,7 +67,11 @@ def gcn_forward(cfg: GCNConfig, params: Mapping[str, torch.Tensor], a,
         else:
             x = torch.matmul(a.to(torch.float32),
                              h.to(torch.float32)).to(h.dtype)
-        h = x @ params[f"w{i}"] + params[f"b{i}"]
+        w = params[f"w{i}"]
+        # jnp promotes mixed operands (f32 X from the streamed SpMM against
+        # 16-bit W gives f32); torch.matmul does not, so promote here.
+        dt = torch.promote_types(x.dtype, w.dtype)
+        h = x.to(dt) @ w.to(dt) + params[f"b{i}"]
         if i < n_layers - 1:
             h = torch.relu(h)
     return h

@@ -222,12 +222,14 @@ def lm_loss(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype: Optional[torch.dtype] = None, *,
                       device: "str | torch.device" = "cuda"
                       ) -> Dict[str, Any]:
-    """Per-layer KV caches (B, n_kv_heads, max_len, hd) in `cfg.dtype` on
-    `device`, and the position of the next token, a Python int."""
+    """Per-layer KV caches (B, n_kv_heads, max_len, hd) on `device`, in
+    `dtype` (`cfg.dtype` when None, as in the reference), and the position
+    of the next token, a Python int."""
     _check_supported(cfg)
-    dt = _dtype(cfg)
+    dt = dtype or _dtype(cfg)
     shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
     layers: List[Dict[str, torch.Tensor]] = [
         {"k": torch.zeros(shape, dtype=dt, device=device),

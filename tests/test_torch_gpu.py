@@ -37,6 +37,27 @@ def _ell(n, m, density, bm, bk, dtype, seed):
                                  dtype=dtype)
 
 
+def _to_torch(x: np.ndarray, dtype) -> torch.Tensor:
+    """numpy values as a tensor of `dtype`: a numpy type, or "bfloat16",
+    which numpy lacks and which is rounded to from float32."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(x.astype(np.float32)).bfloat16()
+    return torch.from_numpy(x.astype(dtype))
+
+
+def _spmm_on_card(args, h, bm, bk, route):
+    """The kernel on the card, its launch counted once in all and once on
+    `route`; returns the output on the CPU."""
+    dev = _card()
+    before = kmod.LAUNCHES, kmod.SPMM_ROUTE_LAUNCHES[route]
+    out = kmod.bcsr_spmm_cuda(*[x.to(dev) for x in args], h.to(dev),
+                              bm=bm, bk=bk)
+    torch.cuda.synchronize()
+    assert (kmod.LAUNCHES, kmod.SPMM_ROUTE_LAUNCHES[route]) == (
+        before[0] + 1, before[1] + 1)
+    return out.cpu()
+
+
 @pytest.mark.parametrize("n,m,f,density,bm,bk,a_dt,h_dt", [
     (16, 16, 8, 0.3, 8, 8, np.float32, np.float32),
     (40, 24, 16, 0.05, 8, 8, np.float32, np.float32),
@@ -49,22 +70,76 @@ def _ell(n, m, density, bm, bk, dtype, seed):
     (32, 32, 16, 0.2, 8, 8, np.float16, np.float32),
     (32, 32, 16, 0.2, 8, 8, np.float32, np.float16),
     (128, 128, 64, 0.05, 128, 128, np.float32, np.float32),
+    (300, 280, 256, 0.02, 8, 8, "bfloat16", "bfloat16"),
+    (300, 280, 256, 0.02, 8, 8, np.float32, "bfloat16"),
+    (300, 280, 256, 0.02, 8, 8, "bfloat16", np.float32),
+    (64, 72, 520, 0.1, 8, 8, "bfloat16", np.float16),
+    # F not a multiple of the 4 or 8 values in 16 bytes, and F = 1.
+    (300, 280, 1, 0.05, 8, 8, np.float32, np.float32),
+    (300, 280, 3, 0.05, 8, 8, np.float32, np.float32),
+    (300, 280, 257, 0.05, 8, 8, np.float32, np.float32),
+    (300, 280, 257, 0.05, 8, 8, np.float32, "bfloat16"),
+    (300, 280, 260, 0.05, 8, 8, np.float32, np.float16),
+    # Shorter bricks on the zero-skipping route, and narrower ones off it.
+    (100, 96, 64, 0.1, 4, 8, np.float32, np.float32),
+    (100, 96, 64, 0.1, 4, 8, np.float16, "bfloat16"),
+    (100, 96, 64, 0.1, 8, 4, np.float32, np.float32),
 ])
 def test_kernel_matches_plain_version(n, m, f, density, bm, bk, a_dt, h_dt):
-    dev = _card()
-    ell = _ell(n, m, density, bm, bk, a_dt, seed=n * m + f)
-    h = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (m, f)).astype(h_dt))
+    ell = _ell(n, m, density, bm, bk, np.float32, seed=n * m + f)
+    h = _to_torch(np.random.default_rng(1).standard_normal((m, f)), h_dt)
+    args = [_to_torch(ell.blocks, a_dt)] + [
+        torch.from_numpy(x) for x in (ell.col_tile, ell.n_tiles)]
+    plain = kmod.bcsr_spmm_plain(*args, h, bm=bm, bk=bk)
+    route = "zero_skip" if bm <= 8 and bk == 8 else "brick_loop"
+    out = _spmm_on_card(args, h, bm, bk, route)
+    # bf16 values convert to f32 exactly: both sides then sum f32 products
+    # in other orders. The f16 cases keep the first version's 1e-2.
+    tol = 1e-2 if np.float16 in (a_dt, h_dt) else 1e-4
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=tol)
+
+
+@pytest.mark.parametrize("case", ["dense", "zero_columns", "zero_brick",
+                                  "hub", "unaligned_h", "short_h"])
+def test_kernel_zero_skip_edge_cases(case):
+    """The zero-skipping route on bricks whose 8 columns are all nonzero,
+    whose columns are zero but for one, that are zero throughout; on one row
+    block with far more slots than the rest (its tail goes to the second
+    kernel); on H whose pointer is not 16-byte aligned; and on H shorter than
+    the last column tile."""
+    _card()
+    rng = np.random.default_rng(7)
+    n, m, f = 64, 64, 96
+    if case == "dense":
+        dense = rng.standard_normal((n, m))
+    elif case in ("zero_columns", "zero_brick", "unaligned_h", "short_h"):
+        dense = np.zeros((n, m))
+        dense[:, ::8] = rng.standard_normal((n, m // 8))   # one column each
+    else:                        # row block 0 spans 300 column tiles
+        m = 8 * 300
+        dense = (rng.random((n, m)) < 0.002) * rng.standard_normal((n, m))
+        dense[:8, ::8] = rng.standard_normal((8, 300))
+    dense = dense.astype(np.float32)
+    if case == "short_h":        # H ends 3 rows into the last column tile
+        dense[:, m - 5:] = rng.standard_normal((n, 5))
+    ell = tile_csr_to_block_ell(csr_from_dense(dense), bm=8, bk=8)
     args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
                                           ell.n_tiles)]
-    plain = kmod.bcsr_spmm_plain(*args, h, bm=bm, bk=bk)
-    before = kmod.LAUNCHES
-    out = kmod.bcsr_spmm_cuda(*[x.to(dev) for x in args], h.to(dev),
-                              bm=bm, bk=bk)
-    torch.cuda.synchronize()
-    assert kmod.LAUNCHES == before + 1
-    tol = 1e-2 if np.float16 in (a_dt, h_dt) else 1e-4
-    np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(), atol=tol)
+    if case == "zero_brick":
+        args[0][:, 0] = 0.0
+    h = torch.randn((m, f), generator=torch.Generator().manual_seed(3))
+    if case == "unaligned_h":    # contiguous, 4 bytes past 16-byte alignment
+        h = torch.cat([torch.zeros(1), h.flatten()])[1:].view(m, f)
+    if case == "short_h":
+        h = h[:m - 3]
+    out = _spmm_on_card(args, h, 8, 8, "zero_skip")
+    plain = kmod.bcsr_spmm_plain(*args, h, bm=8, bk=8)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-4)
+    if case == "hub":
+        assert int(ell.n_tiles[0]) == ell.blocks.shape[1] == 300
+    if case in ("dense", "zero_columns"):
+        np.testing.assert_allclose(out[:n].numpy(), dense @ h.numpy(),
+                                   atol=1e-4)
 
 
 def test_kernel_empty_row_blocks_and_padding_slots():
@@ -98,6 +173,94 @@ def test_kernel_rejects_what_it_does_not_take():
                             bm=8, bk=8)
     with pytest.raises(ValueError):
         kmod.bcsr_spmm_cuda(blocks, col_tile, n_tiles, h.cpu(), bm=8, bk=8)
+
+
+@pytest.mark.parametrize("bm,bk,dtype,k_rows,expected", [
+    (8, 8, torch.float32, 100, "zero_skip"),     # the plans' bricks
+    (8, 8, torch.float16, 100, "zero_skip"),
+    (8, 8, torch.bfloat16, 100, "zero_skip"),
+    (4, 8, torch.float32, 100, "zero_skip"),     # shorter bricks
+    (1, 8, torch.float16, 100, "zero_skip"),
+    (8, 4, torch.bfloat16, 100, "brick_loop"),   # narrower bricks
+    (12, 8, torch.float32, 100, "brick_loop"),
+    (16, 16, torch.float32, 100, "brick_loop"),
+    (128, 128, torch.float32, 100, "brick_loop"),
+    (8, 8, torch.float32, 2 ** 31, "brick_loop"),  # rows past int32
+])
+def test_spmm_route(bm, bk, dtype, k_rows, expected):
+    """The route the C entry point chooses, read from the counters, and its
+    output against the plain version."""
+    dev = _card()
+    rows = min(k_rows, 100)
+    ell = _ell(4 * bm, rows, 0.1, bm, bk, np.float32, seed=bm * bk)
+    args = [torch.from_numpy(ell.blocks).to(dtype)] + [
+        torch.from_numpy(x) for x in (ell.col_tile, ell.n_tiles)]
+    f = 1 if k_rows > rows else 16
+    h_small = torch.randn((rows, f), generator=torch.Generator()
+                          .manual_seed(5)).to(dtype)
+    plain = kmod.bcsr_spmm_plain(*args, h_small, bm=bm, bk=bk)
+    h = h_small
+    if k_rows > rows:   # 4 GiB of f16 rows, zeros past the first 100
+        h = torch.zeros((k_rows, f), dtype=torch.float16, device=dev)
+        h[:rows] = h_small.to(dev, torch.float16)
+        plain = kmod.bcsr_spmm_plain(*args, h_small.half(), bm=bm, bk=bk)
+    out = _spmm_on_card(args, h, bm, bk, expected)
+    del h
+    tol = 1e-2 if torch.float16 in (dtype, h_small.dtype) else 1e-4
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=tol)
+
+
+@pytest.mark.parametrize("ell_w", [1, 64, 65, 80, 81, 512])
+def test_zero_skip_tail_splits_cover_every_slot(ell_w):
+    """The first zero-skip kernel takes 64 slots of a row block and the
+    second every further 16 (it is not launched when ell_w <= 64): three
+    row blocks of ell_w valid slots each, every slot holding a nonzero."""
+    rng = np.random.default_rng(ell_w)
+    m = 8 * ell_w
+    dense = (rng.random((24, m)) < 0.05) * rng.standard_normal((24, m))
+    dense[:, rng.integers(0, 8) + 8 * np.arange(ell_w)] = (
+        rng.standard_normal((24, ell_w)))
+    ell = tile_csr_to_block_ell(csr_from_dense(dense.astype(np.float32)),
+                                bm=8, bk=8)
+    assert ell.blocks.shape[1] == ell_w and (ell.n_tiles == ell_w).all()
+    args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
+                                          ell.n_tiles)]
+    h = torch.randn((m, 40), generator=torch.Generator().manual_seed(6))
+    out = _spmm_on_card(args, h, 8, 8, "zero_skip")
+    np.testing.assert_allclose(out.numpy(), dense @ h.double().numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("bm,bk,f,expected", [
+    (8, 8, 256, "grouped"),       # the training path's layer
+    (8, 8, 1, "grouped"),
+    (8, 8, 736, "grouped"),       # the widest X of a group that fits the
+    (8, 8, 737, "row_block"),     # H100's 227 KiB of shared memory
+    (8, 8, 1030, "row_block"),
+    (4, 8, 64, "grouped"),
+    (12, 8, 40, "row_block"),
+    (16, 16, 130, "row_block"),
+    (128, 128, 64, "row_block"),
+    (8, 4, 64, "row_block"),
+])
+def test_fused_route(bm, bk, f, expected):
+    """The route the fused C entry point chooses, read from the counters,
+    and its output against the plain version."""
+    dev = _card()
+    ell = _ell(4 * bm, 4 * bk, 0.1, bm, bk, np.float32, seed=f)
+    gen = torch.Generator().manual_seed(8)
+    h = torch.randn((4 * bk, f), generator=gen)
+    w = torch.randn((f, 24), generator=gen) * f ** -0.5
+    b = 0.1 * torch.randn((24,), generator=gen)
+    args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
+                                          ell.n_tiles)]
+    plain = kmod.fused_gcn_layer_plain(*args, h, w, b, bm=bm, bk=bk)
+    before = kmod.FUSED_ROUTE_LAUNCHES[expected]
+    out = kmod.fused_gcn_layer_cuda(*[x.to(dev) for x in args + [h, w, b]],
+                                    bm=bm, bk=bk)
+    torch.cuda.synchronize()
+    assert kmod.FUSED_ROUTE_LAUNCHES[expected] == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(), atol=1e-4)
 
 
 def test_engine_on_card_matches_cpu_and_launches_per_segment():
@@ -149,6 +312,13 @@ def test_engine_on_card_matches_cpu_and_launches_per_segment():
     (50, 70, 40, 24, 0.2, 12, 8),
     (128, 128, 64, 33, 0.05, 128, 128),
     (41, 41, 1030, 7, 0.2, 8, 8),
+    # Groups of 8 row blocks: exactly two groups, one group and one row
+    # block more, the last group cut to 5; F_out past one 256-column pass.
+    (128, 128, 256, 64, 0.05, 8, 8),
+    (72, 72, 64, 64, 0.1, 8, 8),
+    (104, 90, 256, 300, 0.05, 8, 8),
+    (200, 200, 257, 99, 0.03, 8, 8),
+    (100, 96, 64, 48, 0.1, 4, 8),
 ])
 def test_fused_kernel_matches_plain_version(n, m, f, fo, density, bm, bk):
     dev = _card()
@@ -160,11 +330,13 @@ def test_fused_kernel_matches_plain_version(n, m, f, fo, density, bm, bk):
     args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
                                           ell.n_tiles)]
     plain = kmod.fused_gcn_layer_plain(*args, h, w, b, bm=bm, bk=bk)
-    before = kmod.FUSED_LAUNCHES
+    route = "grouped" if bm <= 8 and bk == 8 and f < 1000 else "row_block"
+    before = kmod.FUSED_LAUNCHES, kmod.FUSED_ROUTE_LAUNCHES[route]
     out = kmod.fused_gcn_layer_cuda(*[x.to(dev) for x in args + [h, w, b]],
                                     bm=bm, bk=bk)
     torch.cuda.synchronize()
-    assert kmod.FUSED_LAUNCHES == before + 1
+    assert (kmod.FUSED_LAUNCHES, kmod.FUSED_ROUTE_LAUNCHES[route]) == (
+        before[0] + 1, before[1] + 1)
     np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(), atol=1e-4)
 
 

@@ -51,12 +51,34 @@ def test_bcsr_spmm_matches_pallas_shapes(n, m, f, density):
     np.testing.assert_allclose(port, dense @ h, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def _both_bf16(dense, h, bm=8, bk=8):
+    """`_both` for bfloat16 bricks and H: the inputs round once to bf16
+    through torch and cross to the reference as float32 values (numpy has no
+    bfloat16), where the Pallas kernel takes them as jnp.bfloat16."""
+    dense = torch.from_numpy(dense).bfloat16().float().numpy()
+    h_t = torch.from_numpy(h).bfloat16()
+    ell = tile_csr_to_block_ell(csr_from_dense(dense), bm=bm, bk=bk)
+    port = kmod.bcsr_spmm_blocks(
+        torch.from_numpy(ell.blocks).bfloat16(), torch.from_numpy(
+            ell.col_tile), torch.from_numpy(ell.n_tiles), h_t, bm=bm,
+        bk=bk)[:dense.shape[0]].numpy()
+    r_ell = r_sparse.tile_csr_to_block_ell(r_sparse.csr_from_dense(dense),
+                                           bm=bm, bk=bk, dtype=jnp.bfloat16)
+    ref = np.asarray(r_kernels.bcsr_spmm(
+        r_ell, jnp.asarray(h_t.float().numpy()).astype(jnp.bfloat16), bn=8))
+    return port, ref, dense, h_t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16, "bfloat16"])
 def test_bcsr_spmm_matches_pallas_dtypes(dtype):
-    dense = _rand_sparse(32, 32, 0.2, np.float32, seed=7).astype(dtype)
-    h = np.random.default_rng(2).standard_normal((32, 16)).astype(dtype)
-    port, ref = _both(dense, h, dtype=dtype)
-    tol = 1e-2 if dtype == np.float16 else 1e-4
+    dense = _rand_sparse(32, 32, 0.2, np.float32, seed=7)
+    h = np.random.default_rng(2).standard_normal((32, 16)).astype(np.float32)
+    if dtype == "bfloat16":
+        port, ref, dense, h = _both_bf16(dense, h)
+    else:
+        dense, h = dense.astype(dtype), h.astype(dtype)
+        port, ref = _both(dense, h, dtype=dtype)
+    tol = 1e-4 if dtype == np.float32 else 1e-2
     assert port.dtype == np.float32
     np.testing.assert_allclose(port, ref, atol=tol)
     np.testing.assert_allclose(
@@ -212,3 +234,60 @@ def test_fused_tile_fits_a_thread_block(f, fo, bm, expected):
     bn = kmod._fused_tile(f, fo, bm)
     assert bn == expected
     assert bn * -(-bm // 8) <= 1024
+
+
+def _dense_from_bricks(blocks, col_tile, n_tiles, k_rows):
+    """The matrix the bricks hold, in float64, over H's k_rows columns."""
+    n_rb, ell_w, bm, bk = blocks.shape
+    n_ct = -(-k_rows // bk)
+    a = np.zeros((n_rb * bm, (n_ct + 1) * bk))
+    for rb in range(n_rb):
+        for s in range(min(int(n_tiles[rb]), ell_w)):
+            t = int(col_tile[rb, s])
+            if 0 <= t < n_ct:
+                a[rb * bm:(rb + 1) * bm, t * bk:(t + 1) * bk] += (
+                    blocks[rb, s].double().numpy())
+    return a[:, :k_rows]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("case", ["dense", "zero_columns", "zero_brick",
+                                  "hub", "short_h"])
+def test_plain_version_on_zero_skip_edge_cases(case, dtype):
+    """The plain version, which the card tests hold the zero-skipping
+    kernel to, on the bricks of those tests (every column nonzero, one
+    nonzero column, a brick of zeros, a row block of 300 slots, H ending 3
+    rows into the last tile), in each brick and H type, against the float64
+    product of the same values. Both sum f32 products of exactly converted
+    values: limit 1e-5 of the output's scale."""
+    rng = np.random.default_rng(7)
+    n, m = 64, 64
+    if case == "dense":
+        dense = rng.standard_normal((n, m))
+    elif case == "hub":          # row block 0 spans 300 column tiles
+        m = 8 * 300
+        dense = (rng.random((n, m)) < 0.002) * rng.standard_normal((n, m))
+        dense[:8, ::8] = rng.standard_normal((8, 300))
+    else:
+        dense = np.zeros((n, m))
+        dense[:, ::8] = rng.standard_normal((n, m // 8))
+    if case == "short_h":
+        dense[:, m - 5:] = rng.standard_normal((n, 5))
+    ell = tile_csr_to_block_ell(csr_from_dense(dense.astype(np.float32)),
+                                bm=8, bk=8)
+    blocks = torch.from_numpy(ell.blocks).to(dtype)
+    if case == "zero_brick":
+        blocks[:, 0] = 0.0
+    col_tile, n_tiles = (torch.from_numpy(x) for x in (ell.col_tile,
+                                                       ell.n_tiles))
+    h = torch.from_numpy(rng.standard_normal((m, 24)).astype(
+        np.float32)).to(dtype)
+    if case == "short_h":
+        h = h[:m - 3]
+    plain = kmod.bcsr_spmm_plain(blocks, col_tile, n_tiles, h, bm=8, bk=8)
+    oracle = _dense_from_bricks(blocks, col_tile, n_tiles, h.shape[0]) @ (
+        h.double().numpy())
+    assert plain.dtype == torch.float32
+    np.testing.assert_allclose(plain.numpy(), oracle,
+                               atol=1e-5 * np.abs(oracle).max())

@@ -295,3 +295,37 @@ def test_serve_cli_runs_lm_mode_on_cpu(capsys):
                       "--batch", "2", "--prompt-len", "3", "--steps", "4"])
     out = capsys.readouterr().out
     assert "generated (2, 4)" in out and "on cpu" in out
+
+
+def test_serve_cli_defaults_to_lm_mode(capsys):
+    """`--mode` defaults to lm, as in the reference: without it the CLI
+    serves the arch, and without `--arch` too it stops with lm mode's
+    error."""
+    p_serve_mod.main(["--arch", "yi_6b", "--device", "cpu", "--batch", "1",
+                      "--prompt-len", "2", "--steps", "2"])
+    assert "generated (1, 2)" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        p_serve_mod.main(["--device", "cpu"])
+    assert "--arch is required in lm mode" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dtype", [None, "float32", "bfloat16"])
+def test_init_decode_state_takes_dtype_fourth(dtype):
+    """The fourth parameter is the caches' dtype, overriding cfg.dtype as in
+    the reference; the device is keyword-only."""
+    r_cfg = r_configs.get_config("yi_6b", smoke=True)
+    p_cfg = p_configs.get_config("yi_6b", smoke=True)
+    r_state = r_tf.init_decode_state(
+        r_cfg, 2, 5, None if dtype is None else getattr(jnp, dtype))
+    p_state = p_tf.init_decode_state(
+        p_cfg, 2, 5, None if dtype is None else getattr(torch, dtype),
+        device="cpu")
+    assert len(p_state["layers"]) == len(r_state["layers"])
+    for p_layer, r_layer in zip(p_state["layers"], r_state["layers"]):
+        for name in ("k", "v"):
+            assert tuple(p_layer[name].shape) == r_layer[name].shape
+            assert str(p_layer[name].dtype).split(".")[-1] == str(
+                r_layer[name].dtype)
+            assert not p_layer[name].any()
+    with pytest.raises(TypeError):
+        p_tf.init_decode_state(p_cfg, 2, 5, None, "cpu")

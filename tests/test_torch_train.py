@@ -70,24 +70,63 @@ def test_grad_matches_reference_f32(n, m, f, make_sparse):
     assert (_stats(pe.forward_stats_log) == _stats(re.forward_stats_log))
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def _rounded(x: np.ndarray, dtype: str):
+    """x rounded once to `dtype` through torch: (the torch tensor, the same
+    values as a jnp array of that dtype). numpy has no bfloat16, so the
+    values cross as float32, where every bfloat16 and float16 is exact."""
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    return t, jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16, "bfloat16"])
 def test_grad_dtypes(dtype, make_sparse):
-    """The gradient comes back in the primal dtype, for both types the
+    """The gradient comes back in the primal dtype, for every type the
     port's SpMM kernel takes."""
+    dtype = np.dtype(dtype).name if dtype != "bfloat16" else dtype
     r_a, dense, h_np = _case(make_sparse, 40, 40, 16, seed=7)
     pe, re, p_a = _engines(r_a, h_np.nbytes)
-    ht = torch.from_numpy(h_np.astype(dtype)).requires_grad_(True)
+    ht, hj = _rounded(h_np, dtype)
+    ht.requires_grad_(True)
     torch.sum(pe(p_a, ht)).backward()
-    g_ref = jax.grad(lambda h_: jnp.sum(re(r_a, h_)))(
-        jnp.asarray(h_np, dtype))
-    assert ht.grad.dtype == getattr(torch, np.dtype(dtype).name)
-    assert g_ref.dtype == dtype
-    atol = 1e-4 if dtype == np.float32 else 5e-2
-    np.testing.assert_allclose(ht.grad.numpy().astype(np.float32),
+    g_ref = jax.grad(lambda h_: jnp.sum(re(r_a, h_)))(hj)
+    assert ht.grad.dtype == getattr(torch, dtype)
+    assert g_ref.dtype == getattr(jnp, dtype)
+    atol = 1e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(ht.grad.float().numpy(),
                                np.asarray(g_ref, np.float32), atol=atol)
-    np.testing.assert_allclose(ht.grad.numpy().astype(np.float32),
+    np.testing.assert_allclose(ht.grad.float().numpy(),
                                dense.sum(axis=0)[:, None]
                                * np.ones((1, 16), np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_gcn_forward_out_of_core_16bit_matches_reference(dtype, make_sparse):
+    """Out-of-core gcn_forward with 16-bit H and params: the streamed SpMM
+    gives f32 X, which meets 16-bit W; both packages promote to f32 and
+    return f32 logits, within the reference test's 5e-2."""
+    r_a, dense, h_np = _case(make_sparse, 40, 40, 16, seed=8)
+    rng = np.random.default_rng(3)
+    dims = [(16, 16), (16, 4)]
+    raw = {}
+    for i, (din, dout) in enumerate(dims):
+        raw[f"w{i}"] = (rng.standard_normal((din, dout))
+                        * din ** -0.5).astype(np.float32)
+        raw[f"b{i}"] = (0.1 * rng.standard_normal(dout)).astype(np.float32)
+    pairs = {k: _rounded(v, dtype) for k, v in raw.items()}
+    h_t, h_j = _rounded(h_np, dtype)
+    kw = dict(feature_dim=16, hidden_dims=(16,), n_classes=4,
+              out_of_core=True, dtype=dtype)
+    pe, re, p_a = _engines(r_a, h_np.nbytes)
+    port = p_models.gcn_forward(p_models.GCNConfig(**kw),
+                                {k: t for k, (t, _) in pairs.items()}, p_a,
+                                h_t, engine=pe)
+    ref = r_models.gcn_forward(r_models.GCNConfig(**kw),
+                               {k: j for k, (_, j) in pairs.items()}, r_a,
+                               h_j, engine=re)
+    assert port.dtype == torch.float32 and ref.dtype == jnp.float32
+    assert port.shape == ref.shape == (40, 4)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=5e-2)
+    assert _stats(pe.forward_stats_log) == _stats(re.forward_stats_log)
 
 
 def test_grad_streams_multiple_transposed_segments(make_sparse):
