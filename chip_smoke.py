@@ -37,7 +37,32 @@ non-zero without a result line:
                segments streamed forward and backward.
                serve, layer and train fail unless every SpMM launch took
                the "zero_skip" route and every fused one "grouped".
-  9. attn    — the flash-attention and GQA flash-decode kernels against
+  9. schedule — the paper's schedulers in execute mode on rUSA at
+               gcn_paper's feature width (H 239,400 x 256 from --seed):
+               AIRES (8 x 8 bricks) at a budget of two segments, once
+               plain and twice through a segment cache (the second run
+               hits every segment), and MaxMemory, UCG and ETC at a
+               budget each can run; every output against float64 A.H, the
+               SpMM launched once per AIRES segment on "zero_skip", the
+               execute metrics equal to a cost interpretation of the same
+               plan. Modeled seconds are PAPER_GPU_SYSTEM cost-model
+               output, not card times.
+ 10. epoch   — `gcn_epoch` under AIRES in execute mode, gcn_paper's
+               widths (256 -> 256 -> 256 -> 64) on rUSA, forward and
+               backward: three streams each way of at least two segments,
+               each stream's uploaded bytes equal to its plan's wire
+               bytes, SpMM launches equal to the segments streamed, the
+               modeled per-layer metrics equal to the scheduler's own.
+ 11. passes  — (a) one serving engine for both graphs with the plan passes
+               (shard placement, transfer coalescing, EDF) and analysis
+               on: requests with deadlines, served in `deadline_order`,
+               every output within SERVE_TOL of float64; (b) socLJ1 split
+               into at least 8 segments with every transfer coalesced:
+               merged uploads, one SpMM launch per segment, the output
+               against the plain stream's within MAIN_TOL.
+               schedule, epoch and passes run with the static plan
+               analyzer on and fail on any error-severity finding.
+ 12. attn    — the flash-attention and GQA flash-decode kernels against
                their plain versions: flash at Yi-6B's prefill shape (causal),
                with a window of 512, at a ragged S and in f32; decode at
                decode_32k's shape with per-sequence lengths (1 and S among
@@ -47,31 +72,31 @@ non-zero without a result line:
                whose edge crosses tiles, and in f16; decode with lens one
                below, at and one above tile and split edges, with groups of
                1, 5 and 16, and in f16.
- 10. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
+ 13. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
                launches = 4, decode launches = 4 x 128.
- 11. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
+ 14. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
                `serve` of 4 prompts of 128 tokens for 32 steps (decode
                launches = 32 x 160), `forward` on one 4096-token sequence
                (flash launches = 32), and teacher-forced decode logits
                against that forward's over the first 128 positions. Every
                attention launch of lm_serve takes the tensor-core route,
                every one of lm_check the f32 FMA route.
- 12. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 15. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
                with X·W at the rate of its three TF32 products; the SpMM
                also on socLJ1's first serving segment; decode also at
                lm_serve's own shape.
- 13. kernels — the summary line, then the card's name and power limit, then
+ 16. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
-Each main path (serve, layer, train, lm_check, lm_serve) runs with the
-launch counters set to 0 just before it and read just after. It needs no
-network and one card, and exits non-zero when no card is visible or when
-the package is not beside it.
+Each main path (serve, layer, train, schedule, epoch, passes, lm_check,
+lm_serve) runs with the launch counters set to 0 just before it and read
+just after. It needs no network and one card, and exits non-zero when no
+card is visible or when the package is not beside it.
 """
 from __future__ import annotations
 
@@ -411,20 +436,54 @@ def reference_outputs(a, features, weights):
     return hs
 
 
-def phase_serve(kmod, graphs, args):
-    import numpy as np
+def serve_requests(graphs, args) -> dict:
+    """gcn_paper's weights and four requests per graph from --seed, with
+    their float64 reference outputs: the inputs of the serve and passes
+    phases."""
     import torch
     from repro_torch.configs.gcn_paper import CONFIG
     from repro_torch.models import gcn_init
-    from repro_torch.runtime import (
-        EngineConfig, InferenceRequest, ServingEngine,
-    )
 
     gen = torch.Generator().manual_seed(args.seed)
     params = gcn_init(CONFIG, gen, device="cpu")
     weights = [params[f"w{i}"].numpy() for i in range(3)]
-    width = 4 * CONFIG.feature_dim
-    engines, requests, refs = {}, {}, {}
+    requests, refs = {}, {}
+    t0 = time.perf_counter()
+    for name, a in graphs.items():
+        requests[name] = [torch.randn((a.n_rows, CONFIG.feature_dim),
+                                      generator=gen).numpy()
+                          for _ in range(4)]
+        refs[name] = reference_outputs(a, requests[name], weights)
+    return {"weights": weights, "requests": requests, "refs": refs,
+            "width": 4 * CONFIG.feature_dim,
+            "setup_s": time.perf_counter() - t0}
+
+
+def check_outputs(label: str, results, refs) -> float:
+    """Each result's output against its float64 reference within
+    SERVE_TOL; returns the largest |Δ|."""
+    import numpy as np
+    worst = 0.0
+    for res, ref in zip(results, refs):
+        out = res.output
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            raise AssertionError(f"{label}: bad output {out.shape}")
+        err = float(np.abs(out - ref).max())
+        if not err <= SERVE_TOL:
+            raise AssertionError(f"{label}: |out - float64 ref| {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_serve(kmod, graphs, args, inputs):
+    from repro_torch.runtime import (
+        EngineConfig, InferenceRequest, ServingEngine,
+    )
+
+    weights, requests, refs = (inputs[k] for k in ("weights", "requests",
+                                                     "refs"))
+    width = inputs["width"]
+    engines = {}
     t0 = time.perf_counter()
     for name, a in graphs.items():
         eng = ServingEngine(EngineConfig(
@@ -432,11 +491,7 @@ def phase_serve(kmod, graphs, args):
             max_batch_features=width))
         eng.register_graph(name, a)
         engines[name] = eng
-        requests[name] = [torch.randn((a.n_rows, CONFIG.feature_dim),
-                                      generator=gen).numpy()
-                          for _ in range(4)]
-        refs[name] = reference_outputs(a, requests[name], weights)
-    setup_s = time.perf_counter() - t0
+    setup_s = inputs["setup_s"] + time.perf_counter() - t0
 
     zero_gcn_counts(kmod)                  # the main path starts here
     epochs = []
@@ -453,18 +508,9 @@ def phase_serve(kmod, graphs, args):
                 "promoted_bytes": rep.promoted_bytes,
                 "segments_streamed": rep.segments_streamed,
                 "aggregation_passes": rep.aggregation_passes,
-                "max_abs_err_vs_float64": 0.0,
+                "max_abs_err_vs_float64": check_outputs(
+                    f"{name} epoch {epoch}", rep.results, refs[name]),
             }
-            for res, ref in zip(rep.results, refs[name]):
-                out = res.output
-                if out.shape != ref.shape or not np.isfinite(out).all():
-                    raise AssertionError(f"{name}: bad output {out.shape}")
-                err = float(np.abs(out - ref).max())
-                row["graphs"][name]["max_abs_err_vs_float64"] = max(
-                    row["graphs"][name]["max_abs_err_vs_float64"], err)
-                if not err <= SERVE_TOL:
-                    raise AssertionError(
-                        f"{name} epoch {epoch}: |out - float64 ref| {err}")
         epochs.append(row)
     launches = kmod.LAUNCHES              # ... and ends here
     segments = sum(g["segments_streamed"] for row in epochs
@@ -704,6 +750,345 @@ def phase_train(kmod, eng, a, a64, seed: int):
           "launches_by_route": routes["bcsr_spmm"],
           "segments_streamed": segments})
     return launches
+
+
+# The modeled fields of a ScheduleMetrics (the reference tests' list: every
+# field but the wall-clock host_measured_s).
+METRIC_FIELDS = (
+    "makespan_s", "io_modeled_s", "compute_modeled_s", "host_preprocess_s",
+    "bytes_by_path", "seconds_by_path", "total_transfer_bytes",
+    "cache_hit_bytes", "merge_events", "merge_io_s", "segments", "oom")
+
+
+def modeled(m) -> dict:
+    """What the schedule and epoch phases print of a ScheduleMetrics: cost
+    model output under PAPER_GPU_SYSTEM (the paper's RTX 4090-class
+    system), never a time on this card."""
+    return {"cost_model": "PAPER_GPU_SYSTEM", "makespan_s": m.makespan_s,
+            "bytes_by_path": m.bytes_by_path, "segments": m.segments,
+            "merge_events": m.merge_events, "oom": m.oom}
+
+
+def same_metrics(label: str, got, want) -> None:
+    bad = [f for f in METRIC_FIELDS if getattr(got, f) != getattr(want, f)]
+    if bad:
+        raise AssertionError(f"{label}: metrics differ in {bad}")
+
+
+def no_analysis_errors(label: str, plan, **kw) -> int:
+    """Runs the static analyzer over `plan`; raises on any error-severity
+    finding, returns the number of findings."""
+    from repro_torch.core import analyze_plan
+    report = analyze_plan(plan, **kw)
+    if report.errors:
+        raise AssertionError(f"{label}: {[str(f) for f in report.errors]}")
+    return len(report.findings)
+
+
+def phase_schedule(kmod, a, a64, seed: int) -> int:
+    """The paper's scheduler and its three baselines in execute mode on
+    rUSA at gcn_paper's feature width; returns the SpMM launches."""
+    import torch
+    from repro_torch.configs.gcn_paper import CONFIG
+    from repro_torch.core import (
+        SCHEDULERS, AiresScheduler, CostInterpreter, FeatureSpec,
+        required_bytes,
+    )
+    from repro_torch.io import PAPER_GPU_SYSTEM, TieredSegmentCache
+
+    spec = PAPER_GPU_SYSTEM
+    gen = torch.Generator().manual_seed(seed + 3)
+    h = torch.randn((a.n_rows, CONFIG.feature_dim), generator=gen)
+    h_dev = h.to(DEV)
+    ref = torch.sparse.mm(a64, h.to(torch.float64))
+    budget = serve_budget(a, CONFIG.feature_dim)
+    kw = dict(device_budget=budget, bm=8, bk=8, wire_format="bricks",
+              device=DEV)
+    cache = TieredSegmentCache(device_budget_bytes=1 << 40, device=DEV)
+    out = {"phase": "schedule", "n": a.n_rows, "nnz": a.nnz,
+           "features": list(h.shape), "aires_budget_bytes": budget,
+           "schedulers": {}}
+    sync()
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    t0 = time.perf_counter()
+    res = AiresScheduler(spec, **kw).run(a, h_dev, mode="execute")
+    sync()
+    t1 = time.perf_counter()
+    cached = AiresScheduler(spec, segment_cache=cache, **kw)
+    cold = cached.run(a, h_dev, mode="execute")
+    warm = cached.run(a, h_dev, mode="execute")
+    sync()
+    launches = kmod.LAUNCHES                      # ... and ends here
+    segs = res.metrics.segments
+    if segs < 2:
+        raise AssertionError(f"AIRES plan has {segs} segment(s), want >= 2")
+    routes = check_gcn_routes("schedule", kmod, 3 * segs)
+    errs = {"aires": rel_err(res.x, ref)}
+    same_metrics("aires execute vs cost interpretation",
+                 CostInterpreter(spec).run(res.pipeline)[0], res.metrics)
+    wire = cold.pipeline.wire_bytes()             # the probes' wire bytes
+    if (cold.metrics.cache_hit_bytes, warm.metrics.cache_hit_bytes) != (
+            0, wire) or wire == 0:
+        raise AssertionError(
+            f"cached AIRES: hit bytes {cold.metrics.cache_hit_bytes}, "
+            f"{warm.metrics.cache_hit_bytes}; want 0, {wire}")
+    errs["aires_cached_warm"] = rel_err(warm.x, ref)
+    warm_vs_first = rel_err(warm.x, res.x)
+    if not warm_vs_first <= MAIN_TOL:
+        raise AssertionError(f"cached run moved x by {warm_vs_first}")
+    findings = no_analysis_errors("aires", res.pipeline, spec=spec,
+                                  released=True)
+    out["schedulers"]["aires"] = {
+        **modeled(res.metrics), "execute_s": t1 - t0,
+        "cached_warm": modeled(warm.metrics),
+        "cache_hit_bytes_warm": warm.metrics.cache_hit_bytes,
+        "wire_bytes": wire, "analysis_findings": findings}
+
+    # The baselines at 1.1 x the requirement (the reference tests'
+    # choice), raised for all three to 2.2 x H's bytes: MaxMemory's static
+    # split must hold H in half the budget, which 1.1 x does not at this
+    # width.
+    feat = FeatureSpec.of(h)
+    base_budget = max(int(1.1 * required_bytes(a, feat)),
+                      int(2.2 * feat.compressed_bytes))
+    out["baseline_budget_bytes"] = base_budget
+    for name in ("maxmemory", "ucg", "etc"):
+        t0 = time.perf_counter()
+        bres = SCHEDULERS[name](spec, device_budget=base_budget,
+                                device=DEV).run(a, h_dev, mode="execute")
+        sync()
+        if bres.metrics.oom:
+            raise AssertionError(f"{name}: OOM at {base_budget} B")
+        errs[name] = rel_err(bres.x, ref)
+        out["schedulers"][name] = {
+            **modeled(bres.metrics), "execute_s": time.perf_counter() - t0,
+            "analysis_findings": no_analysis_errors(
+                name, bres.pipeline, spec=spec, released=True)}
+    bad = {k: e for k, e in errs.items() if not e <= MAIN_TOL}
+    if bad:
+        raise AssertionError(f"schedule: relative error above {MAIN_TOL}: "
+                             f"{bad}")
+    emit({**out, "rel_err_vs_float64": errs, "tol": MAIN_TOL,
+          "spmm_launches": launches, "launches_by_route": routes[
+              "bcsr_spmm"], "aires_segments": segs})
+    return launches
+
+
+def phase_epoch(kmod, a, seed: int) -> int:
+    """gcn_epoch under AIRES in execute mode, gcn_paper's widths on rUSA;
+    returns the SpMM launches."""
+    import torch
+    from repro_torch.configs.gcn_paper import CONFIG
+    from repro_torch.core import (
+        AiresConfig, AiresScheduler, AiresSpGEMM, FeatureSpec, gcn_epoch,
+    )
+    from repro_torch.io import PAPER_GPU_SYSTEM
+
+    spec = PAPER_GPU_SYSTEM
+    dims = CONFIG.layer_dims()                   # [(256, 256), ..., (256, 64)]
+    gen = torch.Generator().manual_seed(seed + 4)
+    h0 = torch.randn((a.n_rows, dims[0][0]), generator=gen).to(DEV)
+    ws = [(torch.randn((fi, fo), generator=gen) * fi ** -0.5).to(DEV)
+          for fi, fo in dims]
+    budget = serve_budget(a, CONFIG.feature_dim)
+    cfg = AiresConfig(budget, bm=8, bk=8, device=DEV)
+    sync()
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    em = gcn_epoch(a, h0, ws, "aires", spec, budget, mode="execute",
+                   engine_config=cfg)
+    launches = kmod.LAUNCHES                      # ... and ends here
+    fwd = [s.segments for s in em.forward_stream]
+    bwd = [s.segments for s in em.backward_stream]
+    if len(fwd) != len(ws) or len(bwd) != len(ws) or min(fwd + bwd) < 2:
+        raise AssertionError(f"epoch streams: forward {fwd}, backward {bwd}")
+    routes = check_gcn_routes("epoch", kmod, sum(fwd) + sum(bwd))
+
+    # Each stream's wire bytes, from an engine with the same config, and
+    # the modeled per-layer metrics, from the scheduler run alone. The
+    # twin's first plan in each direction times the host work (RoBW,
+    # transpose, densification, pinning) that the epoch's first forward
+    # and backward calls do inside wall_seconds.
+    twin = AiresSpGEMM(cfg)
+    t0 = time.perf_counter()
+    twin.stream_plan(a, (a.n_rows, dims[0][0]))
+    t1 = time.perf_counter()
+    a_t = twin.transpose_of(a)
+    twin.stream_plan(a, (a.n_rows, dims[0][0]), transpose=True)
+    prepare_s = {"forward": t1 - t0, "backward": time.perf_counter() - t1}
+    sched = AiresScheduler(spec, device_budget=budget)
+    findings = 0
+    for i, w in enumerate(ws):
+        shape = (a.n_rows, int(w.shape[0]))
+        for label, plan, stats in (
+                ("forward", twin.stream_plan(a, shape),
+                 em.forward_stream[i]),
+                ("backward", twin.stream_plan(a, shape, transpose=True),
+                 em.backward_stream[i])):
+            if stats.uploaded_bytes != plan.wire_bytes():
+                raise AssertionError(
+                    f"layer {i} {label}: uploaded {stats.uploaded_bytes} B, "
+                    f"plan {plan.wire_bytes()} B")
+            findings += no_analysis_errors(f"layer {i} {label}", plan)
+        feat = FeatureSpec(a.n_rows, shape[1], 4, 0.0)
+        same_metrics(f"layer {i} forward", em.per_layer[i],
+                     sched.run(a, feat).metrics)
+        same_metrics(f"layer {i} backward", em.per_layer_backward[i],
+                     sched.run(a_t, feat).metrics)
+    sim = gcn_epoch(a, h0, ws, "aires", spec, budget, mode="simulate")
+    emit({"phase": "epoch", "config": CONFIG.name, "layers": dims,
+          "n": a.n_rows, "budget_bytes": budget,
+          "forward_segments": fwd, "backward_segments": bwd,
+          "uploaded_bytes": [s.uploaded_bytes for s in
+                             em.forward_stream + em.backward_stream],
+          "wall_seconds": em.wall_seconds, "host_prepare_s": prepare_s,
+          "modeled_cost_model": "PAPER_GPU_SYSTEM",
+          "modeled_execute_epoch_makespan_s": em.epoch_makespan_s,
+          "modeled_simulate_epoch_makespan_s": sim.epoch_makespan_s,
+          "modeled_per_layer": [modeled(m) for m in em.per_layer],
+          "modeled_per_layer_backward": [modeled(m) for m in
+                                         em.per_layer_backward],
+          "analysis_findings": findings,
+          "spmm_launches": launches,
+          "launches_by_route": routes["bcsr_spmm"]})
+    return launches
+
+
+def fixed_clock() -> float:
+    """A clock that stands still: deadlines and their order then do not
+    depend on how long the phase takes."""
+    return 1000.0
+
+
+def phase_passes(kmod, graphs, inputs) -> int:
+    """The serving engine with the reference's pass set and analysis on,
+    requests with deadlines; then a stream that really coalesces. Returns
+    the SpMM launches."""
+    import torch
+    from repro_torch.core import (
+        AiresConfig, AiresSpGEMM, CoalescedPayload, EDFOrderingPass,
+        PassPipeline, ShardPlacementPass, TransferCoalescingPass,
+        TransferOp, deadline_order, plan_memory_dense_features,
+    )
+    from repro_torch.configs.gcn_paper import CONFIG
+    from repro_torch.runtime import (
+        EngineConfig, InferenceRequest, ServingEngine,
+    )
+
+    # (a) One engine serving both graphs through the three passes, each
+    # request with a deadline; socLJ1's, submitted second, are earlier.
+    weights, requests, refs = (inputs[k] for k in ("weights", "requests",
+                                                     "refs"))
+    width = inputs["width"]
+    clock = fixed_clock
+    eng = ServingEngine(EngineConfig(
+        device_budget_bytes=max(serve_budget(a, width)
+                                for a in graphs.values()),
+        max_batch_features=width, analyze_plans=True, clock=clock,
+        device=DEV,
+        plan_passes=[ShardPlacementPass(), TransferCoalescingPass(),
+                     EDFOrderingPass(clock=clock)]))
+    for name, a in graphs.items():
+        eng.register_graph(name, a)
+    first_deadline = {"rUSA": 600.0, "socLJ1": 300.0}
+    queued = []
+    for name in graphs:
+        for i, h in enumerate(requests[name]):
+            req = InferenceRequest(name, h, weights,
+                                   deadline_s=first_deadline[name] + i)
+            rid = eng.submit(req)
+            queued.append((int(rid), name, req.deadline_s,
+                           rid.estimated_cost_s))
+    want = [name for _, name, _, _ in deadline_order(
+        queued, cost_of=lambda q: q[3], deadline_of=lambda q: q[2])]
+    sync()
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    rep = eng.run_batch()
+    sync()
+    served_launches = kmod.LAUNCHES
+    if served_launches != rep.segments_streamed or served_launches == 0:
+        raise AssertionError(f"passes (a): SpMM launches {served_launches} "
+                             f"!= segments streamed {rep.segments_streamed}")
+    by_id = {r.request_id: r for r in rep.results}
+    errs = {}
+    for name in graphs:
+        ids = [rid for rid, g, _, _ in queued if g == name]
+        errs[name] = check_outputs(f"passes {name}",
+                                   [by_id[rid] for rid in ids], refs[name])
+    served = [lat.graph for lat in sorted(rep.request_latency,
+                                          key=lambda lat: lat.actual_s)]
+    if list(dict.fromkeys(served)) != list(dict.fromkeys(want)):
+        raise AssertionError(f"passes (a): groups served {served}, "
+                             f"deadline order {want}")
+    serve_routes = check_gcn_routes("passes_serve", kmod, served_launches)
+
+    # (b) A stream that really coalesces: socLJ1 split into >= 8 segments,
+    # no segment cache, every segment below the coalescing threshold.
+    lj = graphs["socLJ1"]
+    f = CONFIG.feature_dim
+    est = plan_memory_dense_features(lj, lj.n_rows, f, float("inf"))
+    budget = int(est.m_b + est.m_c + 0.1 * lj.nbytes())
+    plain = AiresSpGEMM(AiresConfig(budget, bm=8, bk=8, device=DEV))
+    raw = plain.stream_plan(lj, (lj.n_rows, f))
+    seg_bytes = [b.op.nbytes for b in raw.ops
+                 if isinstance(b.op, TransferOp)]
+    if raw.segments < 8:
+        raise AssertionError(f"passes (b): {raw.segments} segments, want 8")
+    coalesce = PassPipeline([TransferCoalescingPass(
+        min_bytes=max(seg_bytes) + 1)])
+    co = AiresSpGEMM(AiresConfig(budget, bm=8, bk=8, device=DEV),
+                     plan_passes=coalesce, analyze=True)
+    plan = co.stream_plan(lj, (lj.n_rows, f))
+    merged = [b.op for b in plan.ops if isinstance(b.op, TransferOp)
+              and isinstance(b.op.payload[1], CoalescedPayload)]
+    members = sum(len(op.payload[1].payloads) for op in merged)
+    if not merged or members != raw.segments:
+        raise AssertionError(f"passes (b): {len(merged)} merged transfers "
+                             f"hold {members} of {raw.segments} segments")
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    h = torch.randn((lj.n_rows, f), device=DEV, generator=gen)
+    x_plain = plain(lj, h)
+    sync()
+    zero_gcn_counts(kmod)                         # the main path starts here
+    x_co = co(lj, h)
+    sync()
+    co_launches = kmod.LAUNCHES                   # ... and ends here
+    stats = co.last_stream_stats
+    if co_launches != raw.segments or stats.segments != len(merged):
+        raise AssertionError(
+            f"passes (b): {co_launches} SpMM launches for {raw.segments} "
+            f"segments, {stats.segments} streamer issues for {len(merged)} "
+            "merged transfers")
+    routes = check_gcn_routes("passes_coalesce", kmod, co_launches)
+    errs["coalesced_vs_plain"] = rel_err(x_co, x_plain)
+    if not errs["coalesced_vs_plain"] <= MAIN_TOL:
+        raise AssertionError(f"passes (b): coalesced vs plain "
+                             f"{errs['coalesced_vs_plain']}")
+    if stats.uploaded_bytes != plain.last_stream_stats.uploaded_bytes:
+        raise AssertionError("passes (b): coalescing changed the bytes")
+    emit({"phase": "passes",
+          "serve": {"requests": len(queued), "graph_order": served,
+                    "deadline_order": want,
+                    "segments_streamed": rep.segments_streamed,
+                    "uploaded_bytes": rep.uploaded_bytes,
+                    "spmm_launches": served_launches,
+                    "launches_by_route": serve_routes["bcsr_spmm"],
+                    "max_abs_err_vs_float64": {k: errs[k] for k in graphs},
+                    "tol": SERVE_TOL},
+          "coalesce": {"graph": "socLJ1", "budget_bytes": budget,
+                       "segments": raw.segments,
+                       "segment_wire_bytes": seg_bytes,
+                       "min_bytes": coalesce.passes[0].min_bytes,
+                       "merged_transfers": len(merged),
+                       "streamer_issues": stats.segments,
+                       "uploaded_bytes": stats.uploaded_bytes,
+                       "spmm_launches": co_launches,
+                       "rel_err_vs_plain": errs["coalesced_vs_plain"],
+                       "tol": MAIN_TOL,
+                       "launches_by_route": routes["bcsr_spmm"]}})
+    return served_launches + co_launches
 
 
 def brick_work(args, ell, k_rows: int, f: int, h_itemsize: int) -> dict:
@@ -1496,11 +1881,21 @@ def run(args) -> None:
                             plans["bwd"]["ell"], g_train,
                             plans["lj_serve"]["ell"], h_lj)
     fused_err = phase_fused(kmod, plans["fwd"]["ell"], h_train)
-    launches = {"serve": phase_serve(kmod, graphs, args)}
+    inputs = serve_requests(graphs, args)
+    launches = {"serve": phase_serve(kmod, graphs, args, inputs)}
     a64 = f64_adjacency(a)
     fused_launches, launches["layer"] = phase_layer(kmod, train_eng, a, a64,
                                                     args.seed)
     launches["train"] = phase_train(kmod, train_eng, a, a64, args.seed)
+    # The scheduler slice's phases run with the static plan analyzer on:
+    # an error-severity finding in any plan they interpret or stream
+    # raises PlanAnalysisError.
+    from repro_torch.core import set_default_analyze
+    previous = set_default_analyze(True)
+    launches["schedule"] = phase_schedule(kmod, a, a64, args.seed)
+    launches["epoch"] = phase_epoch(kmod, a, args.seed)
+    launches["passes"] = phase_passes(kmod, graphs, inputs)
+    set_default_analyze(previous)
     attn_err = phase_attn(fmod, dmod, args.seed)
     lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed),
           "lm_serve": phase_lm_serve(fmod, dmod, args.seed)}

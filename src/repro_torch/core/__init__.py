@@ -1,20 +1,64 @@
 """AIRES core: the Eq. 5-7 memory model, RoBW partitioning, the pipeline
-plan IR and the streamed, differentiable out-of-core SpGEMM."""
+plan IR with its static analyzer and rewrite passes, the paper's schedulers
+(AIRES and its three baselines), and the streamed, differentiable
+out-of-core SpGEMM with its GCN epoch runner.
+
+  memory_model : Eq. (5)-(7) analytical planning
+  robw         : Algorithm 1 row block-wise alignment
+  pipeline     : typed pipeline-plan IR + cost/execute interpreters
+  analysis     : static plan analyzer (liveness, races, byte lints)
+  passes       : plan-rewrite passes (placement, coalescing, EDF order)
+  scheduler    : Algorithm 2 plan builders (AIRES + baselines)
+  spgemm       : AiresSpGEMM public API + chained GCN epoch runner
+"""
+from repro_torch.core.analysis import (
+    RULES,
+    AnalysisReport,
+    Finding,
+    PlanAnalysisError,
+    analyze_plan,
+    default_analyze,
+    diff_path_totals,
+    path_byte_totals,
+    set_default_analyze,
+)
 from repro_torch.core.memory_model import (
     FeatureSpec,
     MemoryEstimate,
     calc_mem,
     ell_bucket_capacity,
+    estimate_output_bytes,
+    estimate_resident_bytes,
+    plan_memory,
     plan_memory_dense_features,
+    plan_memory_spec,
     plan_memory_unified,
+    required_bytes,
+    segment_budget,
+)
+from repro_torch.core.passes import (
+    CoalescedPayload,
+    EDFOrderingPass,
+    PassContext,
+    PassPipeline,
+    PassReport,
+    PlanPass,
+    ShardPlacementPass,
+    TransferCoalescingPass,
+    deadline_order,
+    edf_sort,
 )
 from repro_torch.core.pipeline import (
+    AllocOp,
     CacheProbeOp,
     ComputeOp,
     CostInterpreter,
     ExecuteInterpreter,
+    HostPreprocessOp,
     PhaseSpec,
     PipelinePlan,
+    PlanOp,
+    PlanValidationError,
     ScheduleMetrics,
     TransferOp,
     modeled_spgemm_seconds,
@@ -23,19 +67,48 @@ from repro_torch.core.robw import (
     RoBWPlan,
     RoBWSegment,
     densify_segment,
+    merge_partial_rows,
+    naive_partition,
     robw_partition,
     robw_transpose_plan,
     segments_to_block_ell,
 )
-from repro_torch.core.spgemm import AiresConfig, AiresSpGEMM, resolve_device
+from repro_torch.core.scheduler import (
+    SCHEDULERS,
+    AiresScheduler,
+    ETCScheduler,
+    MaxMemoryScheduler,
+    ScheduleResult,
+    UCGScheduler,
+)
+from repro_torch.core.spgemm import (
+    AiresConfig,
+    AiresSpGEMM,
+    EpochMetrics,
+    gcn_epoch,
+    resolve_device,
+)
 
 __all__ = [
+    "AnalysisReport", "Finding", "PlanAnalysisError", "RULES",
+    "analyze_plan", "default_analyze", "diff_path_totals",
+    "path_byte_totals", "set_default_analyze",
     "FeatureSpec", "MemoryEstimate", "calc_mem", "ell_bucket_capacity",
-    "plan_memory_dense_features", "plan_memory_unified",
-    "CacheProbeOp", "ComputeOp", "CostInterpreter", "ExecuteInterpreter",
-    "PhaseSpec", "PipelinePlan", "ScheduleMetrics", "TransferOp",
+    "estimate_output_bytes", "estimate_resident_bytes", "plan_memory",
+    "plan_memory_dense_features", "plan_memory_spec", "plan_memory_unified",
+    "required_bytes", "segment_budget",
+    "CoalescedPayload", "EDFOrderingPass", "PassContext", "PassPipeline",
+    "PassReport", "PlanPass", "ShardPlacementPass", "TransferCoalescingPass",
+    "deadline_order", "edf_sort",
+    "AllocOp", "CacheProbeOp", "ComputeOp", "CostInterpreter",
+    "ExecuteInterpreter", "HostPreprocessOp", "PhaseSpec", "PipelinePlan",
+    "PlanOp", "PlanValidationError", "ScheduleMetrics", "TransferOp",
     "modeled_spgemm_seconds",
-    "RoBWPlan", "RoBWSegment", "densify_segment", "robw_partition",
-    "robw_transpose_plan", "segments_to_block_ell",
-    "AiresConfig", "AiresSpGEMM", "resolve_device",
+    "RoBWPlan", "RoBWSegment", "densify_segment", "merge_partial_rows",
+    "naive_partition", "robw_partition", "robw_transpose_plan",
+    "segments_to_block_ell",
+    "SCHEDULERS", "AiresScheduler", "ETCScheduler", "MaxMemoryScheduler",
+    "ScheduleResult", "UCGScheduler",
+    "AiresConfig", "AiresSpGEMM", "EpochMetrics", "gcn_epoch",
+    "resolve_device",
 ]

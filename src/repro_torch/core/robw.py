@@ -9,8 +9,13 @@ Segment boundaries are additionally aligned to a row-block multiple `align`
 so every streamed segment densifies into whole BlockELL bricks. Alignment
 can only shrink a segment, so the calcMem budget still holds.
 
-A copy of the serving half of `repro.core.robw`; the tests hold the plans
-and bricks equal.
+The baselines' naive split (`naive_partition`) and the host merge of the
+rows it splits (`merge_partial_rows`) live here too: they are what the
+paper's Fig. 3 measures AIRES against.
+
+A copy of `repro.core.robw` without its partition-aware tiling, delta
+re-partitioning and ELL bucket ladders; the tests hold the plans and bricks
+equal.
 """
 from __future__ import annotations
 
@@ -45,6 +50,16 @@ class RoBWPlan:
     segments: List[RoBWSegment]
     align: int
     budget_bytes: int
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    def max_rows(self) -> int:
+        return max((s.n_rows for s in self.segments), default=0)
+
+    def max_nnz(self) -> int:
+        return max((s.nnz for s in self.segments), default=0)
 
 
 def robw_partition(
@@ -112,6 +127,31 @@ def robw_transpose_plan(
     return a_t, plan
 
 
+def naive_partition(a: CSR, m_a_bytes: int, value_bytes: Optional[int] = None,
+                    index_bytes: int = 4) -> List[tuple]:
+    """The MaxMemory baseline split: cut at *nnz* budget ignoring row
+    boundaries. Returns [(nnz_start, nnz_end, first_partial, last_partial)].
+
+    Segments generally begin and end mid-row; the scheduler must merge
+    partial rows on the host (the Fig. 3 overhead AIRES removes).
+    """
+    if value_bytes is None:
+        value_bytes = int(a.data.dtype.itemsize)
+    per_nnz = index_bytes + value_bytes
+    budget_nnz = max(1, (m_a_bytes - 2 * index_bytes) // per_nnz)
+    cuts = []
+    pos = 0
+    row_of = np.searchsorted(a.indptr, np.arange(a.nnz + 1), side="right") - 1
+    while pos < a.nnz:
+        end = min(pos + budget_nnz, a.nnz)
+        first_partial = pos != a.indptr[row_of[min(pos, a.nnz - 1)]]
+        last_partial = end < a.nnz and end != a.indptr[row_of[end]]
+        cuts.append((int(pos), int(end), bool(first_partial),
+                     bool(last_partial)))
+        pos = end
+    return cuts
+
+
 def densify_segment(
     a: CSR,
     seg: RoBWSegment,
@@ -142,3 +182,11 @@ def segments_to_block_ell(
     """Phase-I host preprocessing: stream of tile-densified segments."""
     for seg in plan.segments:
         yield densify_segment(a, seg, bm=bm, bk=bk, dtype=dtype)
+
+
+def merge_partial_rows(prev_tail: np.ndarray, head: np.ndarray) -> np.ndarray:
+    """Host-side merge of a split row (baseline schedulers only): the
+    paper's 'packed with the last portion of data already transferred ...
+    for merging and staging in the host memory'. Returns the merged row
+    values; the cost of this call is what Fig. 3 measures."""
+    return np.concatenate([prev_tail, head])

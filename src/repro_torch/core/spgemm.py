@@ -10,17 +10,25 @@ Both entry points are `torch.autograd.Function`s. The backward of
 (`robw_transpose_plan`) through the same stream and SpMM kernel, so a
 gradient through a GCN layer really moves the bricks of Aᵀ. `gcn_layer`
 streams the fused kernel forward, relu((A H) W + b) with X kept on chip,
-and its backward recomputes X with one forward stream. Edge updates and
-`gcn_epoch` belong to later slices.
+and its backward recomputes X with one forward stream.
+
+`gcn_epoch` runs one training epoch of the Fig. 1 chain under a named
+scheduler: modeled (`mode="simulate"`) or for real through the
+differentiable engine (`mode="execute"`), with the scheduler's modeled
+per-layer metrics beside the real `StreamStats`. Edge updates belong to a
+later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Literal, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.memory_model import FeatureSpec, plan_memory_unified
+from repro_torch.core.passes import CoalescedPayload
 from repro_torch.core.pipeline import (
     LANE_COMPUTE,
     LANE_DMA,
@@ -29,6 +37,7 @@ from repro_torch.core.pipeline import (
     ExecuteInterpreter,
     PhaseSpec,
     PipelinePlan,
+    ScheduleMetrics,
     TransferOp,
     modeled_spgemm_seconds,
 )
@@ -121,10 +130,19 @@ class AiresSpGEMM:
     PREPARED_CACHE_MAX = 8
 
     def __init__(self, config: AiresConfig,
-                 segment_cache: Optional[TieredSegmentCache] = None):
+                 segment_cache: Optional[TieredSegmentCache] = None,
+                 plan_passes=None, analyze: Optional[bool] = None):
         self.config = config
         self.device = resolve_device(config.device)
         self.segment_cache = segment_cache
+        # Optional core.passes.PassPipeline applied to every stream plan
+        # before it is estimated or executed (build → rewrite → interpret,
+        # the schedulers' seam). None = identity.
+        self.plan_passes = plan_passes
+        # Static plan analysis before every real stream (core.analysis):
+        # None defers to the module default; the serving engine forwards
+        # EngineConfig.analyze_plans.
+        self.analyze = analyze
         self._prepared: Dict[tuple, _Prepared] = {}
         self._transposes: Dict[tuple, CSR] = {}
         self.forward_stats_log: List[StreamStats] = []
@@ -260,36 +278,64 @@ class AiresSpGEMM:
         return plan
 
     def stream_plan(self, a: CSR, h_shape, spec: Optional[TierSpec] = None,
-                    transpose: bool = False) -> PipelinePlan:
+                    transpose: bool = False,
+                    apply_passes: bool = True) -> PipelinePlan:
         """Plan (and prepare) one streamed pass of `a` (of Aᵀ with
-        `transpose`, the backward direction) at `h_shape`."""
+        `transpose`, the backward direction) at `h_shape`.
+
+        The configured `plan_passes` are applied, so estimates price the
+        plan the stream will actually run; ``apply_passes=False`` returns
+        the raw pre-rewrite plan."""
         h_shape = tuple(int(s) for s in h_shape)
         feat = FeatureSpec(h_shape[0], h_shape[1], 4, 0.0)
         prepared = self._prepare(a, h_shape, transpose)
-        return self._build_stream_plan(prepared, feat=feat, spec=spec)
+        plan = self._build_stream_plan(prepared, feat=feat, spec=spec)
+        if apply_passes and self.plan_passes is not None:
+            plan, _ = self.plan_passes.apply(
+                plan, spec=spec, segment_cache=self.segment_cache)
+        return plan
 
     def _stream(self, prepared: _Prepared, consume_one: Callable,
                 feat: Optional[FeatureSpec] = None) -> tuple:
         """One double-buffered pass over `prepared`'s segments through the
-        execute interpreter. consume_one(ell_dev, i) -> per-segment device
-        result. Returns (row-concatenated output, StreamStats)."""
+        execute interpreter, after the configured `plan_passes`.
+        consume_one(ell_dev, i) -> per-segment device result. Returns
+        (row-concatenated output, StreamStats)."""
         cfg = self.config
         plan = self._build_stream_plan(prepared, feat=feat)
+        if self.plan_passes is not None:
+            plan, _ = self.plan_passes.apply(
+                plan, segment_cache=self.segment_cache)
 
         def upload(payload):
             i, ell = payload
+            if isinstance(ell, CoalescedPayload):
+                # One streamer issue uploads every member brick of a
+                # coalesced transfer (the pass merged adjacent small DMAs).
+                return CoalescedPayload(
+                    [(j, self.device_payload(prepared.host[j], e))
+                     for j, e in ell.payloads])
             return self.device_payload(prepared.host[i], ell)
 
-        def consume(dev_payload, i):
+        def consume_device(dev_payload, i):
             blocks, col_tile, n_tiles, ell = dev_payload
             return consume_one(dataclasses.replace(
                 ell, blocks=blocks, col_tile=col_tile, n_tiles=n_tiles), i)
+
+        def consume(dev_payload, i):
+            if isinstance(dev_payload, CoalescedPayload):
+                # The member segments, back to back, in plan order.
+                return [consume_device(dp, j)
+                        for j, dp in dev_payload.payloads]
+            return consume_device(dev_payload, i)
 
         cache = self.segment_cache
         # Copy, not alias: the cache mutates its stats in place.
         before = (dataclasses.replace(cache.stats)
                   if cache is not None else None)
-        parts, stats = ExecuteInterpreter(segment_cache=cache).stream(
+        interp = ExecuteInterpreter(segment_cache=cache,
+                                    analyze=self.analyze)
+        parts, stats = interp.stream(
             plan, upload, consume, depth=cfg.stream_depth,
             deadline_s=cfg.straggler_deadline_s, device=self.device)
         if cache is not None:
@@ -297,7 +343,14 @@ class AiresSpGEMM:
             # so uploaded_bytes=0 cannot read as zero traffic.
             stats.promoted_bytes = (cache.stats.promoted_bytes
                                     - before.promoted_bytes)
-        out = torch.cat([p[: s.n_rows] for p, s in zip(parts, prepared.segs)],
+        # Flatten coalesced-group results back into per-segment plan order.
+        flat = []
+        for p in parts:
+            if isinstance(p, list):
+                flat.extend(p)
+            else:
+                flat.append(p)
+        out = torch.cat([p[: s.n_rows] for p, s in zip(flat, prepared.segs)],
                         dim=0)
         return out, stats
 
@@ -399,3 +452,150 @@ class _GCNLayer(torch.autograd.Function):
         grads = tuple(g.to(device=device, dtype=dtype)
                       for g, (dtype, device) in zip((dh, dw, db), ctx.like))
         return grads + (None, None, None)
+
+
+# ---- one training epoch under a scheduler ----------------------------------
+
+
+@dataclasses.dataclass
+class EpochMetrics:
+    per_layer: List[ScheduleMetrics]
+    epoch_makespan_s: float
+    total_transfer_bytes: int
+    # execute mode: modeled backward metrics (transposed stream) per layer
+    per_layer_backward: List[ScheduleMetrics] = dataclasses.field(
+        default_factory=list)
+    # execute mode: real streaming stats, one entry per layer, layer order
+    forward_stream: List[StreamStats] = dataclasses.field(default_factory=list)
+    backward_stream: List[StreamStats] = dataclasses.field(default_factory=list)
+    wall_seconds: float = 0.0
+
+    def speedup_over(self, other: "EpochMetrics") -> float:
+        return other.epoch_makespan_s / max(self.epoch_makespan_s, 1e-12)
+
+
+def gcn_epoch(
+    a: CSR,
+    h0,
+    weights: List,
+    scheduler_name: str,
+    spec: TierSpec,
+    device_budget: int,
+    mode: Literal["simulate", "execute"] = "simulate",
+    dataset: str = "",
+    backward_factor: float = 2.0,
+    engine_config: Optional[AiresConfig] = None,
+    segment_cache: Optional[TieredSegmentCache] = None,
+) -> EpochMetrics:
+    """One training epoch of the Fig. 1 chain under a given scheduler.
+
+    Per layer: X = Ã H (out-of-core SpGEMM, scheduled), H' = σ(X W) (dense,
+    on the device).
+
+    simulate — backward is modeled as `backward_factor`× the forward cost
+    with the same streaming pattern, matching the paper's per-epoch
+    accounting (§V-A) at scales where execution is impractical.
+
+    execute — a true forward+backward pass runs through the differentiable
+    `AiresSpGEMM` engine (torch autograd over the layer chain) on
+    `engine_config.device`: the backward really streams the transposed
+    RoBW plan, and `EpochMetrics` carries the per-layer forward/backward
+    `StreamStats` plus modeled per-layer metrics for the chosen scheduler
+    over A (forward) and Aᵀ (backward). `backward_factor` is ignored in
+    execute mode. Modeled seconds are priced under `spec`, not measured.
+    """
+    if mode == "execute":
+        return _execute_epoch(a, h0, weights, scheduler_name, spec,
+                              device_budget, dataset, engine_config,
+                              segment_cache)
+    return _simulate_epoch(a, h0, weights, scheduler_name, spec,
+                           device_budget, dataset, backward_factor,
+                           segment_cache)
+
+
+def _simulate_epoch(a, h0, weights, scheduler_name, spec, device_budget,
+                    dataset, backward_factor,
+                    segment_cache=None) -> EpochMetrics:
+    from repro_torch.core.scheduler import SCHEDULERS
+
+    kw = ({"segment_cache": segment_cache}
+          if segment_cache is not None and scheduler_name == "aires" else {})
+    sched = SCHEDULERS[scheduler_name](spec, device_budget=device_budget, **kw)
+    per_layer: List[ScheduleMetrics] = []
+    makespan = 0.0
+    total_bytes = 0
+    h = h0
+    for w in weights:
+        res = sched.run(a, h, mode="simulate", dataset=dataset)
+        m = res.metrics
+        per_layer.append(m)
+        if m.oom:
+            return EpochMetrics(per_layer, float("inf"), 0)
+        # forward + modeled backward streaming cycles
+        makespan += m.makespan_s * (1.0 + backward_factor)
+        total_bytes += int(m.total_transfer_bytes * (1.0 + backward_factor))
+        if isinstance(h, FeatureSpec):
+            h = FeatureSpec(h.n_rows, w.shape[1], h.dtype_bytes,
+                            h.sparsity_pct)
+        else:
+            h = np.zeros((h.shape[0], w.shape[1]), dtype=np.float32)
+    return EpochMetrics(per_layer, makespan, total_bytes)
+
+
+def _execute_epoch(a, h0, weights, scheduler_name, spec, device_budget,
+                   dataset, engine_config, segment_cache=None) -> EpochMetrics:
+    from repro_torch.core.scheduler import SCHEDULERS
+
+    cfg = engine_config or AiresConfig(device_budget_bytes=device_budget)
+    engine = AiresSpGEMM(cfg, segment_cache=segment_cache)
+    engine.reset_stats_logs()
+    sched = SCHEDULERS[scheduler_name](spec, device_budget=device_budget)
+    # One transpose, shared with the engine's backward streaming plans.
+    a_t = engine.transpose_of(a)
+
+    # ---- modeled per-layer accounting: forward over A, backward over Aᵀ.
+    per_layer: List[ScheduleMetrics] = []
+    per_layer_bwd: List[ScheduleMetrics] = []
+    makespan = 0.0
+    total_bytes = 0
+    n, f = h0.shape
+    width = f
+    for w in weights:
+        feat_f = FeatureSpec(n, width, 4, 0.0)
+        res_f = sched.run(a, feat_f, mode="simulate", dataset=dataset)
+        # dX arriving at this layer's aggregation has the layer's own width.
+        res_b = sched.run(a_t, FeatureSpec(n, width, 4, 0.0),
+                          mode="simulate", dataset=dataset)
+        per_layer.append(res_f.metrics)
+        per_layer_bwd.append(res_b.metrics)
+        if res_f.metrics.oom or res_b.metrics.oom:
+            return EpochMetrics(per_layer, float("inf"), 0,
+                                per_layer_backward=per_layer_bwd)
+        makespan += res_f.metrics.makespan_s + res_b.metrics.makespan_s
+        total_bytes += (res_f.metrics.total_transfer_bytes
+                        + res_b.metrics.total_transfer_bytes)
+        width = w.shape[1]
+
+    # ---- real forward+backward through the differentiable engine.
+    dev = engine.device
+    h, *ws = (torch.as_tensor(t, dtype=torch.float32, device=dev).detach()
+              .requires_grad_(True) for t in (h0, *weights))
+
+    t0 = time.perf_counter()
+    out = h
+    for w in ws:
+        out = torch.relu(engine(a, out) @ w)
+    torch.autograd.backward(out, torch.ones_like(out) / out.numel())
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+
+    return EpochMetrics(
+        per_layer=per_layer,
+        epoch_makespan_s=makespan,
+        total_transfer_bytes=total_bytes,
+        per_layer_backward=per_layer_bwd,
+        forward_stream=list(engine.forward_stats_log),
+        backward_stream=list(reversed(engine.backward_stats_log)),
+        wall_seconds=wall,
+    )

@@ -6,8 +6,10 @@ from repro_torch.io.segment_cache import (
 )
 from repro_torch.io.streamer import DoubleBufferedStreamer, StreamStats
 from repro_torch.io.tiers import (
+    PAPER_GPU_SYSTEM,
     TPU_V5E_SYSTEM,
     MemoryTier,
+    OutOfMemory,
     Path,
     TieredMemorySystem,
     TierSpec,
@@ -16,5 +18,6 @@ from repro_torch.io.tiers import (
 __all__ = [
     "CacheStats", "SegmentKey", "TieredSegmentCache",
     "DoubleBufferedStreamer", "StreamStats",
-    "TPU_V5E_SYSTEM", "MemoryTier", "Path", "TieredMemorySystem", "TierSpec",
+    "PAPER_GPU_SYSTEM", "TPU_V5E_SYSTEM", "MemoryTier", "OutOfMemory",
+    "Path", "TieredMemorySystem", "TierSpec",
 ]

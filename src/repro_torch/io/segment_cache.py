@@ -63,6 +63,9 @@ class _Entry:
 
 
 def _map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], value: Any):
+    """`fn` over the tensors of `value` (a tensor or a tuple of them);
+    anything else — a host `BlockELL`, a simulate-mode token — passes
+    through untouched."""
     if isinstance(value, torch.Tensor):
         return fn(value)
     if isinstance(value, tuple):
@@ -161,27 +164,35 @@ class TieredSegmentCache:
         """Lookup; `nbytes` (the wire size the caller would otherwise
         upload) feeds hit/miss byte accounting. Returns the device-form
         value, or None on miss. A host-tier hit is promoted back."""
+        return self.get_with_cost(key, nbytes=nbytes, tms=tms)[0]
+
+    def get_with_cost(self, key: SegmentKey, nbytes: int = 0,
+                      tms: Optional[TieredMemorySystem] = None
+                      ) -> Tuple[Optional[Any], float]:
+        """Like get(), but returns (value, transfer_seconds): the modeled
+        cost of the promotion this lookup triggered (0.0 for a device-tier
+        hit or a miss)."""
         with self._lock:
             entry = self._device.get(key)
             if entry is not None:
                 self._device.move_to_end(key)
                 self.stats.device_hits += 1
                 self.stats.hit_bytes += nbytes
-                return entry.value
+                return entry.value, 0.0
             entry = self._host.pop(key, None)
             if entry is not None:
                 self._host_used -= entry.nbytes
                 value = promote_to_device(entry.value, self.device)
-                self._charge(tms, MemoryTier.HOST, MemoryTier.DEVICE,
-                             entry.nbytes, "cache/promote")
+                cost = self._charge(tms, MemoryTier.HOST, MemoryTier.DEVICE,
+                                    entry.nbytes, "cache/promote")
                 self.stats.promoted_bytes += entry.nbytes
                 self.stats.host_hits += 1
                 self.stats.hit_bytes += nbytes
                 self._insert_device(key, _Entry(value, entry.nbytes), tms)
-                return value
+                return value, cost
             self.stats.misses += 1
             self.stats.miss_bytes += nbytes
-            return None
+            return None, 0.0
 
     def peek_cost(self, key: SegmentKey, nbytes: int = 0,
                   tms: Optional[TieredMemorySystem] = None

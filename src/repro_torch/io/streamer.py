@@ -40,9 +40,13 @@ _END = object()
 def _tensors(payload: Any) -> Iterator[torch.Tensor]:
     if isinstance(payload, torch.Tensor):
         yield payload
-    elif isinstance(payload, tuple):
+    elif isinstance(payload, (tuple, list)):
         for item in payload:
             yield from _tensors(item)
+    elif hasattr(payload, "payloads"):
+        # A coalesced upload (core.passes.CoalescedPayload): one issue,
+        # every member segment's tensors.
+        yield from _tensors(payload.payloads)
 
 
 class DoubleBufferedStreamer:

@@ -5,18 +5,26 @@ path). `TieredMemorySystem` accounts every transfer (bytes, path, modeled
 seconds) against a `TierSpec`, so cost estimates and byte accounting can be
 read off a plan without running it.
 
-`TPU_V5E_SYSTEM` is the reference package's default spec, copied verbatim
-from `repro.io.tiers` so that `PipelinePlan.estimate()` and the byte
-accounting match the reference's. It is cost-model data only: it describes
-no property of the card this package runs on. A spec fitted to the card is
-the calibration slice's work.
+Two specs are copied verbatim from `repro.io.tiers`, so that every modeled
+cost matches the reference's:
+
+  * `TPU_V5E_SYSTEM` — the reference package's default spec (serving
+    admission control, stream-plan estimates);
+  * `PAPER_GPU_SYSTEM` — the paper's RTX 4090-class system (§V-A: "We
+    model the I/O transfer operations ... with simulations"), which the
+    schedulers and the paper's figures price against.
+
+Both are cost-model data only: neither describes the card this package
+runs on, and a makespan priced under either is a modeled number, not a
+time on the card. A spec fitted to the card is the calibration slice's
+work.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 
 class MemoryTier(enum.Enum):
@@ -60,6 +68,18 @@ def _mk(caps, bw_gbs, lat_us, hbm_bw, host_bw=12e9,
     )
 
 
+# The paper's cost-model system (see the module docstring): RTX 4090 (24 GB,
+# 1008 GB/s) + i9-13900KF (128 GB DDR5) + M.2 NVMe, PCIe gen4; ICI models an
+# NVLink-class peer path for a sharded segment cache.
+PAPER_GPU_SYSTEM = _mk(
+    (24 << 30, 128 << 30, 2 << 40),
+    {Path.DMA: 22.0, Path.GDS: 6.0, Path.STORAGE_HOST: 6.5, Path.UM: 9.0,
+     Path.ICI: 100.0},
+    {Path.DMA: 8.0, Path.GDS: 25.0, Path.STORAGE_HOST: 20.0, Path.UM: 4.0,
+     Path.ICI: 2.0},
+    hbm_bw=1008e9, peak_flops=82.6e12,
+)
+
 # The reference's default cost-model spec (see the module docstring).
 TPU_V5E_SYSTEM = _mk(
     (16 << 30, 512 << 30, 16 << 40),
@@ -81,12 +101,20 @@ class TransferRecord:
     tag: str = ""
 
 
+class OutOfMemory(RuntimeError):
+    """Raised when a tier allocation exceeds capacity (Table III '-')."""
+
+
 class TieredMemorySystem:
-    """Accounting of modeled transfers over the three-tier hierarchy:
-    every transfer costs setup latency + bytes/bandwidth on its path."""
+    """Accounting of allocations and modeled transfers over the three-tier
+    hierarchy: every transfer costs setup latency + bytes/bandwidth on its
+    path. Busy time is kept per path, so independent channels (a GDS and a
+    DMA transfer, dual-way) can be read as overlapped or serial."""
 
     def __init__(self, spec: TierSpec, keep_records: bool = True):
         self.spec = spec
+        self.used: Dict[MemoryTier, int] = {t: 0 for t in MemoryTier}
+        self.allocs: Dict[Tuple[MemoryTier, str], int] = {}
         # Per-transfer records feed fine-grained breakdowns (one fresh
         # instance per estimate). Long-lived accounting (a ServingEngine's
         # lifetime) sets keep_records=False so only the bounded per-path
@@ -95,7 +123,39 @@ class TieredMemorySystem:
         self.transfers: List[TransferRecord] = []
         self._bytes_by_path: Dict[Path, int] = defaultdict(int)
         self._seconds_by_path: Dict[Path, float] = defaultdict(float)
+        self.busy_s: Dict[Path, float] = defaultdict(float)
         self._total_bytes = 0
+
+    # ---- allocation -----------------------------------------------------
+
+    def _capacity(self, tier: MemoryTier) -> int:
+        return {
+            MemoryTier.DEVICE: self.spec.device_capacity,
+            MemoryTier.HOST: self.spec.host_capacity,
+            MemoryTier.STORAGE: self.spec.storage_capacity,
+        }[tier]
+
+    def alloc(self, tier: MemoryTier, name: str, nbytes: int) -> None:
+        """Reserve `nbytes` of `tier` under `name`; a second allocation of
+        the same name replaces the first. Raises OutOfMemory past the
+        tier's capacity."""
+        key = (tier, name)
+        new_used = self.used[tier] - self.allocs.get(key, 0) + nbytes
+        if new_used > self._capacity(tier):
+            raise OutOfMemory(
+                f"{tier.value}: need {new_used/2**30:.2f} GiB "
+                f"> capacity {self._capacity(tier)/2**30:.2f} GiB ({name})")
+        self.used[tier] = new_used
+        self.allocs[key] = nbytes
+
+    def free(self, tier: MemoryTier, name: str) -> None:
+        key = (tier, name)
+        self.used[tier] -= self.allocs.pop(key, 0)
+
+    def headroom(self, tier: MemoryTier) -> int:
+        return self._capacity(tier) - self.used[tier]
+
+    # ---- transfer -------------------------------------------------------
 
     def transfer(self, path: Path, src: MemoryTier, dst: MemoryTier,
                  nbytes: int, tag: str = "") -> float:
@@ -104,6 +164,7 @@ class TieredMemorySystem:
         if self.keep_records:
             self.transfers.append(
                 TransferRecord(path, src, dst, int(nbytes), secs, tag))
+        self.busy_s[path] += secs
         self._bytes_by_path[path] += int(nbytes)
         self._seconds_by_path[path] += secs
         self._total_bytes += int(nbytes)
@@ -117,3 +178,18 @@ class TieredMemorySystem:
 
     def total_bytes(self) -> int:
         return self._total_bytes
+
+    def makespan_overlapped(self) -> float:
+        """Dual-way makespan: independent channels run concurrently."""
+        return max(self.busy_s.values(), default=0.0)
+
+    def makespan_serial(self) -> float:
+        """Single-path makespan (baselines without dual-way transfer)."""
+        return sum(self.busy_s.values())
+
+    def reset_accounting(self) -> None:
+        self.transfers.clear()
+        self.busy_s.clear()
+        self._bytes_by_path.clear()
+        self._seconds_by_path.clear()
+        self._total_bytes = 0

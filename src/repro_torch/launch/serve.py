@@ -11,7 +11,7 @@ wire bytes. It draws its graphs and requests from the same seeded streams
 as `repro.launch.serve.serve_gcn`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch yi_6b [--device cpu]
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode gcn [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode gcn [--passes] [--device cpu]
 
 `--mode lm`, the default as in the reference, serves the arch's SMOKE
 config and needs `--arch`; the full config is
@@ -67,20 +67,28 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
     """Drive the multi-graph GCN serving engine on `device`; returns the
     per-epoch `BatchReport`s.
 
-    The signature is `repro.launch.serve.serve_gcn`'s plus `device`. The
-    features behind `cache_shards`, `workers`, `passes`, `calibrate` and
-    `autotune` are not ported yet: any value but the default raises. A
-    `summary_out` dict receives what the reference reports when they are
-    off: no calibration errors and no installed schedules.
+    The signature is `repro.launch.serve.serve_gcn`'s plus `device`.
+    `passes` routes every batch through the plan-rewrite pipeline
+    (core.passes): shard-aware brick placement (the identity on this
+    single-chip cache), transfer coalescing and EDF request ordering. The
+    features behind `cache_shards`, `workers`, `calibrate` and `autotune`
+    are not ported yet: any value but the default raises. A `summary_out`
+    dict receives what the reference reports when they are off: no
+    calibration errors and no installed schedules.
     """
-    unported = {"cache_shards": cache_shards != 1, "workers": workers != 1,
-                "passes": passes, "calibrate": calibrate,
-                "autotune": autotune}
-    asked = sorted(name for name, on in unported.items() if on)
+    # Each unported argument with the ROADMAP queue 1 item that ports it.
+    unported = {"cache_shards": (cache_shards != 1, 2),
+                "workers": (workers != 1, 2),
+                "calibrate": (calibrate, 3), "autotune": (autotune, 4)}
+    asked = sorted(f"{name} (ROADMAP queue 1 item {item})"
+                   for name, (on, item) in unported.items() if on)
     if asked:
         raise NotImplementedError(
             f"serve_gcn: {', '.join(asked)} not ported to repro_torch yet")
-    from repro_torch.core import plan_memory_dense_features
+    from repro_torch.core import (
+        EDFOrderingPass, ShardPlacementPass, TransferCoalescingPass,
+        plan_memory_dense_features,
+    )
     from repro_torch.data import (
         SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
     )
@@ -101,8 +109,11 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
         for a in graphs.values()
         for est in [plan_memory_dense_features(a, a.n_rows, 64,
                                                float("inf"))])
+    plan_passes = ([ShardPlacementPass(), TransferCoalescingPass(),
+                    EDFOrderingPass()] if passes else None)
     eng = ServingEngine(EngineConfig(device_budget_bytes=budget,
-                                     cache_enabled=cache, device=device))
+                                     cache_enabled=cache, device=device,
+                                     plan_passes=plan_passes))
     for name, a in graphs.items():
         eng.register_graph(name, a)
 
@@ -132,6 +143,10 @@ def main(argv=None) -> None:
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--no-cache", action="store_true",
                     help="disable the tiered segment cache")
+    ap.add_argument("--passes", action="store_true",
+                    help="gcn mode: route stream plans through the rewrite "
+                         "passes (shard placement, transfer coalescing, "
+                         "EDF ordering)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
@@ -157,7 +172,7 @@ def main(argv=None) -> None:
 
     reports = serve_gcn(batch=args.batch, epochs=args.epochs,
                         cache=not args.no_cache, seed=args.seed,
-                        device=args.device)
+                        passes=args.passes, device=args.device)
     for e, r in enumerate(reports):
         lat = r.request_latency
         err = (sum(abs(lt.error_s) for lt in lat) / len(lat) if lat else 0.0)

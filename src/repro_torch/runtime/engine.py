@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.passes import PassPipeline, PlanPass
 from repro_torch.core.spgemm import AiresConfig, AiresSpGEMM, resolve_device
 from repro_torch.io.segment_cache import CacheStats, TieredSegmentCache
 from repro_torch.io.tiers import TieredMemorySystem, TierSpec, TPU_V5E_SYSTEM
@@ -61,6 +62,17 @@ class EngineConfig:
     # Reject a submit() once the estimated cost of the queued requests plus
     # the new one exceeds this many modeled seconds (None = unbounded).
     max_queue_cost_s: Optional[float] = None
+    # Plan-rewrite passes (core.passes): a PassPipeline — or a sequence of
+    # PlanPass instances — applied to every stream plan before it is
+    # estimated or executed; an EDFOrderingPass in the pipeline also
+    # reorders run_batch() work earliest-deadline-first. None (default)
+    # and the empty pipeline keep the pass-free behavior.
+    plan_passes: Optional["PassPipeline | Sequence[PlanPass]"] = None
+    # Static plan analysis (core.analysis) before every real stream: True
+    # forces it on, False off, None defers to the module default. An
+    # error-severity finding raises PlanAnalysisError instead of streaming
+    # a semantically broken plan.
+    analyze_plans: Optional[bool] = None
     # Clock for submit stamps and deadline expiry (None = time.monotonic).
     clock: Optional[Callable[[], float]] = None
 
@@ -217,6 +229,18 @@ class ServingEngine:
         self.config = config
         self.device = resolve_device(config.device)
         self.clock: Callable[[], float] = config.clock or time.monotonic
+        # Plan-rewrite pipeline every batch's stream plans route through
+        # (build → rewrite → interpret). A bare sequence of passes is
+        # wrapped here; track_costs=False keeps per-stream estimates off
+        # the serving hot path.
+        pp = config.plan_passes
+        if pp is None:
+            self.plan_pipeline: Optional[PassPipeline] = None
+        elif isinstance(pp, PassPipeline):
+            self.plan_pipeline = pp
+        else:
+            self.plan_pipeline = PassPipeline(
+                list(pp), spec=config.tier_spec, track_costs=False)
         # Modeled I/O outside a stream's own window (cache demote/promote
         # churn) lands here. keep_records=False: a serving process lives
         # long, only the bounded per-path aggregates may grow.
@@ -255,7 +279,9 @@ class ServingEngine:
                 device=str(self.device),
                 plan_features=cfg.max_batch_features,
             ),
-            segment_cache=self.cache)
+            segment_cache=self.cache,
+            plan_passes=self.plan_pipeline,
+            analyze=cfg.analyze_plans)
 
     @property
     def graphs(self) -> List[str]:
@@ -384,7 +410,15 @@ class ServingEngine:
 
     def order_queue(self, queue: List[InferenceRequest]
                     ) -> Tuple[List[InferenceRequest], List[str]]:
-        """Graph groups run in registration order."""
+        """Deadline-aware ordering: an EDFOrderingPass in the configured
+        pipeline reorders the queue (earliest deadline first, Moore–Hodgson
+        tardy demotion over `estimated_cost_s`), and graph groups then run
+        in first-appearance order of that queue. Without an ordering pass,
+        registration order."""
+        if (self.plan_pipeline is not None
+                and self.plan_pipeline.orders_requests):
+            queue = self.plan_pipeline.order_requests(queue)
+            return queue, list(dict.fromkeys(r.graph for r in queue))
         return queue, list(self._graphs)
 
     def run_batch(self) -> BatchReport:

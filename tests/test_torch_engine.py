@@ -151,8 +151,7 @@ def test_serve_gcn_matches_reference():
 
 
 @pytest.mark.parametrize("option", [{"cache_shards": 2}, {"workers": 2},
-                                    {"passes": True}, {"calibrate": True},
-                                    {"autotune": True}])
+                                    {"calibrate": True}, {"autotune": True}])
 def test_serve_gcn_refuses_unported_options(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         p_serve_gcn(device="cpu", **option)

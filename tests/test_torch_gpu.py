@@ -1,8 +1,9 @@
 """Card tests of the port: the CUDA Block-ELL SpMM, fused GCN-layer,
 flash-attention and GQA flash-decode kernels against their plain PyTorch
 versions, and the serving engine, the differentiable engine and its fused
-layer, and the dense LM's forward, decode and serve on the card against
-themselves on the CPU.
+layer, the schedulers' execute mode, a coalesced stream, and the dense LM's
+forward, decode and serve on the card against themselves on the CPU or
+against float64.
 
 Marked `gpu`: each test decides inside itself whether a card is present
 and skips without one. This file imports no `jax`, so it also runs where
@@ -381,6 +382,123 @@ def test_fused_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):   # X and the brick exceed shared memory
         fn(blocks, col_tile, n_tiles, torch.ones((16, 8000), device=dev),
            torch.ones((8000, 4), device=dev), b, bm=8, bk=8)
+
+
+def _scheduler_case():
+    from repro_torch.core import FeatureSpec, required_bytes
+    from repro_torch.data import (
+        SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
+    )
+    a = normalized_adjacency(generate_graph(
+        scaled_spec(SUITESPARSE_SPECS["socLJ1"], 1e-4), seed=0))
+    h = np.random.default_rng(0).standard_normal(
+        (a.n_rows, 32)).astype(np.float32)
+    rows = np.repeat(np.arange(a.n_rows), np.diff(a.indptr))
+    dense = np.zeros(a.shape, np.float64)
+    np.add.at(dense, (rows, a.indices), a.data.astype(np.float64))
+    # Above every baseline's Table III floor (the reference's choice).
+    budget = int(1.1 * required_bytes(a, FeatureSpec.of(h)))
+    return a, h, dense @ h.astype(np.float64), budget
+
+
+def _close_to_f64(x, ref64, tol=1e-4):
+    """max |x - ref| over the reference's largest magnitude: f32 sums in
+    another order than float64's."""
+    x = x.detach().cpu().double().numpy()
+    assert x.shape == ref64.shape and np.isfinite(x).all()
+    assert np.abs(x - ref64).max() <= tol * np.abs(ref64).max()
+
+
+def test_aires_scheduler_executes_on_card_through_the_spmm():
+    """AIRES's execute plan on the card: one zero-skipping SpMM launch per
+    segment, the output on the card against float64, the metrics equal to
+    a cost interpretation of the same plan."""
+    dev = _card()
+    from repro_torch.core import CostInterpreter, SCHEDULERS
+    from repro_torch.io import PAPER_GPU_SYSTEM
+
+    from repro_torch.core import plan_memory_dense_features
+
+    a, h, ref64, _ = _scheduler_case()
+    # Streams 4 segments at width 32 (1.1 x the requirement streams one).
+    est = plan_memory_dense_features(a, a.n_rows, 32, float("inf"))
+    budget = int(est.m_b + est.m_c + 0.3 * a.nbytes())
+    sched = SCHEDULERS["aires"](PAPER_GPU_SYSTEM, device_budget=budget,
+                                bm=8, bk=8, wire_format="bricks")
+    before = kmod.LAUNCHES, kmod.SPMM_ROUTE_LAUNCHES["zero_skip"]
+    res = sched.run(a, h, mode="execute")
+    torch.cuda.synchronize()
+    segs = res.metrics.segments
+    assert segs >= 2 and res.x.device.type == dev.type
+    assert (kmod.LAUNCHES - before[0],
+            kmod.SPMM_ROUTE_LAUNCHES["zero_skip"] - before[1]) == (segs, segs)
+    _close_to_f64(res.x, ref64)
+    m, _ = CostInterpreter(PAPER_GPU_SYSTEM).run(
+        sched.build_plan(a, h, mode="simulate"))
+    for field in ("makespan_s", "bytes_by_path", "segments", "oom"):
+        assert getattr(m, field) == getattr(res.metrics, field), field
+
+
+@pytest.mark.parametrize("name", ["maxmemory", "ucg", "etc"])
+def test_baseline_schedulers_execute_on_card(name):
+    dev = _card()
+    from repro_torch.core import SCHEDULERS
+    from repro_torch.io import PAPER_GPU_SYSTEM
+
+    a, h, ref64, budget = _scheduler_case()
+    res = SCHEDULERS[name](PAPER_GPU_SYSTEM, device_budget=budget).run(
+        a, h, mode="execute")
+    assert not res.metrics.oom and res.x.device.type == dev.type
+    _close_to_f64(res.x, ref64)
+
+
+def test_coalesced_stream_on_card_matches_plain_stream():
+    """A coalesced stream uploads every brick in one issue and computes
+    what the plain stream computes, within the SpMM's limit (its long row
+    blocks add slots with f32 atomics, so the order of sums may differ)."""
+    _card()
+    from repro_torch.core import (
+        AiresConfig, AiresSpGEMM, PassPipeline, TransferCoalescingPass,
+        plan_memory_dense_features,
+    )
+
+    a, h, ref64, _ = _scheduler_case()
+    est = plan_memory_dense_features(a, a.n_rows, 32, float("inf"))
+    budget = int(est.m_b + est.m_c + 0.3 * a.nbytes())
+    cfg = AiresConfig(device_budget_bytes=budget, bm=8, bk=8)
+    plain = AiresSpGEMM(cfg)
+    co = AiresSpGEMM(cfg, plan_passes=PassPipeline(
+        [TransferCoalescingPass(min_bytes=1 << 40)]))
+    x0 = plain(a, torch.from_numpy(h))
+    before = kmod.LAUNCHES
+    x1 = co(a, torch.from_numpy(h))
+    torch.cuda.synchronize()
+    s0, s1 = plain.last_stream_stats, co.last_stream_stats
+    assert s0.segments >= 2 and s1.segments == 1
+    assert kmod.LAUNCHES - before == s0.segments
+    assert s1.uploaded_bytes == s0.uploaded_bytes
+    assert (x1 - x0).abs().max().item() <= 1e-4 * x0.abs().max().item()
+    _close_to_f64(x1, ref64)
+
+
+def test_serve_gcn_with_passes_on_card_matches_cpu():
+    """The launcher with the three rewrite passes runs on the card: the
+    same bytes per epoch as on the CPU, one SpMM launch per segment
+    streamed, outputs within the launcher test's limit."""
+    _card()
+    from repro_torch.launch.serve import serve_gcn
+
+    before = kmod.LAUNCHES
+    gpu = serve_gcn(scale=1e-4, passes=True)
+    torch.cuda.synchronize()
+    assert kmod.LAUNCHES - before == sum(r.segments_streamed for r in gpu)
+    cpu = serve_gcn(scale=1e-4, passes=True, device="cpu")
+    for g, c in zip(gpu, cpu):
+        assert ((g.uploaded_bytes, g.cache_hit_bytes, g.segments_streamed)
+                == (c.uploaded_bytes, c.cache_hit_bytes, c.segments_streamed))
+        for gr, cr in zip(g.results, c.results):
+            np.testing.assert_allclose(gr.output, cr.output, atol=1e-4,
+                                       rtol=1e-5)
 
 
 def _train_case():

@@ -61,3 +61,30 @@ def test_port_source_has_no_jax_or_repro_import(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+# The scheduler slice's modules: each must import alone, in a fresh
+# interpreter, without pulling in JAX or the JAX package.
+SLICE_MODULES = [
+    "repro_torch.core.pipeline", "repro_torch.core.analysis",
+    "repro_torch.core.passes", "repro_torch.core.scheduler",
+    "repro_torch.core.spgemm", "repro_torch.core.robw",
+    "repro_torch.io.tiers", "repro_torch.io.segment_cache",
+    "repro_torch.runtime.engine", "repro_torch.launch.serve",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_scheduler_slice_module_imports_alone(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0].startswith('jax')\n"
+        "             or m.split('.')[0] == 'repro')\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

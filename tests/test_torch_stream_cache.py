@@ -261,7 +261,9 @@ def test_spgemm_backward_streams_transposed_plan(graph):
 
 @pytest.mark.parametrize("deps,phase,error", [
     ((5,), "stream", "dangling"),
-    ((1,), "stream", "depends on op 1"),
+    # The reference's wording (the id keeps this case's original name).
+    pytest.param((1,), "stream", "depends on later op 1",
+                 id="deps1-stream-depends on op 1"),
     ((), "other", "undeclared phase"),
 ])
 def test_plan_validation_rejects_malformed_plans(deps, phase, error):
@@ -269,12 +271,13 @@ def test_plan_validation_rejects_malformed_plans(deps, phase, error):
                                phases=[p_pipe.PhaseSpec("stream")])
     plan.add(p_pipe.ComputeOp(1.0), phase, p_pipe.LANE_COMPUTE, deps=deps)
     plan.add(p_pipe.ComputeOp(1.0), "stream", p_pipe.LANE_COMPUTE)
-    with pytest.raises(p_pipe.PlanValidationError, match=error):
+    with pytest.raises(p_pipe.PlanValidationError, match=error) as p_err:
         plan.estimate(p_tiers.TPU_V5E_SYSTEM)
-    # The reference rejects the same plans.
+    # The reference rejects the same plans, in the same words.
     r_plan = r_pipe.PipelinePlan(scheduler="t",
                                  phases=[r_pipe.PhaseSpec("stream")])
     r_plan.add(r_pipe.ComputeOp(1.0), phase, r_pipe.LANE_COMPUTE, deps=deps)
     r_plan.add(r_pipe.ComputeOp(1.0), "stream", r_pipe.LANE_COMPUTE)
-    with pytest.raises(r_pipe.PlanValidationError):
+    with pytest.raises(r_pipe.PlanValidationError) as r_err:
         r_plan.validate()
+    assert str(p_err.value) == str(r_err.value)
