@@ -62,7 +62,27 @@ non-zero without a result line:
                against the plain stream's within MAIN_TOL.
                schedule, epoch and passes run with the static plan
                analyzer on and fail on any error-severity finding.
- 12. attn    — the flash-attention and GQA flash-decode kernels against
+ 12. shard   — two `ServingEngine` workers sharing a `CacheDirectory`, each
+               over a four-shard cache whose device tier is half of rUSA's
+               wire bytes, with the three passes, analysis and a
+               `CostCalibrator` each, serve `serve`'s requests for two
+               epochs: outputs within SERVE_TOL of float64 and within
+               SHARD_REL_TOL of an unsharded engine's, the warm epoch
+               uploading nothing, ICI and skipped-demotion bytes above 0,
+               each calibrator refitted; the calibrated spec and the
+               calibrated vs uncalibrated mean |error_s| per epoch are
+               printed, not gated. Then `serve_gcn(workers=2,
+               cache_shards=4, calibrate=True, passes=True)` at its
+               defaults.
+ 13. warm    — worker 0's cache checkpointed, a fresh engine warm-started
+               from it (every exported brick restored) serving one epoch
+               without uploading, within SERVE_TOL; then `evict_graph`
+               of rUSA returns its queued requests, leaves no key or
+               directory holding under its prefix and frees the device
+               bytes it held. The checkpoint is removed at the end.
+               shard and warm, like serve, fail unless every SpMM launch
+               took "zero_skip" and equals the segments streamed.
+ 14. attn    — the flash-attention and GQA flash-decode kernels against
                their plain versions: flash at Yi-6B's prefill shape (causal),
                with a window of 512, at a ragged S and in f32; decode at
                decode_32k's shape with per-sequence lengths (1 and S among
@@ -72,31 +92,32 @@ non-zero without a result line:
                whose edge crosses tiles, and in f16; decode with lens one
                below, at and one above tile and split edges, with groups of
                1, 5 and 16, and in f16.
- 13. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
+ 15. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
                launches = 4, decode launches = 4 x 128.
- 14. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
+ 16. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
                `serve` of 4 prompts of 128 tokens for 32 steps (decode
                launches = 32 x 160), `forward` on one 4096-token sequence
                (flash launches = 32), and teacher-forced decode logits
                against that forward's over the first 128 positions. Every
                attention launch of lm_serve takes the tensor-core route,
                every one of lm_check the f32 FMA route.
- 15. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 17. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
                with X·W at the rate of its three TF32 products; the SpMM
                also on socLJ1's first serving segment; decode also at
                lm_serve's own shape.
- 16. kernels — the summary line, then the card's name and power limit, then
+ 18. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
-Each main path (serve, layer, train, schedule, epoch, passes, lm_check,
-lm_serve) runs with the launch counters set to 0 just before it and read
-just after. It needs no network and one card, and exits non-zero when no
-card is visible or when the package is not beside it.
+Each main path (serve, layer, train, schedule, epoch, passes, shard,
+warm, lm_check, lm_serve) runs with the launch counters set to 0 just
+before it and read just after. It needs no network and one card, and
+exits non-zero when no card is visible or when the package is not beside
+it.
 """
 from __future__ import annotations
 
@@ -122,6 +143,10 @@ F16_TOL = 1e-2
 # they differ only in the order of the sums, as f32 operands do.
 BF16_TOL = 1e-4
 SERVE_TOL = 1e-3               # f32 engine vs float64 after three layers
+SHARDS = 4                     # cache shards per worker in shard and warm
+# Sharded vs unsharded outputs, relative to scale: the same kernel on the
+# same bricks, sums reordered only by the long row blocks' f32 atomics.
+SHARD_REL_TOL = 1e-6
 # f32 training path vs float64, as max |Δ| over the reference's largest
 # magnitude: dW and db sum up to 239,400 row terms, whose rounding error
 # grows like sqrt(n)·2^-24 ≈ 3e-5 of that scale. The float64 reference
@@ -1091,6 +1116,301 @@ def phase_passes(kmod, graphs, inputs) -> int:
     return served_launches + co_launches
 
 
+def rel_to_scale(out, ref) -> float:
+    """max |out - ref| over ref's largest magnitude (numpy arrays)."""
+    import numpy as np
+    if out.shape != ref.shape or not np.isfinite(out).all():
+        raise AssertionError(f"bad output {out.shape} vs {ref.shape}")
+    return float(np.abs(out - ref).max()) / max(float(np.abs(ref).max()),
+                                                1e-30)
+
+
+def sharded_config(graphs, width: int, device_bytes, worker_id: int):
+    """The `shard` and `warm` phases' engine config: the serving width and
+    shared budget of `passes`, four cache shards over `device_bytes`, the
+    three passes, analysis on, a calibrator of its own."""
+    from repro_torch.core import (
+        CostCalibrator, EDFOrderingPass, ShardPlacementPass,
+        TransferCoalescingPass,
+    )
+    from repro_torch.runtime import EngineConfig
+    return EngineConfig(
+        device_budget_bytes=max(serve_budget(a, width)
+                                for a in graphs.values()),
+        max_batch_features=width, device=DEV, analyze_plans=True,
+        cache_shards=SHARDS, cache_device_bytes=device_bytes,
+        worker_id=worker_id, calibrator=CostCalibrator(),
+        plan_passes=[ShardPlacementPass(), TransferCoalescingPass(),
+                     EDFOrderingPass(clock=fixed_clock)])
+
+
+def serve_epoch(eng, graphs, inputs) -> tuple:
+    """The eight requests of `serve` through one engine: (report, outputs
+    by graph in submit order, largest |Δ| against float64)."""
+    from repro_torch.runtime import InferenceRequest
+    ids = {name: [int(eng.submit(InferenceRequest(name, h,
+                                                  inputs["weights"])))
+                  for h in inputs["requests"][name]] for name in graphs}
+    rep = eng.run_batch()
+    by_id = {r.request_id: r for r in rep.results}
+    outs, err = {}, 0.0
+    for name in graphs:
+        results = [by_id[i] for i in ids[name]]
+        err = max(err, check_outputs(f"{name}", results,
+                                     inputs["refs"][name]))
+        outs[name] = [r.output for r in results]
+    return rep, outs, err
+
+
+def report_row(rep) -> dict:
+    return {"wall_s": rep.wall_seconds,
+            "uploaded_bytes": rep.uploaded_bytes,
+            "cache_hit_bytes": rep.cache_hit_bytes,
+            "promoted_bytes": rep.promoted_bytes,
+            "ici_bytes": rep.ici_bytes,
+            "directory_hit_bytes": rep.directory_hit_bytes,
+            "duplicate_avoided_bytes": rep.duplicate_avoided_bytes,
+            "segments_streamed": rep.segments_streamed,
+            "aggregation_passes": rep.aggregation_passes}
+
+
+def phase_shard(kmod, graphs, args, inputs) -> tuple:
+    """Two workers over four-shard caches sharing a `CacheDirectory`,
+    calibrators attached, two epochs of `serve`'s requests; then the
+    launcher with workers, shards, passes and calibration. Returns the
+    SpMM launches and what `warm` continues from."""
+    import numpy as np
+    from repro_torch.io import CacheDirectory
+    from repro_torch.launch.serve import serve_gcn
+    from repro_torch.runtime import InferenceRequest, ServingEngine
+
+    width = inputs["width"]
+    t0 = time.perf_counter()
+    # The unsharded single-worker engine the sharded outputs are held to,
+    # and the wire bytes of rUSA's plan that size the sharded device tier.
+    single = ServingEngine(dataclasses.replace(
+        sharded_config(graphs, width, None, 0), cache_shards=1,
+        calibrator=None))
+    for name, a in graphs.items():
+        single.register_graph(name, a)
+    single_rep, single_out, _ = serve_epoch(single, graphs, inputs)
+    wire_epoch = single_rep.uploaded_bytes + single_rep.cache_hit_bytes
+    a = graphs["rUSA"]
+    wire_rusa = single._engines["rUSA"].stream_plan(
+        a, (a.n_rows, width), apply_passes=False).wire_bytes()
+    directory = CacheDirectory()
+    workers = [ServingEngine(sharded_config(graphs, width, wire_rusa // 2,
+                                            wid), directory=directory)
+               for wid in range(2)]
+    for eng in workers:
+        for name, a in graphs.items():
+            eng.register_graph(name, a)
+    spec = workers[0].config.tier_spec
+    uncal = {name: workers[0].estimate_request_cost(
+        InferenceRequest(name, inputs["requests"][name][0],
+                         inputs["weights"]), spec=spec) for name in graphs}
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    epochs, errs = [], {"vs_float64": 0.0, "vs_unsharded_rel": 0.0}
+    for epoch in range(args.epochs):
+        row = {"epoch": epoch, "workers": []}
+        lats = []
+        for wid, eng in enumerate(workers):
+            rep, outs, err = serve_epoch(eng, graphs, inputs)
+            errs["vs_float64"] = max(errs["vs_float64"], err)
+            for name in graphs:
+                for out, ref in zip(outs[name], single_out[name]):
+                    errs["vs_unsharded_rel"] = max(errs["vs_unsharded_rel"],
+                                                   rel_to_scale(out, ref))
+            row["workers"].append(report_row(rep))
+            lats += rep.request_latency
+        row["mean_abs_err_s"] = {
+            "calibrated": sum(abs(lt.error_s) for lt in lats) / len(lats),
+            "uncalibrated": sum(abs(lt.processing_s - uncal[lt.graph])
+                                for lt in lats) / len(lats)}
+        epochs.append(row)
+    launches = kmod.LAUNCHES                      # ... and ends here
+    segments = sum(w["segments_streamed"] for row in epochs
+                   for w in row["workers"])
+    if launches != segments or launches == 0:
+        raise AssertionError(f"shard: SpMM launches {launches} != segments "
+                             f"streamed {segments}")
+    routes = check_gcn_routes("shard", kmod, launches)
+    if not errs["vs_unsharded_rel"] <= SHARD_REL_TOL:
+        raise AssertionError(f"shard: outputs {errs['vs_unsharded_rel']} "
+                             "from the unsharded engine's, relative")
+    for wid, w in enumerate(epochs[-1]["workers"]):
+        if w["uploaded_bytes"] != 0 or w["cache_hit_bytes"] != wire_epoch:
+            raise AssertionError(
+                f"shard: worker {wid}'s warm epoch uploaded "
+                f"{w['uploaded_bytes']} B and hit {w['cache_hit_bytes']} B "
+                f"of {wire_epoch}")
+    totals = {f: sum(w[f] for row in epochs for w in row["workers"])
+              for f in ("ici_bytes", "duplicate_avoided_bytes",
+                        "directory_hit_bytes")}
+    if not (totals["ici_bytes"] > 0 and totals["duplicate_avoided_bytes"] > 0):
+        raise AssertionError(f"shard: {totals}")
+    generations = [eng.config.calibrator.generation for eng in workers]
+    if not all(g > 0 for g in generations):
+        raise AssertionError(f"shard: calibrator generations {generations}")
+    fitted = {}
+    for wid, eng in enumerate(workers):
+        cal = eng.cost_spec()
+        fitted[wid] = {"error_scale": eng.config.calibrator.error_scale,
+                       "paths": {p.value: {"bw_bytes_per_s": cal.bw[p],
+                                           "latency_s": cal.latency_s[p],
+                                           "base_bw": spec.bw[p],
+                                           "base_latency_s":
+                                               spec.latency_s[p]}
+                                 for p in cal.bw}}
+
+    # The entry point a user calls, at its defaults (scale 1e-4).
+    summary = {}
+    zero_gcn_counts(kmod)                         # the main path starts here
+    t1 = time.perf_counter()
+    reports = serve_gcn(workers=2, cache_shards=SHARDS, calibrate=True,
+                        passes=True, summary_out=summary, device=DEV)
+    sync()
+    cli_s = time.perf_counter() - t1
+    cli_launches = kmod.LAUNCHES                  # ... and ends here
+    cli_segments = sum(r.segments_streamed for e in reports for r in e)
+    if cli_launches != cli_segments or cli_launches == 0:
+        raise AssertionError(f"shard: serve_gcn launched {cli_launches} "
+                             f"for {cli_segments} segments")
+    cli_routes = check_gcn_routes("shard_serve_gcn", kmod, cli_launches)
+    for e in reports:
+        for r in e:
+            for res in r.results:
+                if not np.isfinite(res.output).all():
+                    raise AssertionError("shard: serve_gcn output not finite")
+    if len(summary["epoch_errors"]) != 2:
+        raise AssertionError(f"shard: serve_gcn summary {summary}")
+    emit({"phase": "shard", "setup_s": setup_s, "shards": SHARDS,
+          "workers": 2,
+          "cache_device_bytes": workers[0].config.cache_device_bytes,
+          "shard_budget_bytes": workers[0].cache.shard_budget_bytes,
+          "rusa_wire_bytes": wire_rusa, "wire_bytes_per_epoch": wire_epoch,
+          "epochs": epochs, "totals": totals,
+          "max_abs_err_vs_float64": errs["vs_float64"], "tol": SERVE_TOL,
+          "rel_err_vs_unsharded": errs["vs_unsharded_rel"],
+          "rel_tol": SHARD_REL_TOL,
+          "calibrator_generations": generations, "fitted_spec": fitted,
+          "spmm_launches": launches, "segments_streamed": segments,
+          "launches_by_route": routes["bcsr_spmm"],
+          "serve_gcn": {"seconds": cli_s, "spmm_launches": cli_launches,
+                        "launches_by_route": cli_routes["bcsr_spmm"],
+                        "epochs": [[report_row(r) for r in e]
+                                   for e in reports],
+                        "epoch_errors_s": summary["epoch_errors"]}})
+    state = {"worker": workers[0], "wire_epoch": wire_epoch}
+    return launches + cli_launches, state
+
+
+def phase_warm(kmod, graphs, inputs, state) -> int:
+    """Worker 0's cache checkpointed, a fresh engine warm-started from it
+    serving one epoch without uploading, then rUSA evicted. Returns the
+    SpMM launches."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import AiresSpGEMM, CostCalibrator
+    from repro_torch.io import CacheDirectory, prefix_matches
+    from repro_torch.io.tiers import MemoryTier
+    from repro_torch.runtime import InferenceRequest, ServingEngine
+
+    worker = state["worker"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bricks_")
+    try:
+        exported = [(k, n) for k, v, n in worker.cache.export_entries()]
+        t0 = time.perf_counter()
+        path = worker.checkpoint_cache(tmp)
+        save_s = time.perf_counter() - t0
+        npz_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        # The same config, with a calibrator of its own.
+        fresh = ServingEngine(dataclasses.replace(
+            worker.config, calibrator=CostCalibrator()),
+            directory=CacheDirectory())
+        for name, a in graphs.items():
+            fresh.register_graph(name, a)
+        sync()
+        t1 = time.perf_counter()
+        ws = fresh.warm_start(tmp)
+        warm_s = time.perf_counter() - t1
+        if (ws.bricks, ws.wire_bytes) != (len(exported),
+                                          sum(n for _, n in exported)):
+            raise AssertionError(f"warm: restored {ws} of {len(exported)} "
+                                 "exported bricks")
+
+        zero_gcn_counts(kmod)                     # the main path starts here
+        rep, _, err = serve_epoch(fresh, graphs, inputs)
+        launches = kmod.LAUNCHES                  # ... and ends here
+        if launches != rep.segments_streamed or launches == 0:
+            raise AssertionError(f"warm: SpMM launches {launches} != "
+                                 f"segments {rep.segments_streamed}")
+        routes = check_gcn_routes("warm", kmod, launches)
+        if rep.uploaded_bytes != 0 or rep.cache_hit_bytes != \
+                state["wire_epoch"]:
+            raise AssertionError(f"warm: first epoch uploaded "
+                                 f"{rep.uploaded_bytes} B, hit "
+                                 f"{rep.cache_hit_bytes} B")
+
+        a = graphs["rUSA"]
+        prefix = AiresSpGEMM.graph_cache_prefix(a)
+        queued = [int(fresh.submit(InferenceRequest("rUSA", h,
+                                                    inputs["weights"])))
+                  for h in inputs["requests"]["rUSA"]]
+        entries = fresh.cache.export_entries()
+        dev_bytes = sum(n for k, _, n in entries
+                        if prefix_matches(k.graph_id, prefix)
+                        and fresh.cache.tier_of(k) is MemoryTier.DEVICE)
+        host_bytes = sum(n for k, _, n in entries
+                         if prefix_matches(k.graph_id, prefix)
+                         and fresh.cache.tier_of(k) is MemoryTier.HOST)
+        host_used = fresh.cache.host_used_bytes
+        del entries
+        gc.collect()
+        sync()
+        mem0 = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+        orphans = fresh.evict_graph("rUSA")
+        gc.collect()
+        sync()
+        mem1 = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+        if [r.request_id for r in orphans] != queued:
+            raise AssertionError(f"warm: evict returned "
+                                 f"{[r.request_id for r in orphans]}")
+        left = [k for k, _, _ in fresh.cache.export_entries()
+                if prefix_matches(k.graph_id, prefix)]
+        held = [k for k in fresh.directory._entries
+                if prefix_matches(k.graph_id, prefix)]
+        if left or held or "rUSA" in fresh._engines:
+            raise AssertionError(f"warm: {len(left)} keys, {len(held)} "
+                                 "directory holdings left under rUSA")
+        if mem0 - mem1 < dev_bytes:
+            raise AssertionError(f"warm: evict freed {mem0 - mem1} B of "
+                                 f"device memory for {dev_bytes} B")
+        if host_used - fresh.cache.host_used_bytes != host_bytes:
+            raise AssertionError("warm: evict left rUSA's host tier")
+        emit({"phase": "warm", "checkpoint_s": save_s,
+              "checkpoint_file_bytes": npz_bytes,
+              "bricks": ws.bricks, "wire_bytes": ws.wire_bytes,
+              "warm_start_s": warm_s,
+              "modeled_warm_start_s": ws.modeled_seconds,
+              "first_epoch": report_row(rep),
+              "max_abs_err_vs_float64": err, "tol": SERVE_TOL,
+              "spmm_launches": launches,
+              "launches_by_route": routes["bcsr_spmm"],
+              "evict": {"orphans": len(orphans),
+                        "device_tier_bytes": dev_bytes,
+                        "host_tier_bytes": host_bytes,
+                        "memory_allocated_freed": mem0 - mem1}})
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def brick_work(args, ell, k_rows: int, f: int, h_itemsize: int) -> dict:
     """What the aggregation needs for these inputs, counted two ways. Both
     read the valid bricks, col_tile and n_tiles once. By bricks: the H tiles
@@ -1895,6 +2215,9 @@ def run(args) -> None:
     launches["schedule"] = phase_schedule(kmod, a, a64, args.seed)
     launches["epoch"] = phase_epoch(kmod, a, args.seed)
     launches["passes"] = phase_passes(kmod, graphs, inputs)
+    launches["shard"], shard_state = phase_shard(kmod, graphs, args, inputs)
+    launches["warm"] = phase_warm(kmod, graphs, inputs, shard_state)
+    del shard_state
     set_default_analyze(previous)
     attn_err = phase_attn(fmod, dmod, args.seed)
     lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed),

@@ -3,6 +3,7 @@ plan IR with its static analyzer and rewrite passes, the paper's schedulers
 (AIRES and its three baselines), and the streamed, differentiable
 out-of-core SpGEMM with its GCN epoch runner.
 
+  calibration  : online cost-model calibration (CostCalibrator)
   memory_model : Eq. (5)-(7) analytical planning
   robw         : Algorithm 1 row block-wise alignment
   pipeline     : typed pipeline-plan IR + cost/execute interpreters
@@ -22,6 +23,7 @@ from repro_torch.core.analysis import (
     path_byte_totals,
     set_default_analyze,
 )
+from repro_torch.core.calibration import CostCalibrator, PathEstimate
 from repro_torch.core.memory_model import (
     FeatureSpec,
     MemoryEstimate,
@@ -93,6 +95,7 @@ __all__ = [
     "AnalysisReport", "Finding", "PlanAnalysisError", "RULES",
     "analyze_plan", "default_analyze", "diff_path_totals",
     "path_byte_totals", "set_default_analyze",
+    "CostCalibrator", "PathEstimate",
     "FeatureSpec", "MemoryEstimate", "calc_mem", "ell_bucket_capacity",
     "estimate_output_bytes", "estimate_resident_bytes", "plan_memory",
     "plan_memory_dense_features", "plan_memory_spec", "plan_memory_unified",

@@ -362,13 +362,6 @@ class PipelinePlan:
 # ---- interpreters ----------------------------------------------------------
 
 
-def _shard_kw(op: CacheProbeOp) -> Dict[str, int]:
-    """The `shard=` argument of a probe's cache calls: passed only when a
-    placement override is set, so a cache without shards (the single-chip
-    `TieredSegmentCache`, which takes no `shard`) sees the calls it has."""
-    return {} if op.place_shard is None else {"shard": op.place_shard}
-
-
 class CostInterpreter:
     """Charge a plan through a `TieredMemorySystem`; derive the makespan
     from lane availability. This is simulate mode for every scheduler."""
@@ -519,7 +512,7 @@ class CostInterpreter:
         t = op.miss
         secs = tms.transfer(t.path, t.src, t.dst, t.nbytes, tag=t.tag)
         cache.put(op.key, op.value, op.wire_bytes, tms=tms, pin=op.pin,
-                  **_shard_kw(op))
+                  shard=op.place_shard)
         return secs
 
     @staticmethod
@@ -531,7 +524,7 @@ class CostInterpreter:
         two readings cannot drift); a would-be miss adds the fallback
         wire transfer. Nothing is mutated."""
         hit, cost = cache.peek_cost(op.key, nbytes=op.wire_bytes, tms=tms,
-                                    **_shard_kw(op))
+                                    shard=op.place_shard)
         if hit:
             m.cache_hit_bytes += op.wire_bytes
             return cost
@@ -609,8 +602,7 @@ class ExecuteInterpreter(CostInterpreter):
 
             def cache_store(payload, dev):
                 key, nbytes, place = meta[payload[0]]
-                cache.put(key, dev, nbytes,
-                          **({} if place is None else {"shard": place}))
+                cache.put(key, dev, nbytes, shard=place)
 
         streamer = DoubleBufferedStreamer(
             upload, consume, depth=depth, deadline_s=deadline_s,

@@ -106,7 +106,7 @@ class _Prepared:
     fps: List[str] = dataclasses.field(default_factory=list)
 
 
-def _host_tensors(ell: BlockELL, pin: bool) -> tuple:
+def host_tensors(ell: BlockELL, pin: bool) -> tuple:
     """The brick as CPU tensors; pinned copies when `pin`, and the
     BlockELL's arrays then become views of them (one host copy, not two)."""
     tensors = [torch.from_numpy(arr) for arr in
@@ -115,6 +115,15 @@ def _host_tensors(ell: BlockELL, pin: bool) -> tuple:
         tensors = [t.pin_memory() for t in tensors]
         ell.blocks, ell.col_tile, ell.n_tiles = (t.numpy() for t in tensors)
     return tuple(tensors)
+
+
+def upload_brick(host: tuple, ell: BlockELL, device: torch.device) -> tuple:
+    """Upload one brick: `(blocks, col_tile, n_tiles, ell)` with the
+    tensors copied from `host` (`host_tensors(ell, ...)`) to `device` — the
+    payload format shared by the streamer, the segment cache and the
+    engine's warm start. From pinned host tensors the copies are
+    asynchronous on the caller's stream."""
+    return tuple(t.to(device, non_blocking=True) for t in host) + (ell,)
 
 
 class AiresSpGEMM:
@@ -165,6 +174,23 @@ class AiresSpGEMM:
         self.forward_stats_log = []
         self.backward_stats_log = []
 
+    def clear_cache(self) -> None:
+        """Drop every prepared plan (with its pinned host bricks) and every
+        memoized transpose. The shared segment cache is left alone:
+        `segment_cache.invalidate_prefix(graph_cache_prefix(a))` drops a
+        graph's entries there."""
+        self._prepared.clear()
+        self._transposes.clear()
+
+    @staticmethod
+    def graph_cache_prefix(a: CSR) -> str:
+        """Identity prefix of every segment-cache namespace this engine
+        derives for `a` (any direction, plan width or budget). Content
+        addressed (`csr_fingerprint`), as in the reference, so bricks
+        checkpointed by one process, by either package, warm-start a
+        fresh one."""
+        return graph_cache_prefix(a)
+
     # ---- host-side preparation (cached per graph × feature shape) --------
     #
     # CSR inputs are IMMUTABLE: the memo keys are content fingerprints,
@@ -214,7 +240,7 @@ class AiresSpGEMM:
         else:
             mem, plan = self.plan(a, plan_shape)
             stream_a = a
-        cache_ns = (f"{graph_cache_prefix(a)}"
+        cache_ns = (f"{self.graph_cache_prefix(a)}"
                     f":{'bwd' if transpose else 'fwd'}"
                     f":w{plan_shape[1]}:b{cfg.device_budget_bytes}")
         ells = list(segments_to_block_ell(stream_a, plan, bm=cfg.bm,
@@ -222,7 +248,7 @@ class AiresSpGEMM:
         pin = self.device.type == "cuda"
         prepared = _Prepared(
             a=stream_a, mem=mem, plan=plan, segs=list(plan.segments),
-            ells=ells, host=[_host_tensors(ell, pin) for ell in ells],
+            ells=ells, host=[host_tensors(ell, pin) for ell in ells],
             cache_ns=cache_ns,
             fps=[segment_fingerprint(stream_a, s.row_start, s.row_end)
                  for s in plan.segments])
@@ -234,14 +260,6 @@ class AiresSpGEMM:
         return prepared
 
     # ---- pipeline-plan building + streaming executors --------------------
-
-    def device_payload(self, host: tuple, ell: BlockELL) -> tuple:
-        """Upload one brick: `(blocks, col_tile, n_tiles, ell)` with the
-        tensors on this engine's device — the payload format shared by the
-        streamer and the segment cache. From pinned host tensors the copies
-        are asynchronous on the caller's (copy) stream."""
-        return tuple(t.to(self.device, non_blocking=True)
-                     for t in host) + (ell,)
 
     def _build_stream_plan(self, prepared: _Prepared,
                            feat: Optional[FeatureSpec] = None,
@@ -313,9 +331,9 @@ class AiresSpGEMM:
                 # One streamer issue uploads every member brick of a
                 # coalesced transfer (the pass merged adjacent small DMAs).
                 return CoalescedPayload(
-                    [(j, self.device_payload(prepared.host[j], e))
+                    [(j, upload_brick(prepared.host[j], e, self.device))
                      for j, e in ell.payloads])
-            return self.device_payload(prepared.host[i], ell)
+            return upload_brick(prepared.host[i], ell, self.device)
 
         def consume_device(dev_payload, i):
             blocks, col_tile, n_tiles, ell = dev_payload
@@ -339,10 +357,17 @@ class AiresSpGEMM:
             plan, upload, consume, depth=cfg.stream_depth,
             deadline_s=cfg.straggler_deadline_s, device=self.device)
         if cache is not None:
-            # Host-tier hits re-crossed the bus as promotions; surface them
-            # so uploaded_bytes=0 cannot read as zero traffic.
-            stats.promoted_bytes = (cache.stats.promoted_bytes
+            # Host-tier and peer hits re-crossed the bus as promotions, and
+            # a sharded cache moved bytes between shards: surface both, so
+            # uploaded_bytes=0 cannot read as zero traffic. `cache.stats`
+            # may be a recomputed aggregate (ShardedSegmentCache), so
+            # snapshot and diff.
+            after = cache.stats
+            stats.promoted_bytes = (after.promoted_bytes
                                     - before.promoted_bytes)
+            stats.ici_bytes = after.ici_bytes - before.ici_bytes
+            stats.directory_hit_bytes = (after.directory_hit_bytes
+                                         - before.directory_hit_bytes)
         # Flatten coalesced-group results back into per-segment plan order.
         flat = []
         for p in parts:

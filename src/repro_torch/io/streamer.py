@@ -30,8 +30,10 @@ class StreamStats:
     promoted_bytes: int = 0        # of those, host-tier promotions that DID
     #                                re-cross the bus (true bus traffic is
     #                                uploaded_bytes + promoted_bytes)
-    ici_bytes: int = 0             # sharded cache (not yet ported): 0
-    directory_hit_bytes: int = 0   # cache directory (not yet ported): 0
+    ici_bytes: int = 0             # sharded cache: bytes that crossed the
+    #                                ICI path (remote hits + placements)
+    directory_hit_bytes: int = 0   # wire bytes served from a peer worker's
+    #                                host copy (CacheDirectory)
 
 
 _END = object()

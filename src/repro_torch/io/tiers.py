@@ -16,8 +16,8 @@ cost matches the reference's:
 
 Both are cost-model data only: neither describes the card this package
 runs on, and a makespan priced under either is a modeled number, not a
-time on the card. A spec fitted to the card is the calibration slice's
-work.
+time on the card. `core.calibration.CostCalibrator` refits either from
+the card's measured latencies.
 """
 from __future__ import annotations
 
@@ -41,6 +41,42 @@ class Path(enum.Enum):
     STORAGE_HOST = "sio"     # storage <-> host
     UM = "um"                # unified-memory page faults (UCG baseline)
     ICI = "ici"              # chip-to-chip path (sharded cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class ICITopology:
+    """Chip-to-chip link topology: how many links a transfer crosses.
+
+    ``all_to_all`` puts every pair of chips one hop apart; ``ring`` is a
+    1-D mesh axis, where chip i reaches chip j over min(|i-j|, n-|i-j|)
+    links. `TieredMemorySystem.transfer(..., hops=h)` prices an h-hop
+    transfer as h per-link setup latencies plus one bandwidth term, and
+    counts the payload on every link it crossed.
+
+    The sharded segment cache charges remote hits and shard placements at
+    the owner's hop distance, and `ShardPlacementPass` uses the same hop
+    counts to prefer near shards when the local one is full.
+    """
+
+    kind: str = "all_to_all"   # "all_to_all" | "ring"
+
+    def __post_init__(self):
+        if self.kind not in ("all_to_all", "ring"):
+            raise ValueError(f"unknown ICI topology kind {self.kind!r} "
+                             "(expected 'all_to_all' or 'ring')")
+
+    def hops(self, src: int, dst: int, n_chips: int) -> int:
+        """Links crossed from chip `src` to chip `dst` on an `n_chips` axis."""
+        if src == dst:
+            return 0
+        if self.kind == "all_to_all" or n_chips <= 2:
+            return 1
+        d = abs(int(src) - int(dst)) % n_chips
+        return min(d, n_chips - d)
+
+
+ICI_ALL_TO_ALL = ICITopology("all_to_all")
+ICI_RING = ICITopology("ring")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +132,10 @@ class TransferRecord:
     path: Path
     src: MemoryTier
     dst: MemoryTier
-    nbytes: int
+    nbytes: int               # wire bytes: payload × hops
     seconds: float
     tag: str = ""
+    hops: int = 1             # links crossed (payload = nbytes // hops)
 
 
 class OutOfMemory(RuntimeError):
@@ -158,16 +195,23 @@ class TieredMemorySystem:
     # ---- transfer -------------------------------------------------------
 
     def transfer(self, path: Path, src: MemoryTier, dst: MemoryTier,
-                 nbytes: int, tag: str = "") -> float:
-        """Charge one transfer; returns its modeled seconds."""
-        secs = self.spec.latency_s[path] + nbytes / self.spec.bw[path]
+                 nbytes: int, tag: str = "", hops: int = 1) -> float:
+        """Charge one transfer; returns its modeled seconds.
+
+        `hops` > 1 is a multi-link hop (`ICITopology`): the payload pays
+        the per-link setup latency once per link and one bandwidth term
+        (links are pipelined), and the byte accounting counts it on every
+        link it crossed."""
+        hops = max(int(hops), 1)
+        secs = self.spec.latency_s[path] * hops + nbytes / self.spec.bw[path]
+        wire = int(nbytes) * hops
         if self.keep_records:
             self.transfers.append(
-                TransferRecord(path, src, dst, int(nbytes), secs, tag))
+                TransferRecord(path, src, dst, wire, secs, tag, hops=hops))
         self.busy_s[path] += secs
-        self._bytes_by_path[path] += int(nbytes)
+        self._bytes_by_path[path] += wire
         self._seconds_by_path[path] += secs
-        self._total_bytes += int(nbytes)
+        self._total_bytes += wire
         return secs
 
     def bytes_by_path(self) -> Dict[Path, int]:

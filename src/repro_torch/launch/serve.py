@@ -8,10 +8,14 @@ the params lie on.
 `serve_gcn` registers two scaled paper graphs, queues `batch` requests per
 graph per epoch and drains them, printing per-epoch uploaded vs cache-hit
 wire bytes. It draws its graphs and requests from the same seeded streams
-as `repro.launch.serve.serve_gcn`.
+as `repro.launch.serve.serve_gcn`. With `--workers 2 --cache-shards 4
+--calibrate` it serves from replicated workers that share a cache
+directory, each over a four-shard cache, with the cost model refitted from
+every batch's latencies.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch yi_6b [--device cpu]
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode gcn [--passes] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode gcn [--passes] \
+        [--workers 2] [--cache-shards 4] [--calibrate] [--device cpu]
 
 `--mode lm`, the default as in the reference, serves the arch's SMOKE
 config and needs `--arch`; the full config is
@@ -65,33 +69,37 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
               autotune: bool = False, summary_out=None,
               device: str = "cuda"):
     """Drive the multi-graph GCN serving engine on `device`; returns the
-    per-epoch `BatchReport`s.
+    per-epoch reports.
 
     The signature is `repro.launch.serve.serve_gcn`'s plus `device`.
+    `cache_shards > 1` partitions each worker's cache device tier across
+    shards (remote hits ride ICI); `workers > 1` runs replicated engines
+    against the same graphs with a shared `CacheDirectory`, so one worker's
+    demoted bricks serve the others' misses. With one worker the reports
+    are a flat per-epoch list; with several, a list of per-epoch lists,
+    one report per worker.
+
     `passes` routes every batch through the plan-rewrite pipeline
-    (core.passes): shard-aware brick placement (the identity on this
-    single-chip cache), transfer coalescing and EDF request ordering. The
-    features behind `cache_shards`, `workers`, `calibrate` and `autotune`
-    are not ported yet: any value but the default raises. A `summary_out`
-    dict receives what the reference reports when they are off: no
-    calibration errors and no installed schedules.
+    (core.passes): shard-aware brick placement, transfer coalescing and
+    EDF request ordering. `calibrate` attaches a `CostCalibrator` to every
+    worker: each batch's `RequestLatency` stream refits the cost model,
+    so later epochs price against the calibrated spec. A `summary_out`
+    dict receives the per-epoch (calibrated, uncalibrated) mean |error|
+    and the installed schedules (none: `autotune` is not ported yet and
+    raises).
     """
-    # Each unported argument with the ROADMAP queue 1 item that ports it.
-    unported = {"cache_shards": (cache_shards != 1, 2),
-                "workers": (workers != 1, 2),
-                "calibrate": (calibrate, 3), "autotune": (autotune, 4)}
-    asked = sorted(f"{name} (ROADMAP queue 1 item {item})"
-                   for name, (on, item) in unported.items() if on)
-    if asked:
+    if autotune:
         raise NotImplementedError(
-            f"serve_gcn: {', '.join(asked)} not ported to repro_torch yet")
+            "serve_gcn: autotune (ROADMAP queue 1 item 4) not ported to "
+            "repro_torch yet")
     from repro_torch.core import (
-        EDFOrderingPass, ShardPlacementPass, TransferCoalescingPass,
-        plan_memory_dense_features,
+        CostCalibrator, EDFOrderingPass, ShardPlacementPass,
+        TransferCoalescingPass, plan_memory_dense_features,
     )
     from repro_torch.data import (
         SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
     )
+    from repro_torch.io import CacheDirectory
     from repro_torch.runtime import (
         EngineConfig, InferenceRequest, ServingEngine,
     )
@@ -109,26 +117,56 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
         for a in graphs.values()
         for est in [plan_memory_dense_features(a, a.n_rows, 64,
                                                float("inf"))])
+    directory = CacheDirectory() if workers > 1 else None
     plan_passes = ([ShardPlacementPass(), TransferCoalescingPass(),
                     EDFOrderingPass()] if passes else None)
-    eng = ServingEngine(EngineConfig(device_budget_bytes=budget,
-                                     cache_enabled=cache, device=device,
-                                     plan_passes=plan_passes))
-    for name, a in graphs.items():
-        eng.register_graph(name, a)
+    engines = []
+    for wid in range(workers):
+        eng = ServingEngine(
+            EngineConfig(device_budget_bytes=budget, cache_enabled=cache,
+                         cache_shards=cache_shards, worker_id=wid,
+                         plan_passes=plan_passes, device=device,
+                         calibrator=CostCalibrator() if calibrate else None),
+            directory=directory)
+        for name, a in graphs.items():
+            eng.register_graph(name, a)
+        engines.append(eng)
 
+    # Fixed-spec baseline predictions for the calibration comparison: one
+    # template request per graph, priced against the uncalibrated
+    # tier_spec (spec= bypasses the calibrated memo).
+    uncal_cost = {}
+    if calibrate:
+        for name, a in graphs.items():
+            h0 = np.zeros((a.n_rows, feature_dim), np.float32)
+            w0 = [np.zeros((feature_dim, feature_dim), np.float32)]
+            uncal_cost[name] = engines[0].estimate_request_cost(
+                InferenceRequest(name, h0, w0),
+                spec=engines[0].config.tier_spec)
+
+    epoch_errors = []  # (calibrated mean |err|, uncalibrated mean |err|)
     reports = []
     for _ in range(epochs):
-        for name, a in graphs.items():
-            for _ in range(batch):
-                h = rng.standard_normal(
-                    (a.n_rows, feature_dim)).astype(np.float32)
-                w = [rng.standard_normal(
-                    (feature_dim, feature_dim)).astype(np.float32)]
-                eng.submit(InferenceRequest(name, h, w))
-        reports.append(eng.run_batch())
+        epoch_reports = []
+        for eng in engines:
+            for name, a in graphs.items():
+                for _ in range(batch):
+                    h = rng.standard_normal(
+                        (a.n_rows, feature_dim)).astype(np.float32)
+                    w = [rng.standard_normal(
+                        (feature_dim, feature_dim)).astype(np.float32)]
+                    eng.submit(InferenceRequest(name, h, w))
+            epoch_reports.append(eng.run_batch())
+        if calibrate:
+            lats = [lt for r in epoch_reports for lt in r.request_latency]
+            if lats:
+                epoch_errors.append((
+                    sum(abs(lt.error_s) for lt in lats) / len(lats),
+                    sum(abs(lt.processing_s - uncal_cost[lt.graph])
+                        for lt in lats) / len(lats)))
+        reports.append(epoch_reports[0] if workers == 1 else epoch_reports)
     if summary_out is not None:
-        summary_out["epoch_errors"] = []
+        summary_out["epoch_errors"] = epoch_errors
         summary_out["installed_schedules"] = {}
     return reports
 
@@ -143,10 +181,19 @@ def main(argv=None) -> None:
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--no-cache", action="store_true",
                     help="disable the tiered segment cache")
+    ap.add_argument("--cache-shards", type=int, default=1,
+                    help="gcn mode: partition the cache device tier over "
+                         "this many shards (remote hits ride ICI)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="gcn mode: replicated serving workers sharing a "
+                         "CacheDirectory (dedups demotion copies)")
     ap.add_argument("--passes", action="store_true",
                     help="gcn mode: route stream plans through the rewrite "
                          "passes (shard placement, transfer coalescing, "
                          "EDF ordering)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="gcn mode: fit the cost model online from each "
+                         "batch's latency stream and reprice against it")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
@@ -170,19 +217,32 @@ def main(argv=None) -> None:
         print(tokens)
         return
 
+    summary = {}
     reports = serve_gcn(batch=args.batch, epochs=args.epochs,
                         cache=not args.no_cache, seed=args.seed,
-                        passes=args.passes, device=args.device)
-    for e, r in enumerate(reports):
-        lat = r.request_latency
-        err = (sum(abs(lt.error_s) for lt in lat) / len(lat) if lat else 0.0)
-        print(f"epoch {e}: {len(r.results)} requests, "
-              f"{r.aggregation_passes} streamed passes, "
-              f"uploaded {r.uploaded_bytes} B, "
-              f"cache-hit {r.cache_hit_bytes} B "
-              f"(promoted {r.promoted_bytes} B, hit rate {r.hit_rate:.0%}) "
-              f"in {r.wall_seconds:.2f}s; "
-              f"mean |predicted-actual| {err*1e3:.2f} ms")
+                        cache_shards=args.cache_shards,
+                        workers=args.workers, passes=args.passes,
+                        calibrate=args.calibrate, summary_out=summary,
+                        device=args.device)
+    for e, rep in enumerate(reports):
+        for wid, r in enumerate(rep if isinstance(rep, list) else [rep]):
+            lat = r.request_latency
+            err = (sum(abs(lt.error_s) for lt in lat) / len(lat)
+                   if lat else 0.0)
+            print(f"epoch {e} worker {wid}: {len(r.results)} requests, "
+                  f"{r.aggregation_passes} streamed passes, "
+                  f"uploaded {r.uploaded_bytes} B, "
+                  f"cache-hit {r.cache_hit_bytes} B "
+                  f"(promoted {r.promoted_bytes} B, "
+                  f"ici {r.ici_bytes} B, "
+                  f"peer-served {r.directory_hit_bytes} B, "
+                  f"dup-avoided {r.duplicate_avoided_bytes} B, "
+                  f"hit rate {r.hit_rate:.0%}) in {r.wall_seconds:.2f}s "
+                  f"on {args.device}; "
+                  f"mean |predicted-actual| {err*1e3:.2f} ms")
+    for e, (cal_err, uncal_err) in enumerate(summary["epoch_errors"]):
+        print(f"epoch {e}: calibrated mean |err| {cal_err*1e3:.2f} ms "
+              f"vs uncalibrated {uncal_err*1e3:.2f} ms")
 
 
 if __name__ == "__main__":

@@ -10,10 +10,11 @@ from repro_torch.runtime.engine import (
     RequestLatency,
     ServingEngine,
     SubmitReceipt,
+    WarmStartReport,
 )
 
 __all__ = [
     "AdmissionError", "BatchReport", "EngineConfig", "GroupStats",
     "InferenceRequest", "InferenceResult", "RejectedRequest",
-    "RequestLatency", "ServingEngine", "SubmitReceipt",
+    "RequestLatency", "ServingEngine", "SubmitReceipt", "WarmStartReport",
 ]

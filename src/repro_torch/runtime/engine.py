@@ -17,8 +17,18 @@ Request semantics: a request with L weight matrices computes
     h ← relu((A h) Wₗ) for l < L-1;  output = (A h) W_{L-1}
 (final layer linear); L = 0 returns the bare aggregation A·H.
 
-The serving subset of `repro.runtime.engine`; its byte accounting and cost
-predictions are the reference's, which the tests hold them to.
+Scale-out: `cache_shards > 1` (or a `mesh`) partitions the cache's device
+tier over shards (`ShardedSegmentCache`, remote hits charged on the ICI
+path), and a `CacheDirectory` shared by replicated workers serves one
+worker's miss from a peer's host copy and skips duplicate demotions. The
+cache's bricks can be checkpointed (`checkpoint_cache`) and a fresh engine
+warm-started from them (`warm_start`), across the two packages. A
+`CostCalibrator` refits the spec every admission decision prices against
+from each batch's measured latencies.
+
+A subset of `repro.runtime.engine` (no autotuning, partitioning or edge
+updates); its byte accounting and cost predictions are the reference's,
+which the tests hold them to.
 """
 from __future__ import annotations
 
@@ -30,11 +40,36 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import (
+    load_segment_bricks,
+    save_segment_bricks,
+)
+from repro_torch.core.calibration import CostCalibrator
 from repro_torch.core.passes import PassPipeline, PlanPass
-from repro_torch.core.spgemm import AiresConfig, AiresSpGEMM, resolve_device
-from repro_torch.io.segment_cache import CacheStats, TieredSegmentCache
-from repro_torch.io.tiers import TieredMemorySystem, TierSpec, TPU_V5E_SYSTEM
-from repro_torch.sparse.formats import CSR
+from repro_torch.core.spgemm import (
+    AiresConfig,
+    AiresSpGEMM,
+    host_tensors,
+    resolve_device,
+    upload_brick,
+)
+from repro_torch.io.segment_cache import (
+    CacheDirectory,
+    CacheStats,
+    SegmentKey,
+    TieredSegmentCache,
+)
+from repro_torch.io.shard_cache import ShardedSegmentCache
+from repro_torch.io.tiers import (
+    ICI_ALL_TO_ALL,
+    ICITopology,
+    MemoryTier,
+    Path,
+    TieredMemorySystem,
+    TierSpec,
+    TPU_V5E_SYSTEM,
+)
+from repro_torch.sparse.formats import CSR, BlockELL
 
 
 @dataclasses.dataclass
@@ -47,6 +82,14 @@ class EngineConfig:
     # None = unbounded spill.
     cache_device_bytes: Optional[int] = None
     cache_host_bytes: Optional[int] = None
+    # Sharded device tier (io/shard_cache.py): > 1 partitions the cache's
+    # device budget over `cache_shards` independent LRU shards, remote hits
+    # riding the ICI path; 1 keeps the single-device cache. A mesh passed
+    # to ServingEngine overrides this with the size of `cache_shard_axis`.
+    cache_shards: int = 1
+    cache_shard_axis: str = "cache"
+    # Identity of this replicated worker in a shared CacheDirectory.
+    worker_id: int = 0
     # Planning width: one plan serves all request/layer widths up to this,
     # and batches are chunked so concatenated width never exceeds it.
     max_batch_features: int = 64
@@ -75,6 +118,14 @@ class EngineConfig:
     analyze_plans: Optional[bool] = None
     # Clock for submit stamps and deadline expiry (None = time.monotonic).
     clock: Optional[Callable[[], float]] = None
+    # Chip-to-chip link topology for the sharded cache's ICI charges.
+    ici_topology: ICITopology = ICI_ALL_TO_ALL
+    # Online cost calibration (core.calibration): when set, every estimate
+    # prices against `calibrator.calibrated(tier_spec)`, each batch's
+    # RequestLatency stream is fed back into it, and a generation bump
+    # drops the memoized pass costs and reprices queued requests. None =
+    # static costs.
+    calibrator: Optional[CostCalibrator] = None
 
 
 @dataclasses.dataclass
@@ -163,12 +214,23 @@ class RequestLatency:
 
 
 @dataclasses.dataclass
+class WarmStartReport:
+    """What warm_start() restored into the segment cache."""
+
+    bricks: int = 0
+    wire_bytes: int = 0
+    modeled_seconds: float = 0.0   # storage→host + host→device, via the tms
+
+
+@dataclasses.dataclass
 class GroupStats:
     """I/O story of one served column-concat group."""
 
     uploaded_bytes: int = 0
     cache_hit_bytes: int = 0
     promoted_bytes: int = 0
+    ici_bytes: int = 0
+    directory_hit_bytes: int = 0
     segments_streamed: int = 0
     aggregation_passes: int = 0
 
@@ -177,6 +239,8 @@ class GroupStats:
         self.uploaded_bytes += stats.uploaded_bytes
         self.cache_hit_bytes += stats.cache_hit_bytes
         self.promoted_bytes += stats.promoted_bytes
+        self.ici_bytes += stats.ici_bytes
+        self.directory_hit_bytes += stats.directory_hit_bytes
         self.segments_streamed += stats.segments
         self.aggregation_passes += 1
 
@@ -197,6 +261,14 @@ class BatchReport:
     segments_streamed: int    # consume() invocations (incl. cache hits)
     aggregation_passes: int   # streamed SpGEMM passes (batching merges these)
     wall_seconds: float = 0.0
+    # Sharded cache: bytes that crossed the inter-chip path this batch
+    # (remote-shard hits + shard placements). 0 for a 1-shard cache.
+    ici_bytes: int = 0
+    # Cross-worker directory: wire bytes served from a peer worker's host
+    # copy, and demotion copies this worker skipped because a peer already
+    # holds the brick. 0 with no directory attached.
+    directory_hit_bytes: int = 0
+    duplicate_avoided_bytes: int = 0
     rejected: List[RejectedRequest] = dataclasses.field(default_factory=list)
     expired: List[RejectedRequest] = dataclasses.field(default_factory=list)
     request_latency: List[RequestLatency] = dataclasses.field(
@@ -223,10 +295,18 @@ class ServingEngine:
         report = eng.run_batch()          # drains the queue, grouped by graph
 
     With `cache_enabled=False` every batch re-streams every segment.
+
+    `directory` (a `CacheDirectory` shared by replicated workers, each with
+    its own `EngineConfig.worker_id`) and `mesh` (an object with
+    `axis_names` and a numpy `devices` grid of `torch.device`s, sharding
+    the cache over `config.cache_shard_axis`) are cache features.
     """
 
-    def __init__(self, config: EngineConfig):
+    def __init__(self, config: EngineConfig,
+                 directory: Optional[CacheDirectory] = None,
+                 mesh=None):
         self.config = config
+        self.directory = directory
         self.device = resolve_device(config.device)
         self.clock: Callable[[], float] = config.clock or time.monotonic
         # Plan-rewrite pipeline every batch's stream plans route through
@@ -245,13 +325,37 @@ class ServingEngine:
         # churn) lands here. keep_records=False: a serving process lives
         # long, only the bounded per-path aggregates may grow.
         self.tms = TieredMemorySystem(config.tier_spec, keep_records=False)
-        self.cache: Optional[TieredSegmentCache] = None
+        self.cache: Optional["TieredSegmentCache | ShardedSegmentCache"] = None
+        if not config.cache_enabled and (directory is not None
+                                         or mesh is not None):
+            raise ValueError(
+                "cache_enabled=False contradicts an explicit "
+                f"{'directory' if directory is not None else 'mesh'}: "
+                "the sharded tier and the cross-worker directory are "
+                "cache features")
+        if directory is not None:
+            # Distinct replica identities, or the directory silently no-ops.
+            directory.claim_worker(config.worker_id)
         if config.cache_enabled:
-            self.cache = TieredSegmentCache(
-                device_budget_bytes=(config.cache_device_bytes
-                                     or config.device_budget_bytes),
-                host_budget_bytes=config.cache_host_bytes, tms=self.tms,
-                device=self.device)
+            device_bytes = (config.cache_device_bytes
+                            or config.device_budget_bytes)
+            shared = dict(host_budget_bytes=config.cache_host_bytes,
+                          tms=self.tms, directory=directory,
+                          worker_id=config.worker_id)
+            if mesh is not None:
+                self.cache = ShardedSegmentCache.from_mesh(
+                    mesh, device_bytes, axis=config.cache_shard_axis,
+                    topology=config.ici_topology, **shared)
+            elif config.cache_shards > 1:
+                self.cache = ShardedSegmentCache(
+                    device_budget_bytes=device_bytes,
+                    n_shards=config.cache_shards,
+                    topology=config.ici_topology, device=self.device,
+                    **shared)
+            else:
+                self.cache = TieredSegmentCache(
+                    device_budget_bytes=device_bytes, device=self.device,
+                    **shared)
         self._graphs: "OrderedDict[str, CSR]" = OrderedDict()
         self._engines: Dict[str, AiresSpGEMM] = {}
         self._queue: List[InferenceRequest] = []
@@ -260,6 +364,11 @@ class ServingEngine:
         # awaiting their BatchReport.
         self._pass_costs: Dict[tuple, float] = {}
         self._rejected: List[RejectedRequest] = []
+        # Calibration generation the memos were priced under; when the
+        # calibrator moves past it, cost_spec() clears the memos and
+        # reprices the queue.
+        self._cost_generation = (config.calibrator.generation
+                                 if config.calibrator is not None else 0)
 
     # ---- graph registry --------------------------------------------------
 
@@ -283,6 +392,28 @@ class ServingEngine:
             plan_passes=self.plan_pipeline,
             analyze=cfg.analyze_plans)
 
+    def evict_graph(self, name: str) -> List[InferenceRequest]:
+        """Drop a graph, its engine (with the prepared plans' pinned host
+        bricks), its cached segments in every namespace, this worker's
+        directory holdings under it, and any queued requests against it —
+        which are returned so the caller can re-route them."""
+        a = self._graphs.pop(name, None)
+        self._engines.pop(name, None)
+        self._pass_costs = {k: v for k, v in self._pass_costs.items()
+                            if k[0] != name}
+        if a is not None:
+            prefix = AiresSpGEMM.graph_cache_prefix(a)
+            if self.cache is not None:
+                self.cache.invalidate_prefix(prefix)
+            if self.directory is not None:
+                # Peers must not be routed a peer-promote for entries this
+                # worker no longer backs.
+                self.directory.drop_prefix(prefix,
+                                           worker_id=self.config.worker_id)
+        orphaned = [r for r in self._queue if r.graph == name]
+        self._queue = [r for r in self._queue if r.graph != name]
+        return orphaned
+
     @property
     def graphs(self) -> List[str]:
         return list(self._graphs)
@@ -290,37 +421,150 @@ class ServingEngine:
     def cache_stats(self) -> Optional[CacheStats]:
         return self.cache.stats if self.cache is not None else None
 
+    # ---- brick checkpointing + warm start --------------------------------
+    #
+    # Cache keys are content-addressed (`graph_cache_prefix` namespaces), so
+    # the bricks one serving process checkpoints are the bricks the next
+    # process's streams look up. The on-disk format is the reference's.
+
+    def checkpoint_cache(self, directory: str, step: int = 0) -> str:
+        """Persist the segment cache's bricks (both tiers) for warm_start.
+
+        Only engine payloads — `(blocks, col_tile, n_tiles, ell)` — are
+        checkpointed, and only from their host `BlockELL` (`ell`): nothing
+        is read back from the card."""
+        if self.cache is None:
+            raise ValueError("cache_enabled=False: nothing to checkpoint")
+        bricks = []
+        for key, value, nbytes in self.cache.export_entries():
+            if not (isinstance(value, tuple) and len(value) == 4
+                    and isinstance(value[3], BlockELL)):
+                continue
+            ell = value[3]
+            meta = {
+                "graph_id": key.graph_id,
+                "segment_id": key.segment_id,
+                "wire_format": key.wire_format,
+                "shape": list(key.shape),
+                "fingerprint": key.fingerprint,
+                "nbytes": int(nbytes),
+                "bm": ell.bm, "bk": ell.bk,
+                "n_rows": ell.n_rows, "n_cols": ell.n_cols,
+            }
+            bricks.append((meta, {"blocks": np.asarray(ell.blocks),
+                                  "col_tile": np.asarray(ell.col_tile),
+                                  "n_tiles": np.asarray(ell.n_tiles)}))
+        return save_segment_bricks(directory, bricks, step=step)
+
+    def warm_start(self, checkpoint_dir: str) -> WarmStartReport:
+        """Pre-populate the segment cache from checkpointed bricks (written
+        by either package).
+
+        Every restored brick is charged through the engine's
+        `TieredMemorySystem` — one storage→host read plus one host→device
+        upload — so `tms.bytes_by_path()` stays honest from the first
+        epoch. The bricks are pinned and uploaded without blocking; one
+        synchronisation before returning keeps the uploads out of the first
+        epoch's wall time."""
+        if self.cache is None:
+            raise ValueError("cache_enabled=False contradicts warm_start")
+        report = WarmStartReport()
+        pin = self.device.type == "cuda"
+        for meta, arrays in load_segment_bricks(checkpoint_dir):
+            ell = BlockELL(
+                blocks=arrays["blocks"], col_tile=arrays["col_tile"],
+                n_tiles=arrays["n_tiles"], bm=int(meta["bm"]),
+                bk=int(meta["bk"]), n_rows=int(meta["n_rows"]),
+                n_cols=int(meta["n_cols"]))
+            key = SegmentKey(meta["graph_id"], meta["segment_id"],
+                             meta["wire_format"], tuple(meta["shape"]),
+                             fingerprint=meta.get("fingerprint", ""))
+            nbytes = int(meta["nbytes"])
+            report.modeled_seconds += self.tms.transfer(
+                Path.STORAGE_HOST, MemoryTier.STORAGE, MemoryTier.HOST,
+                nbytes, tag="warmstart/load")
+            report.modeled_seconds += self.tms.transfer(
+                Path.DMA, MemoryTier.HOST, MemoryTier.DEVICE,
+                nbytes, tag="warmstart/promote")
+            payload = upload_brick(host_tensors(ell, pin), ell, self.device)
+            self.cache.put(key, payload, nbytes, tms=self.tms)
+            report.bricks += 1
+            report.wire_bytes += nbytes
+        if pin:
+            torch.cuda.synchronize(self.device)
+        return report
+
     # ---- admission control -----------------------------------------------
 
     def cost_spec(self) -> TierSpec:
-        """The `TierSpec` every cost estimate prices against."""
-        return self.config.tier_spec
+        """The `TierSpec` every cost estimate prices against: the configured
+        spec without a calibrator; with one, `calibrator.calibrated(
+        tier_spec)`. Whenever the calibrator's generation has moved since
+        the memos were priced, the `_pass_costs` memo is dropped and every
+        queued request an admission policy already priced is repriced."""
+        cal = self.config.calibrator
+        if cal is None:
+            return self.config.tier_spec
+        if cal.generation != self._cost_generation:
+            # Mark current *first*: repricing below re-enters cost_spec()
+            # through estimate_request_cost, which must not recurse.
+            self._cost_generation = cal.generation
+            self._pass_costs.clear()
+            self._queue = [
+                dataclasses.replace(
+                    r, estimated_cost_s=self.estimate_request_cost(r))
+                if r.estimated_cost_s > 0.0 else r
+                for r in self._queue]
+        return cal.calibrated(self.config.tier_spec)
 
-    def _pass_cost(self, name: str, width: int) -> float:
+    def _pass_cost(self, name: str, width: int,
+                   spec: Optional[TierSpec] = None) -> float:
         """Modeled makespan of one streamed aggregation pass at `width`,
         via `PipelinePlan.estimate()` (cold-cache reading: admission must
-        hold even if the cache is evicted underneath the queue). Memoized:
-        the plan is pinned per graph, so it varies only with the width."""
+        hold even if the cache is evicted underneath the queue). Memoized
+        under the current `cost_spec()`: the plan is pinned per graph, so
+        it varies only with the width (and the calibration generation,
+        which clears the memo). An explicit `spec` bypasses the memo — how
+        callers compare calibrated and uncalibrated pricing."""
+        if spec is not None:
+            a = self._graphs[name]
+            plan = self._engines[name].stream_plan(
+                a, (a.n_rows, int(width)), spec=spec)
+            return plan.estimate(spec).makespan_s
+        sp = self.cost_spec()   # first: a generation move clears the memo
         key = (name, int(width))
         if key not in self._pass_costs:
             a = self._graphs[name]
-            spec = self.cost_spec()
             plan = self._engines[name].stream_plan(
-                a, (a.n_rows, int(width)), spec=spec)
-            self._pass_costs[key] = plan.estimate(spec).makespan_s
+                a, (a.n_rows, int(width)), spec=sp)
+            self._pass_costs[key] = plan.estimate(sp).makespan_s
         return self._pass_costs[key]
 
-    def estimate_request_cost(self, request: InferenceRequest) -> float:
+    def estimate_request_cost(self, request: InferenceRequest,
+                              spec: Optional[TierSpec] = None) -> float:
         """Modeled seconds to serve `request`: one streamed pass per layer,
-        each at that layer's activation width."""
+        each at that layer's activation width. `spec` pins the pricing
+        spec (unmemoized); the default is the calibrated `cost_spec()`."""
         widths = [int(request.features.shape[1])]
         for w in list(request.weights)[:-1]:
             widths.append(int(w.shape[1]))
-        return sum(self._pass_cost(request.graph, wd) for wd in widths)
+        return sum(self._pass_cost(request.graph, wd, spec=spec)
+                   for wd in widths)
 
     def queued_cost_s(self) -> float:
         """Estimated cost of everything still awaiting service."""
+        if self.config.calibrator is not None:
+            self.cost_spec()  # reprice stale entries before summing
         return sum(r.estimated_cost_s for r in self._queue)
+
+    def feed_latencies(self, latencies: Sequence[RequestLatency]) -> int:
+        """Feed one batch's `RequestLatency` stream into the configured
+        calibrator (no-op without one); `run_batch` calls this after every
+        drain. Returns the number of samples folded in."""
+        cal = self.config.calibrator
+        if cal is None or not latencies:
+            return 0
+        return cal.observe_batch(latencies)
 
     def _reject(self, request: InferenceRequest, reason: str,
                 est: float) -> None:
@@ -390,7 +634,15 @@ class ServingEngine:
         """Stamp, expire, price. Returns the serve-ready queue (new
         `InferenceRequest` copies; callers' objects are never mutated) and
         the expiry verdicts. A request that reached the queue without
-        submit() is stamped `now`; unpriced requests get their estimate."""
+        submit() is stamped `now`; unpriced requests get their estimate,
+        and every request is repriced when the calibrator moved since the
+        queue was priced (`queue` is detached from `self._queue`, so the
+        sweep in `cost_spec()` cannot reach it)."""
+        stale = False
+        cal = self.config.calibrator
+        if cal is not None and cal.generation != self._cost_generation:
+            self.cost_spec()
+            stale = True
         ready: List[InferenceRequest] = []
         expired: List[RejectedRequest] = []
         for r in queue:
@@ -402,7 +654,7 @@ class ServingEngine:
                     estimated_cost_s=r.estimated_cost_s,
                     deadline_s=r.deadline_s, request_id=r.request_id))
                 continue
-            if r.estimated_cost_s <= 0.0:
+            if r.estimated_cost_s <= 0.0 or stale:
                 r = dataclasses.replace(
                     r, estimated_cost_s=self.estimate_request_cost(r))
             ready.append(r)
@@ -435,6 +687,10 @@ class ServingEngine:
         queue, graph_order = self.order_queue(queue)
         totals = GroupStats()
         latency: List[RequestLatency] = []
+        # Duplicate-avoided demotions happen inside put() and evictions,
+        # outside any stream's stats window: diff the cache's counter.
+        dup0 = (self.cache.stats.duplicate_avoided_bytes
+                if self.cache is not None else 0)
         for name in graph_order:
             group = [r for r in queue if r.graph == name]
             if not group:
@@ -448,6 +704,9 @@ class ServingEngine:
             totals.merge(stats)
         results.sort(key=lambda r: r.request_id)
         latency.sort(key=lambda lat: lat.request_id)
+        self.feed_latencies(latency)
+        dup = ((self.cache.stats.duplicate_avoided_bytes - dup0)
+               if self.cache is not None else 0)
         rejected, self._rejected = self._rejected, []
         return BatchReport(
             results=results, uploaded_bytes=totals.uploaded_bytes,
@@ -456,6 +715,9 @@ class ServingEngine:
             segments_streamed=totals.segments_streamed,
             aggregation_passes=totals.aggregation_passes,
             wall_seconds=time.perf_counter() - t0,
+            ici_bytes=totals.ici_bytes,
+            directory_hit_bytes=totals.directory_hit_bytes,
+            duplicate_avoided_bytes=dup,
             rejected=rejected, expired=expired, request_latency=latency)
 
     def serve_group(self, name: str, group: List[InferenceRequest],

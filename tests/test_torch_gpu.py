@@ -1,7 +1,8 @@
 """Card tests of the port: the CUDA Block-ELL SpMM, fused GCN-layer,
 flash-attention and GQA flash-decode kernels against their plain PyTorch
-versions, and the serving engine, the differentiable engine and its fused
-layer, the schedulers' execute mode, a coalesced stream, and the dense LM's
+versions, and the serving engine (sharded, with replicated workers and a
+warm start among them), the differentiable engine and its fused layer, the
+schedulers' execute mode, a coalesced stream, and the dense LM's
 forward, decode and serve on the card against themselves on the CPU or
 against float64.
 
@@ -499,6 +500,92 @@ def test_serve_gcn_with_passes_on_card_matches_cpu():
         for gr, cr in zip(g.results, c.results):
             np.testing.assert_allclose(gr.output, cr.output, atol=1e-4,
                                        rtol=1e-5)
+
+
+def test_sharded_workers_on_card_match_cpu():
+    """`serve_gcn` with two workers over four-shard caches, a shared
+    directory, the passes and calibration on the card: the CPU's bytes per
+    epoch and worker (peer serves, ICI and skipped demotions among them),
+    one SpMM launch per segment streamed, outputs as on the CPU, and a
+    fitted calibrator."""
+    _card()
+    from repro_torch.launch.serve import serve_gcn
+
+    kw = dict(scale=1e-4, workers=2, cache_shards=4, calibrate=True,
+              passes=True)
+    before = kmod.LAUNCHES
+    summary = {}
+    gpu = serve_gcn(summary_out=summary, **kw)
+    torch.cuda.synchronize()
+    assert kmod.LAUNCHES - before == sum(r.segments_streamed
+                                         for epoch in gpu for r in epoch)
+    cpu = serve_gcn(device="cpu", **kw)
+    fields = ("uploaded_bytes", "cache_hit_bytes", "promoted_bytes",
+              "segments_streamed", "ici_bytes", "directory_hit_bytes",
+              "duplicate_avoided_bytes")
+    for g_epoch, c_epoch in zip(gpu, cpu):
+        for g, c in zip(g_epoch, c_epoch):
+            assert ([getattr(g, f) for f in fields]
+                    == [getattr(c, f) for f in fields])
+            for gr, cr in zip(g.results, c.results):
+                np.testing.assert_allclose(gr.output, cr.output, atol=1e-4,
+                                           rtol=1e-5)
+    assert sum(r.directory_hit_bytes for r in gpu[0]) > 0
+    assert len(summary["epoch_errors"]) == 2
+
+
+def test_warm_start_and_evict_on_card(tmp_path):
+    """Bricks checkpointed by a CPU engine warm-start a card engine: its
+    first epoch uploads nothing and serves the CPU's outputs; evicting the
+    graph then leaves no key behind and frees the device tier's bytes."""
+    import gc
+
+    dev = _card()
+    from repro_torch.core import AiresSpGEMM, plan_memory_dense_features
+    from repro_torch.data import (
+        SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
+    )
+    from repro_torch.io import prefix_matches
+    from repro_torch.runtime import (
+        EngineConfig, InferenceRequest, ServingEngine,
+    )
+
+    a = normalized_adjacency(generate_graph(
+        scaled_spec(SUITESPARSE_SPECS["socLJ1"], 1e-4), seed=0))
+    est = plan_memory_dense_features(a, a.n_rows, 64, float("inf"))
+    budget = int(est.m_b + est.m_c + 0.6 * a.nbytes())
+    rng = np.random.default_rng(3)
+    h = rng.standard_normal((a.n_rows, 32)).astype(np.float32)
+    ws = [rng.standard_normal((32, 16)).astype(np.float32)]
+    engines = {}
+    for device in ("cpu", "cuda"):
+        engines[device] = ServingEngine(EngineConfig(
+            device_budget_bytes=budget, cache_shards=4, device=device))
+        engines[device].register_graph("g", a)
+    donor, card = engines["cpu"], engines["cuda"]
+    donor.submit(InferenceRequest("g", h, ws))
+    cold = donor.run_batch()
+    donor.checkpoint_cache(str(tmp_path))
+    report = card.warm_start(str(tmp_path))
+    assert report.wire_bytes == cold.uploaded_bytes > 0
+    card.submit(InferenceRequest("g", h, ws))
+    first = card.run_batch()
+    assert first.uploaded_bytes == 0
+    assert first.cache_hit_bytes == cold.uploaded_bytes
+    np.testing.assert_allclose(first.results[0].output,
+                               cold.results[0].output, atol=1e-4, rtol=1e-5)
+    device_bytes = card.cache.device_used_bytes
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    card.submit(InferenceRequest("g", h, ws))
+    assert len(card.evict_graph("g")) == 1
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    prefix = AiresSpGEMM.graph_cache_prefix(a)
+    assert not any(prefix_matches(str(k.graph_id), prefix)
+                   for k, _, _ in card.cache.export_entries())
+    assert allocated - torch.cuda.memory_allocated(dev) >= device_bytes
 
 
 def _train_case():

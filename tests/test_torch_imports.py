@@ -71,6 +71,8 @@ SLICE_MODULES = [
     "repro_torch.core.spgemm", "repro_torch.core.robw",
     "repro_torch.io.tiers", "repro_torch.io.segment_cache",
     "repro_torch.runtime.engine", "repro_torch.launch.serve",
+    "repro_torch.io.shard_cache", "repro_torch.checkpoint.checkpointer",
+    "repro_torch.core.calibration",
 ]
 
 
