@@ -82,7 +82,37 @@ non-zero without a result line:
                bytes it held. The checkpoint is removed at the end.
                shard and warm, like serve, fail unless every SpMM launch
                took "zero_skip" and equals the segments streamed.
- 14. attn    — the flash-attention and GQA flash-decode kernels against
+ 14. tune    — `ServingEngine.autotune(install=True)` for rUSA and socLJ1
+               at serve's width and budgets, under the engine's
+               `cost_spec()`; each `TunedSchedule.describe()` printed; the
+               installed bucket sets and brick bytes equal to the
+               autotuner's arithmetic done again on the host from the CSR;
+               serve's requests for the epochs, epoch 0 uploading exactly
+               the installed plan's wire bytes, outputs within SERVE_TOL
+               of float64 and SHARD_REL_TOL of serve's default-schedule
+               outputs, relative; the SpMM against its plain version on
+               each graph's widest tuned brick (ell_w 49 and 467, row
+               blocks with n_tiles below ell_w among them).
+ 15. update  — on the tuned rUSA engine, `update_graph` with 1,000 inserts
+               and 1,000 deletes drawn from --seed in the rows of its last
+               segment, then one epoch: uploads equal to the bricks whose
+               keys the update made new (the re-tiled ones, plus any reused
+               one whose positional key went stale), everything else a
+               cache hit, outputs within SERVE_TOL of float64 on the
+               updated graph and SHARD_REL_TOL of a fresh engine's.
+ 16. partition — an SBM graph (`generate_sbm_graph`) of rUSA's 239,400
+               rows, 8 blocks, p_in 0.9 and about rUSA's nonzeros, on a
+               four-shard ring cache whose device tier holds its wire
+               bytes: CRC owners and `partition_graph(a, 8)`'s, two epochs
+               each; every epoch's uploaded, hit, promoted and ICI bytes
+               equal to a CPU host model (the same engine serving one
+               width-1 request through the same layers), the partition
+               arm's warm ICI at most the CRC arm's, outputs across arms
+               within SHARD_REL_TOL and within SERVE_TOL of float64.
+               tune, update and partition, like serve, fail unless every
+               SpMM launch took "zero_skip" and equals the segments
+               streamed.
+ 17. attn    — the flash-attention and GQA flash-decode kernels against
                their plain versions: flash at Yi-6B's prefill shape (causal),
                with a window of 512, at a ragged S and in f32; decode at
                decode_32k's shape with per-sequence lengths (1 and S among
@@ -92,30 +122,30 @@ non-zero without a result line:
                whose edge crosses tiles, and in f16; decode with lens one
                below, at and one above tile and split edges, with groups of
                1, 5 and 16, and in f16.
- 15. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
+ 18. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
                launches = 4, decode launches = 4 x 128.
- 16. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
+ 19. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
                `serve` of 4 prompts of 128 tokens for 32 steps (decode
                launches = 32 x 160), `forward` on one 4096-token sequence
                (flash launches = 32), and teacher-forced decode logits
                against that forward's over the first 128 positions. Every
                attention launch of lm_serve takes the tensor-core route,
                every one of lm_check the f32 FMA route.
- 17. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 20. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
                with X·W at the rate of its three TF32 products; the SpMM
-               also on socLJ1's first serving segment; decode also at
-               lm_serve's own shape.
- 18. kernels — the summary line, then the card's name and power limit, then
+               also on socLJ1's first serving segment and at the tuned
+               widths; decode also at lm_serve's own shape.
+ 21. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
-warm, lm_check, lm_serve) runs with the launch counters set to 0 just
-before it and read just after. It needs no network and one card, and
+warm, tune, update, partition, lm_check, lm_serve) runs with the launch
+counters set to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
 """
@@ -307,38 +337,45 @@ def launch_route(routes: dict, fn):
     return out, taken[0]
 
 
+def spmm_case(kmod, ell, h, tol, label, relative=False, blocks=None):
+    """The SpMM kernel against its plain version on one segment's bricks
+    (`blocks` replaces the bricks' values); fails unless they agree within
+    `tol` (times max |plain| when `relative`) and the launch took the
+    "zero_skip" route."""
+    args = brick_tensors(ell)
+    if blocks is not None:
+        args[0] = blocks
+    out, route = launch_route(kmod.SPMM_ROUTE_LAUNCHES, lambda: (
+        kmod.bcsr_spmm_cuda(*args, h, bm=ell.bm, bk=ell.bk)))
+    plain = kmod.bcsr_spmm_plain(*args, h, bm=ell.bm, bk=ell.bk)
+    sync()
+    err = float((out - plain).abs().max())
+    scale = float(plain.abs().max())
+    limit = tol * scale if relative else tol
+    if not err <= limit:
+        raise AssertionError(f"{label}: max |kernel - plain| {err} > "
+                             f"{limit}")
+    if route != "zero_skip":
+        raise AssertionError(f"{label}: took route {route}")
+    return {"case": label, "blocks": list(args[0].shape),
+            "blocks_dtype": str(args[0].dtype).split(".")[-1],
+            "h": list(h.shape), "h_dtype": str(h.dtype).split(".")[-1],
+            "route": route, "max_abs_err": err, "max_abs_plain": scale,
+            "tol": f"{tol} x max |plain|" if relative else tol}
+
+
 def phase_kernel(kmod, main_ell, h_main, bwd_ell, g_bwd, lj_ell, h_lj):
     """Kernel vs plain version on the card; returns the largest error at
     the main paths' shapes. Every case has 8 x 8 bricks and must take the
     "zero_skip" route."""
+    import functools
     import types
 
     import numpy as np
     import torch
     from repro_torch.sparse import csr_from_dense, tile_csr_to_block_ell
 
-    def compare(ell, h, tol, label, relative=False, blocks=None):
-        args = brick_tensors(ell)
-        if blocks is not None:
-            args[0] = blocks
-        out, route = launch_route(kmod.SPMM_ROUTE_LAUNCHES, lambda: (
-            kmod.bcsr_spmm_cuda(*args, h, bm=ell.bm, bk=ell.bk)))
-        plain = kmod.bcsr_spmm_plain(*args, h, bm=ell.bm, bk=ell.bk)
-        sync()
-        err = float((out - plain).abs().max())
-        scale = float(plain.abs().max())
-        limit = tol * scale if relative else tol
-        if not err <= limit:
-            raise AssertionError(f"{label}: max |kernel - plain| {err} > "
-                                 f"{limit}")
-        if route != "zero_skip":
-            raise AssertionError(f"{label}: took route {route}")
-        return {"case": label, "blocks": list(args[0].shape),
-                "blocks_dtype": str(args[0].dtype).split(".")[-1],
-                "h": list(h.shape), "h_dtype": str(h.dtype).split(".")[-1],
-                "route": route, "max_abs_err": err, "max_abs_plain": scale,
-                "tol": f"{tol} x max |plain|" if relative else tol}
-
+    compare = functools.partial(spmm_case, kmod)
     rng = np.random.default_rng(1)
     cases = [compare(main_ell, h_main, MAIN_TOL, "main-path rUSA segment 0"),
              # Aᵀ's hub row blocks sum up to 422 bricks (3,376 terms) per
@@ -536,6 +573,9 @@ def phase_serve(kmod, graphs, args, inputs):
                 "max_abs_err_vs_float64": check_outputs(
                     f"{name} epoch {epoch}", rep.results, refs[name]),
             }
+            if epoch == 0:                 # what `tune` is held to
+                inputs.setdefault("serve_outputs", {})[name] = [
+                    r.output for r in rep.results]
         epochs.append(row)
     launches = kmod.LAUNCHES              # ... and ends here
     segments = sum(g["segments_streamed"] for row in epochs
@@ -1411,6 +1451,400 @@ def phase_warm(kmod, graphs, inputs, state) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- tune, update and partition ---------------------------------------------
+
+# The port's host planner at width 1024, serve_budget and 8 x 8 bricks, as
+# predicted before the first run (PERF.md): (segments' true ELL widths,
+# bucket set, its brick bytes, the power-of-two bytes). The tune phase fails
+# unless the autotuner installs exactly these and the served bricks have
+# these true widths.
+TUNE_PREDICTED = {"rUSA": ([49, 42], [42, 49], 359_555_140, 498_071_700),
+                  "socLJ1": ([467, 341], [341, 467], 60_455_800, 80_540_020)}
+UPDATE_EDGES = 1000            # inserts and as many deletes, update phase
+SBM_BLOCKS = 8                 # SBM communities = partition clusters
+SBM_P_IN = 0.9
+SBM_SEG_FRAC = 24              # bench_partition's stream budget rule
+
+
+def prepared_plan(spg):
+    """The one prepared (forward, serving-width) plan of an engine."""
+    (prep,) = spg._prepared.values()
+    return prep
+
+
+def serve_graph(eng, name, requests, weights) -> tuple:
+    """One epoch of `requests` against one graph: (report, outputs in
+    submit order)."""
+    from repro_torch.runtime import InferenceRequest
+    ids = [int(eng.submit(InferenceRequest(name, h, weights)))
+           for h in requests]
+    rep = eng.run_batch()
+    by_id = {r.request_id: r for r in rep.results}
+    return rep, [by_id[i].output for i in ids]
+
+
+def phase_tune(kmod, graphs, args, inputs) -> tuple:
+    """Autotune and install each graph's schedule under the engine's
+    `cost_spec()`, then `serve`'s requests for the epochs; the installed
+    bucket sets and bytes against the values predicted before the run
+    (`TUNE_PREDICTED`), epoch 0's uploads against the
+    installed plan's wire bytes, outputs against float64 and against
+    `serve`'s default-schedule outputs. Returns the SpMM launches and the
+    tuned engines."""
+    import torch
+    from repro_torch.runtime import EngineConfig, ServingEngine
+    from repro_torch.sparse import csr_row_slice
+
+    width, weights = inputs["width"], inputs["weights"]
+    engines, tuned, rows = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, a in graphs.items():
+        eng = ServingEngine(EngineConfig(
+            device_budget_bytes=serve_budget(a, width),
+            max_batch_features=width))
+        eng.register_graph(name, a)
+        t1 = time.perf_counter()
+        tuned[name] = eng.autotune(name, install=True)
+        tune_s = time.perf_counter() - t1
+        print(tuned[name].describe(), flush=True)
+        spg = eng._engines[name]
+        got = (list(tuned[name].ell_buckets)
+               if tuned[name].ell_buckets is not None else None)
+        if eng.installed_schedules[name] != tuned[name] or (
+                spg.config.ell_buckets != got):
+            raise AssertionError(f"tune: {name}'s schedule not installed")
+        _, want_buckets, want_bytes, want_default = TUNE_PREDICTED[name]
+        if (got, tuned[name].ell_bytes, tuned[name].default_ell_bytes) != (
+                want_buckets, want_bytes, want_default):
+            raise AssertionError(
+                f"tune: {name} installed {got}, {tuned[name].ell_bytes} B "
+                f"(power of two {tuned[name].default_ell_bytes} B); "
+                f"predicted {want_buckets}, {want_bytes} B ({want_default} B)")
+        rows[name] = {
+            "describe": tuned[name].describe(), "autotune_s": tune_s,
+            "installed_buckets": got,
+            "ell_bytes": tuned[name].ell_bytes,
+            "default_ell_bytes": tuned[name].default_ell_bytes,
+            "predicted_makespan_s": tuned[name].predicted_makespan_s,
+            "default_makespan_s": tuned[name].default_makespan_s,
+            "min_bytes": tuned[name].min_bytes,
+            "pass_order": list(tuned[name].pass_order),
+            "epochs": []}
+        engines[name] = eng
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    errs = {"vs_float64": 0.0, "vs_serve_rel": 0.0}
+    for epoch in range(args.epochs):
+        for name, eng in engines.items():
+            rep, outs = serve_graph(eng, name, inputs["requests"][name],
+                                    weights)
+            errs["vs_float64"] = max(errs["vs_float64"], check_outputs(
+                f"tune {name}", rep.results, inputs["refs"][name]))
+            for out, ref in zip(outs, inputs["serve_outputs"][name]):
+                errs["vs_serve_rel"] = max(errs["vs_serve_rel"],
+                                           rel_to_scale(out, ref))
+            rows[name]["epochs"].append(report_row(rep))
+    launches = kmod.LAUNCHES                      # ... and ends here
+    segments = sum(e["segments_streamed"] for r in rows.values()
+                   for e in r["epochs"])
+    if launches != segments or launches == 0:
+        raise AssertionError(f"tune: SpMM launches {launches} != segments "
+                             f"streamed {segments}")
+    routes = check_gcn_routes("tune", kmod, launches)
+    if not errs["vs_serve_rel"] <= SHARD_REL_TOL:
+        raise AssertionError(f"tune: outputs {errs['vs_serve_rel']} from "
+                             "the default schedule's, relative")
+    for name, row in rows.items():
+        # The served bricks' true widths (their longest row block) and
+        # padded widths, read off the prepared plan's tiles.
+        prep = prepared_plan(engines[name]._engines[name])
+        row["ell_widths"] = [int(e.n_tiles.max()) for e in prep.ells]
+        row["padded_widths"] = [int(e.blocks.shape[1]) for e in prep.ells]
+        widths, buckets = TUNE_PREDICTED[name][:2]
+        if row["ell_widths"] != widths or row["padded_widths"] != [
+                min(b for b in buckets if b >= w) for w in widths]:
+            raise AssertionError(
+                f"tune: {name}'s bricks are {row['ell_widths']} wide, padded "
+                f"to {row['padded_widths']}; predicted {widths} in {buckets}")
+        # Epoch 0 prepared the installed plan (as `serve`'s epoch 0 did the
+        # default one): its wire bytes are the tuned bricks' bytes.
+        a = graphs[name]
+        row["plan_wire_bytes"] = wire = engines[name]._engines[
+            name].stream_plan(a, (a.n_rows, width),
+                              apply_passes=False).wire_bytes()
+        if not row["epochs"][0]["uploaded_bytes"] == wire == row[
+                "ell_bytes"]:
+            raise AssertionError(f"tune: {name}'s epoch 0 uploaded "
+                                 f"{row['epochs'][0]['uploaded_bytes']} B; "
+                                 f"plan {wire} B, tuned {row['ell_bytes']}")
+
+    # The kernel at the widest tuned brick of each graph, against its plain
+    # version (not counted: the main path's counts were read above).
+    cases, widest = [], {}
+    gen = torch.Generator(device=DEV).manual_seed(args.seed + 7)
+    for name, a in graphs.items():
+        prep = prepared_plan(engines[name]._engines[name])
+        i = max(range(len(prep.ells)),
+                key=lambda j: prep.ells[j].blocks.shape[1])
+        ell, seg = prep.ells[i], prep.plan.segments[i]
+        short = int((ell.n_tiles < ell.blocks.shape[1]).sum())
+        if not short:
+            raise AssertionError(f"tune: every row block of {name}'s "
+                                 "widest brick is full")
+        h = torch.randn((a.n_cols, width), device=DEV, generator=gen)
+        case = spmm_case(kmod, ell, h, REL_TOL,
+                         f"tuned {name} brick, ell_w "
+                         f"{ell.blocks.shape[1]}", relative=True)
+        case["row_blocks_below_ell_w"] = short
+        case["segment"] = i
+        cases.append(case)
+        widest[name] = {"ell": ell, "segment": i, "csr": csr_row_slice(
+            a, seg.row_start, seg.row_end)}
+        del h
+    emit({"phase": "tune", "setup_s": setup_s, "graphs": rows,
+          "max_abs_err_vs_float64": errs["vs_float64"], "tol": SERVE_TOL,
+          "rel_err_vs_serve": errs["vs_serve_rel"],
+          "rel_tol": SHARD_REL_TOL, "spmm_launches": launches,
+          "segments_streamed": segments,
+          "launches_by_route": routes["bcsr_spmm"],
+          "kernel_cases": cases})
+    return launches, {"engines": engines, "tuned": tuned, "widest": widest,
+                      "kernel_err": max(c["max_abs_err"] for c in cases)}
+
+
+def edge_delta(a, seg, seed: int, n: int) -> tuple:
+    """`n` inserts of absent edges and `n` deletes of present off-diagonal
+    edges, all in the rows of `seg`, drawn from `seed`."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = seg.row_start, seg.row_end
+    rows = np.repeat(np.arange(lo, hi, dtype=np.int64),
+                     np.diff(a.indptr[lo:hi + 1]))
+    cols = np.asarray(a.indices[a.indptr[lo]:a.indptr[hi]], dtype=np.int64)
+    pick = rng.choice(np.nonzero(rows != cols)[0], size=n, replace=False)
+    deletes = [(int(rows[i]), int(cols[i])) for i in pick]
+    present = set(zip(rows.tolist(), cols.tolist()))
+    inserts, used = [], set()
+    while len(inserts) < n:
+        r, c = int(rng.integers(lo, hi)), int(rng.integers(0, a.n_cols))
+        if (r, c) in present or (r, c) in used:
+            continue
+        used.add((r, c))
+        inserts.append((r, c, float(rng.uniform(0.05, 0.25))))
+    return inserts, deletes
+
+
+def phase_update(kmod, graphs, args, inputs, tune_state) -> int:
+    """An edge delta confined to the last segment of the tuned rUSA
+    engine, then one epoch: uploads equal to the host plan's prediction
+    (the re-tiled bricks, plus any reused one whose positional key went
+    stale), the rest served as cache hits, outputs against float64 on the
+    updated graph and against a fresh engine registered on it."""
+    import numpy as np
+    from repro_torch.runtime import ServingEngine
+
+    name, width = "rUSA", inputs["width"]
+    eng = tune_state["engines"][name]
+    spg = eng._engines[name]
+    a = eng._graphs[name]
+    prep = prepared_plan(spg)
+    old_keys = set(spg._segment_keys(prep))
+    t0 = time.perf_counter()
+    inserts, deletes = edge_delta(a, prep.plan.segments[-1], args.seed,
+                                  UPDATE_EDGES)
+    delta_s = time.perf_counter() - t0
+    report = eng.update_graph(name, inserts=inserts, deletes=deletes)
+    new_a = eng._graphs[name]
+    new_prep = prepared_plan(spg)
+    keys = spg._segment_keys(new_prep)
+    fresh_keys = [i for i, k in enumerate(keys) if k not in old_keys]
+    stale_reused = [i for i in fresh_keys if new_prep.fps[i] in prep.fps]
+    predicted = sum(new_prep.ells[i].nbytes() for i in fresh_keys)
+    stale_reused_bytes = sum(new_prep.ells[i].nbytes()
+                             for i in stale_reused)
+    if predicted != report.retiled_bytes + stale_reused_bytes:
+        raise AssertionError(f"update: {predicted} B of fresh keys, "
+                             f"{report.retiled_bytes} B re-tiled and "
+                             f"{stale_reused_bytes} B reused but stale")
+    wire = sum(e.nbytes() for e in new_prep.ells)
+    t1 = time.perf_counter()
+    refs = reference_outputs(new_a, inputs["requests"][name],
+                             inputs["weights"])
+    refs_s = time.perf_counter() - t1
+    fresh = ServingEngine(eng.config)
+    fresh.register_graph(name, new_a)
+    sync()
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    rep, outs = serve_graph(eng, name, inputs["requests"][name],
+                            inputs["weights"])
+    fresh_rep, fresh_outs = serve_graph(fresh, name,
+                                        inputs["requests"][name],
+                                        inputs["weights"])
+    launches = kmod.LAUNCHES                      # ... and ends here
+    segments = rep.segments_streamed + fresh_rep.segments_streamed
+    if launches != segments or launches == 0:
+        raise AssertionError(f"update: SpMM launches {launches} != "
+                             f"segments streamed {segments}")
+    routes = check_gcn_routes("update", kmod, launches)
+    err = check_outputs("update", rep.results, refs)
+    rel = max(rel_to_scale(o, f) for o, f in zip(outs, fresh_outs))
+    if not rel <= SHARD_REL_TOL:
+        raise AssertionError(f"update: outputs {rel} from a fresh engine's "
+                             "on the updated graph, relative")
+    hits = rep.aggregation_passes * wire - predicted
+    if (rep.uploaded_bytes, rep.cache_hit_bytes) != (predicted, hits):
+        raise AssertionError(f"update: uploaded {rep.uploaded_bytes} B and "
+                             f"hit {rep.cache_hit_bytes} B; the host plan "
+                             f"predicts {predicted} B and {hits} B")
+    reused = [i for i, k in enumerate(keys) if k in old_keys]
+    emit({"phase": "update", "graph": name, "edges": {
+        "inserts": len(inserts), "deletes": len(deletes),
+        "rows": [prep.plan.segments[-1].row_start,
+                 prep.plan.segments[-1].row_end]},
+        "delta_draw_s": delta_s,
+        "report": {k: getattr(report, k) for k in (
+            "plans_updated", "segments_retiled", "segments_reused",
+            "retiled_bytes", "stale_keys", "cache_entries_dropped",
+            "wall_seconds")},
+        "segments": [list(e.blocks.shape) for e in new_prep.ells],
+        "reused_key_bytes": sum(new_prep.ells[i].nbytes() for i in reused),
+        "stale_reused_segments": stale_reused,
+        "predicted_uploaded_bytes": predicted, "fresh_keys": len(fresh_keys),
+        "epoch": report_row(rep), "fresh_engine_epoch": report_row(
+            fresh_rep), "float64_refs_s": refs_s,
+        "max_abs_err_vs_float64": err, "tol": SERVE_TOL,
+        "rel_err_vs_fresh_engine": rel, "rel_tol": SHARD_REL_TOL,
+        "spmm_launches": launches, "segments_streamed": segments,
+        "launches_by_route": routes["bcsr_spmm"]})
+    del fresh
+    return launches
+
+
+def phase_partition(kmod, graphs, args, inputs) -> int:
+    """An SBM graph of rUSA's rows and about its nonzeros on a four-shard
+    ring cache whose device tier holds the graph's wire bytes, two arms
+    (CRC owners; `partition_graph(a, 8, n_shards=4, topology=ICI_RING)`)
+    for the epochs: each epoch's bytes against the host model (the same
+    engine on the CPU, serving one width-1 request through the same three
+    layers: the same plan, passes and cache traffic; this shows that the
+    card's and the CPU's accounting agree, not that the accounting is
+    right, which the CPU tests hold against the reference), the partition
+    arm's warm ICI at most the CRC arm's, outputs across arms and against
+    float64."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (
+        AiresConfig, AiresSpGEMM, ShardPlacementPass, bucket_set_bytes,
+        plan_memory_dense_features, segment_ell_widths,
+    )
+    from repro_torch.data import generate_sbm_graph, normalized_adjacency
+    from repro_torch.io.tiers import ICI_RING
+    from repro_torch.runtime import EngineConfig, ServingEngine
+    from repro_torch.sparse import partition_graph
+
+    rusa, width, weights = graphs["rUSA"], inputs["width"], inputs["weights"]
+    t0 = time.perf_counter()
+    a = normalized_adjacency(generate_sbm_graph(
+        rusa.n_rows, rusa.nnz - rusa.n_rows, n_blocks=SBM_BLOCKS,
+        p_in=SBM_P_IN, seed=args.seed))
+    gen = torch.Generator().manual_seed(args.seed + 11)
+    requests = [torch.randn((a.n_rows, width // 4), generator=gen).numpy()
+                for _ in range(4)]
+    refs = reference_outputs(a, requests, weights)
+    est = plan_memory_dense_features(a, a.n_rows, width, float("inf"))
+    budget = int(est.m_b + est.m_c + a.nbytes() / SBM_SEG_FRAC)
+    cfg = AiresConfig(device_budget_bytes=budget, bm=8, bk=8,
+                      plan_features=width, device="cpu")
+    _, plan = AiresSpGEMM(cfg).plan(a, (a.n_rows, width))
+    wire = bucket_set_bytes(segment_ell_widths(a, plan, bm=8, bk=8),
+                            [s.n_rows for s in plan.segments], None, 8, 8)
+    graph_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    part = partition_graph(a, SBM_BLOCKS, n_shards=SHARDS,
+                           topology=ICI_RING)
+    partition_s = time.perf_counter() - t1
+
+    def engine(device, arm):
+        eng = ServingEngine(EngineConfig(
+            device_budget_bytes=budget, cache_device_bytes=wire,
+            cache_shards=SHARDS, ici_topology=ICI_RING,
+            plan_passes=[ShardPlacementPass()], max_batch_features=width,
+            device=device, analyze_plans=True))
+        eng.register_graph("sbm", a,
+                           partition=part if arm == "partition" else None)
+        return eng
+
+    fields = ("uploaded_bytes", "cache_hit_bytes", "promoted_bytes",
+              "ici_bytes", "segments_streamed")
+    t2 = time.perf_counter()
+    host = {}
+    for arm in ("crc", "partition"):
+        twin = engine("cpu", arm)
+        host[arm] = []
+        for _ in range(args.epochs):
+            rep, _ = serve_graph(twin, "sbm", [np.ones((a.n_rows, 1),
+                                                      np.float32)],
+                                 [np.ones((1, 1), np.float32)] * 3)
+            host[arm].append({f: getattr(rep, f) for f in fields})
+        del twin
+    host_s = time.perf_counter() - t2
+    card = {arm: engine(DEV, arm) for arm in ("crc", "partition")}
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    epochs, outs, err = {}, {}, 0.0
+    for arm, eng in card.items():
+        epochs[arm] = []
+        for _ in range(args.epochs):
+            rep, outs[arm] = serve_graph(eng, "sbm", requests, weights)
+            err = max(err, check_outputs(f"partition {arm}", rep.results,
+                                         refs))
+            epochs[arm].append(report_row(rep))
+    launches = kmod.LAUNCHES                      # ... and ends here
+    segments = sum(e["segments_streamed"] for arm in epochs.values()
+                   for e in arm)
+    if launches != segments or launches == 0:
+        raise AssertionError(f"partition: SpMM launches {launches} != "
+                             f"segments streamed {segments}")
+    routes = check_gcn_routes("partition", kmod, launches)
+    for arm in epochs:
+        got = [{f: e[f] for f in fields} for e in epochs[arm]]
+        if got != host[arm]:
+            raise AssertionError(f"partition: {arm} epochs {got}, the host "
+                                 f"model {host[arm]}")
+    warm = {arm: epochs[arm][-1]["ici_bytes"] for arm in epochs}
+    if not warm["partition"] <= warm["crc"]:
+        raise AssertionError(f"partition: warm ICI {warm}")
+    rel = max(rel_to_scale(o, c) for o, c in zip(outs["partition"],
+                                                 outs["crc"]))
+    if not rel <= SHARD_REL_TOL:
+        raise AssertionError(f"partition: arms {rel} apart, relative")
+    spg = card["partition"]._engines["sbm"]
+    emit({"phase": "partition", "graph": {
+        "n": a.n_rows, "nnz": a.nnz, "blocks": SBM_BLOCKS, "p_in": SBM_P_IN,
+        "seed": args.seed, "budget_bytes": budget,
+        "crc_segments": len(plan.segments),
+        "partition_segments": len(prepared_plan(spg).ells),
+        "wire_bytes": wire, "cache_device_bytes": wire},
+        "partition": {"clusters": part.n_clusters,
+                      "cluster_to_shard": part.cluster_to_shard.tolist(),
+                      "shard_nnz": part.shard_nnz.tolist(),
+                      "boundaries": int(part.boundaries().size),
+                      "seconds": partition_s},
+        "graph_and_refs_s": graph_s, "host_model_s": host_s,
+        "setup_s": setup_s, "epochs": epochs, "host_model": host,
+        "warm_ici_bytes": warm, "max_abs_err_vs_float64": err,
+        "tol": SERVE_TOL, "rel_err_across_arms": rel,
+        "rel_tol": SHARD_REL_TOL, "spmm_launches": launches,
+        "segments_streamed": segments,
+        "launches_by_route": routes["bcsr_spmm"]})
+    return launches
+
+
 def brick_work(args, ell, k_rows: int, f: int, h_itemsize: int) -> dict:
     """What the aggregation needs for these inputs, counted two ways. Both
     read the valid bricks, col_tile and n_tiles once. By bricks: the H tiles
@@ -2111,7 +2545,7 @@ def time_decode(dmod, seed: int, b: int, s_len: int,
 
 
 def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
-                 seed: int) -> dict:
+                 seed: int, tuned: dict) -> dict:
     import torch
     from repro_torch.configs import SHAPES
     torch.cuda.reset_peak_memory_stats()
@@ -2122,6 +2556,11 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
         "bcsr_spmm_socLJ1": time_spmm(kmod, lj["ell"], lj["csr"], h_lj),
         "bcsr_spmm_transposed": time_spmm(kmod, plans["bwd"]["ell"],
                                           plans["bwd"]["csr"], g_train),
+        # The tuned bucket widths, beside the power-of-two rows above.
+        "bcsr_spmm_tuned_rUSA": time_spmm(kmod, tuned["rUSA"]["ell"],
+                                          tuned["rUSA"]["csr"], h_main),
+        "bcsr_spmm_tuned_socLJ1": time_spmm(kmod, tuned["socLJ1"]["ell"],
+                                            tuned["socLJ1"]["csr"], h_lj),
         "fused_gcn_layer": time_fused(kmod, plans["fwd"]["ell"],
                                       plans["fwd"]["csr"], h_train,
                                       h_train.shape[1]),
@@ -2218,12 +2657,19 @@ def run(args) -> None:
     launches["shard"], shard_state = phase_shard(kmod, graphs, args, inputs)
     launches["warm"] = phase_warm(kmod, graphs, inputs, shard_state)
     del shard_state
+    launches["tune"], tune_state = phase_tune(kmod, graphs, args, inputs)
+    launches["update"] = phase_update(kmod, graphs, args, inputs,
+                                      tune_state)
+    tuned, spmm_err = tune_state["widest"], max(spmm_err,
+                                                tune_state["kernel_err"])
+    del tune_state
+    launches["partition"] = phase_partition(kmod, graphs, args, inputs)
     set_default_analyze(previous)
     attn_err = phase_attn(fmod, dmod, args.seed)
     lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed),
           "lm_serve": phase_lm_serve(fmod, dmod, args.seed)}
     timing = phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train,
-                          g_train, args.seed)
+                          g_train, args.seed, tuned)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     gcn_keys = (*keys, "bound_ms_bricks", "bound_by_bricks")
 
@@ -2253,7 +2699,12 @@ def run(args) -> None:
          **{k: timing["bcsr_spmm"][k] for k in gcn_keys},
          "transposed": {k: timing["bcsr_spmm_transposed"][k]
                         for k in gcn_keys},
-         "socLJ1": {k: timing["bcsr_spmm_socLJ1"][k] for k in gcn_keys}},
+         "socLJ1": {k: timing["bcsr_spmm_socLJ1"][k] for k in gcn_keys},
+         **{f"tuned_{name}": {
+             "ell_w": timing[f"bcsr_spmm_tuned_{name}"]["shape"]["blocks"][1],
+             "segment": tuned[name]["segment"],
+             **{k: timing[f"bcsr_spmm_tuned_{name}"][k] for k in gcn_keys}}
+            for name in ("rUSA", "socLJ1")}},
         {"name": "fused_gcn_layer", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_gcn_layer.cu",
          "replaces": "src/repro/kernels/bcsr_spmm.py:127",

@@ -3,6 +3,7 @@ plan IR with its static analyzer and rewrite passes, the paper's schedulers
 (AIRES and its three baselines), and the streamed, differentiable
 out-of-core SpGEMM with its GCN epoch runner.
 
+  autotune     : schedule knob search over the plan IR
   calibration  : online cost-model calibration (CostCalibrator)
   memory_model : Eq. (5)-(7) analytical planning
   robw         : Algorithm 1 row block-wise alignment
@@ -22,6 +23,12 @@ from repro_torch.core.analysis import (
     diff_path_totals,
     path_byte_totals,
     set_default_analyze,
+)
+from repro_torch.core.autotune import (
+    TunedSchedule,
+    autotune_schedule,
+    bucket_set_bytes,
+    candidate_bucket_sets,
 )
 from repro_torch.core.calibration import CostCalibrator, PathEstimate
 from repro_torch.core.memory_model import (
@@ -71,8 +78,10 @@ from repro_torch.core.robw import (
     densify_segment,
     merge_partial_rows,
     naive_partition,
+    robw_delta_partition,
     robw_partition,
     robw_transpose_plan,
+    segment_ell_widths,
     segments_to_block_ell,
 )
 from repro_torch.core.scheduler import (
@@ -87,6 +96,7 @@ from repro_torch.core.spgemm import (
     AiresConfig,
     AiresSpGEMM,
     EpochMetrics,
+    UpdateStats,
     gcn_epoch,
     resolve_device,
 )
@@ -95,6 +105,8 @@ __all__ = [
     "AnalysisReport", "Finding", "PlanAnalysisError", "RULES",
     "analyze_plan", "default_analyze", "diff_path_totals",
     "path_byte_totals", "set_default_analyze",
+    "TunedSchedule", "autotune_schedule", "bucket_set_bytes",
+    "candidate_bucket_sets",
     "CostCalibrator", "PathEstimate",
     "FeatureSpec", "MemoryEstimate", "calc_mem", "ell_bucket_capacity",
     "estimate_output_bytes", "estimate_resident_bytes", "plan_memory",
@@ -108,10 +120,10 @@ __all__ = [
     "PlanOp", "PlanValidationError", "ScheduleMetrics", "TransferOp",
     "modeled_spgemm_seconds",
     "RoBWPlan", "RoBWSegment", "densify_segment", "merge_partial_rows",
-    "naive_partition", "robw_partition", "robw_transpose_plan",
-    "segments_to_block_ell",
+    "naive_partition", "robw_delta_partition", "robw_partition",
+    "robw_transpose_plan", "segment_ell_widths", "segments_to_block_ell",
     "SCHEDULERS", "AiresScheduler", "ETCScheduler", "MaxMemoryScheduler",
     "ScheduleResult", "UCGScheduler",
-    "AiresConfig", "AiresSpGEMM", "EpochMetrics", "gcn_epoch",
+    "AiresConfig", "AiresSpGEMM", "EpochMetrics", "UpdateStats", "gcn_epoch",
     "resolve_device",
 ]

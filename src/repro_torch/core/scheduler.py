@@ -221,14 +221,15 @@ class AiresScheduler(_BaseScheduler):
                  wire_format: Literal["csr", "bricks"] = "csr",
                  segment_cache: Optional[TieredSegmentCache] = None,
                  partition=None, **kw):
-        if partition is not None:
-            raise NotImplementedError(
-                "AiresScheduler(partition=...): partition-aware tiling is "
-                "not ported to repro_torch yet (ROADMAP queue 1 item 5)")
         super().__init__(*args, **kw)
         self.bm = bm
         self.bk = bk
         self.align = align
+        # Optional sparse.partition.Partition: RoBW tiles over its cluster
+        # boundaries, the cache namespace carries a `:p{k}` tag, and the
+        # partition-derived owner map is installed on a sharded segment
+        # cache before probes are priced. None = unpartitioned.
+        self.partition = partition
         # "csr": stream raw compressed segments (paper-faithful wire format,
         #        densification happens device-side); "bricks": stream
         #        densified BlockELL bricks (the port's wire format).
@@ -270,8 +271,13 @@ class AiresScheduler(_BaseScheduler):
         # RoBW partitioning on the CPU: executed for real at build time; its
         # makespan contribution is modeled as one indptr scan + per-segment
         # events (see _host_seconds for why).
+        part = self.partition
+        if part is not None and part.n_rows != a.shape[0]:
+            part = None  # built for a different graph: ignore it
         t0 = time.perf_counter()
-        robw = robw_partition(a, int(mem.m_a), align=self.align)
+        robw = robw_partition(
+            a, int(mem.m_a), align=self.align,
+            boundaries=None if part is None else part.boundaries())
         measured = time.perf_counter() - t0
         plan.robw = robw
         plan.segments = robw.n_segments
@@ -303,7 +309,16 @@ class AiresScheduler(_BaseScheduler):
         # a content fingerprint, never id(a): CPython reuses ids after GC,
         # which could alias two different graphs into one namespace.
         graph_ns = (f"sim:g{csr_fingerprint(a)}:{a.nnz}"
-                    f":{a.shape[0]}x{a.shape[1]}:w{f}:b{self.device_budget}")
+                    f":{a.shape[0]}x{a.shape[1]}:w{f}:b{self.device_budget}"
+                    f"{'' if part is None else f':p{part.n_clusters}'}")
+        if (cache is not None and part is not None and part.n_shards > 1
+                and hasattr(cache, "install_owner_map")
+                and part.n_shards == getattr(cache, "n_shards", 1)):
+            clusters = part.clusters_for_plan(robw)
+            cache.install_owner_map(
+                graph_ns,
+                [int(part.cluster_to_shard[c]) for c in clusters],
+                clusters)
         for i, (seg, ell) in enumerate(zip(robw.segments, ells)):
             if self.wire_format == "bricks" and ell is not None:
                 wire_bytes = ell.nbytes()

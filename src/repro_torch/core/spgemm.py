@@ -15,8 +15,14 @@ and its backward recomputes X with one forward stream.
 `gcn_epoch` runs one training epoch of the Fig. 1 chain under a named
 scheduler: modeled (`mode="simulate"`) or for real through the
 differentiable engine (`mode="execute"`), with the scheduler's modeled
-per-layer metrics beside the real `StreamStats`. Edge updates belong to a
-later slice.
+per-layer metrics beside the real `StreamStats`.
+
+Evolving graphs: `apply_edge_update` migrates every prepared plan of a
+graph to its edge-delta successor, re-tiling only the touched segments
+(`robw_delta_partition`) and reporting the cache keys made stale
+(`UpdateStats`). A `Partition` tiles plans over its cluster boundaries and
+installs its owner map on a sharded segment cache; an explicit ELL bucket
+ladder (`AiresConfig.ell_buckets`, the autotuner's) pads bricks to it.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from repro_torch.core.pipeline import (
     modeled_spgemm_seconds,
 )
 from repro_torch.core.robw import (
+    densify_segment,
+    robw_delta_partition,
     robw_partition,
     robw_transpose_plan,
     segments_to_block_ell,
@@ -58,6 +66,8 @@ from repro_torch.sparse.formats import (
     graph_cache_prefix,
     segment_fingerprint,
 )
+from repro_torch.sparse.partition import Partition
+from repro_torch.sparse.updates import EdgeDelta
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:
@@ -88,6 +98,10 @@ class AiresConfig:
     # batched request width ≤ plan_features, so the segment cache hits
     # across layers, epochs and requests. Wider H gets its own plan.
     plan_features: Optional[int] = None
+    # Explicit ELL bucket ladder for tile densification (see
+    # `ell_bucket_capacity` and the autotuner, core.autotune). None keeps
+    # the power-of-two buckets.
+    ell_buckets: Optional[List[int]] = None
 
 
 @dataclasses.dataclass
@@ -104,6 +118,20 @@ class _Prepared:
     host: List[tuple] = dataclasses.field(default_factory=list)
     cache_ns: str = ""        # segment-cache namespace (graph+direction+plan)
     fps: List[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class UpdateStats:
+    """What one `AiresSpGEMM.apply_edge_update` changed, summed over every
+    prepared plan (direction × width) of the updated graph."""
+
+    plans_updated: int = 0
+    segments_retiled: int = 0
+    segments_reused: int = 0
+    retiled_bytes: int = 0        # wire bytes of the re-densified bricks
+    # Cache keys the update made stale (old keys absent from the updated
+    # plans): exactly what the runtime must invalidate.
+    stale_keys: List[SegmentKey] = dataclasses.field(default_factory=list)
 
 
 def host_tensors(ell: BlockELL, pin: bool) -> tuple:
@@ -140,9 +168,15 @@ class AiresSpGEMM:
 
     def __init__(self, config: AiresConfig,
                  segment_cache: Optional[TieredSegmentCache] = None,
-                 plan_passes=None, analyze: Optional[bool] = None):
+                 plan_passes=None, analyze: Optional[bool] = None,
+                 partition: Optional[Partition] = None):
         self.config = config
         self.device = resolve_device(config.device)
+        # Partition-aware sharding (sparse.partition): plans tile over the
+        # partition's cluster boundaries, cache namespaces carry a
+        # `:p{n_clusters}` tag, and every prepared plan installs its owner
+        # map on a sharded segment cache. None = unpartitioned.
+        self.partition = partition
         self.segment_cache = segment_cache
         # Optional core.passes.PassPipeline applied to every stream plan
         # before it is estimated or executed (build → rewrite → interpret,
@@ -159,7 +193,7 @@ class AiresSpGEMM:
         self.last_stream_stats: Optional[StreamStats] = None
         self.last_backward_stream_stats: Optional[StreamStats] = None
 
-    def plan(self, a: CSR, h_shape) -> tuple:
+    def plan(self, a: CSR, h_shape, boundaries=None) -> tuple:
         mem = plan_memory_unified(
             a, FeatureSpec(h_shape[0], h_shape[1], 4, 0.0),
             m_total=self.config.device_budget_bytes)
@@ -167,7 +201,8 @@ class AiresSpGEMM:
             raise MemoryError(
                 f"AIRES plan infeasible: budget {self.config.device_budget_bytes}"
                 f" < M_B+M_C = {mem.m_b + mem.m_c:.0f}")
-        plan = robw_partition(a, int(mem.m_a), align=self.config.align)
+        plan = robw_partition(a, int(mem.m_a), align=self.config.align,
+                              boundaries=boundaries)
         return mem, plan
 
     def reset_stats_logs(self) -> None:
@@ -217,11 +252,20 @@ class AiresSpGEMM:
         # narrower H): one plan, and one set of cacheable bricks.
         plan_shape = (dense_shape[0],
                       max(cfg.plan_features or 0, dense_shape[1]))
-        key = (csr_fingerprint(a), a.nnz, a.shape, plan_shape, transpose)
+        part = self.partition
+        key = (csr_fingerprint(a), a.nnz, a.shape, plan_shape, transpose,
+               tuple(cfg.ell_buckets or ()),
+               0 if part is None else part.token)
         hit = self._prepared.pop(key, None)
         if hit is not None:
             self._prepared[key] = hit  # re-insert: most-recently-used
             return hit
+        # The partition tiles the streamed orientation: A's rows forward;
+        # the transposed direction only lines up for square graphs.
+        part_rows = a.shape[1] if transpose else a.shape[0]
+        if part is not None and part.n_rows != part_rows:
+            part = None
+        bounds = None if part is None else part.boundaries()
         if transpose:
             # Plan on Aᵀ: the backward output dH is (n_cols, F), so M_C and
             # the Eq. 7 budget are sized for the transposed orientation.
@@ -235,16 +279,26 @@ class AiresSpGEMM:
                     f"{cfg.device_budget_bytes} < M_B+M_C = "
                     f"{mem.m_b + mem.m_c:.0f}")
             _, plan = robw_transpose_plan(a, int(mem.m_a), align=cfg.align,
-                                          a_t=a_t)
+                                          a_t=a_t, boundaries=bounds)
             stream_a = a_t
         else:
-            mem, plan = self.plan(a, plan_shape)
+            mem, plan = self.plan(a, plan_shape, boundaries=bounds)
             stream_a = a
+        # An explicit bucket ladder tags the namespace (`:e…`): its bricks
+        # pad differently, so they never collide with the power-of-two
+        # entries. A partition tags its cluster count (`:p{k}`) the same
+        # way; count only, so `Partition.refine` after an edge delta keeps
+        # the namespace and every untouched brick in it.
+        bucket_tag = ("" if not cfg.ell_buckets else
+                      ":e" + "x".join(str(b) for b in cfg.ell_buckets))
+        part_tag = "" if part is None else f":p{part.n_clusters}"
         cache_ns = (f"{self.graph_cache_prefix(a)}"
                     f":{'bwd' if transpose else 'fwd'}"
-                    f":w{plan_shape[1]}:b{cfg.device_budget_bytes}")
+                    f":w{plan_shape[1]}:b{cfg.device_budget_bytes}"
+                    f"{bucket_tag}{part_tag}")
         ells = list(segments_to_block_ell(stream_a, plan, bm=cfg.bm,
-                                          bk=cfg.bk))
+                                          bk=cfg.bk,
+                                          buckets=cfg.ell_buckets))
         pin = self.device.type == "cuda"
         prepared = _Prepared(
             a=stream_a, mem=mem, plan=plan, segs=list(plan.segments),
@@ -254,10 +308,119 @@ class AiresSpGEMM:
                  for s in plan.segments])
         if self.segment_cache is not None:
             self.segment_cache.pin(cache_ns, a)
+        if part is not None:
+            self._install_owner_map(part, prepared, transpose)
         self._prepared[key] = prepared
         while len(self._prepared) > self.PREPARED_CACHE_MAX:
             self._prepared.pop(next(iter(self._prepared)))
         return prepared
+
+    def _install_owner_map(self, part: Partition, prepared: _Prepared,
+                           transpose: bool) -> None:
+        """Project `part` onto one prepared plan's segments and install the
+        owner map (and cluster ids) on the sharded segment cache.
+
+        No-op for unsharded caches and shard-count mismatches. The
+        transposed orientation votes with Aᵀ's row nnz (`part.row_nnz`
+        counts A's rows, which are Aᵀ's columns)."""
+        cache = self.segment_cache
+        if (cache is None or part.n_shards <= 1
+                or not hasattr(cache, "install_owner_map")
+                or part.n_shards != getattr(cache, "n_shards", 1)):
+            return
+        row_nnz = (np.diff(prepared.a.indptr).astype(np.int64)
+                   if transpose else None)
+        clusters = part.clusters_for_plan(prepared.plan, row_nnz=row_nnz)
+        owners = [int(part.cluster_to_shard[c]) for c in clusters]
+        cache.install_owner_map(prepared.cache_ns, owners, clusters)
+
+    # ---- incremental updates (evolving graphs) ---------------------------
+
+    def _segment_keys(self, prepared: _Prepared) -> List[SegmentKey]:
+        """Every SegmentKey one prepared plan emits (`_build_stream_plan`'s
+        keys). The id is the segment's position in the plan, as in the
+        reference, so a re-pack that shifts a reused segment stales its
+        key."""
+        cfg = self.config
+        return [SegmentKey(prepared.cache_ns, i, cfg.wire_format,
+                           tuple(ell.blocks.shape), fingerprint=fp)
+                for i, (ell, fp) in enumerate(zip(prepared.ells,
+                                                  prepared.fps))]
+
+    def apply_edge_update(self, old: CSR, new: CSR,
+                          delta: EdgeDelta) -> UpdateStats:
+        """Migrate every prepared plan of `old` to `new` incrementally.
+
+        Forward plans re-tile by `delta.touched_rows`, transposed plans by
+        `delta.touched_cols`: untouched segments keep their bricks (and
+        pinned host copies) and fingerprints, touched spans re-partition
+        under the old budget (`robw_delta_partition`) and re-densify only
+        their rows (`densify_segment`, bit-identical to a from-scratch
+        re-tile). The cache namespace carries over (`new` inherits `old`'s
+        `graph_key` lineage), so untouched segments keep hitting. Returns
+        the stale keys the caller must invalidate.
+        """
+        old_fp = csr_fingerprint(old)
+        cfg = self.config
+        stats = UpdateStats()
+        if (self.partition is not None
+                and self.partition.n_rows == new.shape[0]):
+            # Only the touched rows re-vote their cluster; the cluster →
+            # shard map, the `:p{k}` namespace and every untouched brick's
+            # owner carry over.
+            self.partition = self.partition.refine(new, delta.touched_rows)
+        token = 0 if self.partition is None else self.partition.token
+        pin = self.device.type == "cuda"
+        for key in [k for k in self._prepared if k[0] == old_fp]:
+            prep = self._prepared.pop(key)
+            _, _, _, plan_shape, transpose, buckets, _ = key
+            if transpose:
+                stream_new = self.transpose_of(new)
+                touched = delta.touched_cols
+            else:
+                stream_new = new
+                touched = delta.touched_rows
+            new_plan, reuse = robw_delta_partition(stream_new, prep.plan,
+                                                   touched)
+            ells, host, fps = [], [], []
+            for seg, src in zip(new_plan.segments, reuse):
+                if src is not None:
+                    ells.append(prep.ells[src])
+                    host.append(prep.host[src])
+                    fps.append(prep.fps[src])
+                    stats.segments_reused += 1
+                else:
+                    ell = densify_segment(stream_new, seg,
+                                          bm=cfg.bm, bk=cfg.bk,
+                                          buckets=cfg.ell_buckets)
+                    ells.append(ell)
+                    host.append(host_tensors(ell, pin))
+                    fps.append(segment_fingerprint(
+                        stream_new, seg.row_start, seg.row_end))
+                    stats.segments_retiled += 1
+                    stats.retiled_bytes += ell.nbytes()
+            old_keys = self._segment_keys(prep)
+            # mem is reused: the budget depends on shape and width, both
+            # unchanged by an edge delta.
+            new_prep = _Prepared(a=stream_new, mem=prep.mem, plan=new_plan,
+                                 segs=list(new_plan.segments), ells=ells,
+                                 host=host, cache_ns=prep.cache_ns, fps=fps)
+            self._prepared[(csr_fingerprint(new), new.nnz, new.shape,
+                            plan_shape, transpose, buckets,
+                            token)] = new_prep
+            if self.segment_cache is not None:
+                # The namespace now answers for the updated graph.
+                self.segment_cache.pin(prep.cache_ns, new)
+            part = self.partition
+            if part is not None and part.n_rows == stream_new.shape[0]:
+                # Refined labels may move rows between clusters, and the
+                # re-tiled plan's segments need owners.
+                self._install_owner_map(part, new_prep, transpose)
+            fresh = set(self._segment_keys(new_prep))
+            stats.stale_keys.extend(k for k in old_keys if k not in fresh)
+            stats.plans_updated += 1
+        self._transposes.pop((old_fp, old.nnz, old.shape), None)
+        return stats
 
     # ---- pipeline-plan building + streaming executors --------------------
 

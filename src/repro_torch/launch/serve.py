@@ -11,11 +11,13 @@ wire bytes. It draws its graphs and requests from the same seeded streams
 as `repro.launch.serve.serve_gcn`. With `--workers 2 --cache-shards 4
 --calibrate` it serves from replicated workers that share a cache
 directory, each over a four-shard cache, with the cost model refitted from
-every batch's latencies.
+every batch's latencies. With `--autotune` each graph's schedule is
+searched and installed after the first epoch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch yi_6b [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode gcn [--passes] \
-        [--workers 2] [--cache-shards 4] [--calibrate] [--device cpu]
+        [--workers 2] [--cache-shards 4] [--calibrate] [--autotune] \
+        [--device cpu]
 
 `--mode lm`, the default as in the reference, serves the arch's SMOKE
 config and needs `--arch`; the full config is
@@ -83,15 +85,12 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
     (core.passes): shard-aware brick placement, transfer coalescing and
     EDF request ordering. `calibrate` attaches a `CostCalibrator` to every
     worker: each batch's `RequestLatency` stream refits the cost model,
-    so later epochs price against the calibrated spec. A `summary_out`
-    dict receives the per-epoch (calibrated, uncalibrated) mean |error|
-    and the installed schedules (none: `autotune` is not ported yet and
-    raises).
+    so later epochs price against the calibrated spec. `autotune` searches
+    and installs every worker's schedule per graph after the first epoch
+    (`ServingEngine.autotune`). A `summary_out` dict receives the
+    per-epoch (calibrated, uncalibrated) mean |error| and worker 0's
+    installed schedules, described.
     """
-    if autotune:
-        raise NotImplementedError(
-            "serve_gcn: autotune (ROADMAP queue 1 item 4) not ported to "
-            "repro_torch yet")
     from repro_torch.core import (
         CostCalibrator, EDFOrderingPass, ShardPlacementPass,
         TransferCoalescingPass, plan_memory_dense_features,
@@ -146,7 +145,7 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
 
     epoch_errors = []  # (calibrated mean |err|, uncalibrated mean |err|)
     reports = []
-    for _ in range(epochs):
+    for epoch in range(epochs):
         epoch_reports = []
         for eng in engines:
             for name, a in graphs.items():
@@ -164,10 +163,16 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
                     sum(abs(lt.error_s) for lt in lats) / len(lats),
                     sum(abs(lt.processing_s - uncal_cost[lt.graph])
                         for lt in lats) / len(lats)))
+        if autotune and epoch == 0:
+            for eng in engines:
+                for name in graphs:
+                    eng.autotune(name, install=True)
         reports.append(epoch_reports[0] if workers == 1 else epoch_reports)
     if summary_out is not None:
         summary_out["epoch_errors"] = epoch_errors
-        summary_out["installed_schedules"] = {}
+        summary_out["installed_schedules"] = {
+            name: tuned.describe()
+            for name, tuned in engines[0].installed_schedules.items()}
     return reports
 
 
@@ -194,6 +199,9 @@ def main(argv=None) -> None:
     ap.add_argument("--calibrate", action="store_true",
                     help="gcn mode: fit the cost model online from each "
                          "batch's latency stream and reprice against it")
+    ap.add_argument("--autotune", action="store_true",
+                    help="gcn mode: autotune and install the plan schedule "
+                         "per graph after the first epoch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
@@ -222,7 +230,8 @@ def main(argv=None) -> None:
                         cache=not args.no_cache, seed=args.seed,
                         cache_shards=args.cache_shards,
                         workers=args.workers, passes=args.passes,
-                        calibrate=args.calibrate, summary_out=summary,
+                        calibrate=args.calibrate, autotune=args.autotune,
+                        summary_out=summary,
                         device=args.device)
     for e, rep in enumerate(reports):
         for wid, r in enumerate(rep if isinstance(rep, list) else [rep]):
@@ -243,6 +252,8 @@ def main(argv=None) -> None:
     for e, (cal_err, uncal_err) in enumerate(summary["epoch_errors"]):
         print(f"epoch {e}: calibrated mean |err| {cal_err*1e3:.2f} ms "
               f"vs uncalibrated {uncal_err*1e3:.2f} ms")
+    for desc in summary["installed_schedules"].values():
+        print(f"installed {desc}")
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@ from repro_torch.runtime.engine import (
     AdmissionError,
     BatchReport,
     EngineConfig,
+    GraphUpdateReport,
     GroupStats,
     InferenceRequest,
     InferenceResult,
@@ -14,7 +15,8 @@ from repro_torch.runtime.engine import (
 )
 
 __all__ = [
-    "AdmissionError", "BatchReport", "EngineConfig", "GroupStats",
+    "AdmissionError", "BatchReport", "EngineConfig", "GraphUpdateReport",
+    "GroupStats",
     "InferenceRequest", "InferenceResult", "RejectedRequest",
     "RequestLatency", "ServingEngine", "SubmitReceipt", "WarmStartReport",
 ]

@@ -26,9 +26,16 @@ warm-started from them (`warm_start`), across the two packages. A
 `CostCalibrator` refits the spec every admission decision prices against
 from each batch's measured latencies.
 
-A subset of `repro.runtime.engine` (no autotuning, partitioning or edge
-updates); its byte accounting and cost predictions are the reference's,
-which the tests hold them to.
+Per graph, `autotune` searches the plan's knobs (coalescing threshold,
+pass order, ELL bucket set, partition cluster count) under the calibrated
+cost model and `install_schedule` installs the winner; `partition_shards`
+(or `register_graph(partition=)`) replaces CRC brick owners with a
+connectivity clustering's; `update_graph` applies an edge delta, re-tiling
+and invalidating only the segments it touched.
+
+`repro.runtime.engine` without the continuous serving loop's
+`estimate_group_cost`; its byte accounting and cost predictions are the
+reference's, which the tests hold them to.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from repro_torch.checkpoint.checkpointer import (
     load_segment_bricks,
     save_segment_bricks,
 )
+from repro_torch.core.autotune import TunedSchedule, autotune_schedule
 from repro_torch.core.calibration import CostCalibrator
 from repro_torch.core.passes import PassPipeline, PlanPass
 from repro_torch.core.spgemm import (
@@ -70,6 +78,8 @@ from repro_torch.io.tiers import (
     TPU_V5E_SYSTEM,
 )
 from repro_torch.sparse.formats import CSR, BlockELL
+from repro_torch.sparse.partition import Partition, partition_graph
+from repro_torch.sparse.updates import EdgeDelta, apply_edge_updates
 
 
 @dataclasses.dataclass
@@ -126,6 +136,17 @@ class EngineConfig:
     # drops the memoized pass costs and reprices queued requests. None =
     # static costs.
     calibrator: Optional[CostCalibrator] = None
+    # Explicit ELL bucket ladder for every registered graph's bricks
+    # (AiresConfig.ell_buckets); None keeps power-of-two buckets. Usually
+    # installed per graph by `install_schedule` rather than set here.
+    ell_buckets: Optional[Sequence[int]] = None
+    # Partition-aware sharding (sparse.partition): cluster count of the
+    # connectivity clustering run over every registered graph when the
+    # segment cache is sharded (`cache_shards > 1`); its owner map replaces
+    # CRC owners for that graph's bricks. 0 (default) = off; ignored on
+    # unsharded caches. Per graph: `register_graph(partition=)`, or an
+    # installed schedule whose `partition_clusters` is set.
+    partition_shards: int = 0
 
 
 @dataclasses.dataclass
@@ -211,6 +232,21 @@ class RequestLatency:
     @property
     def error_s(self) -> float:
         return self.processing_s - self.predicted_s
+
+
+@dataclasses.dataclass
+class GraphUpdateReport:
+    """What one `update_graph` edge delta changed, end to end."""
+
+    graph: str
+    delta: EdgeDelta
+    plans_updated: int            # prepared plans migrated (direction×width)
+    segments_retiled: int         # bricks re-densified (touched rows only)
+    segments_reused: int          # bricks carried over verbatim
+    retiled_bytes: int            # wire bytes of the re-densified bricks
+    stale_keys: int               # segment keys made stale by the delta
+    cache_entries_dropped: int    # of those, entries actually evicted
+    wall_seconds: float = 0.0
 
 
 @dataclasses.dataclass
@@ -366,20 +402,31 @@ class ServingEngine:
         self._rejected: List[RejectedRequest] = []
         # Calibration generation the memos were priced under; when the
         # calibrator moves past it, cost_spec() clears the memos and
-        # reprices the queue.
+        # reprices the queue. Installed autotuned schedules, per graph.
         self._cost_generation = (config.calibrator.generation
                                  if config.calibrator is not None else 0)
+        self._installed_schedules: Dict[str, TunedSchedule] = {}
 
     # ---- graph registry --------------------------------------------------
 
-    def register_graph(self, name: str, a: CSR) -> None:
-        """Make a graph servable. CSRs are immutable once registered."""
+    def register_graph(self, name: str, a: CSR,
+                       partition: Optional[Partition] = None) -> None:
+        """Make a graph servable. CSRs are immutable once registered.
+
+        `partition` installs a connectivity-clustered owner map for this
+        graph's bricks; without one, `EngineConfig.partition_shards > 0`
+        on a sharded cache clusters the graph here. A partitioned graph
+        prepares its forward plan at once, so the owner map is on the
+        cache before any `warm_start` routes bricks to their owners.
+        """
         if name in self._graphs:
             raise ValueError(f"graph {name!r} already registered")
         a.validate()
         cfg = self.config
+        if partition is None:
+            partition = self._auto_partition(a)
         self._graphs[name] = a
-        self._engines[name] = AiresSpGEMM(
+        eng = AiresSpGEMM(
             AiresConfig(
                 device_budget_bytes=cfg.device_budget_bytes,
                 bm=cfg.bm, bk=cfg.bk, align=cfg.align,
@@ -387,10 +434,30 @@ class ServingEngine:
                 straggler_deadline_s=cfg.straggler_deadline_s,
                 device=str(self.device),
                 plan_features=cfg.max_batch_features,
+                ell_buckets=(list(cfg.ell_buckets)
+                             if cfg.ell_buckets else None),
             ),
             segment_cache=self.cache,
             plan_passes=self.plan_pipeline,
-            analyze=cfg.analyze_plans)
+            analyze=cfg.analyze_plans,
+            partition=partition)
+        self._engines[name] = eng
+        if partition is not None and self.cache is not None:
+            eng._prepare(a, (a.n_rows, cfg.max_batch_features),
+                         transpose=False)
+
+    def _auto_partition(self, a: CSR) -> Optional[Partition]:
+        """Cluster `a` per `EngineConfig.partition_shards`; None when the
+        knob is off or the cache is not sharded (CRC owners are then
+        already right)."""
+        k = int(self.config.partition_shards or 0)
+        n_shards = int(getattr(self.cache, "n_shards", 1) or 1)
+        if k <= 0 or n_shards <= 1:
+            return None
+        return partition_graph(
+            a, k, n_shards=n_shards,
+            topology=self.config.ici_topology,
+            local_shard=int(getattr(self.cache, "local_shard", 0)))
 
     def evict_graph(self, name: str) -> List[InferenceRequest]:
         """Drop a graph, its engine (with the prepared plans' pinned host
@@ -399,6 +466,7 @@ class ServingEngine:
         which are returned so the caller can re-route them."""
         a = self._graphs.pop(name, None)
         self._engines.pop(name, None)
+        self._installed_schedules.pop(name, None)
         self._pass_costs = {k: v for k, v in self._pass_costs.items()
                             if k[0] != name}
         if a is not None:
@@ -413,6 +481,42 @@ class ServingEngine:
         orphaned = [r for r in self._queue if r.graph == name]
         self._queue = [r for r in self._queue if r.graph != name]
         return orphaned
+
+    def update_graph(self, name: str, inserts=None,
+                     deletes=None) -> GraphUpdateReport:
+        """Apply an edge delta to a registered graph instead of evicting and
+        registering it again: prepared plans migrate incrementally
+        (`AiresSpGEMM.apply_edge_update` re-tiles only touched row blocks),
+        and exactly the stale segment keys are invalidated, in every tier
+        and shard and in the `CacheDirectory`. Untouched bricks stay
+        resident, so the next epoch uploads only what the delta touched.
+        Queued requests resolve the graph by name at serve time and see
+        the update."""
+        a = self._graphs.get(name)
+        if a is None:
+            raise KeyError(f"graph {name!r} not registered")
+        t0 = time.perf_counter()
+        new, delta = apply_edge_updates(a, inserts=inserts, deletes=deletes)
+        stats = self._engines[name].apply_edge_update(a, new, delta)
+        self._graphs[name] = new
+        dropped = 0
+        if stats.stale_keys:
+            if self.cache is not None:
+                dropped = self.cache.invalidate_keys(stats.stale_keys)
+            if self.directory is not None:
+                for key in stats.stale_keys:
+                    self.directory.drop(key)
+        # Cost memos price segment count and nnz; both may have changed.
+        self._pass_costs = {k: v for k, v in self._pass_costs.items()
+                            if k[0] != name}
+        return GraphUpdateReport(
+            graph=name, delta=delta, plans_updated=stats.plans_updated,
+            segments_retiled=stats.segments_retiled,
+            segments_reused=stats.segments_reused,
+            retiled_bytes=stats.retiled_bytes,
+            stale_keys=len(stats.stale_keys),
+            cache_entries_dropped=dropped,
+            wall_seconds=time.perf_counter() - t0)
 
     @property
     def graphs(self) -> List[str]:
@@ -551,6 +655,14 @@ class ServingEngine:
         return sum(self._pass_cost(request.graph, wd, spec=spec)
                    for wd in widths)
 
+    def estimate_group_cost(self, name: str,
+                            group: Sequence[InferenceRequest]) -> float:
+        """The continuous serving loop's per-group cost; it comes with that
+        loop."""
+        raise NotImplementedError(
+            "ServingEngine.estimate_group_cost: the continuous serving loop "
+            "(ROADMAP queue 1 item 6) is not ported to repro_torch yet")
+
     def queued_cost_s(self) -> float:
         """Estimated cost of everything still awaiting service."""
         if self.config.calibrator is not None:
@@ -565,6 +677,72 @@ class ServingEngine:
         if cal is None or not latencies:
             return 0
         return cal.observe_batch(latencies)
+
+    # ---- autotuned schedules (core.autotune) -------------------------------
+
+    def autotune(self, name: str, width: Optional[int] = None,
+                 install: bool = False) -> TunedSchedule:
+        """Search (coalescing min_bytes × pass order × ELL bucket set ×
+        partition cluster count) for one registered graph, priced under the
+        calibrated `cost_spec()`; optionally install the winner. Never
+        predicted worse than the default, which is always a candidate."""
+        if name not in self._graphs:
+            raise KeyError(f"graph {name!r} not registered")
+        tuned = autotune_schedule(
+            self._engines[name], self._graphs[name], graph=name,
+            width=int(width or self.config.max_batch_features),
+            spec=self.cost_spec(), segment_cache=self.cache)
+        if install:
+            self.install_schedule(tuned)
+        return tuned
+
+    def install_schedule(self, tuned: TunedSchedule) -> None:
+        """Install an autotuned schedule for `tuned.graph`: that graph's
+        `AiresSpGEMM` gets its own `PassPipeline` in tuned order; a changed
+        ELL bucket set or cluster count drops the graph's prepared plans
+        (and their pinned bricks) and its cached bricks (the namespaces
+        carry bucket and cluster tags, so the old entries are reclaimed,
+        not shadowed); the graph's cost memos are invalidated."""
+        name = tuned.graph
+        if name not in self._graphs:
+            raise KeyError(f"graph {name!r} not registered")
+        eng = self._engines[name]
+        eng.plan_passes = PassPipeline(
+            tuned.build_passes(), spec=self.config.tier_spec,
+            track_costs=False)
+        changed = False
+        new_buckets = (list(tuned.ell_buckets)
+                       if tuned.ell_buckets is not None else None)
+        if new_buckets != (eng.config.ell_buckets or None):
+            eng.config = dataclasses.replace(eng.config,
+                                             ell_buckets=new_buckets)
+            changed = True
+        # A changed cluster count re-partitions the graph with the
+        # clustering the autotuner's trial arm priced.
+        old_clusters = (eng.partition.n_clusters
+                        if eng.partition is not None else None)
+        if tuned.partition_clusters != old_clusters:
+            if tuned.partition_clusters is None:
+                eng.partition = None
+            else:
+                eng.partition = partition_graph(
+                    self._graphs[name], int(tuned.partition_clusters),
+                    n_shards=int(getattr(self.cache, "n_shards", 1) or 1),
+                    topology=self.config.ici_topology,
+                    local_shard=int(getattr(self.cache, "local_shard", 0)))
+            changed = True
+        if changed:
+            eng.clear_cache()
+            if self.cache is not None:
+                self.cache.invalidate_prefix(
+                    AiresSpGEMM.graph_cache_prefix(self._graphs[name]))
+        self._pass_costs = {k: v for k, v in self._pass_costs.items()
+                            if k[0] != name}
+        self._installed_schedules[name] = tuned
+
+    @property
+    def installed_schedules(self) -> Dict[str, TunedSchedule]:
+        return dict(self._installed_schedules)
 
     def _reject(self, request: InferenceRequest, reason: str,
                 est: float) -> None:

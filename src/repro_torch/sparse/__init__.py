@@ -1,4 +1,5 @@
-"""Sparse matrix substrate: host formats, tile densification, oracles.
+"""Sparse matrix substrate: host formats, tile densification, oracles,
+edge-delta updates and connectivity partitioning.
 
 Host-side structures are numpy (they live on the CPU tier of the memory
 hierarchy, like the paper's CSR-A host staging); the stream uploads
@@ -22,6 +23,12 @@ from repro_torch.sparse.blocking import (
     round_up,
 )
 from repro_torch.sparse.ref_spgemm import spgemm_csr_dense, spmm_dense_ref
+from repro_torch.sparse.updates import EdgeDelta, apply_edge_updates
+from repro_torch.sparse.partition import (
+    Partition,
+    map_clusters_to_shards,
+    partition_graph,
+)
 
 __all__ = [
     "CSR", "COO", "BlockELL",
@@ -29,4 +36,6 @@ __all__ = [
     "csr_fingerprint", "segment_fingerprint", "graph_cache_prefix",
     "tile_csr_to_block_ell", "block_ell_to_dense", "round_up",
     "spgemm_csr_dense", "spmm_dense_ref",
+    "EdgeDelta", "apply_edge_updates",
+    "Partition", "map_clusters_to_shards", "partition_graph",
 ]

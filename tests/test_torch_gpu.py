@@ -1,10 +1,11 @@
 """Card tests of the port: the CUDA Block-ELL SpMM, fused GCN-layer,
 flash-attention and GQA flash-decode kernels against their plain PyTorch
-versions, and the serving engine (sharded, with replicated workers and a
-warm start among them), the differentiable engine and its fused layer, the
-schedulers' execute mode, a coalesced stream, and the dense LM's
-forward, decode and serve on the card against themselves on the CPU or
-against float64.
+versions (the SpMM also at the autotuner's bucket widths), and the
+serving engine (sharded, with replicated workers and a warm start among
+them, autotuned, and through edge-delta updates), the differentiable
+engine and its fused layer, the schedulers' execute mode, a coalesced
+stream, and the dense LM's forward, decode and serve on the card against
+themselves on the CPU or against float64.
 
 Marked `gpu`: each test decides inside itself whether a card is present
 and skips without one. This file imports no `jax`, so it also runs where
@@ -586,6 +587,114 @@ def test_warm_start_and_evict_on_card(tmp_path):
     assert not any(prefix_matches(str(k.graph_id), prefix)
                    for k, _, _ in card.cache.export_entries())
     assert allocated - torch.cuda.memory_allocated(dev) >= device_bytes
+
+
+@pytest.mark.parametrize("ell_w", [42, 49, 341, 467])
+def test_kernel_at_explicit_bucket_widths(ell_w):
+    """The autotuner's bucket widths (rUSA's 42 and 49, socLJ1's 341 and
+    467 at the smoke run's serving shape): not powers of two, and past 64
+    the second kernel's ell_w - 64 slots are not a multiple of 16. Row
+    blocks hold ell_w, fewer and no valid slots, padding slots -1 past
+    n_tiles; against the plain version and float64."""
+    rng = np.random.default_rng(ell_w)
+    m = 8 * ell_w
+    fill = [ell_w, ell_w - 1, ell_w // 2, 0, 1, ell_w - 17, ell_w, 3]
+    dense = np.zeros((8 * len(fill), m))
+    for rb, k in enumerate(fill):
+        tiles = rng.choice(ell_w, size=max(k, 0), replace=False)
+        for t in tiles:
+            dense[8 * rb + rng.integers(0, 8), 8 * t + rng.integers(0, 8)] = (
+                rng.standard_normal())
+    ell = tile_csr_to_block_ell(csr_from_dense(dense.astype(np.float32)),
+                                bm=8, bk=8, ell_width=ell_w)
+    assert ell.blocks.shape[1] == ell_w
+    assert ell.n_tiles.tolist() == [max(k, 0) for k in fill]
+    args = [torch.from_numpy(x) for x in (ell.blocks, ell.col_tile,
+                                          ell.n_tiles)]
+    h = torch.randn((m, 1024), generator=torch.Generator().manual_seed(7))
+    plain = kmod.bcsr_spmm_plain(*args, h, bm=8, bk=8)
+    out = _spmm_on_card(args, h, 8, 8, "zero_skip")
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-4)
+    np.testing.assert_allclose(out.numpy(), dense @ h.double().numpy(),
+                               atol=1e-4)
+
+
+def _slice_graphs():
+    from repro_torch.core import plan_memory_dense_features
+    from repro_torch.data import (
+        SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
+    )
+    a = normalized_adjacency(generate_graph(
+        scaled_spec(SUITESPARSE_SPECS["socLJ1"], 1e-4), seed=0))
+    est = plan_memory_dense_features(a, a.n_rows, 64, float("inf"))
+    return a, int(est.m_b + est.m_c + 0.3 * a.nbytes())
+
+
+def test_autotuned_serving_on_card_matches_cpu():
+    """`serve_gcn(autotune=True)`: the same installed schedules and bytes
+    per epoch as on the CPU, one launch per segment, the CPU's outputs."""
+    _card()
+    from repro_torch.launch.serve import serve_gcn
+
+    before = kmod.LAUNCHES
+    summaries = {"cuda": {}, "cpu": {}}
+    gpu = serve_gcn(autotune=True, summary_out=summaries["cuda"])
+    torch.cuda.synchronize()
+    assert kmod.LAUNCHES - before == sum(r.segments_streamed for r in gpu)
+    cpu = serve_gcn(autotune=True, summary_out=summaries["cpu"],
+                    device="cpu")
+    assert summaries["cuda"] == summaries["cpu"]
+    assert summaries["cpu"]["installed_schedules"]
+    for g, c in zip(gpu, cpu):
+        assert (g.uploaded_bytes, g.cache_hit_bytes) == (
+            c.uploaded_bytes, c.cache_hit_bytes)
+        for gr, cr in zip(g.results, c.results):
+            np.testing.assert_allclose(gr.output, cr.output, atol=1e-4,
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("shards,clusters", [(1, 0), (4, 8)])
+def test_update_graph_on_card_matches_cpu(shards, clusters):
+    """An edge delta on a card engine, unpartitioned and on a partitioned
+    four-shard cache: the CPU engine's report and bytes per epoch, and
+    its outputs on the updated graph."""
+    _card()
+    from repro_torch.runtime import (
+        EngineConfig, InferenceRequest, ServingEngine,
+    )
+
+    a, budget = _slice_graphs()
+    rng = np.random.default_rng(4)
+    h = rng.standard_normal((a.n_rows, 32)).astype(np.float32)
+    ws = [rng.standard_normal((32, 16)).astype(np.float32)]
+    engines = {}
+    for device in ("cuda", "cpu"):
+        engines[device] = ServingEngine(EngineConfig(
+            device_budget_bytes=budget, cache_shards=shards,
+            partition_shards=clusters, device=device))
+        engines[device].register_graph("g", a)
+    reports = {}
+    for device, eng in engines.items():
+        reps = []
+        eng.submit(InferenceRequest("g", h, ws))
+        reps.append(eng.run_batch())
+        update = eng.update_graph("g", inserts=[(5, 100, 0.5), (7, 3, 1.0)],
+                                  deletes=[(0, 0)])
+        for _ in range(2):
+            eng.submit(InferenceRequest("g", h, ws))
+            reps.append(eng.run_batch())
+        reports[device] = (update, reps)
+    (g_up, g_reps), (c_up, c_reps) = reports["cuda"], reports["cpu"]
+    fields = ("plans_updated", "segments_retiled", "segments_reused",
+              "retiled_bytes", "stale_keys", "cache_entries_dropped")
+    assert ([getattr(g_up, f) for f in fields]
+            == [getattr(c_up, f) for f in fields])
+    assert g_reps[1].uploaded_bytes == g_up.retiled_bytes
+    for g, c in zip(g_reps, c_reps):
+        assert (g.uploaded_bytes, g.cache_hit_bytes, g.ici_bytes) == (
+            c.uploaded_bytes, c.cache_hit_bytes, c.ici_bytes)
+        np.testing.assert_allclose(g.results[0].output, c.results[0].output,
+                                   atol=1e-4, rtol=1e-5)
 
 
 def _train_case():

@@ -73,6 +73,9 @@ SLICE_MODULES = [
     "repro_torch.runtime.engine", "repro_torch.launch.serve",
     "repro_torch.io.shard_cache", "repro_torch.checkpoint.checkpointer",
     "repro_torch.core.calibration",
+    # The autotune, partition and edge-update slice.
+    "repro_torch.core.autotune", "repro_torch.sparse.partition",
+    "repro_torch.sparse.updates", "repro_torch.data.graphs",
 ]
 
 

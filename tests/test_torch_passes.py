@@ -207,7 +207,7 @@ def _coalesce(side, plan, min_bytes, **apply_kw):
     return pipeline.apply(plan, **apply_kw)
 
 
-@settings(max_examples=40, deadline=None)
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
 @given(st.integers(0, 2**32 - 1), st.sampled_from([1 << 12, 1 << 20]))
 def test_coalescing_matches_reference_and_conserves_bytes(seed, min_bytes):
     outs = {}
@@ -351,7 +351,7 @@ def _deadline_items(seed):
             for i in range(int(rng.integers(1, 12)))]
 
 
-@settings(max_examples=100, deadline=None)
+@settings(max_examples=100, deadline=None, derandomize=True, database=None)
 @given(st.integers(0, 2**32 - 1))
 def test_edf_orders_match_reference(seed):
     items = _deadline_items(seed)

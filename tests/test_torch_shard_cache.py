@@ -259,7 +259,7 @@ def check_one_shard_matches_tiered(seed):
     assert tms_a.seconds_by_path() == tms_b.seconds_by_path()
 
 
-@settings(max_examples=40, deadline=None)
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
 @given(st.integers(0, 2**31 - 1))
 def test_one_shard_matches_tiered(seed):
     check_one_shard_matches_tiered(seed)
