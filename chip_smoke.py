@@ -112,7 +112,26 @@ non-zero without a result line:
                tune, update and partition, like serve, fail unless every
                SpMM launch took "zero_skip" and equals the segments
                streamed.
- 17. attn    — the flash-attention and GQA flash-decode kernels against
+ 17. continuous — one engine for both of serve's graphs (serve's budget
+               rule at plan width 1024, EDF on a `VirtualClock`, no
+               calibrator), its cache on an `ElasticMesh` of this card
+               (grid [[cuda:0]], sharded over "data": one shard), replays a
+               Poisson trace of 32 arrivals from --seed (256 wide, rate 1.5
+               and deadlines of 3 per unit, the unit being the costlier
+               graph's modeled request) through `ContinuousServer` and
+               `replay_continuous` inside `Supervisor.run`, each step's
+               wall seconds (after a synchronise) fed to `observe_step`;
+               each graph's arrivals cycle through serve's four requests.
+               Fails unless every served output is within SERVE_TOL of
+               float64, served + expired + rejected = offered, the event
+               order and virtual stamps equal a fresh engine's replay of
+               the trace, and a burst of serve's 8 requests at t = 0
+               through the loop uploads and hits what `run_batch` does on
+               a fresh engine, outputs within SHARD_REL_TOL; and, like
+               serve, unless every SpMM launch took "zero_skip" and equals
+               the segments streamed. Prints `summarize`'s dict, the step
+               wall seconds (min, median, max) and the stragglers.
+ 18. attn    — the flash-attention and GQA flash-decode kernels against
                their plain versions: flash at Yi-6B's prefill shape (causal),
                with a window of 512, at a ragged S and in f32; decode at
                decode_32k's shape with per-sequence lengths (1 and S among
@@ -122,29 +141,29 @@ non-zero without a result line:
                whose edge crosses tiles, and in f16; decode with lens one
                below, at and one above tile and split edges, with groups of
                1, 5 and 16, and in f16.
- 18. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
+ 19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
                launches = 4, decode launches = 4 x 128.
- 19. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
+ 20. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
                `serve` of 4 prompts of 128 tokens for 32 steps (decode
                launches = 32 x 160), `forward` on one 4096-token sequence
                (flash launches = 32), and teacher-forced decode logits
                against that forward's over the first 128 positions. Every
                attention launch of lm_serve takes the tensor-core route,
                every one of lm_check the f32 FMA route.
- 20. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 21. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
                with X·W at the rate of its three TF32 products; the SpMM
                also on socLJ1's first serving segment and at the tuned
                widths; decode also at lm_serve's own shape.
- 21. kernels — the summary line, then the card's name and power limit, then
+ 22. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
-warm, tune, update, partition, lm_check, lm_serve) runs with the launch
+warm, tune, update, partition, continuous, lm_check, lm_serve) runs with the launch
 counters set to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
@@ -153,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import math
 import subprocess
@@ -1845,6 +1865,244 @@ def phase_partition(kmod, graphs, args, inputs) -> int:
     return launches
 
 
+CONT_ARRIVALS = 32             # Poisson arrivals over both graphs
+CONT_RATE = 1.5                # arrivals per unit, as serve_continuous
+CONT_DEADLINE = 3.0            # units, as serve_continuous
+CONT_BURST = 4                 # requests per graph in the single burst
+
+
+def continuous_engine(graphs, width: int):
+    """The `continuous` phase's engine: both graphs, `serve`'s budget rule
+    at the plan width, EDF on a virtual clock, no calibrator (the timeline
+    then depends on modeled costs alone), and the cache sharded over the
+    data axis of an `ElasticMesh` of the visible cards (on one card, one
+    shard). Returns (engine, mesh)."""
+    from repro_torch.core import EDFOrderingPass
+    from repro_torch.runtime import (
+        ElasticMesh, EngineConfig, ServingEngine, VirtualClock,
+    )
+    clock = VirtualClock()
+    mesh = ElasticMesh(model_parallel=1).make()
+    eng = ServingEngine(EngineConfig(
+        device_budget_bytes=max(serve_budget(a, width)
+                                for a in graphs.values()),
+        max_batch_features=width, clock=clock, device=DEV,
+        cache_shard_axis="data",
+        plan_passes=[EDFOrderingPass(clock=clock)]), mesh=mesh)
+    for name, a in graphs.items():
+        eng.register_graph(name, a)
+    return eng, mesh
+
+
+def request_maker(inputs):
+    """make_request for a trace: each graph's arrivals cycle through its
+    four `serve` requests (with their float64 references). Returns the
+    function and a map from a request's features to its reference."""
+    from repro_torch.runtime import InferenceRequest
+    seen = {}
+    ref_of = {id(h): ref for name in inputs["requests"]
+              for h, ref in zip(inputs["requests"][name],
+                                inputs["refs"][name])}
+
+    def make_request(arr):
+        k = seen.get(arr.graph, 0)
+        seen[arr.graph] = k + 1
+        h = inputs["requests"][arr.graph][k % len(inputs["requests"][
+            arr.graph])]
+        return InferenceRequest(arr.graph, h, inputs["weights"],
+                                deadline_s=arr.deadline_s)
+
+    return make_request, ref_of
+
+
+def timeline(rep) -> tuple:
+    """A ServeReport's event order and virtual stamps, with its verdicts."""
+    return ([(e.request_id, e.graph, e.submitted_s, e.started_s,
+              e.finished_s, e.predicted_s) for e in rep.events],
+            [(v.request_id, v.graph, v.reason)
+             for v in rep.expired + rep.rejected])
+
+
+def phase_continuous(kmod, graphs, args, inputs) -> int:
+    """A seeded Poisson trace over both graphs through `ContinuousServer`
+    and `replay_continuous`, under `Supervisor.run`, on an engine whose
+    cache lies on an `ElasticMesh` of this card; each step's wall seconds
+    (after a synchronise) fed to `observe_step`. Checks: served outputs
+    within SERVE_TOL of float64; served + expired + rejected = offered;
+    the timeline equal to a replay of the trace on a fresh engine; and a
+    single burst through the loop uploads and hits the bytes `run_batch`
+    does on a fresh engine, with its outputs within SHARD_REL_TOL.
+    Returns the SpMM launches of the supervised replay."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import (
+        ContinuousServer, InferenceRequest, Supervisor, SupervisorConfig,
+        poisson_trace, replay_continuous, summarize,
+    )
+
+    t_phase = time.perf_counter()
+    width, weights = inputs["width"], inputs["weights"]
+    feature_dim = inputs["requests"]["rUSA"][0].shape[1]
+    eng, mesh = continuous_engine(graphs, width)
+    grid = mesh.devices.tolist()
+    if grid != [[torch.device("cuda", 0)]] or mesh.axis_names != (
+            "data", "model"):
+        raise AssertionError(f"continuous: mesh {grid} {mesh.axis_names}")
+    if eng.cache.n_shards != 1:
+        raise AssertionError(f"continuous: {eng.cache.n_shards} shards")
+    unit_of = {name: eng.estimate_request_cost(InferenceRequest(
+        name, inputs["requests"][name][0], weights)) for name in graphs}
+    unit_graph = max(unit_of, key=unit_of.get)
+    unit = unit_of[unit_graph]
+    trace = poisson_trace(n=CONT_ARRIVALS, rate_hz=CONT_RATE / unit,
+                          graphs=sorted(graphs), seed=args.seed,
+                          feature_dim=feature_dim,
+                          n_layers=len(weights),
+                          deadline_s=CONT_DEADLINE * unit)
+    make_request, ref_of = request_maker(inputs)
+    sup = Supervisor(SupervisorConfig())
+    walls, stragglers, refs, outs = [], [], {}, {}
+
+    class TimedServer(ContinuousServer):
+        """The loop, each served step timed to its synchronise and fed to
+        the supervisor, each admitted request's reference kept."""
+
+        def submit(self, request, at=None):
+            receipt = super().submit(request, at=at)
+            refs[int(receipt)] = ref_of[id(request.features)]
+            return receipt
+
+        def step(self):
+            t0 = time.perf_counter()
+            rep = super().step()
+            sync()
+            if rep is not None and rep.events:
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                if sup.observe_step(wall):
+                    stragglers.append({"step": len(walls) - 1,
+                                       "graph": rep.graph, "wall_s": wall})
+                outs.update((r.request_id, r.output) for r in rep.results)
+            return rep
+
+    server = TimedServer(eng)
+    sync()
+    setup_s = time.perf_counter() - t_phase
+
+    zero_gcn_counts(kmod)                         # the main path starts here
+    t0 = time.perf_counter()
+    report = {}
+
+    def body(start: int) -> int:
+        report["rep"] = replay_continuous(server, trace[start:],
+                                          make_request)
+        return len(trace)
+
+    state = sup.run(body)
+    replay_s = time.perf_counter() - t0
+    launches = kmod.LAUNCHES                      # ... and ends here
+    rep = report["rep"]
+    if launches != rep.stats.segments_streamed or launches == 0:
+        raise AssertionError(f"continuous: SpMM launches {launches} != "
+                             f"segments streamed "
+                             f"{rep.stats.segments_streamed}")
+    routes = check_gcn_routes("continuous", kmod, launches)
+    if state.restarts or state.step != len(trace):
+        raise AssertionError(f"continuous: supervisor state {state}")
+    summary = summarize(rep)
+    if (summary["served"] + summary["expired"] + summary["rejected"]
+            != summary["offered"] or summary["offered"] != len(trace)):
+        raise AssertionError(f"continuous: summary {summary}")
+    if summary["served"] == 0 or len({e.graph for e in rep.events}) != 2:
+        raise AssertionError("continuous: both graphs must be served")
+    err = 0.0
+    for e in rep.events:
+        out, ref = outs[e.request_id], refs[e.request_id]
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            raise AssertionError(f"continuous: bad output {out.shape}")
+        err = max(err, float(np.abs(out - ref).max()))
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"continuous: |out - float64 ref| {err}")
+
+    # The same trace on a fresh engine: the timeline is the modeled one.
+    t1 = time.perf_counter()
+    twin, _ = continuous_engine(graphs, width)
+    twin_make, _ = request_maker(inputs)
+    twin_rep = replay_continuous(ContinuousServer(twin), trace, twin_make)
+    sync()
+    if timeline(twin_rep) != timeline(rep):
+        raise AssertionError("continuous: the timeline differs from a "
+                             "fresh engine's replay of the same trace")
+    twin_s = time.perf_counter() - t1
+    del twin, twin_rep
+
+    # One burst: the loop against run_batch on fresh engines.
+    t2 = time.perf_counter()
+    burst = [(name, h) for name in graphs
+             for h in inputs["requests"][name][:CONT_BURST]]
+    loop_eng, _ = continuous_engine(graphs, width)
+    loop = ContinuousServer(loop_eng)
+    for name, h in burst:
+        loop.submit(InferenceRequest(name, h, weights), at=0.0)
+    steps = loop.drain()
+    loop_rep = loop.report()
+    loop_outs = {r.request_id: r.output for s in steps for r in s.results}
+    del loop, loop_eng
+    round_eng, _ = continuous_engine(graphs, width)
+    for name, h in burst:
+        round_eng.submit(InferenceRequest(name, h, weights))
+    round_rep = round_eng.run_batch()
+    sync()
+    del round_eng
+    fields = ("uploaded_bytes", "cache_hit_bytes", "promoted_bytes",
+              "segments_streamed", "aggregation_passes")
+    burst_loop = {f: getattr(loop_rep.stats, f) for f in fields}
+    burst_round = {f: getattr(round_rep, f) for f in fields}
+    if burst_loop != burst_round or loop_rep.served != len(burst):
+        raise AssertionError(f"continuous: burst {burst_loop} through the "
+                             f"loop, {burst_round} through run_batch")
+    burst_rel = max(rel_to_scale(loop_outs[r.request_id], r.output)
+                    for r in round_rep.results)
+    if not burst_rel <= SHARD_REL_TOL:
+        raise AssertionError(f"continuous: burst outputs {burst_rel} apart")
+    burst_s = time.perf_counter() - t2
+
+    emit({"phase": "continuous", "mesh": {
+        "axis_names": list(mesh.axis_names),
+        "devices": [[str(d) for d in row] for row in grid],
+        "cache_shards": eng.cache.n_shards},
+        "budget_bytes": eng.config.device_budget_bytes,
+        "max_batch_features": width,
+        "trace": {"kind": "poisson", "arrivals": len(trace),
+                  "seed": args.seed, "feature_dim": feature_dim,
+                  "layers": [list(w.shape) for w in weights],
+                  "unit_graph": unit_graph, "unit_s": unit,
+                  "unit_s_by_graph": unit_of,
+                  "rate_per_unit": CONT_RATE,
+                  "deadline_units": CONT_DEADLINE,
+                  "by_graph": {name: sum(a.graph == name for a in trace)
+                               for name in sorted(graphs)}},
+        "summary": summary,
+        "step_wall_s": {"steps": len(walls), "min": min(walls),
+                        "median": float(np.median(walls)),
+                        "max": max(walls)},
+        "supervisor": {"restarts": state.restarts,
+                       "straggler_events": state.straggler_events,
+                       "step_time_ewma_s": state.step_time_ewma,
+                       "stream_deadline_s": sup.stream_deadline()},
+        "stragglers": stragglers,
+        "max_abs_err_vs_float64": err, "tol": SERVE_TOL,
+        "twin_replay_equal": True,
+        "burst": {"requests": len(burst), "loop": burst_loop,
+                  "run_batch": burst_round, "groups": len(steps),
+                  "rel_err": burst_rel, "rel_tol": SHARD_REL_TOL},
+        "spmm_launches": launches,
+        "launches_by_route": routes["bcsr_spmm"],
+        "setup_s": setup_s, "replay_s": replay_s, "twin_s": twin_s,
+        "burst_s": burst_s, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def brick_work(args, ell, k_rows: int, f: int, h_itemsize: int) -> dict:
     """What the aggregation needs for these inputs, counted two ways. Both
     read the valid bricks, col_tile and n_tiles once. By bricks: the H tiles
@@ -2604,7 +2862,7 @@ def run(args) -> None:
           "bf16_reduced_precision_reduction": "off",
           "scales": {"rUSA": args.rusa_scale, "socLJ1": args.lj_scale}})
 
-    from repro_torch.kernels import bcsr_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.bcsr_spmm")
     from repro_torch.kernels import decode_attn as dmod
     from repro_torch.kernels import flash_attn as fmod
     info = kmod.build()
@@ -2664,6 +2922,7 @@ def run(args) -> None:
                                                 tune_state["kernel_err"])
     del tune_state
     launches["partition"] = phase_partition(kmod, graphs, args, inputs)
+    launches["continuous"] = phase_continuous(kmod, graphs, args, inputs)
     set_default_analyze(previous)
     attn_err = phase_attn(fmod, dmod, args.seed)
     lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed),

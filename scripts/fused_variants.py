@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import shutil
 import subprocess
@@ -33,7 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
-from repro_torch.kernels import bcsr_spmm as kmod  # noqa: E402
+kmod = importlib.import_module("repro_torch.kernels.bcsr_spmm")
 from repro_torch.kernels import build  # noqa: E402
 
 

@@ -18,6 +18,7 @@ Prints one JSON line per case, then the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 import types
@@ -38,7 +39,7 @@ def main() -> int:
         print("spmm_hub.py: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from repro_torch.kernels import bcsr_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.bcsr_spmm")
     kmod.build()
 
     a = cs.paper_graph("rUSA", 1e-2, 1)

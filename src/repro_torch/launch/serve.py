@@ -19,6 +19,13 @@ searched and installed after the first epoch.
         [--workers 2] [--cache-shards 4] [--calibrate] [--autotune] \
         [--device cpu]
 
+`serve_continuous` replays a seeded Poisson or bursty arrival trace over
+the same two graphs through the continuous-batching loop on a virtual
+clock (`--mode continuous --trace {poisson,bursty} --requests N`).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode continuous \
+        [--trace bursty] [--requests 24] [--device cpu]
+
 `--mode lm`, the default as in the reference, serves the arch's SMOKE
 config and needs `--arch`; the full config is
 `serve(get_config(arch), init_params(...), ...)`.
@@ -64,6 +71,34 @@ def serve(cfg, params, prompts: np.ndarray, steps: int = 8) -> np.ndarray:
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
 
 
+def _paper_graphs(scale: float) -> tuple:
+    """The launchers' two graphs, socLJ1 and rUSA at `scale` (seeds 0 and
+    1, as the reference draws them), and their shared device budget."""
+    from repro_torch.data import (
+        SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
+    )
+
+    graphs = {
+        name: normalized_adjacency(generate_graph(
+            scaled_spec(SUITESPARSE_SPECS[name], scale), seed=i))
+        for i, name in enumerate(("socLJ1", "rUSA"))
+    }
+    return graphs, _paper_budget(graphs)
+
+
+def _paper_budget(graphs: dict) -> int:
+    """The launchers' shared device budget for `graphs`: feasible for the
+    engine's pinned plan width (64), small enough that streaming still
+    splits into several segments per graph."""
+    from repro_torch.core import plan_memory_dense_features
+
+    return max(
+        int(est.m_b + est.m_c + 0.6 * a.nbytes())
+        for a in graphs.values()
+        for est in [plan_memory_dense_features(a, a.n_rows, 64,
+                                               float("inf"))])
+
+
 def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
               cache: bool = True, feature_dim: int = 16, seed: int = 0,
               cache_shards: int = 1, workers: int = 1,
@@ -93,10 +128,7 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
     """
     from repro_torch.core import (
         CostCalibrator, EDFOrderingPass, ShardPlacementPass,
-        TransferCoalescingPass, plan_memory_dense_features,
-    )
-    from repro_torch.data import (
-        SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
+        TransferCoalescingPass,
     )
     from repro_torch.io import CacheDirectory
     from repro_torch.runtime import (
@@ -104,18 +136,7 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
     )
 
     rng = np.random.default_rng(seed)
-    graphs = {
-        name: normalized_adjacency(generate_graph(
-            scaled_spec(SUITESPARSE_SPECS[name], scale), seed=i))
-        for i, name in enumerate(("socLJ1", "rUSA"))
-    }
-    # Feasible for the engine's pinned plan width (64), small enough that
-    # streaming still splits into several segments per graph.
-    budget = max(
-        int(est.m_b + est.m_c + 0.6 * a.nbytes())
-        for a in graphs.values()
-        for est in [plan_memory_dense_features(a, a.n_rows, 64,
-                                               float("inf"))])
+    graphs, budget = _paper_graphs(scale)
     directory = CacheDirectory() if workers > 1 else None
     plan_passes = ([ShardPlacementPass(), TransferCoalescingPass(),
                     EDFOrderingPass()] if passes else None)
@@ -176,9 +197,60 @@ def serve_gcn(scale: float = 1e-4, batch: int = 4, epochs: int = 2,
     return reports
 
 
+def serve_continuous(scale: float = 1e-4, trace: str = "poisson",
+                     requests: int = 24, seed: int = 0,
+                     feature_dim: int = 16, device: str = "cuda"):
+    """Replay an arrival trace through the continuous step loop on
+    `device`.
+
+    Builds the same two-graph engine as `serve_gcn` but on a shared
+    `VirtualClock`, generates a Poisson or Gamma-modulated bursty trace
+    whose rate and deadlines are quoted in units of one modeled pass,
+    and streams it through a `ContinuousServer`. Returns the
+    `(ServeReport, summary_dict)` pair. The signature is
+    `repro.launch.serve.serve_continuous`'s plus `device`; the virtual
+    timeline and the byte counters do not depend on the device."""
+    from repro_torch.core import EDFOrderingPass
+    from repro_torch.runtime import (
+        ContinuousServer, EngineConfig, InferenceRequest, ServingEngine,
+        VirtualClock, bursty_trace, poisson_trace, replay_continuous,
+        summarize,
+    )
+
+    rng = np.random.default_rng(seed)
+    graphs, budget = _paper_graphs(scale)
+    clock = VirtualClock()
+    eng = ServingEngine(EngineConfig(
+        device_budget_bytes=budget, clock=clock, device=device,
+        plan_passes=[EDFOrderingPass(clock=clock)]))
+    for name, a in graphs.items():
+        eng.register_graph(name, a)
+
+    feats = {name: rng.standard_normal(
+        (a.n_rows, feature_dim)).astype(np.float32)
+        for name, a in graphs.items()}
+    weights = rng.standard_normal(
+        (feature_dim, feature_dim)).astype(np.float32)
+    unit = eng.estimate_request_cost(
+        InferenceRequest("socLJ1", feats["socLJ1"], [weights]))
+    maker = poisson_trace if trace == "poisson" else bursty_trace
+    rate_key = "rate_hz" if trace == "poisson" else "base_rate_hz"
+    arrivals = maker(n=requests, graphs=sorted(graphs), seed=seed,
+                     feature_dim=feature_dim, deadline_s=3.0 * unit,
+                     **{rate_key: 1.5 / unit})
+
+    def make_request(arr):
+        return InferenceRequest(arr.graph, feats[arr.graph], [weights],
+                                deadline_s=arr.deadline_s)
+
+    report = replay_continuous(ContinuousServer(eng), arrivals, make_request)
+    return report, summarize(report)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("lm", "gcn"), default="lm")
+    ap.add_argument("--mode", choices=("lm", "gcn", "continuous"),
+                    default="lm")
     ap.add_argument("--arch", help="lm mode: arch id, e.g. yi_6b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
@@ -202,10 +274,31 @@ def main(argv=None) -> None:
     ap.add_argument("--autotune", action="store_true",
                     help="gcn mode: autotune and install the plan schedule "
                          "per graph after the first epoch")
+    ap.add_argument("--trace", choices=("poisson", "bursty"),
+                    default="poisson",
+                    help="continuous mode: arrival process to replay")
+    ap.add_argument("--requests", type=int, default=24,
+                    help="continuous mode: number of arrivals in the trace")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
+
+    if args.mode == "continuous":
+        _, summary = serve_continuous(trace=args.trace,
+                                      requests=args.requests,
+                                      seed=args.seed, device=args.device)
+        print(f"{args.trace} trace: {summary['served']}/{summary['offered']} "
+              f"served in {summary['groups_served']} groups, "
+              f"{summary['on_time']} on time "
+              f"(miss rate {summary['deadline_miss_rate']:.0%}); "
+              f"p50 {summary['p50_latency_s']*1e3:.2f} ms, "
+              f"p99 {summary['p99_latency_s']*1e3:.2f} ms, "
+              f"goodput {summary['goodput_rps']:.1f} req/s; "
+              f"uploaded {summary['uploaded_bytes']} B, "
+              f"cache-hit {summary['cache_hit_bytes']} B "
+              f"on {args.device}")
+        return
 
     if args.mode == "lm":
         from repro_torch.configs import get_config

@@ -657,11 +657,33 @@ class ServingEngine:
 
     def estimate_group_cost(self, name: str,
                             group: Sequence[InferenceRequest]) -> float:
-        """The continuous serving loop's per-group cost; it comes with that
-        loop."""
-        raise NotImplementedError(
-            "ServingEngine.estimate_group_cost: the continuous serving loop "
-            "(ROADMAP queue 1 item 6) is not ported to repro_torch yet")
+        """Modeled seconds for one column-concat group of requests against
+        `name`: mirrors `_batched_aggregate`'s greedy chunking exactly —
+        per layer level, live request widths pack into passes capped at
+        `max_batch_features`, each pass priced by the memoized
+        `PipelinePlan.estimate()` cost at its concatenated width. This is
+        the per-group cost the continuous loop's queue-position EDF
+        accumulates into time-to-front."""
+        cap = self.config.max_batch_features
+        per_req: List[List[int]] = []
+        for r in group:
+            ws = list(r.weights)
+            per_req.append([int(r.features.shape[1])]
+                           + [int(w.shape[1]) for w in ws[:-1]])
+        total = 0.0
+        for layer in range(max((len(lv) for lv in per_req), default=0)):
+            width = 0
+            for lv in per_req:
+                if layer >= len(lv):
+                    continue
+                f = lv[layer]
+                if width and width + f > cap:
+                    total += self._pass_cost(name, width)
+                    width = 0
+                width += f
+            if width:
+                total += self._pass_cost(name, width)
+        return total
 
     def queued_cost_s(self) -> float:
         """Estimated cost of everything still awaiting service."""

@@ -7,10 +7,14 @@ BlockELL bricks as torch tensors.
 """
 from repro_torch.sparse.formats import (
     CSR,
+    CSC,
     COO,
     BlockELL,
     csr_from_dense,
+    csc_from_dense,
     csr_to_dense,
+    csc_to_dense,
+    csr_to_csc,
     csr_transpose,
     csr_row_slice,
     csr_fingerprint,
@@ -22,7 +26,11 @@ from repro_torch.sparse.blocking import (
     block_ell_to_dense,
     round_up,
 )
-from repro_torch.sparse.ref_spgemm import spgemm_csr_dense, spmm_dense_ref
+from repro_torch.sparse.ref_spgemm import (
+    spgemm_csr_dense,
+    spgemm_csr_csc,
+    spmm_dense_ref,
+)
 from repro_torch.sparse.updates import EdgeDelta, apply_edge_updates
 from repro_torch.sparse.partition import (
     Partition,
@@ -31,11 +39,12 @@ from repro_torch.sparse.partition import (
 )
 
 __all__ = [
-    "CSR", "COO", "BlockELL",
-    "csr_from_dense", "csr_to_dense", "csr_transpose", "csr_row_slice",
+    "CSR", "CSC", "COO", "BlockELL",
+    "csr_from_dense", "csc_from_dense", "csr_to_dense", "csc_to_dense",
+    "csr_to_csc", "csr_transpose", "csr_row_slice",
     "csr_fingerprint", "segment_fingerprint", "graph_cache_prefix",
     "tile_csr_to_block_ell", "block_ell_to_dense", "round_up",
-    "spgemm_csr_dense", "spmm_dense_ref",
+    "spgemm_csr_dense", "spgemm_csr_csc", "spmm_dense_ref",
     "EdgeDelta", "apply_edge_updates",
     "Partition", "map_clusters_to_shards", "partition_graph",
 ]

@@ -1,6 +1,6 @@
 """Compressed sparse formats (paper §II-B, Fig. 2) — host containers.
 
-CSR/COO are host-tier containers (numpy): they model the paper's host-memory
+CSR/CSC/COO are host-tier containers (numpy): they model the paper's host-memory
 staging of compressed data. BlockELL (see blocking.py) is the device-tier
 format produced by RoBW preprocessing; its arrays stay numpy on the host and
 are uploaded as tensors by the stream.
@@ -58,6 +58,9 @@ class CSR:
             + self.data.shape[0] * self.data.dtype.itemsize
         )
 
+    def row_nnz(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
     def validate(self) -> None:
         if not (self.indptr.ndim == 1
                 and self.indptr.shape[0] == self.shape[0] + 1):
@@ -69,6 +72,27 @@ class CSR:
         if self.nnz and not (self.indices.min() >= 0
                              and self.indices.max() < self.shape[1]):
             raise ValueError("column ids out of range")
+
+
+@dataclasses.dataclass
+class CSC:
+    """Compressed sparse column (the paper's format for matrix B / features)."""
+
+    indptr: np.ndarray   # (n_cols + 1,)
+    indices: np.ndarray  # (nnz,) row ids
+    data: np.ndarray     # (nnz,)
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    def nbytes(self, index_bytes: int = 4) -> int:
+        return int(
+            self.indptr.shape[0] * index_bytes
+            + self.indices.shape[0] * index_bytes
+            + self.data.shape[0] * self.data.dtype.itemsize
+        )
 
 
 @dataclasses.dataclass
@@ -176,11 +200,25 @@ def csr_from_dense(dense: np.ndarray) -> CSR:
                shape=dense.shape)
 
 
+def csc_from_dense(dense: np.ndarray) -> CSC:
+    csr_t = csr_from_dense(dense.T)
+    return CSC(indptr=csr_t.indptr, indices=csr_t.indices, data=csr_t.data,
+               shape=dense.shape)
+
+
 def csr_to_dense(a: CSR) -> np.ndarray:
     out = np.zeros(a.shape, dtype=a.data.dtype)
     for i in range(a.shape[0]):
         lo, hi = a.indptr[i], a.indptr[i + 1]
         out[i, a.indices[lo:hi]] = a.data[lo:hi]
+    return out
+
+
+def csc_to_dense(b: CSC) -> np.ndarray:
+    out = np.zeros(b.shape, dtype=b.data.dtype)
+    for j in range(b.shape[1]):
+        lo, hi = b.indptr[j], b.indptr[j + 1]
+        out[b.indices[lo:hi], j] = b.data[lo:hi]
     return out
 
 
@@ -199,6 +237,12 @@ def csr_transpose(a: CSR) -> CSR:
         np.arange(a.n_rows, dtype=np.int64), np.diff(a.indptr))
     return CSR(indptr=indptr, indices=row_of[order],
                data=a.data[order], shape=(a.n_cols, a.n_rows))
+
+
+def csr_to_csc(a: CSR) -> CSC:
+    """CSR→CSC re-index. CSC of A stores exactly the arrays of CSR of Aᵀ."""
+    t = csr_transpose(a)
+    return CSC(indptr=t.indptr, indices=t.indices, data=t.data, shape=a.shape)
 
 
 def csr_row_slice(a: CSR, start: int, stop: int) -> CSR:

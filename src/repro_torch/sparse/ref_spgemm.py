@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.sparse.formats import CSR
+from repro_torch.sparse.formats import CSC, CSR, csc_to_dense, csr_to_dense
 
 
 def spgemm_csr_dense(a: CSR, h: np.ndarray) -> np.ndarray:
@@ -21,6 +21,11 @@ def spgemm_csr_dense(a: CSR, h: np.ndarray) -> np.ndarray:
         if hi > lo:
             out[i] = a.data[lo:hi] @ h[a.indices[lo:hi]]
     return out
+
+
+def spgemm_csr_csc(a: CSR, b: CSC) -> np.ndarray:
+    """C = A @ B with both operands compressed (paper's general case)."""
+    return csr_to_dense(a) @ csc_to_dense(b)
 
 
 def spmm_dense_ref(a_dense: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

@@ -402,7 +402,21 @@ def test_serve_gcn_autotune_matches_reference():
 
 
 def test_estimate_group_cost_waits_for_the_serving_loop(quickstart):
+    """`estimate_group_cost` came with the serving loop: it no longer
+    raises, and prices groups as the reference does (the name is kept
+    from when this test checked the raise). Widths straddling
+    `max_batch_features` (64) split into the same passes, each priced at
+    its concatenated width."""
     r, p = quickstart
-    _, p_eng = _engine_pair(r, p, device_budget_bytes=_budget(r, 64, 0.6))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        p_eng.estimate_group_cost("g", [])
+    r_eng, p_eng = _engine_pair(r, p, device_budget_bytes=_budget(r, 64, 0.6))
+    rng = np.random.default_rng(0)
+    assert p_eng.estimate_group_cost("g", []) == 0.0
+    r_group, p_group = [], []
+    for f in (40, 16, 40, 8):
+        h = rng.standard_normal((r.n_rows, f)).astype(np.float32)
+        ws = [rng.standard_normal((f, 32)).astype(np.float32),
+              rng.standard_normal((32, 8)).astype(np.float32)]
+        r_group.append(RRequest("g", h, ws))
+        p_group.append(PRequest("g", h, ws))
+    cost = p_eng.estimate_group_cost("g", p_group)
+    assert cost == r_eng.estimate_group_cost("g", r_group) > 0.0

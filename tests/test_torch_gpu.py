@@ -2,10 +2,12 @@
 flash-attention and GQA flash-decode kernels against their plain PyTorch
 versions (the SpMM also at the autotuner's bucket widths), and the
 serving engine (sharded, with replicated workers and a warm start among
-them, autotuned, and through edge-delta updates), the differentiable
+them, autotuned, through edge-delta updates, and under the continuous
+serving loop), the differentiable
 engine and its fused layer, the schedulers' execute mode, a coalesced
 stream, and the dense LM's forward, decode and serve on the card against
-themselves on the CPU or against float64.
+themselves on the CPU or against float64; and that importing the
+kernels package builds nothing until the first launch.
 
 Marked `gpu`: each test decides inside itself whether a card is present
 and skips without one. This file imports no `jax`, so it also runs where
@@ -15,12 +17,17 @@ only PyTorch is installed:
 
 (`--noconftest` because tests/conftest.py imports the JAX package.)
 """
+import dataclasses
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import bcsr_spmm as kmod
 from repro_torch.sparse import csr_from_dense, tile_csr_to_block_ell
+
+# The module, not the function `repro_torch.kernels.bcsr_spmm` names.
+kmod = importlib.import_module("repro_torch.kernels.bcsr_spmm")
 
 pytestmark = pytest.mark.gpu
 
@@ -946,3 +953,115 @@ def test_lm_on_card_matches_cpu():
     prompts = tokens[:, :6].numpy().astype(np.int32)
     np.testing.assert_array_equal(serve(cfg, on_card, prompts, steps=5),
                                   serve(cfg, params, prompts, steps=5))
+
+
+def _loop_graphs():
+    """The serving-loop tests' fixtures: socLJ1 1e-4 seed 0, rUSA 2e-5
+    seed 1, with the launchers' budget rule."""
+    from repro_torch.data import (
+        SUITESPARSE_SPECS, generate_graph, normalized_adjacency, scaled_spec,
+    )
+    from repro_torch.launch.serve import _paper_budget
+    graphs = {key: normalized_adjacency(generate_graph(
+        scaled_spec(SUITESPARSE_SPECS[name], scale), seed=seed))
+        for key, name, scale, seed in (("g", "socLJ1", 1e-4, 0),
+                                       ("road", "rUSA", 2e-5, 1))}
+    return graphs, _paper_budget(graphs)
+
+
+def _drained_burst(device):
+    """Eight requests of mixed widths over both graphs at t = 0, drained
+    one group per step by a `ContinuousServer` on `device`: the steps."""
+    from repro_torch.core import EDFOrderingPass
+    from repro_torch.runtime import (
+        ContinuousServer, EngineConfig, InferenceRequest, ServingEngine,
+        VirtualClock,
+    )
+    graphs, budget = _loop_graphs()
+    clock = VirtualClock()
+    eng = ServingEngine(EngineConfig(
+        device_budget_bytes=budget, clock=clock, device=device,
+        plan_passes=[EDFOrderingPass(clock=clock)]))
+    for name, a in graphs.items():
+        eng.register_graph(name, a)
+    server = ContinuousServer(eng)
+    rng = np.random.default_rng(3)
+    for i in range(8):
+        name, f = ("g", "road")[i % 2], (16, 40, 32, 8)[i % 4]
+        a = graphs[name]
+        h = rng.standard_normal((a.n_rows, f)).astype(np.float32)
+        w = rng.standard_normal((f, 8)).astype(np.float32)
+        server.submit(InferenceRequest(name, h, [w],
+                                       deadline_s=None if i % 3 else 1.0),
+                      at=0.0)
+    return server.drain()
+
+
+@pytest.mark.parametrize("trace", ["poisson", "bursty"])
+def test_continuous_replay_on_card_matches_cpu(trace):
+    """`serve_continuous` on the card: the same event timeline, verdicts,
+    summary and byte counters as with device="cpu" (the virtual timeline
+    depends on modeled costs alone), one SpMM launch per segment
+    streamed; then a drained burst's steps serve the same groups with
+    outputs within 1e-5 of the CPU's."""
+    _card()
+    from repro_torch.launch.serve import serve_continuous
+
+    before = kmod.LAUNCHES
+    g_rep, g_sum = serve_continuous(trace=trace, device="cuda")
+    torch.cuda.synchronize()
+    assert kmod.LAUNCHES - before == g_rep.stats.segments_streamed > 0
+    c_rep, c_sum = serve_continuous(trace=trace, device="cpu")
+    assert g_sum == c_sum
+    assert [dataclasses.astuple(e) for e in g_rep.events] == [
+        dataclasses.astuple(e) for e in c_rep.events]
+    assert [(v.request_id, v.reason) for v in g_rep.expired + g_rep.rejected
+            ] == [(v.request_id, v.reason)
+                  for v in c_rep.expired + c_rep.rejected]
+    assert dataclasses.astuple(g_rep.stats) == dataclasses.astuple(
+        c_rep.stats)
+    g_steps, c_steps = _drained_burst("cuda"), _drained_burst("cpu")
+    assert len(g_steps) == len(c_steps) >= 2
+    for gs, cs in zip(g_steps, c_steps):
+        assert (gs.graph, gs.started_s, gs.finished_s) == (
+            cs.graph, cs.started_s, cs.finished_s)
+        assert dataclasses.astuple(gs.stats) == dataclasses.astuple(
+            cs.stats)
+        for gr, cr in zip(gs.results, cs.results):
+            assert gr.request_id == cr.request_id
+            np.testing.assert_allclose(gr.output, cr.output, atol=1e-5,
+                                       rtol=1e-5)
+
+
+def test_importing_kernels_builds_nothing_until_first_launch():
+    """In a fresh interpreter, the first launch of the exported
+    `bcsr_spmm` builds the library. That the import alone builds nothing
+    is held on the CPU by
+    `tests/test_torch_exports.py::test_importing_kernels_builds_nothing`."""
+    _card()
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = (
+        "import dataclasses, sys\n"
+        "import numpy as np, torch\n"
+        "import repro_torch.kernels as k\n"
+        "from repro_torch.sparse import csr_from_dense, "
+        "tile_csr_to_block_ell\n"
+        "b = sys.modules['repro_torch.kernels.build']\n"
+        "d = np.eye(16, dtype=np.float32)\n"
+        "ell = tile_csr_to_block_ell(csr_from_dense(d), bm=8, bk=8)\n"
+        "ell = dataclasses.replace(ell, **{f: torch.as_tensor(getattr(ell, "
+        "f)).cuda() for f in ('blocks', 'col_tile', 'n_tiles')})\n"
+        "h = torch.ones(16, 4, device='cuda')\n"
+        "x = k.bcsr_spmm(ell, h)\n"
+        "torch.cuda.synchronize()\n"
+        "assert b._lib is not None, 'no library after a launch'\n"
+        "assert torch.equal(x.cpu(), torch.ones(16, 4))\n")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

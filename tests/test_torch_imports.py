@@ -76,6 +76,9 @@ SLICE_MODULES = [
     # The autotune, partition and edge-update slice.
     "repro_torch.core.autotune", "repro_torch.sparse.partition",
     "repro_torch.sparse.updates", "repro_torch.data.graphs",
+    # The serving loop and supervisor slice.
+    "repro_torch.runtime.serving_loop", "repro_torch.runtime.supervisor",
+    "repro_torch.data.tokens", "repro_torch.kernels",
 ]
 
 

@@ -7,6 +7,8 @@ versions on the card (tests/test_torch_gpu.py and chip_smoke.py).
 Tolerances: 1e-4 for float32 (sums in another order), 1e-2 for float16;
 against the dense product, the reference tests' own.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,12 +16,14 @@ import torch
 
 import repro.kernels as r_kernels
 import repro.sparse as r_sparse
-from repro_torch.kernels import bcsr_spmm as kmod
 from repro_torch.kernels.ops import bcsr_spmm, fused_gcn_layer
 from repro_torch.kernels.ref import bcsr_spmm_ref, fused_gcn_layer_ref
 from repro_torch.sparse import (
     csr_from_dense, spmm_dense_ref, tile_csr_to_block_ell,
 )
+
+# The module, not the function `repro_torch.kernels.bcsr_spmm` names.
+kmod = importlib.import_module("repro_torch.kernels.bcsr_spmm")
 
 
 def _rand_sparse(n, m, density, dtype, seed):
