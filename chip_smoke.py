@@ -140,30 +140,56 @@ non-zero without a result line:
                64-row tiles: flash at S = 63, 64, 65, 129, with a window
                whose edge crosses tiles, and in f16; decode with lens one
                below, at and one above tile and split edges, with groups of
-               1, 5 and 16, and in f16.
+               1, 5 and 16, and in f16. The flash backward kernel against
+               its plain version (dQ, dK, dV per element within BWD_TOL,
+               the forward kernel's lse within LSE_TOL, two launches bit
+               for bit): at lm_train's microbatch (4, 32, 512, 128) bf16
+               and lm_train_check's (2, 32, 128, 128) f32, with a window
+               of 512, at S = 63, 65, 129 across its 32-row tiles, in f16.
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
                launches = 4, decode launches = 4 x 128.
- 20. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
+ 20. lm_train_check — lm_check's model and batch without remat: the
+               gradients of `lm_loss` for every parameter through the
+               flash kernel and its backward kernel (f32 FMA routes)
+               against float64 autograd of the script's own forward,
+               within LM_GRAD_REL_TOL per tensor; flash launches = 4,
+               backward launches = 4.
+ 21. lm_train — Yi-6B's CONFIG (bf16, remat, published widths) cut to 4
+               layers (full depth's weights, gradients and AdamW moments
+               need 73 GB before any activation): `train_loop` with AdamW,
+               two microbatches of TokenPipeline(vocab, 512, 4) per step
+               and int8 error-feedback compression, 4 steps, the first
+               loss within LM_TRAIN_LOSS_TOL of the float64 loss of the
+               same batch; then Adafactor for 3 steps with a checkpoint
+               at step 2 restored bit for bit. Each microbatch launches
+               the flash forward 4 times, its recompute 4 and the backward
+               4, every forward on the tensor-core route. Prints ms per
+               step (after a synchronise), tokens/s, peak allocated bytes
+               and the loss history.
+ 22. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
                `serve` of 4 prompts of 128 tokens for 32 steps (decode
                launches = 32 x 160), `forward` on one 4096-token sequence
                (flash launches = 32), and teacher-forced decode logits
                against that forward's over the first 128 positions. Every
                attention launch of lm_serve takes the tensor-core route,
                every one of lm_check the f32 FMA route.
- 21. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 23. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
                with X·W at the rate of its three TF32 products; the SpMM
                also on socLJ1's first serving segment and at the tuned
-               widths; decode also at lm_serve's own shape.
- 22. kernels — the summary line, then the card's name and power limit, then
+               widths; decode also at lm_serve's own shape; the flash
+               backward at lm_train's microbatch and at Yi-6B's prefill,
+               beside SDPA's forward + backward less its forward.
+ 24. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
-warm, tune, update, partition, continuous, lm_check, lm_serve) runs with the launch
+warm, tune, update, partition, continuous, lm_check, lm_train_check, each
+run of lm_train, lm_serve) runs with the launch
 counters set to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
@@ -226,6 +252,34 @@ LM_REL_TOL = 1e-4
 # layers deep; the first run on the H100 measured 0.0211, with the argmax
 # agreeing at 96% of positions. The limit leaves room for other seeds.
 LM_BF16_TOL = 0.05
+# The backward kernel against its plain version, per element:
+# |kernel - plain| <= rtol·|plain| + atol·M, M the largest |plain| over dQ,
+# dK and dV. Both sum f32 products in other orders; dK and dQ sum up to S
+# terms of dS = P (dO·v - D), whose two parts cancel, so the gap scales
+# with the size of the terms, which M measures (atol, relative to it),
+# then each rounds once to the output type, one ulp apart at most (rtol,
+# as in ATTN_TOL). The forward kernel's lse against the plain forward's
+# within LSE_TOL: f32 sums in other orders of values of order log S.
+BWD_TOL = {"float32": (0.0, 2e-5), "float16": (2.0 ** -10, 2e-5),
+           "bfloat16": (2.0 ** -7, 2e-5)}
+LSE_TOL = 1e-5
+# lm_loss gradients of the 4-layer float32 Yi-6B-width model against
+# float64 autograd, as max |Δ| over the largest |g| per tensor: the
+# backward's products sum as many f32 terms as the forward's (up to 11,008
+# per layer, 256 token rows per weight gradient, 64,000 logits in the
+# softmax), and the attention backward recomputes P from the forward's f32
+# lse; as for the logits (LM_REL_TOL), an order above the sqrt(n)·2^-24
+# rounding of such sums.
+LM_GRAD_REL_TOL = 1e-4
+# lm_train's first loss (bf16 weights and activations) against the float64
+# forward of the same bf16 weights on the same batch: bf16 rounds every
+# matmul output to 2^-8 of its size, so each logit of order 1 moves by
+# about 0.004 at random; the loss (near ln 64000 = 11.07) averages the
+# gold logits' errors over 4,096 tokens. 0.02 is five such roundings.
+LM_TRAIN_LOSS_TOL = 0.02
+LM_TRAIN_SEQ = 512             # lm_train: TokenPipeline(vocab, 512, 4)
+LM_TRAIN_BATCH = 4
+LM_TRAIN_STEPS = 4
 PROFILED_STEPS = 4
 LM_PROMPT = 128
 LM_STEPS = 32
@@ -2362,13 +2416,92 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
         {}, "decode: lm_check's cache, every position", "float32",
         lens_sweep=LM_PROMPT))
     cases += tile_edge_cases(fmod, dmod, gen)
+    t0 = time.perf_counter()
+    cases += backward_cases(fmod, gen)
     emit({"phase": "attn", "cases": cases,
+          "backward_cases_seconds": time.perf_counter() - t0,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     torch.cuda.empty_cache()
     main = [c for c in cases if "lm_" in c["case"]]    # main-path shapes
     return {name: max(c["max_abs_err"] for c in main
                       if c["case"].startswith(name))
-            for name in ("flash", "decode")}
+            for name in ("flash", "decode", "backward")}
+
+
+def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
+                window=0) -> dict:
+    """The backward kernel against `flash_attention_bwd_plain` on the same
+    q, k, v, dout and the forward kernel's out and lse, each of dQ, dK, dV
+    per element within BWD_TOL; lse against the plain forward's within
+    LSE_TOL; a second launch gives the same bits (no atomics)."""
+    import torch
+    q, k, v, dout = attn_inputs(shape, dtype, gen) + attn_inputs(
+        shape, dtype, gen)[:1]
+    rtol, atol = BWD_TOL[dtype]
+    with torch.no_grad():
+        out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=causal,
+                                                 window=window)
+        _, lse_plain = fmod.flash_attention_plain_lse(
+            q, k, v, causal=causal, window=window)
+        got = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
+                                            window)
+        again = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                              causal, window)
+        want = fmod.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                              causal, window)
+    sync()
+    lse_err = float((lse - lse_plain).abs().max())
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"{label}: lse off the plain forward's by "
+                             f"{lse_err} > {LSE_TOL}")
+    case = {"case": label, "shape": list(shape), "dtype": dtype,
+            "causal": causal, "window": window, "lse_max_abs_err": lse_err,
+            "rtol": rtol, "atol_over_max_abs_plain": atol}
+    err = 0.0
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, plain {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        if not torch.equal(g, g2):
+            raise AssertionError(f"{label}: {name} differs between two "
+                                 "launches")
+        delta = (g.float() - w.float()).abs()
+        mag = w.float().abs()
+        ratio = float((delta / (rtol * mag + atol * scale)).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: |{name} - plain| exceeds "
+                                 f"{rtol}·|plain| + {atol}·{scale} by a "
+                                 f"factor {ratio} (max |Δ| "
+                                 f"{float(delta.max())})")
+        case[name] = {"max_abs_err": float(delta.max()),
+                      "max_err_over_limit": ratio,
+                      "max_abs_plain": float(mag.max())}
+        err = max(err, float(delta.max()))
+    case["max_abs_err"] = err
+    return case
+
+
+def backward_cases(fmod, gen) -> list:
+    """The backward kernel at the training paths' shapes (lm_train's bf16
+    microbatch, lm_train_check's f32 batch), with a window of 512, at
+    ragged S across its 32-row tiles, and in f16."""
+    b, h, d = LM_TRAIN_BATCH, 32, 128
+    cases = [bwd_compare(fmod, (b, h, LM_TRAIN_SEQ, d), "bfloat16", gen,
+                         "backward: lm_train's microbatch, bf16"),
+             bwd_compare(fmod, (2, h, LM_PROMPT, d), "float32", gen,
+                         "backward: lm_train_check's batch, f32"),
+             bwd_compare(fmod, (1, 8, 2048, d), "bfloat16", gen,
+                         "backward: sliding window 512", window=512),
+             bwd_compare(fmod, (2, 8, LM_TRAIN_SEQ, d), "float16", gen,
+                         "backward: f16")]
+    cases += [bwd_compare(fmod, (2, 8, s_len, d), "bfloat16", gen,
+                          f"backward: S = {s_len}, tile edge")
+              for s_len in (63, 65, 129)]
+    cases.append(bwd_compare(fmod, (2, 8, 129, d), "float32", gen,
+                             "backward: S = 129, f32"))
+    return cases
 
 
 def tile_edge_cases(fmod, dmod, gen) -> list:
@@ -2485,7 +2618,9 @@ def teacher_forced(cfg, params, tokens):
 def zero_attn_counts(fmod, dmod) -> None:
     """The attention kernels' launch counts, in all and by route, to 0."""
     fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0
-    for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES):
+    fmod.FLASH_BWD_LAUNCHES = 0
+    for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES,
+                   fmod.FLASH_BWD_ROUTE_LAUNCHES):
         for route in routes:
             routes[route] = 0
 
@@ -2493,6 +2628,8 @@ def zero_attn_counts(fmod, dmod) -> None:
 def attn_counts(fmod, dmod) -> dict:
     return {"flash": fmod.FLASH_LAUNCHES,
             "flash_routes": dict(fmod.FLASH_ROUTE_LAUNCHES),
+            "flash_bwd": fmod.FLASH_BWD_LAUNCHES,
+            "flash_bwd_routes": dict(fmod.FLASH_BWD_ROUTE_LAUNCHES),
             "decode": dmod.DECODE_LAUNCHES,
             "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES)}
 
@@ -2708,6 +2845,279 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
                               for r in serve_counts["decode_routes"]}}
 
 
+def f64_lm_loss(cfg, params, tokens, labels):
+    """Mean next-token NLL of `f64_lm_forward`, in float64."""
+    import torch
+    logits = f64_lm_forward(cfg, params, tokens)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).mean()
+
+
+def phase_lm_train_check(fmod, dmod, seed: int) -> dict:
+    """lm_check's 4-layer float32 Yi-6B-width model and batch, without
+    remat: the gradients of `lm_loss` for every parameter through the
+    kernels (flash forward and backward, f32 FMA routes) against float64
+    autograd of the script's own forward; returns the launches."""
+    import torch
+    from repro_torch.configs.yi_6b import CONFIG
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(CONFIG, n_layers=4, dtype="float32",
+                              remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)  # lm_check's
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (2, LM_PROMPT), device=DEV,
+                           generator=gen)
+    labels = torch.roll(tokens, -1, 1)
+    live = tree_map(lambda t: t.requires_grad_(True), params)
+    sync()
+    zero_attn_counts(fmod, dmod)                     # the step starts
+    t0 = time.perf_counter()
+    loss = lm_loss(cfg, live, tokens, labels)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = attn_counts(fmod, dmod)                 # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    live64 = tree_map(lambda t: t.detach().double().requires_grad_(True),
+                      params)
+    loss64 = f64_lm_loss(cfg, live64, tokens, labels)
+    grads64 = torch.autograd.grad(loss64, tree_leaves(live64))
+    # max |Δ| over the largest |g64|, on the card (the embedding and head
+    # gradients are 262M entries each).
+    errs = {name: float((g.double() - g64).abs().max())
+            / max(float(g64.abs().max()), 1e-30)
+            for name, g, g64 in zip(_leaf_names(params), grads, grads64)}
+    if (counts["flash"], counts["flash_bwd"], counts["decode"]) != (
+            cfg.n_layers, cfg.n_layers, 0):
+        raise AssertionError(f"lm_train_check launches {counts}; want flash "
+                             f"{cfg.n_layers}, backward {cfg.n_layers}")
+    check_routes("lm_train_check forward", counts, "flash", "f32_fma")
+    check_routes("lm_train_check backward", counts, "flash_bwd", "f32_fma")
+    loss_err = abs(float(loss.detach()) - float(loss64.detach()))
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= LM_GRAD_REL_TOL or not loss_err <= LM_REL_TOL * \
+            abs(float(loss64)):
+        raise AssertionError(f"lm_train_check: {worst} relative error "
+                             f"{errs[worst]} > {LM_GRAD_REL_TOL} or loss off "
+                             f"by {loss_err}")
+    emit({"phase": "lm_train_check",
+          "config": "yi-6b width, 4 layers, float32, no remat",
+          "batch": 2, "tokens": LM_PROMPT, "loss": float(loss),
+          "loss_float64": float(loss64), "seconds_fwd_bwd": seconds,
+          "grad_rel_err_vs_float64": errs, "worst": worst,
+          "tol": LM_GRAD_REL_TOL,
+          "flash_launches": counts["flash"],
+          "flash_bwd_launches": counts["flash_bwd"],
+          "launches_by_route": {"flash": counts["flash_routes"],
+                                "flash_bwd": counts["flash_bwd_routes"]},
+          "peak_allocated_bytes": peak})
+    del params, live, grads, live64, grads64
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaf_names(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def train_batches(pipe, accum: int, times: list):
+    """`TokenPipeline` batches on the card, `accum` consecutive ones
+    stacked per step (the (accum, batch, seq) layout `make_train_step`
+    takes); each request for the next step appends the wall time after a
+    synchronise, so consecutive entries bound one step."""
+    import numpy as np
+    import torch
+    step = 0
+    while True:
+        sync()
+        times.append(time.perf_counter())
+        parts = [pipe.batch_at(accum * step + i) for i in range(accum)]
+        tokens = np.stack([t for t, _ in parts])
+        labels = np.stack([lbl for _, lbl in parts])
+        if accum == 1:
+            tokens, labels = tokens[0], labels[0]
+        yield {"tokens": torch.from_numpy(tokens).to(DEV),
+               "labels": torch.from_numpy(labels).to(DEV)}
+        step += 1
+
+
+def profile_train_step(cfg, lc, params, opt_state, ef, batch) -> dict:
+    """torch.profiler over one more step of `lc` (outside the counted run):
+    kernels launched and device busy time, by kind of kernel and the
+    costliest by name, from the trace's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(cfg, lc)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step(params, opt_state, batch, ef)
+        sync()
+        wall = time.perf_counter() - t0
+    del out
+    kinds = (("flash_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+             ("flash_fwd", ("flash_attn_kernel",)),
+             ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "Kernel2")))
+    by_kind, by_name, n = {}, {}, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        n += 1
+        kind = next((k for k, keys in kinds
+                     if any(key in e.name for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"kernels": n, "device_busy_ms": sum(by_kind.values()),
+            "wall_ms_profiled": 1e3 * wall, "device_ms_by_kind": by_kind,
+            "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def phase_lm_train(fmod, dmod, seed: int) -> dict:
+    """Yi-6B's CONFIG (bf16, remat, published widths) cut to 4 layers:
+    run A, `train_loop` with AdamW, two microbatches per step and int8
+    error-feedback compression on `TokenPipeline` batches; run B,
+    Adafactor with a checkpoint at step 2, restored bit for bit. Returns
+    the launches of each run."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params, param_count
+    from repro_torch.train import TrainLoopConfig, make_optimizer, train_loop
+    from repro_torch.train.optim import tree_leaves
+
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed),
+                         device=DEV)
+    pipe = TokenPipeline(cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=seed)
+    accum = 2
+    with torch.no_grad():                # step 0's batch in float64
+        first = next(train_batches(pipe, accum, []))
+        loss64 = sum(float(f64_lm_loss(cfg, params, first["tokens"][i],
+                                       first["labels"][i]))
+                     for i in range(accum)) / accum
+    del first
+    torch.cuda.empty_cache()
+
+    runs, launches = {}, {}
+    for name, lc, acc, ckpt in (
+            ("adamw", TrainLoopConfig(optimizer="adamw", grad_accum=accum,
+                                      compress=True,
+                                      max_steps=LM_TRAIN_STEPS), accum,
+             False),
+            ("adafactor", TrainLoopConfig(optimizer="adafactor",
+                                          checkpoint_every=2, max_steps=3),
+             1, True)):
+        times = []
+        tmp = tempfile.TemporaryDirectory() if ckpt else None
+        torch.cuda.reset_peak_memory_stats()
+        zero_attn_counts(fmod, dmod)                 # the run starts
+        init_opt = make_optimizer(lc.optimizer, lr=lc.lr)[0]
+        out_params, out_state, info = train_loop(
+            cfg, lc, params, init_opt(params), train_batches(pipe, acc, times),
+            checkpointer=Checkpointer(tmp.name) if ckpt else None,
+            log_every=1)
+        counts = attn_counts(fmod, dmod)             # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        times.append(time.perf_counter())
+        steps = lc.max_steps
+        micro = steps * acc
+        want = {"flash": 2 * cfg.n_layers * micro,    # forward + recompute
+                "flash_bwd": cfg.n_layers * micro, "decode": 0}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"lm_train {name} launches {got}, want "
+                                 f"{want}")
+        check_routes(f"lm_train {name} forward", counts, "flash",
+                     "tensor_core")
+        check_routes(f"lm_train {name} backward", counts, "flash_bwd",
+                     "f32_fma")
+        losses = [x for _, x in info["history"]]
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"lm_train {name}: losses {losses}")
+        step_s = [b - a for a, b in zip(times[:steps], times[1:steps + 1])]
+        # Steady steps: after the first (cuBLAS and allocator warm-up),
+        # without a checkpoint write.
+        steady = [x for i, x in enumerate(step_s)
+                  if i and not (ckpt and i % lc.checkpoint_every == 0)]
+        tokens = acc * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        runs[name] = {"optimizer": lc.optimizer, "grad_accum": acc,
+                      "compress": lc.compress, "steps": steps,
+                      "loss_history": info["history"],
+                      "seconds": info["seconds"],
+                      "step_ms": [1e3 * x for x in step_s],
+                      "ms_per_steady_step": 1e3 * sum(steady) / len(steady),
+                      "tokens_per_step": tokens,
+                      "tokens_per_s_steady": tokens * len(steady)
+                      / sum(steady),
+                      "flash_launches": counts["flash"],
+                      "flash_bwd_launches": counts["flash_bwd"],
+                      "launches_by_route": {
+                          "flash": counts["flash_routes"],
+                          "flash_bwd": counts["flash_bwd_routes"]},
+                      "peak_allocated_bytes": peak}
+        launches[name] = counts
+        if ckpt:                 # step 2 is the last step: its state
+            restored, step = Checkpointer(tmp.name).restore(
+                {"params": out_params, "opt_state": out_state})
+            pairs = list(zip(tree_leaves(restored["params"])
+                             + tree_leaves(restored["opt_state"]),
+                             tree_leaves(out_params)
+                             + tree_leaves(out_state)))
+            same = all(
+                (torch.equal(a, b) and a.dtype == b.dtype)
+                if isinstance(b, torch.Tensor) else int(a) == int(b)
+                for a, b in pairs)
+            if step != 2 or not same:
+                raise AssertionError(f"lm_train checkpoint: step {step}, "
+                                     f"bit for bit {same}")
+            runs[name]["checkpoint"] = {
+                "step": step, "leaves": len(pairs), "bit_for_bit": same,
+                "bytes": sum(t.numel() * t.element_size()
+                             for t, _ in pairs
+                             if isinstance(t, torch.Tensor))}
+            del restored, pairs
+            tmp.cleanup()
+        else:
+            first_loss = losses[0]
+            runs[name]["profiled_step"] = profile_train_step(
+                cfg, lc, out_params, out_state, info["ef"],
+                next(train_batches(pipe, acc, [])))
+        del out_params, out_state, info
+        torch.cuda.empty_cache()
+    loss_gap = abs(first_loss - loss64)
+    if not loss_gap <= LM_TRAIN_LOSS_TOL:
+        raise AssertionError(f"lm_train: first loss {first_loss} vs float64 "
+                             f"{loss64}, gap {loss_gap} > "
+                             f"{LM_TRAIN_LOSS_TOL}")
+    emit({"phase": "lm_train", "config": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "remat": cfg.remat,
+          "params": param_count(params), "batch": LM_TRAIN_BATCH,
+          "seq": LM_TRAIN_SEQ, "first_loss": first_loss,
+          "first_loss_float64": loss64, "loss_gap": loss_gap,
+          "loss_tol": LM_TRAIN_LOSS_TOL, "runs": runs})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_flash(fmod, seed: int) -> dict:
     """The flash kernel at Yi-6B's per-layer prefill (train_4k length), its
     plain version and SDPA (a yardstick the port never calls)."""
@@ -2734,6 +3144,51 @@ def time_flash(fmod, seed: int) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ms_f32_fma": 1e3 * flops / PEAK_F32_FLOPS,
             "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
+
+
+def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
+    """The backward kernel at `shape` (bf16, causal), its plain version and,
+    as the yardstick the port never calls, SDPA's forward + backward less
+    its forward (the same flash forward, saving its lse for the backward);
+    also the forward kernel as training launches it, writing lse."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+    b, h, s_len, d = shape
+    q, k, v, dout = attn_inputs(shape, "bfloat16", gen) + attn_inputs(
+        shape, "bfloat16", gen)[:1]
+    with torch.no_grad():
+        out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=True)
+        ms = cuda_ms(lambda: fmod.flash_attention_bwd_cuda(
+            q, k, v, out, dout, lse, True, 0), repeats)
+        fwd_lse_ms = cuda_ms(lambda: fmod.flash_attention_lse_cuda(
+            q, k, v, causal=True), repeats)
+        plain_ms = cuda_ms(lambda: fmod.flash_attention_bwd_plain(
+            q, k, v, out, dout, lse, True, 0), 2, warmup=1)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dout)
+
+    library_ms = cuda_ms(sdpa_fwd_bwd, repeats) - cuda_ms(sdpa_fwd, repeats)
+    pairs = b * h * s_len * (s_len + 1) // 2        # causal (query, key)
+    flops = 10.0 * d * pairs
+    # q, k, v, out, dout in; dq, dk, dv out; lse in, f32.
+    nbytes = 8 * b * h * s_len * d * q.element_size() + 4 * b * h * s_len
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+            "flops": flops, "min_bytes": nbytes, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention(is_causal=True) "
+                            "forward + backward, less its forward",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_f32_fma": 1e3 * flops / PEAK_F32_FLOPS,
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
+            "forward_with_lse_ms": fwd_lse_ms}
 
 
 def device_ms(fn, repeats: int) -> float:
@@ -2823,6 +3278,10 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
                                       plans["fwd"]["csr"], h_train,
                                       h_train.shape[1]),
         "flash_attention": time_flash(fmod, seed),
+        "flash_bwd": time_flash_bwd(fmod, seed, (LM_TRAIN_BATCH, 32,
+                                                 LM_TRAIN_SEQ, 128), 10),
+        "flash_bwd_prefill": time_flash_bwd(fmod, seed,
+                                            (1, 32, LM_PREFILL, 128), 3),
         "decode_attention": time_decode(dmod, seed,
                                         SHAPES["decode_32k"]["global_batch"],
                                         SHAPES["decode_32k"]["seq_len"]),
@@ -2925,8 +3384,14 @@ def run(args) -> None:
     launches["continuous"] = phase_continuous(kmod, graphs, args, inputs)
     set_default_analyze(previous)
     attn_err = phase_attn(fmod, dmod, args.seed)
-    lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed),
-          "lm_serve": phase_lm_serve(fmod, dmod, args.seed)}
+    lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed)}
+    t0 = time.perf_counter()
+    lm["lm_train_check"] = phase_lm_train_check(fmod, dmod, args.seed)
+    train_runs = phase_lm_train(fmod, dmod, args.seed)
+    lm.update({f"lm_train_{name}": c for name, c in train_runs.items()})
+    emit({"phase": "lm_train_seconds", "lm_train_check_and_lm_train":
+          time.perf_counter() - t0})
+    lm["lm_serve"] = phase_lm_serve(fmod, dmod, args.seed)
     timing = phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train,
                           g_train, args.seed, tuned)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2936,13 +3401,16 @@ def run(args) -> None:
         routes = [path[kernel] for path in GCN_ROUTES.values()]
         return {route: sum(r[route] for r in routes) for route in routes[0]}
 
+    train_paths = [p for p in lm if p.startswith("lm_train")]
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
+                   **{p: lm[p]["flash"] for p in train_paths},
                    "lm_serve_prefill": lm["lm_serve"]["flash"]}
+    bwd_paths = {p: lm[p]["flash_bwd"] for p in train_paths}
 
-    def by_route(kernel: str) -> dict:
-        return {route: sum(path[f"{kernel}_routes"][route]
+    def by_route(kernel: str, routes=("tensor_core", "f32_fma")) -> dict:
+        return {route: sum(path.get(f"{kernel}_routes", {}).get(route, 0)
                            for path in lm.values())
-                for route in ("tensor_core", "f32_fma")}
+                for route in routes}
 
     decode_paths = {"lm_check": lm["lm_check"]["decode"],
                     "lm_serve": lm["lm_serve"]["decode"],
@@ -2982,7 +3450,23 @@ def run(args) -> None:
          "launches_by_route": by_route("flash"),
          "max_abs_err": attn_err["flash"],
          **{k: timing["flash_attention"][k] for k in keys},
-         "bound_ms_f32_fma": timing["flash_attention"]["bound_ms_f32_fma"]},
+         "bound_ms_f32_fma": timing["flash_attention"]["bound_ms_f32_fma"],
+         "forward_with_lse_ms": {
+             "lm_train": timing["flash_bwd"]["forward_with_lse_ms"],
+             "prefill": timing["flash_bwd_prefill"]["forward_with_lse_ms"]}},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+         "replaces": "src/repro/models/layers.py:90",
+         "replaces_note": "XLA autodiff of _attn_core; the JAX package has "
+                          "no Pallas backward",
+         "launches": sum(bwd_paths.values()),
+         "launches_by_path": bwd_paths,
+         "launches_by_route": by_route("flash_bwd", ("f32_fma",)),
+         "max_abs_err": attn_err["backward"],
+         **{k: timing["flash_bwd"][k] for k in keys},
+         "bound_ms_f32_fma": timing["flash_bwd"]["bound_ms_f32_fma"],
+         "prefill_shape": {k: timing["flash_bwd_prefill"][k]
+                           for k in (*keys, "bound_ms_f32_fma")}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:68",

@@ -88,7 +88,7 @@ def main() -> int:
                     entry and ("Used" in ln or "spill" in ln):
                 props.append(ln.split(":", 1)[-1].strip())
         fn = ctypes.CDLL(str(out_dir / f"flash_{i}.so")).flash_attn_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         entries.append((v_, fn, props))
@@ -96,7 +96,7 @@ def main() -> int:
     def call(fn):
         out = torch.empty_like(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *q.shape, 1, 0, q.shape[3] ** -0.5,
+                 None, *q.shape, 1, 0, q.shape[3] ** -0.5,
                  fmod.DTYPE_CODES[q.dtype],
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:

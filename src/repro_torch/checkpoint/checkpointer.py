@@ -7,7 +7,9 @@
   * format — one `arrays.npz` of the flattened tree (keys joined by "/")
     and a `manifest.json` naming its keys, the format of
     `repro.checkpoint.Checkpointer`: a checkpoint written by either
-    package loads in the other.
+    package loads in the other. numpy has no bfloat16, so a bf16 leaf is
+    stored as the reference stores one, its raw 2-byte words as `|V2`;
+    `restore` views those bits as bf16 again.
 
 Segment-brick checkpoints (`save_segment_bricks` / `load_segment_bricks`)
 persist a serving engine's cached Block-ELL bricks for a warm start.
@@ -26,8 +28,22 @@ import torch
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:      # numpy has no bfloat16
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """`arr` as a tensor of `like`'s dtype on `like`'s device: 2-byte void
+    words (a bf16 leaf as either package writes it) by their bits, never
+    by their value."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def _flatten(tree, prefix=""):
@@ -45,8 +61,8 @@ def _flatten(tree, prefix=""):
 
 def _unflatten(flat: Dict[str, np.ndarray], skeleton):
     """Rebuild `skeleton`'s structure from `flat`; a leaf that is a tensor
-    in the skeleton comes back as a tensor on that leaf's device, any other
-    leaf as a numpy array."""
+    in the skeleton comes back as a tensor of that leaf's dtype on its
+    device, any other leaf as a numpy array."""
     if isinstance(skeleton, dict):
         return {k: _unflatten(
             {kk[len(k) + 1:]: vv for kk, vv in flat.items()
@@ -60,7 +76,7 @@ def _unflatten(flat: Dict[str, np.ndarray], skeleton):
             for i, v in enumerate(skeleton))
     arr = flat[""] if "" in flat else flat[next(iter(flat))]
     if isinstance(skeleton, torch.Tensor):
-        return torch.from_numpy(np.array(arr)).to(skeleton.device)
+        return _to_tensor(arr, skeleton)
     return arr
 
 
@@ -116,8 +132,8 @@ class Checkpointer:
 
     def restore(self, skeleton, step: Optional[int] = None) -> Tuple[Any, int]:
         """`skeleton`: a tree with the target structure (values give only
-        the leaf kind and, for tensors, the device). Returns (tree, step)
-        from the newest complete checkpoint, or from `step`."""
+        the leaf kind and, for tensors, the dtype and device). Returns
+        (tree, step) from the newest complete checkpoint, or from `step`."""
         if step is None:
             step = latest_step(self.directory)
         if step is None:

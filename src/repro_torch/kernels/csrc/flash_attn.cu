@@ -12,6 +12,11 @@
 // are (B, H, S, d) f32, f16 or bf16; the output is in q's type. S need not
 // be a multiple of any tile: the ragged edge is masked, never padded.
 //
+// For training, both routes also write each row's log-sum-exp lse (B, H, S)
+// f32 = m + log l in natural-log units (-inf for a row with no valid key),
+// which the backward (flash_attn_bwd.cu) reads to recompute P; inference
+// passes a null pointer and writes none.
+//
 // What bounds it: operations. With each input read once and the output
 // written once, the work is 4*d FLOPs per valid (query, key) pair against
 // 4*2*d bytes per row of q, k, v and out; at Yi-6B's prefill (d = 128,
@@ -83,8 +88,9 @@ constexpr int CHUNK = 16;            // keys per online-softmax step
 template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out, int S,
-                      int d, float scale, int causal, int window) {
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int S, int d, float scale,
+                      int causal, int window) {
   constexpr int DP = 16 * NC;        // padded head dim
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                  // BK x DP
@@ -186,6 +192,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   if (qi >= S) return;
+  if (lse != nullptr && part == 0)   // m is in scaled units here
+    lse[base / d + qi] = m == -INFINITY ? -INFINITY : m + logf(l);
   const float denom = fmaxf(l, 1e-30f);
   T* o = out + base + static_cast<int64_t>(qi) * d;
 #pragma unroll
@@ -217,8 +225,9 @@ __host__ __device__ constexpr int smem_bytes() {
 template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out, int S,
-                      int d, float scale, int causal, int window, int vec) {
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int S, int d, float scale,
+                      int causal, int window, int vec) {
   constexpr int DP = 16 * NC;        // padded head dim
   constexpr int QB = BQ * DP * 2;    // bytes of the Q tile
   constexpr int TILE = BK * DP * 2;  // bytes of a K or V tile
@@ -357,8 +366,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    const float inv_l = 1.0f / fmaxf(attn::quad_sum(l[r]), 1e-30f);
+    const float l_row = attn::quad_sum(l[r]);
+    const float inv_l = 1.0f / fmaxf(l_row, 1e-30f);
     if (row >= S) continue;
+    if (lse != nullptr && t == 0)    // m is in raw q·k units here
+      lse[base / d + row] =
+          m[r] == -INFINITY ? -INFINITY : fmaf(m[r], scale, logf(l_row));
     T* o_row = out + base + static_cast<int64_t>(row) * d;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -381,6 +394,7 @@ struct Launch {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
   int b, h, s, d, causal, window;
   float scale;
   cudaStream_t stream;
@@ -396,8 +410,8 @@ struct Launch {
       const dim3 grid((s + f32fma::BQ - 1) / f32fma::BQ, h, b);
       f32fma::flash_attn_kernel<T, NC><<<grid, f32fma::THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), s, d, scale, causal,
-          window);
+          static_cast<const T*>(v), static_cast<T*>(out), lse, s, d, scale,
+          causal, window);
     } else {
       constexpr size_t smem = tc::smem_bytes<NC>();
       cudaError_t err = attn::allow_smem(
@@ -408,8 +422,8 @@ struct Launch {
       const dim3 grid((s + tc::BQ - 1) / tc::BQ, h, b);
       tc::flash_attn_kernel<T, NC><<<grid, tc::THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), s, d, scale, causal,
-          window, vec);
+          static_cast<const T*>(v), static_cast<T*>(out), lse, s, d, scale,
+          causal, window, vec);
     }
     return cudaGetLastError();
   }
@@ -419,13 +433,14 @@ struct Launch {
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // q, k, v, out (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or
-// BF16); d <= 128; window 0 means no sliding window.
+// BF16); lse (b, h, s) f32, or null to write none; d <= 128; window 0
+// means no sliding window.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* out, int b, int h, int s, int d,
-                                 int causal, int window, float scale,
+                                 void* out, float* lse, int b, int h, int s,
+                                 int d, int causal, int window, float scale,
                                  int dtype, void* stream) {
-  const Launch launch{q,      k,      v,     out,
-                      b,      h,      s,     d,
-                      causal, window, scale, static_cast<cudaStream_t>(stream)};
+  const Launch launch{q, k,      v,      out,   lse,
+                      b, h,      s,      d,     causal,
+                      window,    scale,  static_cast<cudaStream_t>(stream)};
   return static_cast<int>(attn::dispatch(dtype, d, launch));
 }

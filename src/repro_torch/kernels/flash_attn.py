@@ -1,118 +1,200 @@
-"""Flash attention (prefill): the hand-written CUDA kernel
-(`csrc/flash_attn.cu`, replaces the TPU kernel
-`repro.kernels.flash_attn.flash_attention_pallas`) beside its plain PyTorch
-version.
+"""Flash attention (prefill and training): the hand-written CUDA kernels
+(`csrc/flash_attn.cu`, replacing the TPU kernel
+`repro.kernels.flash_attn.flash_attention_pallas`, and its backward
+`csrc/flash_attn_bwd.cu`, replacing the XLA autodiff of
+`repro.models.layers._attn_core`) beside their plain PyTorch versions.
 
     out[b, h, i] = Σ_j softmax_j(q[b, h, i] · k[b, h, j] / √d) v[b, h, j]
 
 over the keys j <= i (causal) and j > i - window (window > 0), softmax and
 accumulator in float32, the output in q's dtype; a row with no valid key
 gives 0. q, k, v are (B, H, S, d) of one dtype (float32, float16 or
-bfloat16), d <= 128; S need not be a multiple of any block.
+bfloat16), d <= 128; S need not be a multiple of any block. For training
+the forward also writes each row's log-sum-exp `lse` (B, H, S) f32,
+m + log l in natural-log units (-inf for a row with no valid key), from
+which the backward recomputes the probabilities:
 
-On the card f16 and bf16 take the tensor-core kernel and f32 the f32 FMA
-kernel (`ROUTES`; the source says why). `flash_attention_blocks`
-dispatches on where the tensors lie: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise.
+    D_i = Σ_d dO_i · O_i,  P_ij = exp(s q_i · k_j - lse_i),
+    dS_ij = P_ij (dO_i · v_j - D_i),
+    dV_j = Σ_i P_ij dO_i,  dK_j = s Σ_i dS_ij q_i,  dQ_i = s Σ_j dS_ij k_j.
+
+On the card the forward takes the tensor-core kernel for f16 and bf16 and
+the f32 FMA kernel for f32 (`ROUTES`; the source says why); the backward
+takes its f32 FMA kernels on every dtype (`BWD_ROUTES`).
+`FlashAttention` is the autograd Function over both; `flash_attention_cuda`
+and `flash_attention_blocks` go through it when a gradient is asked for.
+`flash_attention_blocks` dispatches on where the tensors lie: CPU tensors
+take the plain versions, CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import entry
 
-# Kernel launches made by `flash_attention_cuda` in this process, in all
-# and by route.
+# Kernel launches made in this process, in all and by route: the forward
+# by `flash_attention_cuda` (inference and `FlashAttention.forward`, the
+# recompute of a checkpointed layer among them), the backward by
+# `flash_attention_bwd_cuda` (`FlashAttention.backward`).
 FLASH_LAUNCHES = 0
 FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
+FLASH_BWD_LAUNCHES = 0
+FLASH_BWD_ROUTE_LAUNCHES = {"f32_fma": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # The kernel each dtype takes in csrc/flash_attn.cu and csrc/decode_attn.cu.
 ROUTES = {torch.float32: "f32_fma", torch.float16: "tensor_core",
           torch.bfloat16: "tensor_core"}
+# ... and in csrc/flash_attn_bwd.cu.
+BWD_ROUTES = {dt: "f32_fma" for dt in DTYPE_CODES}
 MAX_HEAD_DIM = 128     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *more: torch.Tensor) -> None:
+    """q, k, v (and `more`, the backward's out and dout) of one shape,
+    dtype and device."""
+    if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, *more)):
         raise ValueError(f"q, k, v must all be (B, H, S, d), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
+                         f"{[tuple(t.shape) for t in (q, k, v, *more)]}")
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype
+                                         for t in (k, v, *more)):
         raise TypeError(f"q, k, v must share one of {list(DTYPE_CODES)}, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if len({q.device, k.device, v.device}) != 1:
+                        f"got {[t.dtype for t in (q, k, v, *more)]}")
+    if len({t.device for t in (q, k, v, *more)}) != 1:
         raise ValueError("q, k, v must lie on one device")
+
+
+def _mask(s_len: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(S, S) bool: key j is valid for query i."""
+    pos = torch.arange(s_len, device=device)
+    mask = torch.ones((s_len, s_len), dtype=torch.bool, device=device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: the full S×S scores in float32, the
+    kernel's masks and its guard for rows with no valid key. Returns (out
+    in q's dtype, lse (B, H, S) f32)."""
+    _check(q, k, v)
+    s_len, d = q.shape[2], q.shape[3]
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
+        * (1.0 / d ** 0.5)
+    logits = logits.masked_fill(~_mask(s_len, causal, window, q.device),
+                                float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = (torch.einsum("bhst,bhtd->bhsd", p, v.float()) / denom).to(q.dtype)
+    lse = torch.where(torch.isfinite(m), m + torch.log(denom),
+                      float("-inf"))[..., 0]
+    return out, lse
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
-    """The plain PyTorch version: the full S×S scores in float32, the
-    kernel's masks and its guard for rows with no valid key."""
-    _check(q, k, v)
+    """`flash_attention_plain_lse`'s output alone."""
+    return flash_attention_plain_lse(q, k, v, causal=causal,
+                                     window=window)[0]
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, lse: torch.Tensor,
+                              causal: bool = True, window: int = 0
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the backward, step by step in f32 from the
+    forward's `out` and `lse`: (dq, dk, dv) in q's dtype. A row whose lse
+    is -inf (no valid key) contributes nothing."""
+    _check(q, k, v, out, dout)
     s_len, d = q.shape[2], q.shape[3]
-    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
-        * (1.0 / d ** 0.5)
-    pos = torch.arange(s_len, device=q.device)
-    mask = torch.ones((s_len, s_len), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window > 0:
-        mask &= pos[None, :] > pos[:, None] - window
-    logits = logits.masked_fill(~mask, float("-inf"))
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return (torch.einsum("bhst,bhtd->bhsd", p, v.float()) / denom).to(q.dtype)
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    of, dof, lse = out.float(), dout.float(), lse.float()
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    valid = _mask(s_len, causal, window, q.device) \
+        & torch.isfinite(lse)[..., None]
+    p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
+    delta = (dof * of).sum(dim=-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _launch_fn():
     return entry("flash_attn_launch",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _bwd_launch_fn():
+    return entry("flash_attn_bwd_launch",
+                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would record the kernel's output: a ctypes
-    launch has no backward, so a gradient would be silently lost."""
+    """Raise where autograd would record a kernel's output that has no
+    backward (the decode kernel, which only serves): a ctypes launch
+    records nothing, so a gradient would be silently lost."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} has no backward yet (LM training is ROADMAP.md queue 1 "
-            "item 8): call it under torch.no_grad() or "
+            f"{name} has no backward: the decode kernel serves decode steps "
+            "only, and LM training attends through the flash kernels (what "
+            "is left of the LM side, ROADMAP.md queue 1 item 8: decode-step "
+            "speed, sliding-window ring caches, the softcap, MoE, recurrent "
+            "blocks, other archs). Call it under torch.no_grad() or "
             "torch.inference_mode(), or on inputs that do not require grad")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
-    Returns (B, H, S, d) in q's dtype; raises on any operand the kernel does
-    not take."""
-    global FLASH_LAUNCHES
-    _check(q, k, v)
+def _check_cuda(name: str, window: int, **tensors: torch.Tensor) -> None:
+    """What the kernels take beyond `_check`: CUDA, contiguous tensors,
+    d <= MAX_HEAD_DIM, window >= 0 (tensors by name, q first)."""
+    q = next(iter(tensors.values()))
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
-                         f"{q.device}")
-    no_grad_guard("flash_attention_cuda", q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+        raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
+    for label, t in tensors.items():
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    b, h, s_len, d = q.shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+            raise ValueError(f"{label} must be contiguous")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[3]} > {MAX_HEAD_DIM}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, window: int, with_lse: bool
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One forward launch on PyTorch's current stream (no synchronise);
+    writes lse only when asked (inference passes a null pointer)."""
+    global FLASH_LAUNCHES
+    _check(q, k, v)
+    _check_cuda("flash_attention_cuda", window, q=q, k=k, v=v)
+    b, h, s_len, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_len), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5,
                  DTYPE_CODES[q.dtype], stream)
     if err != 0:
@@ -120,13 +202,108 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{err}")
     FLASH_LAUNCHES += 1
     FLASH_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel as training launches it: (out, lse (B, H, S)
+    f32), recording no graph (`FlashAttention` is the differentiable
+    entry)."""
+    return _launch_forward(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor,
+                             causal: bool = True, window: int = 0
+                             ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's
+    current stream, counted as one launch: (dq, dk, dv) in q's dtype.
+    Raises on any operand the kernels do not take."""
+    global FLASH_BWD_LAUNCHES
+    _check(q, k, v, out, dout)
+    _check_cuda("flash_attention_bwd_cuda", window, q=q, k=k, v=v,
+                out=out, dout=dout, lse=lse)
+    b, h, s_len, d = q.shape
+    if lse.shape != (b, h, s_len) or lse.dtype != torch.float32 or \
+            lse.device != q.device:
+        raise ValueError(f"lse must be ({b}, {h}, {s_len}) float32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} "
+                         f"on {lse.device}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
+    fn = _bwd_launch_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
+                                          dq, dk, dv)),
+                 b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5,
+                 DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    FLASH_BWD_LAUNCHES += 1
+    FLASH_BWD_ROUTE_LAUNCHES[BWD_ROUTES[q.dtype]] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: the forward kernel writes lse beside
+    the output, the backward kernel reads both. CPU tensors take the plain
+    versions of both directions; CUDA tensors launch the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
+                                                 window=window)
+        else:
+            out, lse = _launch_forward(q, k, v, causal, window,
+                                       with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
+               else flash_attention_bwd_cuda)
+        dq, dk, dv = bwd(q, k, v, out, dout, lse, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
+    Returns (B, H, S, d) in q's dtype; raises on any operand the kernel does
+    not take. Where a gradient is asked for, the launch goes through
+    `FlashAttention`, which also writes lse and launches the backward."""
+    if _wants_grad(q, k, v):
+        _check(q, k, v)
+        _check_cuda("flash_attention_cuda", window, q=q, k=k, v=v)
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _launch_forward(q, k, v, causal, window, with_lse=False)[0]
 
 
 def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: int = 0) -> torch.Tensor:
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    """The kernels for CUDA tensors, their plain versions for CPU tensors,
+    through `FlashAttention` where a gradient is asked for."""
+    if q.device.type != "cpu":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    if _wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -1,1 +1,1 @@
-"""Launchers: GCN serving."""
+"""Launchers: GCN and LM serving, LM training."""

@@ -1,5 +1,6 @@
 """Transformer building blocks of the dense LM path: RMSNorm, RoPE, GQA
-self-attention through the flash kernel, SwiGLU MLP.
+self-attention through the flash kernel (differentiable: its backward is
+the hand-written backward kernel), SwiGLU MLP.
 
 Conventions, as in `repro.models.layers`:
   * params are dicts of tensors; weights stored (in_dim, out_dim).
@@ -74,8 +75,9 @@ def attention(
 ) -> Tuple[torch.Tensor, None]:
     """Causal GQA self-attention over the whole sequence through
     `ops.flash_attention`. KV heads are repeated to hq as in the
-    reference; the kernel never materializes the S×S scores, so the
-    reference's query chunking has no counterpart.
+    reference (`repeat_interleave`, so autograd sums dK and dV over each
+    group, as `jnp.repeat`'s transpose does); the kernel never materializes
+    the S×S scores, so the reference's query chunking has no counterpart.
 
     `positions` are the tokens' positions 0..S-1 (`transformer.
     _build_positions`): RoPE reads them; the causal mask is by index.

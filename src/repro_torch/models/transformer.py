@@ -2,13 +2,17 @@
 layer an `ATTN` block (RMSNorm, causal GQA self-attention with RoPE,
 RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and DeepSeek-7B.
 
-`forward` (training / prefill) attends through the flash kernel;
-`decode_step` (serving) attends one new token per sequence against a KV
-cache through the GQA flash-decode kernel. Params are a dict of tensors
-shaped like the reference's pytree (`params_from_numpy` carries one over).
+`forward` (training / prefill) attends through the flash kernel, and
+`lm_loss` is differentiable through it (`kernels.flash_attn.FlashAttention`:
+the forward kernel and its hand-written backward); `decode_step` (serving)
+attends one new token per sequence against a KV cache through the GQA
+flash-decode kernel. Params are a dict of tensors shaped like the
+reference's pytree (`params_from_numpy` carries one over).
 
-JAX idioms with no counterpart here: `cfg.remat` (`jax.checkpoint`)
-means nothing without a backward and is not read; the sharding hints
+`cfg.remat`, `jax.checkpoint` per layer in the reference, is
+`torch.utils.checkpoint` per layer here, taken only while autograd records
+(never under `torch.no_grad()` or `torch.inference_mode()`): the backward
+recomputes each layer's forward, flash launch included. The sharding hints
 (`mesh_axes`) have no argument. Other block kinds (sliding-window ring
 caches, MoE, recurrent blocks), M-RoPE and the vision, audio and encoder
 inputs raise `NotImplementedError` (ROADMAP.md queue 1 item 8).
@@ -19,6 +23,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -192,7 +197,8 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int on the params' device → (logits (B, S, V), aux
     loss, 0 for dense stacks). One flash-attention launch per layer on the
-    card."""
+    card, and with `cfg.remat` under autograd one more per layer in the
+    backward's recompute."""
     _check_supported(cfg)
     if vision_embeds is not None or audio_embeds is not None:
         raise NotImplementedError(f"vision and audio inputs are not ported "
@@ -200,16 +206,20 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = _build_positions(cfg, b, s, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for kind, p in zip(cfg.blocks(), params["layers"]):
-        x = _layer_apply(cfg, kind, p, x, positions)
+        if remat:
+            x = checkpoint(_layer_apply, cfg, kind, p, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _layer_apply(cfg, kind, p, x, positions)
     return _logits(cfg, params, x), torch.zeros((), device=x.device)
 
 
 def lm_loss(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             labels: torch.Tensor, vision_embeds=None,
             audio_embeds=None) -> torch.Tensor:
-    """Mean next-token NLL (+ 0.01 × aux), forward only: the kernels have
-    no backward yet."""
+    """Mean next-token NLL (+ 0.01 × aux), in f32 over the vocabulary."""
     logits, aux = forward(cfg, params, tokens, vision_embeds, audio_embeds)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)

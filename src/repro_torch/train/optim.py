@@ -3,48 +3,80 @@
 The port of `repro.train.optim`: the same AdamW (b2 = 0.95, decay applied
 as lr·(update + wd·p)) and Adafactor (factored second moment, no first
 moment, update clipping), with the same hyperparameters and state layout,
-not `torch.optim`'s. Updates run under `torch.no_grad()`, compute in
+not `torch.optim`'s. Params are trees of tensors (dicts and lists, as the
+LM's, or a flat dict, as the GCN's); the state mirrors the tree, as the
+reference's pytrees do. Updates run under `torch.no_grad()`, compute in
 float32 and return new tensors in each parameter's dtype; nothing is
 updated in place. The JAX package has no kernel for them, so neither has
 the port: they are elementwise PyTorch.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-Params = Mapping[str, torch.Tensor]
+Params = Any      # a tree of tensors: dicts and lists of them
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """fn over the leaves of `tree` (a tree of dicts and lists), with the
+    entries at the same places of `rest`: trees that hold `tree`'s
+    structure and may hold subtrees where it holds leaves, as
+    `jax.tree_util`'s `flatten_up_to` takes them."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _unzip(structure, tree, n: int) -> tuple:
+    """`tree` holds an n-tuple at every leaf of `structure` → n trees."""
+    return tuple(tree_map(lambda _, t, i=i: t[i], structure, tree)
+                 for i in range(n))
 
 
 # ---------------------------------------------------------------- AdamW ----
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
 def adamw_init(params: Params) -> dict:
-    return {
-        "m": {k: torch.zeros_like(p, dtype=torch.float32)
-              for k, p in params.items()},
-        "v": {k: torch.zeros_like(p, dtype=torch.float32)
-              for k, p in params.items()},
-        "step": 0,
-    }
+    return {"m": tree_map(_zeros_f32, params),
+            "v": tree_map(_zeros_f32, params), "step": 0}
 
 
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, state: dict, lr=1e-3,
                  b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.01) -> Tuple[Dict[str, torch.Tensor], dict]:
+                 weight_decay=0.01) -> Tuple[Params, dict]:
     step = state["step"] + 1
     bc1 = 1.0 - b1 ** step
     bc2 = 1.0 - b2 ** step
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g32 = grads[k].to(torch.float32)
+
+    def upd(p, g, m, v):
+        g32 = g.to(torch.float32)
         p32 = p.to(torch.float32)
-        m = b1 * state["m"][k] + (1 - b1) * g32
-        v = b2 * state["v"][k] + (1 - b2) * torch.square(g32)
+        m = b1 * m + (1 - b1) * g32
+        v = b2 * v + (1 - b2) * torch.square(g32)
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        new_p[k] = (p32 - lr * (update + weight_decay * p32)).to(p.dtype)
-        new_m[k], new_v[k] = m, v
+        return (p32 - lr * (update + weight_decay * p32)).to(p.dtype), m, v
+
+    new_p, new_m, new_v = _unzip(params, tree_map(
+        upd, params, grads, state["m"], state["v"]), 3)
     return new_p, {"m": new_m, "v": new_v, "step": step}
 
 
@@ -65,19 +97,18 @@ def adafactor_init(params: Params) -> dict:
             }
         return {"v": torch.zeros_like(p, dtype=torch.float32)}
 
-    return {"stats": {k: stat(p) for k, p in params.items()}, "step": 0}
+    return {"stats": tree_map(stat, params), "step": 0}
 
 
 @torch.no_grad()
 def adafactor_update(params: Params, grads: Params, state: dict, lr=1e-2,
                      decay=0.8, eps=1e-30, clip_threshold=1.0,
-                     weight_decay=0.0) -> Tuple[Dict[str, torch.Tensor], dict]:
+                     weight_decay=0.0) -> Tuple[Params, dict]:
     step = state["step"] + 1
     beta = 1.0 - step ** -decay
-    new_p, new_s = {}, {}
-    for k, p in params.items():
-        s = state["stats"][k]
-        g32 = grads[k].to(torch.float32)
+
+    def upd(p, g, s):
+        g32 = g.to(torch.float32)
         g2 = torch.square(g32) + eps
         if _factored(p.shape):
             vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
@@ -86,16 +117,19 @@ def adafactor_update(params: Params, grads: Params, state: dict, lr=1e-2,
             r = (vr / torch.clamp_min(denom, eps))[..., None]
             u = (g32 * torch.rsqrt(torch.clamp_min(r, eps))
                  * torch.rsqrt(torch.clamp_min(vc[..., None, :], eps)))
-            new_s[k] = {"vr": vr, "vc": vc}
+            new_s = {"vr": vr, "vc": vc}
         else:
             v = beta * s["v"] + (1 - beta) * g2
             u = g32 * torch.rsqrt(torch.clamp_min(v, eps))
-            new_s[k] = {"v": v}
+            new_s = {"v": v}
         # Update clipping (RMS ≤ clip_threshold).
         rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
         u = u / torch.clamp_min(rms / clip_threshold, 1.0)
         p32 = p.to(torch.float32)
-        new_p[k] = (p32 - lr * (u + weight_decay * p32)).to(p.dtype)
+        return (p32 - lr * (u + weight_decay * p32)).to(p.dtype), new_s
+
+    new_p, new_s = _unzip(params, tree_map(upd, params, grads,
+                                           state["stats"]), 2)
     return new_p, {"stats": new_s, "step": step}
 
 

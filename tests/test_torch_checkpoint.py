@@ -118,6 +118,70 @@ def test_checkpoints_load_across_packages(tmp_path, writer):
         np.testing.assert_array_equal(np.asarray(b), a.numpy())
 
 
+def _bf16_tree():
+    """A bf16 params tree with its AdamW state (f32 moments, int step) and
+    an f16 leaf: the dtypes of a bf16 model in training."""
+    g = torch.Generator().manual_seed(1)
+    params = {"embed": torch.randn((6, 4), generator=g).bfloat16(),
+              "layers": [{"w": torch.randn((4, 4), generator=g).bfloat16(),
+                          "ln": torch.zeros((4,), dtype=torch.bfloat16)}],
+              "h": torch.randn((3,), generator=g).half()}
+    m = jax.tree_util.tree_map(lambda t: t.float() * 0.1, params)
+    return params, {"m": m, "v": jax.tree_util.tree_map(torch.square, m),
+                    "step": torch.tensor(3, dtype=torch.int32)}
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy() if t.element_size() == 2 \
+        else t.numpy()
+
+
+def test_bf16_tree_roundtrips_bit_for_bit(tmp_path):
+    """F1: a bf16 leaf is written as the reference writes one (`|V2`, its
+    raw words) and restored by its bits, in the skeleton's dtype."""
+    params, opt_state = _bf16_tree()
+    ck = p_ckpt.Checkpointer(str(tmp_path))
+    ck.save(2, params, opt_state)
+    with np.load(tmp_path / "step_2" / "arrays.npz") as data:
+        assert data["params/embed"].dtype == np.dtype("V2")
+        assert data["params/h"].dtype == np.float16
+        assert data["opt_state/m/embed"].dtype == np.float32
+    tree = {"params": params, "opt_state": opt_state}
+    restored, step = ck.restore(tree)
+    assert step == 2
+    for a, b in zip(_leaves(tree), _leaves(restored)):
+        assert b.dtype == a.dtype
+        np.testing.assert_array_equal(_bits(b), _bits(a))
+
+
+def test_bf16_checkpoints_cross_packages(tmp_path):
+    """F1 and R4: the reference writes a bf16 leaf as `|V2` and its own
+    restore returns those untyped words (R4); the port restores them as
+    bf16 with the same bits, and what the port writes the reference reads
+    back as the same `|V2` words."""
+    params, opt_state = _bf16_tree()
+    ref_params = jax.tree_util.tree_map(
+        lambda t: jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+        if t.dtype == torch.bfloat16 else jnp.asarray(t.numpy()), params)
+    r_ckpt.Checkpointer(str(tmp_path / "ref")).save(
+        4, ref_params, jax.tree_util.tree_map(lambda t: t.numpy(), opt_state))
+    restored, _ = p_ckpt.Checkpointer(str(tmp_path / "ref")).restore(
+        {"params": params, "opt_state": opt_state})
+    for a, b in zip(_leaves(params), _leaves(restored["params"])):
+        assert b.dtype == a.dtype
+        np.testing.assert_array_equal(_bits(b), _bits(a))
+
+    p_ckpt.Checkpointer(str(tmp_path / "port")).save(5, params, opt_state)
+    back, _ = r_ckpt.Checkpointer(str(tmp_path / "port")).restore(
+        {"params": ref_params, "opt_state": opt_state})
+    raw = back["params"]["layers"][0]["w"]
+    assert raw.dtype == np.dtype("V2")             # R4: untyped words
+    np.testing.assert_array_equal(
+        raw.view(np.int16), _bits(params["layers"][0]["w"]))
+    np.testing.assert_array_equal(back["params"]["h"],
+                                  params["h"].numpy())
+
+
 def test_checkpointer_atomicity_and_pruning(tmp_path):
     ck = p_ckpt.Checkpointer(str(tmp_path), keep_last=2)
     tree = _tree()

@@ -890,14 +890,27 @@ def test_decode_kernel_matches_plain_version(b, n_kv, group, s, d, lens,
 
 
 def test_attention_kernels_refuse_grad_and_cpu_tensors():
+    """The decode kernel, which only serves, still refuses a graph; the
+    flash kernel now takes one: its gradient flows through the backward
+    kernel and matches the plain backward (the name is kept from when both
+    refused). Both refuse CPU and non-contiguous tensors."""
     dev = _card()
     from repro_torch.kernels import decode_attn as dmod
     from repro_torch.kernels import flash_attn as fmod
     q, k, v = _attn_inputs((1, 2, 16, 32), torch.float32, dev, seed=0)
     lens = torch.full((1,), 16, dtype=torch.int32, device=dev)
     qg = q[:, :, :1].contiguous()
-    with pytest.raises(RuntimeError, match="no backward"):
-        fmod.flash_attention_cuda(q.requires_grad_(True), k, v)
+    live = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES
+    out = fmod.flash_attention_cuda(*live)
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    out_p, lse_p = fmod.flash_attention_plain_lse(q, k, v)
+    _bwd_close([t.grad for t in live],
+               fmod.flash_attention_bwd_plain(q, k, v, out_p, dout, lse_p))
     with pytest.raises(RuntimeError, match="no backward"):
         dmod.decode_attention_cuda(qg.requires_grad_(True), k, v, lens)
     with torch.no_grad():               # no graph recorded: allowed
@@ -911,6 +924,127 @@ def test_attention_kernels_refuse_grad_and_cpu_tensors():
     with pytest.raises(ValueError, match="contiguous"):
         fmod.flash_attention_cuda(q.detach().transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2))
+
+
+# The backward kernel against its plain version, per element:
+# |kernel - plain| <= rtol·|plain| + atol·M, M the largest |plain| over dQ,
+# dK and dV. Both sum f32 products in other orders; dK and dQ sum up to S
+# terms of dS = P (dO·v - D), whose two parts cancel (to exactly 0 at S =
+# 1), so the gap scales with the size of the terms, which M measures, not
+# with each element (atol, the f32 gap relative to M); then each rounds
+# once to the output type, one ulp apart at most (rtol).
+BWD_TOL = {torch.float32: (0.0, 2e-5), torch.float16: (2.0 ** -10, 2e-5),
+           torch.bfloat16: (2.0 ** -7, 2e-5)}
+
+
+def _bwd_close(got, want):
+    """Each of dQ, dK, dV within BWD_TOL of the plain version's."""
+    scale = max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        rtol, atol = BWD_TOL[w.dtype]
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=rtol,
+                                   atol=atol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,window", [
+    (1, 2, 32, 16, True, 0),
+    # The edges of the backward's 32-row key and query tiles.
+    (1, 3, 31, 128, True, 0),
+    (1, 3, 33, 128, True, 0),
+    (2, 2, 63, 64, True, 0),
+    (1, 2, 65, 128, True, 0),
+    (1, 2, 129, 100, True, 0),      # d a multiple of no tile
+    (1, 2, 200, 128, True, 33),     # a window whose edge crosses tiles
+    (2, 2, 77, 8, False, 0),
+    (1, 2, 129, 64, False, 70),
+    (1, 4, 1, 128, True, 0),
+])
+def test_flash_backward_kernel_matches_plain_version(b, h, s, d, causal,
+                                                     window, dtype):
+    """dQ, dK, dV from the backward kernel against
+    `flash_attention_bwd_plain` on the same q, k, v, out, dout and lse (the
+    forward kernel's), and lse against the plain forward's (f32 sums in
+    other orders, within 1e-6); two launches give the same bits (no
+    atomics)."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d + 1)
+    dout = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d + 2)[0]
+    with torch.no_grad():
+        out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=causal,
+                                                 window=window)
+        # Writing lse changes no bit of the output.
+        assert torch.equal(out, fmod.flash_attention_cuda(
+            q, k, v, causal=causal, window=window))
+        _, lse_p = fmod.flash_attention_plain_lse(q, k, v, causal=causal,
+                                                  window=window)
+        before = fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_ROUTE_LAUNCHES[
+            "f32_fma"]
+        got = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
+                                            window)
+        again = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                              causal, window)
+        want = fmod.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                              causal, window)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_BWD_LAUNCHES,
+            fmod.FLASH_BWD_ROUTE_LAUNCHES["f32_fma"]) == (before[0] + 2,
+                                                          before[1] + 2)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    _bwd_close(got, want)
+
+
+def test_lm_gradients_on_card_match_cpu():
+    """`lm_loss` gradients of an f32 GQA smoke model with remat: the card
+    (flash forward, its recompute and the backward kernel) against the CPU
+    (plain versions), and a `make_train_step` step with compression."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.train import (
+        TrainLoopConfig, ef_init, make_optimizer, make_train_step,
+    )
+    from repro_torch.train.optim import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("yi_6b", smoke=True).scaled_down(
+        dtype="float32", n_heads=8, n_kv_heads=2), remat=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    labels = torch.roll(tokens, -1, 1)
+
+    def grads(p, device):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss = lm_loss(cfg, live, tokens.to(device), labels.to(device))
+        return loss, torch.autograd.grad(loss, tree_leaves(live))
+
+    before = fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES
+    loss, g_card = grads(on_card, dev)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_LAUNCHES - before[0],
+            fmod.FLASH_BWD_LAUNCHES - before[1]) == (2 * cfg.n_layers,
+                                                     cfg.n_layers)
+    loss_cpu, g_cpu = grads(params, "cpu")
+    assert abs(float(loss) - float(loss_cpu)) < 1e-5
+    for a, b in zip(g_card, g_cpu):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+    lc = TrainLoopConfig(grad_accum=2, compress=True)
+    init, _ = make_optimizer(lc.optimizer, lr=lc.lr)
+    batch = {"tokens": tokens.view(2, 1, 40), "labels": labels.view(2, 1, 40)}
+    out = make_train_step(cfg, lc)(on_card, init(on_card), batch,
+                                   ef_init(on_card))
+    assert torch.isfinite(out[0]) and out[2]["step"] == 1
+    assert all(t.device.type == "cuda" and torch.isfinite(t).all()
+               for t in tree_leaves(out[1]) + tree_leaves(out[3]))
 
 
 def test_lm_on_card_matches_cpu():
