@@ -143,17 +143,20 @@ non-zero without a result line:
                1, 5 and 16, and in f16. The flash backward kernel against
                its plain version (dQ, dK, dV per element within BWD_TOL,
                the forward kernel's lse within LSE_TOL, two launches bit
-               for bit): at lm_train's microbatch (4, 32, 512, 128) bf16
-               and lm_train_check's (2, 32, 128, 128) f32, with a window
-               of 512, at S = 63, 65, 129 across its 32-row tiles, in f16.
+               for bit; 16-bit inputs on its tensor-core route, f32 on its
+               FMA route, kernels.flash_attn.BWD_ROUTES): at lm_train's
+               microbatch (4, 32, 512, 128) bf16 and lm_train_check's
+               (2, 32, 128, 128) f32, with a window of 512, at S = 63, 64,
+               65, 127, 128, 129 across the 32-row tiles of the f32
+               kernels and the 64-row tiles of the 16-bit ones, in f16.
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
                launches = 4, decode launches = 4 x 128.
  20. lm_train_check — lm_check's model and batch without remat: the
                gradients of `lm_loss` for every parameter through the
-               flash kernel and its backward kernel (f32 FMA routes)
-               against float64 autograd of the script's own forward,
+               flash kernel and its backward kernels (f32 FMA routes of
+               both) against float64 autograd of the script's own forward,
                within LM_GRAD_REL_TOL per tensor; flash launches = 4,
                backward launches = 4.
  21. lm_train — Yi-6B's CONFIG (bf16, remat, published widths) cut to 4
@@ -165,9 +168,11 @@ non-zero without a result line:
                same batch; then Adafactor for 3 steps with a checkpoint
                at step 2 restored bit for bit. Each microbatch launches
                the flash forward 4 times, its recompute 4 and the backward
-               4, every forward on the tensor-core route. Prints ms per
-               step (after a synchronise), tokens/s, peak allocated bytes
-               and the loss history.
+               4, every forward and backward on the tensor-core route.
+               Prints ms per step (after a synchronise), tokens/s, peak
+               allocated bytes, the loss history and one profiled step's
+               device time by kind (the backward's kernels dkdv_kernel,
+               dq_kernel and delta_kernel under flash_bwd).
  22. lm_serve — full Yi-6B (32 layers, bf16, weights from --seed):
                `serve` of 4 prompts of 128 tokens for 32 steps (decode
                launches = 32 x 160), `forward` on one 4096-token sequence
@@ -182,8 +187,11 @@ non-zero without a result line:
                with X·W at the rate of its three TF32 products; the SpMM
                also on socLJ1's first serving segment and at the tuned
                widths; decode also at lm_serve's own shape; the flash
-               backward at lm_train's microbatch and at Yi-6B's prefill,
-               beside SDPA's forward + backward less its forward.
+               backward (tensor-core route) at lm_train's microbatch and
+               at Yi-6B's prefill, beside SDPA's forward + backward less
+               its forward, with the function's bound (10·d FLOPs a valid
+               pair) and, beside it, the bound at the 20·d its split MMAs
+               do (bound_ms_split_mma).
  24. kernels — the summary line, then the card's name and power limit, then
                the result line.
 
@@ -2484,9 +2492,10 @@ def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
 
 
 def backward_cases(fmod, gen) -> list:
-    """The backward kernel at the training paths' shapes (lm_train's bf16
-    microbatch, lm_train_check's f32 batch), with a window of 512, at
-    ragged S across its 32-row tiles, and in f16."""
+    """The backward kernels at the training paths' shapes (lm_train's bf16
+    microbatch on the tensor-core route, lm_train_check's f32 batch on the
+    FMA route), with a window of 512, at S across the f32 kernels' 32-row
+    and the 16-bit kernels' 64-row tiles, and in f16."""
     b, h, d = LM_TRAIN_BATCH, 32, 128
     cases = [bwd_compare(fmod, (b, h, LM_TRAIN_SEQ, d), "bfloat16", gen,
                          "backward: lm_train's microbatch, bf16"),
@@ -2498,7 +2507,7 @@ def backward_cases(fmod, gen) -> list:
                          "backward: f16")]
     cases += [bwd_compare(fmod, (2, 8, s_len, d), "bfloat16", gen,
                           f"backward: S = {s_len}, tile edge")
-              for s_len in (63, 65, 129)]
+              for s_len in (63, 64, 65, 127, 128, 129)]
     cases.append(bwd_compare(fmod, (2, 8, 129, d), "float32", gen,
                              "backward: S = 129, f32"))
     return cases
@@ -3048,7 +3057,7 @@ def phase_lm_train(fmod, dmod, seed: int) -> dict:
         check_routes(f"lm_train {name} forward", counts, "flash",
                      "tensor_core")
         check_routes(f"lm_train {name} backward", counts, "flash_bwd",
-                     "f32_fma")
+                     "tensor_core")
         losses = [x for _, x in info["history"]]
         if len(losses) != steps or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"lm_train {name}: losses {losses}")
@@ -3147,10 +3156,11 @@ def time_flash(fmod, seed: int) -> dict:
 
 
 def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
-    """The backward kernel at `shape` (bf16, causal), its plain version and,
-    as the yardstick the port never calls, SDPA's forward + backward less
-    its forward (the same flash forward, saving its lse for the backward);
-    also the forward kernel as training launches it, writing lse."""
+    """The backward kernels at `shape` (bf16, causal: the tensor-core
+    route), their plain version and, as the yardstick the port never
+    calls, SDPA's forward + backward less its forward (the same flash
+    forward, saving its lse for the backward); also the forward kernel as
+    training launches it, writing lse."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed + 7)
@@ -3179,6 +3189,9 @@ def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
     # q, k, v, out, dout in; dq, dk, dv out; lse in, f32.
     nbytes = 8 * b * h * s_len * d * q.element_size() + 4 * b * h * s_len
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    # What the tensor-core route's MMAs do: q.k and dO.v in each of its two
+    # kernels, and dV, dK, dQ on split P and dS, two products each.
+    split_ms = 1e3 * max(2 * flops / PEAK_BF16_FLOPS, t_bytes)
     return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
             "flops": flops, "min_bytes": nbytes, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
@@ -3188,6 +3201,8 @@ def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ms_f32_fma": 1e3 * flops / PEAK_F32_FLOPS,
             "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
+            "bound_ms_split_mma": split_ms,
+            "bound_share_split_mma": split_ms / ms,
             "forward_with_lse_ms": fwd_lse_ms}
 
 
@@ -3396,6 +3411,8 @@ def run(args) -> None:
                           g_train, args.seed, tuned)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     gcn_keys = (*keys, "bound_ms_bricks", "bound_by_bricks")
+    bwd_keys = ("bound_ms_split_mma", "bound_share_split_mma",
+                "bound_ms_f32_fma")
 
     def gcn_by_route(kernel: str) -> dict:
         routes = [path[kernel] for path in GCN_ROUTES.values()]
@@ -3461,12 +3478,12 @@ def run(args) -> None:
                           "no Pallas backward",
          "launches": sum(bwd_paths.values()),
          "launches_by_path": bwd_paths,
-         "launches_by_route": by_route("flash_bwd", ("f32_fma",)),
+         "launches_by_route": by_route("flash_bwd"),
          "max_abs_err": attn_err["backward"],
          **{k: timing["flash_bwd"][k] for k in keys},
-         "bound_ms_f32_fma": timing["flash_bwd"]["bound_ms_f32_fma"],
+         **{k: timing["flash_bwd"][k] for k in bwd_keys},
          "prefill_shape": {k: timing["flash_bwd_prefill"][k]
-                           for k in (*keys, "bound_ms_f32_fma")}},
+                           for k in (*keys, *bwd_keys)}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:68",

@@ -24,37 +24,113 @@
 // Yi-6B's prefill (1, 32, 4096, 128) 3.44e11 FLOPs, 0.347 ms. Only the
 // tensor cores come near that bound.
 //
-// This first version does the sums as f32 FMA on every dtype (tensor cores,
-// mma.sync with attention.cuh's split_pair and then wgmma, are later work):
-// the FMA rate, 67 TFLOP/s, bounds it at 0.32 ms and 5.1 ms at those shapes,
-// and it recomputes q.k and dO.v in both of its main kernels, 14*d FLOPs a
-// pair in all. It is deterministic: no atomics, every sum in a fixed order.
-// Three kernels, launched in order on one stream:
+// Every route is deterministic: no atomics, every sum in a fixed order, and
+// each kernel owns the output rows it writes. Three kernels, launched in
+// order on one stream: delta_kernel (D, one warp per row), a dK/dV kernel
+// whose blocks own keys and walk the queries that see them, and a dQ kernel
+// whose blocks own queries and walk their keys; both recompute P. Two
+// routes, chosen by dtype in flash_attn_bwd_launch:
 //
-// * delta_kernel: D, one warp per row.
-// * dkdv_kernel: one block owns ROWS = 32 keys of one (b, h), eight threads
-//   a key (each holding 4 of every 32 dims of k_j, v_j and the dK_j, dV_j
-//   sums in registers), and loops over the query tiles that see those keys
-//   (from the tile's first key under the causal mask, to its last key plus
-//   the window), TILE = 32 queries of q and dO widened to f32 in shared
-//   memory per step, with their lse and D. Each (query, key) pair takes two
-//   dot products reduced over the eight threads by shuffles, then two
-//   axpys. Key tiles are scheduled longest first (tile 0 sees every query).
-// * dq_kernel: one block owns 32 queries, eight threads a query (q_i, dO_i,
-//   dQ_i, lse_i, D_i in registers), and loops over the key tiles the
-//   queries see, k and v widened to f32 in shared memory; query tiles
-//   longest first, as the forward schedules them.
+// * f16 and bf16: the tensor-core kernels (namespace tc), written with
+//   mma.sync.m16n8k16 (f32 accumulate) from attention.cuh's pieces, as the
+//   forward's tensor-core route is:
+//   - dkdv_kernel: one block of 4 warps owns ROWS = 64 keys of one (b, h),
+//     16 a warp; its K and V tiles are copied once into XOR-swizzled 16-bit
+//     shared memory. It walks the query tiles that see those keys (from the
+//     tile's first key under the causal mask to its last key plus the
+//     window), TILE = 64 rows of Q and dO with their lse and D copied by
+//     cp.async into a ring of STAGES = 2, and takes each tile in CHUNK = 32
+//     query passes: S^T = K.Q^T and dP^T = V.dO^T by MMA (K, V as A
+//     through ldmatrix, Q, dO as B), so that each lane's accumulators hold
+//     P^T = exp2(S^T s log2e - lse_i log2e) and dS^T = P^T (dP^T - D_i) for
+//     its keys; then dV += P^T.dO and dK += dS^T.Q, P^T and dS^T going from
+//     the accumulators to A fragments in registers, dO and Q as B through
+//     ldmatrix.trans. dK and dV stay in f32 registers for the whole walk.
+//   - dq_kernel: one block of 4 warps owns 64 queries, 16 a warp, Q and dO
+//     held in registers as A fragments, lse and D per row; the key loop
+//     takes TILE = 64 keys of K and V a step through the same ring, in
+//     CHUNK = 32 key passes: S = Q.K^T and dP = dO.V^T, then P and dS, and
+//     dQ += dS.K with K through ldmatrix.trans.
+//   - P and dS enter their products as hi + lo pairs (attention.cuh,
+//     split_pair), two MMAs each: rounded once to 16 bits they miss the
+//     port's per-element limit against the f32 plain version (one output
+//     ulp, BWD_TOL) by 10-30x in bf16 and 2-5x in f16, where the split
+//     meets it (tests/test_torch_attention.py emulates both). The tensor
+//     cores so do 20*d FLOPs a valid pair: q.k and dO.v in both kernels,
+//     and dV, dK, dQ twice each.
+//   - Only the tiles that cross the causal diagonal, the window's edge or
+//     the end of S are masked, and a warp skips a pass in which none of its
+//     pairs is valid. Rows past S are copied as zeros; their lse and D are
+//     never read for a valid pair. Head dims d <= 128 are padded to
+//     DP = 16*NC with zeros in shared memory. Both kernels schedule their
+//     longest tiles first.
+//   - Registers: at d = 128 a warp's 16 keys hold 2 x 64 f32 of dK and dV
+//     a lane, so K and V are read from shared memory by ldmatrix at each
+//     pass, not held as fragments, and a pass takes 32 queries (S^T and
+//     dP^T, 2 x 16 f32 a lane). ptxas (CUDA 12.8), registers for NC = 1,
+//     2, 4, 8: dq_kernel 89, 118, 168, 236, no spills; dkdv_kernel 103,
+//     130 (f16 127; f16 100 at NC = 1), 178, 255, with 44 bytes of spill
+//     stores and 80 of loads at NC = 8 in bf16 (32 and 68 in f16). At
+//     d = 128 a block takes 97 KiB of shared memory (dQ 96), two blocks
+//     (8 warps) per SM.
+//   On an H100 80GB HBM3 at 700 W (scripts/flash_bwd_variants.py) it takes
+//   0.297 ms at the training shape above and 2.73-2.75 ms at the prefill
+//   shape, of which dK/dV 1.55 and dQ 1.14 ms: about 265 and 240 TFLOP/s
+//   of MMA work, the forward's mma.sync rate. Passes of 16 rows (no
+//   spills) or 64 (more), or 8 warps over 128-row tiles, are within 5%.
+//   This design is mma.sync's; wgmma with a TMA producer warp is later work.
+//
+// * f32: the FMA kernels of the first version (namespace f32fma), kept as
+//   they were. Tensor cores take f32 only as TF32, which keeps 10 bits of
+//   mantissa: the f32 limit (rtol 0, atol 2e-5 of the largest gradient)
+//   rules that out. One block owns 32 keys (dK/dV) or 32 queries (dQ),
+//   eight threads a row, the streamed operand widened to f32 in shared
+//   memory 32 rows a step, scalar fmaf; it recomputes q.k and dO.v in both
+//   kernels, 14*d FLOPs a pair, bounded at 0.32 ms and 5.1 ms at those
+//   shapes by the 67 TFLOP/s FMA rate. On an H100 80GB HBM3 at 700 W it
+//   took 1.9660 and 26.6042 ms there in bf16, when it served every dtype.
 #include "attention.cuh"
 
 #include <math.h>
 
 namespace {
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Whether query qi attends to key kj under the masks.
+__device__ __forceinline__ bool valid_pair(int qi, int kj, int S, int causal,
+                                           int window) {
+  bool ok = qi < S && kj < S;
+  if (causal) ok = ok && kj <= qi;
+  if (window > 0) ok = ok && kj > qi - window;
+  return ok;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                 float* __restrict__ delta, int64_t rows, int d) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;             // a whole warp leaves together
+  const T* o = out + row * d;
+  const T* g = dout + row * d;
+  float acc = 0.0f;
+  for (int dim = lane; dim < d; dim += 32)
+    acc = fmaf(attn::to_f32(o[dim]), attn::to_f32(g[dim]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+namespace f32fma {
+
+
 constexpr int TPR = 8;                 // threads per owned row
 constexpr int ROWS = 32;               // rows (keys or queries) a block owns
 constexpr int THREADS = ROWS * TPR;    // 256
 constexpr int TILE = 32;               // rows of the streamed operand a step
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Head dims padded to DP = 32 * NCH: a thread holds dims c * 32 + part * 4
 // + e, c < NCH, e < 4, so the eight threads of a row read one 128-byte
@@ -69,14 +145,6 @@ __device__ __forceinline__ float row_sum(float x) {   // over 8 lanes
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-__device__ __forceinline__ bool valid_pair(int qi, int kj, int S, int causal,
-                                           int window) {
-  bool ok = qi < S && kj < S;
-  if (causal) ok = ok && kj <= qi;
-  if (window > 0) ok = ok && kj > qi - window;
-  return ok;
 }
 
 // Row `r` of the (S, d) matrix at `src`, this thread's dims of it, into
@@ -131,24 +199,6 @@ __device__ __forceinline__ void load_tiles(float* __restrict__ a_s,
     a_s[idx] = ok ? attn::to_f32(a[off]) : 0.0f;
     b_s[idx] = ok ? attn::to_f32(b[off]) : 0.0f;
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-    delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                 float* __restrict__ delta, int64_t rows, int d) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;             // a whole warp leaves together
-  const T* o = out + row * d;
-  const T* g = dout + row * d;
-  float acc = 0.0f;
-  for (int dim = lane; dim < d; dim += 32)
-    acc = fmaf(attn::to_f32(o[dim]), attn::to_f32(g[dim]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
 }
 
 template <typename T, int NC>
@@ -314,6 +364,407 @@ __global__ void __launch_bounds__(THREADS)
   store_row<T, NCH>(dq + base, dqa, scale, qi, S, d, part);
 }
 
+}  // namespace f32fma
+
+namespace tc {
+
+constexpr int WARPS = 4;               // of 16 owned rows each
+constexpr int ROWS = 16 * WARPS;       // keys (dK/dV) or queries (dQ) a block owns
+constexpr int THREADS = 32 * WARPS;
+constexpr int TILE = 64;               // streamed rows a ring stage holds
+constexpr int CHUNK = 32;              // streamed rows a register pass takes
+constexpr int STAGES = 2;
+constexpr int MIN_BLOCKS = 2;          // per SM, for the register budget
+
+// Dynamic shared memory: two tiles of the owned rows (K and V, or Q and
+// dO), then per stage two streamed tiles and, for dK/dV, TILE floats each
+// of lse and D. Every tile starts at a multiple of 1024 bytes.
+template <int NC>
+__host__ __device__ constexpr int smem_bytes(bool with_rows) {
+  return (2 * ROWS + STAGES * 2 * TILE) * 16 * NC * 2 +
+         (with_rows ? STAGES * 2 * TILE * 4 : 0);
+}
+
+// Whether any (query, key) pair with query in [q_lo, q_hi] and key in
+// [k_lo, k_hi] is valid.
+__device__ __forceinline__ bool any_valid(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, int S, int causal,
+                                          int window) {
+  bool ok = q_lo < S && k_lo < S;
+  if (causal) ok = ok && k_lo <= q_hi;
+  if (window > 0) ok = ok && k_hi > q_lo - window;
+  return ok;
+}
+
+// lse in log2 units for exp2, +inf for a row with no valid key (P = 0).
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse == -INFINITY ? INFINITY : lse * LOG2E;
+}
+
+// Writes rows [r0, r0 + 16) of the warp's f32 accumulator `acc` (NO
+// n-tiles of 8 dims) times `mul` to the (S, d) matrix at `dst`, in pairs
+// where rows and the pointer allow.
+template <typename T, int NO>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+                                           const float (&acc)[NO][4],
+                                           float mul, int r0, int S, int d,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool pairs = d % 2 == 0 && reinterpret_cast<uintptr_t>(dst) % 4 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= S) continue;
+    T* out = dst + static_cast<int64_t>(row) * d;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float x0 = acc[n][2 * r] * mul, x1 = acc[n][2 * r + 1] * mul;
+      if (pairs && c + 1 < d) {
+        *reinterpret_cast<uint32_t*>(out + c) = attn::pack_pair<T>(x0, x1);
+      } else {
+        if (c < d) out[c] = attn::from_f32<T>(x0);
+        if (c + 1 < d) out[c + 1] = attn::from_f32<T>(x1);
+      }
+    }
+  }
+}
+
+// acc[2np], acc[2np + 1] += (hi + lo) . B for the 16x16 A fragment pair
+// (hi, lo) and the 16 x DP matrix at `b` (rows of k, swizzled, `row0` its
+// first row), B through ldmatrix.trans: the product of a split P or dS
+// with dO, Q or K.
+template <typename T, int DP>
+__device__ __forceinline__ void mma_split_rows(float (&acc)[DP / 8][4],
+                                               const uint32_t (&hi)[4],
+                                               const uint32_t (&lo)[4],
+                                               uint32_t b, int row0,
+                                               int lane) {
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < DP / 16; ++np) {
+    uint32_t f[4];
+    attn::ldmatrix_x4_trans(
+        b + attn::swizzle<DP>(((row0 + v_row) * DP + np * 16 + v_col) * 2), f);
+    attn::mma_16816<T>(acc[2 * np], hi, f[0], f[1]);
+    attn::mma_16816<T>(acc[2 * np], lo, f[0], f[1]);
+    attn::mma_16816<T>(acc[2 * np + 1], hi, f[2], f[3]);
+    attn::mma_16816<T>(acc[2 * np + 1], lo, f[2], f[3]);
+  }
+}
+
+// The A fragment pair of k-step kk of a 16 x CHUNK accumulator `x`, split.
+template <typename T>
+__device__ __forceinline__ void split_fragment(const float (&x)[CHUNK / 8][4],
+                                               int kk, uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+  attn::split_pair<T>(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+  attn::split_pair<T>(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+  attn::split_pair<T>(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+  attn::split_pair<T>(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk,
+                T* __restrict__ dv, int S, int d, float scale, int causal,
+                int window, int vec) {
+  constexpr int DP = 16 * NC;
+  constexpr int TB = TILE * DP * 2;    // bytes of a tile
+  constexpr int NO = DP / 8;           // n-tiles of dK, dV
+  static_assert(ROWS == TILE, "key tiles align with query tiles");
+  extern __shared__ __align__(1024) char smem[];
+  char* stages = smem + 2 * TB;        // K, V, then per stage Q, dO
+  float* rows = reinterpret_cast<float*>(stages + STAGES * 2 * TB);
+
+  const int64_t bh =
+      static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const int64_t base = bh * S * d;
+  const int64_t rbase = bh * S;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * ROWS;    // longest first: tile 0 sees most
+  const int kw = k0 + warp * 16;       // this warp's first key
+
+  const int i_begin = causal ? k0 : 0;
+  const int i_end = window > 0 ? min(S, k0 + ROWS - 1 + window) : S;
+  const int n_tiles = max(0, (i_end - i_begin + TILE - 1) / TILE);
+
+  auto load_qdo = [&](int it) {
+    const int i0 = i_begin + it * TILE;
+    char* st = stages + 2 * TB * (it % STAGES);
+    const int64_t off = base + static_cast<int64_t>(i0) * d;
+    attn::load_tile<T, TILE, DP, THREADS>(st, q + off, S - i0, d, vec, tid);
+    attn::load_tile<T, TILE, DP, THREADS>(st + TB, dout + off, S - i0, d,
+                                          vec, tid);
+    float* r = rows + 2 * TILE * (it % STAGES);    // lse, then D
+    const int i = tid % TILE;
+    const bool ok = i0 + i < S;
+    const float* src = (tid < TILE ? lse : delta) + rbase + (ok ? i0 + i : 0);
+    attn::cp_async<4>(attn::smem_addr(r + tid), src, ok ? 4 : 0);
+  };
+  attn::load_tile<T, ROWS, DP, THREADS>(
+      smem, k + base + static_cast<int64_t>(k0) * d, S - k0, d, vec, tid);
+  attn::load_tile<T, ROWS, DP, THREADS>(
+      smem + TB, v + base + static_cast<int64_t>(k0) * d, S - k0, d, vec,
+      tid);
+  if (n_tiles > 0) load_qdo(0);
+  attn::cp_async_commit();
+
+  // ldmatrix offsets: A (K, V) rows lane % 16 of the warp's, column half
+  // lane / 16; B (Q, dO) rows lane % 8 + 8 * (lane / 16), column half
+  // (lane / 8) % 2.
+  const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+  const uint32_t ks = attn::smem_addr(smem), vs = ks + TB;
+  const float scale_log2 = scale * LOG2E;
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    attn::cp_async_wait<0>();
+    __syncthreads();                   // tile it landed; tile it - 1 consumed
+    if (it + 1 < n_tiles) load_qdo(it + 1);
+    attn::cp_async_commit();
+
+    const int i0 = i_begin + it * TILE;
+    const uint32_t qs = attn::smem_addr(stages + 2 * TB * (it % STAGES));
+    const uint32_t gs = qs + TB;
+    const float* ls = rows + 2 * TILE * (it % STAGES);
+    const float* ds = ls + TILE;
+    const bool edge = (causal && k0 + ROWS - 1 > i0) ||
+                      (window > 0 && k0 <= i0 + TILE - 1 - window) ||
+                      i0 + TILE > S || k0 + ROWS > S;
+
+#pragma unroll 1
+    for (int c = 0; c < TILE / CHUNK; ++c) {
+      const int c0 = c * CHUNK;        // the pass's first row in the tile
+      if (edge && !any_valid(i0 + c0, i0 + c0 + CHUNK - 1, kw, kw + 15, S,
+                             causal, window))
+        continue;
+      float st[CHUNK / 8][4], dpt[CHUNK / 8][4];
+#pragma unroll
+      for (int n = 0; n < CHUNK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        uint32_t ka[4], va[4];
+        const uint32_t a_off =
+            attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2);
+        attn::ldmatrix_x4(ks + a_off, ka);
+        attn::ldmatrix_x4(vs + a_off, va);
+#pragma unroll
+        for (int np = 0; np < CHUNK / 16; ++np) {
+          const uint32_t b_off = attn::swizzle<DP>(
+              ((c0 + np * 16 + b_row) * DP + kk * 16 + b_col) * 2);
+          uint32_t b[4];
+          attn::ldmatrix_x4(qs + b_off, b);
+          attn::mma_16816<T>(st[2 * np], ka, b[0], b[1]);
+          attn::mma_16816<T>(st[2 * np + 1], ka, b[2], b[3]);
+          attn::ldmatrix_x4(gs + b_off, b);
+          attn::mma_16816<T>(dpt[2 * np], va, b[0], b[1]);
+          attn::mma_16816<T>(dpt[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+
+      // P^T and dS^T in place: lane (g, t) holds keys kw + g (e < 2) and
+      // kw + g + 8, queries i0 + c0 + 8n + 2t + (e & 1).
+#pragma unroll
+      for (int n = 0; n < CHUNK / 8; ++n) {
+        const int col = c0 + n * 8 + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lrow = lse_log2(e & 1 ? l2.y : l2.x);
+          const float drow = e & 1 ? d2.y : d2.x;
+          float p = exp2f(fmaf(st[n][e], scale_log2, -lrow));
+          if (edge && !valid_pair(i0 + col + (e & 1), kw + g + 8 * (e >> 1),
+                                  S, causal, window))
+            p = 0.0f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - drow);
+        }
+      }
+
+      // dV += P^T.dO, dK += dS^T.Q, 16 queries a k-step.
+#pragma unroll
+      for (int kk = 0; kk < CHUNK / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_fragment<T>(st, kk, hi, lo);
+        mma_split_rows<T, DP>(dva, hi, lo, gs, c0 + kk * 16, lane);
+        split_fragment<T>(dpt, kk, hi, lo);
+        mma_split_rows<T, DP>(dka, hi, lo, qs, c0 + kk * 16, lane);
+      }
+    }
+  }
+  attn::cp_async_wait<0>();            // no copy outlives the block
+
+  store_rows<T, NO>(dk + base, dka, scale, kw, S, d, lane);
+  store_rows<T, NO>(dv + base, dva, 1.0f, kw, S, d, lane);
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, int S, int d, float scale, int causal,
+              int window, int vec) {
+  constexpr int DP = 16 * NC;
+  constexpr int TB = TILE * DP * 2;    // bytes of a streamed tile
+  constexpr int OB = ROWS * DP * 2;    // bytes of an owned tile
+  constexpr int NO = DP / 8;           // n-tiles of dQ
+  extern __shared__ __align__(1024) char smem[];
+  char* stages = smem + 2 * OB;        // Q, dO, then per stage K, V
+
+  const int64_t bh =
+      static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const int64_t base = bh * S * d;
+  const int64_t rbase = bh * S;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_qt = (S + ROWS - 1) / ROWS;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * ROWS;
+  const int qw = q0 + warp * 16;       // this warp's first query
+
+  const int k_end = causal ? min(S, q0 + ROWS) : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / TILE * TILE : 0;
+  const int n_tiles = max(0, (k_end - k_begin + TILE - 1) / TILE);
+
+  auto load_kv = [&](int it) {
+    const int k0 = k_begin + it * TILE;
+    char* st = stages + 2 * TB * (it % STAGES);
+    const int64_t off = base + static_cast<int64_t>(k0) * d;
+    attn::load_tile<T, TILE, DP, THREADS>(st, k + off, S - k0, d, vec, tid);
+    attn::load_tile<T, TILE, DP, THREADS>(st + TB, v + off, S - k0, d, vec,
+                                          tid);
+  };
+  attn::load_tile<T, ROWS, DP, THREADS>(
+      smem, q + base + static_cast<int64_t>(q0) * d, S - q0, d, vec, tid);
+  attn::load_tile<T, ROWS, DP, THREADS>(
+      smem + OB, dout + base + static_cast<int64_t>(q0) * d, S - q0, d, vec,
+      tid);
+  if (n_tiles > 0) load_kv(0);
+  attn::cp_async_commit();
+
+  // This lane's rows qw + g and qw + g + 8: lse (log2 units) and D.
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    lrow[r] = row < S ? lse_log2(lse[rbase + row]) : INFINITY;
+    drow[r] = row < S ? delta[rbase + row] : 0.0f;
+  }
+
+  // ldmatrix offsets: A (Q, dO) rows lane % 16 of the warp's, column half
+  // lane / 16; B (K, V) rows lane % 8 + 8 * (lane / 16), column half
+  // (lane / 8) % 2.
+  const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+  const float scale_log2 = scale * LOG2E;
+
+  uint32_t qf[NC][4], gf[NC][4];
+  float dqa[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    attn::cp_async_wait<0>();
+    __syncthreads();                   // tile it landed; tile it - 1 consumed
+    if (it == 0) {
+      const uint32_t qs = attn::smem_addr(smem), gs = qs + OB;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        const uint32_t off =
+            attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2);
+        attn::ldmatrix_x4(qs + off, qf[kk]);
+        attn::ldmatrix_x4(gs + off, gf[kk]);
+      }
+    }
+    if (it + 1 < n_tiles) load_kv(it + 1);
+    attn::cp_async_commit();
+
+    const int k0 = k_begin + it * TILE;
+    const uint32_t ks = attn::smem_addr(stages + 2 * TB * (it % STAGES));
+    const uint32_t vs = ks + TB;
+    const bool edge = (causal && k0 + TILE - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + ROWS - 1 - window) ||
+                      k0 + TILE > S || q0 + ROWS > S;
+
+#pragma unroll 1
+    for (int c = 0; c < TILE / CHUNK; ++c) {
+      const int c0 = c * CHUNK;        // the pass's first key in the tile
+      if (edge && !any_valid(qw, qw + 15, k0 + c0, k0 + c0 + CHUNK - 1, S,
+                             causal, window))
+        continue;
+      float s[CHUNK / 8][4], dp[CHUNK / 8][4];
+#pragma unroll
+      for (int n = 0; n < CHUNK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+#pragma unroll
+        for (int np = 0; np < CHUNK / 16; ++np) {
+          const uint32_t b_off = attn::swizzle<DP>(
+              ((c0 + np * 16 + b_row) * DP + kk * 16 + b_col) * 2);
+          uint32_t b[4];
+          attn::ldmatrix_x4(ks + b_off, b);
+          attn::mma_16816<T>(s[2 * np], qf[kk], b[0], b[1]);
+          attn::mma_16816<T>(s[2 * np + 1], qf[kk], b[2], b[3]);
+          attn::ldmatrix_x4(vs + b_off, b);
+          attn::mma_16816<T>(dp[2 * np], gf[kk], b[0], b[1]);
+          attn::mma_16816<T>(dp[2 * np + 1], gf[kk], b[2], b[3]);
+        }
+      }
+
+      // P and dS in place: lane (g, t) holds queries qw + g (e < 2) and
+      // qw + g + 8, keys k0 + c0 + 8n + 2t + (e & 1).
+#pragma unroll
+      for (int n = 0; n < CHUNK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2f(fmaf(s[n][e], scale_log2, -lrow[r]));
+          if (edge && !valid_pair(qw + g + 8 * r,
+                                  k0 + c0 + n * 8 + 2 * t + (e & 1), S,
+                                  causal, window))
+            p = 0.0f;
+          s[n][e] = p * (dp[n][e] - drow[r]);
+        }
+      }
+
+      // dQ += dS.K, 16 keys a k-step.
+#pragma unroll
+      for (int kk = 0; kk < CHUNK / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_fragment<T>(s, kk, hi, lo);
+        mma_split_rows<T, DP>(dqa, hi, lo, ks, c0 + kk * 16, lane);
+      }
+    }
+  }
+  attn::cp_async_wait<0>();            // no copy outlives the block
+
+  store_rows<T, NO>(dq + base, dqa, scale, qw, S, d, lane);
+}
+
+}  // namespace tc
+
 struct Launch {
   const void* q;
   const void* k;
@@ -329,9 +780,10 @@ struct Launch {
   float scale;
   cudaStream_t stream;
 
+  // The D pre-pass, then the dK/dV and dQ kernels of the dtype's route:
+  // f32 the FMA kernels, f16 and bf16 the tensor-core kernels.
   template <typename T, int NC>
   cudaError_t operator()() const {
-    constexpr int DP = 32 * nch<NC>();
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
@@ -342,25 +794,61 @@ struct Launch {
                                 d);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    if constexpr (std::is_same_v<T, float>)
+      return f32_kernels<NC>(qt, kt, vt, gt);
+    else
+      return tc_kernels<T, NC>(qt, kt, vt, gt);
+  }
 
+  template <int NC>
+  cudaError_t f32_kernels(const float* qt, const float* kt, const float* vt,
+                          const float* gt) const {
+    using namespace f32fma;
+    constexpr int DP = 32 * nch<NC>();
     const dim3 grid((s + ROWS - 1) / ROWS, h, b);
     const size_t kv_smem = (2 * TILE * DP + 2 * TILE) * sizeof(float);
-    err = attn::allow_smem(reinterpret_cast<const void*>(dkdv_kernel<T, NC>),
-                           kv_smem);
+    cudaError_t err = attn::allow_smem(
+        reinterpret_cast<const void*>(dkdv_kernel<float, NC>), kv_smem);
     if (err != cudaSuccess) return err;
-    dkdv_kernel<T, NC><<<grid, THREADS, kv_smem, stream>>>(
-        qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        s, d, scale, causal, window);
+    dkdv_kernel<float, NC><<<grid, THREADS, kv_smem, stream>>>(
+        qt, kt, vt, gt, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), s, d, scale, causal, window);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
     const size_t q_smem = 2 * TILE * DP * sizeof(float);
-    err = attn::allow_smem(reinterpret_cast<const void*>(dq_kernel<T, NC>),
+    err = attn::allow_smem(reinterpret_cast<const void*>(dq_kernel<float, NC>),
                            q_smem);
     if (err != cudaSuccess) return err;
-    dq_kernel<T, NC><<<grid, THREADS, q_smem, stream>>>(
+    dq_kernel<float, NC><<<grid, THREADS, q_smem, stream>>>(
+        qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), s, d, scale,
+        causal, window);
+    return cudaGetLastError();
+  }
+
+  template <typename T, int NC>
+  cudaError_t tc_kernels(const T* qt, const T* kt, const T* vt,
+                         const T* gt) const {
+    const void* ptrs[4] = {q, k, v, dout};
+    const int vec = attn::copy_width(d, ptrs, 4);
+    const dim3 grid((s + tc::ROWS - 1) / tc::ROWS, h, b);
+    constexpr size_t kv_smem = tc::smem_bytes<NC>(true);
+    cudaError_t err = attn::allow_smem(
+        reinterpret_cast<const void*>(tc::dkdv_kernel<T, NC>), kv_smem);
+    if (err != cudaSuccess) return err;
+    tc::dkdv_kernel<T, NC><<<grid, tc::THREADS, kv_smem, stream>>>(
+        qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        s, d, scale, causal, window, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+
+    constexpr size_t q_smem = tc::smem_bytes<NC>(false);
+    err = attn::allow_smem(reinterpret_cast<const void*>(tc::dq_kernel<T, NC>),
+                           q_smem);
+    if (err != cudaSuccess) return err;
+    tc::dq_kernel<T, NC><<<grid, tc::THREADS, q_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), s, d, scale, causal,
-        window);
+        window, vec);
     return cudaGetLastError();
   }
 };

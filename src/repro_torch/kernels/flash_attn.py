@@ -18,9 +18,9 @@ which the backward recomputes the probabilities:
     dS_ij = P_ij (dO_i · v_j - D_i),
     dV_j = Σ_i P_ij dO_i,  dK_j = s Σ_i dS_ij q_i,  dQ_i = s Σ_j dS_ij k_j.
 
-On the card the forward takes the tensor-core kernel for f16 and bf16 and
-the f32 FMA kernel for f32 (`ROUTES`; the source says why); the backward
-takes its f32 FMA kernels on every dtype (`BWD_ROUTES`).
+On the card both directions take their tensor-core kernels for f16 and
+bf16 and their f32 FMA kernels for f32 (`ROUTES`, `BWD_ROUTES`; the
+sources say why).
 `FlashAttention` is the autograd Function over both; `flash_attention_cuda`
 and `flash_attention_blocks` go through it when a gradient is asked for.
 `flash_attention_blocks` dispatches on where the tensors lie: CPU tensors
@@ -42,14 +42,14 @@ from repro_torch.kernels.build import entry
 FLASH_LAUNCHES = 0
 FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_BWD_LAUNCHES = 0
-FLASH_BWD_ROUTE_LAUNCHES = {"f32_fma": 0}
+FLASH_BWD_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # The kernel each dtype takes in csrc/flash_attn.cu and csrc/decode_attn.cu.
 ROUTES = {torch.float32: "f32_fma", torch.float16: "tensor_core",
           torch.bfloat16: "tensor_core"}
 # ... and in csrc/flash_attn_bwd.cu.
-BWD_ROUTES = {dt: "f32_fma" for dt in DTYPE_CODES}
+BWD_ROUTES = dict(ROUTES)
 MAX_HEAD_DIM = 128     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
 
 

@@ -11,6 +11,7 @@ Tolerances: float32 atol 1e-5 (the same f32 arithmetic, summed in another
 order); bfloat16 outputs per element 2^-7·|ref| + 1e-5, one bf16 ulp, since
 both sides round once an f32 result whose last bits differ.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 from repro.kernels import decode_attention as r_decode
 from repro.kernels import flash_attention as r_flash
 from repro.kernels import ref as r_ref
+from repro.models import layers as r_layers
 from repro_torch.kernels import decode_attn as p_dec
 from repro_torch.kernels import flash_attn as p_flash
 from repro_torch.kernels import ops as p_ops
@@ -221,12 +223,18 @@ def _tensor_core_arithmetic(q, k, v, valid, parts):
     sc = sc.masked_fill(~valid, float("-inf"))
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0))
-    rest, acc = p, torch.zeros(p.shape[:-1] + (v.shape[-1],))
+    acc = sum(piece @ v.float() for piece in _pieces(p, dt, parts))
+    return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(dt)
+
+
+def _pieces(x, dt, parts):
+    """x as `parts` 16-bit pieces in f32: T(x), T(x - T(x)), ..."""
+    rest, out = x, []
     for _ in range(parts):
         piece = rest.to(dt).float()
-        acc = acc + piece @ v.float()
+        out.append(piece)
         rest = rest - piece
-    return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(dt)
+    return out
 
 
 def _over_limit(out, plain):
@@ -256,6 +264,89 @@ def test_split_p_meets_the_flash_kernels_limit(b, h, s, d, window, dtype):
                        plain) <= 1.0
     assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 1),
                        plain) > 1.0
+
+
+# The card's per-element limit on the backward kernels against their plain
+# version (tests/test_torch_gpu.py and chip_smoke.py BWD_TOL): rtol, and
+# atol relative to M, the largest |plain| over dQ, dK and dV.
+BWD_TOL = {torch.bfloat16: (2.0 ** -7, 2e-5),
+           torch.float16: (2.0 ** -10, 2e-5)}
+
+
+def _tensor_core_backward(q, k, v, out, dout, lse, valid, parts):
+    """The 16-bit backward kernels' arithmetic, emulated on the CPU: S =
+    Q·Kᵀ and dP = dO·Vᵀ as f32 sums of exact products of 16-bit values
+    (what mma.sync accumulates), P = exp(S/√d - lse) and dS = P (dP - D)
+    in f32 with D = Σ dO·O from the forward's `out`, and dV = Pᵀ·dO,
+    dK = dSᵀ·Q/√d, dQ = dS·K/√d each summed over `parts` 16-bit pieces of
+    P or dS. `valid` masks the pairs (True = attend). Returns (dq, dk,
+    dv) in q's dtype."""
+    dt, scale = q.dtype, 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    ok = valid & torch.isfinite(lse)[..., None]
+    p = torch.where(ok, torch.exp((qf @ kf.transpose(-1, -2)) * scale
+                                  - lse[..., None]), 0.0)
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dv = sum(x.transpose(-1, -2) @ dof for x in _pieces(p, dt, parts))
+    dk = sum(x.transpose(-1, -2) @ qf for x in _pieces(ds, dt, parts))
+    dq = sum(x @ kf for x in _pieces(ds, dt, parts))
+    return (dq * scale).to(dt), (dk * scale).to(dt), dv.to(dt)
+
+
+def _bwd_over_limit(got, want):
+    """The largest |got - want| / (rtol·|want| + atol·M) over dQ, dK, dV."""
+    rtol, atol = BWD_TOL[want[0].dtype]
+    m = max(float(w.float().abs().max()) for w in want)
+    return max(float(((g.float() - w.float()).abs()
+                      / (rtol * w.float().abs() + atol * m)).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,h,s,d,window", [
+    (1, 4, 512, 128, 0),         # causal, 8 tiles of 64
+    (2, 3, 130, 64, 0),          # ragged S
+    (1, 2, 200, 128, 33)])       # a window whose edge crosses tiles
+def test_split_ds_meets_the_backward_kernels_limit(b, h, s, d, window,
+                                                   dtype):
+    """Why the tensor-core backward splits P and dS: dV, dK and dQ on P
+    and dS rounded once to 16 bits miss BWD_TOL against
+    `flash_attention_bwd_plain`; on hi + lo they meet it (causal masks).
+    The split also meets the limit against `jax.grad` of the reference's
+    `_attn_core` on the same values in f32, rounded to the dtype, when its
+    D is taken from the f32 forward's output, as the reference's is: from
+    the 16-bit output the kernel reads, D is off by more than the limit
+    allows, for the plain version as much."""
+    rng = np.random.default_rng(b * s + d + window)
+    q, k, v, dout = (torch.from_numpy(_normal(rng, (b, h, s, d))).to(dtype)
+                     for _ in range(4))
+    out, lse = p_flash.flash_attention_plain_lse(q, k, v, causal=True,
+                                                 window=window)
+    plain = p_flash.flash_attention_bwd_plain(q, k, v, out, dout, lse, True,
+                                              window)
+    pos = torch.arange(s)
+    valid = pos[None, :] <= pos[:, None]
+    if window:
+        valid &= pos[None, :] > pos[:, None] - window
+    assert _bwd_over_limit(_tensor_core_backward(q, k, v, out, dout, lse,
+                                                 valid, 2), plain) <= 1.0
+    assert _bwd_over_limit(_tensor_core_backward(q, k, v, out, dout, lse,
+                                                 valid, 1), plain) > 1.0
+
+    mask = jnp.asarray(np.broadcast_to(valid.numpy(), (b, s, s)))
+    cot = jnp.asarray(dout.float().numpy())
+
+    def f(q_, k_, v_):
+        return jnp.sum(r_layers._attn_core(q_, k_, v_, mask, None) * cot)
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    ref = [torch.from_numpy(np.array(r)).to(dtype) for r in ref]
+    out32, lse32 = p_flash.flash_attention_plain_lse(
+        q.float(), k.float(), v.float(), causal=True, window=window)
+    assert _bwd_over_limit(_tensor_core_backward(q, k, v, out32, dout, lse32,
+                                                 valid, 2), ref) <= 1.0
 
 
 @pytest.mark.parametrize("b,n_kv,group,s,d", [

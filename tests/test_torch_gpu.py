@@ -952,11 +952,15 @@ def _bwd_close(got, want):
                                    torch.bfloat16])
 @pytest.mark.parametrize("b,h,s,d,causal,window", [
     (1, 2, 32, 16, True, 0),
-    # The edges of the backward's 32-row key and query tiles.
+    # The edges of the f32 backward's 32-row key and query tiles.
     (1, 3, 31, 128, True, 0),
     (1, 3, 33, 128, True, 0),
     (2, 2, 63, 64, True, 0),
     (1, 2, 65, 128, True, 0),
+    # ... and of the 16-bit backward's 64-row tiles.
+    (1, 2, 64, 128, True, 0),
+    (1, 2, 127, 128, True, 0),
+    (1, 2, 128, 64, True, 0),
     (1, 2, 129, 100, True, 0),      # d a multiple of no tile
     (1, 2, 200, 128, True, 33),     # a window whose edge crosses tiles
     (2, 2, 77, 8, False, 0),
@@ -982,8 +986,8 @@ def test_flash_backward_kernel_matches_plain_version(b, h, s, d, causal,
             q, k, v, causal=causal, window=window))
         _, lse_p = fmod.flash_attention_plain_lse(q, k, v, causal=causal,
                                                   window=window)
-        before = fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_ROUTE_LAUNCHES[
-            "f32_fma"]
+        route = fmod.BWD_ROUTES[dtype]
+        before = fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_ROUTE_LAUNCHES[route]
         got = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
                                             window)
         again = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
@@ -992,8 +996,8 @@ def test_flash_backward_kernel_matches_plain_version(b, h, s, d, causal,
                                               causal, window)
     torch.cuda.synchronize()
     assert (fmod.FLASH_BWD_LAUNCHES,
-            fmod.FLASH_BWD_ROUTE_LAUNCHES["f32_fma"]) == (before[0] + 2,
-                                                          before[1] + 2)
+            fmod.FLASH_BWD_ROUTE_LAUNCHES[route]) == (before[0] + 2,
+                                                      before[1] + 2)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
                                rtol=1e-6, atol=1e-6)
     for g, g2 in zip(got, again):
