@@ -149,6 +149,13 @@ non-zero without a result line:
                (2, 32, 128, 128) f32, with a window of 512, at S = 63, 64,
                65, 127, 128, 129 across the 32-row tiles of the f32
                kernels and the 64-row tiles of the 16-bit ones, in f16.
+               Both forward kernels with an attention softcap: Gemma-2's
+               50 at gemma_serve's prefill layer (1, 32, 8192, 128) bf16
+               and gemma_check's (1, 32, 4160, 128) f32, both in a window
+               of 4096, and 50 and 1 (a cap that bites on every score) in
+               bf16, f16 and f32 with windows; decode at gemma_serve's
+               cache (16 KV heads of 2) at every position, on rings of
+               4096 slots with lens below the cache, in all three types.
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
@@ -180,7 +187,22 @@ non-zero without a result line:
                against that forward's over the first 128 positions. Every
                attention launch of lm_serve takes the tensor-core route,
                every one of lm_check the f32 FMA route.
- 23. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 23. gemma_check — Gemma-2 27B's widths cut to 2 layers (local, then
+               global), float32: `forward` on one 4160-token sequence (the
+               window of 4096 bites) and teacher-forced `decode_step` over
+               it (the local layer's ring of 4096 slots wraps), against the
+               script's own float64 forward with the window and both
+               softcaps at 32 positions before the wrap and the last 64;
+               flash launches = 2, decode launches = 2 x 4160, every one on
+               the f32 FMA route with the softcap.
+ 24. gemma_serve — full Gemma-2 27B (46 layers, bf16, 56.8 GB of weights
+               from --seed), as lm_serve: `serve` (decode launches = 46 x
+               160), `forward` on one 8192-token sequence (flash launches
+               = 46; the window bites in the 23 local layers) and the
+               decode-vs-forward cross-check; every launch on the
+               tensor-core route with the softcap. lm_serve and
+               gemma_serve also profile one more prefill (device busy ms).
+ 25. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
@@ -191,13 +213,17 @@ non-zero without a result line:
                at Yi-6B's prefill, beside SDPA's forward + backward less
                its forward, with the function's bound (10·d FLOPs a valid
                pair) and, beside it, the bound at the 20·d its split MMAs
-               do (bound_ms_split_mma).
- 24. kernels — the summary line, then the card's name and power limit, then
-               the result line.
+               do (bound_ms_split_mma); the softcapped flash at
+               gemma_serve's prefill layer beside the same call without
+               the softcap (no PyTorch call softcaps attention: library_ms
+               null), and the decode at gemma_serve's cache with and
+               without the softcap.
+ 26. kernels — the summary line (softcapped launches by path among it),
+               then the card's name and power limit, then the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
 warm, tune, update, partition, continuous, lm_check, lm_train_check, each
-run of lm_train, lm_serve) runs with the launch
+run of lm_train, lm_serve, gemma_check, gemma_serve) runs with the launch
 counters set to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
@@ -252,7 +278,9 @@ ATTN_TOL = {"float32": (0.0, 4e-6), "float16": (2.0 ** -10, 4e-6),
             "bfloat16": (2.0 ** -7, 4e-6)}
 # The 4-layer float32 Yi-6B-width model against float64, as max |Δ| over
 # the largest |logit|: sums of up to 11,008 f32 terms per layer, and RoPE
-# angles of up to 127 rad taken in f32 (an error near 1e-5 rad).
+# angles of up to 127 rad taken in f32 (an error near 1e-5 rad). The same
+# limit holds gemma_check, whose angles reach 4159 rad (an f32 ulp there
+# is 4.9e-4 rad): the H100 measured 6.1e-5 there, 3.7e-6 for Yi-6B.
 LM_REL_TOL = 1e-4
 # Full-depth bf16 Yi-6B: teacher-forced decode against the prefill forward,
 # as max |Δ| over the largest |logit|. The two paths round in other places
@@ -293,6 +321,12 @@ LM_PROMPT = 128
 LM_STEPS = 32
 LM_BATCH = 4
 LM_PREFILL = 4096
+# gemma_check: one sequence past the local layers' window (4096), into
+# caches of as many positions (rings of 4096 slots, which wrap after
+# position 4095); compared at 32 positions before the wrap and the last 64.
+GEMMA_CHECK_SEQ = 4160
+GEMMA_POSITIONS = list(range(0, 4096, 128)) + list(range(4096, 4160))
+GEMMA_PREFILL = 8192           # gemma_serve: the window bites in 23 layers
 
 
 def emit(obj) -> None:
@@ -324,12 +358,15 @@ def ptxas_table(report: str) -> list:
             props[-1].append(ln.split(":", 1)[-1].strip())
     cufilt = shutil.which("cu++filt") or os.path.join(CUDA_HOME or "", "bin",
                                                       "cu++filt")
+    def literal(m):               # template arguments as cu++filt casts them
+        return (("false", "true")[int(m.group(2))] if m.group(1) == "bool"
+                else m.group(2))
+
     if names and os.path.exists(cufilt):
         out = subprocess.run([cufilt], input="\n".join(names),
                              capture_output=True, text=True, timeout=60)
         if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
-            names = [re.sub(r"\(bool\)([01])",
-                            lambda m: ("false", "true")[int(m.group(1))],
+            names = [re.sub(r"\((bool|int)\)(-?\d+)", literal,
                             n.replace("(anonymous namespace)::", "")
                             .replace("<unnamed>::", "")).split("(")[0]
                      for n in out.stdout.splitlines()]
@@ -2424,16 +2461,70 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
         {}, "decode: lm_check's cache, every position", "float32",
         lens_sweep=LM_PROMPT))
     cases += tile_edge_cases(fmod, dmod, gen)
+    cases += softcap_cases(fmod, dmod, gen)
     t0 = time.perf_counter()
     cases += backward_cases(fmod, gen)
     emit({"phase": "attn", "cases": cases,
           "backward_cases_seconds": time.perf_counter() - t0,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     torch.cuda.empty_cache()
-    main = [c for c in cases if "lm_" in c["case"]]    # main-path shapes
+    main = [c for c in cases                           # main-path shapes
+            if "lm_" in c["case"] or "gemma_" in c["case"]]
     return {name: max(c["max_abs_err"] for c in main
                       if c["case"].startswith(name))
             for name in ("flash", "decode", "backward")}
+
+
+def softcap_cases(fmod, dmod, gen) -> list:
+    """Both kernels with an attention softcap against their plain versions:
+    Gemma-2's cap of 50 at the shapes gemma_check and gemma_serve give
+    them, and a cap of 1 that bites on every score; f32, f16 and bf16;
+    flash within a window, decode with lens shorter than the cache."""
+    flash, decode = fmod.flash_attention_cuda, dmod.decode_attention_cuda
+    f_plain, d_plain = fmod.flash_attention_plain, dmod.decode_attention_plain
+    window = 4096
+    cases = [attn_compare(flash, f_plain,
+                          attn_inputs((1, 32, GEMMA_PREFILL, 128), "bfloat16",
+                                      gen),
+                          {"causal": True, "window": window, "softcap": 50.0},
+                          "flash: gemma_serve's prefill layer, softcap 50",
+                          "bfloat16"),
+             attn_compare(flash, f_plain,
+                          attn_inputs((1, 32, GEMMA_CHECK_SEQ, 128),
+                                      "float32", gen),
+                          {"causal": True, "window": window, "softcap": 50.0},
+                          "flash: gemma_check's forward, f32, softcap 50",
+                          "float32")]
+    for dtype, shape, kw in (
+            ("bfloat16", (2, 8, 1000, 128), {"window": 300}),
+            ("float16", (1, 8, 2048, 128), {"window": 512}),
+            ("float32", (1, 8, 1024, 128), {"window": 100}),
+            ("float16", (2, 4, 129, 64), {})):
+        for cap in (50.0, 1.0):
+            cases.append(attn_compare(
+                flash, f_plain, attn_inputs(shape, dtype, gen),
+                {"causal": True, **kw, "softcap": cap},
+                f"flash: softcap {cap}, {dtype}", dtype))
+    # gemma_serve's cache at every position (16 KV heads of 2 queries).
+    serve_len = LM_PROMPT + LM_STEPS + 1
+    cases.append(attn_compare(
+        decode, d_plain, decode_inputs(LM_BATCH, 16, 2, serve_len,
+                                       "bfloat16", gen), {"softcap": 50.0},
+        "decode: gemma_serve's cache, every position, softcap 50",
+        "bfloat16", lens_sweep=serve_len))
+    # Rings of 4096 slots (gemma_check's), lens drawn below the cache.
+    cases.append(attn_compare(
+        decode, d_plain, decode_inputs(4, 16, 2, window, "float32", gen),
+        {"softcap": 50.0}, "decode: gemma_check's ring, f32, softcap 50",
+        "float32"))
+    for dtype in ("bfloat16", "float16", "float32"):
+        for cap in (50.0, 1.0):
+            cases.append(attn_compare(
+                decode, d_plain, decode_inputs(8, 4, 8, window, dtype, gen),
+                {"softcap": cap},
+                f"decode: lens below the cache, softcap {cap}, {dtype}",
+                dtype))
+    return cases
 
 
 def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
@@ -2566,15 +2657,23 @@ def tile_edge_cases(fmod, dmod, gen) -> list:
     return cases
 
 
-def f64_lm_forward(cfg, params, tokens):
+def f64_lm_forward(cfg, params, tokens, positions=None):
     """The dense GQA stack in float64 with plain torch ops, written from the
     architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
-    attention with KV heads repeated, SwiGLU), not from the port's code."""
+    attention with KV heads repeated, within `cfg.sliding_window` on the
+    local layers, its scores softcapped by `cfg.attn_softcap`, SwiGLU, the
+    logits softcapped by `cfg.logit_softcap`), not from the port's code.
+    Attention in groups of 8 heads and the head in vocabulary chunks, so
+    that no float64 temporary holds a whole layer's scores or the whole
+    head; the logits only at `positions` (all when None)."""
     import torch
     import torch.nn.functional as F
 
     def w(t):
         return t.to(torch.float64)
+
+    def cap(x, c):
+        return c * torch.tanh(x / c) if c else x
 
     def norm(x, scale):
         return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) \
@@ -2591,42 +2690,63 @@ def f64_lm_forward(cfg, params, tokens):
         t1, t2 = t[..., :hd // 2], t[..., hd // 2:]
         return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], -1)
 
-    causal = torch.ones((s, s), dtype=torch.bool, device=DEV).tril()
-    x = w(params["embed"])[tokens]
-    for p in params["layers"]:
+    pos = torch.arange(s, device=DEV)
+    causal = pos[None, :] <= pos[:, None]
+    x = w(params["embed"][tokens])
+    for kind, p in zip(cfg.blocks(), params["layers"]):
         a, m = p["attn"], p["mlp"]
+        valid = causal
+        if kind.value == "local" and cfg.sliding_window:
+            valid = causal & (pos[None, :] > pos[:, None] - cfg.sliding_window)
         h = norm(x, p["ln1"])
         q = rope((h @ w(a["wq"])).view(b, s, hq, hd).transpose(1, 2))
         k = rope((h @ w(a["wk"])).view(b, s, hkv, hd).transpose(1, 2))
         v = (h @ w(a["wv"])).view(b, s, hkv, hd).transpose(1, 2)
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
-        att = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
-        att = torch.softmax(att.masked_fill(~causal, float("-inf")), -1)
-        o = (att @ v).transpose(1, 2).reshape(b, s, hq * hd)
+        heads = []
+        for h0 in range(0, hq, 8):
+            att = (q[:, h0:h0 + 8] @ k[:, h0:h0 + 8].transpose(-1, -2)) \
+                / math.sqrt(hd)
+            att = cap(att, cfg.attn_softcap)
+            att = torch.softmax(att.masked_fill(~valid, float("-inf")), -1)
+            heads.append(att @ v[:, h0:h0 + 8])
+        o = torch.cat(heads, 1).transpose(1, 2).reshape(b, s, hq * hd)
         x = x + o @ w(a["wo"])
         h = norm(x, p["ln2"])
         x = x + (F.silu(h @ w(m["w_gate"])) * (h @ w(m["w_up"]))) \
             @ w(m["w_down"])
-    return norm(x, params["final_norm"]) @ w(params["lm_head"])
+    x = norm(x, params["final_norm"])
+    if positions is not None:
+        x = x[:, positions]
+    head = params["lm_head"]
+    logits = torch.cat([x @ w(head[:, c:c + 32768])
+                        for c in range(0, head.shape[1], 32768)], -1)
+    return cap(logits, cfg.logit_softcap)
 
 
-def teacher_forced(cfg, params, tokens):
-    """decode_step over every position of `tokens`; logits (B, S, V)."""
+def teacher_forced(cfg, params, tokens, positions=None):
+    """decode_step over every position of `tokens`, into caches of
+    S positions (rings of min(window, S) slots); logits (B, S, V), or only
+    at `positions`."""
     import torch
     from repro_torch.models import decode_step, init_decode_state
     b, s = tokens.shape
+    keep = set(range(s) if positions is None else positions)
     state = init_decode_state(cfg, b, s, device=DEV)
     out = []
     for t in range(s):
         logits, state = decode_step(cfg, params, tokens[:, t:t + 1], state)
-        out.append(logits[:, 0])
+        if t in keep:
+            out.append(logits[:, 0])
     return torch.stack(out, dim=1)
 
 
 def zero_attn_counts(fmod, dmod) -> None:
-    """The attention kernels' launch counts, in all and by route, to 0."""
+    """The attention kernels' launch counts, in all, by route and with a
+    softcap, to 0."""
     fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0
+    fmod.FLASH_SOFTCAP_LAUNCHES = dmod.DECODE_SOFTCAP_LAUNCHES = 0
     fmod.FLASH_BWD_LAUNCHES = 0
     for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES,
                    fmod.FLASH_BWD_ROUTE_LAUNCHES):
@@ -2637,10 +2757,12 @@ def zero_attn_counts(fmod, dmod) -> None:
 def attn_counts(fmod, dmod) -> dict:
     return {"flash": fmod.FLASH_LAUNCHES,
             "flash_routes": dict(fmod.FLASH_ROUTE_LAUNCHES),
+            "flash_softcap": fmod.FLASH_SOFTCAP_LAUNCHES,
             "flash_bwd": fmod.FLASH_BWD_LAUNCHES,
             "flash_bwd_routes": dict(fmod.FLASH_BWD_ROUTE_LAUNCHES),
             "decode": dmod.DECODE_LAUNCHES,
-            "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES)}
+            "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES),
+            "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES}
 
 
 def check_routes(label: str, counts: dict, kernel: str, route: str) -> None:
@@ -2685,6 +2807,8 @@ def phase_lm_check(fmod, dmod, seed: int) -> dict:
                              f"{cfg.n_layers * LM_PROMPT}")
     check_routes("lm_check forward", fwd_counts, "flash", "f32_fma")
     check_routes("lm_check decode", dec_counts, "decode", "f32_fma")
+    check_softcap("lm_check forward", fwd_counts, "flash", False)
+    check_softcap("lm_check decode", dec_counts, "decode", False)
     bad = {k: e for k, e in errs.items() if not e <= LM_REL_TOL}
     if bad:
         raise AssertionError(f"lm_check: relative error above {LM_REL_TOL}: "
@@ -2701,7 +2825,8 @@ def phase_lm_check(fmod, dmod, seed: int) -> dict:
     torch.cuda.empty_cache()
     return {"flash": flash, "decode": decode,
             "flash_routes": fwd_counts["flash_routes"],
-            "decode_routes": dec_counts["decode_routes"]}
+            "decode_routes": dec_counts["decode_routes"],
+            "flash_softcap": 0, "decode_softcap": 0}
 
 
 def profile_decode(cfg, params) -> dict:
@@ -2734,9 +2859,43 @@ def profile_decode(cfg, params) -> dict:
                 name[:80]: us / 1e3 / PROFILED_STEPS for name, us in top}}
 
 
-def phase_lm_serve(fmod, dmod, seed: int) -> dict:
-    """Full Yi-6B in bf16: serve, prefill forward, and decode against the
-    forward; returns the launches of each path."""
+def check_softcap(label: str, counts: dict, kernel: str, capped: bool
+                  ) -> None:
+    """Every launch of `kernel` counted in `counts` took the softcap
+    (`capped`), or none did."""
+    want = counts[kernel] if capped else 0
+    if counts[f"{kernel}_softcap"] != want:
+        raise AssertionError(f"{label}: {counts[f'{kernel}_softcap']} of "
+                             f"{counts[kernel]} {kernel} launches with a "
+                             f"softcap, want {want}")
+
+
+def profile_prefill(cfg, params, seq) -> dict:
+    """torch.profiler over one more `forward` of `seq` (outside the counted
+    run): the device's busy time, from the trace's device events, and the
+    flash kernel's share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import forward
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forward(cfg, params, seq)
+        sync()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    flash_us = sum(e.time_range.elapsed_us() for e in kernels
+                   if "flash_attn_kernel" in e.name)
+    return {"kernels": len(kernels), "device_busy_ms": busy_us / 1e3,
+            "flash_ms": flash_us / 1e3}
+
+
+def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
+                label: str) -> dict:
+    """The full bf16 `arch`: serve, a prefill forward of `prefill` tokens,
+    and decode against the forward; returns the launches of each path.
+    Every attention launch on the tensor-core route, and with the softcap
+    exactly where the config sets one."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2745,7 +2904,9 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
         decode_step, forward, init_decode_state, init_params, param_count,
     )
 
-    cfg = get_config("yi_6b")
+    cfg = get_config(arch)
+    capped = cfg.attn_softcap is not None
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed),
@@ -2774,7 +2935,8 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
     if serve_launches != {"flash": 0, "decode": want}:
         raise AssertionError(f"serve launches {serve_launches}, want decode "
                              f"{want}")
-    check_routes("lm_serve serve", serve_counts, "decode", "tensor_core")
+    check_routes(f"{label} serve", serve_counts, "decode", "tensor_core")
+    check_softcap(f"{label} serve", serve_counts, "decode", capped)
     if tokens.shape != (LM_BATCH, LM_STEPS) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"serve tokens {tokens.shape} out of range")
@@ -2782,7 +2944,7 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
     profile = profile_decode(cfg, params)
 
     seq = np.concatenate([prompts[:1], rng.integers(
-        0, cfg.vocab, size=(1, LM_PREFILL - LM_PROMPT), dtype=np.int32)], 1)
+        0, cfg.vocab, size=(1, prefill - LM_PROMPT), dtype=np.int32)], 1)
     seq = torch.from_numpy(seq).long().to(DEV)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
@@ -2798,29 +2960,35 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
         if prefill_flash != cfg.n_layers or prefill_counts["decode"] != 0:
             raise AssertionError(f"prefill flash launches {prefill_flash}, "
                                  f"want {cfg.n_layers}")
-        check_routes("lm_serve prefill", prefill_counts, "flash",
+        check_routes(f"{label} prefill", prefill_counts, "flash",
                      "tensor_core")
-        if logits.shape != (1, LM_PREFILL, cfg.vocab) or not torch.isfinite(
+        check_softcap(f"{label} prefill", prefill_counts, "flash", capped)
+        if logits.shape != (1, prefill, cfg.vocab) or not torch.isfinite(
                 logits).all():
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                                  "not finite")
+        fwd = logits[:, :LM_PROMPT].clone()
+        del logits
+    prefill_profile = profile_prefill(cfg, params, seq)
+    with torch.inference_mode():
         zero_attn_counts(fmod, dmod)                 # cross-check starts
         dec = teacher_forced(cfg, params, seq[:, :LM_PROMPT])
         cross_counts = attn_counts(fmod, dmod)       # ... and ends here
         cross_decode = cross_counts["decode"]
-    fwd = logits[:, :LM_PROMPT]
     gap = rel_err(dec, fwd)
     agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
     if cross_decode != cfg.n_layers * LM_PROMPT:
         raise AssertionError(f"cross-check decode launches {cross_decode}")
-    check_routes("lm_serve cross-check", cross_counts, "decode",
+    check_routes(f"{label} cross-check", cross_counts, "decode",
                  "tensor_core")
+    check_softcap(f"{label} cross-check", cross_counts, "decode", capped)
     if not gap <= LM_BF16_TOL:
         raise AssertionError(f"decode vs forward logits: relative gap {gap} "
                              f"> {LM_BF16_TOL}")
-    emit({"phase": "lm_serve", "config": cfg.name, "dtype": cfg.dtype,
+    emit({"phase": label, "config": cfg.name, "dtype": cfg.dtype,
           "layers": cfg.n_layers, "params": param_count(params),
-          "init_s": init_s,
+          "init_s": init_s, "attn_softcap": cfg.attn_softcap,
+          "sliding_window": cfg.sliding_window,
           "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT,
                     "steps": LM_STEPS, "seconds": serve_s,
                     "generated_tokens_per_s": LM_BATCH * LM_STEPS / serve_s,
@@ -2831,27 +2999,129 @@ def phase_lm_serve(fmod, dmod, seed: int) -> dict:
                     "launches": serve_launches,
                     "decode_launches_by_route":
                         serve_counts["decode_routes"],
+                    "decode_softcap_launches": serve_counts["decode_softcap"],
                     "peak_allocated_bytes": serve_peak,
                     "first_tokens": tokens[:, :8].tolist(),
                     "profiled_decode_steps": profile},
-          "prefill": {"tokens": LM_PREFILL, "seconds": prefill_s,
-                      "tokens_per_s": LM_PREFILL / prefill_s,
+          "prefill": {"tokens": prefill, "seconds": prefill_s,
+                      "tokens_per_s": prefill / prefill_s,
                       "flash_launches": prefill_flash,
                       "flash_launches_by_route":
                           prefill_counts["flash_routes"],
-                      "peak_allocated_bytes": prefill_peak},
+                      "flash_softcap_launches":
+                          prefill_counts["flash_softcap"],
+                      "peak_allocated_bytes": prefill_peak,
+                      "profiled": prefill_profile},
           "decode_vs_forward": {"positions": LM_PROMPT,
                                 "rel_gap": gap, "tol": LM_BF16_TOL,
                                 "argmax_agreement": agree,
                                 "decode_launches": cross_decode}})
-    del params, logits, dec, fwd
+    del params, dec, fwd
     torch.cuda.empty_cache()
     return {"flash": prefill_flash, "decode": serve_launches["decode"],
             "decode_crosscheck": cross_decode,
             "flash_routes": prefill_counts["flash_routes"],
             "decode_routes": {r: serve_counts["decode_routes"][r]
                               + cross_counts["decode_routes"][r]
-                              for r in serve_counts["decode_routes"]}}
+                              for r in serve_counts["decode_routes"]},
+            "flash_softcap": prefill_counts["flash_softcap"],
+            "decode_softcap": serve_counts["decode_softcap"]
+            + cross_counts["decode_softcap"]}
+
+
+def phase_lm_serve(fmod, dmod, seed: int) -> dict:
+    """Full Yi-6B in bf16: serve, a 4096-token prefill forward, and decode
+    against the forward, no launch with a softcap."""
+    return serve_phase(fmod, dmod, seed, "yi_6b", LM_PREFILL, "lm_serve")
+
+
+def phase_gemma_check(fmod, dmod, seed: int) -> dict:
+    """Gemma-2 27B's published widths cut to 2 layers (local, then global),
+    float32: `forward` on one sequence of GEMMA_CHECK_SEQ tokens, past the
+    local layer's window, and teacher-forced `decode_step`, whose ring
+    wraps after position 4095, both against the script's own float64
+    forward at GEMMA_POSITIONS (before the wrap and the last 64); every
+    launch on the f32 FMA route with the softcap. Returns the launches."""
+    import torch
+    from repro_torch.configs.gemma2_27b import CONFIG
+    from repro_torch.models import forward, init_params, param_count
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 8)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (1, GEMMA_CHECK_SEQ), device=DEV,
+                           generator=gen)
+    with torch.inference_mode():
+        zero_attn_counts(fmod, dmod)                     # forward starts
+        logits, _ = forward(cfg, params, tokens)
+        fwd_counts = attn_counts(fmod, dmod)             # ... and ends here
+        finite = bool(torch.isfinite(logits).all())
+        fwd = logits[:, GEMMA_POSITIONS].clone()
+        del logits
+        zero_attn_counts(fmod, dmod)                     # decode starts
+        t0 = time.perf_counter()
+        dec = teacher_forced(cfg, params, tokens, GEMMA_POSITIONS)
+        sync()
+        decode_s = time.perf_counter() - t0
+        dec_counts = attn_counts(fmod, dmod)             # ... and ends here
+        ref = f64_lm_forward(cfg, params, tokens, GEMMA_POSITIONS)
+    wrap = cfg.sliding_window
+    before = [i for i, t in enumerate(GEMMA_POSITIONS) if t < wrap]
+    after = [i for i, t in enumerate(GEMMA_POSITIONS) if t >= wrap]
+    errs = {"forward": rel_err(fwd, ref), "decode": rel_err(dec, ref),
+            "decode_before_wrap": rel_err(dec[:, before], ref[:, before]),
+            "decode_after_wrap": rel_err(dec[:, after], ref[:, after]),
+            "decode_vs_forward": rel_err(dec, fwd)}
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    flash, decode = fwd_counts["flash"], dec_counts["decode"]
+    if not finite:
+        raise AssertionError("gemma_check: forward logits not finite")
+    if (flash, fwd_counts["decode"], dec_counts["flash"], decode) != (
+            cfg.n_layers, 0, 0, cfg.n_layers * GEMMA_CHECK_SEQ):
+        raise AssertionError(f"gemma_check launches: forward {fwd_counts}, "
+                             f"decode {dec_counts}; want flash "
+                             f"{cfg.n_layers}, decode "
+                             f"{cfg.n_layers * GEMMA_CHECK_SEQ}")
+    check_routes("gemma_check forward", fwd_counts, "flash", "f32_fma")
+    check_routes("gemma_check decode", dec_counts, "decode", "f32_fma")
+    check_softcap("gemma_check forward", fwd_counts, "flash", True)
+    check_softcap("gemma_check decode", dec_counts, "decode", True)
+    bad = {k: e for k, e in errs.items() if not e <= LM_REL_TOL}
+    if bad:
+        raise AssertionError(f"gemma_check: relative error above "
+                             f"{LM_REL_TOL}: {bad}")
+    emit({"phase": "gemma_check", "config": "gemma2-27b width, 2 layers "
+          "(local, global), float32", "params": param_count(params),
+          "tokens": GEMMA_CHECK_SEQ, "window": cfg.sliding_window,
+          "attn_softcap": cfg.attn_softcap,
+          "logit_softcap": cfg.logit_softcap,
+          "compared_positions": GEMMA_POSITIONS,
+          "rel_err_vs_float64": errs, "tol": LM_REL_TOL,
+          "argmax_agreement_decode_vs_float64": agree,
+          "decode_seconds": decode_s,
+          "flash_launches": flash, "decode_launches": decode,
+          "launches_by_route": {"flash": fwd_counts["flash_routes"],
+                                "decode": dec_counts["decode_routes"]},
+          "softcap_launches": {"flash": fwd_counts["flash_softcap"],
+                               "decode": dec_counts["decode_softcap"]},
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del params, fwd, dec, ref
+    torch.cuda.empty_cache()
+    return {"flash": flash, "decode": decode,
+            "flash_routes": fwd_counts["flash_routes"],
+            "decode_routes": dec_counts["decode_routes"],
+            "flash_softcap": fwd_counts["flash_softcap"],
+            "decode_softcap": dec_counts["decode_softcap"]}
+
+
+def phase_gemma_serve(fmod, dmod, seed: int) -> dict:
+    """Full Gemma-2 27B in bf16 (46 layers, 56.8 GB of weights): serve,
+    an 8192-token prefill forward whose window bites in the 23 local
+    layers, and decode against the forward, every launch softcapped."""
+    return serve_phase(fmod, dmod, seed, "gemma2_27b", GEMMA_PREFILL,
+                       "gemma_serve")
 
 
 def f64_lm_loss(cfg, params, tokens, labels):
@@ -3155,6 +3425,40 @@ def time_flash(fmod, seed: int) -> dict:
             "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
 
 
+def time_flash_softcap(fmod, seed: int) -> dict:
+    """The softcapped flash kernel at Gemma-2's per-layer prefill in
+    gemma_serve (1, 32, 8192, 128) bf16, causal, window 4096, beside the
+    same call without the softcap and the plain version; no single PyTorch
+    call computes a softcapped attention (library_ms null). The bound
+    counts the valid (query, key) pairs of the causal window."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(seed + 8)
+    b, h, s_len, d, window = 1, 32, GEMMA_PREFILL, 128, 4096
+    q, k, v = attn_inputs((b, h, s_len, d), "bfloat16", gen)
+    kw = {"causal": True, "window": window}
+    ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v, softcap=50.0,
+                                                   **kw), 10)
+    no_cap_ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v, **kw), 10)
+    plain_ms = cuda_ms(lambda: fmod.flash_attention_plain(q, k, v,
+                                                          softcap=50.0, **kw),
+                       3, warmup=1)
+    per_head = sum(min(i + 1, window) for i in range(s_len))
+    pairs = b * h * per_head
+    flops = 4.0 * d * pairs
+    nbytes = 4 * b * h * s_len * d * q.element_size()   # q, k, v, out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"shape": [b, h, s_len, d], "dtype": "bfloat16", "causal": True,
+            "window": window, "softcap": 50.0, "valid_pairs_per_head":
+            per_head, "flops": flops, "min_bytes": nbytes, "ms": ms,
+            "no_softcap_ms": no_cap_ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "library_call": "none: no PyTorch call softcaps attention",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
+            "bound_share_no_softcap": 1e3 * max(t_ops, t_bytes) / no_cap_ms}
+
+
 def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
     """The backward kernels at `shape` (bf16, causal: the tensor-core
     route), their plain version and, as the yardstick the port never
@@ -3229,43 +3533,52 @@ def device_ms(fn, repeats: int) -> float:
 
 
 def time_decode(dmod, seed: int, b: int, s_len: int,
-                repeats: int = 10) -> dict:
+                repeats: int = 10, n_kv: int = 4, group: int = 8,
+                softcap=None) -> dict:
     """The decode kernels at one layer's shape, every cache full (Yi-6B's 4
-    KV heads of 8 query heads), their plain version and SDPA with
-    enable_gqa (a yardstick the port never calls)."""
+    KV heads of 8 query heads unless given), their plain version and SDPA
+    with enable_gqa (a yardstick the port never calls; none with a softcap,
+    which no PyTorch call takes). `ms` is per eager call, host included;
+    `device_ms` the kernels' time on the card."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed + 6)
-    n_kv, group, d = 4, 8, 128
+    d = 128
     lens = torch.full((b,), s_len, dtype=torch.int32, device=DEV)
     q, k, v, lens = decode_inputs(b, n_kv, group, s_len, "bfloat16", gen,
                                   lens=lens)
-    ms = cuda_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens), repeats)
-    dev_ms = device_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens),
-                       repeats)
-    plain_ms = cuda_ms(lambda: dmod.decode_attention_plain(q, k, v, lens), 2,
+    ms = cuda_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens, softcap),
+                 repeats)
+    dev_ms = device_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens,
+                                                          softcap), repeats)
+    plain_ms = cuda_ms(lambda: dmod.decode_attention_plain(q, k, v, lens,
+                                                           softcap), 2,
                        warmup=1)
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    q_sdpa = q.reshape(b, n_kv * group, 1, d)
-    # Not the math backend: it would repeat K and V to 32 heads (68 GB).
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                      SDPBackend.EFFICIENT_ATTENTION,
-                      SDPBackend.CUDNN_ATTENTION]):
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q_sdpa, k, v, enable_gqa=True), 10)
+    library_ms = None
+    if softcap is None:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        q_sdpa = q.reshape(b, n_kv * group, 1, d)
+        # Not the math backend: it would repeat K and V to 32 heads (68 GB).
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q_sdpa, k, v, enable_gqa=True), 10)
     n_valid = int(lens.long().sum())
     nbytes = (2 * n_valid * n_kv * d * k.element_size()        # K, V rows
               + 2 * q.numel() * q.element_size() + lens.numel() * 4)
     flops = 4.0 * n_valid * n_kv * group * d
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return {"q": list(q.shape), "kv": list(k.shape), "dtype": "bfloat16",
-            "lens": s_len, "splits": list(dmod.split_plan(
+            "softcap": softcap, "lens": s_len, "splits": list(dmod.split_plan(
                 b, n_kv, s_len,
                 torch.cuda.get_device_properties(0).multi_processor_count)),
             "flops": flops, "min_bytes": nbytes, "ms": ms,
             "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
+            "library_call": "F.scaled_dot_product_attention(enable_gqa=True)"
+                            if softcap is None else
+                            "none: no PyTorch call softcaps attention",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
@@ -3303,6 +3616,14 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
         # lm_serve's cache at its longest (serve's max_len).
         "decode_attention_lm_serve": time_decode(
             dmod, seed, LM_BATCH, LM_PROMPT + LM_STEPS + 1, repeats=200),
+        "flash_attention_gemma_softcap": time_flash_softcap(fmod, seed),
+        # gemma_serve's cache at its longest, with and without the softcap.
+        "decode_attention_gemma_serve_softcap": time_decode(
+            dmod, seed, LM_BATCH, LM_PROMPT + LM_STEPS + 1, repeats=200,
+            n_kv=16, group=2, softcap=50.0),
+        "decode_attention_gemma_serve": time_decode(
+            dmod, seed, LM_BATCH, LM_PROMPT + LM_STEPS + 1, repeats=200,
+            n_kv=16, group=2),
     }
     emit({"phase": "timing", **timing,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -3407,6 +3728,8 @@ def run(args) -> None:
     emit({"phase": "lm_train_seconds", "lm_train_check_and_lm_train":
           time.perf_counter() - t0})
     lm["lm_serve"] = phase_lm_serve(fmod, dmod, args.seed)
+    lm["gemma_check"] = phase_gemma_check(fmod, dmod, args.seed)
+    lm["gemma_serve"] = phase_gemma_serve(fmod, dmod, args.seed)
     timing = phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train,
                           g_train, args.seed, tuned)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3421,7 +3744,9 @@ def run(args) -> None:
     train_paths = [p for p in lm if p.startswith("lm_train")]
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
                    **{p: lm[p]["flash"] for p in train_paths},
-                   "lm_serve_prefill": lm["lm_serve"]["flash"]}
+                   "lm_serve_prefill": lm["lm_serve"]["flash"],
+                   "gemma_check": lm["gemma_check"]["flash"],
+                   "gemma_serve_prefill": lm["gemma_serve"]["flash"]}
     bwd_paths = {p: lm[p]["flash_bwd"] for p in train_paths}
 
     def by_route(kernel: str, routes=("tensor_core", "f32_fma")) -> dict:
@@ -3432,7 +3757,16 @@ def run(args) -> None:
     decode_paths = {"lm_check": lm["lm_check"]["decode"],
                     "lm_serve": lm["lm_serve"]["decode"],
                     "lm_serve_crosscheck":
-                        lm["lm_serve"]["decode_crosscheck"]}
+                        lm["lm_serve"]["decode_crosscheck"],
+                    "gemma_check": lm["gemma_check"]["decode"],
+                    "gemma_serve": lm["gemma_serve"]["decode"],
+                    "gemma_serve_crosscheck":
+                        lm["gemma_serve"]["decode_crosscheck"]}
+
+    def softcapped(kernel: str) -> dict:
+        """Softcapped launches by path (Gemma-2's; every other 0)."""
+        return {name: path.get(f"{kernel}_softcap", 0)
+                for name, path in lm.items()}
     emit({"kernels": [
         {"name": "bcsr_spmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
@@ -3470,7 +3804,12 @@ def run(args) -> None:
          "bound_ms_f32_fma": timing["flash_attention"]["bound_ms_f32_fma"],
          "forward_with_lse_ms": {
              "lm_train": timing["flash_bwd"]["forward_with_lse_ms"],
-             "prefill": timing["flash_bwd_prefill"]["forward_with_lse_ms"]}},
+             "prefill": timing["flash_bwd_prefill"]["forward_with_lse_ms"]},
+         "softcap_launches": sum(softcapped("flash").values()),
+         "softcap_launches_by_path": softcapped("flash"),
+         "gemma_prefill_softcap": {
+             k: timing["flash_attention_gemma_softcap"][k]
+             for k in (*keys, "no_softcap_ms", "window", "softcap")}},
         {"name": "flash_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
          "replaces": "src/repro/models/layers.py:90",
@@ -3493,7 +3832,15 @@ def run(args) -> None:
          "max_abs_err": attn_err["decode"],
          **{k: timing["decode_attention"][k] for k in keys},
          "lm_serve_shape": {k: timing["decode_attention_lm_serve"][k]
-                            for k in (*keys, "device_ms")}}]})
+                            for k in (*keys, "device_ms")},
+         "softcap_launches": sum(softcapped("decode").values()),
+         "softcap_launches_by_path": softcapped("decode"),
+         "gemma_serve_shape_softcap": {
+             k: timing["decode_attention_gemma_serve_softcap"][k]
+             for k in (*keys, "device_ms", "softcap")},
+         "gemma_serve_shape": {
+             k: timing["decode_attention_gemma_serve"][k]
+             for k in (*keys, "device_ms")}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

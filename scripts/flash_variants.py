@@ -84,19 +84,20 @@ def main() -> int:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 entry = m.group(1)
-            elif entry and "2tc17flash_attn_kernelI13__nv_bfloat16Li8E" in \
-                    entry and ("Used" in ln or "spill" in ln):
+            elif entry and "2tc17flash_attn_kernelI13__nv_bfloat16Li8ELb0E" \
+                    in entry and ("Used" in ln or "spill" in ln):
                 props.append(ln.split(":", 1)[-1].strip())
         fn = ctypes.CDLL(str(out_dir / f"flash_{i}.so")).flash_attn_launch
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         entries.append((v_, fn, props))
 
     def call(fn):
         out = torch.empty_like(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None, *q.shape, 1, 0, q.shape[3] ** -0.5,
+                 None, *q.shape, 1, 0, q.shape[3] ** -0.5, 0.0,
                  fmod.DTYPE_CODES[q.dtype],
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:

@@ -3,10 +3,11 @@ architecture registry, where `--arch <id>` resolves.
 
 Each LM module defines CONFIG (full size, from public literature; served
 on the card) and SMOKE (reduced same-family config for CPU tests), the
-same values as `repro.configs`. Only the dense GQA archs run on the port's
-transformer today; `get_config` of any other id raises and names the
-ROADMAP item that brings it, so no caller gets a config the model would
-mis-run.
+same values as `repro.configs`. The port's transformer runs the dense GQA
+archs (Yi-6B, Yi-9B, DeepSeek-7B) and Gemma-2 27B (sliding-window layers
+with ring caches, both softcaps; serving only: the softcap has no backward
+yet). `get_config` of any other id raises and names the ROADMAP item that
+brings it, so no caller gets a config the model would mis-run.
 """
 from __future__ import annotations
 
@@ -31,10 +32,8 @@ _NOT_PORTED: Dict[str, str] = {
     "xlstm_125m": f"mLSTM/sLSTM recurrent blocks ({_ITEM}: recurrent.py)",
     "kimi_k2_1t_a32b": f"MoE feed-forward ({_ITEM}: moe_ffn, "
                        "moe_shard_map.py)",
-    "mixtral_8x22b": f"MoE feed-forward and sliding-window ring caches "
-                     f"({_ITEM})",
-    "gemma2_27b": f"local/global sliding-window ring caches and softcaps "
-                  f"({_ITEM})",
+    "mixtral_8x22b": f"MoE feed-forward ({_ITEM}: moe_ffn, "
+                     "moe_shard_map.py)",
     "seamless_m4t_medium": f"the encoder-decoder and its audio frontend "
                            f"({_ITEM})",
     "recurrentgemma_2b": f"RG-LRU recurrent blocks and ring caches ({_ITEM})",

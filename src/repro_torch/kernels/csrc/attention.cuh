@@ -272,16 +272,18 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // One online-softmax step for the two accumulator rows a lane holds (g and
-// g + 8), over the n-tiles of scores `s` (raw q·k, -inf where masked):
-// updates the row max m (raw units), rescales o and the lane's partial row
-// sum l by e^(m_old - m_new), and turns s into e^(s - m_new) in place.
-// scale_log2 = log2(e) / sqrt(d), so e^(x·scale) is exp2(x·scale_log2).
-// A row with no valid score so far keeps m = -inf and gets p = 0.
+// g + 8), over the n-tiles of scores `s` (-inf where masked), each a score
+// in scaled units divided by `unit`: raw q·k (unit = 1 / sqrt(d)), or a
+// softcapped score (unit = 1). Updates the row max m (in the scores'
+// units), rescales o and the lane's partial row sum l by
+// e^(unit·(m_old - m_new)), and turns s into e^(unit·(s - m_new)) in place;
+// unit_log2 = unit · log2(e), so e^(unit·x) is exp2(x·unit_log2). A row
+// with no valid score so far keeps m = -inf and gets p = 0.
 template <int NT, int NO>
 __device__ __forceinline__ void online_softmax(float (&s)[NT][4],
                                                float (&o)[NO][4],
                                                float (&m)[2], float (&l)[2],
-                                               float scale_log2) {
+                                               float unit_log2) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
@@ -290,15 +292,15 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4],
       mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
     const float m_new = fmaxf(m[r], quad_max(mx));
     const float m_safe = m_new == -INFINITY ? 0.0f : m_new;
-    const float alpha = exp2f((m[r] - m_safe) * scale_log2);
-    const float mc = m_safe * scale_log2;
+    const float alpha = exp2f((m[r] - m_safe) * unit_log2);
+    const float mc = m_safe * unit_log2;
     m[r] = m_new;
     float sum = 0.0f;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        s[n][e] = exp2f(fmaf(s[n][e], scale_log2, -mc));
+        s[n][e] = exp2f(fmaf(s[n][e], unit_log2, -mc));
         sum += s[n][e];
       }
     }

@@ -11,6 +11,15 @@
 // with an f32 softmax and accumulator. q (B, n_kv, group, d) and k, v
 // (B, n_kv, S, d) are f32, f16 or bf16; the output is in q's type.
 //
+// With an attention softcap (softcap > 0, Gemma-2's; the TPU kernel has
+// none, so this follows the reference's _decode_attn in
+// repro/models/transformer.py), each valid score x = q.k * scale becomes
+// softcap * tanh(x / softcap) before the softmax, and a masked one stays
+// -inf. Each split kernel is a template on CAP, so without a softcap the
+// instructions are those of the kernel before it. A sliding-window layer's
+// ring cache comes with lens = min(pos + 1, ring size): its slots, in any
+// order, are the window's keys (models/transformer.py says why).
+//
 // What bounds it: bytes. Every valid cache row of K and V is read once for
 // 4*group*d FLOPs, 2 FLOP per byte in bf16 at group 8, far below the card's
 // ratio (at decode_32k, B = 128, S = 32768: 8.59 GB of K and V, 2.56 ms at
@@ -74,15 +83,16 @@ constexpr int MAX_GROUP = 16;        // query heads per KV head
 
 namespace f32fma {
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int32_t* __restrict__ lens,
                         float* __restrict__ m_part, float* __restrict__ l_part,
                         float* __restrict__ acc_part, int S, int d, int group,
-                        int chunk, float scale) {
+                        int chunk, float scale, float softcap) {
   constexpr int DP = 16 * NC;                 // padded head dim
+  const float inv_cap = CAP ? 1.0f / softcap : 0.0f;
   constexpr int KST = DP + 1;                 // shared row stride
   constexpr int GSTRIDE = THREADS / DP;       // query heads between a
   constexpr int NG = (MAX_GROUP + GSTRIDE - 1) / GSTRIDE;  // thread's own
@@ -155,7 +165,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < MAX_GROUP / 2; ++i) {
         const int g = half + 2 * i;
-        if (g < group) ps[g * TILE + j] = valid ? sc[i] * scale : -INFINITY;
+        if (g < group) {
+          float x = sc[i] * scale;
+          if constexpr (CAP) x = softcap * tanhf(x * inv_cap);
+          ps[g * TILE + j] = valid ? x : -INFINITY;
+        }
       }
     }
     __syncthreads();
@@ -232,14 +246,14 @@ __host__ __device__ constexpr int smem_bytes() {
   return (MAX_GROUP + 2 * STAGES * TILE) * 16 * NC * 2;  // Q, then K, V
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS, 2)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int32_t* __restrict__ lens,
                         float* __restrict__ m_part, float* __restrict__ l_part,
                         float* __restrict__ acc_part, int S, int d, int group,
-                        int chunk, float scale, int vec) {
+                        int chunk, float scale, float softcap, int vec) {
   constexpr int DP = 16 * NC;                  // padded head dim
   constexpr int TB = TILE * DP * 2;            // bytes of a K or V tile
   constexpr int QB = MAX_GROUP * DP * 2;       // bytes of the Q tile
@@ -260,7 +274,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const float scale_log2 = scale * 1.4426950408889634f;
+  // Scores stay in raw q.k units, scale folded into exp2 and m_part; with
+  // the softcap they are softcapped scores, already in scaled units.
+  const float unit = CAP ? 1.0f : scale;
+  const float unit_log2 = unit * 1.4426950408889634f;
+  const float cap_in = CAP ? scale / softcap : 0.0f;
   const T* kb = k + bh * S * static_cast<int64_t>(d);
   const T* vb = v + bh * S * static_cast<int64_t>(d);
 
@@ -326,6 +344,14 @@ __global__ void __launch_bounds__(THREADS, 2)
       attn::mma_16816<T>(s[0], qf[kk], b[0], b[1]);
       attn::mma_16816<T>(s[1], qf[kk], b[2], b[3]);
     }
+    if constexpr (CAP) {             // every score of the tile, then mask
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = softcap * tanhf(s[n][e] * cap_in);
+      }
+    }
     if (t0 + TILE > end) {           // the split's last, ragged tile
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -335,7 +361,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
       }
     }
-    attn::online_softmax(s, o, m, l, scale_log2);
+    attn::online_softmax(s, o, m, l, unit_log2);
 
     uint32_t hi[4], lo[4];
     attn::split_pair<T>(s[0][0], s[0][1], hi[0], lo[0]);
@@ -376,7 +402,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
   }
   __syncthreads();
-  // m_part holds the max in units of score · scale, as the f32 kernel's
+  // m_part holds the max in scaled units (m · unit), as the f32 kernel's
   // does, for the combine kernel; a warp with no valid position (m = -inf)
   // weighs 0. Every split holds a valid position, so the max is finite.
   const int64_t row_base = (bh * n_splits + split) * group;
@@ -391,13 +417,13 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
       const float wt =
-          exp2f((m_w[w * MAX_GROUP + row] - big) * scale_log2);
+          exp2f((m_w[w * MAX_GROUP + row] - big) * unit_log2);
       den = fmaf(l_w[w * MAX_GROUP + row], wt, den);
       num = fmaf(o_w[(w * MAX_GROUP + row) * DP + c], wt, num);
     }
     if (c < d) acc_part[(row_base + row) * d + c] = num;
     if (c == 0) {
-      m_part[row_base + row] = big * scale;
+      m_part[row_base + row] = big * unit;
       l_part[row_base + row] = den;
     }
   }
@@ -448,13 +474,13 @@ struct Launch {
   float* acc_part;
   void* out;
   int b, n_kv, group, s, d, chunk, n_splits;
-  float scale;
+  float scale, softcap;
   cudaStream_t stream;
 
   // f32 takes the FMA split kernel, f16 and bf16 the tensor-core one; both
   // leave the same scratch for the one combine kernel.
-  template <typename T, int NC>
-  cudaError_t operator()() const {
+  template <typename T, int NC, bool CAP>
+  cudaError_t run() const {
     const dim3 grid(n_splits, n_kv, b);
     cudaError_t err;
     if constexpr (std::is_same_v<T, float>) {
@@ -463,24 +489,27 @@ struct Launch {
           (2 * TILE * (DP + 1) + group * DP + group * TILE + 3 * group) *
           sizeof(float);
       err = attn::allow_smem(
-          reinterpret_cast<const void*>(f32fma::decode_split_kernel<T, NC>),
+          reinterpret_cast<const void*>(
+              f32fma::decode_split_kernel<T, NC, CAP>),
           smem);
       if (err != cudaSuccess) return err;
-      f32fma::decode_split_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), lens, m_part, l_part, acc_part, s, d,
-          group, chunk, scale);
+      f32fma::decode_split_kernel<T, NC, CAP>
+          <<<grid, THREADS, smem, stream>>>(
+              static_cast<const T*>(q), static_cast<const T*>(k),
+              static_cast<const T*>(v), lens, m_part, l_part, acc_part, s,
+              d, group, chunk, scale, softcap);
     } else {
       constexpr size_t smem = tc::smem_bytes<NC>();
       err = attn::allow_smem(
-          reinterpret_cast<const void*>(tc::decode_split_kernel<T, NC>), smem);
+          reinterpret_cast<const void*>(tc::decode_split_kernel<T, NC, CAP>),
+          smem);
       if (err != cudaSuccess) return err;
       const void* rows[3] = {q, k, v};
       const int vec = attn::copy_width(d, rows, 3);
-      tc::decode_split_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
+      tc::decode_split_kernel<T, NC, CAP><<<grid, THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), lens, m_part, l_part, acc_part, s, d,
-          group, chunk, scale, vec);
+          group, chunk, scale, softcap, vec);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -488,6 +517,11 @@ struct Launch {
         m_part, l_part, acc_part, lens, static_cast<T*>(out), s, d, group,
         chunk, n_splits);
     return cudaGetLastError();
+  }
+
+  template <typename T, int NC>
+  cudaError_t operator()() const {
+    return softcap > 0.0f ? run<T, NC, true>() : run<T, NC, false>();
   }
 };
 
@@ -497,16 +531,18 @@ struct Launch {
 // cudaGetLastError(). q, out (b, n_kv, group, d); k, v (b, n_kv, s, d); all
 // contiguous and of one dtype (attn::F32, F16 or BF16); lens (b,) int32 on
 // the card; d <= 128, group <= 16; chunk a multiple of 64 with
-// n_splits * chunk >= s. Scratch, f32: m_part and l_part
-// (b, n_kv, n_splits, group), acc_part (b, n_kv, n_splits, group, d).
+// n_splits * chunk >= s; softcap 0 means no attention softcap. Scratch,
+// f32: m_part and l_part (b, n_kv, n_splits, group), acc_part
+// (b, n_kv, n_splits, group, d).
 extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   const void* lens, void* m_part,
                                   void* l_part, void* acc_part, void* out,
                                   int b, int n_kv, int group, int s, int d,
                                   int chunk, int n_splits, float scale,
-                                  int dtype, void* stream) {
+                                  float softcap, int dtype, void* stream) {
   if (group < 1 || group > MAX_GROUP || chunk % TILE != 0 ||
-      static_cast<int64_t>(n_splits) * chunk < s) {
+      static_cast<int64_t>(n_splits) * chunk < s ||
+      !(softcap >= 0.0f && softcap < INFINITY)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Launch launch{q,
@@ -525,6 +561,7 @@ extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                       chunk,
                       n_splits,
                       scale,
+                      softcap,
                       static_cast<cudaStream_t>(stream)};
   return static_cast<int>(attn::dispatch(dtype, d, launch));
 }

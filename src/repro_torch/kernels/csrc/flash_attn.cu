@@ -12,10 +12,19 @@
 // are (B, H, S, d) f32, f16 or bf16; the output is in q's type. S need not
 // be a multiple of any tile: the ragged edge is masked, never padded.
 //
+// With an attention softcap (softcap > 0, Gemma-2's; the TPU kernel has
+// none, so this follows the reference's _attn_core in
+// repro/models/layers.py), each valid score x = q.k * scale becomes
+// softcap * tanh(x / softcap) before the online softmax; a masked score
+// stays -inf (softcap * tanh(-inf) would be -softcap, which lets the key
+// in). Each kernel is a template on CAP, so without a softcap the
+// instructions are those of the kernel before it. The softcap costs a tanhf
+// beside each exp2f, twice the special-function work per valid pair.
+//
 // For training, both routes also write each row's log-sum-exp lse (B, H, S)
 // f32 = m + log l in natural-log units (-inf for a row with no valid key),
 // which the backward (flash_attn_bwd.cu) reads to recompute P; inference
-// passes a null pointer and writes none.
+// passes a null pointer and writes none. The backward takes no softcap.
 //
 // What bounds it: operations. With each input read once and the output
 // written once, the work is 4*d FLOPs per valid (query, key) pair against
@@ -85,13 +94,14 @@ constexpr int TPR = 4;               // threads per query row
 constexpr int THREADS = BQ * TPR;    // 256
 constexpr int CHUNK = 16;            // keys per online-softmax step
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       float* __restrict__ lse, int S, int d, float scale,
-                      int causal, int window) {
+                      int causal, int window, float softcap) {
   constexpr int DP = 16 * NC;        // padded head dim
+  const float inv_cap = CAP ? 1.0f / softcap : 0.0f;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                  // BK x DP
   float* vs = smem + BK * DP;        // BK x DP
@@ -158,7 +168,9 @@ __global__ void __launch_bounds__(THREADS)
         bool valid = key < S && qi < S;
         if (causal) valid = valid && key <= qi;
         if (window > 0) valid = valid && key > qi - window;
-        s[jj] = valid ? dot * scale : -INFINITY;
+        float x = dot * scale;
+        if constexpr (CAP) x = softcap * tanhf(x * inv_cap);
+        s[jj] = valid ? x : -INFINITY;
         cmax = fmaxf(cmax, s[jj]);
       }
       // Rows with no valid key so far keep m = -inf; exp(-inf) = 0 makes
@@ -222,12 +234,12 @@ __host__ __device__ constexpr int smem_bytes() {
   return (BQ + 2 * STAGES * BK) * 16 * NC * 2;  // Q, then K, V per stage
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       float* __restrict__ lse, int S, int d, float scale,
-                      int causal, int window, int vec) {
+                      int causal, int window, float softcap, int vec) {
   constexpr int DP = 16 * NC;        // padded head dim
   constexpr int QB = BQ * DP * 2;    // bytes of the Q tile
   constexpr int TILE = BK * DP * 2;  // bytes of a K or V tile
@@ -242,7 +254,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const float scale_log2 = scale * 1.4426950408889634f;
+  // Scores stay in raw q.k units, scale folded into exp2 and lse; with
+  // the softcap they are softcapped scores, already in scaled units.
+  const float unit = CAP ? 1.0f : scale;
+  const float unit_log2 = unit * 1.4426950408889634f;
+  const float cap_in = CAP ? scale / softcap : 0.0f;
 
   const int k_end = causal ? min(S, q0 + BQ) : S;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
@@ -317,6 +333,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       }
     }
 
+    if constexpr (CAP) {             // every score of the tile, then mask
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = softcap * tanhf(s[n][e] * cap_in);
+      }
+    }
     // Masks, only on tiles that cross the causal diagonal, the window's
     // lower edge or the end of S.
     const bool edge = (causal && k0 + BK - 1 > q0) ||
@@ -336,7 +360,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         }
       }
     }
-    attn::online_softmax(s, o, m, l, scale_log2);
+    attn::online_softmax(s, o, m, l, unit_log2);
 
     // O += P·V, P split into hi and lo, 16 keys per MMA step.
 #pragma unroll
@@ -369,9 +393,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const float l_row = attn::quad_sum(l[r]);
     const float inv_l = 1.0f / fmaxf(l_row, 1e-30f);
     if (row >= S) continue;
-    if (lse != nullptr && t == 0)    // m is in raw q·k units here
+    if (lse != nullptr && t == 0)    // m · unit is in scaled units
       lse[base / d + row] =
-          m[r] == -INFINITY ? -INFINITY : fmaf(m[r], scale, logf(l_row));
+          m[r] == -INFINITY ? -INFINITY : fmaf(m[r], unit, logf(l_row));
     T* o_row = out + base + static_cast<int64_t>(row) * d;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -396,36 +420,44 @@ struct Launch {
   void* out;
   float* lse;
   int b, h, s, d, causal, window;
-  float scale;
+  float scale, softcap;
   cudaStream_t stream;
 
   // f32 takes the FMA kernel, f16 and bf16 the tensor-core kernel.
-  template <typename T, int NC>
-  cudaError_t operator()() const {
+  template <typename T, int NC, bool CAP>
+  cudaError_t run() const {
     if constexpr (std::is_same_v<T, float>) {
       const size_t smem = 2 * f32fma::BK * 16 * NC * sizeof(float);
       cudaError_t err = attn::allow_smem(
-          reinterpret_cast<const void*>(f32fma::flash_attn_kernel<T, NC>), smem);
+          reinterpret_cast<const void*>(f32fma::flash_attn_kernel<T, NC, CAP>),
+          smem);
       if (err != cudaSuccess) return err;
       const dim3 grid((s + f32fma::BQ - 1) / f32fma::BQ, h, b);
-      f32fma::flash_attn_kernel<T, NC><<<grid, f32fma::THREADS, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), lse, s, d, scale,
-          causal, window);
+      f32fma::flash_attn_kernel<T, NC, CAP>
+          <<<grid, f32fma::THREADS, smem, stream>>>(
+              static_cast<const T*>(q), static_cast<const T*>(k),
+              static_cast<const T*>(v), static_cast<T*>(out), lse, s, d,
+              scale, causal, window, softcap);
     } else {
       constexpr size_t smem = tc::smem_bytes<NC>();
       cudaError_t err = attn::allow_smem(
-          reinterpret_cast<const void*>(tc::flash_attn_kernel<T, NC>), smem);
+          reinterpret_cast<const void*>(tc::flash_attn_kernel<T, NC, CAP>),
+          smem);
       if (err != cudaSuccess) return err;
       const void* rows[3] = {q, k, v};
       const int vec = attn::copy_width(d, rows, 3);
       const dim3 grid((s + tc::BQ - 1) / tc::BQ, h, b);
-      tc::flash_attn_kernel<T, NC><<<grid, tc::THREADS, smem, stream>>>(
+      tc::flash_attn_kernel<T, NC, CAP><<<grid, tc::THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(out), lse, s, d, scale,
-          causal, window, vec);
+          causal, window, softcap, vec);
     }
     return cudaGetLastError();
+  }
+
+  template <typename T, int NC>
+  cudaError_t operator()() const {
+    return softcap > 0.0f ? run<T, NC, true>() : run<T, NC, false>();
   }
 };
 
@@ -434,13 +466,17 @@ struct Launch {
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // q, k, v, out (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or
 // BF16); lse (b, h, s) f32, or null to write none; d <= 128; window 0
-// means no sliding window.
+// means no sliding window, softcap 0 no attention softcap.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, float* lse, int b, int h, int s,
                                  int d, int causal, int window, float scale,
-                                 int dtype, void* stream) {
-  const Launch launch{q, k,      v,      out,   lse,
-                      b, h,      s,      d,     causal,
-                      window,    scale,  static_cast<cudaStream_t>(stream)};
+                                 float softcap, int dtype, void* stream) {
+  if (!(softcap >= 0.0f && softcap < INFINITY)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch launch{q,      k,     v,       out,
+                      lse,    b,     h,       s,
+                      d,      causal, window, scale,
+                      softcap, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(attn::dispatch(dtype, d, launch));
 }

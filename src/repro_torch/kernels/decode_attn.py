@@ -9,7 +9,9 @@ softmax and accumulator in float32, the output in q's dtype; a sequence
 with lens[b] = 0 gives 0. q is (B, n_kv, group, d), k and v (B, n_kv, S, d),
 one dtype (float32, float16 or bfloat16), lens (B,) int32; d <= 128,
 group <= 16. Positions at or past lens[b] are masked, never read: the cache
-needs no padding.
+needs no padding. With an attention softcap c each valid score x becomes
+c · tanh(x / c) before the softmax, as in the reference's `_decode_attn`.
+The kernel only serves, so it takes no gradient (`no_grad_guard`).
 
 On the card the cache axis is cut into splits, each a thread block, and a
 second kernel combines them; `DECODE_LAUNCHES` counts the pair as one. f16
@@ -21,6 +23,8 @@ take the plain version, CUDA tensors launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -29,13 +33,16 @@ from repro_torch.kernels.flash_attn import (
     DTYPE_CODES,
     MAX_HEAD_DIM,
     ROUTES,
+    apply_softcap,
     no_grad_guard,
+    softcap_value,
 )
 
 # Calls of `decode_attention_cuda` in this process (split + combine each),
-# in all and by route.
+# in all, by route and with a softcap.
 DECODE_LAUNCHES = 0
 DECODE_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
+DECODE_SOFTCAP_LAUNCHES = 0
 
 MAX_GROUP = 16         # must match MAX_GROUP in csrc/decode_attn.cu
 TILE = 64              # cache positions per shared tile (TILE in the source)
@@ -69,13 +76,16 @@ def _check(q, k, v, lens) -> None:
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lens: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: all S scores in float32, positions at or
-    past lens[b] masked, the kernel's guard for lens[b] = 0."""
+                           lens: torch.Tensor,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """The plain PyTorch version: all S scores in float32, softcapped where
+    asked, positions at or past lens[b] masked, the kernel's guard for
+    lens[b] = 0."""
     _check(q, k, v, lens)
     s_len, d = k.shape[2], q.shape[3]
     logits = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) \
         * (1.0 / d ** 0.5)
+    logits = apply_softcap(logits, softcap_value(softcap))
     valid = torch.arange(s_len, device=q.device)[None, :] < lens[:, None]
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
@@ -84,11 +94,12 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / denom).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def split_plan(b: int, n_kv: int, s_len: int, n_sm: int) -> tuple:
     """(chunk, n_splits): positions per split, a multiple of TILE, and the
     number of splits. Enough splits for BLOCKS_PER_SM blocks on each of the
     card's `n_sm` SMs, and none longer than _MAX_CHUNK, but never less than
-    one tile each."""
+    one tile each. Cached per shape: a decode step asks once per layer."""
     tiles = -(-s_len // TILE)
     want = max(-(-BLOCKS_PER_SM * n_sm // (b * n_kv)),
                -(-s_len // _MAX_CHUNK))
@@ -96,20 +107,31 @@ def split_plan(b: int, n_kv: int, s_len: int, n_sm: int) -> tuple:
     return chunk, -(-s_len // chunk)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _launch_fn():
     return entry("decode_attn_launch",
                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lens: torch.Tensor) -> torch.Tensor:
+                          lens: torch.Tensor,
+                          softcap: Optional[float] = None) -> torch.Tensor:
     """Launch the split and combine kernels on PyTorch's current stream (no
     synchronise). Returns (B, n_kv, group, d) in q's dtype; raises on any
     operand the kernels do not take. `lens` stays on the card: no host
-    sync."""
-    global DECODE_LAUNCHES
+    sync. The SM count and the split plan are cached, and the scratch is
+    one allocation from PyTorch's caching allocator (allocations were the
+    largest part of the wrapper's host time, as
+    scripts/decode_wrapper_time.py measures it)."""
+    global DECODE_LAUNCHES, DECODE_SOFTCAP_LAUNCHES
     _check(q, k, v, lens)
+    cap = softcap_value(softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -126,31 +148,34 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    chunk, n_splits = split_plan(b, n_kv, s_len, n_sm)
-    part = (b, n_kv, n_splits, group)
-    m_part = torch.empty(part, dtype=torch.float32, device=q.device)
-    l_part = torch.empty(part, dtype=torch.float32, device=q.device)
-    acc_part = torch.empty((*part, d), dtype=torch.float32, device=q.device)
+    chunk, n_splits = split_plan(b, n_kv, s_len, sm_count(q.device.index))
+    # One f32 scratch allocation (its parts are read and written as scalars):
+    # m_part and l_part (b, n_kv, n_splits, group), acc_part (..., d).
+    n_part = b * n_kv * n_splits * group
+    scratch = torch.empty(n_part * (2 + d), dtype=torch.float32,
+                          device=q.device)
+    m_part, l_part = scratch.data_ptr(), scratch.data_ptr() + 4 * n_part
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-                 out.data_ptr(), b, n_kv, group, s_len, d, chunk, n_splits,
-                 1.0 / d ** 0.5, DTYPE_CODES[q.dtype], stream)
+                 m_part, l_part, l_part + 4 * n_part, out.data_ptr(), b,
+                 n_kv, group, s_len, d, chunk, n_splits, 1.0 / d ** 0.5, cap,
+                 DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attn kernel launch failed: CUDA error "
                            f"{err}")
     DECODE_LAUNCHES += 1
     DECODE_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
+    if cap:
+        DECODE_SOFTCAP_LAUNCHES += 1
     return out
 
 
 def decode_attention_blocks(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor,
-                            lens: torch.Tensor) -> torch.Tensor:
+                            v: torch.Tensor, lens: torch.Tensor,
+                            softcap: Optional[float] = None) -> torch.Tensor:
     """The kernels for CUDA tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lens)
-    return decode_attention_cuda(q, k, v, lens)
+        return decode_attention_plain(q, k, v, lens, softcap)
+    return decode_attention_cuda(q, k, v, lens, softcap)

@@ -18,6 +18,13 @@ which the backward recomputes the probabilities:
     dS_ij = P_ij (dO_i · v_j - D_i),
     dV_j = Σ_i P_ij dO_i,  dK_j = s Σ_i dS_ij q_i,  dQ_i = s Σ_j dS_ij k_j.
 
+With an attention softcap c (Gemma-2's; the reference's `_softcap` in
+`_attn_core`), each valid score x = q · k / √d becomes c · tanh(x / c)
+before the softmax, and lse is taken over the softcapped scores. The
+forward takes it on both routes; the backward has none yet, so a
+softcapped attention under autograd raises `NotImplementedError` on every
+device (ROADMAP.md queue 1 item 8: the softcap's backward).
+
 On the card both directions take their tensor-core kernels for f16 and
 bf16 and their f32 FMA kernels for f32 (`ROUTES`, `BWD_ROUTES`; the
 sources say why).
@@ -35,12 +42,14 @@ import torch
 
 from repro_torch.kernels.build import entry
 
-# Kernel launches made in this process, in all and by route: the forward
-# by `flash_attention_cuda` (inference and `FlashAttention.forward`, the
-# recompute of a checkpointed layer among them), the backward by
-# `flash_attention_bwd_cuda` (`FlashAttention.backward`).
+# Kernel launches made in this process, in all, by route and with a
+# softcap: the forward by `flash_attention_cuda` (inference and
+# `FlashAttention.forward`, the recompute of a checkpointed layer among
+# them), the backward by `flash_attention_bwd_cuda`
+# (`FlashAttention.backward`).
 FLASH_LAUNCHES = 0
 FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
+FLASH_SOFTCAP_LAUNCHES = 0
 FLASH_BWD_LAUNCHES = 0
 FLASH_BWD_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 
@@ -51,6 +60,7 @@ ROUTES = {torch.float32: "f32_fma", torch.float16: "tensor_core",
 # ... and in csrc/flash_attn_bwd.cu.
 BWD_ROUTES = dict(ROUTES)
 MAX_HEAD_DIM = 128     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
+_ITEM = "ROADMAP.md queue 1 item 8"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,6 +78,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must lie on one device")
 
 
+def softcap_value(softcap: Optional[float]) -> float:
+    """The softcap as the kernels take it: 0.0 for none (None), else a
+    finite value > 0."""
+    if softcap is None:
+        return 0.0
+    cap = float(softcap)
+    if not 0.0 < cap < float("inf"):
+        raise ValueError(f"softcap must be None or finite and > 0, got "
+                         f"{softcap}")
+    return cap
+
+
+def apply_softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """cap · tanh(logits / cap) where cap > 0; the logits as they are for
+    cap 0."""
+    return cap * torch.tanh(logits / cap) if cap else logits
+
+
+def refuse_softcap_grad(name: str) -> None:
+    raise NotImplementedError(
+        f"{name}: the attention softcap has no backward yet ({_ITEM}: the "
+        "softcap's backward, with Gemma-2 training); a softcapped attention "
+        "runs under torch.no_grad() or torch.inference_mode(), or on "
+        "inputs that do not require grad")
+
+
 def _mask(s_len: int, causal: bool, window: int, device) -> torch.Tensor:
     """(S, S) bool: key j is valid for query i."""
     pos = torch.arange(s_len, device=device)
@@ -81,15 +117,17 @@ def _mask(s_len: int, causal: bool, window: int, device) -> torch.Tensor:
 
 def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
-                              window: int = 0
+                              window: int = 0,
+                              softcap: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: the full S×S scores in float32, the
-    kernel's masks and its guard for rows with no valid key. Returns (out
-    in q's dtype, lse (B, H, S) f32)."""
+    """The plain PyTorch version: the full S×S scores in float32,
+    softcapped where asked, the kernel's masks and its guard for rows with
+    no valid key. Returns (out in q's dtype, lse (B, H, S) f32)."""
     _check(q, k, v)
     s_len, d = q.shape[2], q.shape[3]
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
         * (1.0 / d ** 0.5)
+    logits = apply_softcap(logits, softcap_value(softcap))
     logits = logits.masked_fill(~_mask(s_len, causal, window, q.device),
                                 float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
@@ -102,11 +140,11 @@ def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
+                          *, causal: bool = True, window: int = 0,
+                          softcap: Optional[float] = None) -> torch.Tensor:
     """`flash_attention_plain_lse`'s output alone."""
-    return flash_attention_plain_lse(q, k, v, causal=causal,
-                                     window=window)[0]
+    return flash_attention_plain_lse(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)[0]
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -138,7 +176,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 def _launch_fn():
     return entry("flash_attn_launch",
                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _bwd_launch_fn():
@@ -155,15 +193,21 @@ def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name} has no backward: the decode kernel serves decode steps "
             "only, and LM training attends through the flash kernels (what "
-            "is left of the LM side, ROADMAP.md queue 1 item 8: decode-step "
-            "speed, sliding-window ring caches, the softcap, MoE, recurrent "
-            "blocks, other archs). Call it under torch.no_grad() or "
-            "torch.inference_mode(), or on inputs that do not require grad")
+            f"is left of the LM side, {_ITEM}: decode-step speed, the "
+            "softcap's backward, MoE, recurrent blocks, other archs). Call "
+            "it under torch.no_grad() or torch.inference_mode(), or on "
+            "inputs that do not require grad")
 
 
-def _check_cuda(name: str, window: int, **tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, window: int, softcap: Optional[float],
+                backward: bool = False, **tensors: torch.Tensor) -> float:
     """What the kernels take beyond `_check`: CUDA, contiguous tensors,
-    d <= MAX_HEAD_DIM, window >= 0 (tensors by name, q first)."""
+    d <= MAX_HEAD_DIM, window >= 0, a softcap the forward takes and the
+    backward not yet (tensors by name, q first). Returns the softcap as
+    the kernels take it."""
+    cap = softcap_value(softcap)
+    if backward and cap:
+        refuse_softcap_grad(name)
     q = next(iter(tensors.values()))
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
@@ -174,16 +218,18 @@ def _check_cuda(name: str, window: int, **tensors: torch.Tensor) -> None:
         raise ValueError(f"head dim {q.shape[3]} > {MAX_HEAD_DIM}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    return cap
 
 
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, window: int, with_lse: bool
+                    causal: bool, window: int, with_lse: bool,
+                    softcap: Optional[float] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One forward launch on PyTorch's current stream (no synchronise);
     writes lse only when asked (inference passes a null pointer)."""
-    global FLASH_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_SOFTCAP_LAUNCHES
     _check(q, k, v)
-    _check_cuda("flash_attention_cuda", window, q=q, k=k, v=v)
+    cap = _check_cuda("flash_attention_cuda", window, softcap, q=q, k=k, v=v)
     b, h, s_len, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_len), dtype=torch.float32,
@@ -195,38 +241,44 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5,
+                 b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5, cap,
                  DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
                            f"{err}")
     FLASH_LAUNCHES += 1
     FLASH_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
+    if cap:
+        FLASH_SOFTCAP_LAUNCHES += 1
     return out, lse
 
 
 def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
-                             window: int = 0
+                             window: int = 0,
+                             softcap: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel as training launches it: (out, lse (B, H, S)
     f32), recording no graph (`FlashAttention` is the differentiable
     entry)."""
-    return _launch_forward(q, k, v, causal, window, with_lse=True)
+    return _launch_forward(q, k, v, causal, window, with_lse=True,
+                           softcap=softcap)
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor,
-                             causal: bool = True, window: int = 0
+                             causal: bool = True, window: int = 0,
+                             softcap: Optional[float] = None
                              ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's
     current stream, counted as one launch: (dq, dk, dv) in q's dtype.
-    Raises on any operand the kernels do not take."""
+    Raises on any operand the kernels do not take, a softcap among them
+    (the backward has none yet)."""
     global FLASH_BWD_LAUNCHES
     _check(q, k, v, out, dout)
-    _check_cuda("flash_attention_bwd_cuda", window, q=q, k=k, v=v,
-                out=out, dout=dout, lse=lse)
+    _check_cuda("flash_attention_bwd_cuda", window, softcap, backward=True,
+                q=q, k=k, v=v, out=out, dout=dout, lse=lse)
     b, h, s_len, d = q.shape
     if lse.shape != (b, h, s_len) or lse.dtype != torch.float32 or \
             lse.device != q.device:
@@ -255,10 +307,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """Flash attention under autograd: the forward kernel writes lse beside
     the output, the backward kernel reads both. CPU tensors take the plain
-    versions of both directions; CUDA tensors launch the kernels."""
+    versions of both directions; CUDA tensors launch the kernels. A
+    softcap raises: its backward is not written yet."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                softcap: Optional[float] = None):
+        if softcap_value(softcap):
+            refuse_softcap_grad("FlashAttention")
         if q.device.type == "cpu":
             out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
                                                  window=window)
@@ -276,7 +332,7 @@ class FlashAttention(torch.autograd.Function):
         bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
                else flash_attention_bwd_cuda)
         dq, dk, dv = bwd(q, k, v, out, dout, lse, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -284,26 +340,31 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         softcap: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
     Returns (B, H, S, d) in q's dtype; raises on any operand the kernel does
     not take. Where a gradient is asked for, the launch goes through
-    `FlashAttention`, which also writes lse and launches the backward."""
+    `FlashAttention`, which also writes lse and launches the backward (and
+    raises for a softcap)."""
     if _wants_grad(q, k, v):
         _check(q, k, v)
-        _check_cuda("flash_attention_cuda", window, q=q, k=k, v=v)
-        return FlashAttention.apply(q, k, v, causal, window)
-    return _launch_forward(q, k, v, causal, window, with_lse=False)[0]
+        _check_cuda("flash_attention_cuda", window, softcap, q=q, k=k, v=v)
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _launch_forward(q, k, v, causal, window, with_lse=False,
+                           softcap=softcap)[0]
 
 
 def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0,
+                           softcap: Optional[float] = None) -> torch.Tensor:
     """The kernels for CUDA tensors, their plain versions for CPU tensors,
     through `FlashAttention` where a gradient is asked for."""
     if q.device.type != "cpu":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
     if _wants_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window)
-    return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)

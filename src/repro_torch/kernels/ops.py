@@ -3,6 +3,8 @@ of the Block-ELL kernels stripped on the way out, the GQA grouping of the
 decode kernel done inside."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.bcsr_spmm import (
@@ -46,10 +48,12 @@ def fused_gcn_layer(ell: BlockELL, h: torch.Tensor, w: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lens: torch.Tensor) -> torch.Tensor:
+                     lens: torch.Tensor,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """GQA flash-decode. q (B, n_q_heads, d), k and v (B, n_kv_heads, S, d),
-    lens (B,) valid positions per sequence. Returns (B, n_q_heads, d) in q's
-    dtype.
+    lens (B,) valid positions per sequence; `softcap` c turns each score x
+    into c · tanh(x / c) (None: no softcap). Returns (B, n_q_heads, d) in
+    q's dtype.
 
     The reference's `block_s` and `interpret` arguments are TPU-only and
     not taken; nor is the cache padded to a block multiple, as the
@@ -63,18 +67,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(b_sz, n_kv, n_q // n_kv, d).contiguous()
     out = decode_attention_blocks(
         qg, k.contiguous(), v.contiguous(),
-        lens.to(device=q.device, dtype=torch.int32).contiguous())
+        lens.to(device=q.device, dtype=torch.int32).contiguous(), softcap)
     return out.reshape(b_sz, n_q, d)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """Causal/windowed flash attention over (B, H, S, d) — the prefill hot
-    spot. Returns (B, H, S, d) in q's dtype.
+    spot; `softcap` c turns each score x into c · tanh(x / c) (None: no
+    softcap; under autograd a softcap raises, its backward is not written
+    yet). Returns (B, H, S, d) in q's dtype.
 
     The reference's `block_q`, `block_k` and `interpret` arguments are
     TPU-only and not taken; S need not be a multiple of any block.
     """
     return flash_attention_blocks(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
-                                  window=window)
+                                  window=window, softcap=softcap)

@@ -1,6 +1,7 @@
 """Transformer building blocks of the dense LM path: RMSNorm, RoPE, GQA
 self-attention through the flash kernel (differentiable: its backward is
-the hand-written backward kernel), SwiGLU MLP.
+the hand-written backward kernel), within a sliding window and with an
+attention softcap where the config asks (Gemma-2), SwiGLU MLP.
 
 Conventions, as in `repro.models.layers`:
   * params are dicts of tensors; weights stored (in_dim, out_dim).
@@ -9,10 +10,9 @@ Conventions, as in `repro.models.layers`:
 
 Not ported yet (ROADMAP.md queue 1 item 8), each raising where the
 reference would take it: M-RoPE (`apply_mrope`), the MoE feed-forward
-(`moe_ffn`), attention within a sliding window (its decode needs ring
-caches), with a KV cache (`cache=`; the decode path attends through
-`transformer.decode_step`) or with encoder K/V (`cross_kv=`), and the
-attention softcap (the flash kernel has none).
+(`moe_ffn`), attention with a KV cache (`cache=`; the decode path attends
+through `transformer.decode_step`) or with encoder K/V (`cross_kv=`), and
+the softcap's backward (a softcapped attention under autograd raises).
 """
 from __future__ import annotations
 
@@ -80,13 +80,15 @@ def attention(
     the S×S scores, so the reference's query chunking has no counterpart.
 
     `positions` are the tokens' positions 0..S-1 (`transformer.
-    _build_positions`): RoPE reads them; the causal mask is by index.
-    Returns (out (B, S, D), None): there is no cache to return.
+    _build_positions`): RoPE reads them; the causal mask, and with
+    `sliding_window` w the window (keys j > i - w), are by index. The
+    kernel softcaps the scores by `cfg.attn_softcap` before the mask, as
+    the reference's `_attn_core` does. Returns (out (B, S, D), None): there
+    is no cache to return.
     """
-    if sliding_window is not None:
-        raise NotImplementedError(
-            f"sliding-window layers are not ported yet ({_ITEM}): their "
-            "decode needs ring caches")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be >= 1, got "
+                         f"{sliding_window}")
     if cache is not None:
         raise NotImplementedError(
             f"attention with a KV cache is not ported yet ({_ITEM}); "
@@ -94,10 +96,6 @@ def attention(
     if cross_kv is not None or cross_mask is not None:
         raise NotImplementedError(
             f"cross-attention (encoder-decoder) is not ported yet ({_ITEM})")
-    if cfg.attn_softcap is not None:
-        raise NotImplementedError(
-            f"the attention softcap is not ported yet ({_ITEM}): the flash "
-            "kernel has none")
     if cfg.mrope_sections is not None:
         apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     b, s, _ = x.shape
@@ -112,7 +110,9 @@ def attention(
     if group > 1:
         k = torch.repeat_interleave(k, group, dim=1)
         v = torch.repeat_interleave(v, group, dim=1)
-    out = ops.flash_attention(q, k, v, causal=True)
+    out = ops.flash_attention(q, k, v, causal=True,
+                              window=sliding_window or 0,
+                              softcap=cfg.attn_softcap)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return matmul(out.to(x.dtype), p["wo"]), None
 

@@ -1,21 +1,26 @@
 """The decoder stack of `repro.models.transformer`, dense GQA subset: every
 layer an `ATTN` block (RMSNorm, causal GQA self-attention with RoPE,
-RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and DeepSeek-7B.
+RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and DeepSeek-7B, or a
+`LOCAL_ATTN` block, the same within a sliding window, as Gemma-2 27B
+alternates them; with the attention and final-logit softcaps where the
+config sets them.
 
 `forward` (training / prefill) attends through the flash kernel, and
 `lm_loss` is differentiable through it (`kernels.flash_attn.FlashAttention`:
-the forward kernel and its hand-written backward); `decode_step` (serving)
-attends one new token per sequence against a KV cache through the GQA
-flash-decode kernel. Params are a dict of tensors shaped like the
-reference's pytree (`params_from_numpy` carries one over).
+the forward kernel and its hand-written backward; a softcapped config
+raises under autograd, the softcap having no backward yet); `decode_step`
+(serving) attends one new token per sequence against a KV cache, a ring of
+`sliding_window` slots on `LOCAL_ATTN` layers, through the GQA flash-decode
+kernel. Params are a dict of tensors shaped like the reference's pytree
+(`params_from_numpy` carries one over).
 
 `cfg.remat`, `jax.checkpoint` per layer in the reference, is
 `torch.utils.checkpoint` per layer here, taken only while autograd records
 (never under `torch.no_grad()` or `torch.inference_mode()`): the backward
 recomputes each layer's forward, flash launch included. The sharding hints
-(`mesh_axes`) have no argument. Other block kinds (sliding-window ring
-caches, MoE, recurrent blocks), M-RoPE and the vision, audio and encoder
-inputs raise `NotImplementedError` (ROADMAP.md queue 1 item 8).
+(`mesh_axes`) have no argument. Other block kinds (MoE, recurrent blocks),
+M-RoPE and the vision, audio and encoder inputs raise
+`NotImplementedError` (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -42,15 +47,16 @@ def _check_supported(cfg: ArchConfig) -> None:
         ("a vision frontend", cfg.n_vision_tokens > 0),
         ("an audio frontend", cfg.audio_frames > 0),
         ("M-RoPE", cfg.mrope_sections is not None),
-        ("an attention softcap", cfg.attn_softcap is not None),
     ) if on]
-    kinds = sorted({k.value for k in cfg.blocks()} - {BlockKind.ATTN.value})
+    kinds = sorted({k.value for k in cfg.blocks()}
+                   - {BlockKind.ATTN.value, BlockKind.LOCAL_ATTN.value})
     if kinds:
         unported.append(f"block kinds {kinds}")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported to repro_torch "
-            f"yet ({_ITEM}); the port runs dense ATTN stacks")
+            f"yet ({_ITEM}); the port runs dense ATTN and LOCAL_ATTN "
+            "stacks")
 
 
 # --------------------------------------------------------------------------
@@ -160,12 +166,15 @@ def param_count(params: Any) -> int:
 
 def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """One ATTN block (no MoE, so no aux loss)."""
-    if kind != BlockKind.ATTN:
+    """One ATTN or LOCAL_ATTN block (no MoE, so no aux loss); a LOCAL_ATTN
+    block attends within `cfg.sliding_window`, as the reference's."""
+    if kind not in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
         raise NotImplementedError(f"{kind.value} blocks are not ported yet "
                                   f"({_ITEM})")
+    window = cfg.sliding_window if kind == BlockKind.LOCAL_ATTN else None
     h = L.rms_norm(x, p["ln1"])
-    attn_out, _ = L.attention(cfg, p["attn"], h, positions)
+    attn_out, _ = L.attention(cfg, p["attn"], h, positions,
+                              sliding_window=window)
     x = x + attn_out
     if "mlp" in p:
         x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
@@ -235,24 +244,43 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: Optional[torch.dtype] = None, *,
                       device: "str | torch.device" = "cuda"
                       ) -> Dict[str, Any]:
-    """Per-layer KV caches (B, n_kv_heads, max_len, hd) on `device`, in
-    `dtype` (`cfg.dtype` when None, as in the reference), and the position
-    of the next token, a Python int."""
+    """Per-layer KV caches (B, n_kv_heads, L, hd) on `device`, in `dtype`
+    (`cfg.dtype` when None, as in the reference), and the position of the
+    next token, a Python int. An ATTN layer's cache holds L = max_len
+    positions; a LOCAL_ATTN layer's is a ring of L = min(sliding_window or
+    max_len, max_len) slots, beside "slot_pos" (L,) int32 on `device`, the
+    position each slot holds (-1: none yet), as the reference keeps it."""
     _check_supported(cfg)
     dt = dtype or _dtype(cfg)
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
-    layers: List[Dict[str, torch.Tensor]] = [
-        {"k": torch.zeros(shape, dtype=dt, device=device),
-         "v": torch.zeros(shape, dtype=dt, device=device)}
-        for _ in cfg.blocks()]
+    layers: List[Dict[str, torch.Tensor]] = []
+    for kind in cfg.blocks():
+        n = max_len
+        if kind == BlockKind.LOCAL_ATTN:
+            n = min(cfg.sliding_window or max_len, max_len)
+        shape = (batch, cfg.n_kv_heads, n, cfg.hd)
+        layer = {"k": torch.zeros(shape, dtype=dt, device=device),
+                 "v": torch.zeros(shape, dtype=dt, device=device)}
+        if kind == BlockKind.LOCAL_ATTN:
+            layer["slot_pos"] = torch.full((n,), -1, dtype=torch.int32,
+                                           device=device)
+        layers.append(layer)
     return {"pos": 0, "layers": layers}
 
 
 def _decode_attn(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                  h: torch.Tensor, state: Dict[str, torch.Tensor], pos: int,
                  posb: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """One-token attention against the cache: writes this token's K and V
-    at `pos` in place, then attends over positions 0..pos."""
+    """One-token attention against the cache, updated in place: writes this
+    token's K and V at `pos` of a full cache, or at slot pos % L of a ring
+    of L slots (and `slot_pos[slot] = pos`), then attends over the first
+    `lens` positions or slots, softcapped by `cfg.attn_softcap`.
+
+    A ring attends over its first lens = min(pos + 1, L) slots, which is
+    the reference's mask (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos >
+    pos - window): the slots written so far are the first min(pos + 1, L)
+    and hold the positions (pos - L, pos], all inside the window since L <=
+    window; and the softmax does not depend on the order of the slots,
+    because each key got RoPE at its own position when it was written."""
     b = h.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (h @ p["wq"]).reshape(b, 1, hq, hd).transpose(1, 2)
@@ -260,9 +288,14 @@ def _decode_attn(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     v_new = (h @ p["wv"]).reshape(b, 1, hkv, hd).transpose(1, 2)
     q = L.apply_rope(q, posb, cfg.rope_theta)
     k_new = L.apply_rope(k_new, posb, cfg.rope_theta)
-    state["k"][:, :, pos] = k_new[:, :, 0].to(state["k"].dtype)
-    state["v"][:, :, pos] = v_new[:, :, 0].to(state["v"].dtype)
-    out = ops.decode_attention(q[:, :, 0], state["k"], state["v"], lens)
+    slot = pos
+    if "slot_pos" in state:
+        slot = pos % state["k"].shape[2]
+        state["slot_pos"][slot] = pos
+    state["k"][:, :, slot] = k_new[:, :, 0].to(state["k"].dtype)
+    state["v"][:, :, slot] = v_new[:, :, 0].to(state["v"].dtype)
+    out = ops.decode_attention(q[:, :, 0], state["k"], state["v"], lens,
+                               softcap=cfg.attn_softcap)
     return out.reshape(b, 1, hq * hd).to(h.dtype) @ p["wo"]
 
 
@@ -273,8 +306,11 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
 
     The caches are updated in place (the reference returns new arrays), so
     the new state holds the same cache tensors; `pos` advances by one. One
-    decode-attention launch per layer on the card; `lens` (pos + 1 for
-    every sequence) is filled on the device, with no host sync.
+    decode-attention launch per layer on the card. `lens` is filled on the
+    device once per step for each cache length, with no host sync: pos + 1
+    for a full cache, min(pos + 1, L) for a ring of L slots. Only the full
+    caches bound `pos`; a stack of rings alone has no bound, as in the
+    reference.
     """
     _check_supported(cfg)
     if enc_out is not None:
@@ -282,16 +318,23 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
                                   f"({_ITEM})")
     b = token.shape[0]
     pos = state["pos"]
-    max_len = state["layers"][0]["k"].shape[2]
-    if not 0 <= pos < max_len:
-        raise ValueError(f"position {pos} is outside the cache of {max_len}")
+    full = [st["k"].shape[2] for st in state["layers"]
+            if "slot_pos" not in st]
+    if pos < 0 or (full and pos >= min(full)):
+        raise ValueError(f"position {pos} is outside the cache of "
+                         f"{min(full) if full else 'any length'}")
     x = params["embed"][token]
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    lens = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    lens: Dict[int, torch.Tensor] = {}       # by valid length
     for li, p in enumerate(params["layers"]):
+        st = state["layers"][li]
+        n = pos + 1
+        if "slot_pos" in st:
+            n = min(n, st["k"].shape[2])
+        if n not in lens:
+            lens[n] = torch.full((b,), n, dtype=torch.int32, device=x.device)
         h = L.rms_norm(x, p["ln1"])
-        x = x + _decode_attn(cfg, p["attn"], h, state["layers"][li], pos,
-                             posb, lens)
+        x = x + _decode_attn(cfg, p["attn"], h, st, pos, posb, lens[n])
         if "mlp" in p:
             x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
     return _logits(cfg, params, x), {"pos": pos + 1,

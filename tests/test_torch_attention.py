@@ -7,10 +7,19 @@ its jnp oracles, and through the port's `ops.flash_attention` /
 versions. The CUDA kernels themselves are held to those plain versions on
 the card (tests/test_torch_gpu.py, chip_smoke.py's `attn` phase).
 
+The attention softcap (Gemma-2's), which the Pallas kernels lack, is held
+to the reference's XLA attention: the plain flash version to
+`repro.models.layers._attn_core`, the plain decode version through the
+port's `_decode_attn` to `repro.models.transformer._decode_attn`, on a
+full cache and on a ring past its wrap.
+
 Tolerances: float32 atol 1e-5 (the same f32 arithmetic, summed in another
-order); bfloat16 outputs per element 2^-7·|ref| + 1e-5, one bf16 ulp, since
-both sides round once an f32 result whose last bits differ.
+order), softcapped cases too; bfloat16 outputs per element 2^-7·|ref| +
+1e-5, one bf16 ulp, since both sides round once an f32 result whose last
+bits differ.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +30,13 @@ from repro.kernels import decode_attention as r_decode
 from repro.kernels import flash_attention as r_flash
 from repro.kernels import ref as r_ref
 from repro.models import layers as r_layers
+from repro.models import transformer as r_tf
+from repro.models.config import ArchConfig as RArchConfig
 from repro_torch.kernels import decode_attn as p_dec
 from repro_torch.kernels import flash_attn as p_flash
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
+from repro_torch.models import transformer as p_tf
 
 F32_TOL = 1e-5
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
@@ -206,20 +218,144 @@ def test_port_decode_oracle_matches_reference_oracle():
     np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("softcap", [50.0, 1.0])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 0), (False, 9)])
+def test_flash_softcap_matches_attn_core(causal, window, softcap):
+    """The plain flash version with a softcap against the reference's
+    `_attn_core` (softcap, then the mask at -1e30, then softmax) on GQA
+    inputs whose KV heads are repeated, as both attention layers do; cap 1
+    bites on every score, cap 50 as Gemma-2's."""
+    rng = np.random.default_rng(int(softcap) + window)
+    b, hq, hkv, s, d = 2, 4, 2, 40, 16
+    q = _normal(rng, (b, hq, s, d)) * 2.0
+    k, v = (_normal(rng, (b, hkv, s, d)) * 2.0 for _ in range(2))
+    pos = np.arange(s)
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    ref = np.asarray(r_layers._attn_core(
+        jnp.asarray(q), jnp.repeat(jnp.asarray(k), 2, axis=1),
+        jnp.repeat(jnp.asarray(v), 2, axis=1),
+        jnp.asarray(np.broadcast_to(mask, (b, s, s))), softcap))
+    kt, vt = (torch.from_numpy(x).repeat_interleave(2, dim=1)
+              for x in (k, v))
+    out = p_ops.flash_attention(torch.from_numpy(q), kt, vt, causal=causal,
+                                window=window, softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL)
+    if softcap == 1.0:                   # a cap that bites moves the output
+        plain = p_ops.flash_attention(torch.from_numpy(q), kt, vt,
+                                      causal=causal, window=window)
+        assert float((out - plain).abs().max()) > 0.1
+
+
+def _decode_case(ring: bool, softcap: float, seed: int):
+    """A one-token decode layer for both packages: the reference's cfg,
+    weights, input and state (a full cache of 24 positions at pos 17, or a
+    ring of 8 slots past its wrap at pos 21, each slot holding the position
+    that pos % 8 would have written), and the port's copies."""
+    rng = np.random.default_rng(seed)
+    b, hq, hkv, hd = 2, 4, 2, 16
+    cfg = RArchConfig(name="softcap", family="dense", n_layers=1,
+                      d_model=hq * hd, n_heads=hq, n_kv_heads=hkv, d_ff=0,
+                      vocab=8, head_dim=hd, attn_softcap=softcap)
+    d = cfg.d_model
+    p = {"wq": _normal(rng, (d, hq * hd)) * d ** -0.5 * 3.0,
+         "wk": _normal(rng, (d, hkv * hd)) * d ** -0.5 * 3.0,
+         "wv": _normal(rng, (d, hkv * hd)) * d ** -0.5,
+         "wo": _normal(rng, (hq * hd, d)) * d ** -0.5}
+    h = _normal(rng, (b, 1, d))
+    n, pos = (8, 21) if ring else (24, 17)
+    state = {"k": _normal(rng, (b, hkv, n, hd)) * 2.0,
+             "v": _normal(rng, (b, hkv, n, hd))}
+    if ring:
+        slot_pos = np.empty(n, np.int32)
+        for t in range(pos - n, pos):        # the n positions before pos
+            slot_pos[t % n] = t
+        state["slot_pos"] = slot_pos
+    p_cfg = p_tf.ArchConfig(**dataclasses.asdict(cfg))
+    p_state = {k_: torch.from_numpy(x.copy()) for k_, x in state.items()}
+    return cfg, p_cfg, p, h, state, p_state, pos
+
+
+@pytest.mark.parametrize("softcap", [50.0, 1.0])
+@pytest.mark.parametrize("ring", [False, True])
+def test_decode_softcap_matches_decode_attn(ring, softcap):
+    """The plain decode version with a softcap, through the port's
+    `_decode_attn`, against the reference's `_decode_attn`: on a full
+    cache (lens pos + 1) and on a ring past its wrap (lens = its size),
+    the output and the updated cache (slot_pos exact)."""
+    cfg, p_cfg, p, h, state, p_state, pos = _decode_case(
+        ring, softcap, seed=int(softcap) + ring)
+    ref, r_state = r_tf._decode_attn(
+        cfg, {k_: jnp.asarray(x) for k_, x in p.items()}, jnp.asarray(h),
+        {k_: jnp.asarray(x) for k_, x in state.items()}, pos,
+        window=8 if ring else None, ring=ring)
+    b, n = h.shape[0], state["k"].shape[2]
+    lens = torch.full((b,), min(pos + 1, n), dtype=torch.int32)
+    posb = torch.full((b, 1), pos, dtype=torch.int32)
+    out = p_tf._decode_attn(p_cfg, {k_: torch.from_numpy(x)
+                                     for k_, x in p.items()},
+                            torch.from_numpy(h), p_state, pos, posb, lens)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=F32_TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(p_state[name].numpy(),
+                                   np.asarray(r_state[name]), atol=F32_TOL)
+    if ring:
+        np.testing.assert_array_equal(p_state["slot_pos"].numpy(),
+                                      np.asarray(r_state["slot_pos"]))
+
+
+def test_softcap_must_be_positive_and_finite():
+    q = torch.zeros((1, 2, 8, 16))
+    for bad in (0.0, -1.0, float("inf"), float("nan")):
+        with pytest.raises(ValueError, match="softcap"):
+            p_ops.flash_attention(q, q, q, softcap=bad)
+        with pytest.raises(ValueError, match="softcap"):
+            p_ops.decode_attention(torch.zeros((1, 4, 16)), q, q,
+                                   torch.ones(1, dtype=torch.int32),
+                                   softcap=bad)
+
+
+def test_softcapped_flash_under_autograd_raises():
+    """No path drops the softcap or returns a gradient without it: under
+    autograd every entry raises, naming the ROADMAP item; without a graph
+    the same call runs."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(_normal(rng, (1, 2, 8, 16)))
+               .requires_grad_(True) for _ in range(3))
+    for call in (
+            lambda: p_ops.flash_attention(q, k, v, softcap=50.0),
+            lambda: p_flash.flash_attention_blocks(q, k, v, softcap=50.0),
+            lambda: p_flash.FlashAttention.apply(q, k, v, True, 0, 50.0)):
+        with pytest.raises(NotImplementedError, match="softcap's backward"):
+            call()
+    with pytest.raises(NotImplementedError, match="softcap's backward"):
+        p_flash.flash_attention_bwd_cuda(q, k, v, q, q, q[..., 0], True, 0,
+                                         softcap=50.0)
+    with torch.no_grad():
+        out = p_ops.flash_attention(q, k, v, softcap=50.0)
+    assert out.shape == q.shape and not out.requires_grad
+
+
 # The card's per-element limit on the 16-bit kernels against their plain
 # versions (chip_smoke.py ATTN_TOL, tests/test_torch_gpu.py): rtol, atol.
 ATTN_TOL = {torch.bfloat16: (2.0 ** -7, 4e-6),
             torch.float16: (2.0 ** -10, 4e-6)}
 
 
-def _tensor_core_arithmetic(q, k, v, valid, parts):
+def _tensor_core_arithmetic(q, k, v, valid, parts, softcap=None):
     """The 16-bit kernels' arithmetic, emulated on the CPU: scores as f32
     sums of exact products of 16-bit q and k (what mma.sync accumulates),
-    the softmax in f32, and P·V as `parts` 16-bit pieces of P (p_hi =
-    T(p), p_lo = T(p - p_hi), ...), each multiplied with V in f32 and
-    summed. `valid` masks the scores (True = attend)."""
+    softcapped where asked, the softmax in f32, and P·V as `parts` 16-bit
+    pieces of P (p_hi = T(p), p_lo = T(p - p_hi), ...), each multiplied
+    with V in f32 and summed. `valid` masks the scores (True = attend)."""
     dt = q.dtype
     sc = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
     sc = sc.masked_fill(~valid, float("-inf"))
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0))
@@ -245,24 +381,29 @@ def _over_limit(out, plain):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("b,h,s,d,window", [
-    (1, 4, 1024, 128, 0), (2, 3, 130, 64, 0), (1, 2, 200, 128, 33)])
-def test_split_p_meets_the_flash_kernels_limit(b, h, s, d, window, dtype):
+@pytest.mark.parametrize("b,h,s,d,window,softcap", [
+    (1, 4, 1024, 128, 0, None), (2, 3, 130, 64, 0, None),
+    (1, 2, 200, 128, 33, None), (1, 2, 300, 128, 100, 50.0)],
+    ids=["1-4-1024-128-0", "2-3-130-64-0", "1-2-200-128-33",
+         "1-2-300-128-100-softcap50"])
+def test_split_p_meets_the_flash_kernels_limit(b, h, s, d, window, softcap,
+                                               dtype):
     """Why the tensor-core kernels split P: P·V on P rounded once to 16
     bits misses the per-element limit against the f32 plain version; on
-    p_hi + p_lo it meets it (causal masks; a window where given)."""
+    p_hi + p_lo it meets it (causal masks; a window where given; Gemma-2's
+    softcap where given)."""
     rng = np.random.default_rng(b * s + d)
     q, k, v = (torch.from_numpy(_normal(rng, (b, h, s, d))).to(dtype)
                for _ in range(3))
     plain = p_flash.flash_attention_plain(q, k, v, causal=True,
-                                          window=window)
+                                          window=window, softcap=softcap)
     pos = torch.arange(s)
     valid = pos[None, :] <= pos[:, None]
     if window:
         valid &= pos[None, :] > pos[:, None] - window
-    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 2),
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 2, softcap),
                        plain) <= 1.0
-    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 1),
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 1, softcap),
                        plain) > 1.0
 
 
@@ -349,10 +490,13 @@ def test_split_ds_meets_the_backward_kernels_limit(b, h, s, d, window,
                                                  valid, 2), ref) <= 1.0
 
 
-@pytest.mark.parametrize("b,n_kv,group,s,d", [
-    (4, 4, 8, 161, 128),     # lm_serve's cache at Yi-6B width
-    (2, 2, 16, 1000, 64)])
-def test_split_p_meets_the_decode_kernels_limit(b, n_kv, group, s, d):
+@pytest.mark.parametrize("b,n_kv,group,s,d,softcap", [
+    (4, 4, 8, 161, 128, None),     # lm_serve's cache at Yi-6B width
+    (2, 2, 16, 1000, 64, None),
+    (4, 16, 2, 161, 128, 50.0)],   # gemma_serve's cache, Gemma-2's softcap
+    ids=["4-4-8-161-128", "2-2-16-1000-64", "4-16-2-161-128-softcap50"])
+def test_split_p_meets_the_decode_kernels_limit(b, n_kv, group, s, d,
+                                                softcap):
     rng = np.random.default_rng(s + group)
     q = torch.from_numpy(_normal(rng, (b, n_kv, group, d))).bfloat16()
     k, v = (torch.from_numpy(_normal(rng, (b, n_kv, s, d))).bfloat16()
@@ -360,11 +504,11 @@ def test_split_p_meets_the_decode_kernels_limit(b, n_kv, group, s, d):
     lens = torch.from_numpy(rng.integers(1, s + 1, size=(b,)).astype(
         np.int32))
     lens[0] = s
-    plain = p_dec.decode_attention_plain(q, k, v, lens)
+    plain = p_dec.decode_attention_plain(q, k, v, lens, softcap)
     valid = (torch.arange(s)[None, :] < lens[:, None])[:, None, None, :]
-    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 2),
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 2, softcap),
                        plain) <= 1.0
-    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 1),
+    assert _over_limit(_tensor_core_arithmetic(q, k, v, valid, 1, softcap),
                        plain) > 1.0
 
 

@@ -1,12 +1,14 @@
 """Card tests of the port: the CUDA Block-ELL SpMM, fused GCN-layer,
 flash-attention and GQA flash-decode kernels against their plain PyTorch
-versions (the SpMM also at the autotuner's bucket widths), and the
+versions (the SpMM also at the autotuner's bucket widths; both attention
+kernels also with Gemma-2's attention softcap), and the
 serving engine (sharded, with replicated workers and a warm start among
 them, autotuned, through edge-delta updates, and under the continuous
 serving loop), the differentiable
 engine and its fused layer, the schedulers' execute mode, a coalesced
 stream, and the dense LM's forward, decode and serve on the card against
-themselves on the CPU or against float64; and that importing the
+themselves on the CPU or against float64 (Gemma-2's past its window and
+its rings' wrap among them); and that importing the
 kernels package builds nothing until the first launch.
 
 Marked `gpu`: each test decides inside itself whether a card is present
@@ -926,6 +928,117 @@ def test_attention_kernels_refuse_grad_and_cpu_tensors():
                                   v.transpose(1, 2))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,window,softcap", [
+    (1, 2, 200, 128, True, 33, 50.0),   # Gemma-2's cap, a window
+    (2, 3, 130, 64, True, 0, 1.0),      # a cap that bites, ragged S
+    (1, 4, 129, 128, True, 0, 50.0),    # the 16-bit kernel's tile edge
+    (1, 2, 300, 128, True, 100, 1.0),   # a window whose edge crosses tiles
+    (2, 2, 77, 100, False, 0, 50.0),    # d a multiple of no tile
+])
+def test_flash_kernel_softcap_matches_plain_version(b, h, s, d, causal,
+                                                    window, softcap, dtype):
+    """The softcapped flash kernel (both routes) against its plain version,
+    per element within ATTN_TOL, and its lse against the plain forward's;
+    each launch counted once on its route and once with a softcap."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d + 3)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    plain, lse_p = fmod.flash_attention_plain_lse(q, k, v, **kw)
+    route = fmod.ROUTES[dtype]
+    before = (fmod.FLASH_LAUNCHES, fmod.FLASH_ROUTE_LAUNCHES[route],
+              fmod.FLASH_SOFTCAP_LAUNCHES)
+    out = fmod.flash_attention_cuda(q, k, v, **kw)
+    with torch.no_grad():
+        out2, lse = fmod.flash_attention_lse_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_LAUNCHES, fmod.FLASH_ROUTE_LAUNCHES[route],
+            fmod.FLASH_SOFTCAP_LAUNCHES) == tuple(n + 2 for n in before)
+    assert torch.equal(out, out2)
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    if softcap == 1.0:                   # the cap bites: not the plain attn
+        uncapped = fmod.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window)
+        assert float((out.float() - uncapped.float()).abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,n_kv,group,s,d,lens,softcap", [
+    (4, 16, 2, 161, 128, None, 50.0),       # gemma_serve's cache
+    # A ring of 4096 slots before its wrap (lens below the cache) and
+    # after it (lens = the ring), Gemma-2's cap.
+    (2, 4, 8, 4096, 128, (4096, 3000), 50.0),
+    (3, 2, 4, 1000, 64, (1000, 17, 999), 1.0),
+    (2, 1, 16, 300, 72, (64, 65), 1.0),
+], ids=lambda x: "lens" + "_".join(map(str, x)) if isinstance(x, tuple)
+    else None)
+def test_decode_kernel_softcap_matches_plain_version(b, n_kv, group, s, d,
+                                                     lens, softcap, dtype):
+    """The softcapped decode kernels (both routes) against their plain
+    version, per element within ATTN_TOL, with ring-style lens shorter than
+    the cache; each launch counted once on its route and with a softcap."""
+    dev = _card()
+    from repro_torch.kernels import decode_attn as dmod
+    gen = torch.Generator().manual_seed(s + d + 1)
+    q = torch.randn((b, n_kv, group, d), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((b, n_kv, s, d), generator=gen).to(dev, dtype)
+            for _ in range(2))
+    if lens is None:                 # drawn; the first s
+        lens = torch.randint(1, s + 1, (b,), generator=gen,
+                             dtype=torch.int32)
+        lens[0] = s
+    else:
+        lens = torch.tensor(lens, dtype=torch.int32)
+    lens = lens.to(dev)
+    plain = dmod.decode_attention_plain(q, k, v, lens, softcap)
+    route = dmod.ROUTES[dtype]
+    before = (dmod.DECODE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES[route],
+              dmod.DECODE_SOFTCAP_LAUNCHES)
+    out = dmod.decode_attention_cuda(q, k, v, lens, softcap)
+    torch.cuda.synchronize()
+    assert (dmod.DECODE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES[route],
+            dmod.DECODE_SOFTCAP_LAUNCHES) == tuple(n + 1 for n in before)
+    assert out.dtype == dtype and out.shape == q.shape
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    if softcap == 1.0:                   # the cap bites: not the plain attn
+        uncapped = dmod.decode_attention_plain(q, k, v, lens)
+        assert float((out.float() - uncapped.float()).abs().max()) > 0.05
+
+
+def test_softcapped_flash_under_autograd_raises_on_card():
+    """No gradient without the softcap on the card either: the forward
+    under autograd and the backward kernel with a softcap raise."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.kernels import ops
+    q, k, v = _attn_inputs((1, 2, 64, 64), torch.bfloat16, dev, seed=5)
+    live = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES
+    with pytest.raises(NotImplementedError, match="softcap's backward"):
+        fmod.flash_attention_cuda(*live, softcap=50.0)
+    with pytest.raises(NotImplementedError, match="softcap's backward"):
+        ops.flash_attention(*live, softcap=50.0)
+    with torch.no_grad():
+        out, lse = fmod.flash_attention_lse_cuda(q, k, v, softcap=50.0)
+    with pytest.raises(NotImplementedError, match="softcap's backward"):
+        fmod.flash_attention_bwd_cuda(q, k, v, out, torch.ones_like(out),
+                                      lse, True, 0, softcap=50.0)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES) == (
+        before[0] + 1, before[1])
+
+
 # The backward kernel against its plain version, per element:
 # |kernel - plain| <= rtol·|plain| + atol·M, M the largest |plain| over dQ,
 # dK and dV. Both sum f32 products in other orders; dK and dQ sum up to S
@@ -1203,3 +1316,55 @@ def test_importing_kernels_builds_nothing_until_first_launch():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_gemma2_on_card_matches_cpu():
+    """Gemma-2's f32 GQA smoke variant (window 16, both softcaps): forward
+    on 48 tokens, teacher-forced decode over 40 into caches of 42 (the
+    rings wrap twice; their slot_pos exact) and serve with prompts longer
+    than the window, the card (softcapped kernels) against the CPU (plain
+    versions)."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn as dmod
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (
+        decode_step, forward, init_decode_state, init_params,
+    )
+    from repro_torch.train.optim import tree_map
+    cfg = get_config("gemma2_27b").scaled_down(dtype="float32", n_heads=8,
+                                               n_kv_heads=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    tokens = torch.randint(0, cfg.vocab, (2, 48),
+                           generator=torch.Generator().manual_seed(1))
+    before = fmod.FLASH_SOFTCAP_LAUNCHES, dmod.DECODE_SOFTCAP_LAUNCHES
+    states, steps = {}, {}
+    with torch.inference_mode():
+        ref, _ = forward(cfg, params, tokens)
+        out, _ = forward(cfg, on_card, tokens.to(dev))
+        for name, p, device in (("cpu", params, "cpu"), ("card", on_card,
+                                                         dev)):
+            state = init_decode_state(cfg, 2, 42, device=device)
+            rows = []
+            for t in range(40):
+                logits, state = decode_step(cfg, p, tokens[:, t:t + 1].to(
+                    device), state)
+                rows.append(logits[:, 0].cpu())
+            states[name], steps[name] = state, torch.stack(rows, 1)
+    assert (fmod.FLASH_SOFTCAP_LAUNCHES - before[0],
+            dmod.DECODE_SOFTCAP_LAUNCHES - before[1]) == (
+        cfg.n_layers, 40 * cfg.n_layers)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(steps["card"].numpy(), steps["cpu"].numpy(),
+                               atol=1e-4)
+    for card, cpu in zip(states["card"]["layers"], states["cpu"]["layers"]):
+        assert set(card) == set(cpu)
+        if "slot_pos" in cpu:
+            assert torch.equal(card["slot_pos"].cpu(), cpu["slot_pos"])
+        np.testing.assert_allclose(card["k"].cpu().numpy(),
+                                   cpu["k"].numpy(), atol=1e-4)
+    prompts = tokens[:, :20].numpy().astype(np.int32)
+    np.testing.assert_array_equal(serve(cfg, on_card, prompts, steps=5),
+                                  serve(cfg, params, prompts, steps=5))

@@ -8,14 +8,22 @@ size, where the port's attention takes the kernels' plain versions.
 Configs: each dense arch's SMOKE config (n_heads == n_kv_heads == 4:
 group 1) and a GQA variant of Yi-6B's (8 query heads over 2 KV heads:
 group 4), so that both the repeat of KV heads in `forward` and the grouped
-decode are exercised.
+decode are exercised; and Gemma-2 27B's (local and global layers, window
+16, attention softcap 50, logit softcap 30): its SMOKE config, a GQA
+variant (8 over 2) and one whose caps bite (attention 1.0, logits 0.5).
+The Gemma-2 configs are also held past the window (`forward` on 48
+tokens) and past the ring caches' wrap (teacher-forced decode over 40
+tokens, the rings' k, v and slot_pos against the reference's, slot_pos
+exactly; serve with prompts longer than the window).
 
 Tolerances (float32, the same arithmetic summed in another order): logits
-atol 1e-4, the loss 1e-5; teacher-forced decode against the full forward,
-atol 2e-3 and rtol 1e-3 as tests/test_models.py's
+atol 1e-4, the loss 1e-5, the caches 1e-4; teacher-forced decode against
+the full forward, atol 2e-3 and rtol 1e-3 as tests/test_models.py's
 test_prefill_decode_consistency holds the reference; generated tokens
-exactly equal.
+exactly equal. The softcapped configs run `lm_loss` under
+`torch.no_grad()`: the softcap has no backward yet.
 """
+import contextlib
 import dataclasses
 import functools
 
@@ -35,10 +43,12 @@ from repro_torch.kernels import flash_attn as p_flash
 from repro_torch.launch import serve as p_serve_mod
 from repro_torch.models import layers as p_layers
 from repro_torch.models import transformer as p_tf
+from repro_torch.train.optim import tree_map
 
 LOGIT_TOL = 1e-4
 LOSS_TOL = 1e-5
 DENSE = ("yi_6b", "yi_9b", "deepseek_7b")
+PORTED = DENSE + ("gemma2_27b",)
 
 
 def _gqa():
@@ -46,10 +56,20 @@ def _gqa():
         dtype="float32", n_heads=8, n_kv_heads=2)
 
 
+def _gemma(**overrides):
+    return lambda: r_configs.get_config("gemma2_27b").scaled_down(
+        dtype="float32", **overrides)
+
+
 CONFIGS = {"yi_6b": lambda: r_configs.get_config("yi_6b", smoke=True),
            "deepseek_7b": lambda: r_configs.get_config("deepseek_7b",
                                                        smoke=True),
-           "yi_6b_gqa": _gqa}
+           "yi_6b_gqa": _gqa,
+           "gemma2_27b": lambda: r_configs.get_config("gemma2_27b",
+                                                      smoke=True),
+           "gemma2_27b_gqa": _gemma(n_heads=8, n_kv_heads=2),
+           "gemma2_27b_caps": _gemma(attn_softcap=1.0, logit_softcap=0.5)}
+WINDOWED = sorted(name for name in CONFIGS if name.startswith("gemma2"))
 
 
 def _port_cfg(r_cfg):
@@ -57,13 +77,24 @@ def _port_cfg(r_cfg):
     return p_tf.ArchConfig(**dataclasses.asdict(r_cfg))
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def model(request):
-    r_cfg = CONFIGS[request.param]()
+@functools.lru_cache(maxsize=None)
+def _built(name):
+    r_cfg = CONFIGS[name]()
     r_params = r_tf.init_params(r_cfg, jax.random.PRNGKey(3))
     tree = jax.tree_util.tree_map(np.asarray, r_params)
     p_cfg = _port_cfg(r_cfg)
     return r_cfg, r_params, p_cfg, p_tf.params_from_numpy(p_cfg, tree, "cpu")
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def model(request):
+    return _built(request.param)
+
+
+@pytest.fixture(scope="module", params=WINDOWED)
+def windowed(request):
+    """The Gemma-2 configs: window 16, both softcaps."""
+    return _built(request.param)
 
 
 def _count_tensors(tree):
@@ -80,7 +111,7 @@ def _tokens(cfg, b, s, seed):
         0, cfg.vocab, size=(b, s), dtype=np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_dense_configs_equal_reference(arch, smoke):
     r_cfg = r_configs.get_config(arch, smoke=smoke)
@@ -96,8 +127,8 @@ def test_dense_configs_equal_reference(arch, smoke):
 def test_registry_matches_reference_and_refuses_unported_archs():
     assert p_configs.arch_ids() == r_configs.arch_ids()
     assert p_configs.SHAPES == r_configs.SHAPES
-    unported = set(r_configs.arch_ids()) - set(DENSE)
-    assert len(unported) == 7
+    unported = set(r_configs.arch_ids()) - set(PORTED)
+    assert len(unported) == 6
     for arch in sorted(unported):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             p_configs.get_config(arch)
@@ -107,14 +138,20 @@ def test_registry_matches_reference_and_refuses_unported_archs():
 
 
 def test_model_refuses_unported_configs():
+    """MoE, encoder-decoder, M-RoPE and recurrent blocks raise; a sliding
+    window and an attention softcap are ported now and build."""
     base = p_configs.get_config("yi_6b", smoke=True)
-    for bad in (dict(sliding_window=8), dict(n_experts=4, top_k=2),
-                dict(attn_softcap=50.0), dict(encoder_layers=2),
+    for bad in (dict(n_experts=4, top_k=2), dict(encoder_layers=2),
                 dict(mrope_sections=(2, 3, 3)),
                 dict(block_pattern=("rglru", "attn"))):
         cfg = dataclasses.replace(base, **bad)
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             p_tf.init_params(cfg, torch.Generator(), device="cpu")
+    for ported in (dict(sliding_window=8), dict(attn_softcap=50.0),
+                   dict(sliding_window=8, local_global_pattern=2)):
+        cfg = dataclasses.replace(base, **ported)
+        params = p_tf.init_params(cfg, torch.Generator(), device="cpu")
+        assert len(params["layers"]) == cfg.n_layers
 
 
 def test_params_from_numpy_carries_every_leaf(model):
@@ -151,7 +188,7 @@ def test_params_from_numpy_bf16_and_structure_checks():
 
 @pytest.mark.parametrize("arch,count", [
     ("yi_6b", 6_061_035_520), ("yi_9b", 8_829_407_232),
-    ("deepseek_7b", 6_910_365_696)])
+    ("deepseek_7b", 6_910_365_696), ("gemma2_27b", 28_406_352_384)])
 def test_param_count_at_full_size(arch, count):
     """From the shapes alone (nothing allocated), against the reference's
     abstract init."""
@@ -213,8 +250,11 @@ def test_lm_loss_matches_reference(model):
     labels = _tokens(r_cfg, 2, 16, seed=3)
     ref = r_tf.lm_loss(r_cfg, r_params, jnp.asarray(tokens),
                        jnp.asarray(labels))
-    out = p_tf.lm_loss(p_cfg, p_params, torch.from_numpy(tokens),
-                       torch.from_numpy(labels))
+    # A softcapped attention has no backward yet: no graph for it.
+    with (torch.no_grad() if p_cfg.attn_softcap
+          else contextlib.nullcontext()):
+        out = p_tf.lm_loss(p_cfg, p_params, torch.from_numpy(tokens),
+                           torch.from_numpy(labels))
     assert out.shape == ()
     np.testing.assert_allclose(float(out), float(ref), atol=LOSS_TOL)
 
@@ -272,6 +312,8 @@ def test_serve_matches_reference(model):
 
 
 def test_attention_refuses_unported_arguments():
+    """A KV cache, cross-attention and MoE still raise; a sliding window
+    and the softcap are taken (the window must be at least 1)."""
     cfg = p_configs.get_config("yi_6b", smoke=True)
     params = p_tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     p = params["layers"][0]["attn"]
@@ -279,20 +321,30 @@ def test_attention_refuses_unported_arguments():
     pos = torch.arange(4)[None]
     with pytest.raises(NotImplementedError, match="cache"):
         p_layers.attention(cfg, p, x, pos, cache={"k": x, "v": x, "len": 0})
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        p_layers.attention(cfg, p, x, pos, sliding_window=2)
     with pytest.raises(NotImplementedError, match="cross"):
         p_layers.attention(cfg, p, x, pos, cross_kv=(x, x))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        p_layers.attention(dataclasses.replace(cfg, attn_softcap=30.0), p, x,
-                           pos)
     with pytest.raises(NotImplementedError):
         p_layers.moe_ffn(cfg, p, x)
+    with pytest.raises(ValueError, match="sliding_window"):
+        p_layers.attention(cfg, p, x, pos, sliding_window=0)
+    out, _ = p_layers.attention(dataclasses.replace(cfg, attn_softcap=30.0),
+                                p, x, pos, sliding_window=2)
+    assert out.shape == x.shape
 
 
 def test_serve_cli_runs_lm_mode_on_cpu(capsys):
     p_serve_mod.main(["--mode", "lm", "--arch", "yi_6b", "--device", "cpu",
                       "--batch", "2", "--prompt-len", "3", "--steps", "4"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4)" in out and "on cpu" in out
+
+
+def test_serve_cli_runs_gemma2_on_cpu(capsys):
+    """Gemma-2's SMOKE config (window 16) with prompts longer than the
+    window: the rings wrap during the prefill."""
+    p_serve_mod.main(["--mode", "lm", "--arch", "gemma2_27b", "--device",
+                      "cpu", "--batch", "2", "--prompt-len", "20",
+                      "--steps", "4"])
     out = capsys.readouterr().out
     assert "generated (2, 4)" in out and "on cpu" in out
 
@@ -329,3 +381,126 @@ def test_init_decode_state_takes_dtype_fourth(dtype):
             assert not p_layer[name].any()
     with pytest.raises(TypeError):
         p_tf.init_decode_state(p_cfg, 2, 5, None, "cpu")
+
+
+def test_forward_past_the_window_matches_reference(windowed):
+    """48 tokens, three times the window: the local layers' window bites."""
+    r_cfg, r_params, p_cfg, p_params = windowed
+    tokens = _tokens(r_cfg, 2, 48, seed=6)
+    ref, _ = r_tf.forward(r_cfg, r_params, jnp.asarray(tokens))
+    out, _ = p_tf.forward(p_cfg, p_params, torch.from_numpy(tokens))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=LOGIT_TOL)
+
+
+def test_ring_decode_past_the_wrap_matches_reference(windowed):
+    """Teacher-forced decode over 40 tokens into caches of 42 positions:
+    the local layers' rings (16 slots) wrap twice. Logits against the
+    reference's decode and the port's forward; the rings' k, v against the
+    reference's and slot_pos exactly equal; the global caches too."""
+    r_cfg, r_params, p_cfg, p_params = windowed
+    b, s = 2, 40
+    tokens = _tokens(r_cfg, b, s, seed=7)
+    r_state = r_tf.init_decode_state(r_cfg, b, max_len=s + 2)
+    p_state = p_tf.init_decode_state(p_cfg, b, max_len=s + 2, device="cpu")
+    ref, out = [], []
+    for t in range(s):
+        r_logits, r_state = r_tf.decode_step(r_cfg, r_params,
+                                              jnp.asarray(tokens[:, t:t + 1]),
+                                              r_state)
+        logits, p_state = p_tf.decode_step(p_cfg, p_params,
+                                           torch.from_numpy(
+                                               tokens[:, t:t + 1]), p_state)
+        ref.append(np.asarray(r_logits[:, 0]))
+        out.append(logits[:, 0].numpy())
+    np.testing.assert_allclose(np.stack(out, 1), np.stack(ref, 1),
+                               atol=LOGIT_TOL)
+    kinds = p_cfg.blocks()
+    assert p_tf.BlockKind.LOCAL_ATTN in kinds and p_tf.BlockKind.ATTN in kinds
+    for kind, p_layer, r_layer in zip(kinds, p_state["layers"],
+                                      r_state["layers"]):
+        assert set(p_layer) == set(r_layer)
+        for name in ("k", "v"):
+            assert tuple(p_layer[name].shape) == r_layer[name].shape
+            np.testing.assert_allclose(p_layer[name].numpy(),
+                                       np.asarray(r_layer[name]),
+                                       atol=LOGIT_TOL)
+        if kind == p_tf.BlockKind.LOCAL_ATTN:
+            assert p_layer["slot_pos"].dtype == torch.int32
+            np.testing.assert_array_equal(p_layer["slot_pos"].numpy(),
+                                          np.asarray(r_layer["slot_pos"]))
+            assert p_layer["k"].shape[2] == r_cfg.sliding_window
+    full, _ = p_tf.forward(p_cfg, p_params, torch.from_numpy(tokens))
+    np.testing.assert_allclose(np.stack(out, 1), full.numpy(), atol=2e-3,
+                               rtol=1e-3)
+
+
+def test_serve_past_the_window_matches_reference(windowed):
+    """Prompts of 20 tokens and 8 steps: the rings wrap in the prefill."""
+    r_cfg, r_params, p_cfg, p_params = windowed
+    prompts = _tokens(r_cfg, 3, 20, seed=8)
+    ref = r_serve(r_cfg, r_params, prompts, steps=8)
+    out = p_serve_mod.serve(p_cfg, p_params, prompts, steps=8)
+    np.testing.assert_array_equal(out, np.asarray(ref))
+
+
+@pytest.mark.parametrize("max_len", [5, 16, 40])
+def test_init_decode_state_gives_local_layers_rings(max_len):
+    """A ring of min(window, max_len) slots and slot_pos of -1 on the local
+    layers, a full cache on the global ones, as the reference allocates."""
+    r_cfg = r_configs.get_config("gemma2_27b", smoke=True)
+    p_cfg = p_configs.get_config("gemma2_27b", smoke=True)
+    r_state = r_tf.init_decode_state(r_cfg, 2, max_len)
+    p_state = p_tf.init_decode_state(p_cfg, 2, max_len, device="cpu")
+    for p_layer, r_layer in zip(p_state["layers"], r_state["layers"]):
+        assert set(p_layer) == set(r_layer)
+        for name, r_arr in r_layer.items():
+            assert tuple(p_layer[name].shape) == r_arr.shape
+            np.testing.assert_array_equal(p_layer[name].numpy(),
+                                          np.asarray(r_arr))
+
+
+def test_decode_step_bounds_only_by_global_caches():
+    """Gemma-2's rings never refuse a position; its global caches bound
+    pos. A stack of local layers alone has no bound: past max_len its
+    rings go on wrapping, as the reference's do."""
+    r_cfg = r_configs.get_config("gemma2_27b", smoke=True)
+    cfg = _port_cfg(r_cfg)
+    params = p_tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = p_tf.init_decode_state(cfg, 1, max_len=3, device="cpu")
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    for _ in range(3):
+        _, state = p_tf.decode_step(cfg, params, tok, state)
+    with pytest.raises(ValueError, match="outside the cache"):
+        p_tf.decode_step(cfg, params, tok, state)
+    r_local = dataclasses.replace(r_cfg, local_global_pattern=None,
+                                  sliding_window=4)
+    local = _port_cfg(r_local)
+    assert set(local.blocks()) == {p_tf.BlockKind.LOCAL_ATTN}
+    r_params = r_tf.init_params(r_local, jax.random.PRNGKey(1))
+    p_params = p_tf.params_from_numpy(
+        local, jax.tree_util.tree_map(np.asarray, r_params), "cpu")
+    tokens = _tokens(local, 1, 9, seed=9)
+    r_state = r_tf.init_decode_state(r_local, 1, max_len=3)
+    p_state = p_tf.init_decode_state(local, 1, max_len=3, device="cpu")
+    for t in range(9):                   # three times max_len
+        r_logits, r_state = r_tf.decode_step(
+            r_local, r_params, jnp.asarray(tokens[:, t:t + 1]), r_state)
+        logits, p_state = p_tf.decode_step(
+            local, p_params, torch.from_numpy(tokens[:, t:t + 1]), p_state)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
+                                   atol=LOGIT_TOL)
+    np.testing.assert_array_equal(p_state["layers"][0]["slot_pos"].numpy(),
+                                  np.asarray(r_state["layers"][0]["slot_pos"]))
+
+
+def test_softcapped_lm_loss_under_autograd_raises():
+    """No gradient without the softcap: `lm_loss` of a softcapped config
+    raises under autograd, naming the ROADMAP item, and runs without a
+    graph."""
+    r_cfg, _, p_cfg, p_params = _built("gemma2_27b")
+    tokens = torch.from_numpy(_tokens(r_cfg, 1, 8, seed=10))
+    live = tree_map(lambda t: t.detach().requires_grad_(True), p_params)
+    with pytest.raises(NotImplementedError, match="softcap's backward"):
+        p_tf.lm_loss(p_cfg, live, tokens, tokens)
+    with torch.no_grad():
+        assert torch.isfinite(p_tf.lm_loss(p_cfg, live, tokens, tokens))
