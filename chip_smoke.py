@@ -6,8 +6,11 @@
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without a result line:
 
-  1. env     — versions and the card; TF32 is switched off for matmuls.
-  2. build   — nvcc builds the kernel library from this checkout's sources.
+  1. env     — versions, the card and the host's MemAvailable; TF32 is
+               switched off for matmuls.
+  2. build   — nvcc builds the kernel library from this checkout's sources;
+               ptxas's registers and spills per instance (the backward's
+               softcapped ones listed apart).
   3. host    — the rUSA plans: serving at width 1024, training at 256 in
                both directions.
   4. kernel  — the SpMM kernel against its plain PyTorch version on the
@@ -202,7 +205,39 @@ non-zero without a result line:
                decode-vs-forward cross-check; every launch on the
                tensor-core route with the softcap. lm_serve and
                gemma_serve also profile one more prefill (device busy ms).
- 25. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 25. gemma_train_check — Gemma-2 27B's widths cut to 2 f32 layers, one
+               4160-token sequence, no remat: `lm_loss` gradients through
+               the softcapped flash kernel and backward (f32 FMA routes)
+               against float64 autograd with the window and both softcaps,
+               every layer tensor and the final norm within
+               LM_GRAD_REL_TOL (the embedding's and head's checked finite);
+               flash launches = 2, backward launches = 2, all softcapped.
+ 26. gemma_train — Gemma-2 27B's bf16 CONFIG cut to 2 layers, remat on:
+               `train_loop` with Adafactor, two microbatches of
+               TokenPipeline(256000, 512, 4) a step, int8 EF compression,
+               4 steps; the first loss within LM_TRAIN_LOSS_TOL of float64,
+               step 0's batch lower after the steps; every forward,
+               recompute and backward on the tensor-core route with the
+               softcap. Prints ms per step, tokens/s, peak bytes and one
+               profiled step by kind.
+ 27. moe_check — Mixtral 8x22B's widths cut to 2 f32 layers, batch 2 x
+               128: `forward` and teacher-forced decode against the
+               script's own float64 forward (the reference's capacity,
+               drops and combine, routed as each path routes) within
+               LM_REL_TOL; flash launches = 2, decode launches = 2 x 128,
+               no window; dropped assignments and router picks unlike
+               float64's printed.
+ 28. mixtral_serve — Mixtral 8x22B's bf16 CONFIG cut to 12 of 56 layers
+               (60.9 GB of weights), as lm_serve (decode launches = 12 x
+               160, flash launches = 12), the decode-vs-forward check under
+               MOE_FLIP_RULE.
+ 29. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
+               bf16 in pinned host memory, drawn on the card from --seed)
+               streamed through `StreamedWeightProvider(2 GiB, align 8,
+               depth 2)`: 16 blocks of 24 experts, each block's range and
+               shapes, sampled rows bit for bit against the host bank, the
+               uploaded bytes the bank's; prints the StreamStats and GB/s.
+ 30. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
@@ -216,15 +251,19 @@ non-zero without a result line:
                do (bound_ms_split_mma); the softcapped flash at
                gemma_serve's prefill layer beside the same call without
                the softcap (no PyTorch call softcaps attention: library_ms
-               null), and the decode at gemma_serve's cache with and
-               without the softcap.
- 26. kernels — the summary line (softcapped launches by path among it),
-               then the card's name and power limit, then the result line.
+               null), the decode at gemma_serve's cache with and without
+               the softcap, and the backward's CAP instances at
+               gemma_train's microbatch beside the same call without.
+ 31. phase_seconds, kernels — each phase's seconds; the summary line
+               (softcapped launches by path among it, the backward's by
+               route and softcap), then the card's name and power limit,
+               then the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
 warm, tune, update, partition, continuous, lm_check, lm_train_check, each
-run of lm_train, lm_serve, gemma_check, gemma_serve) runs with the launch
-counters set to 0 just before it and read just after. It needs no network and one card, and
+run of lm_train, lm_serve, gemma_check, gemma_serve, gemma_train_check,
+gemma_train, moe_check, mixtral_serve) runs with the launch counters set
+to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
 """
@@ -327,6 +366,30 @@ LM_PREFILL = 4096
 GEMMA_CHECK_SEQ = 4160
 GEMMA_POSITIONS = list(range(0, 4096, 128)) + list(range(4096, 4160))
 GEMMA_PREFILL = 8192           # gemma_serve: the window bites in 23 layers
+GEMMA_TRAIN_STEPS = 4          # gemma_train: Adafactor steps of 2 x (4, 512)
+# mixtral_serve: 12 of Mixtral 8x22B's 56 layers, 30,451,390,464
+# parameters (60.9 GB in bf16); 56 layers need 282 GB, and 13 leave too
+# little room for the 4096-token prefill.
+MIXTRAL_SERVE_LAYERS = 12
+EXPERTS_BUDGET = 2 << 30       # experts: 2 GiB blocks, 24 Kimi K2 experts
+# mixtral_serve's decode-vs-forward rule. The prefill routes each layer's
+# 4096 tokens through one (4096, 6144) x (6144, 8) bf16 router product and
+# the decode step one token through a (1, 6144) one, and their inputs
+# differ by the two paths' bf16 roundings; a token whose second and third
+# expert lie within that may take another expert in the two paths, and
+# then its FFN output is another function, not a rounding of the same one.
+# The limit stays LM_BF16_TOL, as lm_serve and gemma_serve hold every
+# position. It was first applied to every position whose experts agree in
+# all layers; the first run at this width refuted that set (66 of 128
+# positions routed differently, the other 62 at 0.068): a later position
+# attends to the keys and values of the earlier ones, which another expert
+# changed. So it holds the positions before the first one whose experts
+# differ in any layer, which no such change reaches (causal attention);
+# the positions with other experts, and the gap over all, are reported,
+# and every logit must be finite.
+MOE_FLIP_RULE = ("positions before the first with other experts in any "
+                 "layer: rel gap <= LM_BF16_TOL; the others: counted and "
+                 "reported")
 
 
 def emit(obj) -> None:
@@ -2385,13 +2448,13 @@ def attn_inputs(shape, dtype, gen):
         getattr(torch, dtype)) for _ in range(3)]
 
 
-def decode_inputs(b, n_kv, group, s_len, dtype, gen, lens=None):
-    """q (b, n_kv, group, d=128), k, v (b, n_kv, s_len, 128) and lens drawn
-    in [1, s_len] per sequence, the first s_len and the second 1."""
+def decode_inputs(b, n_kv, group, s_len, dtype, gen, lens=None, d=128):
+    """q (b, n_kv, group, d), k, v (b, n_kv, s_len, d) and lens drawn in
+    [1, s_len] per sequence, the first s_len and the second 1."""
     import torch
     dt = getattr(torch, dtype)
-    q = torch.randn((b, n_kv, group, 128), device=DEV, generator=gen).to(dt)
-    k, v = (torch.randn((b, n_kv, s_len, 128), device=DEV,
+    q = torch.randn((b, n_kv, group, d), device=DEV, generator=gen).to(dt)
+    k, v = (torch.randn((b, n_kv, s_len, d), device=DEV,
                         generator=gen).to(dt) for _ in range(2))
     if lens is None:
         lens = torch.randint(1, s_len + 1, (b,), device=DEV, generator=gen,
@@ -2462,14 +2525,17 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
         lens_sweep=LM_PROMPT))
     cases += tile_edge_cases(fmod, dmod, gen)
     cases += softcap_cases(fmod, dmod, gen)
+    cases += head_dim_112_cases(fmod, dmod, gen)
     t0 = time.perf_counter()
     cases += backward_cases(fmod, gen)
+    cases += backward_softcap_cases(fmod, gen)
     emit({"phase": "attn", "cases": cases,
           "backward_cases_seconds": time.perf_counter() - t0,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     torch.cuda.empty_cache()
     main = [c for c in cases                           # main-path shapes
-            if "lm_" in c["case"] or "gemma_" in c["case"]]
+            if "lm_" in c["case"] or "gemma_" in c["case"]
+            or "mixtral_" in c["case"] or "moe_" in c["case"]]
     return {name: max(c["max_abs_err"] for c in main
                       if c["case"].startswith(name))
             for name in ("flash", "decode", "backward")}
@@ -2528,34 +2594,37 @@ def softcap_cases(fmod, dmod, gen) -> list:
 
 
 def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
-                window=0) -> dict:
+                window=0, softcap=None) -> dict:
     """The backward kernel against `flash_attention_bwd_plain` on the same
-    q, k, v, dout and the forward kernel's out and lse, each of dQ, dK, dV
-    per element within BWD_TOL; lse against the plain forward's within
-    LSE_TOL; a second launch gives the same bits (no atomics)."""
+    q, k, v, dout and the forward kernel's out and lse (softcapped where
+    `softcap` is given, both directions), each of dQ, dK, dV per element
+    within BWD_TOL; lse against the plain forward's within LSE_TOL; a
+    second launch gives the same bits (no atomics)."""
     import torch
     q, k, v, dout = attn_inputs(shape, dtype, gen) + attn_inputs(
         shape, dtype, gen)[:1]
     rtol, atol = BWD_TOL[dtype]
     with torch.no_grad():
         out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=causal,
-                                                 window=window)
+                                                 window=window,
+                                                 softcap=softcap)
         _, lse_plain = fmod.flash_attention_plain_lse(
-            q, k, v, causal=causal, window=window)
+            q, k, v, causal=causal, window=window, softcap=softcap)
         got = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
-                                            window)
+                                            window, softcap)
         again = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
-                                              causal, window)
+                                              causal, window, softcap)
         want = fmod.flash_attention_bwd_plain(q, k, v, out, dout, lse,
-                                              causal, window)
+                                              causal, window, softcap)
     sync()
     lse_err = float((lse - lse_plain).abs().max())
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"{label}: lse off the plain forward's by "
                              f"{lse_err} > {LSE_TOL}")
     case = {"case": label, "shape": list(shape), "dtype": dtype,
-            "causal": causal, "window": window, "lse_max_abs_err": lse_err,
-            "rtol": rtol, "atol_over_max_abs_plain": atol}
+            "causal": causal, "window": window, "softcap": softcap,
+            "lse_max_abs_err": lse_err, "rtol": rtol,
+            "atol_over_max_abs_plain": atol}
     err = 0.0
     scale = max(float(w.float().abs().max()) for w in want)
     for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -2601,6 +2670,48 @@ def backward_cases(fmod, gen) -> list:
               for s_len in (63, 64, 65, 127, 128, 129)]
     cases.append(bwd_compare(fmod, (2, 8, 129, d), "float32", gen,
                              "backward: S = 129, f32"))
+    return cases
+
+
+def backward_softcap_cases(fmod, gen) -> list:
+    """The backward kernels' CAP instances: caps 50 (Gemma-2's) and 1 (it
+    bites on every score) in bf16, f16 (tensor-core route) and f32 (FMA
+    route), causal and in a window whose edge crosses tiles, at S across
+    both routes' tiles, and at gemma_train's microbatch."""
+    cases = [bwd_compare(fmod, (LM_TRAIN_BATCH, 32, LM_TRAIN_SEQ, 128),
+                         "bfloat16", gen,
+                         "backward: gemma_train's microbatch, softcap 50",
+                         softcap=50.0)]
+    for dtype in ("bfloat16", "float16", "float32"):
+        for cap in (50.0, 1.0):
+            cases.append(bwd_compare(fmod, (1, 8, 1000, 128), dtype, gen,
+                                     f"backward: softcap {cap}, window 100, "
+                                     f"{dtype}", window=100, softcap=cap))
+            cases += [bwd_compare(fmod, (2, 4, s_len, 128), dtype, gen,
+                                  f"backward: softcap {cap}, S = {s_len}, "
+                                  f"{dtype}", softcap=cap)
+                      for s_len in (63, 64, 65, 127, 128, 129)]
+    return cases
+
+
+def head_dim_112_cases(fmod, dmod, gen) -> list:
+    """Kimi K2's head dim 112 (64 query heads over 8 KV heads) through the
+    flash and decode dispatches, padded to the 128-wide instances: bf16
+    (tensor-core route) and f32 (FMA route)."""
+    flash, decode = fmod.flash_attention_cuda, dmod.decode_attention_cuda
+    f_plain, d_plain = fmod.flash_attention_plain, dmod.decode_attention_plain
+    cases = []
+    for dtype in ("bfloat16", "float32"):
+        cases.append(attn_compare(flash, f_plain,
+                                  attn_inputs((1, 64, 1024, 112), dtype,
+                                              gen), {"causal": True},
+                                  f"flash: Kimi K2's head dim 112, {dtype}",
+                                  dtype))
+        cases.append(attn_compare(decode, d_plain,
+                                  decode_inputs(4, 8, 8, 2048, dtype, gen,
+                                                d=112), {},
+                                  f"decode: Kimi K2's head dim 112, {dtype}",
+                                  dtype))
     return cases
 
 
@@ -2657,27 +2768,83 @@ def tile_edge_cases(fmod, dmod, gen) -> list:
     return cases
 
 
-def f64_lm_forward(cfg, params, tokens, positions=None):
-    """The dense GQA stack in float64 with plain torch ops, written from the
-    architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
-    attention with KV heads repeated, within `cfg.sliding_window` on the
-    local layers, its scores softcapped by `cfg.attn_softcap`, SwiGLU, the
-    logits softcapped by `cfg.logit_softcap`), not from the port's code.
-    Attention in groups of 8 heads and the head in vocabulary chunks, so
-    that no float64 temporary holds a whole layer's scores or the whole
-    head; the logits only at `positions` (all when None)."""
+def _f64(t):
+    import torch
+    return t.to(torch.float64)
+
+
+def _f64_norm(x, scale):
+    import torch
+    return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) \
+        * (1.0 + _f64(scale))
+
+
+def _f64_cap(x, c):
+    import torch
+    return c * torch.tanh(x / c) if c else x
+
+
+def _ckpt(on: bool, fn, *args):
+    """fn(*args), through torch.utils.checkpoint where `on` (its saved
+    tensors are recomputed in the backward, one call at a time)."""
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False) if on else fn(*args)
+
+
+def f64_moe(cfg, p, h, per_position: bool = False, routes=None):
+    """The top-k MoE feed-forward in float64, written from the
+    architecture: the router softmax, top-k renormalised, each expert's
+    assignments in (token, slot) order of which the first `cap` are kept
+    (cap = max(1, int(cf·T·k/e)) rounded up to 64, T the tokens routed
+    together), each kept assignment's expert output times its weight added
+    to its token. Tokens route together over the whole batch, or, with
+    `per_position`, one position of the batch at a time, as decode_step
+    routes them. Appends each routing's (T, k) sorted expert ids to
+    `routes` where given."""
     import torch
     import torch.nn.functional as F
+    b, s, d = h.shape
+    e, k = cfg.n_experts, cfg.top_k
+    wr, wg, wu, wd = (_f64(p[n]) for n in ("w_router", "w_gate", "w_up",
+                                            "w_down"))
+    groups = [h[:, i:i + 1] for i in range(s)] if per_position else [h]
+    outs = []
+    for g in groups:
+        t = g.shape[0] * g.shape[1]
+        xf = g.reshape(t, d)
+        probs = torch.softmax(xf @ wr, -1)
+        top_p, top_e = torch.topk(probs, k, -1)
+        top_p = top_p / top_p.sum(-1, keepdim=True)
+        if routes is not None:
+            routes.append(top_e.sort(-1).values)
+        cap = max(1, int(cfg.capacity_factor * t * k / e))
+        cap = (cap + 63) // 64 * 64
+        flat_e, flat_w = top_e.reshape(-1), top_p.reshape(-1)
+        tok = torch.arange(t, device=h.device).repeat_interleave(k)
+        out = torch.zeros_like(xf)
+        for ex in range(e):
+            idx = (flat_e == ex).nonzero()[:, 0][:cap]
+            if idx.numel() == 0:
+                continue
+            rows = xf[tok[idx]]
+            y = (F.silu(rows @ wg[ex]) * (rows @ wu[ex])) @ wd[ex]
+            out = out.index_add(0, tok[idx], y * flat_w[idx, None])
+        outs.append(out.reshape(g.shape))
+    return torch.cat(outs, 1)
 
-    def w(t):
-        return t.to(torch.float64)
 
-    def cap(x, c):
-        return c * torch.tanh(x / c) if c else x
-
-    def norm(x, scale):
-        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) \
-            * (1.0 + w(scale))
+def f64_hidden(cfg, params, tokens, ckpt: bool = False,
+               per_position: bool = False, routes=None):
+    """The decoder stack in float64 with plain torch ops, written from the
+    architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
+    attention with KV heads repeated, within `cfg.sliding_window` on the
+    local layers only, its scores softcapped by `cfg.attn_softcap`, then a
+    SwiGLU MLP or the MoE of `f64_moe`), not from the port's code, up to
+    and through the final norm: (B, S, d). Attention in groups of 8 heads,
+    so that no float64 temporary holds a whole layer's scores; with `ckpt`
+    each head group and each MLP is checkpointed for the backward."""
+    import torch
+    import torch.nn.functional as F
 
     b, s = tokens.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -2690,39 +2857,59 @@ def f64_lm_forward(cfg, params, tokens, positions=None):
         t1, t2 = t[..., :hd // 2], t[..., hd // 2:]
         return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], -1)
 
+    def heads(q, k, v, valid):
+        att = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+        att = _f64_cap(att, cfg.attn_softcap)
+        return torch.softmax(att.masked_fill(~valid, float("-inf")), -1) @ v
+
+    def mlp(h, wg, wu, wd):
+        return (F.silu(h @ _f64(wg)) * (h @ _f64(wu))) @ _f64(wd)
+
     pos = torch.arange(s, device=DEV)
     causal = pos[None, :] <= pos[:, None]
-    x = w(params["embed"][tokens])
+    x = _f64(params["embed"][tokens])
     for kind, p in zip(cfg.blocks(), params["layers"]):
-        a, m = p["attn"], p["mlp"]
+        a = p["attn"]
         valid = causal
         if kind.value == "local" and cfg.sliding_window:
             valid = causal & (pos[None, :] > pos[:, None] - cfg.sliding_window)
-        h = norm(x, p["ln1"])
-        q = rope((h @ w(a["wq"])).view(b, s, hq, hd).transpose(1, 2))
-        k = rope((h @ w(a["wk"])).view(b, s, hkv, hd).transpose(1, 2))
-        v = (h @ w(a["wv"])).view(b, s, hkv, hd).transpose(1, 2)
+        h = _f64_norm(x, p["ln1"])
+        q = rope((h @ _f64(a["wq"])).view(b, s, hq, hd).transpose(1, 2))
+        k = rope((h @ _f64(a["wk"])).view(b, s, hkv, hd).transpose(1, 2))
+        v = (h @ _f64(a["wv"])).view(b, s, hkv, hd).transpose(1, 2)
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
-        heads = []
-        for h0 in range(0, hq, 8):
-            att = (q[:, h0:h0 + 8] @ k[:, h0:h0 + 8].transpose(-1, -2)) \
-                / math.sqrt(hd)
-            att = cap(att, cfg.attn_softcap)
-            att = torch.softmax(att.masked_fill(~valid, float("-inf")), -1)
-            heads.append(att @ v[:, h0:h0 + 8])
-        o = torch.cat(heads, 1).transpose(1, 2).reshape(b, s, hq * hd)
-        x = x + o @ w(a["wo"])
-        h = norm(x, p["ln2"])
-        x = x + (F.silu(h @ w(m["w_gate"])) * (h @ w(m["w_up"]))) \
-            @ w(m["w_down"])
-    x = norm(x, params["final_norm"])
+        o = torch.cat([_ckpt(ckpt, heads, q[:, h0:h0 + 8], k[:, h0:h0 + 8],
+                             v[:, h0:h0 + 8], valid)
+                       for h0 in range(0, hq, 8)], 1)
+        x = x + o.transpose(1, 2).reshape(b, s, hq * hd) @ _f64(a["wo"])
+        h = _f64_norm(x, p["ln2"])
+        if "moe" in p:
+            x = x + f64_moe(cfg, p["moe"], h, per_position, routes)
+        else:
+            m = p["mlp"]
+            x = x + _ckpt(ckpt, mlp, h, m["w_gate"], m["w_up"], m["w_down"])
+    return _f64_norm(x, params["final_norm"])
+
+
+def f64_logits(cfg, params, x):
+    """The head of the float64 stack on its final-normed x, in vocabulary
+    chunks (no float64 copy of the whole head), logit softcap applied."""
+    import torch
+    head = params["lm_head"]
+    logits = torch.cat([x @ _f64(head[:, c:c + 32768])
+                        for c in range(0, head.shape[1], 32768)], -1)
+    return _f64_cap(logits, cfg.logit_softcap)
+
+
+def f64_lm_forward(cfg, params, tokens, positions=None,
+                   per_position: bool = False, routes=None):
+    """The float64 stack's logits (B, S, V), or only at `positions`."""
+    x = f64_hidden(cfg, params, tokens, per_position=per_position,
+                   routes=routes)
     if positions is not None:
         x = x[:, positions]
-    head = params["lm_head"]
-    logits = torch.cat([x @ w(head[:, c:c + 32768])
-                        for c in range(0, head.shape[1], 32768)], -1)
-    return cap(logits, cfg.logit_softcap)
+    return f64_logits(cfg, params, x)
 
 
 def teacher_forced(cfg, params, tokens, positions=None):
@@ -2747,7 +2934,7 @@ def zero_attn_counts(fmod, dmod) -> None:
     softcap, to 0."""
     fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0
     fmod.FLASH_SOFTCAP_LAUNCHES = dmod.DECODE_SOFTCAP_LAUNCHES = 0
-    fmod.FLASH_BWD_LAUNCHES = 0
+    fmod.FLASH_BWD_LAUNCHES = fmod.FLASH_BWD_SOFTCAP_LAUNCHES = 0
     for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES,
                    fmod.FLASH_BWD_ROUTE_LAUNCHES):
         for route in routes:
@@ -2760,6 +2947,7 @@ def attn_counts(fmod, dmod) -> dict:
             "flash_softcap": fmod.FLASH_SOFTCAP_LAUNCHES,
             "flash_bwd": fmod.FLASH_BWD_LAUNCHES,
             "flash_bwd_routes": dict(fmod.FLASH_BWD_ROUTE_LAUNCHES),
+            "flash_bwd_softcap": fmod.FLASH_BWD_SOFTCAP_LAUNCHES,
             "decode": dmod.DECODE_LAUNCHES,
             "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES),
             "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES}
@@ -2891,11 +3079,15 @@ def profile_prefill(cfg, params, seq) -> dict:
 
 
 def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
-                label: str) -> dict:
-    """The full bf16 `arch`: serve, a prefill forward of `prefill` tokens,
-    and decode against the forward; returns the launches of each path.
-    Every attention launch on the tensor-core route, and with the softcap
-    exactly where the config sets one."""
+                label: str, n_layers: int = 0) -> dict:
+    """The bf16 `arch` (cut to `n_layers` where given): serve, a prefill
+    forward of `prefill` tokens, and decode against the forward; returns
+    the launches of each path. Every attention launch on the tensor-core
+    route, and with the softcap exactly where the config sets one. For an
+    MoE config the routers' picks are recorded in the forward and the
+    cross-check: the positions before the first whose experts differ in
+    any layer are held to LM_BF16_TOL, the rest counted and reported
+    (MOE_FLIP_RULE)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2905,6 +3097,8 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     )
 
     cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     capped = cfg.attn_softcap is not None
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2947,11 +3141,13 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
         0, cfg.vocab, size=(1, prefill - LM_PROMPT), dtype=np.int32)], 1)
     seq = torch.from_numpy(seq).long().to(DEV)
     torch.cuda.reset_peak_memory_stats()
+    fwd_spy, dec_spy = RouterSpy(cfg.is_moe), RouterSpy(cfg.is_moe)
     with torch.inference_mode():
         zero_attn_counts(fmod, dmod)                     # prefill starts
         sync()
         t0 = time.perf_counter()
-        logits, _ = forward(cfg, params, seq)
+        with fwd_spy:
+            logits, _ = forward(cfg, params, seq)
         sync()
         prefill_s = time.perf_counter() - t0
         prefill_counts = attn_counts(fmod, dmod)         # ... and ends here
@@ -2972,7 +3168,8 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     prefill_profile = profile_prefill(cfg, params, seq)
     with torch.inference_mode():
         zero_attn_counts(fmod, dmod)                 # cross-check starts
-        dec = teacher_forced(cfg, params, seq[:, :LM_PROMPT])
+        with dec_spy:
+            dec = teacher_forced(cfg, params, seq[:, :LM_PROMPT])
         cross_counts = attn_counts(fmod, dmod)       # ... and ends here
         cross_decode = cross_counts["decode"]
     gap = rel_err(dec, fwd)
@@ -2982,9 +3179,34 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     check_routes(f"{label} cross-check", cross_counts, "decode",
                  "tensor_core")
     check_softcap(f"{label} cross-check", cross_counts, "decode", capped)
-    if not gap <= LM_BF16_TOL:
-        raise AssertionError(f"decode vs forward logits: relative gap {gap} "
-                             f"> {LM_BF16_TOL}")
+    held, routing = gap, None
+    if cfg.is_moe:
+        # Decode step t, layer l is call t·L + l; the forward's call l
+        # holds every position of layer l.
+        n = cfg.n_layers
+        flipped = torch.zeros(LM_PROMPT, dtype=torch.bool, device=DEV)
+        for li in range(n):
+            dec_l = torch.cat([dec_spy.routes[t * n + li]
+                               for t in range(LM_PROMPT)])
+            flipped |= (dec_l != fwd_spy.routes[li][:LM_PROMPT]).any(-1)
+        first = int(flipped.nonzero()[0, 0]) if flipped.any() else LM_PROMPT
+        held = rel_err(dec[:, :first], fwd[:, :first]) if first else 0.0
+        same = (~flipped).nonzero()[:, 0]
+        routing = {"positions_with_other_experts": int(flipped.sum()),
+                   "of_positions": LM_PROMPT,
+                   "first_position_with_other_experts": first,
+                   "rel_gap_before_it": held,
+                   "rel_gap_same_experts": rel_err(dec[:, same],
+                                                   fwd[:, same]),
+                   "rel_gap_other_experts": rel_err(dec[:, flipped],
+                                                    fwd[:, flipped])
+                   if flipped.any() else None,
+                   "forward_dropped_assignments": [
+                       dropped(cfg, r) for r in fwd_spy.routes],
+                   "rule": MOE_FLIP_RULE}
+    if not held <= LM_BF16_TOL or not torch.isfinite(dec).all():
+        raise AssertionError(f"decode vs forward logits: relative gap {held} "
+                             f"> {LM_BF16_TOL} (routing {routing})")
     emit({"phase": label, "config": cfg.name, "dtype": cfg.dtype,
           "layers": cfg.n_layers, "params": param_count(params),
           "init_s": init_s, "attn_softcap": cfg.attn_softcap,
@@ -3015,7 +3237,10 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
           "decode_vs_forward": {"positions": LM_PROMPT,
                                 "rel_gap": gap, "tol": LM_BF16_TOL,
                                 "argmax_agreement": agree,
-                                "decode_launches": cross_decode}})
+                                "moe_routing": routing,
+                                "decode_launches": cross_decode},
+          "idle_share_decode": 1.0 - profile["device_busy_ms_per_step"]
+          / (1e3 * serve_s / (LM_PROMPT + LM_STEPS))})
     del params, dec, fwd
     torch.cuda.empty_cache()
     return {"flash": prefill_flash, "decode": serve_launches["decode"],
@@ -3116,6 +3341,49 @@ def phase_gemma_check(fmod, dmod, seed: int) -> dict:
             "decode_softcap": dec_counts["decode_softcap"]}
 
 
+class RouterSpy:
+    """While active (and `on`), records for each call of the port's
+    `moe_ffn` the (T, k) expert ids its router picks, sorted: the router
+    recomputed from the call's inputs with the same ops (no attention
+    kernel, so the launch counts are untouched)."""
+
+    def __init__(self, on: bool = True):
+        self.on, self.routes = on, []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._layers, self._orig = layers, layers.moe_ffn
+        if not self.on:
+            return self
+
+        def spy(cfg, p, x, mesh_axes=None):
+            import torch
+            with torch.no_grad():
+                logits = x.reshape(-1, x.shape[-1]) @ p["w_router"]
+                top = torch.topk(torch.softmax(logits.float(), -1),
+                                 cfg.top_k, -1).indices
+                self.routes.append(top.sort(-1).values)
+            return self._orig(cfg, p, x, mesh_axes)
+
+        layers.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.moe_ffn = self._orig
+
+
+def dropped(cfg, routes) -> int:
+    """Assignments past the capacity for one routing of T tokens ((T, k)
+    expert ids): the reference's cap, max(1, int(cf·T·k/e)) rounded up to
+    a multiple of 64, against each expert's count."""
+    import torch
+    t, k, e = routes.shape[0], cfg.top_k, cfg.n_experts
+    cap = max(1, int(cfg.capacity_factor * t * k / e))
+    cap = (cap + 63) // 64 * 64
+    counts = torch.bincount(routes.reshape(-1), minlength=e)
+    return int((counts - cap).clamp_min(0).sum())
+
+
 def phase_gemma_serve(fmod, dmod, seed: int) -> dict:
     """Full Gemma-2 27B in bf16 (46 layers, 56.8 GB of weights): serve,
     an 8192-token prefill forward whose window bites in the 23 local
@@ -3124,12 +3392,24 @@ def phase_gemma_serve(fmod, dmod, seed: int) -> dict:
                        "gemma_serve")
 
 
-def f64_lm_loss(cfg, params, tokens, labels):
-    """Mean next-token NLL of `f64_lm_forward`, in float64."""
+def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False):
+    """Mean next-token NLL of `f64_lm_forward`, in float64 (dense stacks:
+    no aux loss). With `ckpt` the head and loss run in checkpointed chunks
+    of 520 tokens, so that the backward holds one chunk's float64 logits
+    at a time, and `f64_hidden` checkpoints its head groups and MLPs."""
     import torch
-    logits = f64_lm_forward(cfg, params, tokens)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return (torch.logsumexp(logits, -1) - gold).mean()
+
+    def nll_sum(x, lbl):
+        logits = f64_logits(cfg, params, x)
+        gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
+        return (torch.logsumexp(logits, -1) - gold).sum()
+
+    x = f64_hidden(cfg, params, tokens, ckpt=ckpt)
+    if not ckpt:
+        return nll_sum(x, labels) / labels.numel()
+    total = sum(_ckpt(True, nll_sum, x[:, c:c + 520], labels[:, c:c + 520])
+                for c in range(0, tokens.shape[1], 520))
+    return total / labels.numel()
 
 
 def phase_lm_train_check(fmod, dmod, seed: int) -> dict:
@@ -3178,7 +3458,7 @@ def phase_lm_train_check(fmod, dmod, seed: int) -> dict:
     loss_err = abs(float(loss.detach()) - float(loss64.detach()))
     worst = max(errs, key=errs.get)
     if not errs[worst] <= LM_GRAD_REL_TOL or not loss_err <= LM_REL_TOL * \
-            abs(float(loss64)):
+            abs(float(loss64.detach())):
         raise AssertionError(f"lm_train_check: {worst} relative error "
                              f"{errs[worst]} > {LM_GRAD_REL_TOL} or loss off "
                              f"by {loss_err}")
@@ -3397,6 +3677,390 @@ def phase_lm_train(fmod, dmod, seed: int) -> dict:
     return launches
 
 
+def phase_gemma_train_check(fmod, dmod, seed: int) -> dict:
+    """Gemma-2 27B's published widths cut to 2 layers (local, then
+    global), float32, no remat, one sequence of GEMMA_CHECK_SEQ tokens (the
+    window of 4096 bites): the gradients of `lm_loss` through the
+    softcapped flash kernel and its softcapped backward (f32 FMA routes)
+    against float64 autograd of the script's own forward with the window
+    and both softcaps, per tensor within LM_GRAD_REL_TOL, for every layer
+    tensor (the attention's wq, wk, wv, wo, the norms, the MLP) and the
+    final norm. The embedding's and the head's gradients (1.18e9 entries
+    each) are checked finite, not compared: their float64 copies would
+    take 18.9 GB beside the rest. The float64 side converts the embedding
+    and head on the fly in chunks and checkpoints its head groups, MLPs
+    and loss chunks. Returns the launches."""
+    import torch
+    from repro_torch.configs.gemma2_27b import CONFIG
+    from repro_torch.models import init_params, lm_loss, param_count
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32",
+                              remat=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 10)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (1, GEMMA_CHECK_SEQ), device=DEV,
+                           generator=gen)
+    labels = torch.roll(tokens, -1, 1)
+    names = _leaf_names(params)
+    live = tree_map(lambda t: t.requires_grad_(True), params)
+    sync()
+    zero_attn_counts(fmod, dmod)                     # the step starts
+    t0 = time.perf_counter()
+    loss = lm_loss(cfg, live, tokens, labels)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = attn_counts(fmod, dmod)                 # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(loss.detach())
+    compared = [i for i, n in enumerate(names)
+                if n.startswith("layers/") or n == "final_norm"]
+    unchecked = {n: bool(torch.isfinite(g).all())
+                 for n, g in zip(names, grads) if n in ("embed", "lm_head")}
+    grads = {i: grads[i] for i in compared}
+    for t in tree_leaves(params):
+        t.requires_grad_(False)
+    torch.cuda.empty_cache()
+    leaves = tree_leaves(params)
+    p64 = {i: leaves[i].detach().double().requires_grad_(True)
+           for i in compared}
+    it = iter(range(len(leaves)))
+    tree64 = tree_map(lambda t: p64.get(next(it), t), params)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss64 = f64_lm_loss(cfg, tree64, tokens, labels, ckpt=True)
+    grads64 = torch.autograd.grad(loss64, [p64[i] for i in compared])
+    f64_s = time.perf_counter() - t0
+    peak64 = torch.cuda.max_memory_allocated()
+    errs = {names[i]: float((grads[i].double() - g64).abs().max())
+            / max(float(g64.abs().max()), 1e-30)
+            for i, g64 in zip(compared, grads64)}
+    if (counts["flash"], counts["flash_bwd"], counts["decode"]) != (
+            cfg.n_layers, cfg.n_layers, 0):
+        raise AssertionError(f"gemma_train_check launches {counts}; want "
+                             f"flash {cfg.n_layers}, backward "
+                             f"{cfg.n_layers}")
+    check_routes("gemma_train_check forward", counts, "flash", "f32_fma")
+    check_routes("gemma_train_check backward", counts, "flash_bwd",
+                 "f32_fma")
+    check_softcap("gemma_train_check forward", counts, "flash", True)
+    check_softcap("gemma_train_check backward", counts, "flash_bwd", True)
+    loss64 = float(loss64.detach())
+    loss_err = abs(loss - loss64)
+    worst = max(errs, key=errs.get)
+    attn = [n for n in errs if "/attn/" in n]
+    if len(attn) != 4 * cfg.n_layers or not all(unchecked.values()):
+        raise AssertionError(f"gemma_train_check: compared {sorted(errs)}, "
+                             f"finite {unchecked}")
+    if not errs[worst] <= LM_GRAD_REL_TOL or not loss_err <= LM_REL_TOL * \
+            abs(loss64):
+        raise AssertionError(f"gemma_train_check: {worst} relative error "
+                             f"{errs[worst]} > {LM_GRAD_REL_TOL} or loss off "
+                             f"by {loss_err}")
+    emit({"phase": "gemma_train_check",
+          "config": "gemma2-27b width, 2 layers (local, global), float32, "
+                    "no remat", "params": param_count(params),
+          "tokens": GEMMA_CHECK_SEQ, "window": cfg.sliding_window,
+          "attn_softcap": cfg.attn_softcap,
+          "logit_softcap": cfg.logit_softcap, "loss": loss,
+          "loss_float64": loss64, "seconds_fwd_bwd": seconds,
+          "seconds_float64": f64_s, "grad_rel_err_vs_float64": errs,
+          "worst": worst, "tol": LM_GRAD_REL_TOL,
+          "compared_tensors": len(errs),
+          "finite_not_compared": unchecked,
+          "flash_launches": counts["flash"],
+          "flash_bwd_launches": counts["flash_bwd"],
+          "launches_by_route": {"flash": counts["flash_routes"],
+                                "flash_bwd": counts["flash_bwd_routes"]},
+          "softcap_launches": {"flash": counts["flash_softcap"],
+                               "flash_bwd": counts["flash_bwd_softcap"]},
+          "peak_allocated_bytes": peak,
+          "peak_allocated_bytes_float64": peak64})
+    del params, live, grads, p64, tree64, grads64
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gemma_train(fmod, dmod, seed: int) -> dict:
+    """Gemma-2 27B's bf16 CONFIG (remat on, published widths) cut to 2
+    layers: `train_loop` with Adafactor, two microbatches of
+    TokenPipeline(vocab, 512, 4) a step and int8 error-feedback
+    compression, GEMMA_TRAIN_STEPS steps; the first loss within
+    LM_TRAIN_LOSS_TOL of the float64 loss of the same batch, and the loss
+    of that batch lower after the steps than before. Every flash forward,
+    recompute and backward on the tensor-core route with the softcap.
+    Returns the launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params, lm_loss, param_count
+    from repro_torch.train import TrainLoopConfig, make_optimizer, train_loop
+
+    cfg = dataclasses.replace(get_config("gemma2_27b"), n_layers=2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed),
+                         device=DEV)
+    pipe = TokenPipeline(cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=seed)
+    accum = 2
+    first = next(train_batches(pipe, accum, []))
+    with torch.no_grad():                # step 0's batch in float64
+        loss64 = sum(float(f64_lm_loss(cfg, params, first["tokens"][i],
+                                       first["labels"][i]))
+                     for i in range(accum)) / accum
+    torch.cuda.empty_cache()
+    lc = TrainLoopConfig(optimizer="adafactor", grad_accum=accum,
+                         compress=True, max_steps=GEMMA_TRAIN_STEPS)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    zero_attn_counts(fmod, dmod)                     # the run starts
+    out_params, out_state, info = train_loop(
+        cfg, lc, params, make_optimizer(lc.optimizer, lr=lc.lr)[0](params),
+        train_batches(pipe, accum, times), log_every=1)
+    counts = attn_counts(fmod, dmod)                 # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    times.append(time.perf_counter())
+    micro = lc.max_steps * accum
+    want = {"flash": 2 * cfg.n_layers * micro,       # forward + recompute
+            "flash_bwd": cfg.n_layers * micro, "decode": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"gemma_train launches {got}, want {want}")
+    for kernel in ("flash", "flash_bwd"):
+        check_routes(f"gemma_train {kernel}", counts, kernel, "tensor_core")
+        check_softcap(f"gemma_train {kernel}", counts, kernel, True)
+    losses = [x for _, x in info["history"]]
+    if len(losses) != lc.max_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"gemma_train: losses {losses}")
+    with torch.no_grad():                # step 0's batch after the steps
+        after = sum(float(lm_loss(cfg, out_params, first["tokens"][i],
+                                  first["labels"][i]))
+                    for i in range(accum)) / accum
+    step_s = [b - a for a, b in zip(times[:lc.max_steps],
+                                    times[1:lc.max_steps + 1])]
+    steady = step_s[1:]
+    tokens = accum * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    profiled = profile_train_step(cfg, lc, out_params, out_state, info["ef"],
+                                  next(train_batches(pipe, accum, [])))
+    gap = abs(losses[0] - loss64)
+    if not gap <= LM_TRAIN_LOSS_TOL or not after < losses[0]:
+        raise AssertionError(f"gemma_train: first loss {losses[0]} vs "
+                             f"float64 {loss64} (gap {gap} > "
+                             f"{LM_TRAIN_LOSS_TOL}?), step 0's batch after "
+                             f"the steps {after}")
+    emit({"phase": "gemma_train", "config": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "remat": cfg.remat,
+          "params": param_count(params), "optimizer": lc.optimizer,
+          "grad_accum": accum, "compress": lc.compress,
+          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+          "first_loss": losses[0], "first_loss_float64": loss64,
+          "loss_gap": gap, "loss_tol": LM_TRAIN_LOSS_TOL,
+          "loss_history": info["history"],
+          "first_batch_loss_after_steps": after,
+          "step_ms": [1e3 * x for x in step_s],
+          "ms_per_steady_step": 1e3 * sum(steady) / len(steady),
+          "tokens_per_step": tokens,
+          "tokens_per_s_steady": tokens * len(steady) / sum(steady),
+          "flash_launches": counts["flash"],
+          "flash_bwd_launches": counts["flash_bwd"],
+          "launches_by_route": {"flash": counts["flash_routes"],
+                                "flash_bwd": counts["flash_bwd_routes"]},
+          "softcap_launches": {"flash": counts["flash_softcap"],
+                               "flash_bwd": counts["flash_bwd_softcap"]},
+          "peak_allocated_bytes": peak, "profiled_step": profiled})
+    del params, out_params, out_state, info, first
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe_check(fmod, dmod, seed: int) -> dict:
+    """Mixtral 8x22B's published widths cut to 2 layers, float32, batch
+    2 x 128: `forward` and a teacher-forced `decode_step` at every position
+    against the script's own float64 forward, routed as each path routes
+    (the forward all 256 tokens together, decode one position's 2 tokens
+    at a time) with the reference's capacity, drops and combine, within
+    LM_REL_TOL; every layer MOE, so no window and full caches. Prints the
+    dropped assignments and counts the router picks that differ from
+    float64's. Returns the launches."""
+    import torch
+    from repro_torch.configs.mixtral_8x22b import CONFIG
+    from repro_torch.models import (
+        forward, init_decode_state, init_params, param_count,
+    )
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 9)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (2, LM_PROMPT), device=DEV,
+                           generator=gen)
+    if any("slot_pos" in st for st in init_decode_state(
+            cfg, 1, 2, device=DEV)["layers"]):
+        raise AssertionError("moe_check: an MOE layer got a ring cache")
+    with torch.inference_mode():
+        zero_attn_counts(fmod, dmod)                     # forward starts
+        with RouterSpy() as f_spy:
+            logits, aux = forward(cfg, params, tokens)
+        fwd_counts = attn_counts(fmod, dmod)             # ... and ends here
+        zero_attn_counts(fmod, dmod)                     # decode starts
+        t0 = time.perf_counter()
+        with RouterSpy() as d_spy:
+            dec = teacher_forced(cfg, params, tokens)
+        sync()
+        decode_s = time.perf_counter() - t0
+        dec_counts = attn_counts(fmod, dmod)             # ... and ends here
+        f_routes, d_routes = [], []
+        ref = f64_lm_forward(cfg, params, tokens, routes=f_routes)
+        ref_dec = f64_lm_forward(cfg, params, tokens, per_position=True,
+                                 routes=d_routes)
+    n, s_len = cfg.n_layers, LM_PROMPT
+    # Port decode: call t·n + l; float64 per position: call l·S + t.
+    other = {"forward": sum(int((a != b).any(-1).sum())
+                            for a, b in zip(f_spy.routes, f_routes)),
+             "decode": sum(int((d_spy.routes[t * n + li]
+                                != d_routes[li * s_len + t]).any(-1).sum())
+                           for li in range(n) for t in range(s_len))}
+    drops = {"forward": [dropped(cfg, r) for r in f_spy.routes],
+             "decode": sum(dropped(cfg, r) for r in d_spy.routes)}
+    errs = {"forward": rel_err(logits, ref), "decode": rel_err(dec, ref_dec),
+            "decode_vs_forward": rel_err(dec, logits)}
+    flash, decode = fwd_counts["flash"], dec_counts["decode"]
+    if (flash, fwd_counts["decode"], dec_counts["flash"], decode) != (
+            n, 0, 0, n * s_len):
+        raise AssertionError(f"moe_check launches: forward {fwd_counts}, "
+                             f"decode {dec_counts}; want flash {n}, decode "
+                             f"{n * s_len}")
+    check_routes("moe_check forward", fwd_counts, "flash", "f32_fma")
+    check_routes("moe_check decode", dec_counts, "decode", "f32_fma")
+    bad = {k: e for k, e in errs.items()
+           if k != "decode_vs_forward" and not e <= LM_REL_TOL}
+    if bad:
+        raise AssertionError(f"moe_check: relative error above {LM_REL_TOL}: "
+                             f"{bad}; router picks unlike float64's {other}")
+    emit({"phase": "moe_check", "config": "mixtral-8x22b width, 2 layers, "
+          "float32", "params": param_count(params), "batch": 2,
+          "tokens": s_len, "experts": cfg.n_experts, "top_k": cfg.top_k,
+          "aux": float(aux), "rel_err_vs_float64": errs, "tol": LM_REL_TOL,
+          "dropped_assignments": drops,
+          "router_picks_unlike_float64": other,
+          "decode_seconds": decode_s, "flash_launches": flash,
+          "decode_launches": decode,
+          "launches_by_route": {"flash": fwd_counts["flash_routes"],
+                                "decode": dec_counts["decode_routes"]},
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del params, logits, dec, ref, ref_dec
+    torch.cuda.empty_cache()
+    return {"flash": flash, "decode": decode,
+            "flash_routes": fwd_counts["flash_routes"],
+            "decode_routes": dec_counts["decode_routes"],
+            "flash_softcap": 0, "decode_softcap": 0}
+
+
+def phase_mixtral_serve(fmod, dmod, seed: int) -> dict:
+    """Mixtral 8x22B's bf16 CONFIG at published widths cut to
+    MIXTRAL_SERVE_LAYERS layers (60.9 GB of weights from --seed): serve,
+    a 4096-token prefill forward and decode against the forward, with the
+    MoE routing rule (MOE_FLIP_RULE); every launch on the tensor-core
+    route, none softcapped."""
+    return serve_phase(fmod, dmod, seed, "mixtral_8x22b", LM_PREFILL,
+                       "mixtral_serve", n_layers=MIXTRAL_SERVE_LAYERS)
+
+
+def phase_experts(seed: int) -> dict:
+    """One Kimi K2 layer's expert bank at published widths (384 experts of
+    w_gate, w_up (7168, 2048) and w_down (2048, 7168), bf16: 33.8 GB) in
+    pinned host memory, drawn from --seed on the card a block at a time,
+    streamed through `StreamedWeightProvider(hbm_budget_bytes=2 GiB,
+    align=8, depth=2)`: each block's expert range and shapes, rows sampled
+    from each block bit for bit against the host bank, and the uploaded
+    bytes equal to the bank's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.io import ExpertBank, StreamedWeightProvider
+
+    cfg = get_config("kimi_k2_1t_a32b")
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    shapes = {"w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # Pinned by cudaHostRegister: the caching host allocator behind
+    # pin_memory=True would round each 11.3 GB array up to 16 GiB.
+    host = {k: torch.empty(shp, dtype=torch.bfloat16)
+            for k, shp in shapes.items()}
+    cudart = torch.cuda.cudart() if DEV == "cuda" else None
+    for a in host.values() if cudart else ():
+        err = cudart.cudaHostRegister(a.data_ptr(),
+                                      a.numel() * a.element_size(), 0)
+        if int(getattr(err, "value", err)) != 0 or not a.is_pinned():
+            raise RuntimeError(f"experts: cudaHostRegister failed ({err})")
+    pin_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    t0 = time.perf_counter()
+    for k, a in host.items():            # drawn on the card, 24 at a time
+        for s0 in range(0, e, 24):
+            a[s0:s0 + 24].copy_(torch.randn(
+                a[s0:s0 + 24].shape, generator=gen, device=DEV,
+                dtype=torch.bfloat16))
+    sync()
+    fill_s = time.perf_counter() - t0
+    bank = ExpertBank(layer=0, arrays=host)
+    bank_bytes = bank.expert_bytes() * e
+    budget = EXPERTS_BUDGET
+    provider = StreamedWeightProvider([bank], hbm_budget_bytes=budget,
+                                      align=8, depth=2, device=DEV)
+    blocks = provider.blocks_for(bank)
+    size = max(8, budget // bank.expert_bytes() // 8 * 8)   # 24 at 2 GiB
+    want = [(s0, min(s0 + size, e)) for s0 in range(0, e, size)]
+    if provider.block_size != size or blocks != want:
+        raise AssertionError(f"experts: block_size {provider.block_size}, "
+                             f"blocks {blocks}")
+    rows = torch.randint(0, f, (4,), generator=torch.Generator().manual_seed(
+        seed))
+    samples, seen = [], []
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    for (s0, s1), arrays in provider.stream_layer(bank):
+        seen.append((s0, s1))
+        for k, a in arrays.items():
+            if tuple(a.shape) != (s1 - s0, *shapes[k][1:]) or \
+                    a.device.type != DEV:
+                raise AssertionError(f"experts: block {s0}:{s1} {k} "
+                                     f"{tuple(a.shape)} on {a.device}")
+            samples.append((k, s0, a[:, rows.to(DEV)].clone()))
+    sync()
+    stream_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    mismatched = [(k, s0) for k, s0, got in samples
+                  if not torch.equal(got.cpu(),
+                                     host[k][s0:s0 + got.shape[0], rows])]
+    st = provider.stats
+    if seen != want or mismatched or st.uploaded_bytes != bank_bytes:
+        raise AssertionError(f"experts: blocks {seen}, mismatched "
+                             f"{mismatched}, uploaded {st.uploaded_bytes} "
+                             f"of {bank_bytes}")
+    emit({"phase": "experts", "config": cfg.name, "experts": e,
+          "expert_bytes": bank.expert_bytes(), "bank_bytes": bank_bytes,
+          "budget_bytes": budget, "align": 8, "depth": 2,
+          "block_size": provider.block_size, "blocks": len(seen),
+          "sampled_rows_per_block": 4 * 3, "bit_for_bit": True,
+          "pin_s": pin_s, "fill_s": fill_s, "stream_s": stream_s,
+          "gb_per_s": bank_bytes / stream_s / 1e9,
+          "stream_stats": dataclasses.asdict(st),
+          "peak_allocated_bytes": peak})
+    del bank, provider, samples
+    sync()
+    for a in host.values() if cudart else ():
+        cudart.cudaHostUnregister(a.data_ptr())
+    del host
+    torch.cuda.empty_cache()
+    return {"blocks": len(seen), "uploaded_bytes": st.uploaded_bytes}
+
+
 def time_flash(fmod, seed: int) -> dict:
     """The flash kernel at Yi-6B's per-layer prefill (train_4k length), its
     plain version and SDPA (a yardstick the port never calls)."""
@@ -3459,12 +4123,15 @@ def time_flash_softcap(fmod, seed: int) -> dict:
             "bound_share_no_softcap": 1e3 * max(t_ops, t_bytes) / no_cap_ms}
 
 
-def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
+def time_flash_bwd(fmod, seed: int, shape, repeats: int,
+                   softcap=None) -> dict:
     """The backward kernels at `shape` (bf16, causal: the tensor-core
-    route), their plain version and, as the yardstick the port never
-    calls, SDPA's forward + backward less its forward (the same flash
-    forward, saving its lse for the backward); also the forward kernel as
-    training launches it, writing lse."""
+    route; softcapped where `softcap` is given: the CAP instances), their
+    plain version and, as the yardstick the port never calls, SDPA's
+    forward + backward less its forward (the same flash forward, saving
+    its lse for the backward; none with a softcap, which no PyTorch call
+    takes); also the forward kernel as training launches it, writing
+    lse."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed + 7)
@@ -3472,13 +4139,14 @@ def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
     q, k, v, dout = attn_inputs(shape, "bfloat16", gen) + attn_inputs(
         shape, "bfloat16", gen)[:1]
     with torch.no_grad():
-        out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=True)
+        out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=True,
+                                                 softcap=softcap)
         ms = cuda_ms(lambda: fmod.flash_attention_bwd_cuda(
-            q, k, v, out, dout, lse, True, 0), repeats)
+            q, k, v, out, dout, lse, True, 0, softcap), repeats)
         fwd_lse_ms = cuda_ms(lambda: fmod.flash_attention_lse_cuda(
-            q, k, v, causal=True), repeats)
+            q, k, v, causal=True, softcap=softcap), repeats)
         plain_ms = cuda_ms(lambda: fmod.flash_attention_bwd_plain(
-            q, k, v, out, dout, lse, True, 0), 2, warmup=1)
+            q, k, v, out, dout, lse, True, 0, softcap), 2, warmup=1)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
 
     def sdpa_fwd():
@@ -3487,7 +4155,8 @@ def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dout)
 
-    library_ms = cuda_ms(sdpa_fwd_bwd, repeats) - cuda_ms(sdpa_fwd, repeats)
+    library_ms = None if softcap else (
+        cuda_ms(sdpa_fwd_bwd, repeats) - cuda_ms(sdpa_fwd, repeats))
     pairs = b * h * s_len * (s_len + 1) // 2        # causal (query, key)
     flops = 10.0 * d * pairs
     # q, k, v, out, dout in; dq, dk, dv out; lse in, f32.
@@ -3497,9 +4166,12 @@ def time_flash_bwd(fmod, seed: int, shape, repeats: int) -> dict:
     # kernels, and dV, dK, dQ on split P and dS, two products each.
     split_ms = 1e3 * max(2 * flops / PEAK_BF16_FLOPS, t_bytes)
     return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+            "softcap": softcap,
             "flops": flops, "min_bytes": nbytes, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_call": "F.scaled_dot_product_attention(is_causal=True) "
+            "library_call": "none: no PyTorch call softcaps attention"
+                            if softcap else
+                            "F.scaled_dot_product_attention(is_causal=True) "
                             "forward + backward, less its forward",
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -3610,6 +4282,9 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
                                                  LM_TRAIN_SEQ, 128), 10),
         "flash_bwd_prefill": time_flash_bwd(fmod, seed,
                                             (1, 32, LM_PREFILL, 128), 3),
+        # gemma_train's microbatch, the CAP instances, beside flash_bwd.
+        "flash_bwd_softcap": time_flash_bwd(fmod, seed, (
+            LM_TRAIN_BATCH, 32, LM_TRAIN_SEQ, 128), 10, softcap=50.0),
         "decode_attention": time_decode(dmod, seed,
                                         SHAPES["decode_32k"]["global_batch"],
                                         SHAPES["decode_32k"]["seq_len"]),
@@ -3641,6 +4316,26 @@ def first_segment(plan, a_streamed) -> dict:
                          for _, e in plan.stream_payloads()]}
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its wall seconds kept under `name` for the phase_seconds
+    line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
+def mem_available_bytes() -> int:
+    """The host's MemAvailable (/proc/meminfo), in bytes."""
+    for ln in Path("/proc/meminfo").read_text().splitlines():
+        if ln.startswith("MemAvailable:"):
+            return int(ln.split()[1]) * 1024
+    return -1
+
+
 def run(args) -> None:
     import torch
 
@@ -3655,15 +4350,24 @@ def run(args) -> None:
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi,
           "tf32": "off (matmul and cudnn)",
           "bf16_reduced_precision_reduction": "off",
+          "host_mem_available_bytes": mem_available_bytes(),
           "scales": {"rUSA": args.rusa_scale, "socLJ1": args.lj_scale}})
 
     kmod = importlib.import_module("repro_torch.kernels.bcsr_spmm")
     from repro_torch.kernels import decode_attn as dmod
     from repro_torch.kernels import flash_attn as fmod
+    t_start = time.perf_counter()
     info = kmod.build()
+    table = ptxas_table(info.ptxas)
     emit({"phase": "build", "seconds": info.seconds,
           "library": str(info.library.relative_to(ROOT)),
-          "ptxas": ptxas_table(info.ptxas)})
+          "ptxas": table,
+          # The backward's CAP instances, beside those without the cap.
+          "flash_bwd_softcap_instances": [
+              row for row in table if ("dkdv_kernel" in row
+                                       or "dq_kernel" in row)
+              and ", true>" in row]})
+    PHASE_SECONDS["build"] = info.seconds
 
     t0 = time.perf_counter()
     # Seeds follow launch/serve.py: graphs in ("socLJ1", "rUSA") order.
@@ -3689,49 +4393,71 @@ def run(args) -> None:
     g_train = torch.randn(train_shape, device=DEV, generator=gen)
     h_lj = torch.randn((lj.n_rows, width), device=DEV, generator=gen)
 
-    spmm_err = phase_kernel(kmod, plans["serve"]["ell"], h_main,
-                            plans["bwd"]["ell"], g_train,
-                            plans["lj_serve"]["ell"], h_lj)
-    fused_err = phase_fused(kmod, plans["fwd"]["ell"], h_train)
+    spmm_err = timed("kernel", phase_kernel, kmod, plans["serve"]["ell"],
+                     h_main, plans["bwd"]["ell"], g_train,
+                     plans["lj_serve"]["ell"], h_lj)
+    fused_err = timed("fused", phase_fused, kmod, plans["fwd"]["ell"],
+                      h_train)
     inputs = serve_requests(graphs, args)
-    launches = {"serve": phase_serve(kmod, graphs, args, inputs)}
+    launches = {"serve": timed("serve", phase_serve, kmod, graphs, args,
+                               inputs)}
     a64 = f64_adjacency(a)
-    fused_launches, launches["layer"] = phase_layer(kmod, train_eng, a, a64,
-                                                    args.seed)
-    launches["train"] = phase_train(kmod, train_eng, a, a64, args.seed)
+    fused_launches, launches["layer"] = timed(
+        "layer", phase_layer, kmod, train_eng, a, a64, args.seed)
+    launches["train"] = timed("train", phase_train, kmod, train_eng, a, a64,
+                              args.seed)
     # The scheduler slice's phases run with the static plan analyzer on:
     # an error-severity finding in any plan they interpret or stream
     # raises PlanAnalysisError.
     from repro_torch.core import set_default_analyze
     previous = set_default_analyze(True)
-    launches["schedule"] = phase_schedule(kmod, a, a64, args.seed)
-    launches["epoch"] = phase_epoch(kmod, a, args.seed)
-    launches["passes"] = phase_passes(kmod, graphs, inputs)
-    launches["shard"], shard_state = phase_shard(kmod, graphs, args, inputs)
-    launches["warm"] = phase_warm(kmod, graphs, inputs, shard_state)
+    launches["schedule"] = timed("schedule", phase_schedule, kmod, a, a64,
+                                 args.seed)
+    launches["epoch"] = timed("epoch", phase_epoch, kmod, a, args.seed)
+    launches["passes"] = timed("passes", phase_passes, kmod, graphs, inputs)
+    launches["shard"], shard_state = timed("shard", phase_shard, kmod,
+                                           graphs, args, inputs)
+    launches["warm"] = timed("warm", phase_warm, kmod, graphs, inputs,
+                             shard_state)
     del shard_state
-    launches["tune"], tune_state = phase_tune(kmod, graphs, args, inputs)
-    launches["update"] = phase_update(kmod, graphs, args, inputs,
-                                      tune_state)
+    launches["tune"], tune_state = timed("tune", phase_tune, kmod, graphs,
+                                         args, inputs)
+    launches["update"] = timed("update", phase_update, kmod, graphs, args,
+                               inputs, tune_state)
     tuned, spmm_err = tune_state["widest"], max(spmm_err,
                                                 tune_state["kernel_err"])
     del tune_state
-    launches["partition"] = phase_partition(kmod, graphs, args, inputs)
-    launches["continuous"] = phase_continuous(kmod, graphs, args, inputs)
+    launches["partition"] = timed("partition", phase_partition, kmod,
+                                  graphs, args, inputs)
+    launches["continuous"] = timed("continuous", phase_continuous, kmod,
+                                   graphs, args, inputs)
     set_default_analyze(previous)
-    attn_err = phase_attn(fmod, dmod, args.seed)
-    lm = {"lm_check": phase_lm_check(fmod, dmod, args.seed)}
-    t0 = time.perf_counter()
-    lm["lm_train_check"] = phase_lm_train_check(fmod, dmod, args.seed)
-    train_runs = phase_lm_train(fmod, dmod, args.seed)
+    attn_err = timed("attn", phase_attn, fmod, dmod, args.seed)
+    lm = {"lm_check": timed("lm_check", phase_lm_check, fmod, dmod,
+                            args.seed)}
+    lm["lm_train_check"] = timed("lm_train_check", phase_lm_train_check,
+                                 fmod, dmod, args.seed)
+    train_runs = timed("lm_train", phase_lm_train, fmod, dmod, args.seed)
     lm.update({f"lm_train_{name}": c for name, c in train_runs.items()})
-    emit({"phase": "lm_train_seconds", "lm_train_check_and_lm_train":
-          time.perf_counter() - t0})
-    lm["lm_serve"] = phase_lm_serve(fmod, dmod, args.seed)
-    lm["gemma_check"] = phase_gemma_check(fmod, dmod, args.seed)
-    lm["gemma_serve"] = phase_gemma_serve(fmod, dmod, args.seed)
-    timing = phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train,
-                          g_train, args.seed, tuned)
+    lm["lm_serve"] = timed("lm_serve", phase_lm_serve, fmod, dmod, args.seed)
+    lm["gemma_check"] = timed("gemma_check", phase_gemma_check, fmod, dmod,
+                              args.seed)
+    lm["gemma_serve"] = timed("gemma_serve", phase_gemma_serve, fmod, dmod,
+                              args.seed)
+    lm["gemma_train_check"] = timed("gemma_train_check",
+                                    phase_gemma_train_check, fmod, dmod,
+                                    args.seed)
+    lm["gemma_train"] = timed("gemma_train", phase_gemma_train, fmod, dmod,
+                              args.seed)
+    lm["moe_check"] = timed("moe_check", phase_moe_check, fmod, dmod,
+                            args.seed)
+    lm["mixtral_serve"] = timed("mixtral_serve", phase_mixtral_serve, fmod,
+                                dmod, args.seed)
+    timed("experts", phase_experts, args.seed)
+    timing = timed("timing", phase_timing, kmod, fmod, dmod, plans, h_main,
+                   h_lj, h_train, g_train, args.seed, tuned)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS,
+          "total": time.perf_counter() - t_start})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     gcn_keys = (*keys, "bound_ms_bricks", "bound_by_bricks")
     bwd_keys = ("bound_ms_split_mma", "bound_share_split_mma",
@@ -3741,12 +4467,14 @@ def run(args) -> None:
         routes = [path[kernel] for path in GCN_ROUTES.values()]
         return {route: sum(r[route] for r in routes) for route in routes[0]}
 
-    train_paths = [p for p in lm if p.startswith("lm_train")]
+    train_paths = [p for p in lm if p.startswith(("lm_train", "gemma_train"))]
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
                    **{p: lm[p]["flash"] for p in train_paths},
                    "lm_serve_prefill": lm["lm_serve"]["flash"],
                    "gemma_check": lm["gemma_check"]["flash"],
-                   "gemma_serve_prefill": lm["gemma_serve"]["flash"]}
+                   "gemma_serve_prefill": lm["gemma_serve"]["flash"],
+                   "moe_check": lm["moe_check"]["flash"],
+                   "mixtral_serve_prefill": lm["mixtral_serve"]["flash"]}
     bwd_paths = {p: lm[p]["flash_bwd"] for p in train_paths}
 
     def by_route(kernel: str, routes=("tensor_core", "f32_fma")) -> dict:
@@ -3761,7 +4489,11 @@ def run(args) -> None:
                     "gemma_check": lm["gemma_check"]["decode"],
                     "gemma_serve": lm["gemma_serve"]["decode"],
                     "gemma_serve_crosscheck":
-                        lm["gemma_serve"]["decode_crosscheck"]}
+                        lm["gemma_serve"]["decode_crosscheck"],
+                    "moe_check": lm["moe_check"]["decode"],
+                    "mixtral_serve": lm["mixtral_serve"]["decode"],
+                    "mixtral_serve_crosscheck":
+                        lm["mixtral_serve"]["decode_crosscheck"]}
 
     def softcapped(kernel: str) -> dict:
         """Softcapped launches by path (Gemma-2's; every other 0)."""
@@ -3818,11 +4550,15 @@ def run(args) -> None:
          "launches": sum(bwd_paths.values()),
          "launches_by_path": bwd_paths,
          "launches_by_route": by_route("flash_bwd"),
+         "softcap_launches": sum(softcapped("flash_bwd").values()),
+         "softcap_launches_by_path": softcapped("flash_bwd"),
          "max_abs_err": attn_err["backward"],
          **{k: timing["flash_bwd"][k] for k in keys},
          **{k: timing["flash_bwd"][k] for k in bwd_keys},
          "prefill_shape": {k: timing["flash_bwd_prefill"][k]
-                           for k in (*keys, *bwd_keys)}},
+                           for k in (*keys, *bwd_keys)},
+         "softcap_50": {k: timing["flash_bwd_softcap"][k]
+                        for k in (*keys, *bwd_keys, "softcap")}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:68",

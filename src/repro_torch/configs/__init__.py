@@ -4,10 +4,12 @@ architecture registry, where `--arch <id>` resolves.
 Each LM module defines CONFIG (full size, from public literature; served
 on the card) and SMOKE (reduced same-family config for CPU tests), the
 same values as `repro.configs`. The port's transformer runs the dense GQA
-archs (Yi-6B, Yi-9B, DeepSeek-7B) and Gemma-2 27B (sliding-window layers
-with ring caches, both softcaps; serving only: the softcap has no backward
-yet). `get_config` of any other id raises and names the ROADMAP item that
-brings it, so no caller gets a config the model would mis-run.
+archs (Yi-6B, Yi-9B, DeepSeek-7B), Gemma-2 27B (sliding-window layers
+with ring caches, both softcaps) and the MoE archs Mixtral 8x22B and Kimi
+K2 (every layer an MOE block; as in the reference, Mixtral's sliding
+window is applied to no layer). `get_config` of any other id raises and
+names the ROADMAP item that brings it, so no caller gets a config the
+model would mis-run.
 """
 from __future__ import annotations
 
@@ -30,10 +32,6 @@ _ARCH_IDS: List[str] = [
 _ITEM = "ROADMAP.md queue 1 item 8"
 _NOT_PORTED: Dict[str, str] = {
     "xlstm_125m": f"mLSTM/sLSTM recurrent blocks ({_ITEM}: recurrent.py)",
-    "kimi_k2_1t_a32b": f"MoE feed-forward ({_ITEM}: moe_ffn, "
-                       "moe_shard_map.py)",
-    "mixtral_8x22b": f"MoE feed-forward ({_ITEM}: moe_ffn, "
-                     "moe_shard_map.py)",
     "seamless_m4t_medium": f"the encoder-decoder and its audio frontend "
                            f"({_ITEM})",
     "recurrentgemma_2b": f"RG-LRU recurrent blocks and ring caches ({_ITEM})",

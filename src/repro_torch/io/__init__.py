@@ -1,5 +1,6 @@
 """Memory tiers, the double-buffered stream, the tiered segment cache, its
-mesh-sharded device tier and the cross-worker cache directory."""
+mesh-sharded device tier, the cross-worker cache directory and the
+streamed expert weights."""
 from repro_torch.io.segment_cache import (
     CacheDirectory,
     CacheStats,
@@ -22,6 +23,7 @@ from repro_torch.io.tiers import (
     TierSpec,
     TransferRecord,
 )
+from repro_torch.io.weights import ExpertBank, StreamedWeightProvider
 
 __all__ = [
     "CacheDirectory", "CacheStats", "SegmentKey", "TieredSegmentCache",
@@ -30,4 +32,5 @@ __all__ = [
     "ICI_ALL_TO_ALL", "ICI_RING", "ICITopology",
     "PAPER_GPU_SYSTEM", "TPU_V5E_SYSTEM", "MemoryTier", "OutOfMemory",
     "Path", "TieredMemorySystem", "TierSpec", "TransferRecord",
+    "ExpertBank", "StreamedWeightProvider",
 ]

@@ -45,6 +45,10 @@ def _tensors(payload: Any) -> Iterator[torch.Tensor]:
     elif isinstance(payload, (tuple, list)):
         for item in payload:
             yield from _tensors(item)
+    elif isinstance(payload, dict):
+        # A block of named weights (io/weights.py).
+        for item in payload.values():
+            yield from _tensors(item)
     elif hasattr(payload, "payloads"):
         # A coalesced upload (core.passes.CoalescedPayload): one issue,
         # every member segment's tensors.

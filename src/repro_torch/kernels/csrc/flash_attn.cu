@@ -24,7 +24,8 @@
 // For training, both routes also write each row's log-sum-exp lse (B, H, S)
 // f32 = m + log l in natural-log units (-inf for a row with no valid key),
 // which the backward (flash_attn_bwd.cu) reads to recompute P; inference
-// passes a null pointer and writes none. The backward takes no softcap.
+// passes a null pointer and writes none. With a softcap, lse is taken over
+// the capped scores, which the backward's CAP instances read.
 //
 // What bounds it: operations. With each input read once and the output
 // written once, the work is 4*d FLOPs per valid (query, key) pair against

@@ -17,6 +17,23 @@
 // with s = 1/sqrt(d). Sums run in f32; dQ, dK, dV are written in q's type.
 // A row whose lse is -inf (no valid key) contributes nothing.
 //
+// With an attention softcap c > 0 (Gemma-2's; the forward's CAP instances,
+// flash_attn.cu), each valid score x_ij = s q_i . k_j became c t_ij with
+// t_ij = tanh(x_ij / c) before the softmax, and lse is taken over the
+// capped scores. Then
+//
+//   P_ij  = exp(c t_ij - lse_i),
+//   dS_ij = P_ij (dO_i . v_j - D_i) (1 - t_ij^2)    (d(c tanh(x/c))/dx)
+//
+// and dK, dQ as above from this dS. D needs no change: sum_j P_ij dP_ij =
+// dO_i . O_i for any scores, so delta_kernel is shared. The dK/dV and dQ
+// kernels of both routes are templates on CAP, as the forward's are, so
+// the instances without the softcap are the code they were (the same
+// registers and spills); t is recomputed where P is, from the raw q.k,
+// before the mask, on every tile. The tensor-core route keeps raw q.k
+// and folds s into exp2; its CAP instances take unit 1 (the capped score
+// is already in scaled units), as the forward's do.
+//
 // What bounds it: operations. The work is 10*d FLOPs per valid (query, key)
 // pair (q.k, dO.v, dV, dK, dQ: 2*d each), against 8 rows of d in (q, k, v,
 // out, dout) and 3 out (dq, dk, dv); at the training shape (4, 32, 512, 128)
@@ -79,6 +96,12 @@
 //   of MMA work, the forward's mma.sync rate. Passes of 16 rows (no
 //   spills) or 64 (more), or 8 warps over 128-row tiles, are within 5%.
 //   This design is mma.sync's; wgmma with a TMA producer warp is later work.
+//   The CAP instances (ptxas, CUDA 12.8) keep dq_kernel's registers within
+//   +19 (241 at NC = 8, no spills) and dkdv_kernel's at 255 with 60 bytes
+//   of spill stores and 96 of loads at NC = 8 in bf16 (56 and 92 in f16);
+//   the instances without the cap are unchanged. On an H100 80GB HBM3 at
+//   700 W the bf16 backward takes 0.345 ms with Gemma-2's cap at the
+//   training shape above, 0.290 without (scripts: chip_smoke.py, timing).
 //
 // * f32: the FMA kernels of the first version (namespace f32fma), kept as
 //   they were. Tensor cores take f32 only as TF32, which keeps 10 bits of
@@ -147,6 +170,13 @@ __device__ __forceinline__ float row_sum(float x) {   // over 8 lanes
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
+// t = tanh(x / c) for the raw dot product q.k, x = q.k * scale, as the
+// forward's f32 kernel takes it.
+__device__ __forceinline__ float capped_tanh(float dot, float scale,
+                                             float softcap) {
+  return tanhf(dot * scale * (1.0f / softcap));
+}
+
 // Row `r` of the (S, d) matrix at `src`, this thread's dims of it, into
 // f32 registers; 0 past S or d.
 template <typename T, int NCH>
@@ -201,14 +231,14 @@ __device__ __forceinline__ void load_tiles(float* __restrict__ a_s,
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, int S, int d, float scale, int causal,
-                int window) {
+                int window, float softcap) {
   constexpr int NCH = nch<NC>();
   constexpr int DP = 32 * NCH;
   extern __shared__ __align__(16) float smem[];
@@ -269,8 +299,15 @@ __global__ void __launch_bounds__(THREADS)
       const float lse2 = ls[ii];
       const bool ok = valid_pair(i0 + ii, kj, S, causal, window) &&
                       lse2 != -INFINITY;
-      const float p = ok ? exp2f(fmaf(dot, scale_log2, -lse2)) : 0.0f;
-      const float dsv = p * (dpv - ds[ii]);
+      float p, dsv;
+      if constexpr (CAP) {
+        const float th = capped_tanh(dot, scale, softcap);
+        p = ok ? exp2f(fmaf(softcap * th, LOG2E, -lse2)) : 0.0f;
+        dsv = p * (dpv - ds[ii]) * fmaf(-th, th, 1.0f);
+      } else {
+        p = ok ? exp2f(fmaf(dot, scale_log2, -lse2)) : 0.0f;
+        dsv = p * (dpv - ds[ii]);
+      }
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         dva[c * 4 + 0] = fmaf(p, gv[c].x, dva[c * 4 + 0]);
@@ -288,13 +325,13 @@ __global__ void __launch_bounds__(THREADS)
   store_row<T, NCH>(dv + base, dva, 1.0f, kj, S, d, part);
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int S, int d, float scale, int causal,
-              int window) {
+              int window, float softcap) {
   constexpr int NCH = nch<NC>();
   constexpr int DP = 32 * NCH;
   extern __shared__ __align__(16) float smem[];
@@ -350,8 +387,15 @@ __global__ void __launch_bounds__(THREADS)
       dpv = row_sum(dpv);
       const bool ok = valid_pair(qi, k0 + jj, S, causal, window) &&
                       lse2 != -INFINITY;
-      const float p = ok ? exp2f(fmaf(dot, scale_log2, -lse2)) : 0.0f;
-      const float dsv = p * (dpv - di);
+      float p, dsv;
+      if constexpr (CAP) {
+        const float th = capped_tanh(dot, scale, softcap);
+        p = ok ? exp2f(fmaf(softcap * th, LOG2E, -lse2)) : 0.0f;
+        dsv = p * (dpv - di) * fmaf(-th, th, 1.0f);
+      } else {
+        p = ok ? exp2f(fmaf(dot, scale_log2, -lse2)) : 0.0f;
+        dsv = p * (dpv - di);
+      }
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         dqa[c * 4 + 0] = fmaf(dsv, kv[c].x, dqa[c * 4 + 0]);
@@ -464,14 +508,14 @@ __device__ __forceinline__ void split_fragment(const float (&x)[CHUNK / 8][4],
   attn::split_pair<T>(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, int S, int d, float scale, int causal,
-                int window, int vec) {
+                int window, float softcap, int vec) {
   constexpr int DP = 16 * NC;
   constexpr int TB = TILE * DP * 2;    // bytes of a tile
   constexpr int NO = DP / 8;           // n-tiles of dK, dV
@@ -523,6 +567,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
   const uint32_t ks = attn::smem_addr(smem), vs = ks + TB;
   const float scale_log2 = scale * LOG2E;
+  const float cap_in = CAP ? scale / softcap : 0.0f;   // raw q.k to x / c
+  const float cap_log2 = CAP ? softcap * LOG2E : 0.0f;
 
   float dka[NO][4], dva[NO][4];
 #pragma unroll
@@ -588,12 +634,22 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         for (int e = 0; e < 4; ++e) {
           const float lrow = lse_log2(e & 1 ? l2.y : l2.x);
           const float drow = e & 1 ? d2.y : d2.x;
-          float p = exp2f(fmaf(st[n][e], scale_log2, -lrow));
+          float p, dcap = 1.0f;        // dcap: d(c t)/dx = 1 - t^2
+          if constexpr (CAP) {         // every pair of the tile, then mask
+            const float th = tanhf(st[n][e] * cap_in);
+            p = exp2f(fmaf(th, cap_log2, -lrow));
+            dcap = fmaf(-th, th, 1.0f);
+          } else {
+            p = exp2f(fmaf(st[n][e], scale_log2, -lrow));
+          }
           if (edge && !valid_pair(i0 + col + (e & 1), kw + g + 8 * (e >> 1),
                                   S, causal, window))
             p = 0.0f;
           st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - drow);
+          if constexpr (CAP)
+            dpt[n][e] = p * (dpt[n][e] - drow) * dcap;
+          else
+            dpt[n][e] = p * (dpt[n][e] - drow);
         }
       }
 
@@ -614,13 +670,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   store_rows<T, NO>(dv + base, dva, 1.0f, kw, S, d, lane);
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int S, int d, float scale, int causal,
-              int window, int vec) {
+              int window, float softcap, int vec) {
   constexpr int DP = 16 * NC;
   constexpr int TB = TILE * DP * 2;    // bytes of a streamed tile
   constexpr int OB = ROWS * DP * 2;    // bytes of an owned tile
@@ -675,6 +731,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
   const float scale_log2 = scale * LOG2E;
+  const float cap_in = CAP ? scale / softcap : 0.0f;   // raw q.k to x / c
+  const float cap_log2 = CAP ? softcap * LOG2E : 0.0f;
 
   uint32_t qf[NC][4], gf[NC][4];
   float dqa[NO][4];
@@ -740,12 +798,22 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
-          float p = exp2f(fmaf(s[n][e], scale_log2, -lrow[r]));
+          float p, dcap = 1.0f;        // dcap: d(c t)/dx = 1 - t^2
+          if constexpr (CAP) {         // every pair of the tile, then mask
+            const float th = tanhf(s[n][e] * cap_in);
+            p = exp2f(fmaf(th, cap_log2, -lrow[r]));
+            dcap = fmaf(-th, th, 1.0f);
+          } else {
+            p = exp2f(fmaf(s[n][e], scale_log2, -lrow[r]));
+          }
           if (edge && !valid_pair(qw + g + 8 * r,
                                   k0 + c0 + n * 8 + 2 * t + (e & 1), S,
                                   causal, window))
             p = 0.0f;
-          s[n][e] = p * (dp[n][e] - drow[r]);
+          if constexpr (CAP)
+            s[n][e] = p * (dp[n][e] - drow[r]) * dcap;
+          else
+            s[n][e] = p * (dp[n][e] - drow[r]);
         }
       }
 
@@ -777,13 +845,18 @@ struct Launch {
   void* dk;
   void* dv;
   int b, h, s, d, causal, window;
-  float scale;
+  float scale, softcap;
   cudaStream_t stream;
+
+  template <typename T, int NC>
+  cudaError_t operator()() const {
+    return softcap > 0.0f ? run<T, NC, true>() : run<T, NC, false>();
+  }
 
   // The D pre-pass, then the dK/dV and dQ kernels of the dtype's route:
   // f32 the FMA kernels, f16 and bf16 the tensor-core kernels.
-  template <typename T, int NC>
-  cudaError_t operator()() const {
+  template <typename T, int NC, bool CAP>
+  cudaError_t run() const {
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
@@ -795,12 +868,12 @@ struct Launch {
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     if constexpr (std::is_same_v<T, float>)
-      return f32_kernels<NC>(qt, kt, vt, gt);
+      return f32_kernels<NC, CAP>(qt, kt, vt, gt);
     else
-      return tc_kernels<T, NC>(qt, kt, vt, gt);
+      return tc_kernels<T, NC, CAP>(qt, kt, vt, gt);
   }
 
-  template <int NC>
+  template <int NC, bool CAP>
   cudaError_t f32_kernels(const float* qt, const float* kt, const float* vt,
                           const float* gt) const {
     using namespace f32fma;
@@ -808,25 +881,25 @@ struct Launch {
     const dim3 grid((s + ROWS - 1) / ROWS, h, b);
     const size_t kv_smem = (2 * TILE * DP + 2 * TILE) * sizeof(float);
     cudaError_t err = attn::allow_smem(
-        reinterpret_cast<const void*>(dkdv_kernel<float, NC>), kv_smem);
+        reinterpret_cast<const void*>(dkdv_kernel<float, NC, CAP>), kv_smem);
     if (err != cudaSuccess) return err;
-    dkdv_kernel<float, NC><<<grid, THREADS, kv_smem, stream>>>(
+    dkdv_kernel<float, NC, CAP><<<grid, THREADS, kv_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), s, d, scale, causal, window);
+        static_cast<float*>(dv), s, d, scale, causal, window, softcap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
     const size_t q_smem = 2 * TILE * DP * sizeof(float);
-    err = attn::allow_smem(reinterpret_cast<const void*>(dq_kernel<float, NC>),
-                           q_smem);
+    err = attn::allow_smem(
+        reinterpret_cast<const void*>(dq_kernel<float, NC, CAP>), q_smem);
     if (err != cudaSuccess) return err;
-    dq_kernel<float, NC><<<grid, THREADS, q_smem, stream>>>(
+    dq_kernel<float, NC, CAP><<<grid, THREADS, q_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), s, d, scale,
-        causal, window);
+        causal, window, softcap);
     return cudaGetLastError();
   }
 
-  template <typename T, int NC>
+  template <typename T, int NC, bool CAP>
   cudaError_t tc_kernels(const T* qt, const T* kt, const T* vt,
                          const T* gt) const {
     const void* ptrs[4] = {q, k, v, dout};
@@ -834,21 +907,21 @@ struct Launch {
     const dim3 grid((s + tc::ROWS - 1) / tc::ROWS, h, b);
     constexpr size_t kv_smem = tc::smem_bytes<NC>(true);
     cudaError_t err = attn::allow_smem(
-        reinterpret_cast<const void*>(tc::dkdv_kernel<T, NC>), kv_smem);
+        reinterpret_cast<const void*>(tc::dkdv_kernel<T, NC, CAP>), kv_smem);
     if (err != cudaSuccess) return err;
-    tc::dkdv_kernel<T, NC><<<grid, tc::THREADS, kv_smem, stream>>>(
+    tc::dkdv_kernel<T, NC, CAP><<<grid, tc::THREADS, kv_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        s, d, scale, causal, window, vec);
+        s, d, scale, causal, window, softcap, vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
     constexpr size_t q_smem = tc::smem_bytes<NC>(false);
-    err = attn::allow_smem(reinterpret_cast<const void*>(tc::dq_kernel<T, NC>),
-                           q_smem);
+    err = attn::allow_smem(
+        reinterpret_cast<const void*>(tc::dq_kernel<T, NC, CAP>), q_smem);
     if (err != cudaSuccess) return err;
-    tc::dq_kernel<T, NC><<<grid, tc::THREADS, q_smem, stream>>>(
+    tc::dq_kernel<T, NC, CAP><<<grid, tc::THREADS, q_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), s, d, scale, causal,
-        window, vec);
+        window, softcap, vec);
     return cudaGetLastError();
   }
 };
@@ -859,17 +932,21 @@ struct Launch {
 // first launch error (cudaGetLastError()). q, k, v, out, dout, dq, dk, dv
 // (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or BF16); lse
 // and delta (b, h, s) f32, delta scratch that the pre-pass fills; d <= 128;
-// window 0 means no sliding window; scale 1/sqrt(d), as the forward took.
+// window 0 means no sliding window; scale 1/sqrt(d) and softcap (0: none)
+// as the forward took them, lse the forward's over the capped scores.
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                                      const void* v, const void* out,
                                      const void* dout, const float* lse,
                                      float* delta, void* dq, void* dk,
                                      void* dv, int b, int h, int s, int d,
                                      int causal, int window, float scale,
-                                     int dtype, void* stream) {
+                                     float softcap, int dtype, void* stream) {
+  if (!(softcap >= 0.0f && softcap < INFINITY)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch launch{q,  k,  v,      out,    dout,  lse,
                       delta, dq, dk, dv,     b,      h,
-                      s,  d,  causal, window, scale,
+                      s,  d,  causal, window, scale, softcap,
                       static_cast<cudaStream_t>(stream)};
   return static_cast<int>(attn::dispatch(dtype, d, launch));
 }

@@ -19,11 +19,14 @@ which the backward recomputes the probabilities:
     dV_j = Σ_i P_ij dO_i,  dK_j = s Σ_i dS_ij q_i,  dQ_i = s Σ_j dS_ij k_j.
 
 With an attention softcap c (Gemma-2's; the reference's `_softcap` in
-`_attn_core`), each valid score x = q · k / √d becomes c · tanh(x / c)
-before the softmax, and lse is taken over the softcapped scores. The
-forward takes it on both routes; the backward has none yet, so a
-softcapped attention under autograd raises `NotImplementedError` on every
-device (ROADMAP.md queue 1 item 8: the softcap's backward).
+`_attn_core`), each valid score x = q · k / √d becomes c · t, t =
+tanh(x / c), before the softmax, and lse is taken over the softcapped
+scores. Both directions take it on both routes; the backward's dS carries
+the cap's derivative:
+
+    P_ij = exp(c t_ij - lse_i),  dS_ij = P_ij (dO_i · v_j - D_i)(1 - t_ij²),
+
+and dK, dQ as above from that dS (D is unchanged).
 
 On the card both directions take their tensor-core kernels for f16 and
 bf16 and their f32 FMA kernels for f32 (`ROUTES`, `BWD_ROUTES`; the
@@ -52,6 +55,7 @@ FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_SOFTCAP_LAUNCHES = 0
 FLASH_BWD_LAUNCHES = 0
 FLASH_BWD_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
+FLASH_BWD_SOFTCAP_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # The kernel each dtype takes in csrc/flash_attn.cu and csrc/decode_attn.cu.
@@ -94,14 +98,6 @@ def apply_softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     """cap · tanh(logits / cap) where cap > 0; the logits as they are for
     cap 0."""
     return cap * torch.tanh(logits / cap) if cap else logits
-
-
-def refuse_softcap_grad(name: str) -> None:
-    raise NotImplementedError(
-        f"{name}: the attention softcap has no backward yet ({_ITEM}: the "
-        "softcap's backward, with Gemma-2 training); a softcapped attention "
-        "runs under torch.no_grad() or torch.inference_mode(), or on "
-        "inputs that do not require grad")
 
 
 def _mask(s_len: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -150,17 +146,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               dout: torch.Tensor, lse: torch.Tensor,
-                              causal: bool = True, window: int = 0
+                              causal: bool = True, window: int = 0,
+                              softcap: Optional[float] = None
                               ) -> Tuple[torch.Tensor, ...]:
     """The plain version of the backward, step by step in f32 from the
-    forward's `out` and `lse`: (dq, dk, dv) in q's dtype. A row whose lse
-    is -inf (no valid key) contributes nothing."""
+    forward's `out` and `lse` (taken over the softcapped scores where a
+    softcap is given): (dq, dk, dv) in q's dtype. A row whose lse is -inf
+    (no valid key) contributes nothing."""
     _check(q, k, v, out, dout)
+    cap = softcap_value(softcap)
     s_len, d = q.shape[2], q.shape[3]
     scale = 1.0 / d ** 0.5
     qf, kf, vf = q.float(), k.float(), v.float()
     of, dof, lse = out.float(), dout.float(), lse.float()
     logits = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    if cap:
+        t = torch.tanh(logits / cap)
+        logits = cap * t
     valid = _mask(s_len, causal, window, q.device) \
         & torch.isfinite(lse)[..., None]
     p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
@@ -168,6 +170,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
     delta = (dof * of).sum(dim=-1)
     ds = p * (dp - delta[..., None])
+    if cap:
+        ds = ds * (1.0 - t * t)
     dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
     dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
@@ -182,7 +186,7 @@ def _launch_fn():
 def _bwd_launch_fn():
     return entry("flash_attn_bwd_launch",
                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
@@ -193,21 +197,18 @@ def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name} has no backward: the decode kernel serves decode steps "
             "only, and LM training attends through the flash kernels (what "
-            f"is left of the LM side, {_ITEM}: decode-step speed, the "
-            "softcap's backward, MoE, recurrent blocks, other archs). Call "
-            "it under torch.no_grad() or torch.inference_mode(), or on "
-            "inputs that do not require grad")
+            f"is left of the LM side, {_ITEM}: recurrent blocks, other "
+            "archs). Call it under torch.no_grad() or "
+            "torch.inference_mode(), or on inputs that do not require grad")
 
 
 def _check_cuda(name: str, window: int, softcap: Optional[float],
-                backward: bool = False, **tensors: torch.Tensor) -> float:
+                **tensors: torch.Tensor) -> float:
     """What the kernels take beyond `_check`: CUDA, contiguous tensors,
-    d <= MAX_HEAD_DIM, window >= 0, a softcap the forward takes and the
-    backward not yet (tensors by name, q first). Returns the softcap as
-    the kernels take it."""
+    d <= MAX_HEAD_DIM, window >= 0, a softcap None or finite and > 0
+    (tensors by name, q first). Returns the softcap as the kernels take
+    it."""
     cap = softcap_value(softcap)
-    if backward and cap:
-        refuse_softcap_grad(name)
     q = next(iter(tensors.values()))
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
@@ -273,12 +274,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's
     current stream, counted as one launch: (dq, dk, dv) in q's dtype.
-    Raises on any operand the kernels do not take, a softcap among them
-    (the backward has none yet)."""
-    global FLASH_BWD_LAUNCHES
+    `softcap` is the forward's, whose lse (over the softcapped scores) this
+    takes. Raises on any operand the kernels do not take."""
+    global FLASH_BWD_LAUNCHES, FLASH_BWD_SOFTCAP_LAUNCHES
     _check(q, k, v, out, dout)
-    _check_cuda("flash_attention_bwd_cuda", window, softcap, backward=True,
-                q=q, k=k, v=v, out=out, dout=dout, lse=lse)
+    cap = _check_cuda("flash_attention_bwd_cuda", window, softcap, q=q, k=k,
+                      v=v, out=out, dout=dout, lse=lse)
     b, h, s_len, d = q.shape
     if lse.shape != (b, h, s_len) or lse.dtype != torch.float32 or \
             lse.device != q.device:
@@ -294,35 +295,36 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
                                           dq, dk, dv)),
-                 b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5,
+                 b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5, cap,
                  DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
                            f"{err}")
     FLASH_BWD_LAUNCHES += 1
     FLASH_BWD_ROUTE_LAUNCHES[BWD_ROUTES[q.dtype]] += 1
+    if cap:
+        FLASH_BWD_SOFTCAP_LAUNCHES += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention under autograd: the forward kernel writes lse beside
-    the output, the backward kernel reads both. CPU tensors take the plain
-    versions of both directions; CUDA tensors launch the kernels. A
-    softcap raises: its backward is not written yet."""
+    the output, the backward kernel reads both, with the same softcap. CPU
+    tensors take the plain versions of both directions; CUDA tensors
+    launch the kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
                 softcap: Optional[float] = None):
-        if softcap_value(softcap):
-            refuse_softcap_grad("FlashAttention")
+        cap = softcap_value(softcap) or None
         if q.device.type == "cpu":
             out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
-                                                 window=window)
+                                                 window=window, softcap=cap)
         else:
             out, lse = _launch_forward(q, k, v, causal, window,
-                                       with_lse=True)
+                                       with_lse=True, softcap=cap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, cap
         return out
 
     @staticmethod
@@ -331,7 +333,8 @@ class FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
                else flash_attention_bwd_cuda)
-        dq, dk, dv = bwd(q, k, v, out, dout, lse, ctx.causal, ctx.window)
+        dq, dk, dv = bwd(q, k, v, out, dout, lse, ctx.causal, ctx.window,
+                         ctx.softcap)
         return dq, dk, dv, None, None, None
 
 
@@ -345,8 +348,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
     Returns (B, H, S, d) in q's dtype; raises on any operand the kernel does
     not take. Where a gradient is asked for, the launch goes through
-    `FlashAttention`, which also writes lse and launches the backward (and
-    raises for a softcap)."""
+    `FlashAttention`, which also writes lse and launches the backward."""
     if _wants_grad(q, k, v):
         _check(q, k, v)
         _check_cuda("flash_attention_cuda", window, softcap, q=q, k=k, v=v)

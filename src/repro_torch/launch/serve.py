@@ -27,10 +27,10 @@ clock (`--mode continuous --trace {poisson,bursty} --requests N`).
         [--trace bursty] [--requests 24] [--device cpu]
 
 `--mode lm`, the default as in the reference, serves the arch's SMOKE
-config and needs `--arch` (`yi_6b`, `yi_9b`, `deepseek_7b` or
-`gemma2_27b`, whose local layers decode into ring caches of
-min(window, prompt + steps + 1) slots); the full config is
-`serve(get_config(arch), init_params(...), ...)`.
+config and needs `--arch` (`yi_6b`, `yi_9b`, `deepseek_7b`, `gemma2_27b`,
+whose local layers decode into ring caches of min(window, prompt + steps
++ 1) slots, or the MoE archs `mixtral_8x22b` and `kimi_k2_1t_a32b`); the
+full config is `serve(get_config(arch), init_params(...), ...)`.
 """
 from __future__ import annotations
 

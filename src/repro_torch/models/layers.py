@@ -1,7 +1,9 @@
-"""Transformer building blocks of the dense LM path: RMSNorm, RoPE, GQA
+"""Transformer building blocks of the LM path: RMSNorm, RoPE, GQA
 self-attention through the flash kernel (differentiable: its backward is
 the hand-written backward kernel), within a sliding window and with an
-attention softcap where the config asks (Gemma-2), SwiGLU MLP.
+attention softcap where the config asks (Gemma-2), SwiGLU MLP, and the
+top-k MoE feed-forward with the reference's capacity-bounded dispatch
+(Mixtral 8x22B, Kimi K2).
 
 Conventions, as in `repro.models.layers`:
   * params are dicts of tensors; weights stored (in_dim, out_dim).
@@ -9,10 +11,10 @@ Conventions, as in `repro.models.layers`:
   * every function takes `cfg` first where it needs one.
 
 Not ported yet (ROADMAP.md queue 1 item 8), each raising where the
-reference would take it: M-RoPE (`apply_mrope`), the MoE feed-forward
-(`moe_ffn`), attention with a KV cache (`cache=`; the decode path attends
-through `transformer.decode_step`) or with encoder K/V (`cross_kv=`), and
-the softcap's backward (a softcapped attention under autograd raises).
+reference would take it: M-RoPE (`apply_mrope`), attention with a KV
+cache (`cache=`; the decode path attends through
+`transformer.decode_step`) or with encoder K/V (`cross_kv=`); and the
+sharding hints (`mesh_axes`, item 9).
 """
 from __future__ import annotations
 
@@ -123,6 +125,78 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
                   p["w_down"])
 
 
-def moe_ffn(cfg: ArchConfig, p, x, mesh_axes=None):
-    raise NotImplementedError(f"the MoE feed-forward is not ported yet "
-                              f"({_ITEM})")
+def moe_ffn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+            mesh_axes=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with the reference's sort-based, capacity-bounded
+    dispatch: returns (out (B, S, D) in x's dtype, Switch aux loss f32).
+
+    Step by step as `repro.models.layers.moe_ffn`: the router softmax in
+    f32, top-k (ties to the lower expert), the k weights renormalised; aux = e·Σ(me·ce)/k; capacity
+    cap = max(1, int(cf·T·k/e)) rounded up to a multiple of 64; each
+    (token, slot) assignment's rank in its expert from a stable argsort,
+    the histogram and its starts; an assignment ranked at or past cap is
+    dropped (sent to the pad slot e·cap, weight 0); each slot gathers its
+    token (the zero row for an empty slot); the experts run as three
+    batched products; each token sums its k weighted rows in slot order,
+    which is the reference's `.at[tok_id].add` with tok_id = repeat(
+    arange(T), k), with no atomics. On the card `torch.bincount` waits
+    for the device once a call (it reads the largest expert id).
+    `mesh_axes` (the reference's sharding hints) must be None (ROADMAP.md
+    item 9).
+    """
+    if mesh_axes is not None:
+        raise NotImplementedError("sharding hints (mesh_axes) are not "
+                                  "ported (ROADMAP.md queue 1 item 9)")
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    dev = x.device
+
+    gate_logits = matmul(xf, p["w_router"])                      # (T, E)
+    probs = torch.softmax(gate_logits.float(), dim=-1)
+    # top-k as `lax.top_k` breaks ties, the lower expert first (a stable
+    # sort; `torch.topk` promises no order among equal values, and bf16
+    # router logits tie often).
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]                    # (T, k)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+
+    flat_e = top_e.reshape(-1)                                   # (T·k,)
+    flat_w = top_p.reshape(-1)
+    hist = torch.bincount(flat_e, minlength=e)
+    # Load-balancing auxiliary loss (Switch-style); ce is the mean over
+    # tokens of each expert's one-hot count.
+    me = probs.mean(dim=0)
+    ce = hist.float() / t
+    aux = e * torch.sum(me * ce) / k
+
+    cap = max(1, int(cfg.capacity_factor * t * k / e))
+    cap = ((cap + 63) // 64) * 64
+    order = torch.argsort(flat_e, stable=True)
+    starts = torch.cumsum(hist, 0) - hist
+    ranks_sorted = torch.arange(t * k, device=dev) - starts[flat_e[order]]
+    pos = torch.empty_like(ranks_sorted)
+    pos[order] = ranks_sorted
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos,
+                       torch.full_like(pos, e * cap))
+    # Token ids into slots (kept slots are distinct), the dropped ones
+    # into the pad slot e·cap, which no expert reads; then gather rows.
+    token_for_slot = torch.full((e * cap + 1,), t, dtype=torch.long,
+                                device=dev)
+    token_for_slot[slot] = torch.arange(t, device=dev).repeat_interleave(k)
+    xf_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    dispatched = xf_pad[token_for_slot[:e * cap]].reshape(e, cap, d)
+
+    hidden = F.silu(torch.bmm(dispatched, p["w_gate"])) \
+        * torch.bmm(dispatched, p["w_up"])
+    expert_out = torch.bmm(hidden, p["w_down"]).reshape(e * cap, d)
+    expert_out = torch.cat([expert_out, expert_out.new_zeros((1, d))])
+
+    gathered = expert_out[slot] * (flat_w * keep)[:, None].to(x.dtype)
+    gathered = gathered.reshape(t, k, d)
+    out = gathered[:, 0]
+    for j in range(1, k):                # the reference's order of adds
+        out = out + gathered[:, j]
+    return out.reshape(b, s, d), aux

@@ -1,26 +1,32 @@
-"""The decoder stack of `repro.models.transformer`, dense GQA subset: every
+"""The decoder stack of `repro.models.transformer`, attention subset: every
 layer an `ATTN` block (RMSNorm, causal GQA self-attention with RoPE,
-RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and DeepSeek-7B, or a
-`LOCAL_ATTN` block, the same within a sliding window, as Gemma-2 27B
-alternates them; with the attention and final-logit softcaps where the
-config sets them.
+RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and DeepSeek-7B; a `LOCAL_ATTN`
+block, the same within a sliding window, as Gemma-2 27B alternates them;
+or a `MOE` block, causal attention and then the top-k MoE feed-forward
+(`layers.moe_ffn`), as in Mixtral 8x22B and Kimi K2; with the attention
+and final-logit softcaps where the config sets them.
 
-`forward` (training / prefill) attends through the flash kernel, and
-`lm_loss` is differentiable through it (`kernels.flash_attn.FlashAttention`:
-the forward kernel and its hand-written backward; a softcapped config
-raises under autograd, the softcap having no backward yet); `decode_step`
-(serving) attends one new token per sequence against a KV cache, a ring of
-`sliding_window` slots on `LOCAL_ATTN` layers, through the GQA flash-decode
-kernel. Params are a dict of tensors shaped like the reference's pytree
-(`params_from_numpy` carries one over).
+As in the reference, only `LOCAL_ATTN` layers take `sliding_window`: an
+MoE config's layers are all `MOE` blocks, which attend over every earlier
+position and decode into full caches, so Mixtral's window of 4096 is not
+applied.
+
+`forward` (training / prefill) attends through the flash kernel and sums
+the MoE layers' aux losses; `lm_loss` is differentiable through it
+(`kernels.flash_attn.FlashAttention`: the forward kernel and its
+hand-written backward, the softcap included); `decode_step` (serving)
+attends one new token per sequence against a KV cache, a ring of
+`sliding_window` slots on `LOCAL_ATTN` layers, through the GQA
+flash-decode kernel. Params are a dict of tensors shaped like the
+reference's pytree (`params_from_numpy` carries one over).
 
 `cfg.remat`, `jax.checkpoint` per layer in the reference, is
 `torch.utils.checkpoint` per layer here, taken only while autograd records
 (never under `torch.no_grad()` or `torch.inference_mode()`): the backward
 recomputes each layer's forward, flash launch included. The sharding hints
-(`mesh_axes`) have no argument. Other block kinds (MoE, recurrent blocks),
-M-RoPE and the vision, audio and encoder inputs raise
-`NotImplementedError` (ROADMAP.md queue 1 item 8).
+(`mesh_axes`) have no argument. Recurrent blocks, M-RoPE and the vision,
+audio and encoder inputs raise `NotImplementedError` (ROADMAP.md queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig, BlockKind
 
 _ITEM = "ROADMAP.md queue 1 item 8"
+_PORTED = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE)
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -48,14 +55,13 @@ def _check_supported(cfg: ArchConfig) -> None:
         ("an audio frontend", cfg.audio_frames > 0),
         ("M-RoPE", cfg.mrope_sections is not None),
     ) if on]
-    kinds = sorted({k.value for k in cfg.blocks()}
-                   - {BlockKind.ATTN.value, BlockKind.LOCAL_ATTN.value})
+    kinds = sorted({k.value for k in cfg.blocks()} - {k.value for k in _PORTED})
     if kinds:
         unported.append(f"block kinds {kinds}")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported to repro_torch "
-            f"yet ({_ITEM}); the port runs dense ATTN and LOCAL_ATTN "
+            f"yet ({_ITEM}); the port runs ATTN, LOCAL_ATTN and MOE "
             "stacks")
 
 
@@ -68,7 +74,7 @@ def _param_spec(cfg: ArchConfig) -> Dict[str, Any]:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = d ** -0.5
 
-    def layer() -> Dict[str, Any]:
+    def layer(kind: BlockKind) -> Dict[str, Any]:
         p: Dict[str, Any] = {
             "ln1": ((d,), None),
             "attn": {"wq": ((d, hq * hd), s), "wk": ((d, hkv * hd), s),
@@ -76,7 +82,12 @@ def _param_spec(cfg: ArchConfig) -> Dict[str, Any]:
                      "wo": ((hq * hd, d), (hq * hd) ** -0.5)},
             "ln2": ((d,), None),
         }
-        if cfg.d_ff:
+        if kind == BlockKind.MOE:            # the reference's _init_moe
+            e, f = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
+            p["moe"] = {"w_router": ((d, e), s), "w_gate": ((e, d, f), s),
+                        "w_up": ((e, d, f), s),
+                        "w_down": ((e, f, d), f ** -0.5)}
+        elif cfg.d_ff:
             f = cfg.d_ff
             p["mlp"] = {"w_gate": ((d, f), s), "w_up": ((d, f), s),
                         "w_down": ((f, d), f ** -0.5)}
@@ -86,7 +97,7 @@ def _param_spec(cfg: ArchConfig) -> Dict[str, Any]:
                             "final_norm": ((d,), None)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.vocab), s)
-    spec["layers"] = [layer() for _ in range(cfg.n_layers)]
+    spec["layers"] = [layer(kind) for kind in cfg.blocks()]
     return spec
 
 
@@ -164,11 +175,24 @@ def param_count(params: Any) -> int:
 # Forward (prefill)
 # --------------------------------------------------------------------------
 
+def _ffn(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
+         h2: torch.Tensor) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The block's feed-forward on the normed residual: (out or None, aux
+    loss f32; 0 but for MoE)."""
+    if kind == BlockKind.MOE:
+        return L.moe_ffn(cfg, p["moe"], h2)
+    zero = torch.zeros((), device=h2.device)
+    if "mlp" in p:
+        return L.mlp(p["mlp"], h2), zero
+    return None, zero
+
+
 def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
-                 x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """One ATTN or LOCAL_ATTN block (no MoE, so no aux loss); a LOCAL_ATTN
+                 x: torch.Tensor, positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ATTN, LOCAL_ATTN or MOE block: (x, aux loss). Only a LOCAL_ATTN
     block attends within `cfg.sliding_window`, as the reference's."""
-    if kind not in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
+    if kind not in _PORTED:
         raise NotImplementedError(f"{kind.value} blocks are not ported yet "
                                   f"({_ITEM})")
     window = cfg.sliding_window if kind == BlockKind.LOCAL_ATTN else None
@@ -176,9 +200,10 @@ def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     attn_out, _ = L.attention(cfg, p["attn"], h, positions,
                               sliding_window=window)
     x = x + attn_out
-    if "mlp" in p:
-        x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
-    return x
+    ffn_out, aux = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
+    if ffn_out is not None:
+        x = x + ffn_out
+    return x, aux
 
 
 def _build_positions(cfg: ArchConfig, b: int, s: int,
@@ -205,9 +230,9 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             audio_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int on the params' device → (logits (B, S, V), aux
-    loss, 0 for dense stacks). One flash-attention launch per layer on the
-    card, and with `cfg.remat` under autograd one more per layer in the
-    backward's recompute."""
+    loss f32: the sum of the MoE layers', 0 for dense stacks). One
+    flash-attention launch per layer on the card, and with `cfg.remat`
+    under autograd one more per layer in the backward's recompute."""
     _check_supported(cfg)
     if vision_embeds is not None or audio_embeds is not None:
         raise NotImplementedError(f"vision and audio inputs are not ported "
@@ -216,13 +241,15 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     x = params["embed"][tokens]
     positions = _build_positions(cfg, b, s, x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), device=x.device)
     for kind, p in zip(cfg.blocks(), params["layers"]):
         if remat:
-            x = checkpoint(_layer_apply, cfg, kind, p, x, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_layer_apply, cfg, kind, p, x, positions,
+                                use_reentrant=False)
         else:
-            x = _layer_apply(cfg, kind, p, x, positions)
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+            x, aux = _layer_apply(cfg, kind, p, x, positions)
+        aux_total = aux_total + aux
+    return _logits(cfg, params, x), aux_total
 
 
 def lm_loss(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -246,7 +273,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       ) -> Dict[str, Any]:
     """Per-layer KV caches (B, n_kv_heads, L, hd) on `device`, in `dtype`
     (`cfg.dtype` when None, as in the reference), and the position of the
-    next token, a Python int. An ATTN layer's cache holds L = max_len
+    next token, a Python int. An ATTN or MOE layer's cache holds L = max_len
     positions; a LOCAL_ATTN layer's is a ring of L = min(sliding_window or
     max_len, max_len) slots, beside "slot_pos" (L,) int32 on `device`, the
     position each slot holds (-1: none yet), as the reference keeps it."""
@@ -310,7 +337,8 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
     device once per step for each cache length, with no host sync: pos + 1
     for a full cache, min(pos + 1, L) for a ring of L slots. Only the full
     caches bound `pos`; a stack of rings alone has no bound, as in the
-    reference.
+    reference. An MOE layer routes the step's B tokens together, its
+    capacity reckoned from T = B, as the reference's `moe_ffn` does.
     """
     _check_supported(cfg)
     if enc_out is not None:
@@ -324,6 +352,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
         raise ValueError(f"position {pos} is outside the cache of "
                          f"{min(full) if full else 'any length'}")
     x = params["embed"][token]
+    kinds = cfg.blocks()
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     lens: Dict[int, torch.Tensor] = {}       # by valid length
     for li, p in enumerate(params["layers"]):
@@ -335,7 +364,8 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
             lens[n] = torch.full((b,), n, dtype=torch.int32, device=x.device)
         h = L.rms_norm(x, p["ln1"])
         x = x + _decode_attn(cfg, p["attn"], h, st, pos, posb, lens[n])
-        if "mlp" in p:
-            x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+        ffn_out, _ = _ffn(cfg, kinds[li], p, L.rms_norm(x, p["ln2"]))
+        if ffn_out is not None:
+            x = x + ffn_out
     return _logits(cfg, params, x), {"pos": pos + 1,
                                      "layers": state["layers"]}

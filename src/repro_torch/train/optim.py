@@ -108,25 +108,30 @@ def adafactor_update(params: Params, grads: Params, state: dict, lr=1e-2,
     beta = 1.0 - step ** -decay
 
     def upd(p, g, s):
+        # The reference's arithmetic, op for op; the full-size temporaries
+        # are updated in place, so a leaf takes three of them at most.
         g32 = g.to(torch.float32)
-        g2 = torch.square(g32) + eps
+        g2 = torch.square(g32).add_(eps)
         if _factored(p.shape):
             vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
             vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+            del g2
             denom = torch.mean(vr, dim=-1, keepdim=True)
             r = (vr / torch.clamp_min(denom, eps))[..., None]
-            u = (g32 * torch.rsqrt(torch.clamp_min(r, eps))
-                 * torch.rsqrt(torch.clamp_min(vc[..., None, :], eps)))
+            u = g32 * torch.rsqrt(torch.clamp_min(r, eps))
+            u.mul_(torch.rsqrt(torch.clamp_min(vc[..., None, :], eps)))
             new_s = {"vr": vr, "vc": vc}
         else:
             v = beta * s["v"] + (1 - beta) * g2
+            del g2
             u = g32 * torch.rsqrt(torch.clamp_min(v, eps))
             new_s = {"v": v}
         # Update clipping (RMS ≤ clip_threshold).
         rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
-        u = u / torch.clamp_min(rms / clip_threshold, 1.0)
+        u.div_(torch.clamp_min(rms / clip_threshold, 1.0))
         p32 = p.to(torch.float32)
-        return (p32 - lr * (u + weight_decay * p32)).to(p.dtype), new_s
+        step = u.add_(weight_decay * p32).mul_(lr)
+        return torch.sub(p32, step, out=step).to(p.dtype), new_s
 
     new_p, new_s = _unzip(params, tree_map(upd, params, grads,
                                            state["stats"]), 2)

@@ -320,24 +320,38 @@ def test_softcap_must_be_positive_and_finite():
 
 
 def test_softcapped_flash_under_autograd_raises():
-    """No path drops the softcap or returns a gradient without it: under
-    autograd every entry raises, naming the ROADMAP item; without a graph
-    the same call runs."""
+    """The softcap under autograd (the name is kept from when every entry
+    raised here, before the softcap had a backward): each entry records a
+    graph whose gradients are `jax.grad` of the reference's `_attn_core`
+    with the softcap, through the plain softcapped backward on CPU
+    tensors; the CUDA backward refuses CPU tensors and counts nothing."""
     rng = np.random.default_rng(3)
-    q, k, v = (torch.from_numpy(_normal(rng, (1, 2, 8, 16)))
-               .requires_grad_(True) for _ in range(3))
+    q, k, v, cot = (_normal(rng, (1, 2, 8, 16)) * 2.0 for _ in range(4))
+    mask = jnp.asarray(np.broadcast_to(np.tril(np.ones((8, 8), bool)),
+                                       (1, 8, 8)))
+
+    def f(q_, k_, v_):
+        return jnp.sum(r_layers._attn_core(q_, k_, v_, mask, 1.0) * cot)
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     for call in (
-            lambda: p_ops.flash_attention(q, k, v, softcap=50.0),
-            lambda: p_flash.flash_attention_blocks(q, k, v, softcap=50.0),
-            lambda: p_flash.FlashAttention.apply(q, k, v, True, 0, 50.0)):
-        with pytest.raises(NotImplementedError, match="softcap's backward"):
-            call()
-    with pytest.raises(NotImplementedError, match="softcap's backward"):
-        p_flash.flash_attention_bwd_cuda(q, k, v, q, q, q[..., 0], True, 0,
-                                         softcap=50.0)
-    with torch.no_grad():
-        out = p_ops.flash_attention(q, k, v, softcap=50.0)
-    assert out.shape == q.shape and not out.requires_grad
+            lambda *t: p_ops.flash_attention(*t, softcap=1.0),
+            lambda *t: p_flash.flash_attention_blocks(*t, softcap=1.0),
+            lambda *t: p_flash.FlashAttention.apply(*t, True, 0, 1.0)):
+        live = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+        out = call(*live)
+        assert out.requires_grad
+        out.backward(torch.from_numpy(cot))
+        for t, r in zip(live, ref):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                       atol=F32_TOL)
+    before = p_flash.FLASH_BWD_LAUNCHES, p_flash.FLASH_BWD_SOFTCAP_LAUNCHES
+    qt = torch.from_numpy(q)
+    with pytest.raises(ValueError, match="CUDA"):
+        p_flash.flash_attention_bwd_cuda(qt, qt, qt, qt, qt, qt[..., 0],
+                                         True, 0, softcap=50.0)
+    assert (p_flash.FLASH_BWD_LAUNCHES,
+            p_flash.FLASH_BWD_SOFTCAP_LAUNCHES) == before
 
 
 # The card's per-element limit on the 16-bit kernels against their plain
@@ -414,21 +428,28 @@ BWD_TOL = {torch.bfloat16: (2.0 ** -7, 2e-5),
            torch.float16: (2.0 ** -10, 2e-5)}
 
 
-def _tensor_core_backward(q, k, v, out, dout, lse, valid, parts):
+def _tensor_core_backward(q, k, v, out, dout, lse, valid, parts,
+                          softcap=None):
     """The 16-bit backward kernels' arithmetic, emulated on the CPU: S =
     Q·Kᵀ and dP = dO·Vᵀ as f32 sums of exact products of 16-bit values
     (what mma.sync accumulates), P = exp(S/√d - lse) and dS = P (dP - D)
-    in f32 with D = Σ dO·O from the forward's `out`, and dV = Pᵀ·dO,
-    dK = dSᵀ·Q/√d, dQ = dS·K/√d each summed over `parts` 16-bit pieces of
-    P or dS. `valid` masks the pairs (True = attend). Returns (dq, dk,
-    dv) in q's dtype."""
+    in f32 with D = Σ dO·O from the forward's `out` (with a softcap c,
+    P = exp(c t - lse) and dS = P (dP - D)(1 - t²), t = tanh(S/√d/c)), and
+    dV = Pᵀ·dO, dK = dSᵀ·Q/√d, dQ = dS·K/√d each summed over `parts`
+    16-bit pieces of P or dS. `valid` masks the pairs (True = attend).
+    Returns (dq, dk, dv) in q's dtype."""
     dt, scale = q.dtype, 1.0 / q.shape[-1] ** 0.5
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
     ok = valid & torch.isfinite(lse)[..., None]
-    p = torch.where(ok, torch.exp((qf @ kf.transpose(-1, -2)) * scale
-                                  - lse[..., None]), 0.0)
+    x = (qf @ kf.transpose(-1, -2)) * scale
+    if softcap:
+        t = torch.tanh(x / softcap)
+        x = softcap * t
+    p = torch.where(ok, torch.exp(x - lse[..., None]), 0.0)
     delta = (dof * out.float()).sum(-1, keepdim=True)
     ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    if softcap:
+        ds = ds * (1.0 - t * t)
     dv = sum(x.transpose(-1, -2) @ dof for x in _pieces(p, dt, parts))
     dk = sum(x.transpose(-1, -2) @ qf for x in _pieces(ds, dt, parts))
     dq = sum(x @ kf for x in _pieces(ds, dt, parts))
@@ -488,6 +509,33 @@ def test_split_ds_meets_the_backward_kernels_limit(b, h, s, d, window,
         q.float(), k.float(), v.float(), causal=True, window=window)
     assert _bwd_over_limit(_tensor_core_backward(q, k, v, out32, dout, lse32,
                                                  valid, 2), ref) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("softcap", [50.0, 1.0])
+@pytest.mark.parametrize("b,h,s,d,window", [
+    (1, 4, 512, 128, 0),         # causal, 8 tiles of 64
+    (1, 2, 200, 128, 33)])       # a window whose edge crosses tiles
+def test_split_ds_meets_the_backward_kernels_limit_with_softcap(
+        b, h, s, d, window, softcap, dtype):
+    """The softcapped backward kernels keep the split: with Gemma-2's cap
+    and with one that bites on every score, dV, dK and dQ on hi + lo
+    pieces of P and dS (dS carrying 1 - t²) meet BWD_TOL against the
+    softcapped `flash_attention_bwd_plain`."""
+    rng = np.random.default_rng(b * s + d + window + int(softcap))
+    q, k, v, dout = (torch.from_numpy(_normal(rng, (b, h, s, d))).to(dtype)
+                     for _ in range(4))
+    out, lse = p_flash.flash_attention_plain_lse(q, k, v, causal=True,
+                                                 window=window,
+                                                 softcap=softcap)
+    plain = p_flash.flash_attention_bwd_plain(q, k, v, out, dout, lse, True,
+                                              window, softcap)
+    pos = torch.arange(s)
+    valid = pos[None, :] <= pos[:, None]
+    if window:
+        valid &= pos[None, :] > pos[:, None] - window
+    assert _bwd_over_limit(_tensor_core_backward(
+        q, k, v, out, dout, lse, valid, 2, softcap), plain) <= 1.0
 
 
 @pytest.mark.parametrize("b,n_kv,group,s,d,softcap", [

@@ -21,6 +21,7 @@ def _main(name):
     ("quickstart_torch", "streamed"),
     ("gcn_serve_torch", "epoch 1: uploaded 0 B"),
     ("lm_serve_torch", "served batch of 4 requests"),
+    ("ooc_expert_streaming_torch", "streamed 24 aligned expert blocks"),
 ])
 def test_example_runs_on_cpu(name, expect, capsys):
     _main(name)(["--device", "cpu"])
@@ -35,6 +36,7 @@ def test_examples_default_to_the_card():
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default would run there")
-    for name in ("quickstart_torch", "gcn_serve_torch", "lm_serve_torch"):
+    for name in ("quickstart_torch", "gcn_serve_torch", "lm_serve_torch",
+                 "ooc_expert_streaming_torch"):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             _main(name)([])

@@ -1017,26 +1017,36 @@ def test_decode_kernel_softcap_matches_plain_version(b, n_kv, group, s, d,
 
 
 def test_softcapped_flash_under_autograd_raises_on_card():
-    """No gradient without the softcap on the card either: the forward
-    under autograd and the backward kernel with a softcap raise."""
+    """The softcap under autograd on the card (the name is kept from when
+    this raised, before the softcap had a backward): the forward kernel
+    writes lse over the capped scores, the backward kernel takes the same
+    cap, each counted once with it, and the gradients match the plain
+    softcapped backward's."""
     dev = _card()
     from repro_torch.kernels import flash_attn as fmod
     from repro_torch.kernels import ops
     q, k, v = _attn_inputs((1, 2, 64, 64), torch.bfloat16, dev, seed=5)
     live = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES
-    with pytest.raises(NotImplementedError, match="softcap's backward"):
-        fmod.flash_attention_cuda(*live, softcap=50.0)
-    with pytest.raises(NotImplementedError, match="softcap's backward"):
-        ops.flash_attention(*live, softcap=50.0)
-    with torch.no_grad():
-        out, lse = fmod.flash_attention_lse_cuda(q, k, v, softcap=50.0)
-    with pytest.raises(NotImplementedError, match="softcap's backward"):
-        fmod.flash_attention_bwd_cuda(q, k, v, out, torch.ones_like(out),
-                                      lse, True, 0, softcap=50.0)
+    before = (fmod.FLASH_LAUNCHES, fmod.FLASH_SOFTCAP_LAUNCHES,
+              fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_SOFTCAP_LAUNCHES)
+    out = ops.flash_attention(*live, softcap=1.0)
+    dout = torch.randn_like(out)
+    out.backward(dout)
     torch.cuda.synchronize()
-    assert (fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES) == (
-        before[0] + 1, before[1])
+    assert (fmod.FLASH_LAUNCHES, fmod.FLASH_SOFTCAP_LAUNCHES,
+            fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_SOFTCAP_LAUNCHES) == \
+        tuple(n + 1 for n in before)
+    out_p, lse_p = fmod.flash_attention_plain_lse(q, k, v, softcap=1.0)
+    _bwd_close([t.grad for t in live], fmod.flash_attention_bwd_plain(
+        q, k, v, out_p, dout, lse_p, softcap=1.0))
+    out_u, lse_u = fmod.flash_attention_plain_lse(q, k, v)
+    uncapped = fmod.flash_attention_bwd_plain(q, k, v, out_u, dout, lse_u)
+    assert float((live[0].grad.float() - uncapped[0].float()).abs().max()) \
+        > 1e-3                           # the cap changes the gradient
+    for bad in (-1.0, float("inf")):
+        with pytest.raises(ValueError, match="softcap"):
+            fmod.flash_attention_bwd_cuda(q, k, v, out.detach(), dout,
+                                          lse_p, True, 0, softcap=bad)
 
 
 # The backward kernel against its plain version, per element:
@@ -1116,6 +1126,191 @@ def test_flash_backward_kernel_matches_plain_version(b, h, s, d, causal,
     for g, g2 in zip(got, again):
         assert torch.equal(g, g2)
     _bwd_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("softcap", [50.0, 1.0])
+@pytest.mark.parametrize("b,h,s,d,causal,window", [
+    (1, 3, 33, 128, True, 0),       # the f32 kernels' 32-row tile edge
+    (1, 2, 63, 128, True, 0),       # the 16-bit kernels' 64-row tiles
+    (1, 2, 65, 64, True, 0),
+    (1, 2, 129, 100, True, 0),      # d a multiple of no tile
+    (1, 2, 200, 128, True, 33),     # a window whose edge crosses tiles
+    (1, 2, 129, 64, False, 70),
+])
+def test_flash_backward_kernel_softcap_matches_plain_version(
+        b, h, s, d, causal, window, softcap, dtype):
+    """The backward kernels with the attention softcap (both routes, the
+    CAP instances) against the softcapped `flash_attention_bwd_plain` on
+    the same q, k, v, out, dout and the forward kernel's softcapped lse,
+    within BWD_TOL; two launches give the same bits; each launch counted
+    on its route and with the softcap."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d + 7)
+    dout = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d + 8)[0]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    with torch.no_grad():
+        out, lse = fmod.flash_attention_lse_cuda(q, k, v, **kw)
+        _, lse_p = fmod.flash_attention_plain_lse(q, k, v, **kw)
+        route = fmod.BWD_ROUTES[dtype]
+        before = (fmod.FLASH_BWD_LAUNCHES,
+                  fmod.FLASH_BWD_ROUTE_LAUNCHES[route],
+                  fmod.FLASH_BWD_SOFTCAP_LAUNCHES)
+        got = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
+                                            window, softcap)
+        again = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                              causal, window, softcap)
+        want = fmod.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                              causal, window, softcap)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_ROUTE_LAUNCHES[route],
+            fmod.FLASH_BWD_SOFTCAP_LAUNCHES) == tuple(n + 2 for n in before)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    _bwd_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_attention_kernels_take_kimi_head_dim_112(dtype):
+    """Kimi K2's head dim 112 through both dispatches (padded to the next
+    tile width, 128): the flash forward and backward and the decode kernel
+    against their plain versions, each launch counted on its route."""
+    dev = _card()
+    from repro_torch.kernels import decode_attn as dmod
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((2, 4, 150, 112), dtype, dev, seed=112)
+    dout = _attn_inputs((2, 4, 150, 112), dtype, dev, seed=113)[0]
+    rtol, atol = ATTN_TOL[dtype]
+    with torch.no_grad():
+        before = fmod.FLASH_ROUTE_LAUNCHES[fmod.ROUTES[dtype]]
+        out, lse = fmod.flash_attention_lse_cuda(q, k, v)
+        plain, lse_p = fmod.flash_attention_plain_lse(q, k, v)
+        grads = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+        want = fmod.flash_attention_bwd_plain(q, k, v, out, dout, lse)
+        lens = torch.tensor([150, 65], dtype=torch.int32, device=dev)
+        qd = q[:, :, :8].contiguous()          # 4 KV heads of 8 queries
+        dec = dmod.decode_attention_cuda(qd, k, v, lens)
+        dec_p = dmod.decode_attention_plain(qd, k, v, lens)
+    torch.cuda.synchronize()
+    assert fmod.FLASH_ROUTE_LAUNCHES[fmod.ROUTES[dtype]] == before + 1
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    _bwd_close(grads, want)
+    np.testing.assert_allclose(dec.float().cpu().numpy(),
+                               dec_p.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+def test_gemma2_gradients_on_card_match_cpu():
+    """`lm_loss` gradients of Gemma-2's f32 smoke config (window 16, both
+    softcaps) with remat on 40 tokens: the card (the softcapped flash, its
+    recompute and the softcapped backward kernel, f32 FMA routes) against
+    the CPU (plain versions), within 1e-5 of each tensor's largest |g|."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.train.optim import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("gemma2_27b", smoke=True),
+                              remat=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    labels = torch.roll(tokens, -1, 1)
+
+    def grads(tree, device):
+        live = tree_map(lambda t: t.to(device).requires_grad_(True), tree)
+        loss = lm_loss(cfg, live, tokens.to(device), labels.to(device))
+        return float(loss.detach()), torch.autograd.grad(loss,
+                                                        tree_leaves(live))
+
+    before = (fmod.FLASH_SOFTCAP_LAUNCHES, fmod.FLASH_BWD_SOFTCAP_LAUNCHES,
+              fmod.FLASH_BWD_ROUTE_LAUNCHES["f32_fma"])
+    loss_card, g_card = grads(params, dev)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert (fmod.FLASH_SOFTCAP_LAUNCHES, fmod.FLASH_BWD_SOFTCAP_LAUNCHES,
+            fmod.FLASH_BWD_ROUTE_LAUNCHES["f32_fma"]) == (
+        before[0] + 2 * n, before[1] + n, before[2] + n)
+    loss_cpu, g_cpu = grads(params, "cpu")
+    assert abs(loss_card - loss_cpu) <= 1e-5
+    for a, b in zip(g_card, g_cpu):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
+def test_moe_on_card_matches_cpu():
+    """Mixtral's and Kimi K2's f32 smoke configs (every layer MOE, no
+    window): `forward`'s logits and aux and a teacher-forced decode on the
+    card against the CPU, past the smoke window of 16."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import (
+        decode_step, forward, init_decode_state, init_params,
+    )
+    from repro_torch.train.optim import tree_map
+    for arch in ("mixtral_8x22b", "kimi_k2_1t_a32b"):
+        cfg = get_config(arch, smoke=True)
+        params = init_params(cfg, torch.Generator().manual_seed(2),
+                             device="cpu")
+        on_card = tree_map(lambda t: t.to(dev), params)
+        tokens = torch.randint(0, cfg.vocab, (2, 24),
+                               generator=torch.Generator().manual_seed(3))
+        with torch.inference_mode():
+            logits, aux = forward(cfg, on_card, tokens.to(dev))
+            logits_c, aux_c = forward(cfg, params, tokens)
+            np.testing.assert_allclose(logits.cpu().numpy(),
+                                       logits_c.numpy(), atol=1e-4)
+            assert abs(float(aux) - float(aux_c)) <= 1e-5
+            st = init_decode_state(cfg, 2, 24, device=dev)
+            st_c = init_decode_state(cfg, 2, 24, device="cpu")
+            for t in range(24):
+                a, st = decode_step(cfg, on_card, tokens[:, t:t + 1].to(dev),
+                                    st)
+                b, st_c = decode_step(cfg, params, tokens[:, t:t + 1], st_c)
+                np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                           atol=1e-4)
+
+
+def test_streamed_expert_blocks_on_card():
+    """`StreamedWeightProvider` on the card: pinned bf16 banks stream in
+    aligned blocks on the copy stream, each block bit for bit the host's,
+    the uploaded bytes the banks' bytes; an unpinned bank is staged."""
+    dev = _card()
+    from repro_torch.io import ExpertBank, StreamedWeightProvider
+    gen = torch.Generator().manual_seed(4)
+    banks = []
+    for layer in range(3):
+        arrays = {"w_gate": torch.randn((40, 16, 8), generator=gen),
+                  "w_up": torch.randn((40, 16, 8), generator=gen),
+                  "w_down": torch.randn((40, 8, 16), generator=gen)}
+        arrays = {k: a.bfloat16() for k, a in arrays.items()}
+        if layer < 2:
+            arrays = {k: a.pin_memory() for k, a in arrays.items()}
+        banks.append(ExpertBank(layer=layer, arrays=arrays))
+    per = banks[0].expert_bytes()
+    provider = StreamedWeightProvider(banks, hbm_budget_bytes=per * 13,
+                                      align=4, depth=2, device=dev)
+    assert provider.block_size == 12
+    for bank in banks:
+        blocks = []
+        for (s, e), arrays in provider.stream_layer(bank):
+            blocks.append((s, e))
+            for name, a in arrays.items():
+                assert a.device.type == "cuda"
+                assert torch.equal(a.cpu(), bank.arrays[name][s:e])
+        assert blocks == [(0, 12), (12, 24), (24, 36), (36, 40)]
+    torch.cuda.synchronize()
+    assert provider.stats.uploaded_bytes == 3 * 40 * per
+    assert provider.stats.segments == 12
 
 
 def test_lm_gradients_on_card_match_cpu():

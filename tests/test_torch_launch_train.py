@@ -217,3 +217,20 @@ def test_launch_train_checkpoints_and_resumes(tmp_path, capsys):
     restored, step = p_ckpt.Checkpointer(str(port_dir)).restore(
         {"opt_state": {"step": 0}})
     assert step == 3 and int(restored["opt_state"]["step"]) == 8
+
+
+@pytest.mark.parametrize("arch", ["gemma2_27b", "mixtral_8x22b"])
+def test_launch_train_cli_takes_softcapped_and_moe_archs(arch, capsys):
+    """`--arch gemma2_27b` (both softcaps, window 16: the softcapped
+    backward) and `--arch mixtral_8x22b` (every layer MoE, the aux loss in
+    the objective) train on the CPU through `get_config`, printing the
+    reference launcher's lines, with a finite first loss near ln(vocab)."""
+    out = {}
+    for name, main, extra in (("port", p_launch.main, ["--device", "cpu"]),
+                              ("ref", r_launch.main, [])):
+        main(["--arch", arch, "--steps", "2", *extra])
+        out[name] = capsys.readouterr().out
+    assert _shape(out["port"]) == _shape(out["ref"]) == [
+        "step     N loss N", "Ns for N steps"]
+    loss = _losses(out["port"])[0]
+    assert np.isfinite(loss) and abs(loss - np.log(256)) < 0.5

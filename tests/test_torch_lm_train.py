@@ -4,10 +4,12 @@ The reference's `init_params` draws the weights; `params_from_numpy`
 carries the same values to the port, and the same token ids, made with
 numpy from a seed, go through both. The models run in float32 at smoke
 size (Yi-6B's SMOKE config, n_heads == n_kv_heads: group 1, and a GQA
-variant, 8 query heads over 2 KV heads: group 4), where the port's
-attention takes the kernels' plain versions under `FlashAttention`, its
-autograd Function; the reference trains through XLA's autodiff of its
-jnp `_attn_core`, which has no Pallas backward.
+variant, 8 query heads over 2 KV heads: group 4; Gemma-2's, with both
+softcaps and a window of 16; Mixtral's and Kimi K2's, every layer MoE),
+where the port's attention takes the kernels' plain versions under
+`FlashAttention`, its autograd Function, the softcapped backward among
+them; the reference trains through XLA's autodiff of its jnp
+`_attn_core`, which has no Pallas backward.
 
 Tolerances, each for float32 arithmetic summed in another order:
   * attention gradients, GRAD_TOL absolute on values of order 1;
@@ -56,7 +58,13 @@ def _gqa():
 
 
 CONFIGS = {"yi_6b": lambda: r_configs.get_config("yi_6b", smoke=True),
-           "yi_6b_gqa": _gqa}
+           "yi_6b_gqa": _gqa,
+           "gemma2_27b": lambda: r_configs.get_config("gemma2_27b",
+                                                      smoke=True),
+           "mixtral_8x22b": lambda: r_configs.get_config("mixtral_8x22b",
+                                                         smoke=True),
+           "kimi_k2_1t_a32b": lambda: r_configs.get_config(
+               "kimi_k2_1t_a32b", smoke=True)}
 
 
 @pytest.fixture(scope="module")
@@ -177,6 +185,52 @@ def test_attention_backward_matches_reference(causal, window):
         lse.numpy(), np.asarray(jax.nn.logsumexp(
             jnp.where(mask[:, None], jnp.einsum(
                 "bhsd,bhtd->bhst", q, k) / 4.0, -jnp.inf), axis=-1)),
+        atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("softcap", [50.0, 1.0])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 7),
+                                           (False, 9)])
+def test_attention_backward_softcap_matches_reference(causal, window,
+                                                      softcap):
+    """The softcapped backward: `FlashAttention` on CPU tensors and
+    `flash_attention_bwd_plain` with the softcap against `jax.grad` of the
+    reference's `_attn_core` with it (cap 1 bites on every score, cap 50
+    as Gemma-2's), causal and windowed; lse over the softcapped scores."""
+    rng = np.random.default_rng(window + 2 * causal + int(softcap))
+    q, k, v, cot = (2.0 * rng.standard_normal((2, 3, 37, 16)).astype(
+        np.float32) for _ in range(4))
+    mask = jnp.asarray(np.broadcast_to(_reference_mask(37, causal, window),
+                                       (2, 37, 37)))
+
+    def f(q_, k_, v_):
+        return jnp.sum(r_layers._attn_core(q_, k_, v_, mask, softcap) * cot)
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    live = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = p_flash.flash_attention_blocks(*live, causal=causal, window=window,
+                                         softcap=softcap)
+    out.backward(torch.from_numpy(cot))
+    for t, r in zip(live, ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   atol=GRAD_TOL)
+    fwd, lse = p_flash.flash_attention_plain_lse(
+        *(t.detach() for t in live), causal=causal, window=window,
+        softcap=softcap)
+    plain = p_flash.flash_attention_bwd_plain(
+        *(t.detach() for t in live), fwd, torch.from_numpy(cot), lse,
+        causal, window, softcap)
+    for t, g in zip(live, plain):
+        assert torch.equal(t.grad, g)
+    uncapped = p_flash.flash_attention_bwd_plain(
+        *(t.detach() for t in live), fwd, torch.from_numpy(cot), lse,
+        causal, window)
+    assert any(not torch.equal(g, u) for g, u in zip(plain, uncapped))
+    capped = softcap * jnp.tanh(jnp.einsum("bhsd,bhtd->bhst", q, k) / 4.0
+                                / softcap)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(jax.nn.logsumexp(
+            jnp.where(mask[:, None], capped, -jnp.inf), axis=-1)),
         atol=GRAD_TOL)
 
 
