@@ -10,7 +10,7 @@ non-zero without a result line:
                switched off for matmuls.
   2. build   — nvcc builds the kernel library from this checkout's sources;
                ptxas's registers and spills per instance (the backward's
-               softcapped ones listed apart).
+               softcapped ones and the d = 256 ones listed apart).
   3. host    — the rUSA plans: serving at width 1024, training at 256 in
                both directions.
   4. kernel  — the SpMM kernel against its plain PyTorch version on the
@@ -159,6 +159,12 @@ non-zero without a result line:
                bf16, f16 and f32 with windows; decode at gemma_serve's
                cache (16 KV heads of 2) at every position, on rings of
                4096 slots with lens below the cache, in all three types.
+               The d = 256 instances (RecurrentGemma's head dim) in bf16,
+               f16 and f32: flash at rgemma_serve's prefill layer and
+               rgemma_check's, at S = 63, 64, 65, 129, with a window whose
+               edge crosses tiles and at d = 200 (padded); decode at
+               rgemma_serve's cache at every position and with lens at and
+               around tile and split edges, groups 1 and 10.
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
@@ -231,13 +237,35 @@ non-zero without a result line:
                (60.9 GB of weights), as lm_serve (decode launches = 12 x
                160, flash launches = 12), the decode-vs-forward check under
                MOE_FLIP_RULE.
- 29. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
+ 29. rgemma_check — RecurrentGemma-2B's widths cut to 2 float32 layers
+               (an RG-LRU, then a local attention layer at head dim 256):
+               `forward` on one 2112-token sequence (the window of 2048
+               bites) and teacher-forced `decode_step` over it (the ring of
+               2048 slots wraps), against the script's own float64 forward
+               (the recurrences stepped over time) at 32 positions before
+               the wrap and the last 64, within LM_REL_TOL; flash launches
+               = 1, decode launches = 2112, every one on the f32 FMA route
+               at d = 256.
+ 30. xlstm_check — xLSTM-125M's widths cut to 2 float32 layers (an sLSTM,
+               then an mLSTM), batch 2 x 128: `forward` and teacher-forced
+               decode against the script's own float64 forward (both
+               blocks stepped over time) within LM_REL_TOL; no attention
+               launch at all.
+ 31. rgemma_serve — full RecurrentGemma-2B (26 layers, bf16, 7.1 GB of
+               weights from --seed), as lm_serve: `serve` (decode launches =
+               8 x 160: its 8 local layers), `forward` on one 4096-token
+               sequence (flash launches = 8; the window bites) and the
+               decode-vs-forward check; every launch on the tensor-core
+               route at d = 256.
+ 32. xlstm_serve — full xLSTM-125M (12 layers, bf16), as lm_serve with a
+               2048-token prefill; no attention launch.
+ 33. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
                bf16 in pinned host memory, drawn on the card from --seed)
                streamed through `StreamedWeightProvider(2 GiB, align 8,
                depth 2)`: 16 blocks of 24 experts, each block's range and
                shapes, sampled rows bit for bit against the host bank, the
                uploaded bytes the bank's; prints the StreamStats and GB/s.
- 30. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 34. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
@@ -253,16 +281,25 @@ non-zero without a result line:
                the softcap (no PyTorch call softcaps attention: library_ms
                null), the decode at gemma_serve's cache with and without
                the softcap, and the backward's CAP instances at
-               gemma_train's microbatch beside the same call without.
- 31. phase_seconds, kernels — each phase's seconds; the summary line
-               (softcapped launches by path among it, the backward's by
-               route and softcap), then the card's name and power limit,
-               then the result line.
+               gemma_train's microbatch beside the same call without; the
+               d = 256 instances at rgemma_serve's prefill layer (1, 10,
+               4096, 256) bf16, window 2048, beside SDPA with that window as
+               a mask and causal SDPA without it, and the decode at its
+               cache (4, 1, 10, 256) over a ring of 2048 and at (128, 1, 10,
+               256) over 2048, beside SDPA with enable_gqa; and the
+               recurrent blocks, plain PyTorch, at the serve phases'
+               widths (each `*_train` at its prefill length, each `*_step`
+               at serve's batch).
+ 35. phase_seconds, kernels — each phase's seconds; the summary line
+               (softcapped and d = 256 launches by path among it, the
+               backward's by route and softcap), then the card's name and
+               power limit, then the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
 warm, tune, update, partition, continuous, lm_check, lm_train_check, each
 run of lm_train, lm_serve, gemma_check, gemma_serve, gemma_train_check,
-gemma_train, moe_check, mixtral_serve) runs with the launch counters set
+gemma_train, moe_check, mixtral_serve, rgemma_check, xlstm_check,
+rgemma_serve, xlstm_serve) runs with the launch counters set
 to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
@@ -390,6 +427,27 @@ EXPERTS_BUDGET = 2 << 30       # experts: 2 GiB blocks, 24 Kimi K2 experts
 MOE_FLIP_RULE = ("positions before the first with other experts in any "
                  "layer: rel gap <= LM_BF16_TOL; the others: counted and "
                  "reported")
+# xlstm_serve's decode-vs-forward rule. xLSTM-125M in bf16 with random
+# weights amplifies a rounding in its recurrent state through the sLSTM's
+# exponential gates and 12 layers without a feed-forward: the reference
+# itself, on the CPU at this config (scripts/recurrent_bf16_gap.py, its own
+# weights from seed 0), decodes 0.585 (relative to the largest |logit|)
+# away from its own bf16 forward over 128 positions, and its bf16 forward
+# lies 0.647 away from its f32 forward; only position 0, where no state
+# has been carried, stays near one rounding (0.014; the port's 0.012). The limit stays LM_BF16_TOL, held at position 0;
+# the other positions' gaps are reported. That decode equals the forward
+# past position 0 is held in float32 by xlstm_check, to float64.
+XLSTM_BF16_RULE = ("position 0 (no recurrent state yet): rel gap <= "
+                   "LM_BF16_TOL; the later positions: reported, the "
+                   "reference's own bf16 gap being O(1) there")
+# rgemma_check: one sequence past the local layer's window (2048), into a
+# cache of as many positions (a ring of 2048 slots, which wraps after
+# position 2047); compared at 32 positions before the wrap and the last 64.
+RGEMMA_CHECK_SEQ = 2112
+RGEMMA_POSITIONS = list(range(0, 2048, 64)) + list(range(2048, 2112))
+RGEMMA_PREFILL = 4096          # rgemma_serve: the window bites in 8 layers
+XLSTM_PREFILL = 2048           # xlstm_serve: 3 sLSTM loops of 2048 steps
+ATTENTION_KINDS = ("attn", "local", "moe")
 
 
 def emit(obj) -> None:
@@ -2526,6 +2584,7 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
     cases += tile_edge_cases(fmod, dmod, gen)
     cases += softcap_cases(fmod, dmod, gen)
     cases += head_dim_112_cases(fmod, dmod, gen)
+    cases += head_dim_256_cases(fmod, dmod, gen)
     t0 = time.perf_counter()
     cases += backward_cases(fmod, gen)
     cases += backward_softcap_cases(fmod, gen)
@@ -2536,9 +2595,13 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
     main = [c for c in cases                           # main-path shapes
             if "lm_" in c["case"] or "gemma_" in c["case"]
             or "mixtral_" in c["case"] or "moe_" in c["case"]]
-    return {name: max(c["max_abs_err"] for c in main
-                      if c["case"].startswith(name))
-            for name in ("flash", "decode", "backward")}
+    wide = [c for c in main if "d = 256" in c["case"]]
+    return {**{name: max(c["max_abs_err"] for c in main
+                         if c["case"].startswith(name))
+               for name in ("flash", "decode", "backward")},
+            **{f"{name}_d256": max(c["max_abs_err"] for c in wide
+                                   if c["case"].startswith(name))
+               for name in ("flash", "decode")}}
 
 
 def softcap_cases(fmod, dmod, gen) -> list:
@@ -2715,6 +2778,76 @@ def head_dim_112_cases(fmod, dmod, gen) -> list:
     return cases
 
 
+def lens_at(dmod, b: int, n_kv: int, s_len: int, edges, d: int = 128):
+    """lens one below, at and one above each edge (the splits' own among
+    them), then 1 and s_len, cycled over the batch."""
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, _ = dmod.split_plan(b, n_kv, s_len, n_sm, d)
+    vals = list(dict.fromkeys(
+        [e + o for e in (*edges, chunk, 2 * chunk) for o in (-1, 0, 1)
+         if 1 <= e + o <= s_len] + [1, s_len]))
+    return torch.tensor([vals[i % len(vals)] for i in range(b)],
+                        dtype=torch.int32, device=DEV)
+
+
+def head_dim_256_cases(fmod, dmod, gen) -> list:
+    """The d = 256 instances (RecurrentGemma's head dim; 64 query rows and
+    32 keys a tile on the tensor cores, 64 rows on the FMA route) against
+    their plain versions in bf16, f16 and f32: flash at rgemma_serve's and
+    rgemma_check's prefill layers (10 heads, window 2048), at S = 63, 64,
+    65 and 129, with a window of 100 whose edge crosses tiles, and at
+    d = 200 (padded to 256); decode at rgemma_serve's cache (MQA, group
+    10) at every position and with lens at and around tile and split
+    edges at groups 1 and 10."""
+    flash, decode = fmod.flash_attention_cuda, dmod.decode_attention_cuda
+    f_plain, d_plain = fmod.flash_attention_plain, dmod.decode_attention_plain
+    window = 2048
+    cases = [
+        attn_compare(flash, f_plain,
+                     attn_inputs((1, 10, RGEMMA_PREFILL, 256), "bfloat16",
+                                 gen), {"causal": True, "window": window},
+                     "flash: rgemma_serve's prefill layer, d = 256",
+                     "bfloat16"),
+        attn_compare(flash, f_plain,
+                     attn_inputs((1, 10, RGEMMA_CHECK_SEQ, 256), "float32",
+                                 gen), {"causal": True, "window": window},
+                     "flash: rgemma_check's layer, d = 256, f32", "float32")]
+    serve_len = LM_PROMPT + LM_STEPS + 1
+    cases.append(attn_compare(
+        decode, d_plain, decode_inputs(LM_BATCH, 1, 10, serve_len, "bfloat16",
+                                       gen, d=256), {},
+        "decode: rgemma_serve's cache, d = 256, every position", "bfloat16",
+        lens_sweep=serve_len))
+    for dtype in ("bfloat16", "float16", "float32"):
+        for s_len in (63, 64, 65, 129):
+            cases.append(attn_compare(
+                flash, f_plain, attn_inputs((2, 3, s_len, 256), dtype, gen),
+                {"causal": True}, f"flash: d = 256, S = {s_len}, tile edge",
+                dtype))
+        cases.append(attn_compare(
+            flash, f_plain, attn_inputs((1, 4, 1000, 256), dtype, gen),
+            {"causal": True, "window": 100},
+            "flash: d = 256, window 100, its edge across tiles", dtype))
+        cases.append(attn_compare(
+            flash, f_plain, attn_inputs((1, 4, 300, 200), dtype, gen),
+            {"causal": True, "window": 64}, "flash: d = 200, padded to 256",
+            dtype))
+        for b, group, s_len in ((12, 10, 2048), (8, 1, 1000)):
+            args = decode_inputs(b, 1, group, s_len, dtype, gen, d=256,
+                                 lens=lens_at(dmod, b, 1, s_len,
+                                              (64, 128, 192), d=256))
+            case = attn_compare(decode, d_plain, args, {},
+                                f"decode: d = 256, group {group}, lens at "
+                                "tile and split edges", dtype)
+            case["lens"] = args[3].tolist()
+            cases.append(case)
+        cases.append(attn_compare(
+            decode, d_plain, decode_inputs(4, 2, 5, 700, dtype, gen, d=200),
+            {}, "decode: d = 200, padded to 256", dtype))
+    return cases
+
+
 def tile_edge_cases(fmod, dmod, gen) -> list:
     """The 16-bit (tensor-core) kernels at the edges of their 64-row tiles
     and of the decode splits, and in f16, against their plain versions."""
@@ -2735,19 +2868,7 @@ def tile_edge_cases(fmod, dmod, gen) -> list:
     cases.append(attn_compare(flash, f_plain,
                               attn_inputs((1, 8, 2048, 128), "float16", gen),
                               {"causal": True}, "flash: f16", "float16"))
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     tile = dmod.TILE
-
-    def lens_at(b, n_kv, s_len, edges):
-        """lens one below, at and one above each edge (the splits' own
-        among them), then 1 and s_len, cycled over the batch."""
-        chunk, _ = dmod.split_plan(b, n_kv, s_len, n_sm)
-        vals = list(dict.fromkeys(
-            [e + o for e in (*edges, chunk, 2 * chunk) for o in (-1, 0, 1)
-             if 1 <= e + o <= s_len] + [1, s_len]))
-        return torch.tensor([vals[i % len(vals)] for i in range(b)],
-                            dtype=torch.int32, device=DEV)
-
     for b, n_kv, group, s_len, edges, label in (
             (16, 4, 8, 4160, (tile, 2 * tile, 3 * tile),
              "splits of a few tiles"),
@@ -2756,7 +2877,7 @@ def tile_edge_cases(fmod, dmod, gen) -> list:
             (8, 4, 5, 1000, (tile,), "group 5"),
             (8, 2, 16, 2048, (tile,), "group 16")):
         args = decode_inputs(b, n_kv, group, s_len, "bfloat16", gen,
-                             lens=lens_at(b, n_kv, s_len, edges))
+                             lens=lens_at(dmod, b, n_kv, s_len, edges))
         case = attn_compare(decode, d_plain, args, {},
                             f"decode: lens at tile and split edges, {label}",
                             "bfloat16")
@@ -2833,14 +2954,82 @@ def f64_moe(cfg, p, h, per_position: bool = False, routes=None):
     return torch.cat(outs, 1)
 
 
+def f64_recurrent(cfg, kind: str, p, h):
+    """A recurrent block's mixer in float64 on its normed input h (B, S,
+    d), written from the architectures (xLSTM's sLSTM and mLSTM, Griffin's
+    RG-LRU branch with its causal conv and GeLU gate), not from the port's
+    code: every recurrence stepped over time with its running stabilizer,
+    where the port takes the mLSTM's parallel form and a log-depth scan for
+    the RG-LRU."""
+    import torch
+    import torch.nn.functional as F
+    b, s, d = h.shape
+    w = {name: _f64(t) for name, t in p[{"rglru": "rec"}.get(kind,
+                                                             kind)].items()}
+    if kind == "rglru":
+        gate = F.gelu(h @ w["w_branch_gate"], approximate="tanh")
+        lin = F.pad(h @ w["w_branch_lin"], (0, 0, cfg.conv_width - 1, 0))
+        u = sum(lin[:, i:i + s] * w["conv_w"][i]
+                for i in range(cfg.conv_width)) + w["conv_b"]
+        log_a = -8.0 * F.softplus(w["lambda"]) * torch.sigmoid(
+            u @ w["w_rec_gate"])
+        gx = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+            * u * torch.sigmoid(u @ w["w_in_gate"])
+        a, state, out = torch.exp(log_a), torch.zeros_like(u[:, 0]), []
+        for t in range(s):
+            state = a[:, t] * state + gx[:, t]
+            out.append(state)
+        return (gate * torch.stack(out, 1)) @ w["w_out"]
+    if kind == "slstm":
+        xs = [h @ w[n] for n in ("wz", "wi_g", "wf_g", "wo_g")]
+        zeros = torch.zeros((b, d), dtype=torch.float64, device=DEV)
+        c, n, hh, m, out = zeros, zeros + 1.0, zeros, zeros, []
+        for t in range(s):
+            z, i, f, o = (x[:, t] + hh @ w[r]
+                          for x, r in zip(xs, ("rz", "ri", "rf", "ro")))
+            log_f = F.logsigmoid(f)
+            m_new = torch.maximum(log_f + m, i)
+            i_g, f_g = torch.exp(i - m_new), torch.exp(log_f + m - m_new)
+            c = f_g * c + i_g * torch.tanh(z)
+            n = torch.clamp_min(f_g * n + i_g, 1e-6)
+            hh, m = torch.sigmoid(o) * c / n, m_new
+            out.append(hh)
+        return torch.stack(out, 1) @ w["wo"]
+    # mLSTM: matrix memory C and normalizer n per head, stabilizer m.
+    nh = cfg.n_heads
+    hd = d // nh
+    q, k, v = ((h @ w[n]).view(b, s, nh, hd) for n in ("wq", "wk", "wv"))
+    i_pre, f_pre = h @ w["wi"], h @ w["wf"]                  # (B, S, H)
+    cm = torch.zeros((b, nh, hd, hd), dtype=torch.float64, device=DEV)
+    nv = torch.zeros((b, nh, hd), dtype=torch.float64, device=DEV)
+    m = torch.full((b, nh), -1e30, dtype=torch.float64, device=DEV)
+    out = []
+    for t in range(s):
+        log_f = F.logsigmoid(f_pre[:, t])
+        m_new = torch.maximum(log_f + m, i_pre[:, t])
+        i_g = torch.exp(i_pre[:, t] - m_new)[..., None]
+        f_g = torch.exp(log_f + m - m_new)[..., None]
+        cm = f_g[..., None] * cm + i_g[..., None] * (
+            v[:, t, :, :, None] * k[:, t, :, None, :])
+        nv = f_g * nv + i_g * k[:, t]
+        qs = q[:, t] / math.sqrt(hd)
+        den = torch.maximum((nv * qs).sum(-1).abs(), torch.exp(-m_new))
+        out.append((cm @ qs[..., None])[..., 0] / den[..., None])
+        m = m_new
+    hh = torch.stack(out, 1)                                  # (B, S, H, hd)
+    hh = hh * torch.rsqrt(hh.pow(2).mean(-1, keepdim=True) + 1e-6)
+    return (hh.reshape(b, s, d) * (1.0 + w["gn"])) @ w["wo"]
+
+
 def f64_hidden(cfg, params, tokens, ckpt: bool = False,
                per_position: bool = False, routes=None):
     """The decoder stack in float64 with plain torch ops, written from the
     architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
     attention with KV heads repeated, within `cfg.sliding_window` on the
     local layers only, its scores softcapped by `cfg.attn_softcap`, then a
-    SwiGLU MLP or the MoE of `f64_moe`), not from the port's code, up to
-    and through the final norm: (B, S, d). Attention in groups of 8 heads,
+    SwiGLU MLP or the MoE of `f64_moe`; a recurrent block's mixer from
+    `f64_recurrent`, then its MLP where it has one), not from the port's
+    code, up to and through the final norm: (B, S, d). Attention in groups of 8 heads,
     so that no float64 temporary holds a whole layer's scores; with `ckpt`
     each head group and each MLP is checkpointed for the backward."""
     import torch
@@ -2869,11 +3058,18 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
     causal = pos[None, :] <= pos[:, None]
     x = _f64(params["embed"][tokens])
     for kind, p in zip(cfg.blocks(), params["layers"]):
+        h = _f64_norm(x, p["ln1"])
+        if kind.value not in ATTENTION_KINDS:
+            x = x + f64_recurrent(cfg, kind.value, p, h)
+            if "mlp" in p:
+                m = p["mlp"]
+                x = x + _ckpt(ckpt, mlp, _f64_norm(x, p["ln2"]),
+                              m["w_gate"], m["w_up"], m["w_down"])
+            continue
         a = p["attn"]
         valid = causal
         if kind.value == "local" and cfg.sliding_window:
             valid = causal & (pos[None, :] > pos[:, None] - cfg.sliding_window)
-        h = _f64_norm(x, p["ln1"])
         q = rope((h @ _f64(a["wq"])).view(b, s, hq, hd).transpose(1, 2))
         k = rope((h @ _f64(a["wk"])).view(b, s, hkv, hd).transpose(1, 2))
         v = (h @ _f64(a["wv"])).view(b, s, hkv, hd).transpose(1, 2)
@@ -2930,10 +3126,11 @@ def teacher_forced(cfg, params, tokens, positions=None):
 
 
 def zero_attn_counts(fmod, dmod) -> None:
-    """The attention kernels' launch counts, in all, by route and with a
-    softcap, to 0."""
+    """The attention kernels' launch counts, in all, by route, with a
+    softcap and at d > 128, to 0."""
     fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0
     fmod.FLASH_SOFTCAP_LAUNCHES = dmod.DECODE_SOFTCAP_LAUNCHES = 0
+    fmod.FLASH_WIDE_LAUNCHES = dmod.DECODE_WIDE_LAUNCHES = 0
     fmod.FLASH_BWD_LAUNCHES = fmod.FLASH_BWD_SOFTCAP_LAUNCHES = 0
     for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES,
                    fmod.FLASH_BWD_ROUTE_LAUNCHES):
@@ -2945,12 +3142,28 @@ def attn_counts(fmod, dmod) -> dict:
     return {"flash": fmod.FLASH_LAUNCHES,
             "flash_routes": dict(fmod.FLASH_ROUTE_LAUNCHES),
             "flash_softcap": fmod.FLASH_SOFTCAP_LAUNCHES,
+            "flash_wide": fmod.FLASH_WIDE_LAUNCHES,
             "flash_bwd": fmod.FLASH_BWD_LAUNCHES,
             "flash_bwd_routes": dict(fmod.FLASH_BWD_ROUTE_LAUNCHES),
             "flash_bwd_softcap": fmod.FLASH_BWD_SOFTCAP_LAUNCHES,
             "decode": dmod.DECODE_LAUNCHES,
             "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES),
-            "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES}
+            "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES,
+            "decode_wide": dmod.DECODE_WIDE_LAUNCHES}
+
+
+def check_wide(label: str, counts: dict, kernel: str, wide: bool) -> None:
+    """Every launch of `kernel` counted in `counts` took its d = 256
+    instance (`wide`), or none did."""
+    want = counts[kernel] if wide else 0
+    if counts[f"{kernel}_wide"] != want:
+        raise AssertionError(f"{label}: {counts[f'{kernel}_wide']} of "
+                             f"{counts[kernel]} {kernel} launches at d > "
+                             f"128, want {want}")
+
+
+def n_attention_layers(cfg) -> int:
+    return sum(kind.value in ATTENTION_KINDS for kind in cfg.blocks())
 
 
 def check_routes(label: str, counts: dict, kernel: str, route: str) -> None:
@@ -3079,15 +3292,19 @@ def profile_prefill(cfg, params, seq) -> dict:
 
 
 def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
-                label: str, n_layers: int = 0) -> dict:
+                label: str, n_layers: int = 0,
+                profiled_tokens: int = 0) -> dict:
     """The bf16 `arch` (cut to `n_layers` where given): serve, a prefill
     forward of `prefill` tokens, and decode against the forward; returns
-    the launches of each path. Every attention launch on the tensor-core
-    route, and with the softcap exactly where the config sets one. For an
+    the launches of each path, one per attention layer (none for an
+    attention-free stack). Every attention launch on the tensor-core
+    route, with the softcap exactly where the config sets one, and at
+    d = 256 exactly where the config's head dim exceeds 128. For an
     MoE config the routers' picks are recorded in the forward and the
     cross-check: the positions before the first whose experts differ in
     any layer are held to LM_BF16_TOL, the rest counted and reported
-    (MOE_FLIP_RULE)."""
+    (MOE_FLIP_RULE). The profiled prefill takes the first
+    `profiled_tokens` of the sequence where given (all of it otherwise)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3100,6 +3317,8 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     capped = cfg.attn_softcap is not None
+    wide = cfg.hd > 128
+    n_attn = n_attention_layers(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3125,12 +3344,13 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     serve_launches = {"flash": serve_counts["flash"],
                       "decode": serve_counts["decode"]}
     serve_peak = torch.cuda.max_memory_allocated()
-    want = cfg.n_layers * (LM_PROMPT + LM_STEPS)
+    want = n_attn * (LM_PROMPT + LM_STEPS)
     if serve_launches != {"flash": 0, "decode": want}:
         raise AssertionError(f"serve launches {serve_launches}, want decode "
                              f"{want}")
     check_routes(f"{label} serve", serve_counts, "decode", "tensor_core")
     check_softcap(f"{label} serve", serve_counts, "decode", capped)
+    check_wide(f"{label} serve", serve_counts, "decode", wide)
     if tokens.shape != (LM_BATCH, LM_STEPS) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"serve tokens {tokens.shape} out of range")
@@ -3153,19 +3373,22 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
         prefill_counts = attn_counts(fmod, dmod)         # ... and ends here
         prefill_flash = prefill_counts["flash"]
         prefill_peak = torch.cuda.max_memory_allocated()
-        if prefill_flash != cfg.n_layers or prefill_counts["decode"] != 0:
+        if prefill_flash != n_attn or prefill_counts["decode"] != 0:
             raise AssertionError(f"prefill flash launches {prefill_flash}, "
-                                 f"want {cfg.n_layers}")
+                                 f"want {n_attn}")
         check_routes(f"{label} prefill", prefill_counts, "flash",
                      "tensor_core")
         check_softcap(f"{label} prefill", prefill_counts, "flash", capped)
+        check_wide(f"{label} prefill", prefill_counts, "flash", wide)
         if logits.shape != (1, prefill, cfg.vocab) or not torch.isfinite(
                 logits).all():
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                                  "not finite")
         fwd = logits[:, :LM_PROMPT].clone()
         del logits
-    prefill_profile = profile_prefill(cfg, params, seq)
+    prefill_profile = profile_prefill(cfg, params,
+                                      seq[:, :profiled_tokens or prefill])
+    prefill_profile["tokens"] = profiled_tokens or prefill
     with torch.inference_mode():
         zero_attn_counts(fmod, dmod)                 # cross-check starts
         with dec_spy:
@@ -3174,11 +3397,12 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
         cross_decode = cross_counts["decode"]
     gap = rel_err(dec, fwd)
     agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
-    if cross_decode != cfg.n_layers * LM_PROMPT:
+    if cross_decode != n_attn * LM_PROMPT:
         raise AssertionError(f"cross-check decode launches {cross_decode}")
     check_routes(f"{label} cross-check", cross_counts, "decode",
                  "tensor_core")
     check_softcap(f"{label} cross-check", cross_counts, "decode", capped)
+    check_wide(f"{label} cross-check", cross_counts, "decode", wide)
     held, routing = gap, None
     if cfg.is_moe:
         # Decode step t, layer l is call t·L + l; the forward's call l
@@ -3204,11 +3428,23 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
                    "forward_dropped_assignments": [
                        dropped(cfg, r) for r in fwd_spy.routes],
                    "rule": MOE_FLIP_RULE}
+    by_position = None
+    if cfg.name.startswith("xlstm"):
+        # XLSTM_BF16_RULE: position 0 alone, before any recurrent state.
+        held = rel_err(dec[:, :1], fwd[:, :1])
+        by_position = {"rel_gap_position_0": held,
+                   "rel_gap_by_position": {
+                       t: rel_err(dec[:, t:t + 1], fwd[:, t:t + 1])
+                       for t in (1, 2, 4, 8, 16, 32, 64, LM_PROMPT - 1)
+                       if t < LM_PROMPT},
+                   "rule": XLSTM_BF16_RULE}
     if not held <= LM_BF16_TOL or not torch.isfinite(dec).all():
         raise AssertionError(f"decode vs forward logits: relative gap {held} "
-                             f"> {LM_BF16_TOL} (routing {routing})")
+                             f"> {LM_BF16_TOL} (routing {routing}, "
+                             f"{by_position})")
     emit({"phase": label, "config": cfg.name, "dtype": cfg.dtype,
-          "layers": cfg.n_layers, "params": param_count(params),
+          "layers": cfg.n_layers, "attention_layers": n_attn,
+          "head_dim": cfg.hd, "params": param_count(params),
           "init_s": init_s, "attn_softcap": cfg.attn_softcap,
           "sliding_window": cfg.sliding_window,
           "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT,
@@ -3222,6 +3458,7 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
                     "decode_launches_by_route":
                         serve_counts["decode_routes"],
                     "decode_softcap_launches": serve_counts["decode_softcap"],
+                    "decode_d256_launches": serve_counts["decode_wide"],
                     "peak_allocated_bytes": serve_peak,
                     "first_tokens": tokens[:, :8].tolist(),
                     "profiled_decode_steps": profile},
@@ -3232,12 +3469,14 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
                           prefill_counts["flash_routes"],
                       "flash_softcap_launches":
                           prefill_counts["flash_softcap"],
+                      "flash_d256_launches": prefill_counts["flash_wide"],
                       "peak_allocated_bytes": prefill_peak,
                       "profiled": prefill_profile},
           "decode_vs_forward": {"positions": LM_PROMPT,
                                 "rel_gap": gap, "tol": LM_BF16_TOL,
                                 "argmax_agreement": agree,
                                 "moe_routing": routing,
+                                "xlstm_positions": by_position,
                                 "decode_launches": cross_decode},
           "idle_share_decode": 1.0 - profile["device_busy_ms_per_step"]
           / (1e3 * serve_s / (LM_PROMPT + LM_STEPS))})
@@ -3251,7 +3490,10 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
                               for r in serve_counts["decode_routes"]},
             "flash_softcap": prefill_counts["flash_softcap"],
             "decode_softcap": serve_counts["decode_softcap"]
-            + cross_counts["decode_softcap"]}
+            + cross_counts["decode_softcap"],
+            "flash_wide": prefill_counts["flash_wide"],
+            "decode_wide": serve_counts["decode_wide"]
+            + cross_counts["decode_wide"]}
 
 
 def phase_lm_serve(fmod, dmod, seed: int) -> dict:
@@ -3390,6 +3632,130 @@ def phase_gemma_serve(fmod, dmod, seed: int) -> dict:
     layers, and decode against the forward, every launch softcapped."""
     return serve_phase(fmod, dmod, seed, "gemma2_27b", GEMMA_PREFILL,
                        "gemma_serve")
+
+
+def recurrent_check(fmod, dmod, seed: int, label: str, cfg, batch: int,
+                    seq: int, positions=None) -> dict:
+    """`cfg` (float32) on `batch` sequences of `seq` tokens: `forward` and
+    teacher-forced `decode_step` against the script's own float64 forward,
+    at `positions` (every one when None) within LM_REL_TOL; each attention
+    layer launches the flash kernel once and the decode kernel once a
+    position, on the f32 FMA route, at d = 256 where cfg.hd > 128, none
+    softcapped. Returns the launches."""
+    import torch
+    from repro_torch.models import forward, init_params, param_count
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 9)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), device=DEV,
+                           generator=gen)
+    keep = list(range(seq)) if positions is None else positions
+    with torch.inference_mode():
+        zero_attn_counts(fmod, dmod)                     # forward starts
+        logits, _ = forward(cfg, params, tokens)
+        fwd_counts = attn_counts(fmod, dmod)             # ... and ends here
+        finite = bool(torch.isfinite(logits).all())
+        fwd = logits[:, keep].clone()
+        del logits
+        zero_attn_counts(fmod, dmod)                     # decode starts
+        t0 = time.perf_counter()
+        dec = teacher_forced(cfg, params, tokens, positions)
+        sync()
+        decode_s = time.perf_counter() - t0
+        dec_counts = attn_counts(fmod, dmod)             # ... and ends here
+        ref = f64_lm_forward(cfg, params, tokens, positions)
+    errs = {"forward": rel_err(fwd, ref), "decode": rel_err(dec, ref),
+            "decode_vs_forward": rel_err(dec, fwd)}
+    window = cfg.sliding_window
+    if window and positions is not None:
+        before = [i for i, t in enumerate(positions) if t < window]
+        after = [i for i, t in enumerate(positions) if t >= window]
+        errs["decode_before_wrap"] = rel_err(dec[:, before], ref[:, before])
+        errs["decode_after_wrap"] = rel_err(dec[:, after], ref[:, after])
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    n_attn = n_attention_layers(cfg)
+    flash, decode = fwd_counts["flash"], dec_counts["decode"]
+    if not finite:
+        raise AssertionError(f"{label}: forward logits not finite")
+    if (flash, fwd_counts["decode"], dec_counts["flash"], decode) != (
+            n_attn, 0, 0, n_attn * seq):
+        raise AssertionError(f"{label} launches: forward {fwd_counts}, "
+                             f"decode {dec_counts}; want flash {n_attn}, "
+                             f"decode {n_attn * seq}")
+    for path, counts, kernel in (("forward", fwd_counts, "flash"),
+                                 ("decode", dec_counts, "decode")):
+        check_routes(f"{label} {path}", counts, kernel, "f32_fma")
+        check_softcap(f"{label} {path}", counts, kernel, False)
+        check_wide(f"{label} {path}", counts, kernel, cfg.hd > 128)
+    bad = {k: e for k, e in errs.items() if not e <= LM_REL_TOL}
+    if bad:
+        raise AssertionError(f"{label}: relative error above {LM_REL_TOL}: "
+                             f"{bad}")
+    emit({"phase": label, "config": f"{cfg.name} width, {cfg.n_layers} "
+          f"layers {[k.value for k in cfg.blocks()]}, float32",
+          "params": param_count(params), "batch": batch, "tokens": seq,
+          "window": window, "head_dim": cfg.hd,
+          "compared_positions": "all" if positions is None else positions,
+          "rel_err_vs_float64": errs, "tol": LM_REL_TOL,
+          "argmax_agreement_decode_vs_float64": agree,
+          "decode_seconds": decode_s,
+          "flash_launches": flash, "decode_launches": decode,
+          "launches_by_route": {"flash": fwd_counts["flash_routes"],
+                                "decode": dec_counts["decode_routes"]},
+          "d256_launches": {"flash": fwd_counts["flash_wide"],
+                            "decode": dec_counts["decode_wide"]},
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del params, fwd, dec, ref
+    torch.cuda.empty_cache()
+    return {"flash": flash, "decode": decode,
+            "flash_routes": fwd_counts["flash_routes"],
+            "decode_routes": dec_counts["decode_routes"],
+            "flash_softcap": 0, "decode_softcap": 0,
+            "flash_wide": fwd_counts["flash_wide"],
+            "decode_wide": dec_counts["decode_wide"]}
+
+
+def phase_rgemma_check(fmod, dmod, seed: int) -> dict:
+    """RecurrentGemma-2B's published widths cut to 2 float32 layers, an
+    RG-LRU then a local attention layer (its own pattern cycles rglru,
+    rglru, local, whose first two layers hold no attention): one sequence
+    of RGEMMA_CHECK_SEQ tokens past the window of 2048, whose ring wraps
+    in the decode; the attention at d = 256 on the f32 FMA route."""
+    from repro_torch.configs.recurrentgemma_2b import CONFIG
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32",
+                              block_pattern=("rglru", "local"))
+    return recurrent_check(fmod, dmod, seed, "rgemma_check", cfg, 1,
+                           RGEMMA_CHECK_SEQ, RGEMMA_POSITIONS)
+
+
+def phase_xlstm_check(fmod, dmod, seed: int) -> dict:
+    """xLSTM-125M's published widths cut to 2 float32 layers, an sLSTM then
+    an mLSTM, batch 2 x 128 at every position; no attention launch."""
+    from repro_torch.configs.xlstm_125m import CONFIG
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32",
+                              block_pattern=("slstm", "mlstm"))
+    return recurrent_check(fmod, dmod, seed, "xlstm_check", cfg, 2,
+                           LM_PROMPT)
+
+
+def phase_rgemma_serve(fmod, dmod, seed: int) -> dict:
+    """Full RecurrentGemma-2B in bf16 (26 layers, 7.1 GB of weights):
+    serve, a 4096-token prefill forward whose window bites in the 8 local
+    layers, and decode against the forward, every launch at d = 256."""
+    return serve_phase(fmod, dmod, seed, "recurrentgemma_2b", RGEMMA_PREFILL,
+                       "rgemma_serve")
+
+
+def phase_xlstm_serve(fmod, dmod, seed: int) -> dict:
+    """Full xLSTM-125M in bf16 (12 layers): serve, a 2048-token prefill
+    forward and decode against the forward (XLSTM_BF16_RULE), no attention
+    launch. The profiler traces a prefill of 256 tokens: the full one
+    launches about 191,000 kernels (the sLSTM's loop), whose trace alone
+    took most of a minute."""
+    return serve_phase(fmod, dmod, seed, "xlstm_125m", XLSTM_PREFILL,
+                       "xlstm_serve", profiled_tokens=256)
 
 
 def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False):
@@ -4123,6 +4489,103 @@ def time_flash_softcap(fmod, seed: int) -> dict:
             "bound_share_no_softcap": 1e3 * max(t_ops, t_bytes) / no_cap_ms}
 
 
+def time_flash_rgemma(fmod, seed: int) -> dict:
+    """The d = 256 flash instance at rgemma_serve's per-layer prefill, (1,
+    10, 4096, 256) bf16 (its single KV head repeated to the 10 query
+    heads, as `layers.attention` gives it), causal within a window of
+    2048; its plain version; SDPA with that window as a boolean mask (the
+    same function) and causal SDPA without the window (more work, the
+    fastest call SDPA has at this shape). The bound counts the valid (query,
+    key) pairs of the causal window."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(seed + 10)
+    b, h, s_len, d, window = 1, 10, RGEMMA_PREFILL, 256, 2048
+    q, k, v = attn_inputs((b, h, s_len, d), "bfloat16", gen)
+    kw = {"causal": True, "window": window}
+    ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v, **kw), 20)
+    plain_ms = cuda_ms(lambda: fmod.flash_attention_plain(q, k, v, **kw), 3,
+                       warmup=1)
+    pos = torch.arange(s_len, device=DEV)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), 20)
+    causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    per_head = sum(min(i + 1, window) for i in range(s_len))
+    flops = 4.0 * d * b * h * per_head
+    nbytes = 4 * b * h * s_len * d * q.element_size()   # q, k, v, out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"shape": [b, h, s_len, d], "dtype": "bfloat16", **kw,
+            "valid_pairs_per_head": per_head, "flops": flops,
+            "min_bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention(attn_mask= the "
+                            "causal window, bool)",
+            "sdpa_causal_no_window_ms": causal_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_split_pv": 1e3 * max(1.5 * t_ops, t_bytes),
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
+
+
+def time_recurrent_blocks(seed: int) -> dict:
+    """The recurrent blocks, plain PyTorch (no kernel of the reference, so
+    none of the port's yet), at the serve phases' bf16 widths: each
+    `*_train` at its prefill length (xLSTM-125M's sLSTM and mLSTM over
+    XLSTM_PREFILL tokens, RecurrentGemma-2B's RG-LRU scan and temporal
+    conv over RGEMMA_PREFILL) and each `*_step` at serve's batch, ms per
+    call after a synchronise; `device_ms` the kernels' own time where a
+    call launches few enough of them to trace (not the sLSTM's loop)."""
+    import torch
+    from repro_torch.configs import recurrentgemma_2b, xlstm_125m
+    from repro_torch.models import init_params, init_decode_state
+    from repro_torch.models import recurrent as R
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    xcfg = dataclasses.replace(xlstm_125m.CONFIG, n_layers=2,
+                               block_pattern=("slstm", "mlstm"))
+    rcfg = dataclasses.replace(recurrentgemma_2b.CONFIG, n_layers=1)
+    xl = init_params(xcfg, gen, device=DEV)["layers"]
+    rec = init_params(rcfg, gen, device=DEV)["layers"][0]["rec"]
+    d, w, nh = xcfg.d_model, rcfg.lru_width, xcfg.n_heads
+    x = torch.randn((1, XLSTM_PREFILL, d), device=DEV,
+                    generator=gen).bfloat16()
+    u = torch.randn((1, RGEMMA_PREFILL, w), device=DEV,
+                    generator=gen).bfloat16()
+    xs = x[:LM_BATCH, :1].expand(LM_BATCH, 1, d).contiguous()
+    us = u[:, :1].expand(LM_BATCH, 1, w).contiguous()
+    st = init_decode_state(xcfg, LM_BATCH, 2, device=DEV)["layers"]
+    h0 = R.rglru_init_state(LM_BATCH, w, device=DEV)
+    conv0 = torch.zeros((LM_BATCH, rcfg.conv_width - 1, w), device=DEV,
+                        dtype=torch.bfloat16)
+    calls = {
+        "slstm_train": (lambda: R.slstm_train(xl[0]["slstm"], x), 1, False),
+        "mlstm_train": (lambda: R.mlstm_train(xl[1]["mlstm"], x, nh), 5,
+                        True),
+        "rglru_train": (lambda: R.rglru_train(rec, u), 5, True),
+        "temporal_conv_train": (lambda: R.temporal_conv_train(
+            rec, u, rcfg.conv_width), 5, True),
+        "slstm_step": (lambda: R.slstm_step(xl[0]["slstm"], xs, st[0]), 50,
+                       True),
+        "mlstm_step": (lambda: R.mlstm_step(xl[1]["mlstm"], xs, st[1], nh),
+                       50, True),
+        "rglru_step": (lambda: R.rglru_step(rec, us, h0), 50, True),
+        "temporal_conv_step": (lambda: R.temporal_conv_step(
+            rec, us, conv0, rcfg.conv_width), 50, True),
+    }
+    out = {"dtype": "bfloat16", "train_tokens": {
+        "slstm": XLSTM_PREFILL, "mlstm": XLSTM_PREFILL,
+        "rglru": RGEMMA_PREFILL, "temporal_conv": RGEMMA_PREFILL},
+        "step_batch": LM_BATCH, "widths": {"xlstm": d, "rglru": w}}
+    with torch.inference_mode():
+        for name, (fn, repeats, trace) in calls.items():
+            out[name] = {"ms": cuda_ms(fn, repeats, warmup=1)}
+            if trace:
+                out[name]["device_ms"] = device_ms(fn, repeats)
+    return out
+
+
 def time_flash_bwd(fmod, seed: int, shape, repeats: int,
                    softcap=None) -> dict:
     """The backward kernels at `shape` (bf16, causal: the tensor-core
@@ -4206,19 +4669,18 @@ def device_ms(fn, repeats: int) -> float:
 
 def time_decode(dmod, seed: int, b: int, s_len: int,
                 repeats: int = 10, n_kv: int = 4, group: int = 8,
-                softcap=None) -> dict:
+                softcap=None, d: int = 128) -> dict:
     """The decode kernels at one layer's shape, every cache full (Yi-6B's 4
-    KV heads of 8 query heads unless given), their plain version and SDPA
-    with enable_gqa (a yardstick the port never calls; none with a softcap,
-    which no PyTorch call takes). `ms` is per eager call, host included;
-    `device_ms` the kernels' time on the card."""
+    KV heads of 8 query heads at d = 128 unless given), their plain version
+    and SDPA with enable_gqa (a yardstick the port never calls; none with a
+    softcap, which no PyTorch call takes). `ms` is per eager call, host
+    included; `device_ms` the kernels' time on the card."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed + 6)
-    d = 128
     lens = torch.full((b,), s_len, dtype=torch.int32, device=DEV)
     q, k, v, lens = decode_inputs(b, n_kv, group, s_len, "bfloat16", gen,
-                                  lens=lens)
+                                  lens=lens, d=d)
     ms = cuda_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens, softcap),
                  repeats)
     dev_ms = device_ms(lambda: dmod.decode_attention_cuda(q, k, v, lens,
@@ -4230,7 +4692,8 @@ def time_decode(dmod, seed: int, b: int, s_len: int,
     if softcap is None:
         from torch.nn.attention import SDPBackend, sdpa_kernel
         q_sdpa = q.reshape(b, n_kv * group, 1, d)
-        # Not the math backend: it would repeat K and V to 32 heads (68 GB).
+        # Not the math backend: it would repeat K and V to every query head
+        # (68 GB at decode_32k).
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
                           SDPBackend.EFFICIENT_ATTENTION,
                           SDPBackend.CUDNN_ATTENTION]):
@@ -4244,7 +4707,8 @@ def time_decode(dmod, seed: int, b: int, s_len: int,
     return {"q": list(q.shape), "kv": list(k.shape), "dtype": "bfloat16",
             "softcap": softcap, "lens": s_len, "splits": list(dmod.split_plan(
                 b, n_kv, s_len,
-                torch.cuda.get_device_properties(0).multi_processor_count)),
+                torch.cuda.get_device_properties(0).multi_processor_count,
+                d)),
             "flops": flops, "min_bytes": nbytes, "ms": ms,
             "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
@@ -4299,6 +4763,18 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
         "decode_attention_gemma_serve": time_decode(
             dmod, seed, LM_BATCH, LM_PROMPT + LM_STEPS + 1, repeats=200,
             n_kv=16, group=2),
+        # The d = 256 instances at RecurrentGemma's shapes: its prefill
+        # layer, and its MQA decode (10 query heads) over a full ring of
+        # 2048 at serve's batch and at decode_32k's.
+        "flash_attention_rgemma": time_flash_rgemma(fmod, seed),
+        "decode_attention_rgemma_serve": time_decode(
+            dmod, seed, LM_BATCH, 2048, repeats=200, n_kv=1, group=10,
+            d=256),
+        "decode_attention_rgemma_b128": time_decode(
+            dmod, seed, SHAPES["decode_32k"]["global_batch"], 2048,
+            repeats=50, n_kv=1, group=10, d=256),
+        # Plain PyTorch, candidates for later kernels (PERF.md §5).
+        "recurrent_blocks": time_recurrent_blocks(seed),
     }
     emit({"phase": "timing", **timing,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -4366,7 +4842,9 @@ def run(args) -> None:
           "flash_bwd_softcap_instances": [
               row for row in table if ("dkdv_kernel" in row
                                        or "dq_kernel" in row)
-              and ", true>" in row]})
+              and ", true>" in row],
+          # The d = 256 instances (NC = 16) of the forward and decode.
+          "d256_instances": [row for row in table if ", 16, " in row]})
     PHASE_SECONDS["build"] = info.seconds
 
     t0 = time.perf_counter()
@@ -4453,6 +4931,14 @@ def run(args) -> None:
                             args.seed)
     lm["mixtral_serve"] = timed("mixtral_serve", phase_mixtral_serve, fmod,
                                 dmod, args.seed)
+    lm["rgemma_check"] = timed("rgemma_check", phase_rgemma_check, fmod,
+                               dmod, args.seed)
+    lm["xlstm_check"] = timed("xlstm_check", phase_xlstm_check, fmod, dmod,
+                              args.seed)
+    lm["rgemma_serve"] = timed("rgemma_serve", phase_rgemma_serve, fmod,
+                               dmod, args.seed)
+    lm["xlstm_serve"] = timed("xlstm_serve", phase_xlstm_serve, fmod, dmod,
+                              args.seed)
     timed("experts", phase_experts, args.seed)
     timing = timed("timing", phase_timing, kmod, fmod, dmod, plans, h_main,
                    h_lj, h_train, g_train, args.seed, tuned)
@@ -4474,7 +4960,11 @@ def run(args) -> None:
                    "gemma_check": lm["gemma_check"]["flash"],
                    "gemma_serve_prefill": lm["gemma_serve"]["flash"],
                    "moe_check": lm["moe_check"]["flash"],
-                   "mixtral_serve_prefill": lm["mixtral_serve"]["flash"]}
+                   "mixtral_serve_prefill": lm["mixtral_serve"]["flash"],
+                   "rgemma_check": lm["rgemma_check"]["flash"],
+                   "rgemma_serve_prefill": lm["rgemma_serve"]["flash"],
+                   "xlstm_check": lm["xlstm_check"]["flash"],
+                   "xlstm_serve_prefill": lm["xlstm_serve"]["flash"]}
     bwd_paths = {p: lm[p]["flash_bwd"] for p in train_paths}
 
     def by_route(kernel: str, routes=("tensor_core", "f32_fma")) -> dict:
@@ -4493,11 +4983,24 @@ def run(args) -> None:
                     "moe_check": lm["moe_check"]["decode"],
                     "mixtral_serve": lm["mixtral_serve"]["decode"],
                     "mixtral_serve_crosscheck":
-                        lm["mixtral_serve"]["decode_crosscheck"]}
+                        lm["mixtral_serve"]["decode_crosscheck"],
+                    "rgemma_check": lm["rgemma_check"]["decode"],
+                    "rgemma_serve": lm["rgemma_serve"]["decode"],
+                    "rgemma_serve_crosscheck":
+                        lm["rgemma_serve"]["decode_crosscheck"],
+                    "xlstm_check": lm["xlstm_check"]["decode"],
+                    "xlstm_serve": lm["xlstm_serve"]["decode"],
+                    "xlstm_serve_crosscheck":
+                        lm["xlstm_serve"]["decode_crosscheck"]}
 
     def softcapped(kernel: str) -> dict:
         """Softcapped launches by path (Gemma-2's; every other 0)."""
         return {name: path.get(f"{kernel}_softcap", 0)
+                for name, path in lm.items()}
+
+    def wide(kernel: str) -> dict:
+        """d = 256 launches by path (RecurrentGemma's; every other 0)."""
+        return {name: path.get(f"{kernel}_wide", 0)
                 for name, path in lm.items()}
     emit({"kernels": [
         {"name": "bcsr_spmm", "route": "cuda",
@@ -4541,7 +5044,14 @@ def run(args) -> None:
          "softcap_launches_by_path": softcapped("flash"),
          "gemma_prefill_softcap": {
              k: timing["flash_attention_gemma_softcap"][k]
-             for k in (*keys, "no_softcap_ms", "window", "softcap")}},
+             for k in (*keys, "no_softcap_ms", "window", "softcap")},
+         "d256_launches": sum(wide("flash").values()),
+         "d256_launches_by_path": wide("flash"),
+         "max_abs_err_d256": attn_err["flash_d256"],
+         "rgemma_prefill_d256": {
+             k: timing["flash_attention_rgemma"][k]
+             for k in (*keys, "shape", "window", "sdpa_causal_no_window_ms",
+                       "bound_ms_split_pv")}},
         {"name": "flash_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
          "replaces": "src/repro/models/layers.py:90",
@@ -4576,7 +5086,14 @@ def run(args) -> None:
              for k in (*keys, "device_ms", "softcap")},
          "gemma_serve_shape": {
              k: timing["decode_attention_gemma_serve"][k]
-             for k in (*keys, "device_ms")}}]})
+             for k in (*keys, "device_ms")},
+         "d256_launches": sum(wide("decode").values()),
+         "d256_launches_by_path": wide("decode"),
+         "max_abs_err_d256": attn_err["decode_d256"],
+         **{f"{name}_d256": {
+             k: timing[f"decode_attention_{name}"][k]
+             for k in (*keys, "device_ms", "q", "kv", "splits")}
+            for name in ("rgemma_serve", "rgemma_b128")}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,10 @@
 """Serve a small LM of the PyTorch port with batched requests through the
 decode path.
 
-`examples/lm_serve.py` serves the recurrentgemma smoke config; its
-recurrent blocks are not ported yet (ROADMAP queue 1 item 8), so this
-example serves the dense Yi-6B smoke config through the same `serve`, with
-the same batch, prompt length, step count and check. On the card every
-decode step runs the GQA flash-decode kernel.
+Uses the recurrentgemma smoke config (hybrid RG-LRU + local attention),
+as `examples/lm_serve.py` does, through the same `serve`, with the same
+batch, prompt length, step count and check. On the card every decode step
+runs the GQA flash-decode kernel in its local layer.
 
 Run:  PYTHONPATH=src python examples/lm_serve_torch.py [--device cpu]
 """
@@ -27,7 +26,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    cfg = get_config("yi_6b", smoke=True)
+    cfg = get_config("recurrentgemma_2b", smoke=True)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(4, 6),

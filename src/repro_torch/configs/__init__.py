@@ -5,9 +5,11 @@ Each LM module defines CONFIG (full size, from public literature; served
 on the card) and SMOKE (reduced same-family config for CPU tests), the
 same values as `repro.configs`. The port's transformer runs the dense GQA
 archs (Yi-6B, Yi-9B, DeepSeek-7B), Gemma-2 27B (sliding-window layers
-with ring caches, both softcaps) and the MoE archs Mixtral 8x22B and Kimi
+with ring caches, both softcaps), the MoE archs Mixtral 8x22B and Kimi
 K2 (every layer an MOE block; as in the reference, Mixtral's sliding
-window is applied to no layer). `get_config` of any other id raises and
+window is applied to no layer) and the recurrent archs xLSTM-125M (sLSTM
+and mLSTM blocks) and RecurrentGemma-2B (RG-LRU blocks and local
+attention at head dim 256). `get_config` of any other id raises and
 names the ROADMAP item that brings it, so no caller gets a config the
 model would mis-run.
 """
@@ -31,10 +33,8 @@ _ARCH_IDS: List[str] = [
 
 _ITEM = "ROADMAP.md queue 1 item 8"
 _NOT_PORTED: Dict[str, str] = {
-    "xlstm_125m": f"mLSTM/sLSTM recurrent blocks ({_ITEM}: recurrent.py)",
     "seamless_m4t_medium": f"the encoder-decoder and its audio frontend "
                            f"({_ITEM})",
-    "recurrentgemma_2b": f"RG-LRU recurrent blocks and ring caches ({_ITEM})",
     "qwen2_vl_72b": f"M-RoPE and the vision frontend ({_ITEM})",
 }
 

@@ -45,19 +45,27 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // Head dims are padded (with zeros, in shared memory and registers) to
-// 16 * NC, NC in {1, 2, 4, 8}: d <= 128.
-constexpr int MAX_HEAD_DIM = 128;
+// 16 * NC, NC in {1, 2, 4, 8, 16}: d <= 256 in the forward and decode
+// kernels. The backward stops at NC = 8, d <= 128: its dK/dV kernel is at
+// 255 registers there, so d = 256 needs tiles of its own (ROADMAP.md K5).
+constexpr int MAX_HEAD_DIM = 256;
+constexpr int MAX_BWD_HEAD_DIM = 128;
 
-// Calls fn.template operator()<T, NC>() for the dtype code and head dim;
-// returns cudaErrorInvalidValue for a combination no instance covers.
-template <typename Fn>
+// Calls fn.template operator()<T, NC>() for the dtype code and head dim,
+// up to MAX_D; returns cudaErrorInvalidValue for a combination no instance
+// covers.
+template <int MAX_D = MAX_HEAD_DIM, typename Fn>
 cudaError_t dispatch(int dtype, int d, Fn fn) {
+  static_assert(MAX_D == 128 || MAX_D == 256, "NC 8 or 16 at most");
   auto by_dim = [&](auto tag) -> cudaError_t {
     using T = decltype(tag);
     if (d <= 16) return fn.template operator()<T, 1>();
     if (d <= 32) return fn.template operator()<T, 2>();
     if (d <= 64) return fn.template operator()<T, 4>();
-    if (d <= MAX_HEAD_DIM) return fn.template operator()<T, 8>();
+    if (d <= 128) return fn.template operator()<T, 8>();
+    if constexpr (MAX_D == 256) {
+      if (d <= 256) return fn.template operator()<T, 16>();
+    }
     return cudaErrorInvalidValue;
   };
   if (d < 1) return cudaErrorInvalidValue;
@@ -83,16 +91,17 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
 // are taken in 128-byte lines, chunk c of line n at c ^ (n % 8). ldmatrix
 // reads eight consecutive rows at one column chunk; the swizzle sends those
 // eight 16-byte reads to eight distinct groups of four banks, where the
-// plain layout would serialise up to eight of them (rows of 256 bytes all
-// start in bank 0). Tiles start at offsets that are multiples of 1024
-// bytes.
+// plain layout would serialise up to eight of them (rows of 256 or 512
+// bytes all start in bank 0). Tiles start at offsets that are multiples of
+// 1024 bytes.
 // ---------------------------------------------------------------------------
 
 template <int DP>
 __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
   constexpr int ROW_BYTES = 2 * DP;
-  constexpr int SHIFT = ROW_BYTES >= 256 ? 8 : 7;   // row (or line) index
-  static_assert(ROW_BYTES <= 256, "DP <= 128");
+  constexpr int SHIFT =                            // row (or line) index
+      ROW_BYTES >= 512 ? 9 : ROW_BYTES >= 256 ? 8 : 7;
+  static_assert(ROW_BYTES <= 512, "DP <= 256");
   return off ^ (((off >> SHIFT) & 7u) << 4);
 }
 

@@ -9,7 +9,8 @@
 //                  v[b,h,t,:]
 //
 // with an f32 softmax and accumulator. q (B, n_kv, group, d) and k, v
-// (B, n_kv, S, d) are f32, f16 or bf16; the output is in q's type.
+// (B, n_kv, S, d) are f32, f16 or bf16, d <= 256; the output is in q's
+// type.
 //
 // With an attention softcap (softcap > 0, Gemma-2's; the TPU kernel has
 // none, so this follows the reference's _decode_attn in
@@ -56,7 +57,13 @@
 //   - At the end the 4 warps merge through shared memory into the split's
 //     (max, sum, accumulator).
 //   At d = 128: 100 KiB of dynamic shared memory, two blocks per SM; ptxas
-//   (CUDA 12.8) gives 199-202 registers and no spills. On an H100 80GB HBM3
+//   (CUDA 12.8) gives 199-202 registers and no spills. At d = 256 (NC = 16,
+//   RecurrentGemma's MQA decode, group 10; 129-255 pad to it) the 16 x 256
+//   accumulator takes 128 registers a lane, so Q is reloaded from shared
+//   memory by ldmatrix at each k-step instead of held (8 k-steps unrolled
+//   at once: 243-250 registers, no spills); the ring keeps STAGES = 3,
+//   200 KiB, one block per SM, and the wrapper's split plan asks for half
+//   the blocks (decode_attn.py, BLOCKS_PER_SM_WIDE). On an H100 80GB HBM3
 //   at 700 W it reads decode_32k's 8.59 GB cache in 2.82-2.85 ms, 3.0 TB/s
 //   and 90% of the bound.
 // * f32: the FMA kernel of the port's first version (namespace f32fma),
@@ -64,7 +71,7 @@
 //   the f32 route's per-element limit rules out. It stages each tile widened
 //   to f32 in a (d + 1)-padded layout, one thread per position for the
 //   scores, one warp per query head for the softmax, one thread per column
-//   for P·V.
+//   for P·V (two at d = 256).
 //
 // What the first version (now the f32 route) measured when it served every
 // dtype, on an H100 80GB HBM3 at 700 W, bf16 at decode_32k: 21.09-21.33
@@ -94,7 +101,9 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int DP = 16 * NC;                 // padded head dim
   const float inv_cap = CAP ? 1.0f / softcap : 0.0f;
   constexpr int KST = DP + 1;                 // shared row stride
-  constexpr int GSTRIDE = THREADS / DP;       // query heads between a
+  constexpr int COLS = DP < THREADS ? DP : THREADS;  // columns a pass takes
+  constexpr int CPT = DP / COLS;              // a thread's columns (d = 256: 2)
+  constexpr int GSTRIDE = THREADS / COLS;     // query heads between a
   constexpr int NG = (MAX_GROUP + GSTRIDE - 1) / GSTRIDE;  // thread's own
   const int split = blockIdx.x;
   const int n_splits = gridDim.x;
@@ -127,11 +136,11 @@ __global__ void __launch_bounds__(THREADS)
     l_s[g] = 0.0f;
   }
 
-  const int pc = tid % DP;           // P.V: this thread's column
-  const int pg = tid / DP;           // ... and its first query head
-  float acc[NG];
+  const int pc = tid % COLS;         // P.V: this thread's first column
+  const int pg = tid / COLS;         // ... and its first query head
+  float acc[NG * CPT];
 #pragma unroll
-  for (int i = 0; i < NG; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < NG * CPT; ++i) acc[i] = 0.0f;
 
   for (int t0 = start; t0 < end; t0 += TILE) {
     __syncthreads();                 // the previous tile is consumed
@@ -204,18 +213,24 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    // P.V: column pc of query heads pg, pg + GSTRIDE, ...
+    // P.V: columns pc, pc + COLS, ... of query heads pg, pg + GSTRIDE, ...
 #pragma unroll
     for (int i = 0; i < NG; ++i) {
       const int g = pg + i * GSTRIDE;
-      if (g < group) acc[i] *= a_s[g];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        if (g < group) acc[i * CPT + c] *= a_s[g];
     }
     for (int j = 0; j < TILE; ++j) {
-      const float vv = vs[j * KST + pc];
 #pragma unroll
-      for (int i = 0; i < NG; ++i) {
-        const int g = pg + i * GSTRIDE;
-        if (g < group) acc[i] = fmaf(ps[g * TILE + j], vv, acc[i]);
+      for (int c = 0; c < CPT; ++c) {
+        const float vv = vs[j * KST + pc + c * COLS];
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          const int g = pg + i * GSTRIDE;
+          if (g < group)
+            acc[i * CPT + c] = fmaf(ps[g * TILE + j], vv, acc[i * CPT + c]);
+        }
       }
     }
   }
@@ -228,7 +243,12 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < NG; ++i) {
     const int g = pg + i * GSTRIDE;
-    if (g < group && pc < d) acc_part[(row + g) * d + pc] = acc[i];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int col = pc + c * COLS;
+      if (g < group && col < d)
+        acc_part[(row + g) * d + col] = acc[i * CPT + c];
+    }
   }
 }
 
@@ -240,6 +260,17 @@ namespace tc {
 constexpr int STAGES = 3;            // K/V tiles in the ring
 constexpr int WARPS = THREADS / 32;  // each takes TILE / WARPS positions
 static_assert(TILE == 16 * WARPS, "one 16-position MMA step per warp");
+
+// d = 256 (NC = 16): the 16 x 256 accumulator takes 128 registers a lane,
+// so Q's A fragments are not held for the tile loop (64 more) but reloaded
+// from shared memory by ldmatrix at each k-step.
+template <int NC>
+constexpr bool WIDE = NC > 8;
+// d = 256: the k-steps of Q.K^T unrolled at once. All 16 let ptxas hoist
+// the fragment loads of every step and spill (16-20 bytes at 255
+// registers); 8 spills none, and of 16, 8, 4, 2 and 1 it was the fastest
+// flash at RecurrentGemma's prefill layer (H100 80GB HBM3, 700 W).
+constexpr int WIDE_KK_UNROLL = 8;
 
 template <int NC>
 __host__ __device__ constexpr int smem_bytes() {
@@ -311,7 +342,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int v_col = (lane >> 4) * 8;
   const int g = lane >> 2, t = lane & 3;
 
-  uint32_t qf[NC][4];
+  const uint32_t qs = attn::smem_addr(smem);
+  uint32_t qf[WIDE<NC> ? 1 : NC][4];  // Q's A fragments (d <= 128 only)
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
@@ -321,12 +353,14 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int it = 0; it < n_tiles; ++it) {
     attn::cp_async_wait<STAGES - 2>();
     __syncthreads();                 // tile it landed; tile it - 1 consumed
-    if (it == 0) {
-      const uint32_t qs = attn::smem_addr(smem);
+    if constexpr (!WIDE<NC>) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < NC; ++kk)
-        attn::ldmatrix_x4(
-            qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2), qf[kk]);
+        for (int kk = 0; kk < NC; ++kk)
+          attn::ldmatrix_x4(
+              qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2),
+              qf[kk]);
+      }
     }
     if (it + STAGES - 1 < n_tiles) load_kv(it + STAGES - 1);
     attn::cp_async_commit();
@@ -336,13 +370,26 @@ __global__ void __launch_bounds__(THREADS, 2)
     const uint32_t vs = ks + TB;
 
     float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    if constexpr (WIDE<NC>) {
+#pragma unroll(WIDE_KK_UNROLL)
+      for (int kk = 0; kk < NC; ++kk) {
+        uint32_t a[4], b[4];
+        attn::ldmatrix_x4(
+            qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2), a);
+        attn::ldmatrix_x4(
+            ks + attn::swizzle<DP>((k_row * DP + kk * 16 + k_col) * 2), b);
+        attn::mma_16816<T>(s[0], a, b[0], b[1]);
+        attn::mma_16816<T>(s[1], a, b[2], b[3]);
+      }
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < NC; ++kk) {
-      uint32_t b[4];
-      attn::ldmatrix_x4(
-          ks + attn::swizzle<DP>((k_row * DP + kk * 16 + k_col) * 2), b);
-      attn::mma_16816<T>(s[0], qf[kk], b[0], b[1]);
-      attn::mma_16816<T>(s[1], qf[kk], b[2], b[3]);
+      for (int kk = 0; kk < NC; ++kk) {
+        uint32_t b[4];
+        attn::ldmatrix_x4(
+            ks + attn::swizzle<DP>((k_row * DP + kk * 16 + k_col) * 2), b);
+        attn::mma_16816<T>(s[0], qf[kk], b[0], b[1]);
+        attn::mma_16816<T>(s[1], qf[kk], b[2], b[3]);
+      }
     }
     if constexpr (CAP) {             // every score of the tile, then mask
 #pragma unroll
@@ -431,9 +478,12 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 }  // namespace tc
 
-// One block per (kv head, b): out = sum_s acc_s e^(m_s - M) /
+// Blocks of (kv head, b, part): out = sum_s acc_s e^(m_s - M) /
 // max(sum_s l_s e^(m_s - M), 1e-30) over the splits that hold a valid
-// position; 0 where lens[b] is 0.
+// position; 0 where lens[b] is 0. Each thread takes one (query head,
+// column) of the part's THREADS, so that a few (b, kv head) pairs over many
+// splits (RecurrentGemma's MQA decode: 4 pairs, 32 splits) do not leave a
+// few blocks to walk every split for 20 elements each.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     decode_combine_kernel(const float* __restrict__ m_part,
@@ -446,7 +496,8 @@ __global__ void __launch_bounds__(THREADS)
       static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   const int len = max(0, min(lens[blockIdx.y], S));
   const int n_valid = (len + chunk - 1) / chunk;
-  for (int e = threadIdx.x; e < group * d; e += blockDim.x) {
+  for (int e = blockIdx.z * blockDim.x + threadIdx.x; e < group * d;
+       e += blockDim.x * gridDim.z) {
     const int g = e / d;
     const int c = e % d;
     float big = -INFINITY;
@@ -513,7 +564,8 @@ struct Launch {
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    decode_combine_kernel<T><<<dim3(n_kv, b), THREADS, 0, stream>>>(
+    const unsigned parts = (group * d + THREADS - 1) / THREADS;
+    decode_combine_kernel<T><<<dim3(n_kv, b, parts), THREADS, 0, stream>>>(
         m_part, l_part, acc_part, lens, static_cast<T*>(out), s, d, group,
         chunk, n_splits);
     return cudaGetLastError();
@@ -530,7 +582,7 @@ struct Launch {
 // Launches both kernels on `stream` without synchronising; returns
 // cudaGetLastError(). q, out (b, n_kv, group, d); k, v (b, n_kv, s, d); all
 // contiguous and of one dtype (attn::F32, F16 or BF16); lens (b,) int32 on
-// the card; d <= 128, group <= 16; chunk a multiple of 64 with
+// the card; d <= 256, group <= 16; chunk a multiple of 64 with
 // n_splits * chunk >= s; softcap 0 means no attention softcap. Scratch,
 // f32: m_part and l_part (b, n_kv, n_splits, group), acc_part
 // (b, n_kv, n_splits, group, d).

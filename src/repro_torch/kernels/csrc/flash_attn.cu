@@ -9,8 +9,9 @@
 // over the keys j <= i (causal) and j > i - window (window > 0), with an
 // online softmax whose row max, row sum and accumulator are f32. A row with
 // no valid key writes 0, as the TPU kernel's max(l, 1e-30) does. q, k, v
-// are (B, H, S, d) f32, f16 or bf16; the output is in q's type. S need not
-// be a multiple of any tile: the ragged edge is masked, never padded.
+// are (B, H, S, d) f32, f16 or bf16, d <= 256 (the TPU kernel takes any d);
+// the output is in q's type. S need not be a multiple of any tile: the
+// ragged edge is masked, never padded.
 //
 // With an attention softcap (softcap > 0, Gemma-2's; the TPU kernel has
 // none, so this follows the reference's _attn_core in
@@ -59,8 +60,16 @@
 //     per-element limit against the f32 plain version (one output ulp) by
 //     two orders of magnitude; hi + lo keeps it within (attention.cuh,
 //     split_pair; tests/test_torch_attention.py emulates both);
-//   - head dims d <= 128 are padded to DP = 16·NC with zeros in shared
-//     memory; query tiles are scheduled longest first.
+//   - head dims are padded to DP = 16·NC with zeros in shared memory;
+//     query tiles are scheduled longest first.
+//   - d = 256 (NC = 16, RecurrentGemma's head dim; 129-255 pad to it) has
+//     its own tile plan (tc::Plan): the 16 x 256 f32 accumulator alone takes
+//     128 registers a lane, so Q is not held as A fragments (64 more) but
+//     stays in shared memory, reloaded by ldmatrix at each k-step, 8 k-steps
+//     unrolled at once; 4 warps over BQ = 64 query rows and 32-key tiles:
+//     32 KiB of Q and 2 stages of 16 + 16 KiB, two blocks per SM. ptxas
+//     (CUDA 12.8) gives 254 registers and no spills (all 16 k-steps
+//     unrolled spill 16 bytes). The d <= 128 instances are unchanged.
 //   At d = 128: 32 KiB of Q and STAGES·2 tiles of 16 KiB = 96 KiB of dynamic
 //   shared memory, one block (8 warps) per SM; ptxas (CUDA 12.8) gives 255
 //   registers and 88 bytes of spill stores and loads (fewer registers and
@@ -223,24 +232,48 @@ __global__ void __launch_bounds__(THREADS)
 
 namespace tc {
 
-constexpr int WARPS = 8;             // of 16 query rows each
-constexpr int BQ = 16 * WARPS;       // query rows per block
-constexpr int THREADS = 32 * WARPS;
-constexpr int BK = 64;               // keys per tile
-constexpr int STAGES = 2;            // K/V tiles in the ring
-constexpr int MIN_BLOCKS = 1;        // per SM, for the register budget
+// The tile plan of d <= 128 (NC <= 8; the constants that
+// scripts/flash_variants.py varies): 8 warps of 16 query rows, BQ = 128, Q
+// held in registers as A fragments for the whole key loop, 64-key tiles in
+// a ring of 2, one block per SM.
+constexpr int WARPS = 8;
+constexpr int STAGES = 2;
+constexpr int MIN_BLOCKS = 1;
+constexpr int BK = 64;
+
+// d = 256 (NC = 16, WIDE): the O accumulator alone takes 128 registers a
+// thread, so Q stays in shared memory and each k-step reloads its A
+// fragment by ldmatrix (FlashAttention-2's choice at d = 256); 4 warps,
+// BQ = 64, 32-key tiles, so that Q (32 KiB) and two stages of K and V
+// (64 KiB) fit twice on an SM.
+// d = 256: the k-steps of Q.K^T unrolled at once. All 16 let ptxas hoist
+// the fragment loads of every step and spill (16-20 bytes at 255
+// registers); 8 spills none, and of 16, 8, 4, 2 and 1 it was the fastest
+// flash at RecurrentGemma's prefill layer (H100 80GB HBM3, 700 W).
+constexpr int WIDE_KK_UNROLL = 8;
 
 template <int NC>
-__host__ __device__ constexpr int smem_bytes() {
-  return (BQ + 2 * STAGES * BK) * 16 * NC * 2;  // Q, then K, V per stage
-}
+struct Plan {
+  static constexpr bool WIDE = NC > 8;
+  static constexpr int WARPS = WIDE ? 4 : tc::WARPS;
+  static constexpr int BQ = 16 * WARPS;          // query rows per block
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BK = WIDE ? 32 : tc::BK;  // keys per tile
+  static constexpr int STAGES = tc::STAGES;      // K/V tiles in the ring
+  static constexpr int MIN_BLOCKS = WIDE ? 2 : tc::MIN_BLOCKS;  // per SM
+  // Q, then K, V per stage.
+  static constexpr int SMEM = (BQ + 2 * STAGES * BK) * 16 * NC * 2;
+};
 
 template <typename T, int NC, bool CAP>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       float* __restrict__ lse, int S, int d, float scale,
                       int causal, int window, float softcap, int vec) {
+  using P = Plan<NC>;
+  constexpr int BQ = P::BQ, BK = P::BK, STAGES = P::STAGES;
+  constexpr int THREADS = P::THREADS;
   constexpr int DP = 16 * NC;        // padded head dim
   constexpr int QB = BQ * DP * 2;    // bytes of the Q tile
   constexpr int TILE = BK * DP * 2;  // bytes of a K or V tile
@@ -293,8 +326,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0 + 8
+  const uint32_t qs = attn::smem_addr(smem);
 
-  uint32_t qf[NC][4];
+  uint32_t qf[P::WIDE ? 1 : NC][4];  // Q's A fragments (d <= 128 only)
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
@@ -304,12 +338,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   for (int it = 0; it < n_tiles; ++it) {
     attn::cp_async_wait<STAGES - 2>();
     __syncthreads();                 // tile it landed; tile it - 1 consumed
-    if (it == 0) {
-      const uint32_t qs = attn::smem_addr(smem);
+    if constexpr (!P::WIDE) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < NC; ++kk)
-        attn::ldmatrix_x4(
-            qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2), qf[kk]);
+        for (int kk = 0; kk < NC; ++kk)
+          attn::ldmatrix_x4(
+              qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2),
+              qf[kk]);
+      }
     }
     if (it + STAGES - 1 < n_tiles) load_kv(it + STAGES - 1);
     attn::cp_async_commit();
@@ -321,16 +357,34 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     float s[BK / 8][4];
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < NC; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t b[4];
+    if constexpr (P::WIDE) {
+#pragma unroll(WIDE_KK_UNROLL)
+      for (int kk = 0; kk < NC; ++kk) {
+        uint32_t a[4];                 // Q's fragment for this k-step
         attn::ldmatrix_x4(
-            ks + attn::swizzle<DP>(((np * 16 + k_row) * DP + kk * 16 + k_col) * 2),
-            b);
-        attn::mma_16816<T>(s[2 * np], qf[kk], b[0], b[1]);
-        attn::mma_16816<T>(s[2 * np + 1], qf[kk], b[2], b[3]);
+            qs + attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2), a);
+#pragma unroll
+        for (int np = 0; np < BK / 16; ++np) {
+          uint32_t b[4];
+          attn::ldmatrix_x4(
+              ks + attn::swizzle<DP>(((np * 16 + k_row) * DP + kk * 16 + k_col) * 2),
+              b);
+          attn::mma_16816<T>(s[2 * np], a, b[0], b[1]);
+          attn::mma_16816<T>(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+#pragma unroll
+        for (int np = 0; np < BK / 16; ++np) {
+          uint32_t b[4];
+          attn::ldmatrix_x4(
+              ks + attn::swizzle<DP>(((np * 16 + k_row) * DP + kk * 16 + k_col) * 2),
+              b);
+          attn::mma_16816<T>(s[2 * np], qf[kk], b[0], b[1]);
+          attn::mma_16816<T>(s[2 * np + 1], qf[kk], b[2], b[3]);
+        }
       }
     }
 
@@ -440,15 +494,16 @@ struct Launch {
               static_cast<const T*>(v), static_cast<T*>(out), lse, s, d,
               scale, causal, window, softcap);
     } else {
-      constexpr size_t smem = tc::smem_bytes<NC>();
+      using P = tc::Plan<NC>;
+      constexpr size_t smem = P::SMEM;
       cudaError_t err = attn::allow_smem(
           reinterpret_cast<const void*>(tc::flash_attn_kernel<T, NC, CAP>),
           smem);
       if (err != cudaSuccess) return err;
       const void* rows[3] = {q, k, v};
       const int vec = attn::copy_width(d, rows, 3);
-      const dim3 grid((s + tc::BQ - 1) / tc::BQ, h, b);
-      tc::flash_attn_kernel<T, NC, CAP><<<grid, tc::THREADS, smem, stream>>>(
+      const dim3 grid((s + P::BQ - 1) / P::BQ, h, b);
+      tc::flash_attn_kernel<T, NC, CAP><<<grid, P::THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(out), lse, s, d, scale,
           causal, window, softcap, vec);
@@ -466,7 +521,7 @@ struct Launch {
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // q, k, v, out (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or
-// BF16); lse (b, h, s) f32, or null to write none; d <= 128; window 0
+// BF16); lse (b, h, s) f32, or null to write none; d <= 256; window 0
 // means no sliding window, softcap 0 no attention softcap.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, float* lse, int b, int h, int s,

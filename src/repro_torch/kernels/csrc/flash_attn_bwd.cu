@@ -6,7 +6,8 @@
 // attention core (repro/models/layers.py::_attn_core); the TPU package has
 // no Pallas backward. It differentiates what flash_attn.cu computes, under
 // the same causal and window masks, for q, k, v, out, dout (B, H, S, d) of
-// one type (f32, f16 or bf16), d <= 128, and the forward's row log-sum-exp
+// one type (f32, f16 or bf16), d <= 128 (attn::MAX_BWD_HEAD_DIM; the
+// forward goes to 256), and the forward's row log-sum-exp
 // lse (B, H, S) f32, in natural-log units:
 //
 //   D_i   = sum_d dO_i . O_i                       (pre-pass, f32)
@@ -948,5 +949,6 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                       delta, dq, dk, dv,     b,      h,
                       s,  d,  causal, window, scale, softcap,
                       static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(attn::dispatch(dtype, d, launch));
+  return static_cast<int>(
+      attn::dispatch<attn::MAX_BWD_HEAD_DIM>(dtype, d, launch));
 }

@@ -7,7 +7,7 @@ beside their plain PyTorch version.
 
 softmax and accumulator in float32, the output in q's dtype; a sequence
 with lens[b] = 0 gives 0. q is (B, n_kv, group, d), k and v (B, n_kv, S, d),
-one dtype (float32, float16 or bfloat16), lens (B,) int32; d <= 128,
+one dtype (float32, float16 or bfloat16), lens (B,) int32; d <= 256,
 group <= 16. Positions at or past lens[b] are masked, never read: the cache
 needs no padding. With an attention softcap c each valid score x becomes
 c · tanh(x / c) before the softmax, as in the reference's `_decode_attn`.
@@ -39,17 +39,22 @@ from repro_torch.kernels.flash_attn import (
 )
 
 # Calls of `decode_attention_cuda` in this process (split + combine each),
-# in all, by route and with a softcap.
+# in all, by route, with a softcap and at d > 128.
 DECODE_LAUNCHES = 0
 DECODE_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 DECODE_SOFTCAP_LAUNCHES = 0
+DECODE_WIDE_LAUNCHES = 0     # at head dims 129-256 (NC = 16)
 
 MAX_GROUP = 16         # must match MAX_GROUP in csrc/decode_attn.cu
 TILE = 64              # cache positions per shared tile (TILE in the source)
 # Split blocks wanted for each SM of the card: two 16-bit split blocks fit
-# on an SM at d = 128 (100 KiB of shared memory each), so 8 is four waves,
-# and the last, partly filled wave costs a quarter of one at most.
+# on an SM at d <= 128 (100 KiB of shared memory each at d = 128), so 8 is
+# four waves, and the last, partly filled wave costs a quarter of one at
+# most. At d = 256 a block takes 200 KiB (three stages of 64-position K and
+# V tiles, each twice as wide; two stages would still not fit twice), one
+# block an SM, so 4 is the same four waves.
 BLOCKS_PER_SM = 8
+BLOCKS_PER_SM_WIDE = 4
 _MAX_CHUNK = 4096      # positions per split, so long caches split anyway
 
 
@@ -95,13 +100,16 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(b: int, n_kv: int, s_len: int, n_sm: int) -> tuple:
+def split_plan(b: int, n_kv: int, s_len: int, n_sm: int,
+               d: int = 128) -> tuple:
     """(chunk, n_splits): positions per split, a multiple of TILE, and the
-    number of splits. Enough splits for BLOCKS_PER_SM blocks on each of the
-    card's `n_sm` SMs, and none longer than _MAX_CHUNK, but never less than
-    one tile each. Cached per shape: a decode step asks once per layer."""
+    number of splits. Enough splits for BLOCKS_PER_SM blocks
+    (BLOCKS_PER_SM_WIDE at head dims d > 128) on each of the card's `n_sm`
+    SMs, and none longer than _MAX_CHUNK, but never less than one tile
+    each. Cached per shape: a decode step asks once per layer."""
+    per_sm = BLOCKS_PER_SM if d <= 128 else BLOCKS_PER_SM_WIDE
     tiles = -(-s_len // TILE)
-    want = max(-(-BLOCKS_PER_SM * n_sm // (b * n_kv)),
+    want = max(-(-per_sm * n_sm // (b * n_kv)),
                -(-s_len // _MAX_CHUNK))
     chunk = max(1, tiles // want) * TILE
     return chunk, -(-s_len // chunk)
@@ -129,7 +137,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one allocation from PyTorch's caching allocator (allocations were the
     largest part of the wrapper's host time, as
     scripts/decode_wrapper_time.py measures it)."""
-    global DECODE_LAUNCHES, DECODE_SOFTCAP_LAUNCHES
+    global DECODE_LAUNCHES, DECODE_SOFTCAP_LAUNCHES, DECODE_WIDE_LAUNCHES
     _check(q, k, v, lens)
     cap = softcap_value(softcap)
     if q.device.type != "cuda":
@@ -148,7 +156,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    chunk, n_splits = split_plan(b, n_kv, s_len, sm_count(q.device.index))
+    chunk, n_splits = split_plan(b, n_kv, s_len, sm_count(q.device.index), d)
     # One f32 scratch allocation (its parts are read and written as scalars):
     # m_part and l_part (b, n_kv, n_splits, group), acc_part (..., d).
     n_part = b * n_kv * n_splits * group
@@ -169,6 +177,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     DECODE_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
     if cap:
         DECODE_SOFTCAP_LAUNCHES += 1
+    if d > 128:
+        DECODE_WIDE_LAUNCHES += 1
     return out
 
 

@@ -9,7 +9,8 @@
 over the keys j <= i (causal) and j > i - window (window > 0), softmax and
 accumulator in float32, the output in q's dtype; a row with no valid key
 gives 0. q, k, v are (B, H, S, d) of one dtype (float32, float16 or
-bfloat16), d <= 128; S need not be a multiple of any block. For training
+bfloat16), d <= 256 (the backward d <= 128: `BWD_MAX_HEAD_DIM`); S need not
+be a multiple of any block. For training
 the forward also writes each row's log-sum-exp `lse` (B, H, S) f32,
 m + log l in natural-log units (-inf for a row with no valid key), from
 which the backward recomputes the probabilities:
@@ -45,14 +46,15 @@ import torch
 
 from repro_torch.kernels.build import entry
 
-# Kernel launches made in this process, in all, by route and with a
-# softcap: the forward by `flash_attention_cuda` (inference and
+# Kernel launches made in this process, in all, by route, with a softcap
+# and (the forward) at d > 128: the forward by `flash_attention_cuda` (inference and
 # `FlashAttention.forward`, the recompute of a checkpointed layer among
 # them), the backward by `flash_attention_bwd_cuda`
 # (`FlashAttention.backward`).
 FLASH_LAUNCHES = 0
 FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_SOFTCAP_LAUNCHES = 0
+FLASH_WIDE_LAUNCHES = 0      # the forward at head dims 129-256 (NC = 16)
 FLASH_BWD_LAUNCHES = 0
 FLASH_BWD_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_BWD_SOFTCAP_LAUNCHES = 0
@@ -63,7 +65,8 @@ ROUTES = {torch.float32: "f32_fma", torch.float16: "tensor_core",
           torch.bfloat16: "tensor_core"}
 # ... and in csrc/flash_attn_bwd.cu.
 BWD_ROUTES = dict(ROUTES)
-MAX_HEAD_DIM = 128     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
+MAX_HEAD_DIM = 256     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
+BWD_MAX_HEAD_DIM = 128  # ... and attn::MAX_BWD_HEAD_DIM
 _ITEM = "ROADMAP.md queue 1 item 8"
 
 
@@ -197,9 +200,19 @@ def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name} has no backward: the decode kernel serves decode steps "
             "only, and LM training attends through the flash kernels (what "
-            f"is left of the LM side, {_ITEM}: recurrent blocks, other "
-            "archs). Call it under torch.no_grad() or "
+            f"is left of the LM side, {_ITEM}: M-RoPE, the "
+            "encoder-decoder). Call it under torch.no_grad() or "
             "torch.inference_mode(), or on inputs that do not require grad")
+
+
+def refuse_wide_backward(d: int) -> None:
+    """The backward kernels stop at d = BWD_MAX_HEAD_DIM: raise, before any
+    launch, for a wider head."""
+    if d > BWD_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the flash backward kernels take head dims up to "
+            f"{BWD_MAX_HEAD_DIM}, got {d}: d = 256 needs a tile design of "
+            "its own (ROADMAP.md K5); the forward takes it")
 
 
 def _check_cuda(name: str, window: int, softcap: Optional[float],
@@ -228,7 +241,7 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One forward launch on PyTorch's current stream (no synchronise);
     writes lse only when asked (inference passes a null pointer)."""
-    global FLASH_LAUNCHES, FLASH_SOFTCAP_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_SOFTCAP_LAUNCHES, FLASH_WIDE_LAUNCHES
     _check(q, k, v)
     cap = _check_cuda("flash_attention_cuda", window, softcap, q=q, k=k, v=v)
     b, h, s_len, d = q.shape
@@ -251,6 +264,8 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     FLASH_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
     if cap:
         FLASH_SOFTCAP_LAUNCHES += 1
+    if d > BWD_MAX_HEAD_DIM:
+        FLASH_WIDE_LAUNCHES += 1
     return out, lse
 
 
@@ -275,8 +290,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch the backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's
     current stream, counted as one launch: (dq, dk, dv) in q's dtype.
     `softcap` is the forward's, whose lse (over the softcapped scores) this
-    takes. Raises on any operand the kernels do not take."""
+    takes. Raises on any operand the kernels do not take, d >
+    BWD_MAX_HEAD_DIM first (`refuse_wide_backward`)."""
     global FLASH_BWD_LAUNCHES, FLASH_BWD_SOFTCAP_LAUNCHES
+    refuse_wide_backward(q.shape[-1])
     _check(q, k, v, out, dout)
     cap = _check_cuda("flash_attention_bwd_cuda", window, softcap, q=q, k=k,
                       v=v, out=out, dout=dout, lse=lse)
@@ -311,7 +328,8 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention under autograd: the forward kernel writes lse beside
     the output, the backward kernel reads both, with the same softcap. CPU
     tensors take the plain versions of both directions; CUDA tensors
-    launch the kernels."""
+    launch the kernels, and their backward refuses d > BWD_MAX_HEAD_DIM
+    (`refuse_wide_backward`) before any launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
@@ -330,6 +348,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type != "cpu":
+            refuse_wide_backward(q.shape[-1])
         dout = dout.contiguous()
         bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
                else flash_attention_bwd_cuda)

@@ -76,8 +76,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Causal/windowed flash attention over (B, H, S, d) — the prefill hot
     spot; `softcap` c turns each score x into c · tanh(x / c) (None: no
-    softcap; under autograd a softcap raises, its backward is not written
-    yet). Returns (B, H, S, d) in q's dtype.
+    softcap; under autograd the backward kernel carries the cap). Returns
+    (B, H, S, d) in q's dtype.
 
     The reference's `block_q`, `block_k` and `interpret` arguments are
     TPU-only and not taken; S need not be a multiple of any block.

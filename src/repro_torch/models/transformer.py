@@ -1,10 +1,14 @@
-"""The decoder stack of `repro.models.transformer`, attention subset: every
-layer an `ATTN` block (RMSNorm, causal GQA self-attention with RoPE,
-RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and DeepSeek-7B; a `LOCAL_ATTN`
-block, the same within a sliding window, as Gemma-2 27B alternates them;
-or a `MOE` block, causal attention and then the top-k MoE feed-forward
-(`layers.moe_ffn`), as in Mixtral 8x22B and Kimi K2; with the attention
-and final-logit softcaps where the config sets them.
+"""The decoder stack of `repro.models.transformer` without the encoder and
+the modality frontends: every layer an `ATTN` block (RMSNorm, causal GQA
+self-attention with RoPE, RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and
+DeepSeek-7B; a `LOCAL_ATTN` block, the same within a sliding window, as
+Gemma-2 27B alternates them; a `MOE` block, causal attention and then the
+top-k MoE feed-forward (`layers.moe_ffn`), as in Mixtral 8x22B and Kimi
+K2; with the attention and final-logit softcaps where the config sets
+them; or a recurrent block (`models.recurrent`): `SLSTM` and `MLSTM`, as
+xLSTM-125M mixes them, and `RGLRU` (a GeLU gate times the temporal conv
+and RG-LRU branch), as RecurrentGemma-2B alternates two with a local
+attention layer. A recurrent block has an MLP only where `cfg.d_ff` is set.
 
 As in the reference, only `LOCAL_ATTN` layers take `sliding_window`: an
 MoE config's layers are all `MOE` blocks, which attend over every earlier
@@ -17,16 +21,16 @@ the MoE layers' aux losses; `lm_loss` is differentiable through it
 hand-written backward, the softcap included); `decode_step` (serving)
 attends one new token per sequence against a KV cache, a ring of
 `sliding_window` slots on `LOCAL_ATTN` layers, through the GQA
-flash-decode kernel. Params are a dict of tensors shaped like the
-reference's pytree (`params_from_numpy` carries one over).
+flash-decode kernel, and steps each recurrent layer's O(1) state. Params
+are a dict of tensors shaped like the reference's pytree
+(`params_from_numpy` carries one over).
 
 `cfg.remat`, `jax.checkpoint` per layer in the reference, is
 `torch.utils.checkpoint` per layer here, taken only while autograd records
 (never under `torch.no_grad()` or `torch.inference_mode()`): the backward
 recomputes each layer's forward, flash launch included. The sharding hints
-(`mesh_axes`) have no argument. Recurrent blocks, M-RoPE and the vision,
-audio and encoder inputs raise `NotImplementedError` (ROADMAP.md queue 1
-item 8).
+(`mesh_axes`) have no argument. M-RoPE and the vision, audio and encoder
+inputs raise `NotImplementedError` (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -34,14 +38,19 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models.config import ArchConfig, BlockKind
 
 _ITEM = "ROADMAP.md queue 1 item 8"
-_PORTED = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE)
+_ATTENTION = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE)
+# The param key of each recurrent block kind, as the reference names it.
+_RECURRENT_KEY = {BlockKind.MLSTM: "mlstm", BlockKind.SLSTM: "slstm",
+                  BlockKind.RGLRU: "rec"}
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -55,42 +64,71 @@ def _check_supported(cfg: ArchConfig) -> None:
         ("an audio frontend", cfg.audio_frames > 0),
         ("M-RoPE", cfg.mrope_sections is not None),
     ) if on]
-    kinds = sorted({k.value for k in cfg.blocks()} - {k.value for k in _PORTED})
-    if kinds:
-        unported.append(f"block kinds {kinds}")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported to repro_torch "
-            f"yet ({_ITEM}); the port runs ATTN, LOCAL_ATTN and MOE "
-            "stacks")
+            f"yet ({_ITEM}); the port runs decoder stacks of every block "
+            "kind")
 
 
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
 
+class _Fill(float):
+    """A spec leaf's constant value (the RG-LRU's lambda), not a std."""
+
+
 def _param_spec(cfg: ArchConfig) -> Dict[str, Any]:
-    """The pytree of (shape, init std) leaves; std None means zeros."""
+    """The pytree of (shape, init) leaves, init the normal's std, None for
+    zeros or a `_Fill` constant; the reference's `_init_*` shapes."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = d ** -0.5
 
+    def mlp() -> Dict[str, Any]:
+        f = cfg.d_ff
+        return {"w_gate": ((d, f), s), "w_up": ((d, f), s),
+                "w_down": ((f, d), f ** -0.5)}
+
+    def recurrent(kind: BlockKind) -> Dict[str, Any]:
+        if kind == BlockKind.MLSTM:
+            return {"wq": ((d, d), s), "wk": ((d, d), s), "wv": ((d, d), s),
+                    "wi": ((d, hq), s), "wf": ((d, hq), s),
+                    "gn": ((d,), None), "wo": ((d, d), s)}
+        if kind == BlockKind.SLSTM:
+            return {**{n: ((d, d), s) for n in ("wz", "wi_g", "wf_g",
+                                                "wo_g")},
+                    **{n: ((d, d), s * 0.5) for n in ("rz", "ri", "rf",
+                                                      "ro")},
+                    "wo": ((d, d), s)}
+        w = cfg.lru_width or d
+        return {"w_branch_gate": ((d, w), s), "w_branch_lin": ((d, w), s),
+                "conv_w": ((cfg.conv_width, w), 0.1),
+                "conv_b": ((w,), None),
+                "w_rec_gate": ((w, w), w ** -0.5),
+                "w_in_gate": ((w, w), w ** -0.5),
+                "lambda": ((w,), _Fill(0.6)),
+                "w_out": ((w, d), w ** -0.5)}
+
     def layer(kind: BlockKind) -> Dict[str, Any]:
-        p: Dict[str, Any] = {
-            "ln1": ((d,), None),
-            "attn": {"wq": ((d, hq * hd), s), "wk": ((d, hkv * hd), s),
+        p: Dict[str, Any] = {"ln1": ((d,), None)}
+        if kind not in _ATTENTION:
+            p[_RECURRENT_KEY[kind]] = recurrent(kind)
+            if cfg.d_ff:
+                p["ln2"] = ((d,), None)
+                p["mlp"] = mlp()
+            return p
+        p["attn"] = {"wq": ((d, hq * hd), s), "wk": ((d, hkv * hd), s),
                      "wv": ((d, hkv * hd), s),
-                     "wo": ((hq * hd, d), (hq * hd) ** -0.5)},
-            "ln2": ((d,), None),
-        }
+                     "wo": ((hq * hd, d), (hq * hd) ** -0.5)}
+        p["ln2"] = ((d,), None)
         if kind == BlockKind.MOE:            # the reference's _init_moe
             e, f = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
             p["moe"] = {"w_router": ((d, e), s), "w_gate": ((e, d, f), s),
                         "w_up": ((e, d, f), s),
                         "w_down": ((e, f, d), f ** -0.5)}
         elif cfg.d_ff:
-            f = cfg.d_ff
-            p["mlp"] = {"w_gate": ((d, f), s), "w_up": ((d, f), s),
-                        "w_down": ((f, d), f ** -0.5)}
+            p["mlp"] = mlp()
         return p
 
     spec: Dict[str, Any] = {"embed": ((cfg.vocab, d), s),
@@ -121,9 +159,10 @@ def _map_spec(spec: Any, tree: Any, fn, path: str = "") -> Any:
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: "str | torch.device" = "cuda") -> Dict[str, Any]:
-    """Random weights N(0, 1/fan_in) and zero norm scales, as the reference
-    draws them, made on `device` in `cfg.dtype` one tensor at a time from
-    `generator` (a generator on that device)."""
+    """Random weights N(0, std²), zero norm scales and the RG-LRU's
+    constant lambda, as the reference draws them, made on `device` in
+    `cfg.dtype` one tensor at a time from `generator` (a generator on that
+    device)."""
     _check_supported(cfg)
     device = torch.device(device)
     if generator.device.type != device.type:
@@ -135,6 +174,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         shape, std = leaf
         if std is None:
             return torch.zeros(shape, dtype=dt, device=device)
+        if isinstance(std, _Fill):
+            return torch.full(shape, float(std), dtype=dt, device=device)
         w = torch.randn(shape, generator=generator, device=device)
         return w.mul_(std).to(dt)
 
@@ -187,16 +228,32 @@ def _ffn(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     return None, zero
 
 
+def _recurrent_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
+                     h: torch.Tensor) -> torch.Tensor:
+    """A recurrent block's mixer on the normed residual h (B, S, D)."""
+    if kind == BlockKind.MLSTM:
+        return R.mlstm_train(p["mlstm"], h, cfg.n_heads)
+    if kind == BlockKind.SLSTM:
+        return R.slstm_train(p["slstm"], h)
+    rp = p["rec"]
+    gate = F.gelu(h @ rp["w_branch_gate"], approximate="tanh")
+    lin = R.temporal_conv_train(rp, h @ rp["w_branch_lin"], cfg.conv_width)
+    return (gate * R.rglru_train(rp, lin)) @ rp["w_out"]
+
+
 def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
                  x: torch.Tensor, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One ATTN, LOCAL_ATTN or MOE block: (x, aux loss). Only a LOCAL_ATTN
-    block attends within `cfg.sliding_window`, as the reference's."""
-    if kind not in _PORTED:
-        raise NotImplementedError(f"{kind.value} blocks are not ported yet "
-                                  f"({_ITEM})")
-    window = cfg.sliding_window if kind == BlockKind.LOCAL_ATTN else None
+    """One block: (x, aux loss). Only a LOCAL_ATTN block attends within
+    `cfg.sliding_window`, as the reference's; a recurrent block adds its
+    mixer's output, then its MLP where it has one."""
     h = L.rms_norm(x, p["ln1"])
+    if kind not in _ATTENTION:
+        x = x + _recurrent_apply(cfg, kind, p, h)
+        if "mlp" in p:
+            x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+        return x, torch.zeros((), device=x.device)
+    window = cfg.sliding_window if kind == BlockKind.LOCAL_ATTN else None
     attn_out, _ = L.attention(cfg, p["attn"], h, positions,
                               sliding_window=window)
     x = x + attn_out
@@ -230,9 +287,10 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             audio_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int on the params' device → (logits (B, S, V), aux
-    loss f32: the sum of the MoE layers', 0 for dense stacks). One
-    flash-attention launch per layer on the card, and with `cfg.remat`
-    under autograd one more per layer in the backward's recompute."""
+    loss f32: the sum of the MoE layers', 0 for dense and recurrent
+    stacks). One flash-attention launch per attention layer on the card,
+    and with `cfg.remat` under autograd one more per such layer in the
+    backward's recompute."""
     _check_supported(cfg)
     if vision_embeds is not None or audio_embeds is not None:
         raise NotImplementedError(f"vision and audio inputs are not ported "
@@ -271,16 +329,36 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: Optional[torch.dtype] = None, *,
                       device: "str | torch.device" = "cuda"
                       ) -> Dict[str, Any]:
-    """Per-layer KV caches (B, n_kv_heads, L, hd) on `device`, in `dtype`
-    (`cfg.dtype` when None, as in the reference), and the position of the
-    next token, a Python int. An ATTN or MOE layer's cache holds L = max_len
-    positions; a LOCAL_ATTN layer's is a ring of L = min(sliding_window or
-    max_len, max_len) slots, beside "slot_pos" (L,) int32 on `device`, the
-    position each slot holds (-1: none yet), as the reference keeps it."""
+    """Per-layer decode state on `device` and the position of the next
+    token, a Python int. Attention layers hold KV caches (B, n_kv_heads, L,
+    hd) in `dtype` (`cfg.dtype` when None, as in the reference): an ATTN or
+    MOE layer's holds L = max_len positions; a LOCAL_ATTN layer's is a ring
+    of L = min(sliding_window or max_len, max_len) slots, beside
+    "slot_pos" (L,) int32, the position each slot holds (-1: none yet), as
+    the reference keeps it. Recurrent layers hold the reference's O(1)
+    state: f32 whatever `dtype` (the mLSTM's c, n, m; the sLSTM's c, n, h,
+    m; the RG-LRU's h), but the RG-LRU's conv window (B, conv_width - 1,
+    W), in `dtype`."""
     _check_supported(cfg)
     dt = dtype or _dtype(cfg)
     layers: List[Dict[str, torch.Tensor]] = []
     for kind in cfg.blocks():
+        if kind == BlockKind.MLSTM:
+            layers.append(R.mlstm_init_state(
+                batch, cfg.n_heads, cfg.d_model // cfg.n_heads,
+                device=device))
+            continue
+        if kind == BlockKind.SLSTM:
+            layers.append(R.slstm_init_state(batch, cfg.d_model,
+                                             device=device))
+            continue
+        if kind == BlockKind.RGLRU:
+            w = cfg.lru_width or cfg.d_model
+            layers.append({
+                "h": R.rglru_init_state(batch, w, device=device),
+                "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dt,
+                                    device=device)})
+            continue
         n = max_len
         if kind == BlockKind.LOCAL_ATTN:
             n = min(cfg.sliding_window or max_len, max_len)
@@ -326,19 +404,37 @@ def _decode_attn(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     return out.reshape(b, 1, hq * hd).to(h.dtype) @ p["wo"]
 
 
+def _recurrent_step(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
+                    h: torch.Tensor, st: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A recurrent block's mixer for one token: (y (B, 1, D), new state)."""
+    if kind == BlockKind.MLSTM:
+        return R.mlstm_step(p["mlstm"], h, st, cfg.n_heads)
+    if kind == BlockKind.SLSTM:
+        return R.slstm_step(p["slstm"], h, st)
+    rp = p["rec"]
+    gate = F.gelu(h @ rp["w_branch_gate"], approximate="tanh")
+    lin, conv = R.temporal_conv_step(rp, h @ rp["w_branch_lin"], st["conv"],
+                                     cfg.conv_width)
+    rec, h_st = R.rglru_step(rp, lin, st["h"])
+    return (gate * rec) @ rp["w_out"], {"h": h_st, "conv": conv}
+
+
 def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
                 state: Dict[str, Any], enc_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token (B, 1) int → (logits (B, 1, V), new state).
 
     The caches are updated in place (the reference returns new arrays), so
-    the new state holds the same cache tensors; `pos` advances by one. One
-    decode-attention launch per layer on the card. `lens` is filled on the
-    device once per step for each cache length, with no host sync: pos + 1
-    for a full cache, min(pos + 1, L) for a ring of L slots. Only the full
-    caches bound `pos`; a stack of rings alone has no bound, as in the
-    reference. An MOE layer routes the step's B tokens together, its
-    capacity reckoned from T = B, as the reference's `moe_ffn` does.
+    the new state holds the same cache tensors; a recurrent layer's state
+    is replaced by new tensors, as the reference's; `pos` advances by one.
+    One decode-attention launch per attention layer on the card. `lens` is
+    filled on the device once per step for each cache length, with no host
+    sync: pos + 1 for a full cache, min(pos + 1, L) for a ring of L slots.
+    Only the full caches bound `pos`; a stack of rings and recurrent
+    layers alone has no bound, as in the reference. An MOE layer routes the
+    step's B tokens together, its capacity reckoned from T = B, as the
+    reference's `moe_ffn` does.
     """
     _check_supported(cfg)
     if enc_out is not None:
@@ -347,7 +443,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
     b = token.shape[0]
     pos = state["pos"]
     full = [st["k"].shape[2] for st in state["layers"]
-            if "slot_pos" not in st]
+            if "k" in st and "slot_pos" not in st]
     if pos < 0 or (full and pos >= min(full)):
         raise ValueError(f"position {pos} is outside the cache of "
                          f"{min(full) if full else 'any length'}")
@@ -355,17 +451,23 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
     kinds = cfg.blocks()
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     lens: Dict[int, torch.Tensor] = {}       # by valid length
+    layers = list(state["layers"])
     for li, p in enumerate(params["layers"]):
-        st = state["layers"][li]
+        st, kind = layers[li], kinds[li]
+        h = L.rms_norm(x, p["ln1"])
+        if kind not in _ATTENTION:
+            y, layers[li] = _recurrent_step(cfg, kind, p, h, st)
+            x = x + y
+            if "mlp" in p:
+                x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+            continue
         n = pos + 1
         if "slot_pos" in st:
             n = min(n, st["k"].shape[2])
         if n not in lens:
             lens[n] = torch.full((b,), n, dtype=torch.int32, device=x.device)
-        h = L.rms_norm(x, p["ln1"])
         x = x + _decode_attn(cfg, p["attn"], h, st, pos, posb, lens[n])
-        ffn_out, _ = _ffn(cfg, kinds[li], p, L.rms_norm(x, p["ln2"]))
+        ffn_out, _ = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
         if ffn_out is not None:
             x = x + ffn_out
-    return _logits(cfg, params, x), {"pos": pos + 1,
-                                     "layers": state["layers"]}
+    return _logits(cfg, params, x), {"pos": pos + 1, "layers": layers}

@@ -19,6 +19,7 @@ order), softcapped cases too; bfloat16 outputs per element 2^-7·|ref| +
 bits differ.
 """
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +55,8 @@ def _bf16_pair(x):
 
 @pytest.mark.parametrize("causal,window", [
     (True, 0), (True, 24), (False, 0), (False, 24)])
-@pytest.mark.parametrize("b,h,s,d", [(2, 3, 64, 16), (1, 2, 48, 32)])
+@pytest.mark.parametrize("b,h,s,d", [(2, 3, 64, 16), (1, 2, 48, 32),
+                                     (1, 2, 32, 256)])   # RecurrentGemma's d
 def test_flash_matches_pallas_kernel(b, h, s, d, causal, window):
     rng = np.random.default_rng(b * s + d)
     q, k, v = (_normal(rng, (b, h, s, d)) for _ in range(3))
@@ -131,6 +133,7 @@ def test_flash_window_of_one_attends_to_itself(causal):
     (1, 4, 4, 32, 8),      # group 1 (MHA)
     (3, 16, 2, 48, 32),    # group 8, as Yi-6B
     (2, 4, 1, 96, 16),     # one KV head
+    (2, 10, 1, 64, 256),   # RecurrentGemma: MQA, group 10, d = 256
 ])
 def test_decode_matches_pallas_kernel(b, nq, nkv, s, d):
     rng = np.random.default_rng(b * s + nq)
@@ -575,6 +578,52 @@ def test_decode_split_plan_covers_the_cache(b, n_kv, s):
     if b * n_kv < target:
         # Split as far as one tile per split allows.
         assert b * n_kv * n_splits >= target or chunk == p_dec.TILE
+
+
+@pytest.mark.parametrize("b,n_kv,s", [
+    (4, 1, 161),            # rgemma_serve: batch 4, one KV head
+    (4, 1, 2048),           # its ring of 2048, full
+    (128, 1, 2048), (1, 1, 1), (2, 2, 4097)])
+def test_decode_split_plan_at_head_dim_256(b, n_kv, s):
+    """At d = 256 one 16-bit split block fits on an SM (200 KiB), so the
+    plan asks for BLOCKS_PER_SM_WIDE blocks an SM, the same four waves."""
+    n_sm = 132
+    target = p_dec.BLOCKS_PER_SM_WIDE * n_sm
+    chunk, n_splits = p_dec.split_plan(b, n_kv, s, n_sm, 256)
+    assert chunk % p_dec.TILE == 0 and chunk > 0
+    assert n_splits * chunk >= s > (n_splits - 1) * chunk
+    if b * n_kv < target:
+        assert b * n_kv * n_splits >= target or chunk == p_dec.TILE
+    assert p_dec.split_plan(b, n_kv, s, n_sm, 200) == (chunk, n_splits)
+    assert p_dec.split_plan(b, n_kv, s, n_sm) == p_dec.split_plan(
+        b, n_kv, s, n_sm, 128)
+
+
+def test_flash_backward_refuses_head_dim_256_naming_k5():
+    """The backward kernels stop at d = 128: `flash_attention_bwd_cuda`
+    raises naming ROADMAP.md K5 before any other check or launch (here on
+    CPU tensors, which it would refuse next), and the limits are those of
+    csrc/attention.cuh."""
+    cuh = (pathlib.Path(p_flash.__file__).parent / "csrc"
+           / "attention.cuh").read_text()
+    for name, value in (("MAX_HEAD_DIM", p_flash.MAX_HEAD_DIM),
+                        ("MAX_BWD_HEAD_DIM", p_flash.BWD_MAX_HEAD_DIM)):
+        assert f"constexpr int {name} = {value};" in cuh
+    assert (p_flash.MAX_HEAD_DIM, p_flash.BWD_MAX_HEAD_DIM) == (256, 128)
+    q = torch.zeros((1, 2, 8, 256))
+    lse = torch.zeros((1, 2, 8))
+    before = p_flash.FLASH_BWD_LAUNCHES
+    with pytest.raises(NotImplementedError, match="K5"):
+        p_flash.flash_attention_bwd_cuda(q, q, q, q, q, lse)
+    assert p_flash.FLASH_BWD_LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):     # d = 128 gets past it
+        p_flash.flash_attention_bwd_cuda(*(t[..., :128] for t in (q,) * 5),
+                                         lse)
+    # The plain backward, the CPU's, takes any head dim.
+    live = [torch.randn((1, 2, 8, 256), requires_grad=True)
+            for _ in range(3)]
+    p_ops.flash_attention(*live).sum().backward()
+    assert all(t.grad is not None for t in live)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_and_count_nothing():

@@ -1,14 +1,15 @@
 """Card tests of the port: the CUDA Block-ELL SpMM, fused GCN-layer,
 flash-attention and GQA flash-decode kernels against their plain PyTorch
 versions (the SpMM also at the autotuner's bucket widths; both attention
-kernels also with Gemma-2's attention softcap), and the
+kernels also with Gemma-2's attention softcap and at RecurrentGemma's head
+dim 256, whose gradient the backward refuses), and the
 serving engine (sharded, with replicated workers and a warm start among
 them, autotuned, through edge-delta updates, and under the continuous
 serving loop), the differentiable
 engine and its fused layer, the schedulers' execute mode, a coalesced
 stream, and the dense LM's forward, decode and serve on the card against
 themselves on the CPU or against float64 (Gemma-2's past its window and
-its rings' wrap among them); and that importing the
+its rings' wrap among them, and the recurrent archs'); and that importing the
 kernels package builds nothing until the first launch.
 
 Marked `gpu`: each test decides inside itself whether a card is present
@@ -1560,6 +1561,152 @@ def test_gemma2_on_card_matches_cpu():
             assert torch.equal(card["slot_pos"].cpu(), cpu["slot_pos"])
         np.testing.assert_allclose(card["k"].cpu().numpy(),
                                    cpu["k"].numpy(), atol=1e-4)
+    prompts = tokens[:, :20].numpy().astype(np.int32)
+    np.testing.assert_array_equal(serve(cfg, on_card, prompts, steps=5),
+                                  serve(cfg, params, prompts, steps=5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,window", [
+    # The edges of the d = 256 instance's 64-row query and 32-key tiles.
+    (2, 3, 63, 256, True, 0),
+    (2, 3, 64, 256, True, 0),
+    (2, 3, 65, 256, True, 0),
+    (1, 2, 129, 256, True, 0),
+    (1, 2, 300, 256, True, 100),    # a window whose edge crosses tiles
+    (1, 2, 150, 256, False, 0),
+    (1, 2, 130, 200, True, 33),     # d = 200, padded to 256
+    (1, 10, 2100, 256, True, 2048),  # RecurrentGemma's window, MQA heads
+])
+def test_flash_kernel_d256_matches_plain_version(b, h, s, d, causal, window,
+                                                 dtype):
+    """The d = 256 instances (RecurrentGemma's head dim) against the plain
+    version, each launch counted on its route and as a d = 256 launch."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((b, h, s, d), dtype, dev, seed=s * d + window)
+    plain = fmod.flash_attention_plain(q, k, v, causal=causal, window=window)
+    route = fmod.ROUTES[dtype]
+    before = fmod.FLASH_ROUTE_LAUNCHES[route], fmod.FLASH_WIDE_LAUNCHES
+    out = fmod.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_ROUTE_LAUNCHES[route], fmod.FLASH_WIDE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,n_kv,group,s,d,lens", [
+    (4, 1, 10, 161, 256, None),     # rgemma_serve's cache
+    (4, 1, 10, 2048, 256, None),    # its ring of 2048, full
+    # lens one below, at and one above the edges of 64-position tiles and
+    # of the splits (4 (b, kv head) pairs: one tile a split), groups 1, 10.
+    (6, 1, 10, 2048, 256, (63, 64, 65, 127, 128, 129)),
+    (6, 1, 1, 300, 256, (1, 63, 64, 65, 299, 300)),
+    (3, 2, 16, 500, 200, (64, 65, 500)),   # d = 200, the largest group
+], ids=lambda x: "lens" + "_".join(map(str, x)) if isinstance(x, tuple)
+    else None)
+def test_decode_kernel_d256_matches_plain_version(b, n_kv, group, s, d,
+                                                  lens, dtype):
+    dev = _card()
+    from repro_torch.kernels import decode_attn as dmod
+    gen = torch.Generator().manual_seed(s + d + group)
+    q = torch.randn((b, n_kv, group, d), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((b, n_kv, s, d), generator=gen).to(dev, dtype)
+            for _ in range(2))
+    if lens is None:
+        lens = torch.randint(1, s + 1, (b,), generator=gen,
+                             dtype=torch.int32)
+        lens[0] = s
+    else:
+        lens = torch.tensor(lens, dtype=torch.int32)
+    lens = lens.to(dev)
+    plain = dmod.decode_attention_plain(q, k, v, lens)
+    route = dmod.ROUTES[dtype]
+    before = dmod.DECODE_ROUTE_LAUNCHES[route], dmod.DECODE_WIDE_LAUNCHES
+    out = dmod.decode_attention_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (dmod.DECODE_ROUTE_LAUNCHES[route], dmod.DECODE_WIDE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_gradient_at_d256_raises_naming_k5():
+    """The forward takes d = 256 under autograd; the backward refuses it
+    before any launch (ROADMAP.md K5), through `FlashAttention` and
+    `flash_attention_bwd_cuda` alike, and launches nothing."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((1, 2, 80, 256), torch.bfloat16, dev, seed=256)
+    live = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fmod.flash_attention_cuda(*live)
+    before = fmod.FLASH_BWD_LAUNCHES
+    with pytest.raises(NotImplementedError, match="K5"):
+        out.backward(torch.ones_like(out))
+    with torch.no_grad():
+        o, lse = fmod.flash_attention_lse_cuda(q, k, v)
+        with pytest.raises(NotImplementedError, match="K5"):
+            fmod.flash_attention_bwd_cuda(q, k, v, o, o, lse)
+    torch.cuda.synchronize()
+    assert fmod.FLASH_BWD_LAUNCHES == before
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_125m"])
+def test_recurrent_archs_on_card_match_cpu(arch):
+    """The recurrent SMOKE configs in f32 (RecurrentGemma's at head dim 256,
+    its local layer on the d = 256 instances): forward on 40 tokens,
+    teacher-forced decode over them into caches of 42 (the ring of 16
+    wraps) with every state leaf, and serve, the card against the CPU."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn as dmod
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (
+        decode_step, forward, init_decode_state, init_params,
+    )
+    from repro_torch.train.optim import tree_map
+    cfg = get_config(arch, smoke=True)
+    if arch == "recurrentgemma_2b":
+        cfg = dataclasses.replace(cfg, head_dim=256)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    before = fmod.FLASH_WIDE_LAUNCHES, dmod.DECODE_WIDE_LAUNCHES
+    states, steps = {}, {}
+    with torch.inference_mode():
+        ref, _ = forward(cfg, params, tokens)
+        out, _ = forward(cfg, on_card, tokens.to(dev))
+        for name, p, device in (("cpu", params, "cpu"), ("card", on_card,
+                                                         dev)):
+            state = init_decode_state(cfg, 2, 42, device=device)
+            rows = []
+            for t in range(40):
+                logits, state = decode_step(cfg, p, tokens[:, t:t + 1].to(
+                    device), state)
+                rows.append(logits[:, 0].cpu())
+            states[name], steps[name] = state, torch.stack(rows, 1)
+    n_attn = sum(k.value == "local" for k in cfg.blocks())
+    assert (fmod.FLASH_WIDE_LAUNCHES - before[0],
+            dmod.DECODE_WIDE_LAUNCHES - before[1]) == (n_attn, 40 * n_attn)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(steps["card"].numpy(), steps["cpu"].numpy(),
+                               atol=1e-4)
+    for card, cpu in zip(states["card"]["layers"], states["cpu"]["layers"]):
+        assert set(card) == set(cpu)
+        for name in cpu:
+            assert card[name].dtype == cpu[name].dtype
+            np.testing.assert_allclose(card[name].float().cpu().numpy(),
+                                       cpu[name].float().numpy(), atol=1e-4)
     prompts = tokens[:, :20].numpy().astype(np.int32)
     np.testing.assert_array_equal(serve(cfg, on_card, prompts, steps=5),
                                   serve(cfg, params, prompts, steps=5))

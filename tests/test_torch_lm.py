@@ -17,7 +17,10 @@ tokens, the rings' k, v and slot_pos against the reference's, slot_pos
 exactly; serve with prompts longer than the window). The MoE archs'
 SMOKE configs (Mixtral 8x22B, Kimi K2: every layer MOE, 4 experts top-2)
 run the same tests, and Mixtral's past its window of 16, which the
-reference applies to no MOE layer.
+reference applies to no MOE layer. The recurrent archs' SMOKE configs
+(xLSTM-125M: an sLSTM and an mLSTM layer; RecurrentGemma-2B: an RG-LRU
+and a local attention layer, window 16) run them too, with every decode
+state leaf against the reference's, and past the window.
 
 Tolerances (float32, the same arithmetic summed in another order): logits
 atol 1e-4, the loss 1e-5, the caches 1e-4; teacher-forced decode against
@@ -50,7 +53,8 @@ LOGIT_TOL = 1e-4
 LOSS_TOL = 1e-5
 DENSE = ("yi_6b", "yi_9b", "deepseek_7b")
 MOE = ("mixtral_8x22b", "kimi_k2_1t_a32b")
-PORTED = DENSE + ("gemma2_27b",) + MOE
+RECURRENT = ("xlstm_125m", "recurrentgemma_2b")
+PORTED = DENSE + ("gemma2_27b",) + MOE + RECURRENT
 AUX_TOL = 1e-6
 
 
@@ -75,7 +79,9 @@ CONFIGS = {"yi_6b": lambda: r_configs.get_config("yi_6b", smoke=True),
            "mixtral_8x22b": lambda: r_configs.get_config("mixtral_8x22b",
                                                          smoke=True),
            "kimi_k2_1t_a32b": lambda: r_configs.get_config(
-               "kimi_k2_1t_a32b", smoke=True)}
+               "kimi_k2_1t_a32b", smoke=True),
+           **{arch: functools.partial(r_configs.get_config, arch,
+                                      smoke=True) for arch in RECURRENT}}
 WINDOWED = sorted(name for name in CONFIGS if name.startswith("gemma2"))
 
 
@@ -135,7 +141,7 @@ def test_registry_matches_reference_and_refuses_unported_archs():
     assert p_configs.arch_ids() == r_configs.arch_ids()
     assert p_configs.SHAPES == r_configs.SHAPES
     unported = set(r_configs.arch_ids()) - set(PORTED)
-    assert len(unported) == 4
+    assert len(unported) == 2
     for arch in sorted(unported):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             p_configs.get_config(arch)
@@ -145,18 +151,17 @@ def test_registry_matches_reference_and_refuses_unported_archs():
 
 
 def test_model_refuses_unported_configs():
-    """Encoder-decoder, M-RoPE and recurrent blocks raise; a sliding
-    window, an attention softcap and MoE layers are ported now and
-    build."""
+    """Encoder-decoder and M-RoPE raise; a sliding window, an attention
+    softcap, MoE layers and recurrent blocks are ported now and build."""
     base = p_configs.get_config("yi_6b", smoke=True)
-    for bad in (dict(encoder_layers=2), dict(mrope_sections=(2, 3, 3)),
-                dict(block_pattern=("rglru", "attn"))):
+    for bad in (dict(encoder_layers=2), dict(mrope_sections=(2, 3, 3))):
         cfg = dataclasses.replace(base, **bad)
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             p_tf.init_params(cfg, torch.Generator(), device="cpu")
     for ported in (dict(sliding_window=8), dict(attn_softcap=50.0),
                    dict(sliding_window=8, local_global_pattern=2),
-                   dict(n_experts=4, top_k=2, expert_d_ff=32)):
+                   dict(n_experts=4, top_k=2, expert_d_ff=32),
+                   dict(block_pattern=("rglru", "attn"))):
         cfg = dataclasses.replace(base, **ported)
         params = p_tf.init_params(cfg, torch.Generator(), device="cpu")
         assert len(params["layers"]) == cfg.n_layers
@@ -198,7 +203,8 @@ def test_params_from_numpy_bf16_and_structure_checks():
     ("yi_6b", 6_061_035_520), ("yi_9b", 8_829_407_232),
     ("deepseek_7b", 6_910_365_696), ("gemma2_27b", 28_406_352_384),
     ("mixtral_8x22b", 140_630_071_296),
-    ("kimi_k2_1t_a32b", 1_041_166_988_288)])
+    ("kimi_k2_1t_a32b", 1_041_166_988_288),
+    ("xlstm_125m", 114_498_048), ("recurrentgemma_2b", 3_549_841_920)])
 def test_param_count_at_full_size(arch, count):
     """From the shapes alone (nothing allocated), against the reference's
     abstract init."""
@@ -268,13 +274,31 @@ def test_lm_loss_matches_reference(model):
     np.testing.assert_allclose(float(out), float(ref), atol=LOSS_TOL)
 
 
+def _state_close(p_layer, r_layer):
+    """A layer's decode state against the reference's: the same leaves,
+    shapes and dtypes, values within LOGIT_TOL (slot_pos exactly)."""
+    assert set(p_layer) == set(r_layer)
+    for name, r_arr in r_layer.items():
+        r_arr = np.asarray(r_arr)
+        assert tuple(p_layer[name].shape) == r_arr.shape
+        assert str(p_layer[name].dtype).split(".")[-1] == r_arr.dtype.name
+        if name == "slot_pos":
+            np.testing.assert_array_equal(p_layer[name].numpy(), r_arr)
+        else:
+            np.testing.assert_allclose(p_layer[name].float().numpy(), r_arr,
+                                       atol=LOGIT_TOL)
+
+
 def test_teacher_forced_decode_matches_reference(model):
+    """Logits step by step against the reference's decode, every state
+    leaf of every layer after the last step (the caches' first s
+    positions), and against the port's own forward."""
     r_cfg, r_params, p_cfg, p_params = model
     b, s = 3, 10
     tokens = _tokens(r_cfg, b, s, seed=4)
     r_state = r_tf.init_decode_state(r_cfg, b, max_len=s + 2)
     p_state = p_tf.init_decode_state(p_cfg, b, max_len=s + 2, device="cpu")
-    caches = [st["k"] for st in p_state["layers"]]
+    caches = [st.get("k") for st in p_state["layers"]]
     ref, out = [], []
     for t in range(s):
         r_logits, r_state = r_tf.decode_step(r_cfg, r_params,
@@ -287,10 +311,12 @@ def test_teacher_forced_decode_matches_reference(model):
         out.append(logits[:, 0].numpy())
     assert p_state["pos"] == s and isinstance(p_state["pos"], int)
     # The caches were written in place.
-    assert all(st["k"] is c for st, c in zip(p_state["layers"], caches))
-    np.testing.assert_allclose(
-        p_state["layers"][-1]["v"][:, :, :s].numpy(),
-        np.asarray(r_state["layers"][-1]["v"][:, :, :s]), atol=LOGIT_TOL)
+    assert all(st.get("k") is c for st, c in zip(p_state["layers"], caches))
+    for p_layer, r_layer in zip(p_state["layers"], r_state["layers"]):
+        if "k" in r_layer and "slot_pos" not in r_layer:   # full caches
+            r_layer = {n: r_layer[n][:, :, :s] for n in ("k", "v")}
+            p_layer = {n: p_layer[n][:, :, :s] for n in ("k", "v")}
+        _state_close(p_layer, r_layer)
     np.testing.assert_allclose(np.stack(out, 1), np.stack(ref, 1),
                                atol=LOGIT_TOL)
     full, _ = p_tf.forward(p_cfg, p_params, torch.from_numpy(tokens))
@@ -576,3 +602,53 @@ def test_serve_cli_runs_moe_on_cpu(arch, capsys):
                       "--batch", "2", "--prompt-len", "20", "--steps", "4"])
     out = capsys.readouterr().out
     assert "generated (2, 4)" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_past_the_window_matches_reference(arch):
+    """The recurrent SMOKE configs over 40 tokens, past RecurrentGemma's
+    window of 16 (its local layer's ring wraps twice): `forward` against
+    the reference's, teacher-forced decode logits and every state leaf
+    after the last step against the reference's decode, and the decode
+    against the forward at the reference's own prefill-decode tolerance."""
+    r_cfg, r_params, p_cfg, p_params = _built(arch)
+    b, s = 2, 40
+    tokens = _tokens(r_cfg, b, s, seed=13)
+    r_full, _ = r_tf.forward(r_cfg, r_params, jnp.asarray(tokens))
+    full, _ = p_tf.forward(p_cfg, p_params, torch.from_numpy(tokens))
+    np.testing.assert_allclose(full.numpy(), np.asarray(r_full),
+                               atol=LOGIT_TOL)
+    r_state = r_tf.init_decode_state(r_cfg, b, max_len=s + 2)
+    p_state = p_tf.init_decode_state(p_cfg, b, max_len=s + 2, device="cpu")
+    ref, out = [], []
+    for t in range(s):
+        r_logits, r_state = r_tf.decode_step(r_cfg, r_params,
+                                              jnp.asarray(tokens[:, t:t + 1]),
+                                              r_state)
+        logits, p_state = p_tf.decode_step(p_cfg, p_params,
+                                           torch.from_numpy(
+                                               tokens[:, t:t + 1]), p_state)
+        ref.append(np.asarray(r_logits[:, 0]))
+        out.append(logits[:, 0].numpy())
+    np.testing.assert_allclose(np.stack(out, 1), np.stack(ref, 1),
+                               atol=LOGIT_TOL)
+    for p_layer, r_layer in zip(p_state["layers"], r_state["layers"]):
+        _state_close(p_layer, r_layer)
+    np.testing.assert_allclose(np.stack(out, 1), full.numpy(), atol=2e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_serve_cli_runs_recurrent_archs_as_the_reference(arch, capsys):
+    """`--mode lm --arch` of both recurrent archs serves their SMOKE
+    configs, prompts past RecurrentGemma's window, to the tokens
+    `repro.launch.serve.serve` gives for the same weights."""
+    p_serve_mod.main(["--mode", "lm", "--arch", arch, "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "20", "--steps", "4"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4)" in out and "on cpu" in out
+    r_cfg, r_params, p_cfg, p_params = _built(arch)
+    prompts = _tokens(r_cfg, 2, 20, seed=14)
+    np.testing.assert_array_equal(
+        p_serve_mod.serve(p_cfg, p_params, prompts, steps=4),
+        np.asarray(r_serve(r_cfg, r_params, prompts, steps=4)))
