@@ -10,7 +10,8 @@ non-zero without a result line:
                switched off for matmuls.
   2. build   — nvcc builds the kernel library from this checkout's sources;
                ptxas's registers and spills per instance (the backward's
-               softcapped ones and the d = 256 ones listed apart).
+               softcapped ones, its d = 128 ones and the d = 256 ones of
+               every attention kernel listed apart).
   3. host    — the rUSA plans: serving at width 1024, training at 256 in
                both directions.
   4. kernel  — the SpMM kernel against its plain PyTorch version on the
@@ -164,7 +165,17 @@ non-zero without a result line:
                rgemma_check's, at S = 63, 64, 65, 129, with a window whose
                edge crosses tiles and at d = 200 (padded); decode at
                rgemma_serve's cache at every position and with lens at and
-               around tile and split edges, groups 1 and 10.
+               around tile and split edges, groups 1 and 10. The
+               backward's d = 256 instances at rgemma_train's layer (1, 10,
+               4096, 256) bf16 and rgemma_train_check's f32, both in the
+               window of 2048, at S across both routes' tiles, in a window
+               of 100, without the causal mask, with a prefix and at d =
+               200, in bf16, f16 and f32. Both flash directions with the
+               bidirectional prefix P (Qwen2-VL's 256 vision positions):
+               the forward at qwen_serve's prefill layer (1, 64, 4096, 128)
+               bf16, both at qwen_check's (2, 64, 512, 128) f32, then P =
+               1, 8, 63, 64, 65, 256 and P = S in all three types, with a
+               window and with the softcap.
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
@@ -259,13 +270,48 @@ non-zero without a result line:
                route at d = 256.
  32. xlstm_serve — full xLSTM-125M (12 layers, bf16), as lm_serve with a
                2048-token prefill; no attention launch.
- 33. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
+ 33. rgemma_train_check — rgemma_check's model (an RG-LRU, then a local
+               layer at d = 256, float32) on one 2112-token sequence, no
+               remat: `lm_loss` gradients through the flash kernel and the
+               backward's d = 256 instance (f32 FMA routes), the RG-LRU
+               scan and the conv differentiated as plain PyTorch, against
+               float64 autograd of the script's own forward, every layer
+               tensor and the final norm within LM_GRAD_REL_TOL (the
+               embedding's and head's checked finite); one flash and one
+               backward launch, both at d = 256.
+ 34. rgemma_train — RecurrentGemma-2B's bf16 CONFIG at full width and
+               depth (26 layers, 8 local, remat on): `train_loop` with
+               Adafactor, two microbatches of TokenPipeline(256000, 4096,
+               1) a step (the window of 2048 bites in the backward), int8
+               EF compression, 4 steps; the first loss within
+               LM_TRAIN_LOSS_TOL of float64, step 0's batch lower after the
+               steps; every forward, recompute and backward on the
+               tensor-core route at d = 256, 16 backward launches a step.
+               Prints ms per step, tokens/s, peak bytes and one profiled
+               step by kind.
+ 35. qwen_check — Qwen2-VL-72B's widths cut to 2 float32 layers, batch 2 x
+               512 with 256 vision embeddings from --seed: `forward` with
+               them against the script's own float64 forward (M-RoPE, the
+               vision block's bidirectional mask), teacher-forced
+               `decode_step` against the float64 forward without M-RoPE and
+               the prefix (the reference's decode semantics, R6), both
+               within LM_REL_TOL, and `lm_loss` gradients (`vision_proj`
+               among them) within LM_GRAD_REL_TOL; every flash launch,
+               forward and backward, with the prefix of 256 on the f32 FMA
+               route.
+ 36. qwen_serve — Qwen2-VL-72B's bf16 CONFIG cut to 32 of 80 layers (61.3
+               GB of weights), as lm_serve: `serve` (decode launches = 32 x
+               160), `forward` on one 4096-token sequence with 256 vision
+               embeddings (flash launches = 32, every one with the prefix
+               of 256 on the tensor-core route), and decode against a
+               forward without M-RoPE and the prefix (QWEN_DECODE_RULE).
+ 37. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
                bf16 in pinned host memory, drawn on the card from --seed)
                streamed through `StreamedWeightProvider(2 GiB, align 8,
                depth 2)`: 16 blocks of 24 experts, each block's range and
                shapes, sampled rows bit for bit against the host bank, the
                uploaded bytes the bank's; prints the StreamStats and GB/s.
- 34. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 38. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
@@ -289,17 +335,24 @@ non-zero without a result line:
                256) over 2048, beside SDPA with enable_gqa; and the
                recurrent blocks, plain PyTorch, at the serve phases'
                widths (each `*_train` at its prefill length, each `*_step`
-               at serve's batch).
- 35. phase_seconds, kernels — each phase's seconds; the summary line
-               (softcapped and d = 256 launches by path among it, the
-               backward's by route and softcap), then the card's name and
-               power limit, then the result line.
+               at serve's batch); the backward's d = 256 instance at
+               rgemma_train's layer (1, 10, 4096, 256) bf16, window 2048,
+               beside SDPA with the window as a mask and causal SDPA
+               without it; both directions with the prefix of 256 at
+               qwen_serve's prefill layer (1, 64, 4096, 128) bf16, beside
+               the same calls without it and SDPA with the prefix as a
+               mask.
+ 39. phase_seconds, kernels — each phase's seconds; the summary line
+               (softcapped, d = 256 and prefixed launches by path among it,
+               the backward's by route, softcap, d = 256 and prefix), then
+               the card's name and power limit, then the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
 warm, tune, update, partition, continuous, lm_check, lm_train_check, each
 run of lm_train, lm_serve, gemma_check, gemma_serve, gemma_train_check,
 gemma_train, moe_check, mixtral_serve, rgemma_check, xlstm_check,
-rgemma_serve, xlstm_serve) runs with the launch counters set
+rgemma_serve, xlstm_serve, rgemma_train_check, rgemma_train, qwen_check,
+qwen_serve) runs with the launch counters set
 to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
@@ -311,6 +364,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -446,6 +500,27 @@ XLSTM_BF16_RULE = ("position 0 (no recurrent state yet): rel gap <= "
 RGEMMA_CHECK_SEQ = 2112
 RGEMMA_POSITIONS = list(range(0, 2048, 64)) + list(range(2048, 2112))
 RGEMMA_PREFILL = 4096          # rgemma_serve: the window bites in 8 layers
+RGEMMA_TRAIN_SEQ = 4096        # rgemma_train: TokenPipeline(vocab, 4096, 1)
+RGEMMA_TRAIN_STEPS = 4
+RGEMMA_TRAIN_LAYERS = 0        # 0: the full 26; 12 if the peak passes 76 GB
+QWEN_VISION_TOKENS = 256       # Qwen2-VL's n_vision_tokens: the prefix P
+QWEN_CHECK_SEQ = 512           # qwen_check: batch 2 x 512
+# qwen_serve: 32 of Qwen2-VL-72B's 80 layers, 30.6e9 parameters (61.3 GB
+# in bf16); 80 layers need 145 GB.
+QWEN_SERVE_LAYERS = 32
+# qwen_serve's decode-vs-forward rule. The reference decodes Qwen2-VL with
+# plain RoPE at the index and a causal cache mask (ROADMAP.md queue 3, R6),
+# while its forward rotates by M-RoPE and lets the 256 vision positions
+# attend to each other both ways, so decode and the M-RoPE forward are two
+# functions at every position, 0 included. The decode is held to a
+# `forward` of the same weights under replace(cfg, mrope_sections=None,
+# n_vision_tokens=0), which computes the decode's semantics, within
+# LM_BF16_TOL as lm_serve's; the M-RoPE forward is checked finite and
+# reported.
+QWEN_DECODE_RULE = ("decode vs forward(replace(cfg, mrope_sections=None, "
+                    "n_vision_tokens=0)) on the same tokens: rel gap <= "
+                    "LM_BF16_TOL (R6: the reference's decode has no M-RoPE "
+                    "and no vision prefix)")
 XLSTM_PREFILL = 2048           # xlstm_serve: 3 sLSTM loops of 2048 steps
 ATTENTION_KINDS = ("attn", "local", "moe")
 
@@ -465,7 +540,6 @@ def ptxas_table(report: str) -> list:
     """One line per compiled kernel from nvcc's -Xptxas -v report: its name
     (demangled where the CUDA toolkit's cu++filt is found) and what ptxas
     said of its registers, stack and spills."""
-    import os
     import re
     import shutil
     from torch.utils.cpp_extension import CUDA_HOME
@@ -2588,20 +2662,27 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
     t0 = time.perf_counter()
     cases += backward_cases(fmod, gen)
     cases += backward_softcap_cases(fmod, gen)
+    cases += backward_d256_cases(fmod, gen)
+    cases += prefix_cases(fmod, gen)
     emit({"phase": "attn", "cases": cases,
           "backward_cases_seconds": time.perf_counter() - t0,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     torch.cuda.empty_cache()
     main = [c for c in cases                           # main-path shapes
             if "lm_" in c["case"] or "gemma_" in c["case"]
-            or "mixtral_" in c["case"] or "moe_" in c["case"]]
+            or "mixtral_" in c["case"] or "moe_" in c["case"]
+            or "qwen_" in c["case"]]
     wide = [c for c in main if "d = 256" in c["case"]]
+    prefixed = [c for c in main if "prefix" in c["case"]]
     return {**{name: max(c["max_abs_err"] for c in main
                          if c["case"].startswith(name))
                for name in ("flash", "decode", "backward")},
             **{f"{name}_d256": max(c["max_abs_err"] for c in wide
                                    if c["case"].startswith(name))
-               for name in ("flash", "decode")}}
+               for name in ("flash", "decode", "backward")},
+            **{f"{name}_prefix": max(c["max_abs_err"] for c in prefixed
+                                     if c["case"].startswith(name))
+               for name in ("flash", "backward")}}
 
 
 def softcap_cases(fmod, dmod, gen) -> list:
@@ -2657,12 +2738,13 @@ def softcap_cases(fmod, dmod, gen) -> list:
 
 
 def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
-                window=0, softcap=None) -> dict:
+                window=0, softcap=None, prefix=0) -> dict:
     """The backward kernel against `flash_attention_bwd_plain` on the same
     q, k, v, dout and the forward kernel's out and lse (softcapped where
-    `softcap` is given, both directions), each of dQ, dK, dV per element
-    within BWD_TOL; lse against the plain forward's within LSE_TOL; a
-    second launch gives the same bits (no atomics)."""
+    `softcap` is given, with the bidirectional `prefix`, both directions),
+    each of dQ, dK, dV per element within BWD_TOL; lse against the plain
+    forward's within LSE_TOL; a second launch gives the same bits (no
+    atomics)."""
     import torch
     q, k, v, dout = attn_inputs(shape, dtype, gen) + attn_inputs(
         shape, dtype, gen)[:1]
@@ -2670,15 +2752,20 @@ def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
     with torch.no_grad():
         out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=causal,
                                                  window=window,
-                                                 softcap=softcap)
+                                                 softcap=softcap,
+                                                 prefix=prefix)
         _, lse_plain = fmod.flash_attention_plain_lse(
-            q, k, v, causal=causal, window=window, softcap=softcap)
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            prefix=prefix)
         got = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
-                                            window, softcap)
+                                            window, softcap, prefix=prefix)
         again = fmod.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
-                                              causal, window, softcap)
+                                              causal, window, softcap,
+                                              prefix=prefix)
         want = fmod.flash_attention_bwd_plain(q, k, v, out, dout, lse,
-                                              causal, window, softcap)
+                                              causal, window, softcap,
+                                              prefix=prefix)
+        del q, k, v, dout, out
     sync()
     lse_err = float((lse - lse_plain).abs().max())
     if not lse_err <= LSE_TOL:
@@ -2686,7 +2773,7 @@ def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
                              f"{lse_err} > {LSE_TOL}")
     case = {"case": label, "shape": list(shape), "dtype": dtype,
             "causal": causal, "window": window, "softcap": softcap,
-            "lse_max_abs_err": lse_err, "rtol": rtol,
+            "prefix": prefix, "lse_max_abs_err": lse_err, "rtol": rtol,
             "atol_over_max_abs_plain": atol}
     err = 0.0
     scale = max(float(w.float().abs().max()) for w in want)
@@ -2754,6 +2841,88 @@ def backward_softcap_cases(fmod, gen) -> list:
                                   f"backward: softcap {cap}, S = {s_len}, "
                                   f"{dtype}", softcap=cap)
                       for s_len in (63, 64, 65, 127, 128, 129)]
+    return cases
+
+
+def backward_d256_cases(fmod, gen) -> list:
+    """The backward's d = 256 instances (each key tile's dK and dV split in
+    two dim halves on the tensor-core route, NC = 16 on the FMA route) in
+    bf16, f16 and f32: at rgemma_train's layer (1, 10, 4096, 256) bf16 and
+    rgemma_train_check's (1, 10, 2112, 256) f32, both in RecurrentGemma's
+    window of 2048, at S across both routes' tiles, in a window of 100
+    whose edge crosses tiles, without the causal mask, with a prefix and at
+    d = 200 (padded to 256)."""
+    window = 2048
+    cases = [bwd_compare(fmod, (1, 10, RGEMMA_TRAIN_SEQ, 256), "bfloat16",
+                         gen, "backward: rgemma_train's layer, d = 256",
+                         window=window),
+             bwd_compare(fmod, (1, 10, RGEMMA_CHECK_SEQ, 256), "float32", gen,
+                         "backward: rgemma_train_check's layer, d = 256, f32",
+                         window=window)]
+    for dtype in ("bfloat16", "float16", "float32"):
+        cases += [bwd_compare(fmod, (2, 3, s_len, 256), dtype, gen,
+                              f"backward: d = 256, S = {s_len}, {dtype}")
+                  for s_len in (31, 33, 63, 64, 65, 129)]
+        cases.append(bwd_compare(fmod, (1, 4, 1000, 256), dtype, gen,
+                                 f"backward: d = 256, window 100, {dtype}",
+                                 window=100))
+        cases.append(bwd_compare(fmod, (1, 3, 150, 256), dtype, gen,
+                                 f"backward: d = 256, not causal, {dtype}",
+                                 causal=False))
+        cases.append(bwd_compare(fmod, (1, 3, 300, 256), dtype, gen,
+                                 f"backward: d = 256, prefix 100, {dtype}",
+                                 prefix=100))
+        cases.append(bwd_compare(fmod, (1, 4, 300, 200), dtype, gen,
+                                 f"backward: d = 200, padded to 256, {dtype}",
+                                 window=64))
+    return cases
+
+
+def prefix_cases(fmod, gen) -> list:
+    """Both flash directions with a bidirectional prefix P (Qwen2-VL's 256
+    vision positions; key j valid for query i iff j <= max(i, P - 1))
+    against their plain versions: the forward at qwen_serve's prefill layer
+    (1, 64, 4096, 128) bf16 and both directions at qwen_check's (2, 64,
+    512, 128) f32, then P = 1, 8, 63, 64, 65, 256 and P = S (all
+    bidirectional) in bf16, f16 and f32, across both routes' tiles, with a
+    window and with the softcap."""
+    flash, f_plain = fmod.flash_attention_cuda, fmod.flash_attention_plain
+    nv = QWEN_VISION_TOKENS
+    cases = [
+        attn_compare(flash, f_plain,
+                     attn_inputs((1, 64, LM_PREFILL, 128), "bfloat16", gen),
+                     {"causal": True, "prefix": nv},
+                     "flash: qwen_serve's prefill layer, prefix 256",
+                     "bfloat16"),
+        attn_compare(flash, f_plain,
+                     attn_inputs((2, 64, QWEN_CHECK_SEQ, 128), "float32",
+                                 gen), {"causal": True, "prefix": nv},
+                     "flash: qwen_check's layer, prefix 256, f32", "float32"),
+        bwd_compare(fmod, (2, 64, QWEN_CHECK_SEQ, 128), "float32", gen,
+                    "backward: qwen_check's layer, prefix 256, f32",
+                    prefix=nv),
+        bwd_compare(fmod, (1, 16, LM_PREFILL, 128), "bfloat16", gen,
+                    "backward: qwen's prefill layer, 16 heads, prefix 256",
+                    prefix=nv)]
+    for dtype in ("bfloat16", "float16", "float32"):
+        for p_len in (1, 8, 63, 64, 65, nv, 300):
+            cases.append(attn_compare(
+                flash, f_plain, attn_inputs((2, 3, 300, 128), dtype, gen),
+                {"causal": True, "prefix": p_len},
+                f"flash: prefix {p_len}, S = 300", dtype))
+            cases.append(bwd_compare(fmod, (2, 3, 300, 64), dtype, gen,
+                                     f"backward: prefix {p_len}, S = 300, "
+                                     f"{dtype}", prefix=p_len))
+        cases.append(attn_compare(
+            flash, f_plain, attn_inputs((1, 4, 700, 128), dtype, gen),
+            {"causal": True, "prefix": 200, "window": 100},
+            "flash: prefix 200 in a window of 100", dtype))
+        cases.append(bwd_compare(fmod, (1, 4, 700, 128), dtype, gen,
+                                 f"backward: prefix 200, window 100, {dtype}",
+                                 prefix=200, window=100))
+        cases.append(bwd_compare(fmod, (1, 4, 300, 128), dtype, gen,
+                                 f"backward: prefix 65, softcap 50, {dtype}",
+                                 prefix=65, softcap=50.0))
     return cases
 
 
@@ -3022,16 +3191,22 @@ def f64_recurrent(cfg, kind: str, p, h):
 
 
 def f64_hidden(cfg, params, tokens, ckpt: bool = False,
-               per_position: bool = False, routes=None):
+               per_position: bool = False, routes=None, vision=None):
     """The decoder stack in float64 with plain torch ops, written from the
     architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
     attention with KV heads repeated, within `cfg.sliding_window` on the
     local layers only, its scores softcapped by `cfg.attn_softcap`, then a
     SwiGLU MLP or the MoE of `f64_moe`; a recurrent block's mixer from
     `f64_recurrent`, then its MLP where it has one), not from the port's
-    code, up to and through the final norm: (B, S, d). Attention in groups of 8 heads,
-    so that no float64 temporary holds a whole layer's scores; with `ckpt`
-    each head group and each MLP is checkpointed for the backward."""
+    code, up to and through the final norm: (B, S, d). Under M-RoPE
+    (Qwen2-VL) the angles come from each frequency slot's section of the
+    (t, h, w) ids, which give the first nv = n_vision_tokens positions
+    t = 0 on a grid of width int(sqrt(nv)) and text position i t = h = w =
+    i - nv + 1, and key j is valid for query i iff t_j <= t_i; `vision`
+    (B, nv, d) projected by `vision_proj` takes the first nv embeddings'
+    place. Attention in groups of 8 heads, so that no float64 temporary
+    holds a whole layer's scores; with `ckpt` each head group and each MLP
+    is checkpointed for the backward."""
     import torch
     import torch.nn.functional as F
 
@@ -3039,7 +3214,23 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     inv = cfg.rope_theta ** (-torch.arange(0, hd, 2, dtype=torch.float64,
                                            device=DEV) / hd)
-    ang = torch.arange(s, dtype=torch.float64, device=DEV)[:, None] * inv
+    pos = torch.arange(s, device=DEV)
+    t_ids = pos
+    if cfg.mrope_sections:
+        nv = cfg.n_vision_tokens
+        grid_w = max(1, int(nv ** 0.5))
+        vis = torch.arange(nv, device=DEV)
+        text = torch.arange(1, s - nv + 1, device=DEV)
+        ids = torch.stack([torch.cat([vis * 0, text]),
+                           torch.cat([vis // grid_w, text]),
+                           torch.cat([vis % grid_w, text])])      # (3, S)
+        sec = torch.repeat_interleave(
+            torch.arange(3, device=DEV),
+            torch.tensor(cfg.mrope_sections, device=DEV))       # (hd/2,)
+        ang = ids[sec].T.double() * inv
+        t_ids = ids[0]
+    else:
+        ang = pos[:, None].double() * inv
     cos, sin = torch.cos(ang), torch.sin(ang)
 
     def rope(t):
@@ -3054,9 +3245,11 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
     def mlp(h, wg, wu, wd):
         return (F.silu(h @ _f64(wg)) * (h @ _f64(wu))) @ _f64(wd)
 
-    pos = torch.arange(s, device=DEV)
-    causal = pos[None, :] <= pos[:, None]
+    causal = t_ids[None, :] <= t_ids[:, None]
     x = _f64(params["embed"][tokens])
+    if vision is not None:
+        x = torch.cat([_f64(vision) @ _f64(params["vision_proj"]),
+                       x[:, cfg.n_vision_tokens:]], 1)
     for kind, p in zip(cfg.blocks(), params["layers"]):
         h = _f64_norm(x, p["ln1"])
         if kind.value not in ATTENTION_KINDS:
@@ -3099,10 +3292,10 @@ def f64_logits(cfg, params, x):
 
 
 def f64_lm_forward(cfg, params, tokens, positions=None,
-                   per_position: bool = False, routes=None):
+                   per_position: bool = False, routes=None, vision=None):
     """The float64 stack's logits (B, S, V), or only at `positions`."""
     x = f64_hidden(cfg, params, tokens, per_position=per_position,
-                   routes=routes)
+                   routes=routes, vision=vision)
     if positions is not None:
         x = x[:, positions]
     return f64_logits(cfg, params, x)
@@ -3127,11 +3320,13 @@ def teacher_forced(cfg, params, tokens, positions=None):
 
 def zero_attn_counts(fmod, dmod) -> None:
     """The attention kernels' launch counts, in all, by route, with a
-    softcap and at d > 128, to 0."""
+    softcap, at d > 128 and with a prefix, to 0."""
     fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0
     fmod.FLASH_SOFTCAP_LAUNCHES = dmod.DECODE_SOFTCAP_LAUNCHES = 0
     fmod.FLASH_WIDE_LAUNCHES = dmod.DECODE_WIDE_LAUNCHES = 0
     fmod.FLASH_BWD_LAUNCHES = fmod.FLASH_BWD_SOFTCAP_LAUNCHES = 0
+    fmod.FLASH_BWD_WIDE_LAUNCHES = 0
+    fmod.FLASH_PREFIX_LAUNCHES = fmod.FLASH_BWD_PREFIX_LAUNCHES = 0
     for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES,
                    fmod.FLASH_BWD_ROUTE_LAUNCHES):
         for route in routes:
@@ -3143,9 +3338,12 @@ def attn_counts(fmod, dmod) -> dict:
             "flash_routes": dict(fmod.FLASH_ROUTE_LAUNCHES),
             "flash_softcap": fmod.FLASH_SOFTCAP_LAUNCHES,
             "flash_wide": fmod.FLASH_WIDE_LAUNCHES,
+            "flash_prefix": fmod.FLASH_PREFIX_LAUNCHES,
             "flash_bwd": fmod.FLASH_BWD_LAUNCHES,
             "flash_bwd_routes": dict(fmod.FLASH_BWD_ROUTE_LAUNCHES),
             "flash_bwd_softcap": fmod.FLASH_BWD_SOFTCAP_LAUNCHES,
+            "flash_bwd_wide": fmod.FLASH_BWD_WIDE_LAUNCHES,
+            "flash_bwd_prefix": fmod.FLASH_BWD_PREFIX_LAUNCHES,
             "decode": dmod.DECODE_LAUNCHES,
             "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES),
             "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES,
@@ -3160,6 +3358,23 @@ def check_wide(label: str, counts: dict, kernel: str, wide: bool) -> None:
         raise AssertionError(f"{label}: {counts[f'{kernel}_wide']} of "
                              f"{counts[kernel]} {kernel} launches at d > "
                              f"128, want {want}")
+
+
+def check_prefix(label: str, counts: dict, kernel: str, on: bool) -> None:
+    """Every launch of `kernel` counted in `counts` had a bidirectional
+    prefix P > 0 (`on`), or none did."""
+    want = counts[kernel] if on else 0
+    if counts[f"{kernel}_prefix"] != want:
+        raise AssertionError(f"{label}: {counts[f'{kernel}_prefix']} of "
+                             f"{counts[kernel]} {kernel} launches with a "
+                             f"prefix, want {want}")
+
+
+def add_counts(*counts: dict) -> dict:
+    """The sum of `attn_counts` dicts, by route too."""
+    return {k: ({r: sum(c[k][r] for c in counts) for r in v}
+                if isinstance(v, dict) else sum(c[k] for c in counts))
+            for k, v in counts[0].items()}
 
 
 def n_attention_layers(cfg) -> int:
@@ -3271,7 +3486,7 @@ def check_softcap(label: str, counts: dict, kernel: str, capped: bool
                              f"softcap, want {want}")
 
 
-def profile_prefill(cfg, params, seq) -> dict:
+def profile_prefill(cfg, params, seq, vision=None) -> dict:
     """torch.profiler over one more `forward` of `seq` (outside the counted
     run): the device's busy time, from the trace's device events, and the
     flash kernel's share of it."""
@@ -3280,7 +3495,7 @@ def profile_prefill(cfg, params, seq) -> dict:
     from repro_torch.models import forward
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        forward(cfg, params, seq)
+        forward(cfg, params, seq, vision_embeds=vision)
         sync()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3303,7 +3518,10 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     MoE config the routers' picks are recorded in the forward and the
     cross-check: the positions before the first whose experts differ in
     any layer are held to LM_BF16_TOL, the rest counted and reported
-    (MOE_FLIP_RULE). The profiled prefill takes the first
+    (MOE_FLIP_RULE). A vision config's prefill takes n_vision_tokens
+    embeddings from --seed and every flash launch has that prefix; its
+    decode is held to a forward without M-RoPE and the prefix
+    (QWEN_DECODE_RULE). The profiled prefill takes the first
     `profiled_tokens` of the sequence where given (all of it otherwise)."""
     import numpy as np
     import torch
@@ -3318,6 +3536,7 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     capped = cfg.attn_softcap is not None
     wide = cfg.hd > 128
+    vision_prefix = cfg.n_vision_tokens > 0
     n_attn = n_attention_layers(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3360,6 +3579,8 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     seq = np.concatenate([prompts[:1], rng.integers(
         0, cfg.vocab, size=(1, prefill - LM_PROMPT), dtype=np.int32)], 1)
     seq = torch.from_numpy(seq).long().to(DEV)
+    vision = qwen_vision(cfg, 1, torch.Generator(device=DEV).manual_seed(
+        seed + 12)) if vision_prefix else None
     torch.cuda.reset_peak_memory_stats()
     fwd_spy, dec_spy = RouterSpy(cfg.is_moe), RouterSpy(cfg.is_moe)
     with torch.inference_mode():
@@ -3367,7 +3588,7 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
         sync()
         t0 = time.perf_counter()
         with fwd_spy:
-            logits, _ = forward(cfg, params, seq)
+            logits, _ = forward(cfg, params, seq, vision_embeds=vision)
         sync()
         prefill_s = time.perf_counter() - t0
         prefill_counts = attn_counts(fmod, dmod)         # ... and ends here
@@ -3380,14 +3601,29 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
                      "tensor_core")
         check_softcap(f"{label} prefill", prefill_counts, "flash", capped)
         check_wide(f"{label} prefill", prefill_counts, "flash", wide)
+        check_prefix(f"{label} prefill", prefill_counts, "flash",
+                     vision_prefix)
         if logits.shape != (1, prefill, cfg.vocab) or not torch.isfinite(
                 logits).all():
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                                  "not finite")
         fwd = logits[:, :LM_PROMPT].clone()
         del logits
+        reference_forward = None
+        if vision_prefix:                # QWEN_DECODE_RULE's forward
+            plain = dataclasses.replace(cfg, mrope_sections=None,
+                                        n_vision_tokens=0)
+            zero_attn_counts(fmod, dmod)
+            fwd = forward(plain, params, seq[:, :LM_PROMPT])[0]
+            reference_forward = attn_counts(fmod, dmod)
+            if reference_forward["flash"] != n_attn:
+                raise AssertionError(f"{label} reference forward launches "
+                                     f"{reference_forward}")
+            check_prefix(f"{label} reference forward", reference_forward,
+                         "flash", False)
     prefill_profile = profile_prefill(cfg, params,
-                                      seq[:, :profiled_tokens or prefill])
+                                      seq[:, :profiled_tokens or prefill],
+                                      vision)
     prefill_profile["tokens"] = profiled_tokens or prefill
     with torch.inference_mode():
         zero_attn_counts(fmod, dmod)                 # cross-check starts
@@ -3470,6 +3706,8 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
                       "flash_softcap_launches":
                           prefill_counts["flash_softcap"],
                       "flash_d256_launches": prefill_counts["flash_wide"],
+                      "flash_prefix_launches": prefill_counts["flash_prefix"],
+                      "vision_tokens": cfg.n_vision_tokens,
                       "peak_allocated_bytes": prefill_peak,
                       "profiled": prefill_profile},
           "decode_vs_forward": {"positions": LM_PROMPT,
@@ -3477,6 +3715,11 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
                                 "argmax_agreement": agree,
                                 "moe_routing": routing,
                                 "xlstm_positions": by_position,
+                                "vision_rule": QWEN_DECODE_RULE
+                                if vision_prefix else None,
+                                "reference_forward_flash_launches":
+                                    reference_forward and
+                                    reference_forward["flash"],
                                 "decode_launches": cross_decode},
           "idle_share_decode": 1.0 - profile["device_busy_ms_per_step"]
           / (1e3 * serve_s / (LM_PROMPT + LM_STEPS))})
@@ -3484,7 +3727,9 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
     torch.cuda.empty_cache()
     return {"flash": prefill_flash, "decode": serve_launches["decode"],
             "decode_crosscheck": cross_decode,
-            "flash_routes": prefill_counts["flash_routes"],
+            "flash_routes": {r: n + (reference_forward["flash_routes"][r]
+                                     if reference_forward else 0)
+                             for r, n in prefill_counts["flash_routes"].items()},
             "decode_routes": {r: serve_counts["decode_routes"][r]
                               + cross_counts["decode_routes"][r]
                               for r in serve_counts["decode_routes"]},
@@ -3492,6 +3737,9 @@ def serve_phase(fmod, dmod, seed: int, arch: str, prefill: int,
             "decode_softcap": serve_counts["decode_softcap"]
             + cross_counts["decode_softcap"],
             "flash_wide": prefill_counts["flash_wide"],
+            "flash_prefix": prefill_counts["flash_prefix"],
+            "flash_reference_forward": reference_forward["flash"]
+            if reference_forward else 0,
             "decode_wide": serve_counts["decode_wide"]
             + cross_counts["decode_wide"]}
 
@@ -3758,7 +4006,8 @@ def phase_xlstm_serve(fmod, dmod, seed: int) -> dict:
                        "xlstm_serve", profiled_tokens=256)
 
 
-def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False):
+def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False,
+                vision=None):
     """Mean next-token NLL of `f64_lm_forward`, in float64 (dense stacks:
     no aux loss). With `ckpt` the head and loss run in checkpointed chunks
     of 520 tokens, so that the backward holds one chunk's float64 logits
@@ -3770,7 +4019,7 @@ def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False):
         gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
         return (torch.logsumexp(logits, -1) - gold).sum()
 
-    x = f64_hidden(cfg, params, tokens, ckpt=ckpt)
+    x = f64_hidden(cfg, params, tokens, ckpt=ckpt, vision=vision)
     if not ckpt:
         return nll_sum(x, labels) / labels.numel()
     total = sum(_ckpt(True, nll_sum, x[:, c:c + 520], labels[:, c:c + 520])
@@ -4043,39 +4292,29 @@ def phase_lm_train(fmod, dmod, seed: int) -> dict:
     return launches
 
 
-def phase_gemma_train_check(fmod, dmod, seed: int) -> dict:
-    """Gemma-2 27B's published widths cut to 2 layers (local, then
-    global), float32, no remat, one sequence of GEMMA_CHECK_SEQ tokens (the
-    window of 4096 bites): the gradients of `lm_loss` through the
-    softcapped flash kernel and its softcapped backward (f32 FMA routes)
-    against float64 autograd of the script's own forward with the window
-    and both softcaps, per tensor within LM_GRAD_REL_TOL, for every layer
-    tensor (the attention's wq, wk, wv, wo, the norms, the MLP) and the
-    final norm. The embedding's and the head's gradients (1.18e9 entries
-    each) are checked finite, not compared: their float64 copies would
-    take 18.9 GB beside the rest. The float64 side converts the embedding
-    and head on the fly in chunks and checkpoints its head groups, MLPs
-    and loss chunks. Returns the launches."""
+def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None
+               ) -> tuple:
+    """`lm_loss` gradients of the float32 `cfg` (no remat) through the
+    flash kernels against float64 autograd of the script's own forward
+    (`f64_lm_loss`, checkpointed), per tensor within LM_GRAD_REL_TOL, for
+    every layer tensor, the final norm and, given `vision` embeddings,
+    `vision_proj`; the loss within LM_REL_TOL. The embedding's and the
+    head's gradients are checked finite, not compared: their float64
+    copies would take gigabytes beside the rest (the float64 side converts
+    them on the fly in chunks). Returns (the launches of the port's step,
+    the fields its phase line prints)."""
     import torch
-    from repro_torch.configs.gemma2_27b import CONFIG
-    from repro_torch.models import init_params, lm_loss, param_count
+    from repro_torch.models import lm_loss, param_count
     from repro_torch.train.optim import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32",
-                              remat=False)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=DEV).manual_seed(seed + 10)
-    params = init_params(cfg, gen, device=DEV)
-    tokens = torch.randint(0, cfg.vocab, (1, GEMMA_CHECK_SEQ), device=DEV,
-                           generator=gen)
     labels = torch.roll(tokens, -1, 1)
     names = _leaf_names(params)
     live = tree_map(lambda t: t.requires_grad_(True), params)
+    torch.cuda.reset_peak_memory_stats()
     sync()
     zero_attn_counts(fmod, dmod)                     # the step starts
     t0 = time.perf_counter()
-    loss = lm_loss(cfg, live, tokens, labels)
+    loss = lm_loss(cfg, live, tokens, labels, vision_embeds=vision)
     grads = torch.autograd.grad(loss, tree_leaves(live))
     sync()
     seconds = time.perf_counter() - t0
@@ -4083,7 +4322,8 @@ def phase_gemma_train_check(fmod, dmod, seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     loss = float(loss.detach())
     compared = [i for i, n in enumerate(names)
-                if n.startswith("layers/") or n == "final_norm"]
+                if n.startswith("layers/") or n in ("final_norm",
+                                                    "vision_proj")]
     unchecked = {n: bool(torch.isfinite(g).all())
                  for n, g in zip(names, grads) if n in ("embed", "lm_head")}
     grads = {i: grads[i] for i in compared}
@@ -4097,80 +4337,152 @@ def phase_gemma_train_check(fmod, dmod, seed: int) -> dict:
     tree64 = tree_map(lambda t: p64.get(next(it), t), params)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loss64 = f64_lm_loss(cfg, tree64, tokens, labels, ckpt=True)
+    loss64 = f64_lm_loss(cfg, tree64, tokens, labels, ckpt=True,
+                         vision=vision)
     grads64 = torch.autograd.grad(loss64, [p64[i] for i in compared])
     f64_s = time.perf_counter() - t0
     peak64 = torch.cuda.max_memory_allocated()
     errs = {names[i]: float((grads[i].double() - g64).abs().max())
             / max(float(g64.abs().max()), 1e-30)
             for i, g64 in zip(compared, grads64)}
-    if (counts["flash"], counts["flash_bwd"], counts["decode"]) != (
-            cfg.n_layers, cfg.n_layers, 0):
-        raise AssertionError(f"gemma_train_check launches {counts}; want "
-                             f"flash {cfg.n_layers}, backward "
-                             f"{cfg.n_layers}")
-    check_routes("gemma_train_check forward", counts, "flash", "f32_fma")
-    check_routes("gemma_train_check backward", counts, "flash_bwd",
-                 "f32_fma")
-    check_softcap("gemma_train_check forward", counts, "flash", True)
-    check_softcap("gemma_train_check backward", counts, "flash_bwd", True)
     loss64 = float(loss64.detach())
     loss_err = abs(loss - loss64)
     worst = max(errs, key=errs.get)
-    attn = [n for n in errs if "/attn/" in n]
-    if len(attn) != 4 * cfg.n_layers or not all(unchecked.values()):
-        raise AssertionError(f"gemma_train_check: compared {sorted(errs)}, "
-                             f"finite {unchecked}")
+    if not all(unchecked.values()) or (vision is not None
+                                       and "vision_proj" not in errs):
+        raise AssertionError(f"{label}: compared {sorted(errs)}, finite "
+                             f"{unchecked}")
     if not errs[worst] <= LM_GRAD_REL_TOL or not loss_err <= LM_REL_TOL * \
             abs(loss64):
-        raise AssertionError(f"gemma_train_check: {worst} relative error "
+        raise AssertionError(f"{label}: {worst} relative error "
                              f"{errs[worst]} > {LM_GRAD_REL_TOL} or loss off "
                              f"by {loss_err}")
+    out = {"params": param_count(params), "tokens": tokens.shape[1],
+           "batch": tokens.shape[0], "loss": loss, "loss_float64": loss64,
+           "seconds_fwd_bwd": seconds, "seconds_float64": f64_s,
+           "grad_rel_err_vs_float64": errs, "worst": worst,
+           "tol": LM_GRAD_REL_TOL, "compared_tensors": len(errs),
+           "finite_not_compared": unchecked,
+           "flash_launches": counts["flash"],
+           "flash_bwd_launches": counts["flash_bwd"],
+           "launches_by_route": {"flash": counts["flash_routes"],
+                                 "flash_bwd": counts["flash_bwd_routes"]},
+           "peak_allocated_bytes": peak,
+           "peak_allocated_bytes_float64": peak64}
+    del live, grads, p64, tree64, grads64
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def check_step_launches(label: str, counts: dict, n_attn: int, route: str,
+                        capped: bool, wide: bool, prefix: bool) -> None:
+    """A gradient step's launches: one flash forward and one backward per
+    attention layer, no decode, every one on `route`, with the softcap, at
+    d = 256 and with a prefix exactly where asked."""
+    if (counts["flash"], counts["flash_bwd"], counts["decode"]) != (
+            n_attn, n_attn, 0):
+        raise AssertionError(f"{label} launches {counts}; want flash "
+                             f"{n_attn}, backward {n_attn}")
+    for kernel in ("flash", "flash_bwd"):
+        check_routes(f"{label} {kernel}", counts, kernel, route)
+        check_softcap(f"{label} {kernel}", counts, kernel, capped)
+        check_wide(f"{label} {kernel}", counts, kernel, wide)
+        check_prefix(f"{label} {kernel}", counts, kernel, prefix)
+
+
+def phase_gemma_train_check(fmod, dmod, seed: int) -> dict:
+    """Gemma-2 27B's published widths cut to 2 layers (local, then
+    global), float32, no remat, one sequence of GEMMA_CHECK_SEQ tokens (the
+    window of 4096 bites): `grad_check` through the softcapped flash kernel
+    and its softcapped backward (f32 FMA routes) against float64 autograd
+    with the window and both softcaps, for every layer tensor (the
+    attention's wq, wk, wv, wo, the norms, the MLP) and the final norm.
+    Returns the launches."""
+    import torch
+    from repro_torch.configs.gemma2_27b import CONFIG
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32",
+                              remat=False)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 10)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (1, GEMMA_CHECK_SEQ), device=DEV,
+                           generator=gen)
+    counts, out = grad_check(fmod, dmod, "gemma_train_check", cfg, params,
+                             tokens)
+    check_step_launches("gemma_train_check", counts, cfg.n_layers, "f32_fma",
+                        capped=True, wide=False, prefix=False)
+    attn = [n for n in out["grad_rel_err_vs_float64"] if "/attn/" in n]
+    if len(attn) != 4 * cfg.n_layers:
+        raise AssertionError(f"gemma_train_check: compared {attn}")
     emit({"phase": "gemma_train_check",
           "config": "gemma2-27b width, 2 layers (local, global), float32, "
-                    "no remat", "params": param_count(params),
-          "tokens": GEMMA_CHECK_SEQ, "window": cfg.sliding_window,
+                    "no remat", "window": cfg.sliding_window,
           "attn_softcap": cfg.attn_softcap,
-          "logit_softcap": cfg.logit_softcap, "loss": loss,
-          "loss_float64": loss64, "seconds_fwd_bwd": seconds,
-          "seconds_float64": f64_s, "grad_rel_err_vs_float64": errs,
-          "worst": worst, "tol": LM_GRAD_REL_TOL,
-          "compared_tensors": len(errs),
-          "finite_not_compared": unchecked,
-          "flash_launches": counts["flash"],
-          "flash_bwd_launches": counts["flash_bwd"],
-          "launches_by_route": {"flash": counts["flash_routes"],
-                                "flash_bwd": counts["flash_bwd_routes"]},
+          "logit_softcap": cfg.logit_softcap, **out,
           "softcap_launches": {"flash": counts["flash_softcap"],
-                               "flash_bwd": counts["flash_bwd_softcap"]},
-          "peak_allocated_bytes": peak,
-          "peak_allocated_bytes_float64": peak64})
-    del params, live, grads, p64, tree64, grads64
+                               "flash_bwd": counts["flash_bwd_softcap"]}})
+    del params
     torch.cuda.empty_cache()
     return counts
 
 
-def phase_gemma_train(fmod, dmod, seed: int) -> dict:
-    """Gemma-2 27B's bf16 CONFIG (remat on, published widths) cut to 2
-    layers: `train_loop` with Adafactor, two microbatches of
-    TokenPipeline(vocab, 512, 4) a step and int8 error-feedback
-    compression, GEMMA_TRAIN_STEPS steps; the first loss within
+def phase_rgemma_train_check(fmod, dmod, seed: int) -> dict:
+    """rgemma_check's model (RecurrentGemma-2B's widths, an RG-LRU then a
+    local layer at d = 256, float32) without remat on one sequence of
+    RGEMMA_CHECK_SEQ tokens (the window of 2048 bites): `grad_check`
+    through the flash forward and the backward's d = 256 instance on the
+    f32 FMA route, the RG-LRU scan and the temporal conv differentiated as
+    plain PyTorch, against float64 autograd of the script's own forward,
+    whose recurrence steps over time. Returns the launches."""
+    import torch
+    from repro_torch.configs.recurrentgemma_2b import CONFIG
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32",
+                              remat=False, block_pattern=("rglru", "local"))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 9)  # rgemma_check's
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (1, RGEMMA_CHECK_SEQ), device=DEV,
+                           generator=gen)
+    counts, out = grad_check(fmod, dmod, "rgemma_train_check", cfg, params,
+                             tokens)
+    check_step_launches("rgemma_train_check", counts, 1, "f32_fma",
+                        capped=False, wide=True, prefix=False)
+    emit({"phase": "rgemma_train_check",
+          "config": "recurrentgemma-2b width, 2 layers (rglru, local), "
+                    "float32, no remat", "window": cfg.sliding_window,
+          "head_dim": cfg.hd, **out,
+          "d256_launches": {"flash": counts["flash_wide"],
+                            "flash_bwd": counts["flash_bwd_wide"]}})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
+                batch: int, steps: int) -> dict:
+    """`cfg` (bf16, remat on): `train_loop` with Adafactor, two
+    microbatches of TokenPipeline(vocab, seq, batch) a step and int8
+    error-feedback compression, `steps` steps; the first loss within
     LM_TRAIN_LOSS_TOL of the float64 loss of the same batch, and the loss
     of that batch lower after the steps than before. Every flash forward,
-    recompute and backward on the tensor-core route with the softcap.
+    recompute and backward on the tensor-core route, with the softcap and
+    at d = 256 exactly where the config asks, none with a prefix. Prints
+    ms per step, tokens/s, peak bytes and one profiled step by kind.
     Returns the launches."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.models import init_params, lm_loss, param_count
     from repro_torch.train import TrainLoopConfig, make_optimizer, train_loop
 
-    cfg = dataclasses.replace(get_config("gemma2_27b"), n_layers=2)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed),
                          device=DEV)
-    pipe = TokenPipeline(cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=seed)
+    pipe = TokenPipeline(cfg.vocab, seq, batch, seed=seed)
     accum = 2
     first = next(train_batches(pipe, accum, []))
     with torch.no_grad():                # step 0's batch in float64
@@ -4179,7 +4491,7 @@ def phase_gemma_train(fmod, dmod, seed: int) -> dict:
                      for i in range(accum)) / accum
     torch.cuda.empty_cache()
     lc = TrainLoopConfig(optimizer="adafactor", grad_accum=accum,
-                         compress=True, max_steps=GEMMA_TRAIN_STEPS)
+                         compress=True, max_steps=steps)
     times = []
     torch.cuda.reset_peak_memory_stats()
     zero_attn_counts(fmod, dmod)                     # the run starts
@@ -4190,17 +4502,21 @@ def phase_gemma_train(fmod, dmod, seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     times.append(time.perf_counter())
     micro = lc.max_steps * accum
-    want = {"flash": 2 * cfg.n_layers * micro,       # forward + recompute
-            "flash_bwd": cfg.n_layers * micro, "decode": 0}
+    n_attn = n_attention_layers(cfg)
+    want = {"flash": 2 * n_attn * micro,             # forward + recompute
+            "flash_bwd": n_attn * micro, "decode": 0}
     got = {k: counts[k] for k in want}
     if got != want:
-        raise AssertionError(f"gemma_train launches {got}, want {want}")
+        raise AssertionError(f"{label} launches {got}, want {want}")
     for kernel in ("flash", "flash_bwd"):
-        check_routes(f"gemma_train {kernel}", counts, kernel, "tensor_core")
-        check_softcap(f"gemma_train {kernel}", counts, kernel, True)
+        check_routes(f"{label} {kernel}", counts, kernel, "tensor_core")
+        check_softcap(f"{label} {kernel}", counts, kernel,
+                      cfg.attn_softcap is not None)
+        check_wide(f"{label} {kernel}", counts, kernel, cfg.hd > 128)
+        check_prefix(f"{label} {kernel}", counts, kernel, False)
     losses = [x for _, x in info["history"]]
     if len(losses) != lc.max_steps or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"gemma_train: losses {losses}")
+        raise AssertionError(f"{label}: losses {losses}")
     with torch.no_grad():                # step 0's batch after the steps
         after = sum(float(lm_loss(cfg, out_params, first["tokens"][i],
                                   first["labels"][i]))
@@ -4208,20 +4524,21 @@ def phase_gemma_train(fmod, dmod, seed: int) -> dict:
     step_s = [b - a for a, b in zip(times[:lc.max_steps],
                                     times[1:lc.max_steps + 1])]
     steady = step_s[1:]
-    tokens = accum * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    tokens = accum * batch * seq
     profiled = profile_train_step(cfg, lc, out_params, out_state, info["ef"],
                                   next(train_batches(pipe, accum, [])))
     gap = abs(losses[0] - loss64)
     if not gap <= LM_TRAIN_LOSS_TOL or not after < losses[0]:
-        raise AssertionError(f"gemma_train: first loss {losses[0]} vs "
+        raise AssertionError(f"{label}: first loss {losses[0]} vs "
                              f"float64 {loss64} (gap {gap} > "
                              f"{LM_TRAIN_LOSS_TOL}?), step 0's batch after "
                              f"the steps {after}")
-    emit({"phase": "gemma_train", "config": cfg.name, "dtype": cfg.dtype,
-          "layers": cfg.n_layers, "remat": cfg.remat,
+    emit({"phase": label, "config": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "attention_layers": n_attn,
+          "head_dim": cfg.hd, "remat": cfg.remat,
           "params": param_count(params), "optimizer": lc.optimizer,
           "grad_accum": accum, "compress": lc.compress,
-          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+          "batch": batch, "seq": seq,
           "first_loss": losses[0], "first_loss_float64": loss64,
           "loss_gap": gap, "loss_tol": LM_TRAIN_LOSS_TOL,
           "loss_history": info["history"],
@@ -4236,10 +4553,136 @@ def phase_gemma_train(fmod, dmod, seed: int) -> dict:
                                 "flash_bwd": counts["flash_bwd_routes"]},
           "softcap_launches": {"flash": counts["flash_softcap"],
                                "flash_bwd": counts["flash_bwd_softcap"]},
+          "d256_launches": {"flash": counts["flash_wide"],
+                            "flash_bwd": counts["flash_bwd_wide"]},
           "peak_allocated_bytes": peak, "profiled_step": profiled})
     del params, out_params, out_state, info, first
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_gemma_train(fmod, dmod, seed: int) -> dict:
+    """Gemma-2 27B's bf16 CONFIG (remat on, published widths) cut to 2
+    layers: `train_phase` with two microbatches of TokenPipeline(vocab,
+    512, 4), GEMMA_TRAIN_STEPS steps, every launch softcapped."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("gemma2_27b"), n_layers=2)
+    return train_phase(fmod, dmod, seed, "gemma_train", cfg, LM_TRAIN_SEQ,
+                       LM_TRAIN_BATCH, GEMMA_TRAIN_STEPS)
+
+
+def phase_rgemma_train(fmod, dmod, seed: int) -> dict:
+    """RecurrentGemma-2B's bf16 CONFIG at full width and depth (26 layers,
+    8 of them local attention at d = 256, remat on): `train_phase` with
+    two microbatches of TokenPipeline(vocab, 4096, 1) a step, so that the
+    window of 2048 bites in the backward, RGEMMA_TRAIN_STEPS steps; every
+    flash forward, recompute and backward on the tensor-core route at
+    d = 256, 16 backward launches a step."""
+    from repro_torch.configs import get_config
+    cfg = get_config("recurrentgemma_2b")
+    if RGEMMA_TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=RGEMMA_TRAIN_LAYERS)
+    return train_phase(fmod, dmod, seed, "rgemma_train", cfg,
+                       RGEMMA_TRAIN_SEQ, 1, RGEMMA_TRAIN_STEPS)
+
+
+def qwen_vision(cfg, batch: int, gen):
+    """`batch` sequences of the config's n_vision_tokens patch embeddings,
+    float32, drawn from `gen` (the reference's vision tower is a stub of
+    precomputed embeddings)."""
+    import torch
+    return torch.randn((batch, cfg.n_vision_tokens, cfg.d_model), device=DEV,
+                       generator=gen)
+
+
+def phase_qwen_check(fmod, dmod, seed: int) -> dict:
+    """Qwen2-VL-72B's published widths cut to 2 float32 layers, batch 2 x
+    QWEN_CHECK_SEQ with 256 vision embeddings from --seed: `forward` with
+    them against the script's own float64 forward (M-RoPE, the vision
+    block's bidirectional mask, the projection), teacher-forced
+    `decode_step` against its float64 forward without M-RoPE and the
+    vision prefix (the reference's decode semantics, R6), both within
+    LM_REL_TOL, and `grad_check` with the vision input (`vision_proj`
+    compared). Every flash launch, forward and backward, on the f32 FMA
+    route with the prefix of 256; decode launches 2 x QWEN_CHECK_SEQ.
+    Returns the launches."""
+    import torch
+    from repro_torch.configs.qwen2_vl_72b import CONFIG
+    from repro_torch.models import forward, init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype="float32",
+                              remat=False)
+    plain = dataclasses.replace(cfg, mrope_sections=None, n_vision_tokens=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 12)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (2, QWEN_CHECK_SEQ), device=DEV,
+                           generator=gen)
+    vision = qwen_vision(cfg, 2, gen)
+    with torch.inference_mode():
+        zero_attn_counts(fmod, dmod)                     # forward starts
+        logits, _ = forward(cfg, params, tokens, vision_embeds=vision)
+        fwd_counts = attn_counts(fmod, dmod)             # ... and ends here
+        zero_attn_counts(fmod, dmod)                     # decode starts
+        dec = teacher_forced(cfg, params, tokens)
+        dec_counts = attn_counts(fmod, dmod)             # ... and ends here
+        sync()
+        ref = f64_lm_forward(cfg, params, tokens, vision=vision)
+        errs = {"forward": rel_err(logits, ref)}
+        del ref
+        ref_dec = f64_lm_forward(plain, params, tokens)
+        errs["decode"] = rel_err(dec, ref_dec)
+        # R6: how far the reference's decode semantics lie from its forward.
+        gap_r6 = rel_err(dec, logits)
+        finite = bool(torch.isfinite(logits).all() and torch.isfinite(
+            dec).all())
+        del logits, dec, ref_dec
+    n_attn = cfg.n_layers
+    if (fwd_counts["flash"], fwd_counts["decode"], dec_counts["flash"],
+            dec_counts["decode"]) != (n_attn, 0, 0, n_attn * QWEN_CHECK_SEQ):
+        raise AssertionError(f"qwen_check launches: forward {fwd_counts}, "
+                             f"decode {dec_counts}")
+    check_routes("qwen_check forward", fwd_counts, "flash", "f32_fma")
+    check_prefix("qwen_check forward", fwd_counts, "flash", True)
+    check_routes("qwen_check decode", dec_counts, "decode", "f32_fma")
+    bad = {k: e for k, e in errs.items() if not e <= LM_REL_TOL}
+    if bad or not finite:
+        raise AssertionError(f"qwen_check: relative error above "
+                             f"{LM_REL_TOL}: {bad} (finite {finite})")
+    counts, grads = grad_check(fmod, dmod, "qwen_check", cfg, params, tokens,
+                               vision)
+    check_step_launches("qwen_check gradient", counts, n_attn, "f32_fma",
+                        capped=False, wide=False, prefix=True)
+    emit({"phase": "qwen_check",
+          "config": "qwen2-vl-72b width, 2 layers, float32, no remat",
+          "vision_tokens": cfg.n_vision_tokens,
+          "mrope_sections": cfg.mrope_sections,
+          "rel_err_vs_float64": errs, "tol": LM_REL_TOL,
+          "decode_reference": "float64 forward without M-RoPE and the "
+                              "vision prefix (the reference's decode, R6)",
+          "rel_gap_decode_vs_forward_r6": gap_r6,
+          "flash_launches": fwd_counts["flash"],
+          "flash_prefix_launches": fwd_counts["flash_prefix"],
+          "decode_launches": dec_counts["decode"],
+          "launches_by_route": {"flash": fwd_counts["flash_routes"],
+                                "decode": dec_counts["decode_routes"]},
+          "gradients": {**grads, "prefix_launches": {
+              "flash": counts["flash_prefix"],
+              "flash_bwd": counts["flash_bwd_prefix"]}}})
+    del params, vision
+    torch.cuda.empty_cache()
+    total = add_counts(fwd_counts, dec_counts, counts)
+    return total
+
+
+def phase_qwen_serve(fmod, dmod, seed: int) -> dict:
+    """Qwen2-VL-72B's bf16 CONFIG cut to QWEN_SERVE_LAYERS of 80 layers:
+    `serve_phase` with 256 vision embeddings in the 4096-token prefill
+    (every flash launch with the prefix of 256), decode held to a forward
+    without M-RoPE and the vision prefix (QWEN_DECODE_RULE)."""
+    return serve_phase(fmod, dmod, seed, "qwen2_vl_72b", LM_PREFILL,
+                       "qwen_serve", n_layers=QWEN_SERVE_LAYERS)
 
 
 def phase_moe_check(fmod, dmod, seed: int) -> dict:
@@ -4472,7 +4915,7 @@ def time_flash_softcap(fmod, seed: int) -> dict:
     plain_ms = cuda_ms(lambda: fmod.flash_attention_plain(q, k, v,
                                                           softcap=50.0, **kw),
                        3, warmup=1)
-    per_head = sum(min(i + 1, window) for i in range(s_len))
+    per_head = valid_pairs_per_head(s_len, window)
     pairs = b * h * per_head
     flops = 4.0 * d * pairs
     nbytes = 4 * b * h * s_len * d * q.element_size()   # q, k, v, out
@@ -4506,14 +4949,12 @@ def time_flash_rgemma(fmod, seed: int) -> dict:
     ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v, **kw), 20)
     plain_ms = cuda_ms(lambda: fmod.flash_attention_plain(q, k, v, **kw), 3,
                        warmup=1)
-    pos = torch.arange(s_len, device=DEV)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                             - window)
+    mask = valid_mask(s_len, window)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask), 20)
     causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), 20)
-    per_head = sum(min(i + 1, window) for i in range(s_len))
+    per_head = valid_pairs_per_head(s_len, window)
     flops = 4.0 * d * b * h * per_head
     nbytes = 4 * b * h * s_len * d * q.element_size()   # q, k, v, out
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -4586,63 +5027,143 @@ def time_recurrent_blocks(seed: int) -> dict:
     return out
 
 
+def valid_mask(s_len: int, window: int = 0, prefix: int = 0):
+    """(S, S) bool on the card, the flash kernels' causal mask: key j valid
+    for query i iff j <= max(i, prefix - 1) and, with a window, j > i -
+    window."""
+    import torch
+    pos = torch.arange(s_len, device=DEV)
+    mask = pos[None, :] <= torch.clamp_min(pos[:, None], prefix - 1)
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def valid_pairs_per_head(s_len: int, window: int = 0, prefix: int = 0
+                         ) -> int:
+    """The (query, key) pairs of one head that `valid_mask` keeps: query i
+    sees the keys from max(i - window + 1, 0) (0 without a window) to
+    min(max(i, prefix - 1), S - 1)."""
+    return sum(max(min(max(i, prefix - 1), s_len - 1)
+                   - (max(i - window + 1, 0) if window else 0) + 1, 0)
+               for i in range(s_len))
+
+
 def time_flash_bwd(fmod, seed: int, shape, repeats: int,
-                   softcap=None) -> dict:
+                   softcap=None, window: int = 0, prefix: int = 0) -> dict:
     """The backward kernels at `shape` (bf16, causal: the tensor-core
-    route; softcapped where `softcap` is given: the CAP instances), their
-    plain version and, as the yardstick the port never calls, SDPA's
-    forward + backward less its forward (the same flash forward, saving
-    its lse for the backward; none with a softcap, which no PyTorch call
-    takes); also the forward kernel as training launches it, writing
-    lse."""
+    route; softcapped where `softcap` is given: the CAP instances; within
+    `window`, with the bidirectional `prefix`), their plain version and, as
+    the yardstick the port never calls, SDPA's forward + backward less its
+    forward (the same flash forward, saving its lse for the backward;
+    causal, or with the window or the prefix as a bool mask, beside causal
+    SDPA without them; none with a softcap, which no PyTorch call takes);
+    also the forward kernel as training launches it, writing lse. The
+    bound counts the valid pairs of the mask."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed + 7)
     b, h, s_len, d = shape
     q, k, v, dout = attn_inputs(shape, "bfloat16", gen) + attn_inputs(
         shape, "bfloat16", gen)[:1]
+    kw = {"window": window, "prefix": prefix}
     with torch.no_grad():
         out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=True,
-                                                 softcap=softcap)
+                                                 softcap=softcap, **kw)
         ms = cuda_ms(lambda: fmod.flash_attention_bwd_cuda(
-            q, k, v, out, dout, lse, True, 0, softcap), repeats)
+            q, k, v, out, dout, lse, True, window, softcap, prefix=prefix),
+            repeats)
         fwd_lse_ms = cuda_ms(lambda: fmod.flash_attention_lse_cuda(
-            q, k, v, causal=True, softcap=softcap), repeats)
+            q, k, v, causal=True, softcap=softcap, **kw), repeats)
         plain_ms = cuda_ms(lambda: fmod.flash_attention_bwd_plain(
-            q, k, v, out, dout, lse, True, 0, softcap), 2, warmup=1)
+            q, k, v, out, dout, lse, True, window, softcap, prefix=prefix),
+            2, warmup=1)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    mask = valid_mask(s_len, window, prefix) if window or prefix else None
 
-    def sdpa_fwd():
+    def sdpa_fwd(masked=True):
+        if masked and mask is not None:
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
         return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dout)
+    def sdpa_bwd_ms(masked=True):
+        return cuda_ms(lambda: torch.autograd.grad(
+            sdpa_fwd(masked), (qs, ks, vs), dout), repeats) - cuda_ms(
+                lambda: sdpa_fwd(masked), repeats)
 
-    library_ms = None if softcap else (
-        cuda_ms(sdpa_fwd_bwd, repeats) - cuda_ms(sdpa_fwd, repeats))
-    pairs = b * h * s_len * (s_len + 1) // 2        # causal (query, key)
+    library_ms = None if softcap else sdpa_bwd_ms()
+    pairs = b * h * valid_pairs_per_head(s_len, window, prefix)
     flops = 10.0 * d * pairs
     # q, k, v, out, dout in; dq, dk, dv out; lse in, f32.
     nbytes = 8 * b * h * s_len * d * q.element_size() + 4 * b * h * s_len
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    # What the tensor-core route's MMAs do: q.k and dO.v in each of its two
-    # kernels, and dV, dK, dQ on split P and dS, two products each.
-    split_ms = 1e3 * max(2 * flops / PEAK_BF16_FLOPS, t_bytes)
-    return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
-            "softcap": softcap,
+    # What the tensor-core route's MMAs do a pair: q.k and dO.v (2·d each)
+    # in each of its two kernels, at d = 256 twice in the dK/dV kernel (once
+    # per dim half), and dV, dK, dQ on split P and dS, two products of 2·d
+    # each: 20·d, at d = 256 24·d.
+    mma_flops = (24.0 if d > 128 else 20.0) * d * pairs
+    split_ms = 1e3 * max(mma_flops / PEAK_BF16_FLOPS, t_bytes)
+    row = {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+           "softcap": softcap, "window": window, "prefix": prefix,
+           "valid_pairs": pairs, "flops": flops, "min_bytes": nbytes,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "none: no PyTorch call softcaps attention"
+                           if softcap else
+                           "F.scaled_dot_product_attention(" +
+                           ("attn_mask= the mask, bool" if mask is not None
+                            else "is_causal=True") +
+                           ") forward + backward, less its forward",
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ms_f32_fma": 1e3 * flops / PEAK_F32_FLOPS,
+           "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
+           "bound_ms_split_mma": split_ms,
+           "bound_share_split_mma": split_ms / ms,
+           "forward_with_lse_ms": fwd_lse_ms}
+    if mask is not None and not softcap:
+        row["sdpa_causal_unmasked_ms"] = sdpa_bwd_ms(masked=False)
+    return row
+
+
+def time_flash_prefix(fmod, seed: int) -> dict:
+    """The flash forward at qwen_serve's per-layer prefill, (1, 64, 4096,
+    128) bf16 (its 8 KV heads repeated to the 64 query heads, as
+    `layers.attention` gives them), causal with the prefix of 256 vision
+    positions; the same call without the prefix (P = 0, the plain causal
+    kernel on the same shape); its plain version; SDPA with the prefix as
+    a boolean mask (the same function) and causal SDPA without it. The
+    bound counts the valid (query, key) pairs of the prefix mask."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(seed + 13)
+    b, h, s_len, d, prefix = 1, 64, LM_PREFILL, 128, QWEN_VISION_TOKENS
+    q, k, v = attn_inputs((b, h, s_len, d), "bfloat16", gen)
+    ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v, prefix=prefix),
+                 20)
+    no_prefix_ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: fmod.flash_attention_plain(q, k, v,
+                                                          prefix=prefix), 3,
+                       warmup=1)
+    mask = valid_mask(s_len, prefix=prefix)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), 20)
+    causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    per_head = valid_pairs_per_head(s_len, prefix=prefix)
+    flops = 4.0 * d * b * h * per_head
+    nbytes = 4 * b * h * s_len * d * q.element_size()   # q, k, v, out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"shape": [b, h, s_len, d], "dtype": "bfloat16", "causal": True,
+            "prefix": prefix, "valid_pairs_per_head": per_head,
             "flops": flops, "min_bytes": nbytes, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_call": "none: no PyTorch call softcaps attention"
-                            if softcap else
-                            "F.scaled_dot_product_attention(is_causal=True) "
-                            "forward + backward, less its forward",
+            "no_prefix_ms": no_prefix_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention(attn_mask= the "
+                            "prefix mask, bool)",
+            "sdpa_causal_no_prefix_ms": causal_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_ms_f32_fma": 1e3 * flops / PEAK_F32_FLOPS,
-            "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
-            "bound_ms_split_mma": split_ms,
-            "bound_share_split_mma": split_ms / ms,
-            "forward_with_lse_ms": fwd_lse_ms}
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
 
 
 def device_ms(fn, repeats: int) -> float:
@@ -4773,6 +5294,14 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
         "decode_attention_rgemma_b128": time_decode(
             dmod, seed, SHAPES["decode_32k"]["global_batch"], 2048,
             repeats=50, n_kv=1, group=10, d=256),
+        # The backward's d = 256 instance at rgemma_train's layer, and both
+        # directions with Qwen2-VL's prefix at qwen_serve's prefill layer.
+        "flash_bwd_rgemma": time_flash_bwd(
+            fmod, seed, (1, 10, RGEMMA_TRAIN_SEQ, 256), 5, window=2048),
+        "flash_attention_qwen_prefix": time_flash_prefix(fmod, seed),
+        "flash_bwd_qwen_prefix": time_flash_bwd(
+            fmod, seed, (1, 64, LM_PREFILL, 128), 3,
+            prefix=QWEN_VISION_TOKENS),
         # Plain PyTorch, candidates for later kernels (PERF.md §5).
         "recurrent_blocks": time_recurrent_blocks(seed),
     }
@@ -4843,8 +5372,14 @@ def run(args) -> None:
               row for row in table if ("dkdv_kernel" in row
                                        or "dq_kernel" in row)
               and ", true>" in row],
-          # The d = 256 instances (NC = 16) of the forward and decode.
-          "d256_instances": [row for row in table if ", 16, " in row]})
+          # The d = 256 instances (NC = 16) of every attention kernel.
+          "d256_instances": [row for row in table if ", 16, " in row],
+          # The d = 128 (NC = 8) instances of the backward, the ones held to
+          # their registers and spills beside the prefix.
+          "flash_bwd_d128_instances": [
+              row for row in table if ("dkdv_kernel" in row
+                                       or "dq_kernel" in row)
+              and ", 8, " in row]})
     PHASE_SECONDS["build"] = info.seconds
 
     t0 = time.perf_counter()
@@ -4939,6 +5474,15 @@ def run(args) -> None:
                                dmod, args.seed)
     lm["xlstm_serve"] = timed("xlstm_serve", phase_xlstm_serve, fmod, dmod,
                               args.seed)
+    lm["rgemma_train_check"] = timed("rgemma_train_check",
+                                     phase_rgemma_train_check, fmod, dmod,
+                                     args.seed)
+    lm["rgemma_train"] = timed("rgemma_train", phase_rgemma_train, fmod,
+                               dmod, args.seed)
+    lm["qwen_check"] = timed("qwen_check", phase_qwen_check, fmod, dmod,
+                             args.seed)
+    lm["qwen_serve"] = timed("qwen_serve", phase_qwen_serve, fmod, dmod,
+                             args.seed)
     timed("experts", phase_experts, args.seed)
     timing = timed("timing", phase_timing, kmod, fmod, dmod, plans, h_main,
                    h_lj, h_train, g_train, args.seed, tuned)
@@ -4953,7 +5497,8 @@ def run(args) -> None:
         routes = [path[kernel] for path in GCN_ROUTES.values()]
         return {route: sum(r[route] for r in routes) for route in routes[0]}
 
-    train_paths = [p for p in lm if p.startswith(("lm_train", "gemma_train"))]
+    train_paths = [p for p in lm if p.startswith(
+        ("lm_train", "gemma_train", "rgemma_train", "qwen_check"))]
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
                    **{p: lm[p]["flash"] for p in train_paths},
                    "lm_serve_prefill": lm["lm_serve"]["flash"],
@@ -4964,7 +5509,10 @@ def run(args) -> None:
                    "rgemma_check": lm["rgemma_check"]["flash"],
                    "rgemma_serve_prefill": lm["rgemma_serve"]["flash"],
                    "xlstm_check": lm["xlstm_check"]["flash"],
-                   "xlstm_serve_prefill": lm["xlstm_serve"]["flash"]}
+                   "xlstm_serve_prefill": lm["xlstm_serve"]["flash"],
+                   "qwen_serve_prefill": lm["qwen_serve"]["flash"],
+                   "qwen_serve_reference_forward":
+                       lm["qwen_serve"]["flash_reference_forward"]}
     bwd_paths = {p: lm[p]["flash_bwd"] for p in train_paths}
 
     def by_route(kernel: str, routes=("tensor_core", "f32_fma")) -> dict:
@@ -4991,7 +5539,11 @@ def run(args) -> None:
                     "xlstm_check": lm["xlstm_check"]["decode"],
                     "xlstm_serve": lm["xlstm_serve"]["decode"],
                     "xlstm_serve_crosscheck":
-                        lm["xlstm_serve"]["decode_crosscheck"]}
+                        lm["xlstm_serve"]["decode_crosscheck"],
+                    "qwen_check": lm["qwen_check"]["decode"],
+                    "qwen_serve": lm["qwen_serve"]["decode"],
+                    "qwen_serve_crosscheck":
+                        lm["qwen_serve"]["decode_crosscheck"]}
 
     def softcapped(kernel: str) -> dict:
         """Softcapped launches by path (Gemma-2's; every other 0)."""
@@ -5001,6 +5553,11 @@ def run(args) -> None:
     def wide(kernel: str) -> dict:
         """d = 256 launches by path (RecurrentGemma's; every other 0)."""
         return {name: path.get(f"{kernel}_wide", 0)
+                for name, path in lm.items()}
+
+    def prefixed(kernel: str) -> dict:
+        """Launches with a prefix by path (Qwen2-VL's; every other 0)."""
+        return {name: path.get(f"{kernel}_prefix", 0)
                 for name, path in lm.items()}
     emit({"kernels": [
         {"name": "bcsr_spmm", "route": "cuda",
@@ -5051,7 +5608,14 @@ def run(args) -> None:
          "rgemma_prefill_d256": {
              k: timing["flash_attention_rgemma"][k]
              for k in (*keys, "shape", "window", "sdpa_causal_no_window_ms",
-                       "bound_ms_split_pv")}},
+                       "bound_ms_split_pv")},
+         "prefix_launches": sum(prefixed("flash").values()),
+         "prefix_launches_by_path": prefixed("flash"),
+         "max_abs_err_prefix": attn_err["flash_prefix"],
+         "qwen_prefill_prefix": {
+             k: timing["flash_attention_qwen_prefix"][k]
+             for k in (*keys, "shape", "prefix", "no_prefix_ms",
+                       "sdpa_causal_no_prefix_ms")}},
         {"name": "flash_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
          "replaces": "src/repro/models/layers.py:90",
@@ -5068,7 +5632,21 @@ def run(args) -> None:
          "prefill_shape": {k: timing["flash_bwd_prefill"][k]
                            for k in (*keys, *bwd_keys)},
          "softcap_50": {k: timing["flash_bwd_softcap"][k]
-                        for k in (*keys, *bwd_keys, "softcap")}},
+                        for k in (*keys, *bwd_keys, "softcap")},
+         "d256_launches": sum(wide("flash_bwd").values()),
+         "d256_launches_by_path": wide("flash_bwd"),
+         "max_abs_err_d256": attn_err["backward_d256"],
+         "rgemma_train_d256": {
+             k: timing["flash_bwd_rgemma"][k]
+             for k in (*keys, *bwd_keys, "shape", "window",
+                       "sdpa_causal_unmasked_ms")},
+         "prefix_launches": sum(prefixed("flash_bwd").values()),
+         "prefix_launches_by_path": prefixed("flash_bwd"),
+         "max_abs_err_prefix": attn_err["backward_prefix"],
+         "qwen_prefill_prefix": {
+             k: timing["flash_bwd_qwen_prefix"][k]
+             for k in (*keys, *bwd_keys, "shape", "prefix",
+                       "sdpa_causal_unmasked_ms")}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:68",
@@ -5114,6 +5692,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # Phases from a few MB to 74 GB share this process. With fixed-size
+    # segments, memory cached by earlier phases once stranded 20.6 GB
+    # (reserved, unallocated), and rgemma_train, which alone peaks at 66.3
+    # GB, ran out of memory at 57.6 GB allocated (PERF.md §6).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "

@@ -7,11 +7,11 @@ same values as `repro.configs`. The port's transformer runs the dense GQA
 archs (Yi-6B, Yi-9B, DeepSeek-7B), Gemma-2 27B (sliding-window layers
 with ring caches, both softcaps), the MoE archs Mixtral 8x22B and Kimi
 K2 (every layer an MOE block; as in the reference, Mixtral's sliding
-window is applied to no layer) and the recurrent archs xLSTM-125M (sLSTM
+window is applied to no layer), the recurrent archs xLSTM-125M (sLSTM
 and mLSTM blocks) and RecurrentGemma-2B (RG-LRU blocks and local
-attention at head dim 256). `get_config` of any other id raises and
-names the ROADMAP item that brings it, so no caller gets a config the
-model would mis-run.
+attention at head dim 256) and Qwen2-VL-72B (M-RoPE and the vision
+input). `get_config` of any other id raises and names the ROADMAP item
+that brings it, so no caller gets a config the model would mis-run.
 """
 from __future__ import annotations
 
@@ -31,11 +31,10 @@ _ARCH_IDS: List[str] = [
     "qwen2_vl_72b",
 ]
 
-_ITEM = "ROADMAP.md queue 1 item 8"
+_ITEM = "ROADMAP.md queue 1 item 8.3"
 _NOT_PORTED: Dict[str, str] = {
     "seamless_m4t_medium": f"the encoder-decoder and its audio frontend "
                            f"({_ITEM})",
-    "qwen2_vl_72b": f"M-RoPE and the vision frontend ({_ITEM})",
 }
 
 ALIAS = {i.replace("_", "-"): i for i in _ARCH_IDS}

@@ -45,11 +45,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // Head dims are padded (with zeros, in shared memory and registers) to
-// 16 * NC, NC in {1, 2, 4, 8, 16}: d <= 256 in the forward and decode
-// kernels. The backward stops at NC = 8, d <= 128: its dK/dV kernel is at
-// 255 registers there, so d = 256 needs tiles of its own (ROADMAP.md K5).
+// 16 * NC, NC in {1, 2, 4, 8, 16}: d <= 256 in every attention kernel. The
+// backward's NC = 16 instances have tile plans of their own
+// (flash_attn_bwd.cu, tc::Plan): its dK/dV kernel is at 255 registers at
+// NC = 8 already.
 constexpr int MAX_HEAD_DIM = 256;
-constexpr int MAX_BWD_HEAD_DIM = 128;
+constexpr int MAX_BWD_HEAD_DIM = 256;
 
 // Calls fn.template operator()<T, NC>() for the dtype code and head dim,
 // up to MAX_D; returns cudaErrorInvalidValue for a combination no instance

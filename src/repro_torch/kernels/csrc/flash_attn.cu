@@ -6,12 +6,23 @@
 //
 //   out[b,h,i,:] = sum_j softmax_j(q[b,h,i,:] . k[b,h,j,:] / sqrt(d)) v[b,h,j,:]
 //
-// over the keys j <= i (causal) and j > i - window (window > 0), with an
-// online softmax whose row max, row sum and accumulator are f32. A row with
+// over the keys j <= max(i, P - 1) (causal, with a bidirectional prefix of
+// P >= 0 positions: the reference's M-RoPE mask, below) and j > i - window
+// (window > 0), with an online softmax whose row max, row sum and
+// accumulator are f32. A row with
 // no valid key writes 0, as the TPU kernel's max(l, 1e-30) does. q, k, v
 // are (B, H, S, d) f32, f16 or bf16, d <= 256 (the TPU kernel takes any d);
 // the output is in q's type. S need not be a multiple of any tile: the
 // ragged edge is masked, never padded.
+//
+// The prefix P (0 for plain causal attention) is Qwen2-VL's vision block:
+// the reference's attention (repro/models/layers.py::attention) masks by
+// the temporal position ids, key j valid for query i iff t_j <= t_i, and
+// its M-RoPE layout (transformer.py::_build_positions) gives the first P
+// positions t = 0 and text position i t = i - P + 1; by index that is
+// j <= max(i, P - 1), so the P vision positions attend to each other in
+// both directions. P is a runtime int that moves only the causal loop limit
+// (max(q0 + BQ, P)) and the edge masks.
 //
 // With an attention softcap (softcap > 0, Gemma-2's; the TPU kernel has
 // none, so this follows the reference's _attn_core in
@@ -68,12 +79,13 @@
 //     stays in shared memory, reloaded by ldmatrix at each k-step, 8 k-steps
 //     unrolled at once; 4 warps over BQ = 64 query rows and 32-key tiles:
 //     32 KiB of Q and 2 stages of 16 + 16 KiB, two blocks per SM. ptxas
-//     (CUDA 12.8) gives 254 registers and no spills (all 16 k-steps
-//     unrolled spill 16 bytes). The d <= 128 instances are unchanged.
+//     (CUDA 12.8) gives 254 registers and 8 bytes of spills (all 16 k-steps
+//     unrolled spill 16 bytes).
 //   At d = 128: 32 KiB of Q and STAGES·2 tiles of 16 KiB = 96 KiB of dynamic
 //   shared memory, one block (8 warps) per SM; ptxas (CUDA 12.8) gives 255
-//   registers and 88 bytes of spill stores and loads (fewer registers and
-//   no spills at d <= 64). On an H100 80GB HBM3 at 700 W it takes 0.88-0.90
+//   registers and 20 bytes of spill stores, 64 of loads (88 before the
+//   prefix; fewer registers and no spills at d <= 64). On an H100 80GB
+//   HBM3 at 700 W it takes 0.88-0.90
 //   ms at the prefill shape above, 15-16% of the bound. Variants with 4
 //   warps (twice the L2 traffic), 3 stages or 32-key tiles (three blocks
 //   per SM) are no faster (scripts/flash_variants.py, PERF.md), so neither
@@ -109,7 +121,7 @@ __global__ void __launch_bounds__(THREADS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       float* __restrict__ lse, int S, int d, float scale,
-                      int causal, int window, float softcap) {
+                      int causal, int window, int prefix, float softcap) {
   constexpr int DP = 16 * NC;        // padded head dim
   const float inv_cap = CAP ? 1.0f / softcap : 0.0f;
   extern __shared__ __align__(16) float smem[];
@@ -143,7 +155,7 @@ __global__ void __launch_bounds__(THREADS)
   float m = -INFINITY;
   float l = 0.0f;
 
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(S, max(q0 + BQ, prefix)) : S;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                 // the previous tile is consumed
@@ -176,7 +188,7 @@ __global__ void __launch_bounds__(THREADS)
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
         const int key = k0 + j0 + jj;
         bool valid = key < S && qi < S;
-        if (causal) valid = valid && key <= qi;
+        if (causal) valid = valid && key <= max(qi, prefix - 1);
         if (window > 0) valid = valid && key > qi - window;
         float x = dot * scale;
         if constexpr (CAP) x = softcap * tanhf(x * inv_cap);
@@ -270,7 +282,8 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       float* __restrict__ lse, int S, int d, float scale,
-                      int causal, int window, float softcap, int vec) {
+                      int causal, int window, int prefix, float softcap,
+                      int vec) {
   using P = Plan<NC>;
   constexpr int BQ = P::BQ, BK = P::BK, STAGES = P::STAGES;
   constexpr int THREADS = P::THREADS;
@@ -294,7 +307,7 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
   const float unit_log2 = unit * 1.4426950408889634f;
   const float cap_in = CAP ? scale / softcap : 0.0f;
 
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(S, max(q0 + BQ, prefix)) : S;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;   // >= 1
 
@@ -396,9 +409,10 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
           s[n][e] = softcap * tanhf(s[n][e] * cap_in);
       }
     }
-    // Masks, only on tiles that cross the causal diagonal, the window's
-    // lower edge or the end of S.
-    const bool edge = (causal && k0 + BK - 1 > q0) ||
+    // Masks, only on tiles that cross the causal diagonal (the prefix's
+    // keys are valid for every query), the window's lower edge or the end
+    // of S.
+    const bool edge = (causal && k0 + BK - 1 > max(q0, prefix - 1)) ||
                       (window > 0 && k0 <= q0 + BQ - 1 - window) ||
                       k0 + BK > S;
     if (edge) {
@@ -409,7 +423,7 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
           const int key = k0 + n * 8 + 2 * t + (e & 1);
           const int row = row0 + (e >> 1) * 8;
           bool valid = key < S;
-          if (causal) valid = valid && key <= row;
+          if (causal) valid = valid && key <= max(row, prefix - 1);
           if (window > 0) valid = valid && key > row - window;
           if (!valid) s[n][e] = -INFINITY;
         }
@@ -474,7 +488,7 @@ struct Launch {
   const void* v;
   void* out;
   float* lse;
-  int b, h, s, d, causal, window;
+  int b, h, s, d, causal, window, prefix;
   float scale, softcap;
   cudaStream_t stream;
 
@@ -492,7 +506,7 @@ struct Launch {
           <<<grid, f32fma::THREADS, smem, stream>>>(
               static_cast<const T*>(q), static_cast<const T*>(k),
               static_cast<const T*>(v), static_cast<T*>(out), lse, s, d,
-              scale, causal, window, softcap);
+              scale, causal, window, prefix, softcap);
     } else {
       using P = tc::Plan<NC>;
       constexpr size_t smem = P::SMEM;
@@ -506,7 +520,7 @@ struct Launch {
       tc::flash_attn_kernel<T, NC, CAP><<<grid, P::THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(out), lse, s, d, scale,
-          causal, window, softcap, vec);
+          causal, window, prefix, softcap, vec);
     }
     return cudaGetLastError();
   }
@@ -522,17 +536,20 @@ struct Launch {
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // q, k, v, out (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or
 // BF16); lse (b, h, s) f32, or null to write none; d <= 256; window 0
-// means no sliding window, softcap 0 no attention softcap.
+// means no sliding window, prefix 0 plain causal attention (with causal,
+// key j is valid for query i iff j <= max(i, prefix - 1)), softcap 0 no
+// attention softcap.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, float* lse, int b, int h, int s,
-                                 int d, int causal, int window, float scale,
-                                 float softcap, int dtype, void* stream) {
-  if (!(softcap >= 0.0f && softcap < INFINITY)) {
+                                 int d, int causal, int window, int prefix,
+                                 float scale, float softcap, int dtype,
+                                 void* stream) {
+  if (!(softcap >= 0.0f && softcap < INFINITY) || prefix < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Launch launch{q,      k,     v,       out,
-                      lse,    b,     h,       s,
-                      d,      causal, window, scale,
-                      softcap, static_cast<cudaStream_t>(stream)};
+  const Launch launch{q,      k,      v,      out,    lse,
+                      b,      h,      s,      d,      causal,
+                      window, prefix, scale,  softcap,
+                      static_cast<cudaStream_t>(stream)};
   return static_cast<int>(attn::dispatch(dtype, d, launch));
 }

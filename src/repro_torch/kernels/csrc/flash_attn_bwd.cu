@@ -5,10 +5,11 @@
 // Replaces the gradient the JAX package takes by XLA's autodiff of the jnp
 // attention core (repro/models/layers.py::_attn_core); the TPU package has
 // no Pallas backward. It differentiates what flash_attn.cu computes, under
-// the same causal and window masks, for q, k, v, out, dout (B, H, S, d) of
-// one type (f32, f16 or bf16), d <= 128 (attn::MAX_BWD_HEAD_DIM; the
-// forward goes to 256), and the forward's row log-sum-exp
-// lse (B, H, S) f32, in natural-log units:
+// the same causal, prefix and window masks (with causal, key j is valid for
+// query i iff j <= max(i, P - 1), P the bidirectional prefix, 0 for plain
+// causal attention), for q, k, v, out, dout (B, H, S, d) of one type (f32,
+// f16 or bf16), d <= 256 (attn::MAX_BWD_HEAD_DIM), and the forward's row
+// log-sum-exp lse (B, H, S) f32, in natural-log units:
 //
 //   D_i   = sum_d dO_i . O_i                       (pre-pass, f32)
 //   P_ij  = exp(s q_i . k_j - lse_i)               (recomputed, never stored)
@@ -82,13 +83,18 @@
 //     never read for a valid pair. Head dims d <= 128 are padded to
 //     DP = 16*NC with zeros in shared memory. Both kernels schedule their
 //     longest tiles first.
+//   - The prefix P moves only loop limits and edge masks: the dQ kernel's
+//     keys run to max(q0 + 64, P), a key tile below P walks the queries
+//     from 0, and a tile is masked where it crosses max(i, P - 1). The
+//     dK/dV kernel, whose keys a lane holds are fixed, tests each key
+//     against P where it tests `causal`.
 //   - Registers: at d = 128 a warp's 16 keys hold 2 x 64 f32 of dK and dV
 //     a lane, so K and V are read from shared memory by ldmatrix at each
 //     pass, not held as fragments, and a pass takes 32 queries (S^T and
 //     dP^T, 2 x 16 f32 a lane). ptxas (CUDA 12.8), registers for NC = 1,
-//     2, 4, 8: dq_kernel 89, 118, 168, 236, no spills; dkdv_kernel 103,
-//     130 (f16 127; f16 100 at NC = 1), 178, 255, with 44 bytes of spill
-//     stores and 80 of loads at NC = 8 in bf16 (32 and 68 in f16). At
+//     2, 4, 8 in bf16: dq_kernel 96, 122, 172, 238, no spills; dkdv_kernel
+//     115, 128, 178, 255, with 56 bytes of spill stores and 92 of loads at
+//     NC = 8 (52 and 88 in f16; 44 and 80 in bf16 before the prefix). At
 //     d = 128 a block takes 97 KiB of shared memory (dQ 96), two blocks
 //     (8 warps) per SM.
 //   On an H100 80GB HBM3 at 700 W (scripts/flash_bwd_variants.py) it takes
@@ -97,12 +103,35 @@
 //   of MMA work, the forward's mma.sync rate. Passes of 16 rows (no
 //   spills) or 64 (more), or 8 warps over 128-row tiles, are within 5%.
 //   This design is mma.sync's; wgmma with a TMA producer warp is later work.
+//   - d = 256 (NC = 16, RecurrentGemma's head dim; 129-255 pad to it) has
+//     its own tile plan (tc::Plan). A warp's 16 keys would hold 2 x 128 f32
+//     of dK and dV a lane, with 255 registers in all, so the dK/dV kernel
+//     splits the head dim: each block owns 64 keys and one half (128 dims)
+//     of their dK and dV, the grid twice as long along x, and recomputes
+//     S^T and dP^T over the whole d for each half (q.k and dO.v twice).
+//     This was chosen over splitting by output (one warp group on dV,
+//     another on dK, P^T and dS^T through shared memory) because it keeps
+//     the d <= 128 kernel's code, register profile and synchronisation
+//     as they are: the accumulators are those of d = 128, only the S^T
+//     k-loop is longer (8 k-steps unrolled at once, as the forward's
+//     WIDE_KK_UNROLL). The dQ kernel keeps its 16 x 256 f32 accumulator
+//     (128 registers) and reloads Q's and dO's A fragments from shared
+//     memory at each k-step, as the d = 256 forward does. Both keep
+//     TILE = 64 and two stages: 193 and 192 KiB of shared memory, one
+//     block (4 warps) per SM. The hi + lo split, the fixed order of sums
+//     and the absence of atomics are those of d <= 128. ptxas (CUDA 12.8):
+//     dkdv_kernel 255 registers, no spills in bf16 (96 bytes of spill
+//     stores and 668 of loads in f16, which no main path runs); dq_kernel
+//     255, 24 bytes of spill stores (40 with the cap). On an
+//     H100 80GB HBM3 at 700 W it takes 2.47-2.53 ms at RecurrentGemma's
+//     training layer (1, 10, 4096, 256), window 2048, 6.4% of its 0.163 ms
+//     bound (PERF.md row 3b).
 //   The CAP instances (ptxas, CUDA 12.8) keep dq_kernel's registers within
-//   +19 (241 at NC = 8, no spills) and dkdv_kernel's at 255 with 60 bytes
-//   of spill stores and 96 of loads at NC = 8 in bf16 (56 and 92 in f16);
-//   the instances without the cap are unchanged. On an H100 80GB HBM3 at
-//   700 W the bf16 backward takes 0.345 ms with Gemma-2's cap at the
-//   training shape above, 0.290 without (scripts: chip_smoke.py, timing).
+//   +24 (244 at NC = 8, no spills) and dkdv_kernel's at 255 with 64 bytes
+//   of spill stores and 100 of loads at NC = 8. On an H100 80GB HBM3 at
+//   700 W the bf16 backward takes 0.34-0.38 ms with Gemma-2's cap at the
+//   training shape above, 0.29-0.31 without (scripts/flash_causal_time.py,
+//   chip_smoke.py timing).
 //
 // * f32: the FMA kernels of the first version (namespace f32fma), kept as
 //   they were. Tensor cores take f32 only as TF32, which keeps 10 bits of
@@ -123,9 +152,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Whether query qi attends to key kj under the masks.
 __device__ __forceinline__ bool valid_pair(int qi, int kj, int S, int causal,
-                                           int window) {
+                                           int window, int prefix) {
   bool ok = qi < S && kj < S;
-  if (causal) ok = ok && kj <= qi;
+  if (causal) ok = ok && kj <= max(qi, prefix - 1);
   if (window > 0) ok = ok && kj > qi - window;
   return ok;
 }
@@ -239,7 +268,7 @@ __global__ void __launch_bounds__(THREADS)
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, int S, int d, float scale, int causal,
-                int window, float softcap) {
+                int window, int prefix, float softcap) {
   constexpr int NCH = nch<NC>();
   constexpr int DP = 32 * NCH;
   extern __shared__ __align__(16) float smem[];
@@ -264,7 +293,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int e = 0; e < NCH * 4; ++e) dka[e] = dva[e] = 0.0f;
 
   const float scale_log2 = scale * LOG2E;
-  const int i_begin = (causal ? k0 : 0) / TILE * TILE;
+  // A key below the prefix is seen by every query.
+  const int i_begin = (causal && k0 >= prefix ? k0 : 0) / TILE * TILE;
   const int i_end = window > 0 ? min(S, k0 + ROWS - 1 + window) : S;
   for (int i0 = i_begin; i0 < i_end; i0 += TILE) {
     __syncthreads();                   // the previous tile is consumed
@@ -298,7 +328,7 @@ __global__ void __launch_bounds__(THREADS)
       dot = row_sum(dot);
       dpv = row_sum(dpv);
       const float lse2 = ls[ii];
-      const bool ok = valid_pair(i0 + ii, kj, S, causal, window) &&
+      const bool ok = valid_pair(i0 + ii, kj, S, causal, window, prefix) &&
                       lse2 != -INFINITY;
       float p, dsv;
       if constexpr (CAP) {
@@ -332,7 +362,7 @@ __global__ void __launch_bounds__(THREADS)
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int S, int d, float scale, int causal,
-              int window, float softcap) {
+              int window, int prefix, float softcap) {
   constexpr int NCH = nch<NC>();
   constexpr int DP = 32 * NCH;
   extern __shared__ __align__(16) float smem[];
@@ -358,7 +388,7 @@ __global__ void __launch_bounds__(THREADS)
   const float di = qi < S ? delta[rbase + qi] : 0.0f;
 
   const float scale_log2 = scale * LOG2E;
-  const int k_end = causal ? min(S, q0 + ROWS) : S;
+  const int k_end = causal ? min(S, max(q0 + ROWS, prefix)) : S;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / TILE * TILE : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += TILE) {
     __syncthreads();                   // the previous tile is consumed
@@ -386,7 +416,7 @@ __global__ void __launch_bounds__(THREADS)
       }
       dot = row_sum(dot);
       dpv = row_sum(dpv);
-      const bool ok = valid_pair(qi, k0 + jj, S, causal, window) &&
+      const bool ok = valid_pair(qi, k0 + jj, S, causal, window, prefix) &&
                       lse2 != -INFINITY;
       float p, dsv;
       if constexpr (CAP) {
@@ -420,6 +450,21 @@ constexpr int TILE = 64;               // streamed rows a ring stage holds
 constexpr int CHUNK = 32;              // streamed rows a register pass takes
 constexpr int STAGES = 2;
 constexpr int MIN_BLOCKS = 2;          // per SM, for the register budget
+// d = 256: the k-steps of S^T = K.Q^T (dK/dV) and S = Q.K^T (dQ) unrolled
+// at once, as the forward's WIDE_KK_UNROLL.
+constexpr int WIDE_KK_UNROLL = 8;
+
+// The tile plan by head-dim chunks NC: d <= 128 as above; d = 256 (WIDE)
+// splits dK and dV into HALVES dim halves, one a block (the grid's x runs
+// over key tiles times halves), and reloads the dQ kernel's A fragments
+// from shared memory at each k-step.
+template <int NC>
+struct Plan {
+  static constexpr bool WIDE = NC > 8;
+  static constexpr int HALVES = WIDE ? 2 : 1;
+  static constexpr int NO_KV = 2 * NC / HALVES;   // n-tiles of dK, dV a block
+  static constexpr int KK_UNROLL = WIDE ? WIDE_KK_UNROLL : NC;
+};
 
 // Dynamic shared memory: two tiles of the owned rows (K and V, or Q and
 // dO), then per stage two streamed tiles and, for dK/dV, TILE floats each
@@ -434,9 +479,9 @@ __host__ __device__ constexpr int smem_bytes(bool with_rows) {
 // [k_lo, k_hi] is valid.
 __device__ __forceinline__ bool any_valid(int q_lo, int q_hi, int k_lo,
                                           int k_hi, int S, int causal,
-                                          int window) {
+                                          int window, int prefix) {
   bool ok = q_lo < S && k_lo < S;
-  if (causal) ok = ok && k_lo <= q_hi;
+  if (causal) ok = ok && k_lo <= max(q_hi, prefix - 1);
   if (window > 0) ok = ok && k_hi > q_lo - window;
   return ok;
 }
@@ -447,13 +492,13 @@ __device__ __forceinline__ float lse_log2(float lse) {
 }
 
 // Writes rows [r0, r0 + 16) of the warp's f32 accumulator `acc` (NO
-// n-tiles of 8 dims) times `mul` to the (S, d) matrix at `dst`, in pairs
-// where rows and the pointer allow.
+// n-tiles of 8 dims, from dim col0) times `mul` to the (S, d) matrix at
+// `dst`, in pairs where rows and the pointer allow.
 template <typename T, int NO>
 __device__ __forceinline__ void store_rows(T* __restrict__ dst,
                                            const float (&acc)[NO][4],
                                            float mul, int r0, int S, int d,
-                                           int lane) {
+                                           int lane, int col0 = 0) {
   const int g = lane >> 2, t = lane & 3;
   const bool pairs = d % 2 == 0 && reinterpret_cast<uintptr_t>(dst) % 4 == 0;
 #pragma unroll
@@ -463,7 +508,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
     T* out = dst + static_cast<int64_t>(row) * d;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int c = n * 8 + 2 * t;
+      const int c = col0 + n * 8 + 2 * t;
       const float x0 = acc[n][2 * r] * mul, x1 = acc[n][2 * r + 1] * mul;
       if (pairs && c + 1 < d) {
         *reinterpret_cast<uint32_t*>(out + c) = attn::pack_pair<T>(x0, x1);
@@ -476,21 +521,23 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
 }
 
 // acc[2np], acc[2np + 1] += (hi + lo) . B for the 16x16 A fragment pair
-// (hi, lo) and the 16 x DP matrix at `b` (rows of k, swizzled, `row0` its
-// first row), B through ldmatrix.trans: the product of a split P or dS
-// with dO, Q or K.
-template <typename T, int DP>
-__device__ __forceinline__ void mma_split_rows(float (&acc)[DP / 8][4],
+// (hi, lo) and the 16 x (8 NO) columns from col0 of the 16 x DP matrix at
+// `b` (rows of k, swizzled, `row0` its first row), B through
+// ldmatrix.trans: the product of a split P or dS with dO, Q or K.
+template <typename T, int DP, int NO = DP / 8>
+__device__ __forceinline__ void mma_split_rows(float (&acc)[NO][4],
                                                const uint32_t (&hi)[4],
                                                const uint32_t (&lo)[4],
                                                uint32_t b, int row0,
-                                               int lane) {
+                                               int lane, int col0 = 0) {
   const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
 #pragma unroll
-  for (int np = 0; np < DP / 16; ++np) {
+  for (int np = 0; np < NO / 2; ++np) {
     uint32_t f[4];
     attn::ldmatrix_x4_trans(
-        b + attn::swizzle<DP>(((row0 + v_row) * DP + np * 16 + v_col) * 2), f);
+        b + attn::swizzle<DP>(((row0 + v_row) * DP + col0 + np * 16 + v_col) *
+                              2),
+        f);
     attn::mma_16816<T>(acc[2 * np], hi, f[0], f[1]);
     attn::mma_16816<T>(acc[2 * np], lo, f[0], f[1]);
     attn::mma_16816<T>(acc[2 * np + 1], hi, f[2], f[3]);
@@ -516,10 +563,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, int S, int d, float scale, int causal,
-                int window, float softcap, int vec) {
+                int window, int prefix, float softcap, int vec) {
+  using P = Plan<NC>;
   constexpr int DP = 16 * NC;
   constexpr int TB = TILE * DP * 2;    // bytes of a tile
-  constexpr int NO = DP / 8;           // n-tiles of dK, dV
+  constexpr int NO = P::NO_KV;         // n-tiles of dK, dV this block owns
   static_assert(ROWS == TILE, "key tiles align with query tiles");
   extern __shared__ __align__(1024) char smem[];
   char* stages = smem + 2 * TB;        // K, V, then per stage Q, dO
@@ -533,10 +581,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * ROWS;    // longest first: tile 0 sees most
+  // Longest first: tile 0 sees most. With WIDE, blocks 2t and 2t + 1 own
+  // the dim halves of key tile t.
+  const int k0 = static_cast<int>(blockIdx.x / P::HALVES) * ROWS;
+  const int dim0 = static_cast<int>(blockIdx.x % P::HALVES) * 8 * NO;
   const int kw = k0 + warp * 16;       // this warp's first key
 
-  const int i_begin = causal ? k0 : 0;
+  // A key tile below the prefix is seen by every query.
+  const int i_begin = causal && k0 >= prefix ? k0 : 0;
   const int i_end = window > 0 ? min(S, k0 + ROWS - 1 + window) : S;
   const int n_tiles = max(0, (i_end - i_begin + TILE - 1) / TILE);
 
@@ -588,7 +640,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const uint32_t gs = qs + TB;
     const float* ls = rows + 2 * TILE * (it % STAGES);
     const float* ds = ls + TILE;
-    const bool edge = (causal && k0 + ROWS - 1 > i0) ||
+    // The causal mask applies to a key at or past the prefix; each test
+    // below reads P as a kernel parameter beside `causal`, which kept the
+    // plain causal kernel's time closest to its time without the prefix
+    // (PERF.md §6, row 3b).
+    const bool edge = (causal && k0 + ROWS > prefix && k0 + ROWS - 1 > i0) ||
                       (window > 0 && k0 <= i0 + TILE - 1 - window) ||
                       i0 + TILE > S || k0 + ROWS > S;
 
@@ -596,14 +652,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     for (int c = 0; c < TILE / CHUNK; ++c) {
       const int c0 = c * CHUNK;        // the pass's first row in the tile
       if (edge && !any_valid(i0 + c0, i0 + c0 + CHUNK - 1, kw, kw + 15, S,
-                             causal, window))
+                             causal && kw >= prefix, window, 0))
         continue;
       float st[CHUNK / 8][4], dpt[CHUNK / 8][4];
 #pragma unroll
       for (int n = 0; n < CHUNK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
-#pragma unroll
+#pragma unroll(P::KK_UNROLL)
       for (int kk = 0; kk < NC; ++kk) {
         uint32_t ka[4], va[4];
         const uint32_t a_off =
@@ -644,7 +700,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
             p = exp2f(fmaf(st[n][e], scale_log2, -lrow));
           }
           if (edge && !valid_pair(i0 + col + (e & 1), kw + g + 8 * (e >> 1),
-                                  S, causal, window))
+                                  S, causal && kw + g + 8 * (e >> 1) >= prefix,
+                                  window, 0))
             p = 0.0f;
           st[n][e] = p;
           if constexpr (CAP)
@@ -654,21 +711,22 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         }
       }
 
-      // dV += P^T.dO, dK += dS^T.Q, 16 queries a k-step.
+      // dV += P^T.dO, dK += dS^T.Q over this block's dims, 16 queries a
+      // k-step.
 #pragma unroll
       for (int kk = 0; kk < CHUNK / 16; ++kk) {
         uint32_t hi[4], lo[4];
         split_fragment<T>(st, kk, hi, lo);
-        mma_split_rows<T, DP>(dva, hi, lo, gs, c0 + kk * 16, lane);
+        mma_split_rows<T, DP, NO>(dva, hi, lo, gs, c0 + kk * 16, lane, dim0);
         split_fragment<T>(dpt, kk, hi, lo);
-        mma_split_rows<T, DP>(dka, hi, lo, qs, c0 + kk * 16, lane);
+        mma_split_rows<T, DP, NO>(dka, hi, lo, qs, c0 + kk * 16, lane, dim0);
       }
     }
   }
   attn::cp_async_wait<0>();            // no copy outlives the block
 
-  store_rows<T, NO>(dk + base, dka, scale, kw, S, d, lane);
-  store_rows<T, NO>(dv + base, dva, 1.0f, kw, S, d, lane);
+  store_rows<T, NO>(dk + base, dka, scale, kw, S, d, lane, dim0);
+  store_rows<T, NO>(dv + base, dva, 1.0f, kw, S, d, lane, dim0);
 }
 
 template <typename T, int NC, bool CAP>
@@ -677,7 +735,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int S, int d, float scale, int causal,
-              int window, float softcap, int vec) {
+              int window, int prefix, float softcap, int vec) {
+  using P = Plan<NC>;
   constexpr int DP = 16 * NC;
   constexpr int TB = TILE * DP * 2;    // bytes of a streamed tile
   constexpr int OB = ROWS * DP * 2;    // bytes of an owned tile
@@ -697,7 +756,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * ROWS;
   const int qw = q0 + warp * 16;       // this warp's first query
 
-  const int k_end = causal ? min(S, q0 + ROWS) : S;
+  const int k_end = causal ? min(S, max(q0 + ROWS, prefix)) : S;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / TILE * TILE : 0;
   const int n_tiles = max(0, (k_end - k_begin + TILE - 1) / TILE);
 
@@ -735,7 +794,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const float cap_in = CAP ? scale / softcap : 0.0f;   // raw q.k to x / c
   const float cap_log2 = CAP ? softcap * LOG2E : 0.0f;
 
-  uint32_t qf[NC][4], gf[NC][4];
+  const uint32_t qs = attn::smem_addr(smem), gs = qs + OB;
+  // Q's and dO's A fragments, held for the whole key loop (d <= 128 only).
+  uint32_t qf[P::WIDE ? 1 : NC][4], gf[P::WIDE ? 1 : NC][4];
   float dqa[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -745,14 +806,15 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   for (int it = 0; it < n_tiles; ++it) {
     attn::cp_async_wait<0>();
     __syncthreads();                   // tile it landed; tile it - 1 consumed
-    if (it == 0) {
-      const uint32_t qs = attn::smem_addr(smem), gs = qs + OB;
+    if constexpr (!P::WIDE) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
-        const uint32_t off =
-            attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2);
-        attn::ldmatrix_x4(qs + off, qf[kk]);
-        attn::ldmatrix_x4(gs + off, gf[kk]);
+        for (int kk = 0; kk < NC; ++kk) {
+          const uint32_t off =
+              attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2);
+          attn::ldmatrix_x4(qs + off, qf[kk]);
+          attn::ldmatrix_x4(gs + off, gf[kk]);
+        }
       }
     }
     if (it + 1 < n_tiles) load_kv(it + 1);
@@ -761,7 +823,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const int k0 = k_begin + it * TILE;
     const uint32_t ks = attn::smem_addr(stages + 2 * TB * (it % STAGES));
     const uint32_t vs = ks + TB;
-    const bool edge = (causal && k0 + TILE - 1 > q0) ||
+    const bool edge = (causal && k0 + TILE - 1 > max(q0, prefix - 1)) ||
                       (window > 0 && k0 <= q0 + ROWS - 1 - window) ||
                       k0 + TILE > S || q0 + ROWS > S;
 
@@ -769,26 +831,49 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     for (int c = 0; c < TILE / CHUNK; ++c) {
       const int c0 = c * CHUNK;        // the pass's first key in the tile
       if (edge && !any_valid(qw, qw + 15, k0 + c0, k0 + c0 + CHUNK - 1, S,
-                             causal, window))
+                             causal, window, prefix))
         continue;
       float s[CHUNK / 8][4], dp[CHUNK / 8][4];
 #pragma unroll
       for (int n = 0; n < CHUNK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+      if constexpr (P::WIDE) {
+#pragma unroll(WIDE_KK_UNROLL)
+        for (int kk = 0; kk < NC; ++kk) {
+          uint32_t qa[4], ga[4];       // Q's and dO's fragments, reloaded
+          const uint32_t a_off =
+              attn::swizzle<DP>((a_row * DP + kk * 16 + a_col) * 2);
+          attn::ldmatrix_x4(qs + a_off, qa);
+          attn::ldmatrix_x4(gs + a_off, ga);
 #pragma unroll
-      for (int kk = 0; kk < NC; ++kk) {
+          for (int np = 0; np < CHUNK / 16; ++np) {
+            const uint32_t b_off = attn::swizzle<DP>(
+                ((c0 + np * 16 + b_row) * DP + kk * 16 + b_col) * 2);
+            uint32_t b[4];
+            attn::ldmatrix_x4(ks + b_off, b);
+            attn::mma_16816<T>(s[2 * np], qa, b[0], b[1]);
+            attn::mma_16816<T>(s[2 * np + 1], qa, b[2], b[3]);
+            attn::ldmatrix_x4(vs + b_off, b);
+            attn::mma_16816<T>(dp[2 * np], ga, b[0], b[1]);
+            attn::mma_16816<T>(dp[2 * np + 1], ga, b[2], b[3]);
+          }
+        }
+      } else {
 #pragma unroll
-        for (int np = 0; np < CHUNK / 16; ++np) {
-          const uint32_t b_off = attn::swizzle<DP>(
-              ((c0 + np * 16 + b_row) * DP + kk * 16 + b_col) * 2);
-          uint32_t b[4];
-          attn::ldmatrix_x4(ks + b_off, b);
-          attn::mma_16816<T>(s[2 * np], qf[kk], b[0], b[1]);
-          attn::mma_16816<T>(s[2 * np + 1], qf[kk], b[2], b[3]);
-          attn::ldmatrix_x4(vs + b_off, b);
-          attn::mma_16816<T>(dp[2 * np], gf[kk], b[0], b[1]);
-          attn::mma_16816<T>(dp[2 * np + 1], gf[kk], b[2], b[3]);
+        for (int kk = 0; kk < NC; ++kk) {
+#pragma unroll
+          for (int np = 0; np < CHUNK / 16; ++np) {
+            const uint32_t b_off = attn::swizzle<DP>(
+                ((c0 + np * 16 + b_row) * DP + kk * 16 + b_col) * 2);
+            uint32_t b[4];
+            attn::ldmatrix_x4(ks + b_off, b);
+            attn::mma_16816<T>(s[2 * np], qf[kk], b[0], b[1]);
+            attn::mma_16816<T>(s[2 * np + 1], qf[kk], b[2], b[3]);
+            attn::ldmatrix_x4(vs + b_off, b);
+            attn::mma_16816<T>(dp[2 * np], gf[kk], b[0], b[1]);
+            attn::mma_16816<T>(dp[2 * np + 1], gf[kk], b[2], b[3]);
+          }
         }
       }
 
@@ -809,7 +894,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
           }
           if (edge && !valid_pair(qw + g + 8 * r,
                                   k0 + c0 + n * 8 + 2 * t + (e & 1), S,
-                                  causal, window))
+                                  causal, window, prefix))
             p = 0.0f;
           if constexpr (CAP)
             s[n][e] = p * (dp[n][e] - drow[r]) * dcap;
@@ -845,7 +930,7 @@ struct Launch {
   void* dq;
   void* dk;
   void* dv;
-  int b, h, s, d, causal, window;
+  int b, h, s, d, causal, window, prefix;
   float scale, softcap;
   cudaStream_t stream;
 
@@ -886,7 +971,8 @@ struct Launch {
     if (err != cudaSuccess) return err;
     dkdv_kernel<float, NC, CAP><<<grid, THREADS, kv_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), s, d, scale, causal, window, softcap);
+        static_cast<float*>(dv), s, d, scale, causal, window, prefix,
+        softcap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -896,7 +982,7 @@ struct Launch {
     if (err != cudaSuccess) return err;
     dq_kernel<float, NC, CAP><<<grid, THREADS, q_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), s, d, scale,
-        causal, window, softcap);
+        causal, window, prefix, softcap);
     return cudaGetLastError();
   }
 
@@ -905,14 +991,17 @@ struct Launch {
                          const T* gt) const {
     const void* ptrs[4] = {q, k, v, dout};
     const int vec = attn::copy_width(d, ptrs, 4);
-    const dim3 grid((s + tc::ROWS - 1) / tc::ROWS, h, b);
+    const int n_tiles = (s + tc::ROWS - 1) / tc::ROWS;
+    const dim3 grid(n_tiles, h, b);
     constexpr size_t kv_smem = tc::smem_bytes<NC>(true);
+    static_assert(tc::smem_bytes<NC>(true) <= 232448, "227 KiB a block");
     cudaError_t err = attn::allow_smem(
         reinterpret_cast<const void*>(tc::dkdv_kernel<T, NC, CAP>), kv_smem);
     if (err != cudaSuccess) return err;
-    tc::dkdv_kernel<T, NC, CAP><<<grid, tc::THREADS, kv_smem, stream>>>(
+    const dim3 kv_grid(n_tiles * tc::Plan<NC>::HALVES, h, b);
+    tc::dkdv_kernel<T, NC, CAP><<<kv_grid, tc::THREADS, kv_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        s, d, scale, causal, window, softcap, vec);
+        s, d, scale, causal, window, prefix, softcap, vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -922,7 +1011,7 @@ struct Launch {
     if (err != cudaSuccess) return err;
     tc::dq_kernel<T, NC, CAP><<<grid, tc::THREADS, q_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), s, d, scale, causal,
-        window, softcap, vec);
+        window, prefix, softcap, vec);
     return cudaGetLastError();
   }
 };
@@ -932,23 +1021,25 @@ struct Launch {
 // Launches the three kernels on `stream` without synchronising; returns the
 // first launch error (cudaGetLastError()). q, k, v, out, dout, dq, dk, dv
 // (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or BF16); lse
-// and delta (b, h, s) f32, delta scratch that the pre-pass fills; d <= 128;
-// window 0 means no sliding window; scale 1/sqrt(d) and softcap (0: none)
-// as the forward took them, lse the forward's over the capped scores.
+// and delta (b, h, s) f32, delta scratch that the pre-pass fills; d <= 256;
+// window 0 means no sliding window, prefix 0 plain causal attention; scale
+// 1/sqrt(d), prefix and softcap (0: none) as the forward took them, lse the
+// forward's over the capped scores.
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                                      const void* v, const void* out,
                                      const void* dout, const float* lse,
                                      float* delta, void* dq, void* dk,
                                      void* dv, int b, int h, int s, int d,
-                                     int causal, int window, float scale,
-                                     float softcap, int dtype, void* stream) {
-  if (!(softcap >= 0.0f && softcap < INFINITY)) {
+                                     int causal, int window, int prefix,
+                                     float scale, float softcap, int dtype,
+                                     void* stream) {
+  if (!(softcap >= 0.0f && softcap < INFINITY) || prefix < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Launch launch{q,  k,  v,      out,    dout,  lse,
-                      delta, dq, dk, dv,     b,      h,
-                      s,  d,  causal, window, scale, softcap,
-                      static_cast<cudaStream_t>(stream)};
+  const Launch launch{q,      k,      v,     out,     dout,   lse,
+                      delta,  dq,     dk,    dv,      b,      h,
+                      s,      d,      causal, window, prefix, scale,
+                      softcap, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(
       attn::dispatch<attn::MAX_BWD_HEAD_DIM>(dtype, d, launch));
 }

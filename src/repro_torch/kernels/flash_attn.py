@@ -6,11 +6,16 @@
 
     out[b, h, i] = Σ_j softmax_j(q[b, h, i] · k[b, h, j] / √d) v[b, h, j]
 
-over the keys j <= i (causal) and j > i - window (window > 0), softmax and
-accumulator in float32, the output in q's dtype; a row with no valid key
-gives 0. q, k, v are (B, H, S, d) of one dtype (float32, float16 or
-bfloat16), d <= 256 (the backward d <= 128: `BWD_MAX_HEAD_DIM`); S need not
-be a multiple of any block. For training
+over the keys j <= max(i, P - 1) (causal, with a bidirectional prefix of P
+>= 0 positions; P = 0 is plain causal attention) and j > i - window
+(window > 0), softmax and accumulator in float32, the output in q's dtype;
+a row with no valid key gives 0. q, k, v are (B, H, S, d) of one dtype
+(float32, float16 or bfloat16), d <= 256 in both directions; S need not
+be a multiple of any block. The prefix is Qwen2-VL's vision block: the
+reference's `attention` masks by M-RoPE's temporal ids, which
+`_build_positions` makes 0 for the first P positions and i - P + 1 for
+text position i, so by index a key j is valid for query i iff j <=
+max(i, P - 1). For training
 the forward also writes each row's log-sum-exp `lse` (B, H, S) f32,
 m + log l in natural-log units (-inf for a row with no valid key), from
 which the backward recomputes the probabilities:
@@ -46,18 +51,21 @@ import torch
 
 from repro_torch.kernels.build import entry
 
-# Kernel launches made in this process, in all, by route, with a softcap
-# and (the forward) at d > 128: the forward by `flash_attention_cuda` (inference and
-# `FlashAttention.forward`, the recompute of a checkpointed layer among
-# them), the backward by `flash_attention_bwd_cuda`
+# Kernel launches made in this process, in all, by route, with a softcap,
+# at d > 128 and with a prefix P > 0: the forward by `flash_attention_cuda`
+# (inference and `FlashAttention.forward`, the recompute of a checkpointed
+# layer among them), the backward by `flash_attention_bwd_cuda`
 # (`FlashAttention.backward`).
 FLASH_LAUNCHES = 0
 FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_SOFTCAP_LAUNCHES = 0
 FLASH_WIDE_LAUNCHES = 0      # the forward at head dims 129-256 (NC = 16)
+FLASH_PREFIX_LAUNCHES = 0
 FLASH_BWD_LAUNCHES = 0
 FLASH_BWD_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_BWD_SOFTCAP_LAUNCHES = 0
+FLASH_BWD_WIDE_LAUNCHES = 0  # the backward at head dims 129-256
+FLASH_BWD_PREFIX_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # The kernel each dtype takes in csrc/flash_attn.cu and csrc/decode_attn.cu.
@@ -66,8 +74,9 @@ ROUTES = {torch.float32: "f32_fma", torch.float16: "tensor_core",
 # ... and in csrc/flash_attn_bwd.cu.
 BWD_ROUTES = dict(ROUTES)
 MAX_HEAD_DIM = 256     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
-BWD_MAX_HEAD_DIM = 128  # ... and attn::MAX_BWD_HEAD_DIM
-_ITEM = "ROADMAP.md queue 1 item 8"
+BWD_MAX_HEAD_DIM = 256  # ... and attn::MAX_BWD_HEAD_DIM
+WIDE_HEAD_DIM = 128     # above it both directions take their NC = 16 plans
+_ITEM = "ROADMAP.md queue 1 item 8.3"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,12 +112,20 @@ def apply_softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(logits / cap) if cap else logits
 
 
-def _mask(s_len: int, causal: bool, window: int, device) -> torch.Tensor:
+def prefix_value(prefix: int) -> int:
+    """The prefix as the kernels take it: an int >= 0."""
+    if int(prefix) != prefix or prefix < 0:
+        raise ValueError(f"prefix must be an int >= 0, got {prefix}")
+    return int(prefix)
+
+
+def _mask(s_len: int, causal: bool, window: int, device,
+          prefix: int = 0) -> torch.Tensor:
     """(S, S) bool: key j is valid for query i."""
     pos = torch.arange(s_len, device=device)
     mask = torch.ones((s_len, s_len), dtype=torch.bool, device=device)
     if causal:
-        mask &= pos[None, :] <= pos[:, None]
+        mask &= pos[None, :] <= torch.clamp_min(pos[:, None], prefix - 1)
     if window > 0:
         mask &= pos[None, :] > pos[:, None] - window
     return mask
@@ -117,18 +134,20 @@ def _mask(s_len: int, causal: bool, window: int, device) -> torch.Tensor:
 def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int = 0,
-                              softcap: Optional[float] = None
+                              softcap: Optional[float] = None,
+                              prefix: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: the full S×S scores in float32,
     softcapped where asked, the kernel's masks and its guard for rows with
     no valid key. Returns (out in q's dtype, lse (B, H, S) f32)."""
     _check(q, k, v)
+    prefix = prefix_value(prefix)
     s_len, d = q.shape[2], q.shape[3]
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
         * (1.0 / d ** 0.5)
     logits = apply_softcap(logits, softcap_value(softcap))
-    logits = logits.masked_fill(~_mask(s_len, causal, window, q.device),
-                                float("-inf"))
+    logits = logits.masked_fill(
+        ~_mask(s_len, causal, window, q.device, prefix), float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -140,24 +159,27 @@ def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          softcap: Optional[float] = None) -> torch.Tensor:
+                          softcap: Optional[float] = None,
+                          prefix: int = 0) -> torch.Tensor:
     """`flash_attention_plain_lse`'s output alone."""
     return flash_attention_plain_lse(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)[0]
+                                     softcap=softcap, prefix=prefix)[0]
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               dout: torch.Tensor, lse: torch.Tensor,
                               causal: bool = True, window: int = 0,
-                              softcap: Optional[float] = None
+                              softcap: Optional[float] = None,
+                              prefix: int = 0
                               ) -> Tuple[torch.Tensor, ...]:
     """The plain version of the backward, step by step in f32 from the
     forward's `out` and `lse` (taken over the softcapped scores where a
-    softcap is given): (dq, dk, dv) in q's dtype. A row whose lse is -inf
-    (no valid key) contributes nothing."""
+    softcap is given), under the forward's masks: (dq, dk, dv) in q's
+    dtype. A row whose lse is -inf (no valid key) contributes nothing."""
     _check(q, k, v, out, dout)
     cap = softcap_value(softcap)
+    prefix = prefix_value(prefix)
     s_len, d = q.shape[2], q.shape[3]
     scale = 1.0 / d ** 0.5
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -166,7 +188,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     if cap:
         t = torch.tanh(logits / cap)
         logits = cap * t
-    valid = _mask(s_len, causal, window, q.device) \
+    valid = _mask(s_len, causal, window, q.device, prefix) \
         & torch.isfinite(lse)[..., None]
     p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
     dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
@@ -182,13 +204,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _launch_fn():
     return entry("flash_attn_launch",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _bwd_launch_fn():
     return entry("flash_attn_bwd_launch",
-                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -200,28 +222,29 @@ def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name} has no backward: the decode kernel serves decode steps "
             "only, and LM training attends through the flash kernels (what "
-            f"is left of the LM side, {_ITEM}: M-RoPE, the "
-            "encoder-decoder). Call it under torch.no_grad() or "
-            "torch.inference_mode(), or on inputs that do not require grad")
+            f"is left of the LM side, {_ITEM}: the encoder-decoder). Call "
+            "it under torch.no_grad() or torch.inference_mode(), or on "
+            "inputs that do not require grad")
 
 
 def refuse_wide_backward(d: int) -> None:
-    """The backward kernels stop at d = BWD_MAX_HEAD_DIM: raise, before any
-    launch, for a wider head."""
+    """The backward kernels stop at d = BWD_MAX_HEAD_DIM, as the forward
+    does: raise, before any launch, for a wider head."""
     if d > BWD_MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the flash backward kernels take head dims up to "
-            f"{BWD_MAX_HEAD_DIM}, got {d}: d = 256 needs a tile design of "
-            "its own (ROADMAP.md K5); the forward takes it")
+            f"{BWD_MAX_HEAD_DIM}, as the forward and decode kernels do; got "
+            f"{d} (no configuration of the reference goes past 256)")
 
 
 def _check_cuda(name: str, window: int, softcap: Optional[float],
-                **tensors: torch.Tensor) -> float:
+                prefix: int = 0, **tensors: torch.Tensor) -> float:
     """What the kernels take beyond `_check`: CUDA, contiguous tensors,
-    d <= MAX_HEAD_DIM, window >= 0, a softcap None or finite and > 0
-    (tensors by name, q first). Returns the softcap as the kernels take
-    it."""
+    d <= MAX_HEAD_DIM, window >= 0, prefix >= 0, a softcap None or finite
+    and > 0 (tensors by name, q first). Returns the softcap as the kernels
+    take it."""
     cap = softcap_value(softcap)
+    prefix_value(prefix)
     q = next(iter(tensors.values()))
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
@@ -237,13 +260,15 @@ def _check_cuda(name: str, window: int, softcap: Optional[float],
 
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, window: int, with_lse: bool,
-                    softcap: Optional[float] = None
+                    softcap: Optional[float] = None, prefix: int = 0
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One forward launch on PyTorch's current stream (no synchronise);
     writes lse only when asked (inference passes a null pointer)."""
-    global FLASH_LAUNCHES, FLASH_SOFTCAP_LAUNCHES, FLASH_WIDE_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_SOFTCAP_LAUNCHES, FLASH_WIDE_LAUNCHES, \
+        FLASH_PREFIX_LAUNCHES
     _check(q, k, v)
-    cap = _check_cuda("flash_attention_cuda", window, softcap, q=q, k=k, v=v)
+    cap = _check_cuda("flash_attention_cuda", window, softcap, prefix,
+                      q=q, k=k, v=v)
     b, h, s_len, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_len), dtype=torch.float32,
@@ -255,8 +280,8 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5, cap,
-                 DTYPE_CODES[q.dtype], stream)
+                 b, h, s_len, d, int(causal), window, int(prefix),
+                 1.0 / d ** 0.5, cap, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
                            f"{err}")
@@ -264,39 +289,44 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     FLASH_ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
     if cap:
         FLASH_SOFTCAP_LAUNCHES += 1
-    if d > BWD_MAX_HEAD_DIM:
+    if d > WIDE_HEAD_DIM:
         FLASH_WIDE_LAUNCHES += 1
+    if prefix:
+        FLASH_PREFIX_LAUNCHES += 1
     return out, lse
 
 
 def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int = 0,
-                             softcap: Optional[float] = None
+                             softcap: Optional[float] = None,
+                             prefix: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel as training launches it: (out, lse (B, H, S)
     f32), recording no graph (`FlashAttention` is the differentiable
     entry)."""
     return _launch_forward(q, k, v, causal, window, with_lse=True,
-                           softcap=softcap)
+                           softcap=softcap, prefix=prefix)
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor,
                              causal: bool = True, window: int = 0,
-                             softcap: Optional[float] = None
+                             softcap: Optional[float] = None,
+                             prefix: int = 0
                              ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's
     current stream, counted as one launch: (dq, dk, dv) in q's dtype.
-    `softcap` is the forward's, whose lse (over the softcapped scores) this
-    takes. Raises on any operand the kernels do not take, d >
-    BWD_MAX_HEAD_DIM first (`refuse_wide_backward`)."""
-    global FLASH_BWD_LAUNCHES, FLASH_BWD_SOFTCAP_LAUNCHES
+    `softcap` and `prefix` are the forward's, whose lse (over the
+    softcapped scores) this takes. Raises on any operand the kernels do not
+    take, d > BWD_MAX_HEAD_DIM first (`refuse_wide_backward`)."""
+    global FLASH_BWD_LAUNCHES, FLASH_BWD_SOFTCAP_LAUNCHES, \
+        FLASH_BWD_WIDE_LAUNCHES, FLASH_BWD_PREFIX_LAUNCHES
     refuse_wide_backward(q.shape[-1])
     _check(q, k, v, out, dout)
-    cap = _check_cuda("flash_attention_bwd_cuda", window, softcap, q=q, k=k,
-                      v=v, out=out, dout=dout, lse=lse)
+    cap = _check_cuda("flash_attention_bwd_cuda", window, softcap, prefix,
+                      q=q, k=k, v=v, out=out, dout=dout, lse=lse)
     b, h, s_len, d = q.shape
     if lse.shape != (b, h, s_len) or lse.dtype != torch.float32 or \
             lse.device != q.device:
@@ -312,8 +342,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
                                           dq, dk, dv)),
-                 b, h, s_len, d, int(causal), window, 1.0 / d ** 0.5, cap,
-                 DTYPE_CODES[q.dtype], stream)
+                 b, h, s_len, d, int(causal), window, int(prefix),
+                 1.0 / d ** 0.5, cap, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -321,28 +351,35 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     FLASH_BWD_ROUTE_LAUNCHES[BWD_ROUTES[q.dtype]] += 1
     if cap:
         FLASH_BWD_SOFTCAP_LAUNCHES += 1
+    if d > WIDE_HEAD_DIM:
+        FLASH_BWD_WIDE_LAUNCHES += 1
+    if prefix:
+        FLASH_BWD_PREFIX_LAUNCHES += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention under autograd: the forward kernel writes lse beside
-    the output, the backward kernel reads both, with the same softcap. CPU
-    tensors take the plain versions of both directions; CUDA tensors
-    launch the kernels, and their backward refuses d > BWD_MAX_HEAD_DIM
-    (`refuse_wide_backward`) before any launch."""
+    the output, the backward kernel reads both, with the same softcap and
+    prefix. CPU tensors take the plain versions of both directions; CUDA
+    tensors launch the kernels, and their backward refuses d >
+    BWD_MAX_HEAD_DIM (`refuse_wide_backward`) before any launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
-                softcap: Optional[float] = None):
+                softcap: Optional[float] = None, prefix: int = 0):
         cap = softcap_value(softcap) or None
         if q.device.type == "cpu":
             out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
-                                                 window=window, softcap=cap)
+                                                 window=window, softcap=cap,
+                                                 prefix=prefix)
         else:
             out, lse = _launch_forward(q, k, v, causal, window,
-                                       with_lse=True, softcap=cap)
+                                       with_lse=True, softcap=cap,
+                                       prefix=prefix)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.softcap = causal, window, cap
+        ctx.prefix = prefix
         return out
 
     @staticmethod
@@ -354,8 +391,8 @@ class FlashAttention(torch.autograd.Function):
         bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
                else flash_attention_bwd_cuda)
         dq, dk, dv = bwd(q, k, v, out, dout, lse, ctx.causal, ctx.window,
-                         ctx.softcap)
-        return dq, dk, dv, None, None, None
+                         ctx.softcap, prefix=ctx.prefix)
+        return dq, dk, dv, None, None, None, None
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -364,29 +401,32 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         softcap: Optional[float] = None) -> torch.Tensor:
+                         softcap: Optional[float] = None,
+                         prefix: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
     Returns (B, H, S, d) in q's dtype; raises on any operand the kernel does
     not take. Where a gradient is asked for, the launch goes through
     `FlashAttention`, which also writes lse and launches the backward."""
     if _wants_grad(q, k, v):
         _check(q, k, v)
-        _check_cuda("flash_attention_cuda", window, softcap, q=q, k=k, v=v)
-        return FlashAttention.apply(q, k, v, causal, window, softcap)
+        _check_cuda("flash_attention_cuda", window, softcap, prefix, q=q, k=k,
+                    v=v)
+        return FlashAttention.apply(q, k, v, causal, window, softcap, prefix)
     return _launch_forward(q, k, v, causal, window, with_lse=False,
-                           softcap=softcap)[0]
+                           softcap=softcap, prefix=prefix)[0]
 
 
 def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: int = 0,
-                           softcap: Optional[float] = None) -> torch.Tensor:
+                           softcap: Optional[float] = None,
+                           prefix: int = 0) -> torch.Tensor:
     """The kernels for CUDA tensors, their plain versions for CPU tensors,
     through `FlashAttention` where a gradient is asked for."""
     if q.device.type != "cpu":
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    softcap=softcap)
+                                    softcap=softcap, prefix=prefix)
     if _wants_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, softcap)
+        return FlashAttention.apply(q, k, v, causal, window, softcap, prefix)
     return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
+                                 softcap=softcap, prefix=prefix)

@@ -73,10 +73,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    prefix: int = 0) -> torch.Tensor:
     """Causal/windowed flash attention over (B, H, S, d) — the prefill hot
     spot; `softcap` c turns each score x into c · tanh(x / c) (None: no
-    softcap; under autograd the backward kernel carries the cap). Returns
+    softcap; under autograd the backward kernel carries the cap); with
+    `causal`, the first `prefix` positions attend to each other in both
+    directions (key j valid for query i iff j <= max(i, prefix - 1): the
+    reference's M-RoPE vision block; 0 is plain causal attention). Returns
     (B, H, S, d) in q's dtype.
 
     The reference's `block_q`, `block_k` and `interpret` arguments are
@@ -84,4 +88,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     return flash_attention_blocks(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
-                                  window=window, softcap=softcap)
+                                  window=window, softcap=softcap,
+                                  prefix=prefix)

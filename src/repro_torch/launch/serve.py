@@ -29,10 +29,11 @@ clock (`--mode continuous --trace {poisson,bursty} --requests N`).
 `--mode lm`, the default as in the reference, serves the arch's SMOKE
 config and needs `--arch` (`yi_6b`, `yi_9b`, `deepseek_7b`, `gemma2_27b`,
 whose local layers decode into ring caches of min(window, prompt + steps
-+ 1) slots, the MoE archs `mixtral_8x22b` and `kimi_k2_1t_a32b`, or the
++ 1) slots, the MoE archs `mixtral_8x22b` and `kimi_k2_1t_a32b`, the
 recurrent archs `xlstm_125m` and `recurrentgemma_2b`, whose recurrent
-layers step an O(1) state); the full config is
-`serve(get_config(arch), init_params(...), ...)`.
+layers step an O(1) state, or `qwen2_vl_72b`, which decodes as the
+reference does, with plain RoPE at the index and no vision input); the
+full config is `serve(get_config(arch), init_params(...), ...)`.
 """
 from __future__ import annotations
 

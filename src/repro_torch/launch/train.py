@@ -6,7 +6,12 @@ seekable `TokenPipeline` batches under `Supervisor.run`, checkpoints every
 quarter of `--steps` into `--ckpt-dir` and, with `--resume`, starts from
 the newest checkpoint there. Attention runs the flash kernel forward and
 its hand-written backward kernel on the card (`--device cuda`, the
-default), their plain versions on the CPU.
+default), their plain versions on the CPU. Every arch of the registry but
+the encoder-decoder trains: `--arch recurrentgemma_2b` through the
+backward's d = 256 instances, its RG-LRU scan and temporal conv
+differentiated as plain PyTorch; `--arch qwen2_vl_72b` with M-RoPE
+positions and the vision block's bidirectional prefix over the token
+embeddings, and no vision input, as the reference launcher trains it.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi_6b \
         [--steps 50] [--compress] [--ckpt-dir DIR [--resume]] [--device cpu]

@@ -1,20 +1,21 @@
-"""Transformer building blocks of the LM path: RMSNorm, RoPE, GQA
-self-attention through the flash kernel (differentiable: its backward is
-the hand-written backward kernel), within a sliding window and with an
-attention softcap where the config asks (Gemma-2), SwiGLU MLP, and the
-top-k MoE feed-forward with the reference's capacity-bounded dispatch
-(Mixtral 8x22B, Kimi K2).
+"""Transformer building blocks of the LM path: RMSNorm, RoPE and
+Qwen2-VL's multimodal M-RoPE, GQA self-attention through the flash kernel
+(differentiable: its backward is the hand-written backward kernel), within
+a sliding window and with an attention softcap where the config asks
+(Gemma-2), with the vision block's bidirectional prefix under M-RoPE
+(Qwen2-VL), SwiGLU MLP, and the top-k MoE feed-forward with the
+reference's capacity-bounded dispatch (Mixtral 8x22B, Kimi K2).
 
 Conventions, as in `repro.models.layers`:
   * params are dicts of tensors; weights stored (in_dim, out_dim).
   * activations (B, S, D); attention internals (B, H, S, hd).
   * every function takes `cfg` first where it needs one.
 
-Not ported yet (ROADMAP.md queue 1 item 8), each raising where the
-reference would take it: M-RoPE (`apply_mrope`), attention with a KV
-cache (`cache=`; the decode path attends through
-`transformer.decode_step`) or with encoder K/V (`cross_kv=`); and the
-sharding hints (`mesh_axes`, item 9).
+Not ported yet, each raising where the reference would take it:
+attention with a KV cache (`cache=`; the decode path attends through
+`transformer.decode_step`) or with encoder K/V (`cross_kv=`), both
+ROADMAP.md queue 1 item 8.3; and the sharding hints (`mesh_axes`, item
+9).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 
-_ITEM = "ROADMAP.md queue 1 item 8"
+_ENC_DEC = "ROADMAP.md queue 1 item 8.3, the encoder-decoder"
 
 
 def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -60,15 +61,64 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def apply_mrope(x, positions, theta, sections):
-    raise NotImplementedError(f"M-RoPE is not ported yet ({_ITEM})")
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x (B, H, S, hd), positions (3, B, S)
+    int, the temporal, height and width ids. The hd/2 frequency slots are
+    split into `sections` (t, h, w); each slot rotates by its section's
+    position stream, the angles in f32 as the reference's. Where the three
+    ids are equal (text) it is `apply_rope`."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2 or len(sections) != 3:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must be three "
+                         f"that sum to hd/2 = {hd // 2}")
+    if positions.dim() != 3 or positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE positions must be (3, B, S), got "
+                         f"{tuple(positions.shape)}")
+    freqs = _rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    sec = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(list(sections), device=x.device))        # (hd/2,)
+    pos_per_slot = positions.float()[sec]                     # (hd/2, B, S)
+    ang = pos_per_slot.permute(1, 2, 0)[:, None] * freqs      # (B,1,S,hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_prefix(cfg: ArchConfig, positions: torch.Tensor) -> int:
+    """The flash kernels' bidirectional prefix P for M-RoPE `positions`
+    (3, B, S): `cfg.n_vision_tokens`. The reference masks by the temporal
+    ids (key j valid for query i iff t_j <= t_i); its `_build_positions`
+    gives the first P positions t = 0 and text position i t = i - P + 1,
+    for which that is key j <= max(i, P - 1) by index, the kernels' mask.
+    Raises ValueError for temporal ids of any other layout, and for S < P,
+    where the reference cannot build positions either."""
+    if positions.dim() != 3 or positions.shape[0] != 3:
+        raise ValueError(f"{cfg.name}: M-RoPE positions must be (3, B, S), "
+                         f"got {tuple(positions.shape)}")
+    nv, s = cfg.n_vision_tokens, positions.shape[-1]
+    if s < nv:
+        raise ValueError(f"{cfg.name}: {s} positions, fewer than the "
+                         f"{nv} vision tokens")
+    want = torch.clamp_min(torch.arange(s, device=positions.device) - nv + 1,
+                           0)
+    if not torch.equal(positions[0], want.to(positions.dtype).expand_as(
+            positions[0])):
+        raise ValueError(f"{cfg.name}: the temporal position ids are not "
+                         f"{nv} zeros then 1, 2, ... (_build_positions): "
+                         "the flash kernels mask by index, which equals the "
+                         "reference's mask by temporal id only for that "
+                         "layout")
+    return nv
 
 
 def attention(
     cfg: ArchConfig,
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,                     # (B, S, D)
-    positions: torch.Tensor,             # (B, S)
+    positions: torch.Tensor,             # (B, S) or (3, B, S) for M-RoPE
     *,
     sliding_window: Optional[int] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -83,23 +133,28 @@ def attention(
 
     `positions` are the tokens' positions 0..S-1 (`transformer.
     _build_positions`): RoPE reads them; the causal mask, and with
-    `sliding_window` w the window (keys j > i - w), are by index. The
-    kernel softcaps the scores by `cfg.attn_softcap` before the mask, as
-    the reference's `_attn_core` does. Returns (out (B, S, D), None): there
-    is no cache to return.
+    `sliding_window` w the window (keys j > i - w), are by index. Under
+    M-RoPE (`cfg.mrope_sections`) positions are (3, B, S), q and k rotate
+    by `apply_mrope`, and the causal mask has the bidirectional prefix of
+    `mrope_prefix`: the reference's mask by temporal id, which makes the
+    vision block attend to itself in both directions. The kernel softcaps
+    the scores by `cfg.attn_softcap` before the mask, as the reference's
+    `_attn_core` does. Returns (out (B, S, D), None): there is no cache to
+    return.
     """
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be >= 1, got "
                          f"{sliding_window}")
     if cache is not None:
         raise NotImplementedError(
-            f"attention with a KV cache is not ported yet ({_ITEM}); "
+            f"attention with a KV cache is not ported yet ({_ENC_DEC}); "
             "decode through transformer.decode_step")
     if cross_kv is not None or cross_mask is not None:
         raise NotImplementedError(
-            f"cross-attention (encoder-decoder) is not ported yet ({_ITEM})")
+            f"cross-attention is not ported yet ({_ENC_DEC})")
+    prefix = 0
     if cfg.mrope_sections is not None:
-        apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+        prefix = mrope_prefix(cfg, positions)
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     group = hq // hkv
@@ -107,14 +162,18 @@ def attention(
     q = matmul(x, p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
     k = matmul(x, p["wk"]).reshape(b, s, hkv, hd).transpose(1, 2)
     v = matmul(x, p["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if group > 1:
         k = torch.repeat_interleave(k, group, dim=1)
         v = torch.repeat_interleave(v, group, dim=1)
     out = ops.flash_attention(q, k, v, causal=True,
                               window=sliding_window or 0,
-                              softcap=cfg.attn_softcap)
+                              softcap=cfg.attn_softcap, prefix=prefix)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return matmul(out.to(x.dtype), p["wo"]), None
 

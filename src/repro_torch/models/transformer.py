@@ -1,7 +1,8 @@
 """The decoder stack of `repro.models.transformer` without the encoder and
-the modality frontends: every layer an `ATTN` block (RMSNorm, causal GQA
+the audio frontend: every layer an `ATTN` block (RMSNorm, causal GQA
 self-attention with RoPE, RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and
-DeepSeek-7B; a `LOCAL_ATTN` block, the same within a sliding window, as
+DeepSeek-7B, or with M-RoPE and the vision input, as in Qwen2-VL-72B; a
+`LOCAL_ATTN` block, the same within a sliding window, as
 Gemma-2 27B alternates them; a `MOE` block, causal attention and then the
 top-k MoE feed-forward (`layers.moe_ffn`), as in Mixtral 8x22B and Kimi
 K2; with the attention and final-logit softcaps where the config sets
@@ -25,12 +26,21 @@ flash-decode kernel, and steps each recurrent layer's O(1) state. Params
 are a dict of tensors shaped like the reference's pytree
 (`params_from_numpy` carries one over).
 
+Qwen2-VL (`cfg.mrope_sections`, `cfg.n_vision_tokens` = nv): `forward`
+puts `vision_embeds` (B, nv, d_model), projected by `vision_proj` (the
+reference's stub of a vision tower), in place of the first nv token
+embeddings, and attends with M-RoPE positions from `_build_positions`
+under the reference's mask, in which the nv vision positions see each
+other in both directions. As in the reference, `decode_step` rotates by
+plain RoPE at the index `pos` under a causal cache mask, so its logits are
+not the forward's (ROADMAP.md queue 3, R6).
+
 `cfg.remat`, `jax.checkpoint` per layer in the reference, is
 `torch.utils.checkpoint` per layer here, taken only while autograd records
 (never under `torch.no_grad()` or `torch.inference_mode()`): the backward
 recomputes each layer's forward, flash launch included. The sharding hints
-(`mesh_axes`) have no argument. M-RoPE and the vision, audio and encoder
-inputs raise `NotImplementedError` (ROADMAP.md queue 1 item 8).
+(`mesh_axes`) have no argument. The encoder-decoder and the audio input
+raise `NotImplementedError` (ROADMAP.md queue 1 item 8.3).
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ArchConfig, BlockKind
 
-_ITEM = "ROADMAP.md queue 1 item 8"
+_ITEM = "ROADMAP.md queue 1 item 8.3"
 _ATTENTION = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE)
 # The param key of each recurrent block kind, as the reference names it.
 _RECURRENT_KEY = {BlockKind.MLSTM: "mlstm", BlockKind.SLSTM: "slstm",
@@ -60,15 +70,13 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 def _check_supported(cfg: ArchConfig) -> None:
     unported = [name for name, on in (
         ("an encoder-decoder", cfg.is_enc_dec),
-        ("a vision frontend", cfg.n_vision_tokens > 0),
         ("an audio frontend", cfg.audio_frames > 0),
-        ("M-RoPE", cfg.mrope_sections is not None),
     ) if on]
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported to repro_torch "
             f"yet ({_ITEM}); the port runs decoder stacks of every block "
-            "kind")
+            "kind, with M-RoPE and the vision input")
 
 
 # --------------------------------------------------------------------------
@@ -136,6 +144,8 @@ def _param_spec(cfg: ArchConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.vocab), s)
     spec["layers"] = [layer(kind) for kind in cfg.blocks()]
+    if cfg.n_vision_tokens:         # the stub projection of patch embeddings
+        spec["vision_proj"] = ((d, d), s)
     return spec
 
 
@@ -265,11 +275,24 @@ def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
 
 def _build_positions(cfg: ArchConfig, b: int, s: int,
                      device: "str | torch.device") -> torch.Tensor:
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE positions are not ported yet "
-                                  f"({_ITEM})")
-    return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(
-        b, s)
+    """(B, S) int32 positions 0..S-1; under M-RoPE (3, B, S), the
+    reference's layout: the first nv = `cfg.n_vision_tokens` positions form
+    a (t = 0, h, w) grid of width int(sqrt(nv)), then text continues with
+    t = h = w = 1, 2, ... (standard RoPE for text)."""
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    if cfg.mrope_sections is None:
+        return pos[None, :].expand(b, s)
+    nv = cfg.n_vision_tokens
+    if s < nv:
+        raise ValueError(f"{cfg.name}: {s} positions, fewer than the {nv} "
+                         "vision tokens")
+    grid_w = max(1, int(nv ** 0.5))
+    vis = torch.arange(nv, dtype=torch.int32, device=device)
+    text = torch.arange(1, s - nv + 1, dtype=torch.int32, device=device)
+    ids = torch.stack([torch.cat([torch.zeros_like(vis), text]),
+                       torch.cat([vis // grid_w, text]),
+                       torch.cat([vis % grid_w, text])])
+    return ids[:, None, :].expand(3, b, s)
 
 
 def _logits(cfg: ArchConfig, params: Dict[str, Any],
@@ -290,13 +313,31 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     loss f32: the sum of the MoE layers', 0 for dense and recurrent
     stacks). One flash-attention launch per attention layer on the card,
     and with `cfg.remat` under autograd one more per such layer in the
-    backward's recompute."""
+    backward's recompute.
+
+    With `cfg.n_vision_tokens` = nv, `vision_embeds` (B, nv, d_model), of
+    any float dtype, projected by `vision_proj` replace the first nv token
+    embeddings. The projection promotes as the reference's does (f32
+    embeds times bf16 weights are a f32 product in JAX): it runs in f32
+    and rounds once to the activation dtype. As in the reference,
+    `vision_embeds` is ignored by a config without a vision frontend, and
+    a vision config without it attends with the same positions and mask
+    over the token embeddings alone."""
     _check_supported(cfg)
-    if vision_embeds is not None or audio_embeds is not None:
-        raise NotImplementedError(f"vision and audio inputs are not ported "
-                                  f"yet ({_ITEM})")
+    if audio_embeds is not None:
+        raise NotImplementedError(f"audio inputs are not ported yet "
+                                  f"({_ITEM})")
     b, s = tokens.shape
     x = params["embed"][tokens]
+    nv = cfg.n_vision_tokens
+    if nv and vision_embeds is not None:
+        if vision_embeds.shape != (b, nv, cfg.d_model):
+            raise ValueError(f"vision_embeds must be ({b}, {nv}, "
+                             f"{cfg.d_model}), got "
+                             f"{tuple(vision_embeds.shape)}")
+        vis = (vision_embeds.float() @ params["vision_proj"].float()).to(
+            x.dtype)
+        x = torch.cat([vis, x[:, nv:]], dim=1)
     positions = _build_positions(cfg, b, s, x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), device=x.device)

@@ -76,9 +76,14 @@ def make_train_step(cfg: ArchConfig, loop_cfg: TrainLoopConfig,
 
     def micro_grads(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        leaves = tree_leaves(live)
         with torch.enable_grad():
             loss = loss_fn(live, batch)
-            grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+            # A leaf the loss does not reach (Qwen2-VL's vision_proj on a
+            # batch without vision input) gets zeros, as jax.grad gives.
+            grads = iter([torch.zeros_like(p) if g is None else g
+                          for p, g in zip(leaves, torch.autograd.grad(
+                              loss, leaves, allow_unused=True))])
         return loss.detach(), tree_map(lambda _: next(grads), params)
 
     def train_step(params, opt_state, batch, ef=None):

@@ -2,7 +2,8 @@
 flash-attention and GQA flash-decode kernels against their plain PyTorch
 versions (the SpMM also at the autotuner's bucket widths; both attention
 kernels also with Gemma-2's attention softcap and at RecurrentGemma's head
-dim 256, whose gradient the backward refuses), and the
+dim 256, in both directions, and the flash kernels with Qwen2-VL's
+bidirectional vision prefix), and the
 serving engine (sharded, with replicated workers and a warm start among
 them, autotuned, through edge-delta updates, and under the continuous
 serving loop), the differentiable
@@ -1640,23 +1641,122 @@ def test_decode_kernel_d256_matches_plain_version(b, n_kv, group, s, d,
 
 
 def test_flash_gradient_at_d256_raises_naming_k5():
-    """The forward takes d = 256 under autograd; the backward refuses it
-    before any launch (ROADMAP.md K5), through `FlashAttention` and
-    `flash_attention_bwd_cuda` alike, and launches nothing."""
+    """Since the backward's d = 256 instances (ROADMAP.md K5, done): the
+    gradient of the d = 256 forward through `FlashAttention` on the card
+    matches `flash_attention_bwd_plain` on the same out and lse within
+    BWD_TOL, launched once and counted at d > 128. (The name is the one
+    the test had while the backward refused d = 256.)"""
     dev = _card()
     from repro_torch.kernels import flash_attn as fmod
     q, k, v = _attn_inputs((1, 2, 80, 256), torch.bfloat16, dev, seed=256)
+    dout = _attn_inputs((1, 2, 80, 256), torch.bfloat16, dev, seed=257)[0]
     live = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = fmod.flash_attention_cuda(*live)
-    before = fmod.FLASH_BWD_LAUNCHES
-    with pytest.raises(NotImplementedError, match="K5"):
-        out.backward(torch.ones_like(out))
+    before = fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_WIDE_LAUNCHES
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_BWD_LAUNCHES, fmod.FLASH_BWD_WIDE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
     with torch.no_grad():
         o, lse = fmod.flash_attention_lse_cuda(q, k, v)
-        with pytest.raises(NotImplementedError, match="K5"):
-            fmod.flash_attention_bwd_cuda(q, k, v, o, o, lse)
+        want = fmod.flash_attention_bwd_plain(q, k, v, o, dout, lse)
+    _bwd_close([t.grad for t in live], want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,window,prefix", [
+    # The d = 256 instances: each 64-key tile's dK and dV in two dim
+    # halves on the tensor cores; the FMA route's 32-row tiles.
+    (1, 3, 31, 256, True, 0, 0),
+    (1, 3, 65, 256, True, 0, 0),
+    (1, 2, 129, 256, True, 0, 0),
+    (1, 2, 300, 256, True, 100, 0),
+    (1, 2, 150, 256, False, 0, 0),
+    (1, 2, 130, 200, True, 33, 0),   # d = 200, padded to 256
+    (1, 2, 300, 256, True, 0, 100),
+    # The bidirectional prefix at and around the tiles' edges.
+    (2, 3, 300, 128, True, 0, 1),
+    (2, 3, 300, 64, True, 0, 63),
+    (2, 3, 300, 64, True, 0, 64),
+    (2, 3, 300, 64, True, 0, 65),
+    (2, 3, 300, 128, True, 0, 256),
+    (1, 2, 90, 128, True, 0, 90),    # P = S: all bidirectional
+    (1, 2, 700, 128, True, 100, 200),
+])
+def test_flash_d256_and_prefix_match_plain_versions(b, h, s, d, causal,
+                                                    window, prefix, dtype):
+    """Both directions at d = 256 and with a prefix P > 0 against their
+    plain versions, on both routes (f32: FMA, 16-bit: tensor cores): the
+    forward within ATTN_TOL, dQ, dK, dV within BWD_TOL; launches counted
+    at d > 128 and with P > 0."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, k, v = _attn_inputs((b, h, s, d), dtype, dev, seed=s + d + prefix)
+    dout = _attn_inputs((b, h, s, d), dtype, dev, seed=s + d + 1)[0]
+    kw = {"causal": causal, "window": window, "prefix": prefix}
+    counts = (fmod.FLASH_WIDE_LAUNCHES, fmod.FLASH_BWD_WIDE_LAUNCHES,
+              fmod.FLASH_PREFIX_LAUNCHES, fmod.FLASH_BWD_PREFIX_LAUNCHES)
+    with torch.no_grad():
+        out = fmod.flash_attention_cuda(q, k, v, **kw)
+        o, lse = fmod.flash_attention_lse_cuda(q, k, v, **kw)
+        got = fmod.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal,
+                                            window, prefix=prefix)
+        plain = fmod.flash_attention_plain(q, k, v, **kw)
+        want = fmod.flash_attention_bwd_plain(q, k, v, o, dout, lse, causal,
+                                              window, prefix=prefix)
     torch.cuda.synchronize()
-    assert fmod.FLASH_BWD_LAUNCHES == before
+    wide, pre = int(d > 128), int(prefix > 0)
+    assert (fmod.FLASH_WIDE_LAUNCHES, fmod.FLASH_BWD_WIDE_LAUNCHES,
+            fmod.FLASH_PREFIX_LAUNCHES, fmod.FLASH_BWD_PREFIX_LAUNCHES) == (
+        counts[0] + 2 * wide, counts[1] + wide, counts[2] + 2 * pre,
+        counts[3] + pre)
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    _bwd_close(got, want)
+
+
+def test_qwen2_vl_on_card_matches_cpu():
+    """Qwen2-VL's SMOKE config in f32 with vision embeddings: `forward`
+    (M-RoPE, the flash kernel with a prefix of 8) and `lm_loss` gradients
+    (`vision_proj` among them) through the backward with that prefix, the
+    card against the CPU (the plain versions), the gradients within 1e-4
+    of each tensor's largest |g|."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.models import forward, init_params, lm_loss
+    from repro_torch.train.optim import tree_leaves, tree_map
+    cfg = get_config("qwen2_vl_72b", smoke=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=gen)
+    vision = torch.randn((2, cfg.n_vision_tokens, cfg.d_model),
+                         generator=gen)
+    n_attn = cfg.n_layers
+    grads = {}
+    before = fmod.FLASH_PREFIX_LAUNCHES, fmod.FLASH_BWD_PREFIX_LAUNCHES
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        live = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+        loss = lm_loss(cfg, live, tokens.to(device),
+                       torch.roll(tokens, -1, 1).to(device),
+                       vision_embeds=vision.to(device))
+        grads[name] = [g.cpu() for g in torch.autograd.grad(
+            loss, tree_leaves(live))]
+    torch.cuda.synchronize()
+    assert (fmod.FLASH_PREFIX_LAUNCHES - before[0],
+            fmod.FLASH_BWD_PREFIX_LAUNCHES - before[1]) == (n_attn, n_attn)
+    for g_card, g_cpu in zip(grads["card"], grads["cpu"]):
+        scale = max(float(g_cpu.abs().max()), 1e-30)
+        assert float((g_card - g_cpu).abs().max()) <= 1e-4 * scale
+    on_card = tree_map(lambda t: t.to(dev), params)
+    with torch.inference_mode():
+        ref, _ = forward(cfg, params, tokens, vision_embeds=vision)
+        out, _ = forward(cfg, on_card, tokens.to(dev),
+                         vision_embeds=vision.to(dev))
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_125m"])

@@ -219,12 +219,18 @@ def test_launch_train_checkpoints_and_resumes(tmp_path, capsys):
     assert step == 3 and int(restored["opt_state"]["step"]) == 8
 
 
-@pytest.mark.parametrize("arch", ["gemma2_27b", "mixtral_8x22b"])
+@pytest.mark.parametrize("arch", ["gemma2_27b", "mixtral_8x22b",
+                                  "recurrentgemma_2b", "qwen2_vl_72b"])
 def test_launch_train_cli_takes_softcapped_and_moe_archs(arch, capsys):
     """`--arch gemma2_27b` (both softcaps, window 16: the softcapped
-    backward) and `--arch mixtral_8x22b` (every layer MoE, the aux loss in
-    the objective) train on the CPU through `get_config`, printing the
-    reference launcher's lines, with a finite first loss near ln(vocab)."""
+    backward), `--arch mixtral_8x22b` (every layer MoE, the aux loss in
+    the objective), `--arch recurrentgemma_2b` (the RG-LRU scan and the
+    temporal conv differentiated, a local attention layer) and `--arch
+    qwen2_vl_72b` (M-RoPE positions and the vision block's bidirectional
+    prefix over the token embeddings, no vision input, as the reference
+    launcher trains it) train on the CPU through `get_config`, printing
+    the reference launcher's lines, with a finite first loss near
+    ln(vocab)."""
     out = {}
     for name, main, extra in (("port", p_launch.main, ["--device", "cpu"]),
                               ("ref", r_launch.main, [])):
@@ -233,4 +239,9 @@ def test_launch_train_cli_takes_softcapped_and_moe_archs(arch, capsys):
     assert _shape(out["port"]) == _shape(out["ref"]) == [
         "step     N loss N", "Ns for N steps"]
     loss = _losses(out["port"])[0]
-    assert np.isfinite(loss) and abs(loss - np.log(256)) < 0.5
+    # Each launcher draws its own weights from seed 0, so the first losses
+    # share only the init's distribution: RecurrentGemma's and Qwen2-VL's
+    # start near 6.1 in both, Gemma-2's and Mixtral's near ln(vocab).
+    assert np.isfinite(loss) and abs(loss - _losses(out["ref"])[0]) < 0.5
+    if arch in ("gemma2_27b", "mixtral_8x22b"):
+        assert abs(loss - np.log(256)) < 0.5

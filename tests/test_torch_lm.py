@@ -54,7 +54,9 @@ LOSS_TOL = 1e-5
 DENSE = ("yi_6b", "yi_9b", "deepseek_7b")
 MOE = ("mixtral_8x22b", "kimi_k2_1t_a32b")
 RECURRENT = ("xlstm_125m", "recurrentgemma_2b")
-PORTED = DENSE + ("gemma2_27b",) + MOE + RECURRENT
+# Qwen2-VL's model tests (M-RoPE, the vision input) are in
+# tests/test_torch_qwen.py.
+PORTED = DENSE + ("gemma2_27b",) + MOE + RECURRENT + ("qwen2_vl_72b",)
 AUX_TOL = 1e-6
 
 
@@ -141,7 +143,7 @@ def test_registry_matches_reference_and_refuses_unported_archs():
     assert p_configs.arch_ids() == r_configs.arch_ids()
     assert p_configs.SHAPES == r_configs.SHAPES
     unported = set(r_configs.arch_ids()) - set(PORTED)
-    assert len(unported) == 2
+    assert len(unported) == 1
     for arch in sorted(unported):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             p_configs.get_config(arch)
@@ -151,20 +153,25 @@ def test_registry_matches_reference_and_refuses_unported_archs():
 
 
 def test_model_refuses_unported_configs():
-    """Encoder-decoder and M-RoPE raise; a sliding window, an attention
-    softcap, MoE layers and recurrent blocks are ported now and build."""
+    """An encoder-decoder and an audio frontend raise; a sliding window, an
+    attention softcap, MoE layers, recurrent blocks, M-RoPE and a vision
+    frontend are ported now and build (the vision frontend with its
+    `vision_proj`)."""
     base = p_configs.get_config("yi_6b", smoke=True)
-    for bad in (dict(encoder_layers=2), dict(mrope_sections=(2, 3, 3))):
+    for bad in (dict(encoder_layers=2), dict(audio_frames=16)):
         cfg = dataclasses.replace(base, **bad)
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             p_tf.init_params(cfg, torch.Generator(), device="cpu")
     for ported in (dict(sliding_window=8), dict(attn_softcap=50.0),
                    dict(sliding_window=8, local_global_pattern=2),
                    dict(n_experts=4, top_k=2, expert_d_ff=32),
-                   dict(block_pattern=("rglru", "attn"))):
+                   dict(block_pattern=("rglru", "attn")),
+                   dict(mrope_sections=(2, 3, 3)),
+                   dict(mrope_sections=(2, 3, 3), n_vision_tokens=4)):
         cfg = dataclasses.replace(base, **ported)
         params = p_tf.init_params(cfg, torch.Generator(), device="cpu")
         assert len(params["layers"]) == cfg.n_layers
+        assert ("vision_proj" in params) == bool(cfg.n_vision_tokens)
 
 
 def test_params_from_numpy_carries_every_leaf(model):
@@ -204,7 +211,8 @@ def test_params_from_numpy_bf16_and_structure_checks():
     ("deepseek_7b", 6_910_365_696), ("gemma2_27b", 28_406_352_384),
     ("mixtral_8x22b", 140_630_071_296),
     ("kimi_k2_1t_a32b", 1_041_166_988_288),
-    ("xlstm_125m", 114_498_048), ("recurrentgemma_2b", 3_549_841_920)])
+    ("xlstm_125m", 114_498_048), ("recurrentgemma_2b", 3_549_841_920),
+    ("qwen2_vl_72b", 72_772_493_312)])
 def test_param_count_at_full_size(arch, count):
     """From the shapes alone (nothing allocated), against the reference's
     abstract init."""
