@@ -175,7 +175,16 @@ non-zero without a result line:
                the forward at qwen_serve's prefill layer (1, 64, 4096, 128)
                bf16, both at qwen_check's (2, 64, 512, 128) f32, then P =
                1, 8, 63, 64, 65, 256 and P = S in all three types, with a
-               window and with the softcap.
+               window and with the softcap. Both flash directions with a
+               key length of their own (`cross_cases`): non-causal at
+               every pair of Sq in 1, 31, 65, 512 and Sk in 17, 64, 1000,
+               1024 in bf16 at d = 64 and 128 (a diagonal of those pairs
+               in f16 and f32), one d = 256 pair, causal with off = Sk -
+               Sq > 0 with and without a window in all three types, the
+               shapes seamless_check, seamless_serve and seamless_train
+               give them, the refusals (causal with Sk < Sq, a prefix with
+               Sq != Sk) before any launch, and the decode kernel over
+               SeamlessM4T's 1024 frames (its cross step) in f32 and bf16.
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
@@ -305,13 +314,47 @@ non-zero without a result line:
                embeddings (flash launches = 32, every one with the prefix
                of 256 on the tensor-core route), and decode against a
                forward without M-RoPE and the prefix (QWEN_DECODE_RULE).
- 37. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
+ 37. seamless_check — SeamlessM4T-medium's widths (the full vocabulary of
+               256,206) cut to 2 encoder and 2 decoder layers, float32,
+               batch 2 x 512 over 1024 frames from --seed: `encode`,
+               `forward` and teacher-forced `decode_step(enc_out=)`
+               against the script's own float64 encoder-decoder within
+               LM_REL_TOL (the decode also against its own forward), and
+               `lm_loss` gradients (`xattn`, `enc_layers` and `audio_proj`
+               among them) within LM_GRAD_REL_TOL; every launch on the f32
+               FMA route, the encoder's and the cross-attention's flash
+               launches non-causal, the cross ones at Sq != Sk.
+ 38. seamless_serve — full SeamlessM4T-medium (12 + 12 layers, bf16, 1.96
+               GB of weights from --seed): `serve` (the reference's f32
+               zero frames encoded once, 12 flash launches on the f32
+               route; per step 12 self-attention decode launches on the
+               tensor-core route and 12 cross-attention ones on the f32
+               route), a 4096-token `forward` with bf16 frames from --seed
+               (36 flash launches, 12 of them cross at Sq = 4096, Sk =
+               1024), and a teacher-forced decode held to that prefill
+               within LM_BF16_TOL.
+ 39. seamless_train — SeamlessM4T-medium's bf16 CONFIG at full width and
+               depth, remat on: `train_loop` with Adafactor, two
+               microbatches of TokenPipeline(256206, 512, 4) a step, each
+               with (4, 1024, 1024) bf16 frames from --seed, int8 EF, 4
+               steps; the first loss within LM_TRAIN_LOSS_TOL of float64,
+               step 0's batch lower after the steps; every flash forward,
+               recompute and backward on the tensor-core route, the
+               encoder's and cross-attention's non-causal.
+ 40. stacked_check — `models.stacked` in float32 at full width:
+               seamless_check's model and RecurrentGemma-2B cut to 4
+               layers (its unit of 3 once, one remainder layer):
+               `forward_scan` and teacher-forced `decode_step_scan`
+               against `forward` and `decode_step` on the same weights
+               within the reference test's atol 2e-4 and rtol 1e-4,
+               bit-for-bit equality printed.
+ 41. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
                bf16 in pinned host memory, drawn on the card from --seed)
                streamed through `StreamedWeightProvider(2 GiB, align 8,
                depth 2)`: 16 blocks of 24 experts, each block's range and
                shapes, sampled rows bit for bit against the host bank, the
                uploaded bytes the bank's; prints the StreamStats and GB/s.
- 38. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 42. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
@@ -341,18 +384,24 @@ non-zero without a result line:
                without it; both directions with the prefix of 256 at
                qwen_serve's prefill layer (1, 64, 4096, 128) bf16, beside
                the same calls without it and SDPA with the prefix as a
-               mask.
- 39. phase_seconds, kernels — each phase's seconds; the summary line
-               (softcapped, d = 256 and prefixed launches by path among it,
-               the backward's by route, softcap, d = 256 and prefix), then
-               the card's name and power limit, then the result line.
+               mask; both flash directions non-causal at SeamlessM4T's
+               shapes (the cross-attention forward (4, 16, 4096, 64) and
+               backward (4, 16, 512, 64) over 1024 frames, the encoder
+               (4, 16, 1024, 64) both ways) beside SDPA without a mask, and
+               the decode kernel's cross step (4, 16, 1, 64) over 1024.
+ 43. phase_seconds, kernels — each phase's seconds; the summary line
+               (softcapped, d = 256, prefixed, cross (Sq != Sk) and
+               non-causal launches by path among it, the backward's by
+               route, softcap, d = 256 and prefix), then the card's name
+               and power limit, then the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
 warm, tune, update, partition, continuous, lm_check, lm_train_check, each
 run of lm_train, lm_serve, gemma_check, gemma_serve, gemma_train_check,
 gemma_train, moe_check, mixtral_serve, rgemma_check, xlstm_check,
 rgemma_serve, xlstm_serve, rgemma_train_check, rgemma_train, qwen_check,
-qwen_serve) runs with the launch counters set
+qwen_serve, seamless_check, seamless_serve, seamless_train, stacked_check)
+runs with the launch counters set
 to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
@@ -522,6 +571,17 @@ QWEN_DECODE_RULE = ("decode vs forward(replace(cfg, mrope_sections=None, "
                     "LM_BF16_TOL (R6: the reference's decode has no M-RoPE "
                     "and no vision prefix)")
 XLSTM_PREFILL = 2048           # xlstm_serve: 3 sLSTM loops of 2048 steps
+# SeamlessM4T-medium: 1024 audio frames, 16 heads of 64 (MHA).
+SEAMLESS_FRAMES = 1024
+SEAMLESS_HEADS = 16
+SEAMLESS_HD = 64
+SEAMLESS_CHECK_SEQ = 512       # seamless_check: batch 2 x 512, 2 + 2 layers
+SEAMLESS_CHECK_LAYERS = 2      # encoder and decoder layers of the checks
+SEAMLESS_PREFILL = 4096        # seamless_serve: the decoder's prefill
+SEAMLESS_TRAIN_STEPS = 4       # seamless_train: Adafactor steps
+STACKED_SEQ = 128              # stacked_check: batch 2 x 128 tokens
+STACKED_STEPS = 16             # ... and teacher-forced decode steps
+STACKED_ATOL, STACKED_RTOL = 2e-4, 1e-4   # tests/test_stacked_scan.py's
 ATTENTION_KINDS = ("attn", "local", "moe")
 
 
@@ -930,10 +990,12 @@ def f64_adjacency(a):
 
 
 def rel_err(out, ref) -> float:
-    """max |out - ref| over the reference's largest magnitude."""
+    """max |out - ref| over the reference's largest magnitude, in float64
+    on out's device (a vocabulary's logits are gigabytes in float64: the
+    host would take seconds over them)."""
     import torch
-    out = out.detach().cpu().to(torch.float64)
-    ref = ref.detach().cpu().to(torch.float64)
+    out = out.detach().to(torch.float64)
+    ref = ref.detach().to(device=out.device, dtype=torch.float64)
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)} vs "
                              f"{tuple(ref.shape)}")
@@ -2664,6 +2726,7 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
     cases += backward_softcap_cases(fmod, gen)
     cases += backward_d256_cases(fmod, gen)
     cases += prefix_cases(fmod, gen)
+    cases += cross_cases(fmod, dmod, gen)
     emit({"phase": "attn", "cases": cases,
           "backward_cases_seconds": time.perf_counter() - t0,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -2671,9 +2734,10 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
     main = [c for c in cases                           # main-path shapes
             if "lm_" in c["case"] or "gemma_" in c["case"]
             or "mixtral_" in c["case"] or "moe_" in c["case"]
-            or "qwen_" in c["case"]]
+            or "qwen_" in c["case"] or "seamless_" in c["case"]]
     wide = [c for c in main if "d = 256" in c["case"]]
     prefixed = [c for c in main if "prefix" in c["case"]]
+    seamless = [c for c in main if "seamless_" in c["case"]]
     return {**{name: max(c["max_abs_err"] for c in main
                          if c["case"].startswith(name))
                for name in ("flash", "decode", "backward")},
@@ -2682,7 +2746,10 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
                for name in ("flash", "decode", "backward")},
             **{f"{name}_prefix": max(c["max_abs_err"] for c in prefixed
                                      if c["case"].startswith(name))
-               for name in ("flash", "backward")}}
+               for name in ("flash", "backward")},
+            **{f"{name}_seamless": max(c["max_abs_err"] for c in seamless
+                                       if c["case"].startswith(name))
+               for name in ("flash", "backward", "decode")}}
 
 
 def softcap_cases(fmod, dmod, gen) -> list:
@@ -2738,16 +2805,21 @@ def softcap_cases(fmod, dmod, gen) -> list:
 
 
 def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
-                window=0, softcap=None, prefix=0) -> dict:
+                window=0, softcap=None, prefix=0, sk=None) -> dict:
     """The backward kernel against `flash_attention_bwd_plain` on the same
     q, k, v, dout and the forward kernel's out and lse (softcapped where
     `softcap` is given, with the bidirectional `prefix`, both directions),
     each of dQ, dK, dV per element within BWD_TOL; lse against the plain
     forward's within LSE_TOL; a second launch gives the same bits (no
-    atomics)."""
+    atomics). q is `shape` (B, H, Sq, d); k and v take `sk` keys where
+    given (Sq otherwise)."""
     import torch
-    q, k, v, dout = attn_inputs(shape, dtype, gen) + attn_inputs(
-        shape, dtype, gen)[:1]
+    if sk is None:
+        q, k, v, dout = attn_inputs(shape, dtype, gen) + attn_inputs(
+            shape, dtype, gen)[:1]
+    else:
+        q, dout = attn_inputs(shape, dtype, gen)[:2]
+        k, v = attn_inputs((*shape[:2], sk, shape[3]), dtype, gen)[:2]
     rtol, atol = BWD_TOL[dtype]
     with torch.no_grad():
         out, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=causal,
@@ -2771,9 +2843,10 @@ def bwd_compare(fmod, shape, dtype, gen, label, causal=True,
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"{label}: lse off the plain forward's by "
                              f"{lse_err} > {LSE_TOL}")
-    case = {"case": label, "shape": list(shape), "dtype": dtype,
-            "causal": causal, "window": window, "softcap": softcap,
-            "prefix": prefix, "lse_max_abs_err": lse_err, "rtol": rtol,
+    case = {"case": label, "shape": list(shape), "sk": sk or shape[2],
+            "dtype": dtype, "causal": causal, "window": window,
+            "softcap": softcap, "prefix": prefix,
+            "lse_max_abs_err": lse_err, "rtol": rtol,
             "atol_over_max_abs_plain": atol}
     err = 0.0
     scale = max(float(w.float().abs().max()) for w in want)
@@ -2923,6 +2996,128 @@ def prefix_cases(fmod, gen) -> list:
         cases.append(bwd_compare(fmod, (1, 4, 300, 128), dtype, gen,
                                  f"backward: prefix 65, softcap 50, {dtype}",
                                  prefix=65, softcap=50.0))
+    return cases
+
+
+def kv_inputs(shape, sk: int, dtype, gen):
+    """q (B, H, Sq, d) and k, v (B, H, sk, d) from `gen`."""
+    q = attn_inputs(shape, dtype, gen)[0]
+    return [q] + attn_inputs((*shape[:2], sk, shape[3]), dtype, gen)[:2]
+
+
+CROSS_SQ = (1, 31, 65, 512)          # cross cases: query lengths ...
+CROSS_SK = (17, 64, 1000, 1024)      # ... and key lengths, every pair
+
+
+def cross_cases(fmod, dmod, gen) -> list:
+    """Both flash directions with a key length of their own (Sq != Sk)
+    against their plain versions: non-causal (the encoder-decoder's
+    cross-attention) at every pair of CROSS_SQ and CROSS_SK in bf16 at
+    d = 64 and 128, a diagonal of those pairs in f16 and f32 at both, and
+    one d = 256 case; causal with off = Sk - Sq > 0 (attention against a
+    KV cache), with and without a window, in all three types; the
+    encoder's non-causal Sq = Sk; the shapes seamless_check,
+    seamless_serve and seamless_train give them; the refusals (causal
+    with Sk < Sq, a prefix with Sq != Sk) before any launch; and the
+    decode kernel over seamless's 1024 frames with lens = 1024, the
+    decode step's cross-attention."""
+    import torch
+    flash, f_plain = fmod.flash_attention_cuda, fmod.flash_attention_plain
+    decode, d_plain = dmod.decode_attention_cuda, dmod.decode_attention_plain
+    frames, h, d = SEAMLESS_FRAMES, SEAMLESS_HEADS, SEAMLESS_HD
+    cases = [
+        attn_compare(flash, f_plain,
+                     kv_inputs((1, h, SEAMLESS_PREFILL, d), frames,
+                               "bfloat16", gen), {"causal": False},
+                     "flash: seamless_serve's prefill cross-attention",
+                     "bfloat16"),
+        attn_compare(flash, f_plain,
+                     attn_inputs((LM_BATCH, h, frames, d), "bfloat16", gen),
+                     {"causal": False}, "flash: seamless_train's encoder",
+                     "bfloat16"),
+        attn_compare(flash, f_plain,
+                     attn_inputs((2, h, frames, d), "float32", gen),
+                     {"causal": False}, "flash: seamless_check's encoder, "
+                     "f32", "float32"),
+        attn_compare(flash, f_plain,
+                     kv_inputs((2, h, SEAMLESS_CHECK_SEQ, d), frames,
+                               "float32", gen), {"causal": False},
+                     "flash: seamless_check's cross-attention, f32",
+                     "float32"),
+        bwd_compare(fmod, (LM_BATCH, h, LM_TRAIN_SEQ, d), "bfloat16", gen,
+                    "backward: seamless_train's cross-attention",
+                    causal=False, sk=frames),
+        bwd_compare(fmod, (LM_BATCH, h, frames, d), "bfloat16", gen,
+                    "backward: seamless_train's encoder", causal=False),
+        bwd_compare(fmod, (2, h, SEAMLESS_CHECK_SEQ, d), "float32", gen,
+                    "backward: seamless_check's cross-attention, f32",
+                    causal=False, sk=frames),
+        bwd_compare(fmod, (2, h, frames, d), "float32", gen,
+                    "backward: seamless_check's encoder, f32",
+                    causal=False)]
+    diagonal = list(zip(CROSS_SQ, CROSS_SK))
+    for dtype in ("bfloat16", "float16", "float32"):
+        pairs = ([(sq, sk) for sq in CROSS_SQ for sk in CROSS_SK]
+                 if dtype == "bfloat16" else diagonal)
+        for hd in (64, 128):
+            for sq, sk in pairs:
+                cases.append(attn_compare(
+                    flash, f_plain, kv_inputs((2, 3, sq, hd), sk, dtype, gen),
+                    {"causal": False},
+                    f"flash: cross Sq {sq}, Sk {sk}, d {hd}", dtype))
+                cases.append(bwd_compare(
+                    fmod, (2, 3, sq, hd), dtype, gen,
+                    f"backward: cross Sq {sq}, Sk {sk}, d {hd}, {dtype}",
+                    causal=False, sk=sk))
+        for sq, sk, window in ((1, 100, 0), (64, 200, 0), (65, 1000, 0),
+                               (64, 200, 50), (130, 1000, 100),
+                               (7, 7, 3)):
+            kw = {"causal": True, "window": window}
+            cases.append(attn_compare(
+                flash, f_plain, kv_inputs((2, 3, sq, 128), sk, dtype, gen),
+                kw, f"flash: cache, off {sk - sq}, window {window}", dtype))
+            cases.append(bwd_compare(
+                fmod, (2, 3, sq, 128), dtype, gen,
+                f"backward: cache, off {sk - sq}, window {window}, {dtype}",
+                window=window, sk=sk))
+        cases.append(attn_compare(
+            flash, f_plain, kv_inputs((2, 3, 65, 256), 1000, dtype, gen),
+            {"causal": False}, "flash: cross Sq 65, Sk 1000, d = 256",
+            dtype))
+        cases.append(bwd_compare(
+            fmod, (2, 3, 65, 256), dtype, gen,
+            f"backward: cross Sq 65, Sk 1000, d = 256, {dtype}",
+            causal=False, sk=1000))
+    # The refusals, before any launch.
+    q, k, v = kv_inputs((1, 2, 64, 64), 32, "bfloat16", gen)
+    before = (fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES)
+    refused = []
+    for label, call in (
+            ("causal, Sk < Sq", lambda: flash(q, k, v, causal=True)),
+            ("causal backward, Sk < Sq", lambda: fmod.flash_attention_bwd_cuda(
+                q, k, v, q, q, torch.zeros(q.shape[:3], device=DEV), True)),
+            ("prefix, Sq != Sk", lambda: flash(q, k, v, causal=False,
+                                               prefix=8)),
+            ("prefix, Sq != Sk, under autograd", lambda: flash(
+                q.requires_grad_(), k, v, causal=True, prefix=8))):
+        try:
+            call()
+        except ValueError as err:
+            refused.append({"call": label, "error": str(err)[:120]})
+        else:
+            raise AssertionError(f"cross cases: {label} was not refused")
+    if (fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES) != before:
+        raise AssertionError("cross cases: a refused call launched")
+    cases.append({"case": "refusals", "refused": refused})
+    for dtype in ("float32", "bfloat16"):
+        args = decode_inputs(LM_BATCH, h, 1, frames, dtype, gen,
+                             lens=torch.full((LM_BATCH,), frames,
+                                             dtype=torch.int32, device=DEV),
+                             d=d)
+        cases.append(attn_compare(
+            decode, d_plain, args, {},
+            f"decode: seamless_serve's cross step over {frames} frames",
+            dtype))
     return cases
 
 
@@ -3190,8 +3385,44 @@ def f64_recurrent(cfg, kind: str, p, h):
     return (hh.reshape(b, s, d) * (1.0 + w["gn"])) @ w["wo"]
 
 
+def f64_encode(cfg, params, audio, ckpt: bool = False):
+    """The encoder in float64, written from the architecture: the frames
+    projected by `audio_proj`, then per layer RMSNorm, softmax attention
+    over every frame (no mask, no RoPE; KV heads repeated) and a SwiGLU
+    MLP, each added to the residual, then the final `enc_norm`: (B,
+    frames, d). With `ckpt` each head group and MLP is checkpointed."""
+    import torch
+    import torch.nn.functional as F
+    b, frames, _ = audio.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def heads(q, k, v):
+        return torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd),
+                             -1) @ v
+
+    def mlp(h, wg, wu, wd):
+        return (F.silu(h @ _f64(wg)) * (h @ _f64(wu))) @ _f64(wd)
+
+    e = _f64(audio) @ _f64(params["audio_proj"])
+    for p in params["enc_layers"]:
+        h = _f64_norm(e, p["ln1"])
+        a = p["attn"]
+        q, k, v = ((h @ _f64(a[w])).view(b, frames, n, hd).transpose(1, 2)
+                   for w, n in (("wq", hq), ("wk", hkv), ("wv", hkv)))
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+        o = torch.cat([_ckpt(ckpt, heads, q[:, h0:h0 + 8], k[:, h0:h0 + 8],
+                             v[:, h0:h0 + 8]) for h0 in range(0, hq, 8)], 1)
+        e = e + o.transpose(1, 2).reshape(b, frames, hq * hd) @ _f64(a["wo"])
+        m = p["mlp"]
+        e = e + _ckpt(ckpt, mlp, _f64_norm(e, p["ln2"]), m["w_gate"],
+                      m["w_up"], m["w_down"])
+    return _f64_norm(e, params["enc_norm"])
+
+
 def f64_hidden(cfg, params, tokens, ckpt: bool = False,
-               per_position: bool = False, routes=None, vision=None):
+               per_position: bool = False, routes=None, vision=None,
+               audio=None):
     """The decoder stack in float64 with plain torch ops, written from the
     architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
     attention with KV heads repeated, within `cfg.sliding_window` on the
@@ -3204,9 +3435,13 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
     t = 0 on a grid of width int(sqrt(nv)) and text position i t = h = w =
     i - nv + 1, and key j is valid for query i iff t_j <= t_i; `vision`
     (B, nv, d) projected by `vision_proj` takes the first nv embeddings'
-    place. Attention in groups of 8 heads, so that no float64 temporary
-    holds a whole layer's scores; with `ckpt` each head group and each MLP
-    is checkpointed for the backward."""
+    place. With `audio` frames (an encoder-decoder) `f64_encode` runs
+    first and every attention layer attends, after its self-attention,
+    over the encoder output (RMSNorm by ln_x, q from it, k and v from the
+    encoder output by `xattn`, no mask, no RoPE). Attention in groups of 8
+    heads, so that no float64 temporary holds a whole layer's scores; with
+    `ckpt` each head group and each MLP is checkpointed for the
+    backward."""
     import torch
     import torch.nn.functional as F
 
@@ -3246,6 +3481,7 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
         return (F.silu(h @ _f64(wg)) * (h @ _f64(wu))) @ _f64(wd)
 
     causal = t_ids[None, :] <= t_ids[:, None]
+    enc = None if audio is None else f64_encode(cfg, params, audio, ckpt)
     x = _f64(params["embed"][tokens])
     if vision is not None:
         x = torch.cat([_f64(vision) @ _f64(params["vision_proj"]),
@@ -3272,6 +3508,19 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
                              v[:, h0:h0 + 8], valid)
                        for h0 in range(0, hq, 8)], 1)
         x = x + o.transpose(1, 2).reshape(b, s, hq * hd) @ _f64(a["wo"])
+        if enc is not None:
+            xa, frames = p["xattn"], enc.shape[1]
+            hx = _f64_norm(x, p["ln_x"])
+            q = (hx @ _f64(xa["wq"])).view(b, s, hq, hd).transpose(1, 2)
+            k, v = ((enc @ _f64(xa[w])).view(b, frames, hkv, hd).transpose(
+                1, 2).repeat_interleave(hq // hkv, dim=1)
+                for w in ("wk", "wv"))
+            every = torch.ones((s, frames), dtype=torch.bool, device=DEV)
+            o = torch.cat([_ckpt(ckpt, heads, q[:, h0:h0 + 8],
+                                 k[:, h0:h0 + 8], v[:, h0:h0 + 8], every)
+                           for h0 in range(0, hq, 8)], 1)
+            x = x + o.transpose(1, 2).reshape(b, s, hq * hd) @ _f64(
+                xa["wo"])
         h = _f64_norm(x, p["ln2"])
         if "moe" in p:
             x = x + f64_moe(cfg, p["moe"], h, per_position, routes)
@@ -3292,19 +3541,21 @@ def f64_logits(cfg, params, x):
 
 
 def f64_lm_forward(cfg, params, tokens, positions=None,
-                   per_position: bool = False, routes=None, vision=None):
+                   per_position: bool = False, routes=None, vision=None,
+                   audio=None):
     """The float64 stack's logits (B, S, V), or only at `positions`."""
     x = f64_hidden(cfg, params, tokens, per_position=per_position,
-                   routes=routes, vision=vision)
+                   routes=routes, vision=vision, audio=audio)
     if positions is not None:
         x = x[:, positions]
     return f64_logits(cfg, params, x)
 
 
-def teacher_forced(cfg, params, tokens, positions=None):
+def teacher_forced(cfg, params, tokens, positions=None, enc_out=None):
     """decode_step over every position of `tokens`, into caches of
-    S positions (rings of min(window, S) slots); logits (B, S, V), or only
-    at `positions`."""
+    S positions (rings of min(window, S) slots), attending over `enc_out`
+    where given (an encoder-decoder); logits (B, S, V), or only at
+    `positions`."""
     import torch
     from repro_torch.models import decode_step, init_decode_state
     b, s = tokens.shape
@@ -3312,7 +3563,8 @@ def teacher_forced(cfg, params, tokens, positions=None):
     state = init_decode_state(cfg, b, s, device=DEV)
     out = []
     for t in range(s):
-        logits, state = decode_step(cfg, params, tokens[:, t:t + 1], state)
+        logits, state = decode_step(cfg, params, tokens[:, t:t + 1], state,
+                                    enc_out=enc_out)
         if t in keep:
             out.append(logits[:, 0])
     return torch.stack(out, dim=1)
@@ -3320,8 +3572,11 @@ def teacher_forced(cfg, params, tokens, positions=None):
 
 def zero_attn_counts(fmod, dmod) -> None:
     """The attention kernels' launch counts, in all, by route, with a
-    softcap, at d > 128 and with a prefix, to 0."""
+    softcap, at d > 128, with a prefix, with Sq != Sk and without the
+    causal mask, to 0."""
     fmod.FLASH_LAUNCHES = dmod.DECODE_LAUNCHES = 0
+    fmod.FLASH_CROSS_LAUNCHES = fmod.FLASH_BWD_CROSS_LAUNCHES = 0
+    fmod.FLASH_NONCAUSAL_LAUNCHES = fmod.FLASH_BWD_NONCAUSAL_LAUNCHES = 0
     fmod.FLASH_SOFTCAP_LAUNCHES = dmod.DECODE_SOFTCAP_LAUNCHES = 0
     fmod.FLASH_WIDE_LAUNCHES = dmod.DECODE_WIDE_LAUNCHES = 0
     fmod.FLASH_BWD_LAUNCHES = fmod.FLASH_BWD_SOFTCAP_LAUNCHES = 0
@@ -3339,11 +3594,15 @@ def attn_counts(fmod, dmod) -> dict:
             "flash_softcap": fmod.FLASH_SOFTCAP_LAUNCHES,
             "flash_wide": fmod.FLASH_WIDE_LAUNCHES,
             "flash_prefix": fmod.FLASH_PREFIX_LAUNCHES,
+            "flash_cross": fmod.FLASH_CROSS_LAUNCHES,
+            "flash_noncausal": fmod.FLASH_NONCAUSAL_LAUNCHES,
             "flash_bwd": fmod.FLASH_BWD_LAUNCHES,
             "flash_bwd_routes": dict(fmod.FLASH_BWD_ROUTE_LAUNCHES),
             "flash_bwd_softcap": fmod.FLASH_BWD_SOFTCAP_LAUNCHES,
             "flash_bwd_wide": fmod.FLASH_BWD_WIDE_LAUNCHES,
             "flash_bwd_prefix": fmod.FLASH_BWD_PREFIX_LAUNCHES,
+            "flash_bwd_cross": fmod.FLASH_BWD_CROSS_LAUNCHES,
+            "flash_bwd_noncausal": fmod.FLASH_BWD_NONCAUSAL_LAUNCHES,
             "decode": dmod.DECODE_LAUNCHES,
             "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES),
             "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES,
@@ -3445,7 +3704,7 @@ def phase_lm_check(fmod, dmod, seed: int) -> dict:
             "flash_softcap": 0, "decode_softcap": 0}
 
 
-def profile_decode(cfg, params) -> dict:
+def profile_decode(cfg, params, enc_out=None) -> dict:
     """torch.profiler over PROFILED_STEPS decode steps at serve's batch
     (outside the counted runs): kernels launched and device busy time per
     step, from the trace's device events; the busy share of wall time
@@ -3459,7 +3718,7 @@ def profile_decode(cfg, params) -> dict:
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED_STEPS):
-            _, state = decode_step(cfg, params, tok, state)
+            _, state = decode_step(cfg, params, tok, state, enc_out=enc_out)
         sync()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3486,7 +3745,7 @@ def check_softcap(label: str, counts: dict, kernel: str, capped: bool
                              f"softcap, want {want}")
 
 
-def profile_prefill(cfg, params, seq, vision=None) -> dict:
+def profile_prefill(cfg, params, seq, vision=None, audio=None) -> dict:
     """torch.profiler over one more `forward` of `seq` (outside the counted
     run): the device's busy time, from the trace's device events, and the
     flash kernel's share of it."""
@@ -3495,7 +3754,7 @@ def profile_prefill(cfg, params, seq, vision=None) -> dict:
     from repro_torch.models import forward
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        forward(cfg, params, seq, vision_embeds=vision)
+        forward(cfg, params, seq, vision_embeds=vision, audio_embeds=audio)
         sync()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -4007,7 +4266,7 @@ def phase_xlstm_serve(fmod, dmod, seed: int) -> dict:
 
 
 def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False,
-                vision=None):
+                vision=None, audio=None):
     """Mean next-token NLL of `f64_lm_forward`, in float64 (dense stacks:
     no aux loss). With `ckpt` the head and loss run in checkpointed chunks
     of 520 tokens, so that the backward holds one chunk's float64 logits
@@ -4019,7 +4278,8 @@ def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False,
         gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
         return (torch.logsumexp(logits, -1) - gold).sum()
 
-    x = f64_hidden(cfg, params, tokens, ckpt=ckpt, vision=vision)
+    x = f64_hidden(cfg, params, tokens, ckpt=ckpt, vision=vision,
+                   audio=audio)
     if not ckpt:
         return nll_sum(x, labels) / labels.numel()
     total = sum(_ckpt(True, nll_sum, x[:, c:c + 520], labels[:, c:c + 520])
@@ -4134,8 +4394,9 @@ def profile_train_step(cfg, lc, params, opt_state, ef, batch) -> dict:
 
     step = make_train_step(cfg, lc)
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Device events alone: a step launches up to 25,000 kernels, and the
+    # host-side events beside them took seconds to collect.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = step(params, opt_state, batch, ef)
         sync()
@@ -4292,13 +4553,14 @@ def phase_lm_train(fmod, dmod, seed: int) -> dict:
     return launches
 
 
-def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None
-               ) -> tuple:
+def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None,
+               audio=None) -> tuple:
     """`lm_loss` gradients of the float32 `cfg` (no remat) through the
     flash kernels against float64 autograd of the script's own forward
     (`f64_lm_loss`, checkpointed), per tensor within LM_GRAD_REL_TOL, for
     every layer tensor, the final norm and, given `vision` embeddings,
-    `vision_proj`; the loss within LM_REL_TOL. The embedding's and the
+    `vision_proj`, given `audio` frames, every encoder tensor and
+    `audio_proj`; the loss within LM_REL_TOL. The embedding's and the
     head's gradients are checked finite, not compared: their float64
     copies would take gigabytes beside the rest (the float64 side converts
     them on the fly in chunks). Returns (the launches of the port's step,
@@ -4314,7 +4576,8 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None
     sync()
     zero_attn_counts(fmod, dmod)                     # the step starts
     t0 = time.perf_counter()
-    loss = lm_loss(cfg, live, tokens, labels, vision_embeds=vision)
+    loss = lm_loss(cfg, live, tokens, labels, vision_embeds=vision,
+                   audio_embeds=audio)
     grads = torch.autograd.grad(loss, tree_leaves(live))
     sync()
     seconds = time.perf_counter() - t0
@@ -4322,8 +4585,9 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None
     peak = torch.cuda.max_memory_allocated()
     loss = float(loss.detach())
     compared = [i for i, n in enumerate(names)
-                if n.startswith("layers/") or n in ("final_norm",
-                                                    "vision_proj")]
+                if n.startswith(("layers/", "enc_layers/"))
+                or n in ("final_norm", "vision_proj", "audio_proj",
+                         "enc_norm")]
     unchecked = {n: bool(torch.isfinite(g).all())
                  for n, g in zip(names, grads) if n in ("embed", "lm_head")}
     grads = {i: grads[i] for i in compared}
@@ -4338,7 +4602,7 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loss64 = f64_lm_loss(cfg, tree64, tokens, labels, ckpt=True,
-                         vision=vision)
+                         vision=vision, audio=audio)
     grads64 = torch.autograd.grad(loss64, [p64[i] for i in compared])
     f64_s = time.perf_counter() - t0
     peak64 = torch.cuda.max_memory_allocated()
@@ -4349,7 +4613,8 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None
     loss_err = abs(loss - loss64)
     worst = max(errs, key=errs.get)
     if not all(unchecked.values()) or (vision is not None
-                                       and "vision_proj" not in errs):
+                                       and "vision_proj" not in errs) or (
+            audio is not None and "audio_proj" not in errs):
         raise AssertionError(f"{label}: compared {sorted(errs)}, finite "
                              f"{unchecked}")
     if not errs[worst] <= LM_GRAD_REL_TOL or not loss_err <= LM_REL_TOL * \
@@ -4462,6 +4727,19 @@ def phase_rgemma_train_check(fmod, dmod, seed: int) -> dict:
     return counts
 
 
+def with_audio(cfg, batches, seed: int):
+    """`batches` with "audio_embeds" beside the tokens: for each step,
+    (accum, B, audio_frames, d_model) bf16 frames drawn on the card from a
+    generator seeded with `seed` and the step (the reference's audio
+    frontend is a stub of precomputed frames)."""
+    import torch
+    for step, batch in enumerate(batches):
+        gen = torch.Generator(device=DEV).manual_seed(seed * 1000 + step)
+        shape = (*batch["tokens"].shape[:-1], cfg.audio_frames, cfg.d_model)
+        yield {**batch, "audio_embeds": torch.randn(
+            shape, device=DEV, generator=gen).to(torch.bfloat16)}
+
+
 def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
                 batch: int, steps: int) -> dict:
     """`cfg` (bf16, remat on): `train_loop` with Adafactor, two
@@ -4470,9 +4748,12 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
     LM_TRAIN_LOSS_TOL of the float64 loss of the same batch, and the loss
     of that batch lower after the steps than before. Every flash forward,
     recompute and backward on the tensor-core route, with the softcap and
-    at d = 256 exactly where the config asks, none with a prefix. Prints
-    ms per step, tokens/s, peak bytes and one profiled step by kind.
-    Returns the launches."""
+    at d = 256 exactly where the config asks, none with a prefix. An
+    encoder-decoder config's batches carry bf16 frames (`with_audio`): its
+    encoder layers and every decoder layer's cross-attention launch the
+    flash kernels too, non-causal, the cross-attention with Sq != Sk.
+    Prints ms per step, tokens/s, peak bytes and one profiled step by
+    kind. Returns the launches."""
     import torch
     from repro_torch.data import TokenPipeline
     from repro_torch.models import init_params, lm_loss, param_count
@@ -4484,11 +4765,19 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
                          device=DEV)
     pipe = TokenPipeline(cfg.vocab, seq, batch, seed=seed)
     accum = 2
-    first = next(train_batches(pipe, accum, []))
+
+    def batches(times):
+        it = train_batches(pipe, accum, times)
+        return with_audio(cfg, it, seed) if cfg.is_enc_dec else it
+
+    first = next(batches([]))
+    audio = first.get("audio_embeds")
     with torch.no_grad():                # step 0's batch in float64
-        loss64 = sum(float(f64_lm_loss(cfg, params, first["tokens"][i],
-                                       first["labels"][i]))
-                     for i in range(accum)) / accum
+        loss64 = sum(float(f64_lm_loss(
+            cfg, params, first["tokens"][i], first["labels"][i],
+            ckpt=cfg.is_enc_dec,
+            audio=None if audio is None else audio[i]))
+            for i in range(accum)) / accum
     torch.cuda.empty_cache()
     lc = TrainLoopConfig(optimizer="adafactor", grad_accum=accum,
                          compress=True, max_steps=steps)
@@ -4497,14 +4786,21 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
     zero_attn_counts(fmod, dmod)                     # the run starts
     out_params, out_state, info = train_loop(
         cfg, lc, params, make_optimizer(lc.optimizer, lr=lc.lr)[0](params),
-        train_batches(pipe, accum, times), log_every=1)
+        batches(times), log_every=1)
     counts = attn_counts(fmod, dmod)                 # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     times.append(time.perf_counter())
     micro = lc.max_steps * accum
     n_attn = n_attention_layers(cfg)
-    want = {"flash": 2 * n_attn * micro,             # forward + recompute
-            "flash_bwd": n_attn * micro, "decode": 0}
+    # Per microbatch: each attention layer's self-attention, and in an
+    # encoder-decoder its cross-attention and each encoder layer.
+    n_flash = n_attn * (2 if cfg.is_enc_dec else 1) + cfg.encoder_layers
+    want = {"flash": 2 * n_flash * micro,            # forward + recompute
+            "flash_bwd": n_flash * micro, "decode": 0,
+            "flash_cross": 2 * n_attn * micro * cfg.is_enc_dec,
+            "flash_bwd_cross": n_attn * micro * cfg.is_enc_dec,
+            "flash_noncausal": 2 * (n_flash - n_attn) * micro,
+            "flash_bwd_noncausal": (n_flash - n_attn) * micro}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{label} launches {got}, want {want}")
@@ -4518,15 +4814,16 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
     if len(losses) != lc.max_steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{label}: losses {losses}")
     with torch.no_grad():                # step 0's batch after the steps
-        after = sum(float(lm_loss(cfg, out_params, first["tokens"][i],
-                                  first["labels"][i]))
-                    for i in range(accum)) / accum
+        after = sum(float(lm_loss(
+            cfg, out_params, first["tokens"][i], first["labels"][i],
+            audio_embeds=None if audio is None else audio[i]))
+            for i in range(accum)) / accum
     step_s = [b - a for a, b in zip(times[:lc.max_steps],
                                     times[1:lc.max_steps + 1])]
     steady = step_s[1:]
     tokens = accum * batch * seq
     profiled = profile_train_step(cfg, lc, out_params, out_state, info["ef"],
-                                  next(train_batches(pipe, accum, [])))
+                                  next(batches([])))
     gap = abs(losses[0] - loss64)
     if not gap <= LM_TRAIN_LOSS_TOL or not after < losses[0]:
         raise AssertionError(f"{label}: first loss {losses[0]} vs "
@@ -4555,8 +4852,14 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
                                "flash_bwd": counts["flash_bwd_softcap"]},
           "d256_launches": {"flash": counts["flash_wide"],
                             "flash_bwd": counts["flash_bwd_wide"]},
+          "cross_launches": {"flash": counts["flash_cross"],
+                             "flash_bwd": counts["flash_bwd_cross"]},
+          "noncausal_launches": {"flash": counts["flash_noncausal"],
+                                 "flash_bwd": counts["flash_bwd_noncausal"]},
+          "encoder_layers": cfg.encoder_layers,
+          "audio_frames": cfg.audio_frames if cfg.is_enc_dec else 0,
           "peak_allocated_bytes": peak, "profiled_step": profiled})
-    del params, out_params, out_state, info, first
+    del params, out_params, out_state, info, first, audio
     torch.cuda.empty_cache()
     return counts
 
@@ -4683,6 +4986,399 @@ def phase_qwen_serve(fmod, dmod, seed: int) -> dict:
     without M-RoPE and the vision prefix (QWEN_DECODE_RULE)."""
     return serve_phase(fmod, dmod, seed, "qwen2_vl_72b", LM_PREFILL,
                        "qwen_serve", n_layers=QWEN_SERVE_LAYERS)
+
+
+def seamless_audio(cfg, batch: int, gen, dtype="float32"):
+    """`batch` sequences of the config's audio_frames frame embeddings in
+    `dtype`, drawn from `gen` (the reference's speech frontend is a stub of
+    precomputed frames)."""
+    import torch
+    return torch.randn((batch, cfg.audio_frames, cfg.d_model), device=DEV,
+                       generator=gen).to(getattr(torch, dtype))
+
+
+def seamless_check_cfg():
+    """SeamlessM4T-medium's published widths (d_model 1024, 16 heads of 64,
+    d_ff 4096, the full vocabulary of 256,206, 1024 frames) cut to
+    SEAMLESS_CHECK_LAYERS encoder and decoder layers, float32, no remat."""
+    from repro_torch.configs.seamless_m4t_medium import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=SEAMLESS_CHECK_LAYERS,
+                               encoder_layers=SEAMLESS_CHECK_LAYERS,
+                               dtype="float32", remat=False)
+
+
+def check_cross(label: str, counts: dict, kernel: str, cross: int,
+                noncausal: int) -> None:
+    """`kernel`'s launches with Sq != Sk and without the causal mask."""
+    got = (counts[f"{kernel}_cross"], counts[f"{kernel}_noncausal"])
+    if got != (cross, noncausal):
+        raise AssertionError(f"{label}: {kernel} launches cross, non-causal "
+                             f"{got}, want {(cross, noncausal)}")
+
+
+def phase_seamless_check(fmod, dmod, seed: int) -> dict:
+    """SeamlessM4T-medium's widths cut to 2 encoder and 2 decoder layers,
+    float32, batch 2 x SEAMLESS_CHECK_SEQ tokens over 1024 frames from
+    --seed: `encode`, `forward` and teacher-forced `decode_step(enc_out=)`
+    against the script's own float64 encoder-decoder within LM_REL_TOL,
+    the decode also against its own forward (the reference's decode of
+    this arch is its forward), and `grad_check` with the frames (every
+    `xattn`, `enc_layers` tensor and `audio_proj` compared). Every launch
+    on the f32 FMA route: the encoder's flash non-causal at Sq = Sk, the
+    decoder's cross-attention non-causal at Sq != Sk, its decode step's
+    cross-attention through the decode kernel over the 1024 frames.
+    Returns the launches."""
+    import torch
+    from repro_torch.models import encode, forward, init_params
+
+    cfg = seamless_check_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 16)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (2, SEAMLESS_CHECK_SEQ), device=DEV,
+                           generator=gen)
+    audio = seamless_audio(cfg, 2, gen)
+    n, ne = cfg.n_layers, cfg.encoder_layers
+    with torch.inference_mode():
+        zero_attn_counts(fmod, dmod)                     # encode starts
+        enc = encode(cfg, params, audio)
+        enc_counts = attn_counts(fmod, dmod)             # ... and ends here
+        zero_attn_counts(fmod, dmod)                     # forward starts
+        logits, _ = forward(cfg, params, tokens, audio_embeds=audio)
+        fwd_counts = attn_counts(fmod, dmod)             # ... and ends here
+        zero_attn_counts(fmod, dmod)                     # decode starts
+        dec = teacher_forced(cfg, params, tokens, enc_out=enc)
+        dec_counts = attn_counts(fmod, dmod)             # ... and ends here
+        sync()
+        enc64 = f64_encode(cfg, params, audio)
+        errs = {"encode": rel_err(enc, enc64)}
+        del enc64
+        ref = f64_lm_forward(cfg, params, tokens, audio=audio)
+        errs["forward"] = rel_err(logits, ref)
+        errs["decode"] = rel_err(dec, ref)
+        errs["decode_vs_own_forward"] = rel_err(dec, logits)
+        del ref, logits, dec, enc
+    want = {"encode": (ne, 0, 0, ne), "forward": (ne + 2 * n, 0, n, ne + n),
+            "decode": (0, 2 * n * SEAMLESS_CHECK_SEQ, 0, 0)}
+    for name, counts in (("encode", enc_counts), ("forward", fwd_counts),
+                         ("decode", dec_counts)):
+        got = (counts["flash"], counts["decode"], counts["flash_cross"],
+               counts["flash_noncausal"])
+        if got != want[name]:
+            raise AssertionError(f"seamless_check {name} launches (flash, "
+                                 f"decode, cross, non-causal) {got}, want "
+                                 f"{want[name]}")
+    check_routes("seamless_check forward", fwd_counts, "flash", "f32_fma")
+    check_routes("seamless_check decode", dec_counts, "decode", "f32_fma")
+    bad = {k: e for k, e in errs.items() if not e <= LM_REL_TOL}
+    if bad:
+        raise AssertionError(f"seamless_check: relative error above "
+                             f"{LM_REL_TOL}: {bad}")
+    counts, grads = grad_check(fmod, dmod, "seamless_check", cfg, params,
+                               tokens, audio=audio)
+    if (counts["flash"], counts["flash_bwd"], counts["flash_cross"],
+            counts["flash_bwd_cross"], counts["flash_bwd_noncausal"]) != (
+            ne + 2 * n, ne + 2 * n, n, n, ne + n):
+        raise AssertionError(f"seamless_check gradient launches {counts}")
+    for kernel in ("flash", "flash_bwd"):
+        check_routes(f"seamless_check gradient {kernel}", counts, kernel,
+                     "f32_fma")
+    emit({"phase": "seamless_check",
+          "config": "seamless-m4t-medium width, 2 + 2 layers, float32, "
+                    "no remat",
+          "batch": 2, "tokens": SEAMLESS_CHECK_SEQ,
+          "audio_frames": cfg.audio_frames,
+          "rel_err_vs_float64": errs, "tol": LM_REL_TOL,
+          "launches": {name: {k: c[k] for k in (
+              "flash", "flash_cross", "flash_noncausal", "decode")}
+              for name, c in (("encode", enc_counts), ("forward", fwd_counts),
+                              ("decode", dec_counts))},
+          "launches_by_route": {"flash": fwd_counts["flash_routes"],
+                                "decode": dec_counts["decode_routes"]},
+          "gradients": {**grads, "cross_launches": {
+              "flash": counts["flash_cross"],
+              "flash_bwd": counts["flash_bwd_cross"]},
+              "noncausal_launches": {
+              "flash": counts["flash_noncausal"],
+              "flash_bwd": counts["flash_bwd_noncausal"]}},
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del params, audio
+    torch.cuda.empty_cache()
+    return add_counts(enc_counts, fwd_counts, dec_counts, counts)
+
+
+def phase_seamless_serve(fmod, dmod, seed: int) -> dict:
+    """Full SeamlessM4T-medium (12 encoder and 12 decoder layers, bf16,
+    1.96 GB of weights from --seed): `serve` of LM_BATCH prompts of
+    LM_PROMPT tokens for LM_STEPS steps, which encodes the reference's f32
+    zero frames once (12 flash launches on the f32 FMA route, non-causal)
+    and attends over them in every step (per step 12 self-attention
+    decode launches on the tensor-core route and 12 cross-attention ones
+    on the f32 route: f32 K and V from the f32 encoder output). That
+    encoder output is exactly zero, so its tokens cannot show a
+    cross-attention fault; so also a SEAMLESS_PREFILL-token `forward` with
+    bf16 frames from --seed (36 flash launches, the 12 cross ones at Sq =
+    4096, Sk = 1024) and a teacher-forced decode of its first LM_PROMPT
+    tokens over the same frames' encoding, held to those prefill logits
+    within LM_BF16_TOL. Prints ms per decode step, the profiled device
+    busy ms and idle share, the prefill's seconds, and launches by kernel.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (
+        decode_step, encode, forward, init_decode_state, init_params,
+        param_count,
+    )
+
+    cfg = get_config("seamless_m4t_medium")
+    n, ne = cfg.n_layers, cfg.encoder_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(seed),
+                         device=DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, size=(LM_BATCH, LM_PROMPT),
+                           dtype=np.int32)
+    zero_frames = torch.zeros((LM_BATCH, cfg.audio_frames, cfg.d_model),
+                              device=DEV)
+    with torch.inference_mode():                     # warm-up, not counted
+        enc0 = encode(cfg, params, zero_frames)
+        decode_step(cfg, params, torch.zeros((LM_BATCH, 1), dtype=torch.long,
+                                             device=DEV),
+                    init_decode_state(cfg, LM_BATCH, 2, device=DEV),
+                    enc_out=enc0)
+    sync()
+
+    zero_attn_counts(fmod, dmod)                     # serve starts here
+    t0 = time.perf_counter()
+    tokens = serve(cfg, params, prompts, steps=LM_STEPS)
+    sync()
+    serve_s = time.perf_counter() - t0
+    serve_counts = attn_counts(fmod, dmod)           # ... and ends here
+    serve_peak = torch.cuda.max_memory_allocated()
+    steps = LM_PROMPT + LM_STEPS
+    want = {"flash": ne, "flash_noncausal": ne, "flash_cross": 0,
+            "decode": 2 * n * steps}
+    got = {k: serve_counts[k] for k in want}
+    if got != want or serve_counts["flash_routes"]["f32_fma"] != ne or \
+            serve_counts["decode_routes"] != {"tensor_core": n * steps,
+                                              "f32_fma": n * steps}:
+        raise AssertionError(f"seamless_serve serve launches {got}, by "
+                             f"route {serve_counts['flash_routes']}, "
+                             f"{serve_counts['decode_routes']}; want {want}")
+    if tokens.shape != (LM_BATCH, LM_STEPS) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"serve tokens {tokens.shape} out of range")
+    profile = profile_decode(cfg, params, enc0)
+    del enc0
+
+    seq = np.concatenate([prompts[:1], rng.integers(
+        0, cfg.vocab, size=(1, SEAMLESS_PREFILL - LM_PROMPT),
+        dtype=np.int32)], 1)
+    seq = torch.from_numpy(seq).long().to(DEV)
+    frames = seamless_audio(cfg, 1, torch.Generator(device=DEV).manual_seed(
+        seed + 17), "bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        zero_attn_counts(fmod, dmod)                     # prefill starts
+        sync()
+        t0 = time.perf_counter()
+        logits, _ = forward(cfg, params, seq, audio_embeds=frames)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_counts = attn_counts(fmod, dmod)         # ... and ends here
+        prefill_peak = torch.cuda.max_memory_allocated()
+        want = {"flash": ne + 2 * n, "flash_cross": n,
+                "flash_noncausal": ne + n, "decode": 0}
+        got = {k: prefill_counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"seamless_serve prefill launches {got}, "
+                                 f"want {want}")
+        check_routes("seamless_serve prefill", prefill_counts, "flash",
+                     "tensor_core")
+        if logits.shape != (1, SEAMLESS_PREFILL, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 "not finite")
+        fwd = logits[:, :LM_PROMPT].clone()
+        del logits
+    prefill_profile = profile_prefill(cfg, params, seq, audio=frames)
+    with torch.inference_mode():
+        enc = encode(cfg, params, frames)
+        zero_attn_counts(fmod, dmod)                 # cross-check starts
+        dec = teacher_forced(cfg, params, seq[:, :LM_PROMPT], enc_out=enc)
+        cross_counts = attn_counts(fmod, dmod)       # ... and ends here
+    gap = rel_err(dec, fwd)
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    if cross_counts["decode"] != 2 * n * LM_PROMPT or \
+            cross_counts["flash"] != 0:
+        raise AssertionError(f"seamless_serve cross-check launches "
+                             f"{cross_counts}")
+    check_routes("seamless_serve cross-check", cross_counts, "decode",
+                 "tensor_core")
+    if not gap <= LM_BF16_TOL or not torch.isfinite(dec).all():
+        raise AssertionError(f"seamless_serve: decode vs prefill relative "
+                             f"gap {gap} > {LM_BF16_TOL}")
+    ms_step = 1e3 * serve_s / steps
+    emit({"phase": "seamless_serve", "config": cfg.name, "dtype": cfg.dtype,
+          "layers": n, "encoder_layers": ne, "head_dim": cfg.hd,
+          "params": param_count(params), "init_s": init_s,
+          "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT,
+                    "steps": LM_STEPS, "seconds": serve_s,
+                    "frames": "f32 zeros, encoded once (the reference's)",
+                    "generated_tokens_per_s": LM_BATCH * LM_STEPS / serve_s,
+                    "ms_per_decode_step": ms_step,
+                    "launches": {k: serve_counts[k] for k in (
+                        "flash", "flash_noncausal", "decode")},
+                    "flash_launches_by_route": serve_counts["flash_routes"],
+                    "decode_launches_by_route":
+                        serve_counts["decode_routes"],
+                    "cross_step_decode_launches":
+                        serve_counts["decode_routes"]["f32_fma"],
+                    "peak_allocated_bytes": serve_peak,
+                    "first_tokens": tokens[:, :8].tolist(),
+                    "profiled_decode_steps": profile},
+          "prefill": {"tokens": SEAMLESS_PREFILL,
+                      "frames": "bf16 from --seed", "seconds": prefill_s,
+                      "tokens_per_s": SEAMLESS_PREFILL / prefill_s,
+                      "flash_launches": prefill_counts["flash"],
+                      "flash_cross_launches": prefill_counts["flash_cross"],
+                      "flash_noncausal_launches":
+                          prefill_counts["flash_noncausal"],
+                      "flash_launches_by_route":
+                          prefill_counts["flash_routes"],
+                      "peak_allocated_bytes": prefill_peak,
+                      "profiled": prefill_profile},
+          "decode_vs_prefill": {"positions": LM_PROMPT, "rel_gap": gap,
+                                "tol": LM_BF16_TOL,
+                                "argmax_agreement": agree,
+                                "decode_launches": cross_counts["decode"]},
+          "idle_share_decode": 1.0 - profile["device_busy_ms_per_step"]
+          / ms_step})
+    del params, dec, fwd, enc, frames
+    torch.cuda.empty_cache()
+    return {"flash": serve_counts["flash"] + prefill_counts["flash"],
+            "decode": serve_counts["decode"],
+            "decode_crosscheck": cross_counts["decode"],
+            **{k: serve_counts[k] + prefill_counts[k]
+               for k in ("flash_cross", "flash_noncausal")},
+            "flash_routes": {r: serve_counts["flash_routes"][r]
+                             + prefill_counts["flash_routes"][r]
+                             for r in serve_counts["flash_routes"]},
+            "decode_routes": {r: serve_counts["decode_routes"][r]
+                              + cross_counts["decode_routes"][r]
+                              for r in serve_counts["decode_routes"]},
+            # serve's cross steps: its f32 launches (its self steps are bf16).
+            "decode_cross_step": serve_counts["decode_routes"]["f32_fma"]}
+
+
+def phase_seamless_train(fmod, dmod, seed: int) -> dict:
+    """SeamlessM4T-medium's bf16 CONFIG at full width and depth (12 + 12
+    layers, remat on): `train_phase` with two microbatches of
+    TokenPipeline(256206, 512, 4) a step, each with (4, 1024, 1024) bf16
+    frames from --seed, SEAMLESS_TRAIN_STEPS steps; every encoder and
+    cross-attention launch, forward and backward, non-causal on the
+    tensor-core route."""
+    from repro_torch.configs import get_config
+    return train_phase(fmod, dmod, seed, "seamless_train",
+                       get_config("seamless_m4t_medium"), LM_TRAIN_SEQ,
+                       LM_TRAIN_BATCH, SEAMLESS_TRAIN_STEPS)
+
+
+def phase_stacked_check(fmod, dmod, seed: int) -> dict:
+    """`models.stacked` at full width in float32: seamless_check's model
+    (2 + 2 layers) and RecurrentGemma-2B cut to 4 layers (its unit of 3
+    once, then 1 remainder layer), each drawn by `init_params_stacked` and
+    `init_params` from the same seed: `forward_scan` against `forward` and
+    STACKED_STEPS teacher-forced `decode_step_scan` steps against
+    `decode_step`, within the reference test's atol STACKED_ATOL and rtol
+    STACKED_RTOL, printing whether the two are equal bit for bit. Returns
+    the launches of the stacked paths."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (
+        decode_step, encode, forward, init_decode_state, init_params,
+    )
+    from repro_torch.models import stacked as st
+
+    rg = dataclasses.replace(get_config("recurrentgemma_2b"), n_layers=4,
+                             dtype="float32", remat=False)
+    results, launches = {}, []
+    for label, cfg in (("seamless", seamless_check_cfg()),
+                       ("recurrentgemma", rg)):
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=DEV).manual_seed(seed + 18)
+        sp = st.init_params_stacked(cfg, torch.Generator(
+            device=DEV).manual_seed(seed + 19), device=DEV)
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(
+            seed + 19), device=DEV)
+        tokens = torch.randint(0, cfg.vocab, (2, STACKED_SEQ), device=DEV,
+                               generator=gen)
+        audio = seamless_audio(cfg, 2, gen) if cfg.is_enc_dec else None
+        with torch.inference_mode():
+            ref, _ = forward(cfg, params, tokens, audio_embeds=audio)
+            zero_attn_counts(fmod, dmod)                 # scan starts
+            out, _ = st.forward_scan(cfg, sp, tokens, audio_embeds=audio)
+            enc = None if audio is None else st.encode_scan(cfg, sp, audio)
+            state = st.init_decode_state_stacked(cfg, 2, STACKED_STEPS,
+                                                 device=DEV)
+            rows = []
+            for t in range(STACKED_STEPS):
+                logits, state = st.decode_step_scan(
+                    cfg, sp, tokens[:, t:t + 1], state, enc_out=enc)
+                rows.append(logits[:, 0])
+            counts = attn_counts(fmod, dmod)             # ... and ends here
+            dec = torch.stack(rows, 1)
+            flat_enc = None if audio is None else encode(cfg, params, audio)
+            flat_state = init_decode_state(cfg, 2, STACKED_STEPS, device=DEV)
+            rows = []
+            for t in range(STACKED_STEPS):
+                logits, flat_state = decode_step(cfg, params,
+                                                 tokens[:, t:t + 1],
+                                                 flat_state, enc_out=flat_enc)
+                rows.append(logits[:, 0])
+            flat_dec = torch.stack(rows, 1)
+        pairs = {"forward": (out, ref), "decode": (dec, flat_dec)}
+        row = {}
+        for name, (got, want) in pairs.items():
+            delta = (got - want).abs()
+            ratio = float((delta / (STACKED_ATOL + STACKED_RTOL
+                                    * want.abs())).max())
+            row[name] = {"max_abs_err": float(delta.max()),
+                         "max_err_over_limit": ratio,
+                         "bit_for_bit": bool(torch.equal(got, want))}
+            if not ratio <= 1.0 or not torch.isfinite(got).all():
+                raise AssertionError(f"stacked_check {label} {name}: "
+                                     f"{row[name]}")
+        # forward_scan's attention layers (and, for the encoder-decoder,
+        # its cross-attention and encoder layers, and encode_scan's); one
+        # decode launch a layer and step, two with cross-attention.
+        n_attn, ne = n_attention_layers(cfg), cfg.encoder_layers
+        want = (n_attn * (2 if ne else 1) + 2 * ne,
+                n_attn * (2 if ne else 1) * STACKED_STEPS)
+        if (counts["flash"], counts["decode"]) != want:
+            raise AssertionError(f"stacked_check {label}: flash, decode "
+                                 f"launches {counts['flash']}, "
+                                 f"{counts['decode']}, want {want}")
+        results[label] = {"config": cfg.name, "layers": cfg.n_layers,
+                          "encoder_layers": cfg.encoder_layers,
+                          "repeats_remainder": list(st.group_split(cfg)),
+                          "unit": [k.value for k in st.unit_kinds(cfg)],
+                          **row, "flash_launches": counts["flash"],
+                          "decode_launches": counts["decode"]}
+        launches.append(counts)
+        del sp, params, out, ref, dec, flat_dec, state, flat_state
+    emit({"phase": "stacked_check", "tokens": STACKED_SEQ,
+          "decode_steps": STACKED_STEPS, "atol": STACKED_ATOL,
+          "rtol": STACKED_RTOL, "models": results})
+    torch.cuda.empty_cache()
+    return add_counts(*launches)
 
 
 def phase_moe_check(fmod, dmod, seed: int) -> dict:
@@ -5166,6 +5862,73 @@ def time_flash_prefix(fmod, seed: int) -> dict:
             "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
 
 
+def time_flash_noncausal(fmod, seed: int, shape, sk: int, repeats: int,
+                         directions=("forward", "backward")) -> dict:
+    """Both flash directions without the causal mask (the encoder-
+    decoder's), q `shape` (B, H, Sq, d) over `sk` keys, bf16 (the
+    tensor-core route): each kernel, its plain version and, as the
+    yardstick the port never calls, SDPA without a mask (forward; forward
+    + backward less its forward). The bound counts every (query, key)
+    pair: 4·d FLOPs a pair forward, 10·d backward."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(seed + 20)
+    b, h, sq, d = shape
+    q, dout = attn_inputs(shape, "bfloat16", gen)[:2]
+    k, v = attn_inputs((b, h, sk, d), "bfloat16", gen)[:2]
+    pairs = b * h * sq * sk
+    rows_q, rows_k = b * h * sq * d * 2, b * h * sk * d * 2   # bf16 bytes
+    out = {}
+    if "forward" in directions:
+        flops, nbytes = 4.0 * d * pairs, 2 * rows_q + 2 * rows_k
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+        ms = cuda_ms(lambda: fmod.flash_attention_cuda(q, k, v,
+                                                       causal=False),
+                     repeats)
+        out["forward"] = {
+            "q": list(shape), "kv": [b, h, sk, d], "dtype": "bfloat16",
+            "causal": False, "pairs": pairs, "flops": flops,
+            "min_bytes": nbytes, "ms": ms,
+            "plain_ms": cuda_ms(lambda: fmod.flash_attention_plain(
+                q, k, v, causal=False), 2, warmup=1),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v), repeats),
+            "library_call": "F.scaled_dot_product_attention (no mask)",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
+    if "backward" in directions:
+        with torch.no_grad():
+            o, lse = fmod.flash_attention_lse_cuda(q, k, v, causal=False)
+            ms = cuda_ms(lambda: fmod.flash_attention_bwd_cuda(
+                q, k, v, o, dout, lse, False), repeats)
+            plain_ms = cuda_ms(lambda: fmod.flash_attention_bwd_plain(
+                q, k, v, o, dout, lse, False), 2, warmup=1)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), dout),
+            repeats) - cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs), repeats)
+        flops = 10.0 * d * pairs
+        # q, out, dout in, dq out; k, v in, dk, dv out; lse in, f32.
+        nbytes = 4 * rows_q + 4 * rows_k + 4 * b * h * sq
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+        split_ms = 1e3 * max(20.0 * d * pairs / PEAK_BF16_FLOPS, t_bytes)
+        out["backward"] = {
+            "q": list(shape), "kv": [b, h, sk, d], "dtype": "bfloat16",
+            "causal": False, "pairs": pairs, "flops": flops,
+            "min_bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention (no mask) "
+                            "forward + backward, less its forward",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
+            "bound_ms_split_mma": split_ms,
+            "bound_share_split_mma": split_ms / ms}
+    return out
+
+
 def device_ms(fn, repeats: int) -> float:
     """Device time per call of `fn`, which launches each of its kernels
     once: the mean duration of each kernel over a torch.profiler trace of
@@ -5304,6 +6067,22 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
             prefix=QWEN_VISION_TOKENS),
         # Plain PyTorch, candidates for later kernels (PERF.md §5).
         "recurrent_blocks": time_recurrent_blocks(seed),
+        # SeamlessM4T's attentions, non-causal: the cross-attention of
+        # seamless_serve's prefill (its forward) and of seamless_train's
+        # microbatch (its backward) over the 1024 frames, the encoder in
+        # both directions, and the decode step's cross-attention.
+        "flash_seamless_cross_prefill": time_flash_noncausal(
+            fmod, seed, (LM_BATCH, SEAMLESS_HEADS, SEAMLESS_PREFILL,
+                         SEAMLESS_HD), SEAMLESS_FRAMES, 10, ("forward",)),
+        "flash_seamless_cross_train": time_flash_noncausal(
+            fmod, seed, (LM_TRAIN_BATCH, SEAMLESS_HEADS, LM_TRAIN_SEQ,
+                         SEAMLESS_HD), SEAMLESS_FRAMES, 10, ("backward",)),
+        "flash_seamless_encoder": time_flash_noncausal(
+            fmod, seed, (LM_BATCH, SEAMLESS_HEADS, SEAMLESS_FRAMES,
+                         SEAMLESS_HD), SEAMLESS_FRAMES, 10),
+        "decode_attention_seamless_cross": time_decode(
+            dmod, seed, LM_BATCH, SEAMLESS_FRAMES, repeats=200,
+            n_kv=SEAMLESS_HEADS, group=1, d=SEAMLESS_HD),
     }
     emit({"phase": "timing", **timing,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -5483,6 +6262,14 @@ def run(args) -> None:
                              args.seed)
     lm["qwen_serve"] = timed("qwen_serve", phase_qwen_serve, fmod, dmod,
                              args.seed)
+    lm["seamless_check"] = timed("seamless_check", phase_seamless_check,
+                                 fmod, dmod, args.seed)
+    lm["seamless_serve"] = timed("seamless_serve", phase_seamless_serve,
+                                 fmod, dmod, args.seed)
+    lm["seamless_train"] = timed("seamless_train", phase_seamless_train,
+                                 fmod, dmod, args.seed)
+    lm["stacked_check"] = timed("stacked_check", phase_stacked_check, fmod,
+                                dmod, args.seed)
     timed("experts", phase_experts, args.seed)
     timing = timed("timing", phase_timing, kmod, fmod, dmod, plans, h_main,
                    h_lj, h_train, g_train, args.seed, tuned)
@@ -5498,7 +6285,8 @@ def run(args) -> None:
         return {route: sum(r[route] for r in routes) for route in routes[0]}
 
     train_paths = [p for p in lm if p.startswith(
-        ("lm_train", "gemma_train", "rgemma_train", "qwen_check"))]
+        ("lm_train", "gemma_train", "rgemma_train", "qwen_check",
+         "seamless_check", "seamless_train"))]
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
                    **{p: lm[p]["flash"] for p in train_paths},
                    "lm_serve_prefill": lm["lm_serve"]["flash"],
@@ -5512,7 +6300,9 @@ def run(args) -> None:
                    "xlstm_serve_prefill": lm["xlstm_serve"]["flash"],
                    "qwen_serve_prefill": lm["qwen_serve"]["flash"],
                    "qwen_serve_reference_forward":
-                       lm["qwen_serve"]["flash_reference_forward"]}
+                       lm["qwen_serve"]["flash_reference_forward"],
+                   "seamless_serve": lm["seamless_serve"]["flash"],
+                   "stacked_check": lm["stacked_check"]["flash"]}
     bwd_paths = {p: lm[p]["flash_bwd"] for p in train_paths}
 
     def by_route(kernel: str, routes=("tensor_core", "f32_fma")) -> dict:
@@ -5543,7 +6333,12 @@ def run(args) -> None:
                     "qwen_check": lm["qwen_check"]["decode"],
                     "qwen_serve": lm["qwen_serve"]["decode"],
                     "qwen_serve_crosscheck":
-                        lm["qwen_serve"]["decode_crosscheck"]}
+                        lm["qwen_serve"]["decode_crosscheck"],
+                    "seamless_check": lm["seamless_check"]["decode"],
+                    "seamless_serve": lm["seamless_serve"]["decode"],
+                    "seamless_serve_crosscheck":
+                        lm["seamless_serve"]["decode_crosscheck"],
+                    "stacked_check": lm["stacked_check"]["decode"]}
 
     def softcapped(kernel: str) -> dict:
         """Softcapped launches by path (Gemma-2's; every other 0)."""
@@ -5559,6 +6354,21 @@ def run(args) -> None:
         """Launches with a prefix by path (Qwen2-VL's; every other 0)."""
         return {name: path.get(f"{kernel}_prefix", 0)
                 for name, path in lm.items()}
+
+    def by_path(key: str) -> dict:
+        """The count `key` by path, the paths where it is not 0: launches
+        with Sq != Sk (`*_cross`) and without the causal mask
+        (`*_noncausal`), SeamlessM4T's."""
+        return {name: path[key] for name, path in lm.items()
+                if path.get(key)}
+
+    def seamless(kernel: str) -> dict:
+        counts = {key: by_path(f"{kernel}_{key}")
+                  for key in ("cross", "noncausal")}
+        return {"cross_launches": sum(counts["cross"].values()),
+                "cross_launches_by_path": counts["cross"],
+                "noncausal_launches": sum(counts["noncausal"].values()),
+                "noncausal_launches_by_path": counts["noncausal"]}
     emit({"kernels": [
         {"name": "bcsr_spmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
@@ -5615,7 +6425,15 @@ def run(args) -> None:
          "qwen_prefill_prefix": {
              k: timing["flash_attention_qwen_prefix"][k]
              for k in (*keys, "shape", "prefix", "no_prefix_ms",
-                       "sdpa_causal_no_prefix_ms")}},
+                       "sdpa_causal_no_prefix_ms")},
+         **seamless("flash"),
+         "max_abs_err_seamless": attn_err["flash_seamless"],
+         "seamless_cross_prefill": {
+             k: timing["flash_seamless_cross_prefill"]["forward"][k]
+             for k in (*keys, "q", "kv")},
+         "seamless_encoder": {
+             k: timing["flash_seamless_encoder"]["forward"][k]
+             for k in (*keys, "q", "kv")}},
         {"name": "flash_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
          "replaces": "src/repro/models/layers.py:90",
@@ -5646,7 +6464,15 @@ def run(args) -> None:
          "qwen_prefill_prefix": {
              k: timing["flash_bwd_qwen_prefix"][k]
              for k in (*keys, *bwd_keys, "shape", "prefix",
-                       "sdpa_causal_unmasked_ms")}},
+                       "sdpa_causal_unmasked_ms")},
+         **seamless("flash_bwd"),
+         "max_abs_err_seamless": attn_err["backward_seamless"],
+         "seamless_cross_train": {
+             k: timing["flash_seamless_cross_train"]["backward"][k]
+             for k in (*keys, "q", "kv", "bound_ms_split_mma")},
+         "seamless_encoder": {
+             k: timing["flash_seamless_encoder"]["backward"][k]
+             for k in (*keys, "q", "kv", "bound_ms_split_mma")}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:68",
@@ -5671,7 +6497,12 @@ def run(args) -> None:
          **{f"{name}_d256": {
              k: timing[f"decode_attention_{name}"][k]
              for k in (*keys, "device_ms", "q", "kv", "splits")}
-            for name in ("rgemma_serve", "rgemma_b128")}}]})
+            for name in ("rgemma_serve", "rgemma_b128")},
+         "cross_step_launches_by_path": by_path("decode_cross_step"),
+         "max_abs_err_seamless": attn_err["decode_seamless"],
+         "seamless_cross_step": {
+             k: timing["decode_attention_seamless_cross"][k]
+             for k in (*keys, "device_ms", "q", "kv", "splits")}}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,15 +3,16 @@ architecture registry, where `--arch <id>` resolves.
 
 Each LM module defines CONFIG (full size, from public literature; served
 on the card) and SMOKE (reduced same-family config for CPU tests), the
-same values as `repro.configs`. The port's transformer runs the dense GQA
-archs (Yi-6B, Yi-9B, DeepSeek-7B), Gemma-2 27B (sliding-window layers
-with ring caches, both softcaps), the MoE archs Mixtral 8x22B and Kimi
-K2 (every layer an MOE block; as in the reference, Mixtral's sliding
-window is applied to no layer), the recurrent archs xLSTM-125M (sLSTM
-and mLSTM blocks) and RecurrentGemma-2B (RG-LRU blocks and local
-attention at head dim 256) and Qwen2-VL-72B (M-RoPE and the vision
-input). `get_config` of any other id raises and names the ROADMAP item
-that brings it, so no caller gets a config the model would mis-run.
+same values as `repro.configs`. The port's transformer runs every arch
+of the registry: the dense GQA archs (Yi-6B, Yi-9B, DeepSeek-7B), Gemma-2
+27B (sliding-window layers with ring caches, both softcaps), the MoE
+archs Mixtral 8x22B and Kimi K2 (every layer an MOE block; as in the
+reference, Mixtral's sliding window is applied to no layer), the
+recurrent archs xLSTM-125M (sLSTM and mLSTM blocks) and RecurrentGemma-2B
+(RG-LRU blocks and local attention at head dim 256), Qwen2-VL-72B (M-RoPE
+and the vision input) and the encoder-decoder SeamlessM4T-medium (a
+bidirectional encoder over precomputed audio frames, cross-attention in
+every decoder layer).
 """
 from __future__ import annotations
 
@@ -31,12 +32,6 @@ _ARCH_IDS: List[str] = [
     "qwen2_vl_72b",
 ]
 
-_ITEM = "ROADMAP.md queue 1 item 8.3"
-_NOT_PORTED: Dict[str, str] = {
-    "seamless_m4t_medium": f"the encoder-decoder and its audio frontend "
-                           f"({_ITEM})",
-}
-
 ALIAS = {i.replace("_", "-"): i for i in _ARCH_IDS}
 
 
@@ -48,10 +43,6 @@ def get_config(arch: str, smoke: bool = False):
     arch = ALIAS.get(arch, arch)
     if arch not in _ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {_ARCH_IDS}")
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} needs {_NOT_PORTED[arch]}, not ported to repro_torch "
-            "yet")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
 

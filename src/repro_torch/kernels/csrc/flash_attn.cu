@@ -6,14 +6,33 @@
 //
 //   out[b,h,i,:] = sum_j softmax_j(q[b,h,i,:] . k[b,h,j,:] / sqrt(d)) v[b,h,j,:]
 //
-// over the keys j <= max(i, P - 1) (causal, with a bidirectional prefix of
-// P >= 0 positions: the reference's M-RoPE mask, below) and j > i - window
-// (window > 0), with an online softmax whose row max, row sum and
-// accumulator are f32. A row with
-// no valid key writes 0, as the TPU kernel's max(l, 1e-30) does. q, k, v
-// are (B, H, S, d) f32, f16 or bf16, d <= 256 (the TPU kernel takes any d);
-// the output is in q's type. S need not be a multiple of any tile: the
-// ragged edge is masked, never padded.
+// over the keys j <= max(i + off, P - 1) (causal, with a bidirectional
+// prefix of P >= 0 positions: the reference's M-RoPE mask, below) and
+// j > i + off - window (window > 0), with an online softmax whose row max,
+// row sum and accumulator are f32. A row with no valid key writes 0, as the
+// TPU kernel's max(l, 1e-30) does. q is (B, H, Sq, d) and k, v (B, H, Sk,
+// d), f32, f16 or bf16, d <= 256 (the TPU kernel takes any d and one S);
+// the output is in q's type. Neither length need be a multiple of any
+// tile: the ragged edges are masked, never padded.
+//
+// The key length of its own serves the encoder-decoder (SeamlessM4T):
+// cross-attention is non-causal with Sq != Sk (the decoder's queries over
+// the encoder's frames), the encoder non-causal with Sq = Sk, and
+// attention against a KV cache causal with off = Sk - Sq = the cache's
+// length before the call, the reference's mask kv_pos <= q_pos for q_pos =
+// len + i (repro/models/layers.py::attention). off is a runtime int that
+// moves the loop limits and edge masks as P does; with Sq = Sk it is 0 and
+// the mask is the one of one S. Each kernel shifts its k and v pointers by
+// off rows and then runs in query positions (key j at j - off, j < Sk iff
+// j - off < Sq): its loop and masks are those of one S = Sq, and off is
+// dead after the first lines. Every way of carrying the second length
+// tried (this one; query positions i + off tested against keys; keys
+// j - off tested against queries on every tile; the query side kept on
+// one base offset) moved the bf16 d = 128 instance from 20 to 68-100
+// bytes of spill stores, and none changed the plain causal times beyond
+// 1% in turns against the kernel of one S (PERF.md row 3). The entry
+// point refuses causal with Sk < Sq, where a row would have no key, and a
+// prefix with Sq != Sk.
 //
 // The prefix P (0 for plain causal attention) is Qwen2-VL's vision block:
 // the reference's attention (repro/models/layers.py::attention) masks by
@@ -33,7 +52,7 @@
 // instructions are those of the kernel before it. The softcap costs a tanhf
 // beside each exp2f, twice the special-function work per valid pair.
 //
-// For training, both routes also write each row's log-sum-exp lse (B, H, S)
+// For training, both routes also write each row's log-sum-exp lse (B, H, Sq)
 // f32 = m + log l in natural-log units (-inf for a row with no valid key),
 // which the backward (flash_attn_bwd.cu) reads to recompute P; inference
 // passes a null pointer and writes none. With a softcap, lse is taken over
@@ -63,7 +82,7 @@
 //     values are exact in f32), K through ldmatrix; the online softmax runs
 //     on the accumulators in registers, row max and row sum by quad
 //     shuffles, and masks only the tiles that cross the causal diagonal,
-//     the window's edge or the end of S;
+//     the window's edge or the end of the keys;
 //   - P·V as two MMAs per fragment, on p_hi = T(p) and p_lo = T(p - p_hi),
 //     V through ldmatrix.trans; P goes from the S accumulators to A
 //     fragments in registers, never through shared memory. P rounded once
@@ -83,8 +102,8 @@
 //     unrolled spill 16 bytes).
 //   At d = 128: 32 KiB of Q and STAGES·2 tiles of 16 KiB = 96 KiB of dynamic
 //   shared memory, one block (8 warps) per SM; ptxas (CUDA 12.8) gives 255
-//   registers and 20 bytes of spill stores, 64 of loads (88 before the
-//   prefix; fewer registers and no spills at d <= 64). On an H100 80GB
+//   registers and 72 bytes of spill stores, 80 of loads in bf16 (20 and
+//   64 with one S; fewer registers and no spills at d <= 64). On an H100 80GB
 //   HBM3 at 700 W it takes 0.88-0.90
 //   ms at the prefill shape above, 15-16% of the bound. Variants with 4
 //   warps (twice the L2 traffic), 3 stages or 32-key tiles (three blocks
@@ -108,6 +127,15 @@
 
 namespace {
 
+// The first key a block of queries from q0 attends to, in query positions
+// (key j at j - off): the window's lower edge rounded down to a tile of BK
+// keys, else key 0. A prefix needs Sq = Sk (off = 0), so with it the
+// causal limit max(q0 + BQ, prefix) is the same in both positions.
+template <int BK>
+__device__ __forceinline__ int key_begin(int q0, int off, int window) {
+  return (window > 0 ? max(0, q0 + off - window + 1) / BK * BK : 0) - off;
+}
+
 namespace f32fma {
 
 constexpr int BQ = 64;               // query rows per block
@@ -120,19 +148,28 @@ template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
-                      float* __restrict__ lse, int S, int d, float scale,
-                      int causal, int window, int prefix, float softcap) {
+                      float* __restrict__ lse, int Sq, int Sk, int d,
+                      float scale, int causal, int window, int prefix,
+                      float softcap) {
   constexpr int DP = 16 * NC;        // padded head dim
   const float inv_cap = CAP ? 1.0f / softcap : 0.0f;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                  // BK x DP
   float* vs = smem + BK * DP;        // BK x DP
 
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;
-  const int64_t base =
-      (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
-      static_cast<int64_t>(S) * d;
+  // This (b, h)'s rows: q, out and lse at its queries; k and v at its
+  // keys, shifted by off = Sk - Sq rows, so that row j of them is key
+  // j + off and keys run in query positions (j in [-off, Sq)).
+  const int64_t bh =
+      static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const int off = Sk - Sq;
+  q += bh * Sq * d;
+  out += bh * Sq * d;
+  k += (bh * Sk + off) * d;
+  v += (bh * Sk + off) * d;
+  if (lse != nullptr) lse += bh * Sq;
   const int tid = threadIdx.x;
   const int row = tid / TPR;
   const int part = tid % TPR;
@@ -146,8 +183,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int dim = c * 16 + part * 4 + e;
-      qr[c * 4 + e] = (qi < S && dim < d)
-                          ? attn::to_f32(q[base + static_cast<int64_t>(qi) * d + dim])
+      qr[c * 4 + e] = (qi < Sq && dim < d)
+                          ? attn::to_f32(q[static_cast<int64_t>(qi) * d + dim])
                           : 0.0f;
       acc[c * 4 + e] = 0.0f;
     }
@@ -155,17 +192,17 @@ __global__ void __launch_bounds__(THREADS)
   float m = -INFINITY;
   float l = 0.0f;
 
-  const int k_end = causal ? min(S, max(q0 + BQ, prefix)) : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int k_end = causal ? min(Sq, max(q0 + BQ, prefix)) : Sq;
+  const int k_begin = key_begin<BK>(q0, off, window);
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                 // the previous tile is consumed
     for (int idx = tid; idx < BK * DP; idx += THREADS) {
       const int key = k0 + idx / DP;
       const int dim = idx % DP;
-      const bool ok = key < S && dim < d;
-      const int64_t off = base + static_cast<int64_t>(key) * d + dim;
-      ks[idx] = ok ? attn::to_f32(k[off]) : 0.0f;
-      vs[idx] = ok ? attn::to_f32(v[off]) : 0.0f;
+      const bool ok = key < Sq && dim < d;
+      const int64_t at = static_cast<int64_t>(key) * d + dim;
+      ks[idx] = ok ? attn::to_f32(k[at]) : 0.0f;
+      vs[idx] = ok ? attn::to_f32(v[at]) : 0.0f;
     }
     __syncthreads();
 
@@ -187,7 +224,7 @@ __global__ void __launch_bounds__(THREADS)
         dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
         const int key = k0 + j0 + jj;
-        bool valid = key < S && qi < S;
+        bool valid = key < Sq && qi < Sq;
         if (causal) valid = valid && key <= max(qi, prefix - 1);
         if (window > 0) valid = valid && key > qi - window;
         float x = dot * scale;
@@ -225,11 +262,11 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  if (qi >= S) return;
+  if (qi >= Sq) return;
   if (lse != nullptr && part == 0)   // m is in scaled units here
-    lse[base / d + qi] = m == -INFINITY ? -INFINITY : m + logf(l);
+    lse[qi] = m == -INFINITY ? -INFINITY : m + logf(l);
   const float denom = fmaxf(l, 1e-30f);
-  T* o = out + base + static_cast<int64_t>(qi) * d;
+  T* o = out + static_cast<int64_t>(qi) * d;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -281,9 +318,9 @@ template <typename T, int NC, bool CAP>
 __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
-                      float* __restrict__ lse, int S, int d, float scale,
-                      int causal, int window, int prefix, float softcap,
-                      int vec) {
+                      float* __restrict__ lse, int Sq, int Sk, int d,
+                      float scale, int causal, int window, int prefix,
+                      float softcap, int vec) {
   using P = Plan<NC>;
   constexpr int BQ = P::BQ, BK = P::BK, STAGES = P::STAGES;
   constexpr int THREADS = P::THREADS;
@@ -293,11 +330,19 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
   constexpr int NO = DP / 8;         // output n-tiles (8 dims each)
   extern __shared__ __align__(1024) char smem[];
 
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;
-  const int64_t base =
-      (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
-      static_cast<int64_t>(S) * d;
+  // This (b, h)'s rows: q, out and lse at its queries; k and v at its
+  // keys, shifted by off = Sk - Sq rows, so that row j of them is key
+  // j + off and keys run in query positions (j in [-off, Sq)).
+  const int64_t bh =
+      static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const int off = Sk - Sq;
+  q += bh * Sq * d;
+  out += bh * Sq * d;
+  k += (bh * Sk + off) * d;
+  v += (bh * Sk + off) * d;
+  if (lse != nullptr) lse += bh * Sq;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -307,21 +352,21 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
   const float unit_log2 = unit * 1.4426950408889634f;
   const float cap_in = CAP ? scale / softcap : 0.0f;
 
-  const int k_end = causal ? min(S, max(q0 + BQ, prefix)) : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int k_end = causal ? min(Sq, max(q0 + BQ, prefix)) : Sq;
+  const int k_begin = key_begin<BK>(q0, off, window);
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;   // >= 1
 
   auto stage = [&](int it) { return smem + QB + 2 * TILE * (it % STAGES); };
   auto load_kv = [&](int it) {
     const int k0 = k_begin + it * BK;
-    const int64_t off = base + static_cast<int64_t>(k0) * d;
-    attn::load_tile<T, BK, DP, THREADS>(stage(it), k + off, S - k0, d, vec,
+    const int64_t at = static_cast<int64_t>(k0) * d;
+    attn::load_tile<T, BK, DP, THREADS>(stage(it), k + at, Sq - k0, d, vec,
                                         tid);
-    attn::load_tile<T, BK, DP, THREADS>(stage(it) + TILE, v + off, S - k0, d,
+    attn::load_tile<T, BK, DP, THREADS>(stage(it) + TILE, v + at, Sq - k0, d,
                                         vec, tid);
   };
   attn::load_tile<T, BQ, DP, THREADS>(
-      smem, q + base + static_cast<int64_t>(q0) * d, S - q0, d, vec, tid);
+      smem, q + static_cast<int64_t>(q0) * d, Sq - q0, d, vec, tid);
   load_kv(0);
   attn::cp_async_commit();
 #pragma unroll
@@ -411,10 +456,10 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
     }
     // Masks, only on tiles that cross the causal diagonal (the prefix's
     // keys are valid for every query), the window's lower edge or the end
-    // of S.
+    // of the keys (query position Sq, key Sk).
     const bool edge = (causal && k0 + BK - 1 > max(q0, prefix - 1)) ||
                       (window > 0 && k0 <= q0 + BQ - 1 - window) ||
-                      k0 + BK > S;
+                      k0 + BK > Sq;
     if (edge) {
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n) {
@@ -422,7 +467,7 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + n * 8 + 2 * t + (e & 1);
           const int row = row0 + (e >> 1) * 8;
-          bool valid = key < S;
+          bool valid = key < Sq;
           if (causal) valid = valid && key <= max(row, prefix - 1);
           if (window > 0) valid = valid && key > row - window;
           if (!valid) s[n][e] = -INFINITY;
@@ -461,11 +506,11 @@ __global__ void __launch_bounds__(Plan<NC>::THREADS, Plan<NC>::MIN_BLOCKS)
     const int row = row0 + 8 * r;
     const float l_row = attn::quad_sum(l[r]);
     const float inv_l = 1.0f / fmaxf(l_row, 1e-30f);
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     if (lse != nullptr && t == 0)    // m · unit is in scaled units
-      lse[base / d + row] =
+      lse[row] =
           m[r] == -INFINITY ? -INFINITY : fmaf(m[r], unit, logf(l_row));
-    T* o_row = out + base + static_cast<int64_t>(row) * d;
+    T* o_row = out + static_cast<int64_t>(row) * d;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int c = n * 8 + 2 * t;
@@ -488,7 +533,7 @@ struct Launch {
   const void* v;
   void* out;
   float* lse;
-  int b, h, s, d, causal, window, prefix;
+  int b, h, sq, sk, d, causal, window, prefix;
   float scale, softcap;
   cudaStream_t stream;
 
@@ -501,12 +546,12 @@ struct Launch {
           reinterpret_cast<const void*>(f32fma::flash_attn_kernel<T, NC, CAP>),
           smem);
       if (err != cudaSuccess) return err;
-      const dim3 grid((s + f32fma::BQ - 1) / f32fma::BQ, h, b);
+      const dim3 grid((sq + f32fma::BQ - 1) / f32fma::BQ, h, b);
       f32fma::flash_attn_kernel<T, NC, CAP>
           <<<grid, f32fma::THREADS, smem, stream>>>(
               static_cast<const T*>(q), static_cast<const T*>(k),
-              static_cast<const T*>(v), static_cast<T*>(out), lse, s, d,
-              scale, causal, window, prefix, softcap);
+              static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk,
+              d, scale, causal, window, prefix, softcap);
     } else {
       using P = tc::Plan<NC>;
       constexpr size_t smem = P::SMEM;
@@ -516,11 +561,11 @@ struct Launch {
       if (err != cudaSuccess) return err;
       const void* rows[3] = {q, k, v};
       const int vec = attn::copy_width(d, rows, 3);
-      const dim3 grid((s + P::BQ - 1) / P::BQ, h, b);
+      const dim3 grid((sq + P::BQ - 1) / P::BQ, h, b);
       tc::flash_attn_kernel<T, NC, CAP><<<grid, P::THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), lse, s, d, scale,
-          causal, window, prefix, softcap, vec);
+          static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, d,
+          scale, causal, window, prefix, softcap, vec);
     }
     return cudaGetLastError();
   }
@@ -534,22 +579,26 @@ struct Launch {
 }  // namespace
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
-// q, k, v, out (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or
-// BF16); lse (b, h, s) f32, or null to write none; d <= 256; window 0
-// means no sliding window, prefix 0 plain causal attention (with causal,
-// key j is valid for query i iff j <= max(i, prefix - 1)), softcap 0 no
-// attention softcap.
+// q, out (b, h, sq, d) and k, v (b, h, sk, d) contiguous, all of one dtype
+// (attn::F32, F16 or BF16); lse (b, h, sq) f32, or null to write none;
+// d <= 256. With off = sk - sq, key j is valid for query i iff j <=
+// max(i + off, prefix - 1) (causal; prefix 0 is plain causal attention)
+// and j > i + off - window (window > 0; 0 means no sliding window);
+// softcap 0 means no attention softcap. Refused (cudaErrorInvalidValue):
+// causal with sk < sq, where a row would have no key, and a prefix with
+// sq != sk.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* out, float* lse, int b, int h, int s,
-                                 int d, int causal, int window, int prefix,
-                                 float scale, float softcap, int dtype,
-                                 void* stream) {
-  if (!(softcap >= 0.0f && softcap < INFINITY) || prefix < 0) {
+                                 void* out, float* lse, int b, int h, int sq,
+                                 int sk, int d, int causal, int window,
+                                 int prefix, float scale, float softcap,
+                                 int dtype, void* stream) {
+  if (!(softcap >= 0.0f && softcap < INFINITY) || prefix < 0 || sk < 1 ||
+      (causal && sk < sq) || (prefix > 0 && sq != sk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Launch launch{q,      k,      v,      out,    lse,
-                      b,      h,      s,      d,      causal,
-                      window, prefix, scale,  softcap,
+                      b,      h,      sq,     sk,     d,
+                      causal, window, prefix, scale,  softcap,
                       static_cast<cudaStream_t>(stream)};
   return static_cast<int>(attn::dispatch(dtype, d, launch));
 }

@@ -5,11 +5,13 @@
 // Replaces the gradient the JAX package takes by XLA's autodiff of the jnp
 // attention core (repro/models/layers.py::_attn_core); the TPU package has
 // no Pallas backward. It differentiates what flash_attn.cu computes, under
-// the same causal, prefix and window masks (with causal, key j is valid for
-// query i iff j <= max(i, P - 1), P the bidirectional prefix, 0 for plain
-// causal attention), for q, k, v, out, dout (B, H, S, d) of one type (f32,
-// f16 or bf16), d <= 256 (attn::MAX_BWD_HEAD_DIM), and the forward's row
-// log-sum-exp lse (B, H, S) f32, in natural-log units:
+// the same causal, prefix and window masks (with off = Sk - Sq and causal,
+// key j is valid for query i iff j <= max(i + off, P - 1), P the
+// bidirectional prefix, 0 for plain causal attention; with a window w,
+// iff also j > i + off - w), for q, out, dout (B, H, Sq, d) and k, v (B,
+// H, Sk, d) of one type (f32, f16 or bf16), d <= 256
+// (attn::MAX_BWD_HEAD_DIM), and the forward's row log-sum-exp lse (B, H,
+// Sq) f32, in natural-log units:
 //
 //   D_i   = sum_d dO_i . O_i                       (pre-pass, f32)
 //   P_ij  = exp(s q_i . k_j - lse_i)               (recomputed, never stored)
@@ -42,6 +44,16 @@
 // causal 2.15e10 FLOPs, 0.0218 ms at the card's 989 TFLOP/s bf16, and at
 // Yi-6B's prefill (1, 32, 4096, 128) 3.44e11 FLOPs, 0.347 ms. Only the
 // tensor cores come near that bound.
+//
+// The key length of its own (the encoder-decoder's cross-attention, its
+// encoder and attention against a KV cache; flash_attn.cu says which is
+// which): the D pre-pass runs over the Sq query rows, the dQ kernels' key
+// loops run as the forward's, and the dK/dV kernels own Sk keys, each
+// walking the query tiles from the first query the causal edge lets see
+// its key block (i >= k0 - off) to the window's far edge. off is computed
+// in each kernel from Sq and Sk, which shifts its k, v (and dk, dv)
+// pointers by off rows and then runs in query positions (key j at j - off):
+// its loops and masks are those of one S = Sq, as in flash_attn.cu.
 //
 // Every route is deterministic: no atomics, every sum in a fixed order, and
 // each kernel owns the output rows it writes. Three kernels, launched in
@@ -92,9 +104,10 @@
 //     a lane, so K and V are read from shared memory by ldmatrix at each
 //     pass, not held as fragments, and a pass takes 32 queries (S^T and
 //     dP^T, 2 x 16 f32 a lane). ptxas (CUDA 12.8), registers for NC = 1,
-//     2, 4, 8 in bf16: dq_kernel 96, 122, 172, 238, no spills; dkdv_kernel
-//     115, 128, 178, 255, with 56 bytes of spill stores and 92 of loads at
-//     NC = 8 (52 and 88 in f16; 44 and 80 in bf16 before the prefix). At
+//     2, 4, 8 in bf16 with one S: dq_kernel 96, 122, 172, 238, no spills;
+//     dkdv_kernel 115, 128, 178, 255, with 56 bytes of spill stores and 92
+//     of loads at NC = 8 (52 and 88 in f16; 44 and 80 in bf16 before the
+//     prefix; with a key length of its own: dq 237, dkdv 52 and 60). At
 //     d = 128 a block takes 97 KiB of shared memory (dQ 96), two blocks
 //     (8 warps) per SM.
 //   On an H100 80GB HBM3 at 700 W (scripts/flash_bwd_variants.py) it takes
@@ -122,7 +135,8 @@
 //     and the absence of atomics are those of d <= 128. ptxas (CUDA 12.8):
 //     dkdv_kernel 255 registers, no spills in bf16 (96 bytes of spill
 //     stores and 668 of loads in f16, which no main path runs); dq_kernel
-//     255, 24 bytes of spill stores (40 with the cap). On an
+//     255, 24 bytes of spill stores (40 with the cap; 100 and 144 with a
+//     key length of its own). On an
 //     H100 80GB HBM3 at 700 W it takes 2.47-2.53 ms at RecurrentGemma's
 //     training layer (1, 10, 4096, 256), window 2048, 6.4% of its 0.163 ms
 //     bound (PERF.md row 3b).
@@ -150,7 +164,19 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Whether query qi attends to key kj under the masks.
+// The first key a block of queries from q0 attends to, in query positions
+// (key j at j - off): the window's lower edge rounded down to a tile of
+// TILE keys, else key 0. A prefix needs Sq = Sk (off = 0), so with it the
+// causal limit max(q0 + rows, prefix) is the same in both positions.
+template <int TILE>
+__device__ __forceinline__ int key_begin(int q0, int off, int window) {
+  return (window > 0 ? max(0, q0 + off - window + 1) / TILE * TILE : 0) -
+         off;
+}
+
+// Whether query qi attends to key kj under the masks, kj in query
+// positions (key - off, off = Sk - Sq): the masks of one S = Sq, in which
+// kj < Sq iff the key is below Sk.
 __device__ __forceinline__ bool valid_pair(int qi, int kj, int S, int causal,
                                            int window, int prefix) {
   bool ok = qi < S && kj < S;
@@ -267,8 +293,8 @@ __global__ void __launch_bounds__(THREADS)
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int S, int d, float scale, int causal,
-                int window, int prefix, float softcap) {
+                T* __restrict__ dv, int Sq, int Sk, int d, float scale,
+                int causal, int window, int prefix, float softcap) {
   constexpr int NCH = nch<NC>();
   constexpr int DP = 32 * NCH;
   extern __shared__ __align__(16) float smem[];
@@ -277,32 +303,44 @@ __global__ void __launch_bounds__(THREADS)
   float* ls = gs + TILE * DP;          // TILE: lse_i * log2(e)
   float* ds = ls + TILE;               // TILE: D_i
 
+  // This (b, h)'s rows: q, dout, lse, delta at its queries; k, v, dk, dv
+  // at its keys, shifted by off = Sk - Sq rows, so that keys run in query
+  // positions (row j is key j + off; j < Sq iff the key is below Sk).
   const int64_t bh =
       static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const int64_t base = bh * S * d;
-  const int64_t rbase = bh * S;
+  const int off = Sk - Sq;
+  q += bh * Sq * d;
+  dout += bh * Sq * d;
+  lse += bh * Sq;
+  delta += bh * Sq;
+  k += (bh * Sk + off) * d;
+  v += (bh * Sk + off) * d;
+  dk += (bh * Sk + off) * d;
+  dv += (bh * Sk + off) * d;
   const int tid = threadIdx.x;
   const int part = tid % TPR;
-  const int k0 = blockIdx.x * ROWS;
+  const int k0 = static_cast<int>(blockIdx.x) * ROWS - off;
   const int kj = k0 + tid / TPR;
 
   float kr[NCH * 4], vr[NCH * 4], dka[NCH * 4], dva[NCH * 4];
-  load_row<T, NCH>(kr, k + base, kj, S, d, part);
-  load_row<T, NCH>(vr, v + base, kj, S, d, part);
+  load_row<T, NCH>(kr, k, kj, Sq, d, part);
+  load_row<T, NCH>(vr, v, kj, Sq, d, part);
 #pragma unroll
   for (int e = 0; e < NCH * 4; ++e) dka[e] = dva[e] = 0.0f;
 
   const float scale_log2 = scale * LOG2E;
-  // A key below the prefix is seen by every query.
-  const int i_begin = (causal && k0 >= prefix ? k0 : 0) / TILE * TILE;
-  const int i_end = window > 0 ? min(S, k0 + ROWS - 1 + window) : S;
+  // A key below the prefix is seen by every query; under the causal mask
+  // key k0 (a query position, maybe below 0) is first seen by query k0.
+  const int i_begin =
+      (causal && k0 >= prefix ? max(0, k0) : 0) / TILE * TILE;
+  const int i_end = window > 0 ? min(Sq, k0 + ROWS - 1 + window) : Sq;
   for (int i0 = i_begin; i0 < i_end; i0 += TILE) {
     __syncthreads();                   // the previous tile is consumed
-    load_tiles<T, DP>(qs, gs, q + base, dout + base, i0, S, d, tid);
+    load_tiles<T, DP>(qs, gs, q, dout, i0, Sq, d, tid);
     if (tid < TILE) {
       const int qi = i0 + tid;
-      ls[tid] = qi < S ? lse[rbase + qi] * LOG2E : -INFINITY;
-      ds[tid] = qi < S ? delta[rbase + qi] : 0.0f;
+      ls[tid] = qi < Sq ? lse[qi] * LOG2E : -INFINITY;
+      ds[tid] = qi < Sq ? delta[qi] : 0.0f;
     }
     __syncthreads();
 
@@ -328,7 +366,7 @@ __global__ void __launch_bounds__(THREADS)
       dot = row_sum(dot);
       dpv = row_sum(dpv);
       const float lse2 = ls[ii];
-      const bool ok = valid_pair(i0 + ii, kj, S, causal, window, prefix) &&
+      const bool ok = valid_pair(i0 + ii, kj, Sq, causal, window, prefix) &&
                       lse2 != -INFINITY;
       float p, dsv;
       if constexpr (CAP) {
@@ -352,8 +390,8 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   }
-  store_row<T, NCH>(dk + base, dka, scale, kj, S, d, part);
-  store_row<T, NCH>(dv + base, dva, 1.0f, kj, S, d, part);
+  store_row<T, NCH>(dk, dka, scale, kj, Sq, d, part);
+  store_row<T, NCH>(dv, dva, 1.0f, kj, Sq, d, part);
 }
 
 template <typename T, int NC, bool CAP>
@@ -361,38 +399,46 @@ __global__ void __launch_bounds__(THREADS)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int S, int d, float scale, int causal,
-              int window, int prefix, float softcap) {
+              T* __restrict__ dq, int Sq, int Sk, int d, float scale,
+              int causal, int window, int prefix, float softcap) {
   constexpr int NCH = nch<NC>();
   constexpr int DP = 32 * NCH;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                    // TILE x DP
   float* vs = ks + TILE * DP;          // TILE x DP
 
+  // This (b, h)'s rows: q, dout, dq, lse, delta at its queries; k, v at
+  // its keys, shifted by off = Sk - Sq rows (keys in query positions).
   const int64_t bh =
       static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const int64_t base = bh * S * d;
-  const int64_t rbase = bh * S;
+  const int off = Sk - Sq;
+  q += bh * Sq * d;
+  dout += bh * Sq * d;
+  dq += bh * Sq * d;
+  lse += bh * Sq;
+  delta += bh * Sq;
+  k += (bh * Sk + off) * d;
+  v += (bh * Sk + off) * d;
   const int tid = threadIdx.x;
   const int part = tid % TPR;
-  const int n_qt = (S + ROWS - 1) / ROWS;
+  const int n_qt = (Sq + ROWS - 1) / ROWS;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * ROWS;
   const int qi = q0 + tid / TPR;
 
   float qr[NCH * 4], gr[NCH * 4], dqa[NCH * 4];
-  load_row<T, NCH>(qr, q + base, qi, S, d, part);
-  load_row<T, NCH>(gr, dout + base, qi, S, d, part);
+  load_row<T, NCH>(qr, q, qi, Sq, d, part);
+  load_row<T, NCH>(gr, dout, qi, Sq, d, part);
 #pragma unroll
   for (int e = 0; e < NCH * 4; ++e) dqa[e] = 0.0f;
-  const float lse2 = qi < S ? lse[rbase + qi] * LOG2E : -INFINITY;
-  const float di = qi < S ? delta[rbase + qi] : 0.0f;
+  const float lse2 = qi < Sq ? lse[qi] * LOG2E : -INFINITY;
+  const float di = qi < Sq ? delta[qi] : 0.0f;
 
   const float scale_log2 = scale * LOG2E;
-  const int k_end = causal ? min(S, max(q0 + ROWS, prefix)) : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / TILE * TILE : 0;
+  const int k_end = causal ? min(Sq, max(q0 + ROWS, prefix)) : Sq;
+  const int k_begin = key_begin<TILE>(q0, off, window);
   for (int k0 = k_begin; k0 < k_end; k0 += TILE) {
     __syncthreads();                   // the previous tile is consumed
-    load_tiles<T, DP>(ks, vs, k + base, v + base, k0, S, d, tid);
+    load_tiles<T, DP>(ks, vs, k, v, k0, Sq, d, tid);
     __syncthreads();
 
 #pragma unroll 2
@@ -416,7 +462,7 @@ __global__ void __launch_bounds__(THREADS)
       }
       dot = row_sum(dot);
       dpv = row_sum(dpv);
-      const bool ok = valid_pair(qi, k0 + jj, S, causal, window, prefix) &&
+      const bool ok = valid_pair(qi, k0 + jj, Sq, causal, window, prefix) &&
                       lse2 != -INFINITY;
       float p, dsv;
       if constexpr (CAP) {
@@ -436,7 +482,7 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   }
-  store_row<T, NCH>(dq + base, dqa, scale, qi, S, d, part);
+  store_row<T, NCH>(dq, dqa, scale, qi, Sq, d, part);
 }
 
 }  // namespace f32fma
@@ -476,7 +522,7 @@ __host__ __device__ constexpr int smem_bytes(bool with_rows) {
 }
 
 // Whether any (query, key) pair with query in [q_lo, q_hi] and key in
-// [k_lo, k_hi] is valid.
+// [k_lo, k_hi] is valid, keys in query positions as in valid_pair.
 __device__ __forceinline__ bool any_valid(int q_lo, int q_hi, int k_lo,
                                           int k_hi, int S, int causal,
                                           int window, int prefix) {
@@ -562,8 +608,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int S, int d, float scale, int causal,
-                int window, int prefix, float softcap, int vec) {
+                T* __restrict__ dv, int Sq, int Sk, int d, float scale,
+                int causal, int window, int prefix, float softcap,
+                int vec) {
   using P = Plan<NC>;
   constexpr int DP = 16 * NC;
   constexpr int TB = TILE * DP * 2;    // bytes of a tile
@@ -573,43 +620,53 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   char* stages = smem + 2 * TB;        // K, V, then per stage Q, dO
   float* rows = reinterpret_cast<float*>(stages + STAGES * 2 * TB);
 
+  // This (b, h)'s rows: q, dout, lse, delta at its queries; k, v, dk, dv
+  // at its keys, shifted by off = Sk - Sq rows (keys in query positions).
   const int64_t bh =
       static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const int64_t base = bh * S * d;
-  const int64_t rbase = bh * S;
+  const int off = Sk - Sq;
+  q += bh * Sq * d;
+  dout += bh * Sq * d;
+  lse += bh * Sq;
+  delta += bh * Sq;
+  k += (bh * Sk + off) * d;
+  v += (bh * Sk + off) * d;
+  dk += (bh * Sk + off) * d;
+  dv += (bh * Sk + off) * d;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
   // Longest first: tile 0 sees most. With WIDE, blocks 2t and 2t + 1 own
   // the dim halves of key tile t.
-  const int k0 = static_cast<int>(blockIdx.x / P::HALVES) * ROWS;
+  // This block's first key in query positions (maybe below 0).
+  const int k0 = static_cast<int>(blockIdx.x / P::HALVES) * ROWS - off;
   const int dim0 = static_cast<int>(blockIdx.x % P::HALVES) * 8 * NO;
   const int kw = k0 + warp * 16;       // this warp's first key
 
-  // A key tile below the prefix is seen by every query.
-  const int i_begin = causal && k0 >= prefix ? k0 : 0;
-  const int i_end = window > 0 ? min(S, k0 + ROWS - 1 + window) : S;
+  // A key tile below the prefix is seen by every query; under the causal
+  // mask key k0 is first seen by query k0.
+  const int i_begin = causal && k0 >= prefix ? max(0, k0) : 0;
+  const int i_end = window > 0 ? min(Sq, k0 + ROWS - 1 + window) : Sq;
   const int n_tiles = max(0, (i_end - i_begin + TILE - 1) / TILE);
 
   auto load_qdo = [&](int it) {
     const int i0 = i_begin + it * TILE;
     char* st = stages + 2 * TB * (it % STAGES);
-    const int64_t off = base + static_cast<int64_t>(i0) * d;
-    attn::load_tile<T, TILE, DP, THREADS>(st, q + off, S - i0, d, vec, tid);
-    attn::load_tile<T, TILE, DP, THREADS>(st + TB, dout + off, S - i0, d,
+    const int64_t at = static_cast<int64_t>(i0) * d;
+    attn::load_tile<T, TILE, DP, THREADS>(st, q + at, Sq - i0, d, vec, tid);
+    attn::load_tile<T, TILE, DP, THREADS>(st + TB, dout + at, Sq - i0, d,
                                           vec, tid);
     float* r = rows + 2 * TILE * (it % STAGES);    // lse, then D
     const int i = tid % TILE;
-    const bool ok = i0 + i < S;
-    const float* src = (tid < TILE ? lse : delta) + rbase + (ok ? i0 + i : 0);
+    const bool ok = i0 + i < Sq;
+    const float* src = (tid < TILE ? lse : delta) + (ok ? i0 + i : 0);
     attn::cp_async<4>(attn::smem_addr(r + tid), src, ok ? 4 : 0);
   };
   attn::load_tile<T, ROWS, DP, THREADS>(
-      smem, k + base + static_cast<int64_t>(k0) * d, S - k0, d, vec, tid);
+      smem, k + static_cast<int64_t>(k0) * d, Sq - k0, d, vec, tid);
   attn::load_tile<T, ROWS, DP, THREADS>(
-      smem + TB, v + base + static_cast<int64_t>(k0) * d, S - k0, d, vec,
-      tid);
+      smem + TB, v + static_cast<int64_t>(k0) * d, Sq - k0, d, vec, tid);
   if (n_tiles > 0) load_qdo(0);
   attn::cp_async_commit();
 
@@ -646,12 +703,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     // (PERF.md §6, row 3b).
     const bool edge = (causal && k0 + ROWS > prefix && k0 + ROWS - 1 > i0) ||
                       (window > 0 && k0 <= i0 + TILE - 1 - window) ||
-                      i0 + TILE > S || k0 + ROWS > S;
+                      i0 + TILE > Sq || k0 + ROWS > Sq;
 
 #pragma unroll 1
     for (int c = 0; c < TILE / CHUNK; ++c) {
       const int c0 = c * CHUNK;        // the pass's first row in the tile
-      if (edge && !any_valid(i0 + c0, i0 + c0 + CHUNK - 1, kw, kw + 15, S,
+      if (edge && !any_valid(i0 + c0, i0 + c0 + CHUNK - 1, kw, kw + 15, Sq,
                              causal && kw >= prefix, window, 0))
         continue;
       float st[CHUNK / 8][4], dpt[CHUNK / 8][4];
@@ -700,7 +757,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
             p = exp2f(fmaf(st[n][e], scale_log2, -lrow));
           }
           if (edge && !valid_pair(i0 + col + (e & 1), kw + g + 8 * (e >> 1),
-                                  S, causal && kw + g + 8 * (e >> 1) >= prefix,
+                                  Sq, causal && kw + g + 8 * (e >> 1) >= prefix,
                                   window, 0))
             p = 0.0f;
           st[n][e] = p;
@@ -725,8 +782,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
   attn::cp_async_wait<0>();            // no copy outlives the block
 
-  store_rows<T, NO>(dk + base, dka, scale, kw, S, d, lane, dim0);
-  store_rows<T, NO>(dv + base, dva, 1.0f, kw, S, d, lane, dim0);
+  store_rows<T, NO>(dk, dka, scale, kw, Sq, d, lane, dim0);
+  store_rows<T, NO>(dv, dva, 1.0f, kw, Sq, d, lane, dim0);
 }
 
 template <typename T, int NC, bool CAP>
@@ -734,8 +791,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int S, int d, float scale, int causal,
-              int window, int prefix, float softcap, int vec) {
+              T* __restrict__ dq, int Sq, int Sk, int d, float scale,
+              int causal, int window, int prefix, float softcap, int vec) {
   using P = Plan<NC>;
   constexpr int DP = 16 * NC;
   constexpr int TB = TILE * DP * 2;    // bytes of a streamed tile
@@ -744,35 +801,42 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   extern __shared__ __align__(1024) char smem[];
   char* stages = smem + 2 * OB;        // Q, dO, then per stage K, V
 
+  // This (b, h)'s rows: q, dout, dq, lse, delta at its queries; k, v at
+  // its keys, shifted by off = Sk - Sq rows (keys in query positions).
   const int64_t bh =
       static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const int64_t base = bh * S * d;
-  const int64_t rbase = bh * S;
+  const int off = Sk - Sq;
+  q += bh * Sq * d;
+  dout += bh * Sq * d;
+  dq += bh * Sq * d;
+  lse += bh * Sq;
+  delta += bh * Sq;
+  k += (bh * Sk + off) * d;
+  v += (bh * Sk + off) * d;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int n_qt = (S + ROWS - 1) / ROWS;
+  const int n_qt = (Sq + ROWS - 1) / ROWS;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * ROWS;
   const int qw = q0 + warp * 16;       // this warp's first query
 
-  const int k_end = causal ? min(S, max(q0 + ROWS, prefix)) : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / TILE * TILE : 0;
+  const int k_end = causal ? min(Sq, max(q0 + ROWS, prefix)) : Sq;
+  const int k_begin = key_begin<TILE>(q0, off, window);
   const int n_tiles = max(0, (k_end - k_begin + TILE - 1) / TILE);
 
   auto load_kv = [&](int it) {
     const int k0 = k_begin + it * TILE;
     char* st = stages + 2 * TB * (it % STAGES);
-    const int64_t off = base + static_cast<int64_t>(k0) * d;
-    attn::load_tile<T, TILE, DP, THREADS>(st, k + off, S - k0, d, vec, tid);
-    attn::load_tile<T, TILE, DP, THREADS>(st + TB, v + off, S - k0, d, vec,
+    const int64_t at = static_cast<int64_t>(k0) * d;
+    attn::load_tile<T, TILE, DP, THREADS>(st, k + at, Sq - k0, d, vec, tid);
+    attn::load_tile<T, TILE, DP, THREADS>(st + TB, v + at, Sq - k0, d, vec,
                                           tid);
   };
   attn::load_tile<T, ROWS, DP, THREADS>(
-      smem, q + base + static_cast<int64_t>(q0) * d, S - q0, d, vec, tid);
+      smem, q + static_cast<int64_t>(q0) * d, Sq - q0, d, vec, tid);
   attn::load_tile<T, ROWS, DP, THREADS>(
-      smem + OB, dout + base + static_cast<int64_t>(q0) * d, S - q0, d, vec,
-      tid);
+      smem + OB, dout + static_cast<int64_t>(q0) * d, Sq - q0, d, vec, tid);
   if (n_tiles > 0) load_kv(0);
   attn::cp_async_commit();
 
@@ -781,8 +845,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qw + g + 8 * r;
-    lrow[r] = row < S ? lse_log2(lse[rbase + row]) : INFINITY;
-    drow[r] = row < S ? delta[rbase + row] : 0.0f;
+    lrow[r] = row < Sq ? lse_log2(lse[row]) : INFINITY;
+    drow[r] = row < Sq ? delta[row] : 0.0f;
   }
 
   // ldmatrix offsets: A (Q, dO) rows lane % 16 of the warp's, column half
@@ -825,12 +889,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const uint32_t vs = ks + TB;
     const bool edge = (causal && k0 + TILE - 1 > max(q0, prefix - 1)) ||
                       (window > 0 && k0 <= q0 + ROWS - 1 - window) ||
-                      k0 + TILE > S || q0 + ROWS > S;
+                      k0 + TILE > Sq || q0 + ROWS > Sq;
 
 #pragma unroll 1
     for (int c = 0; c < TILE / CHUNK; ++c) {
       const int c0 = c * CHUNK;        // the pass's first key in the tile
-      if (edge && !any_valid(qw, qw + 15, k0 + c0, k0 + c0 + CHUNK - 1, S,
+      if (edge && !any_valid(qw, qw + 15, k0 + c0, k0 + c0 + CHUNK - 1, Sq,
                              causal, window, prefix))
         continue;
       float s[CHUNK / 8][4], dp[CHUNK / 8][4];
@@ -893,7 +957,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
             p = exp2f(fmaf(s[n][e], scale_log2, -lrow[r]));
           }
           if (edge && !valid_pair(qw + g + 8 * r,
-                                  k0 + c0 + n * 8 + 2 * t + (e & 1), S,
+                                  k0 + c0 + n * 8 + 2 * t + (e & 1), Sq,
                                   causal, window, prefix))
             p = 0.0f;
           if constexpr (CAP)
@@ -914,7 +978,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
   attn::cp_async_wait<0>();            // no copy outlives the block
 
-  store_rows<T, NO>(dq + base, dqa, scale, qw, S, d, lane);
+  store_rows<T, NO>(dq, dqa, scale, qw, Sq, d, lane);
 }
 
 }  // namespace tc
@@ -930,7 +994,7 @@ struct Launch {
   void* dq;
   void* dk;
   void* dv;
-  int b, h, s, d, causal, window, prefix;
+  int b, h, sq, sk, d, causal, window, prefix;
   float scale, softcap;
   cudaStream_t stream;
 
@@ -947,7 +1011,7 @@ struct Launch {
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
     const T* gt = static_cast<const T*>(dout);
-    const int64_t rows = static_cast<int64_t>(b) * h * s;
+    const int64_t rows = static_cast<int64_t>(b) * h * sq;
     delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
                       stream>>>(static_cast<const T*>(out), gt, delta, rows,
                                 d);
@@ -964,14 +1028,15 @@ struct Launch {
                           const float* gt) const {
     using namespace f32fma;
     constexpr int DP = 32 * nch<NC>();
-    const dim3 grid((s + ROWS - 1) / ROWS, h, b);
+    const dim3 kv_grid((sk + ROWS - 1) / ROWS, h, b);
+    const dim3 q_grid((sq + ROWS - 1) / ROWS, h, b);
     const size_t kv_smem = (2 * TILE * DP + 2 * TILE) * sizeof(float);
     cudaError_t err = attn::allow_smem(
         reinterpret_cast<const void*>(dkdv_kernel<float, NC, CAP>), kv_smem);
     if (err != cudaSuccess) return err;
-    dkdv_kernel<float, NC, CAP><<<grid, THREADS, kv_smem, stream>>>(
+    dkdv_kernel<float, NC, CAP><<<kv_grid, THREADS, kv_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), s, d, scale, causal, window, prefix,
+        static_cast<float*>(dv), sq, sk, d, scale, causal, window, prefix,
         softcap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -980,9 +1045,9 @@ struct Launch {
     err = attn::allow_smem(
         reinterpret_cast<const void*>(dq_kernel<float, NC, CAP>), q_smem);
     if (err != cudaSuccess) return err;
-    dq_kernel<float, NC, CAP><<<grid, THREADS, q_smem, stream>>>(
-        qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), s, d, scale,
-        causal, window, prefix, softcap);
+    dq_kernel<float, NC, CAP><<<q_grid, THREADS, q_smem, stream>>>(
+        qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), sq, sk, d,
+        scale, causal, window, prefix, softcap);
     return cudaGetLastError();
   }
 
@@ -991,17 +1056,17 @@ struct Launch {
                          const T* gt) const {
     const void* ptrs[4] = {q, k, v, dout};
     const int vec = attn::copy_width(d, ptrs, 4);
-    const int n_tiles = (s + tc::ROWS - 1) / tc::ROWS;
-    const dim3 grid(n_tiles, h, b);
+    const int n_kt = (sk + tc::ROWS - 1) / tc::ROWS;   // key tiles
+    const dim3 q_grid((sq + tc::ROWS - 1) / tc::ROWS, h, b);
     constexpr size_t kv_smem = tc::smem_bytes<NC>(true);
     static_assert(tc::smem_bytes<NC>(true) <= 232448, "227 KiB a block");
     cudaError_t err = attn::allow_smem(
         reinterpret_cast<const void*>(tc::dkdv_kernel<T, NC, CAP>), kv_smem);
     if (err != cudaSuccess) return err;
-    const dim3 kv_grid(n_tiles * tc::Plan<NC>::HALVES, h, b);
+    const dim3 kv_grid(n_kt * tc::Plan<NC>::HALVES, h, b);
     tc::dkdv_kernel<T, NC, CAP><<<kv_grid, tc::THREADS, kv_smem, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        s, d, scale, causal, window, prefix, softcap, vec);
+        sq, sk, d, scale, causal, window, prefix, softcap, vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -1009,9 +1074,9 @@ struct Launch {
     err = attn::allow_smem(
         reinterpret_cast<const void*>(tc::dq_kernel<T, NC, CAP>), q_smem);
     if (err != cudaSuccess) return err;
-    tc::dq_kernel<T, NC, CAP><<<grid, tc::THREADS, q_smem, stream>>>(
-        qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), s, d, scale, causal,
-        window, prefix, softcap, vec);
+    tc::dq_kernel<T, NC, CAP><<<q_grid, tc::THREADS, q_smem, stream>>>(
+        qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), sq, sk, d, scale,
+        causal, window, prefix, softcap, vec);
     return cudaGetLastError();
   }
 };
@@ -1019,27 +1084,30 @@ struct Launch {
 }  // namespace
 
 // Launches the three kernels on `stream` without synchronising; returns the
-// first launch error (cudaGetLastError()). q, k, v, out, dout, dq, dk, dv
-// (b, h, s, d) contiguous, all of one dtype (attn::F32, F16 or BF16); lse
-// and delta (b, h, s) f32, delta scratch that the pre-pass fills; d <= 256;
-// window 0 means no sliding window, prefix 0 plain causal attention; scale
-// 1/sqrt(d), prefix and softcap (0: none) as the forward took them, lse the
-// forward's over the capped scores.
+// first launch error (cudaGetLastError()). q, out, dout, dq (b, h, sq, d)
+// and k, v, dk, dv (b, h, sk, d) contiguous, all of one dtype (attn::F32,
+// F16 or BF16); lse and delta (b, h, sq) f32, delta scratch that the
+// pre-pass fills; d <= 256; window 0 means no sliding window, prefix 0
+// plain causal attention, with off = sk - sq as in flash_attn_launch;
+// scale 1/sqrt(d), prefix and softcap (0: none) as the forward took them,
+// lse the forward's over the capped scores. Refused as the forward refuses
+// them: causal with sk < sq, a prefix with sq != sk.
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                                      const void* v, const void* out,
                                      const void* dout, const float* lse,
                                      float* delta, void* dq, void* dk,
-                                     void* dv, int b, int h, int s, int d,
-                                     int causal, int window, int prefix,
-                                     float scale, float softcap, int dtype,
-                                     void* stream) {
-  if (!(softcap >= 0.0f && softcap < INFINITY) || prefix < 0) {
+                                     void* dv, int b, int h, int sq, int sk,
+                                     int d, int causal, int window,
+                                     int prefix, float scale, float softcap,
+                                     int dtype, void* stream) {
+  if (!(softcap >= 0.0f && softcap < INFINITY) || prefix < 0 || sk < 1 ||
+      (causal && sk < sq) || (prefix > 0 && sq != sk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Launch launch{q,      k,      v,     out,     dout,   lse,
-                      delta,  dq,     dk,    dv,      b,      h,
-                      s,      d,      causal, window, prefix, scale,
-                      softcap, static_cast<cudaStream_t>(stream)};
+  const Launch launch{q,      k,      v,      out,     dout,   lse,
+                      delta,  dq,     dk,     dv,      b,      h,
+                      sq,     sk,     d,      causal,  window, prefix,
+                      scale,  softcap, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(
       attn::dispatch<attn::MAX_BWD_HEAD_DIM>(dtype, d, launch));
 }

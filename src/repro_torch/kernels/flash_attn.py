@@ -6,17 +6,24 @@
 
     out[b, h, i] = Σ_j softmax_j(q[b, h, i] · k[b, h, j] / √d) v[b, h, j]
 
-over the keys j <= max(i, P - 1) (causal, with a bidirectional prefix of P
->= 0 positions; P = 0 is plain causal attention) and j > i - window
-(window > 0), softmax and accumulator in float32, the output in q's dtype;
-a row with no valid key gives 0. q, k, v are (B, H, S, d) of one dtype
-(float32, float16 or bfloat16), d <= 256 in both directions; S need not
-be a multiple of any block. The prefix is Qwen2-VL's vision block: the
+q is (B, H, Sq, d) and k, v (B, H, Sk, d), of one dtype (float32,
+float16 or bfloat16), d <= 256 in both directions; neither length need be
+a multiple of any block. With off = Sk - Sq, query i sits at key position
+i + off, and key j is valid for it iff j <= max(i + off, P - 1) (causal,
+with a bidirectional prefix of P >= 0 positions; P = 0 is plain causal
+attention) and j > i + off - window (window > 0); softmax and accumulator
+in float32, the output in q's dtype; a row with no valid key gives 0. For
+Sq = Sk that is the mask of one S. A key length of its own serves the
+encoder-decoder: its cross-attention is non-causal with Sq != Sk, its
+encoder non-causal with Sq = Sk, and `layers.attention(cache=)` causal
+with off the cache's length before the call. Causal attention with Sk <
+Sq (a row would have no key) and a prefix with Sq != Sk are refused
+before any launch (`check_lengths`). The prefix is Qwen2-VL's vision block: the
 reference's `attention` masks by M-RoPE's temporal ids, which
 `_build_positions` makes 0 for the first P positions and i - P + 1 for
 text position i, so by index a key j is valid for query i iff j <=
 max(i, P - 1). For training
-the forward also writes each row's log-sum-exp `lse` (B, H, S) f32,
+the forward also writes each row's log-sum-exp `lse` (B, H, Sq) f32,
 m + log l in natural-log units (-inf for a row with no valid key), from
 which the backward recomputes the probabilities:
 
@@ -52,20 +59,25 @@ import torch
 from repro_torch.kernels.build import entry
 
 # Kernel launches made in this process, in all, by route, with a softcap,
-# at d > 128 and with a prefix P > 0: the forward by `flash_attention_cuda`
-# (inference and `FlashAttention.forward`, the recompute of a checkpointed
-# layer among them), the backward by `flash_attention_bwd_cuda`
+# at d > 128, with a prefix P > 0, with Sq != Sk (cross) and without the
+# causal mask: the forward by `flash_attention_cuda` (inference and
+# `FlashAttention.forward`, the recompute of a checkpointed layer among
+# them), the backward by `flash_attention_bwd_cuda`
 # (`FlashAttention.backward`).
 FLASH_LAUNCHES = 0
 FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_SOFTCAP_LAUNCHES = 0
 FLASH_WIDE_LAUNCHES = 0      # the forward at head dims 129-256 (NC = 16)
 FLASH_PREFIX_LAUNCHES = 0
+FLASH_CROSS_LAUNCHES = 0
+FLASH_NONCAUSAL_LAUNCHES = 0
 FLASH_BWD_LAUNCHES = 0
 FLASH_BWD_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_BWD_SOFTCAP_LAUNCHES = 0
 FLASH_BWD_WIDE_LAUNCHES = 0  # the backward at head dims 129-256
 FLASH_BWD_PREFIX_LAUNCHES = 0
+FLASH_BWD_CROSS_LAUNCHES = 0
+FLASH_BWD_NONCAUSAL_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # The kernel each dtype takes in csrc/flash_attn.cu and csrc/decode_attn.cu.
@@ -76,15 +88,18 @@ BWD_ROUTES = dict(ROUTES)
 MAX_HEAD_DIM = 256     # must match attn::MAX_HEAD_DIM in csrc/attention.cuh
 BWD_MAX_HEAD_DIM = 256  # ... and attn::MAX_BWD_HEAD_DIM
 WIDE_HEAD_DIM = 128     # above it both directions take their NC = 16 plans
-_ITEM = "ROADMAP.md queue 1 item 8.3"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *more: torch.Tensor) -> None:
-    """q, k, v (and `more`, the backward's out and dout) of one shape,
-    dtype and device."""
-    if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, *more)):
-        raise ValueError(f"q, k, v must all be (B, H, S, d), got "
+    """q (B, H, Sq, d) and `more` (the backward's out and dout) of q's
+    shape, k and v (B, H, Sk, d) with Sk >= 1, all of one dtype and
+    device."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
+            k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] or \
+            k.shape[2] < 1 or any(t.shape != q.shape for t in more):
+        raise ValueError(f"q (and out, dout) must be (B, H, Sq, d) and k, v "
+                         f"(B, H, Sk, d) with Sk >= 1, got "
                          f"{[tuple(t.shape) for t in (q, k, v, *more)]}")
     if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype
                                          for t in (k, v, *more)):
@@ -92,6 +107,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {[t.dtype for t in (q, k, v, *more)]}")
     if len({t.device for t in (q, k, v, *more)}) != 1:
         raise ValueError("q, k, v must lie on one device")
+
+
+def check_lengths(sq: int, sk: int, causal: bool, prefix: int = 0) -> None:
+    """Refuse what neither kernel takes, before any launch: causal
+    attention with Sk < Sq (query i sits at key position i + Sk - Sq, so
+    the first rows would have no key) and a prefix with Sq != Sk."""
+    if causal and sk < sq:
+        raise ValueError(f"causal attention needs Sk >= Sq (query i sits at "
+                         f"key position i + Sk - Sq), got Sq {sq}, Sk {sk}")
+    if prefix and sq != sk:
+        raise ValueError(f"a prefix needs Sq == Sk, got Sq {sq}, Sk {sk} "
+                         f"and prefix {prefix}")
 
 
 def softcap_value(softcap: Optional[float]) -> float:
@@ -119,15 +146,17 @@ def prefix_value(prefix: int) -> int:
     return int(prefix)
 
 
-def _mask(s_len: int, causal: bool, window: int, device,
+def _mask(sq: int, sk: int, causal: bool, window: int, device,
           prefix: int = 0) -> torch.Tensor:
-    """(S, S) bool: key j is valid for query i."""
-    pos = torch.arange(s_len, device=device)
-    mask = torch.ones((s_len, s_len), dtype=torch.bool, device=device)
+    """(Sq, Sk) bool: key j is valid for query i, which sits at key
+    position i + Sk - Sq."""
+    pos = torch.arange(sq, device=device) + (sk - sq)
+    key = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
-        mask &= pos[None, :] <= torch.clamp_min(pos[:, None], prefix - 1)
+        mask &= key[None, :] <= torch.clamp_min(pos[:, None], prefix - 1)
     if window > 0:
-        mask &= pos[None, :] > pos[:, None] - window
+        mask &= key[None, :] > pos[:, None] - window
     return mask
 
 
@@ -137,17 +166,18 @@ def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
                               softcap: Optional[float] = None,
                               prefix: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: the full S×S scores in float32,
+    """The plain PyTorch version: the full Sq×Sk scores in float32,
     softcapped where asked, the kernel's masks and its guard for rows with
-    no valid key. Returns (out in q's dtype, lse (B, H, S) f32)."""
+    no valid key. Returns (out in q's dtype, lse (B, H, Sq) f32)."""
     _check(q, k, v)
     prefix = prefix_value(prefix)
-    s_len, d = q.shape[2], q.shape[3]
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    check_lengths(sq, sk, causal, prefix)
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
         * (1.0 / d ** 0.5)
     logits = apply_softcap(logits, softcap_value(softcap))
     logits = logits.masked_fill(
-        ~_mask(s_len, causal, window, q.device, prefix), float("-inf"))
+        ~_mask(sq, sk, causal, window, q.device, prefix), float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -176,11 +206,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     """The plain version of the backward, step by step in f32 from the
     forward's `out` and `lse` (taken over the softcapped scores where a
     softcap is given), under the forward's masks: (dq, dk, dv) in q's
-    dtype. A row whose lse is -inf (no valid key) contributes nothing."""
+    dtype (dq like q, dk and dv like k). A row whose lse is -inf (no valid
+    key) contributes nothing."""
     _check(q, k, v, out, dout)
     cap = softcap_value(softcap)
     prefix = prefix_value(prefix)
-    s_len, d = q.shape[2], q.shape[3]
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    check_lengths(sq, sk, causal, prefix)
     scale = 1.0 / d ** 0.5
     qf, kf, vf = q.float(), k.float(), v.float()
     of, dof, lse = out.float(), dout.float(), lse.float()
@@ -188,7 +220,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     if cap:
         t = torch.tanh(logits / cap)
         logits = cap * t
-    valid = _mask(s_len, causal, window, q.device, prefix) \
+    valid = _mask(sq, sk, causal, window, q.device, prefix) \
         & torch.isfinite(lse)[..., None]
     p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
     dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
@@ -204,13 +236,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _launch_fn():
     return entry("flash_attn_launch",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _bwd_launch_fn():
     return entry("flash_attn_bwd_launch",
-                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -221,8 +253,7 @@ def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} has no backward: the decode kernel serves decode steps "
-            "only, and LM training attends through the flash kernels (what "
-            f"is left of the LM side, {_ITEM}: the encoder-decoder). Call "
+            "only, and LM training attends through the flash kernels. Call "
             "it under torch.no_grad() or torch.inference_mode(), or on "
             "inputs that do not require grad")
 
@@ -237,15 +268,16 @@ def refuse_wide_backward(d: int) -> None:
             f"{d} (no configuration of the reference goes past 256)")
 
 
-def _check_cuda(name: str, window: int, softcap: Optional[float],
-                prefix: int = 0, **tensors: torch.Tensor) -> float:
+def _check_cuda(name: str, causal: bool, window: int,
+                softcap: Optional[float], prefix: int = 0,
+                **tensors: torch.Tensor) -> float:
     """What the kernels take beyond `_check`: CUDA, contiguous tensors,
     d <= MAX_HEAD_DIM, window >= 0, prefix >= 0, a softcap None or finite
-    and > 0 (tensors by name, q first). Returns the softcap as the kernels
-    take it."""
+    and > 0, the lengths `check_lengths` allows (tensors by name, q and k
+    first). Returns the softcap as the kernels take it."""
     cap = softcap_value(softcap)
-    prefix_value(prefix)
-    q = next(iter(tensors.values()))
+    q, k = list(tensors.values())[:2]
+    check_lengths(q.shape[2], k.shape[2], causal, prefix_value(prefix))
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
     for label, t in tensors.items():
@@ -265,13 +297,14 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One forward launch on PyTorch's current stream (no synchronise);
     writes lse only when asked (inference passes a null pointer)."""
     global FLASH_LAUNCHES, FLASH_SOFTCAP_LAUNCHES, FLASH_WIDE_LAUNCHES, \
-        FLASH_PREFIX_LAUNCHES
+        FLASH_PREFIX_LAUNCHES, FLASH_CROSS_LAUNCHES, FLASH_NONCAUSAL_LAUNCHES
     _check(q, k, v)
-    cap = _check_cuda("flash_attention_cuda", window, softcap, prefix,
-                      q=q, k=k, v=v)
-    b, h, s_len, d = q.shape
+    cap = _check_cuda("flash_attention_cuda", causal, window, softcap,
+                      prefix, q=q, k=k, v=v)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, s_len), dtype=torch.float32,
+    lse = torch.empty((b, h, sq), dtype=torch.float32,
                       device=q.device) if with_lse else None
     if out.numel() == 0:
         return out, lse
@@ -280,7 +313,7 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 b, h, s_len, d, int(causal), window, int(prefix),
+                 b, h, sq, sk, d, int(causal), window, int(prefix),
                  1.0 / d ** 0.5, cap, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
@@ -293,6 +326,10 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         FLASH_WIDE_LAUNCHES += 1
     if prefix:
         FLASH_PREFIX_LAUNCHES += 1
+    if sq != sk:
+        FLASH_CROSS_LAUNCHES += 1
+    if not causal:
+        FLASH_NONCAUSAL_LAUNCHES += 1
     return out, lse
 
 
@@ -302,7 +339,7 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
                              softcap: Optional[float] = None,
                              prefix: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel as training launches it: (out, lse (B, H, S)
+    """The forward kernel as training launches it: (out, lse (B, H, Sq)
     f32), recording no graph (`FlashAttention` is the differentiable
     entry)."""
     return _launch_forward(q, k, v, causal, window, with_lse=True,
@@ -317,32 +354,36 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              prefix: int = 0
                              ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's
-    current stream, counted as one launch: (dq, dk, dv) in q's dtype.
-    `softcap` and `prefix` are the forward's, whose lse (over the
-    softcapped scores) this takes. Raises on any operand the kernels do not
-    take, d > BWD_MAX_HEAD_DIM first (`refuse_wide_backward`)."""
+    current stream, counted as one launch: (dq, dk, dv), dq like q, dk and
+    dv like k. `causal`, `window`, `softcap` and `prefix` are the
+    forward's, whose lse (over the softcapped scores) this takes. Raises on
+    any operand the kernels do not take, d > BWD_MAX_HEAD_DIM first
+    (`refuse_wide_backward`)."""
     global FLASH_BWD_LAUNCHES, FLASH_BWD_SOFTCAP_LAUNCHES, \
-        FLASH_BWD_WIDE_LAUNCHES, FLASH_BWD_PREFIX_LAUNCHES
+        FLASH_BWD_WIDE_LAUNCHES, FLASH_BWD_PREFIX_LAUNCHES, \
+        FLASH_BWD_CROSS_LAUNCHES, FLASH_BWD_NONCAUSAL_LAUNCHES
     refuse_wide_backward(q.shape[-1])
     _check(q, k, v, out, dout)
-    cap = _check_cuda("flash_attention_bwd_cuda", window, softcap, prefix,
-                      q=q, k=k, v=v, out=out, dout=dout, lse=lse)
-    b, h, s_len, d = q.shape
-    if lse.shape != (b, h, s_len) or lse.dtype != torch.float32 or \
+    cap = _check_cuda("flash_attention_bwd_cuda", causal, window, softcap,
+                      prefix, q=q, k=k, v=v, out=out, dout=dout, lse=lse)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
             lse.device != q.device:
-        raise ValueError(f"lse must be ({b}, {h}, {s_len}) float32 on "
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32 on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} "
                          f"on {lse.device}")
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _bwd_launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
                                           dq, dk, dv)),
-                 b, h, s_len, d, int(causal), window, int(prefix),
+                 b, h, sq, sk, d, int(causal), window, int(prefix),
                  1.0 / d ** 0.5, cap, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error "
@@ -355,6 +396,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         FLASH_BWD_WIDE_LAUNCHES += 1
     if prefix:
         FLASH_BWD_PREFIX_LAUNCHES += 1
+    if sq != sk:
+        FLASH_BWD_CROSS_LAUNCHES += 1
+    if not causal:
+        FLASH_BWD_NONCAUSAL_LAUNCHES += 1
     return dq, dk, dv
 
 
@@ -404,13 +449,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap: Optional[float] = None,
                          prefix: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
-    Returns (B, H, S, d) in q's dtype; raises on any operand the kernel does
+    Returns (B, H, Sq, d) in q's dtype; raises on any operand the kernel does
     not take. Where a gradient is asked for, the launch goes through
     `FlashAttention`, which also writes lse and launches the backward."""
     if _wants_grad(q, k, v):
         _check(q, k, v)
-        _check_cuda("flash_attention_cuda", window, softcap, prefix, q=q, k=k,
-                    v=v)
+        _check_cuda("flash_attention_cuda", causal, window, softcap, prefix,
+                    q=q, k=k, v=v)
         return FlashAttention.apply(q, k, v, causal, window, softcap, prefix)
     return _launch_forward(q, k, v, causal, window, with_lse=False,
                            softcap=softcap, prefix=prefix)[0]

@@ -75,16 +75,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: Optional[float] = None,
                     prefix: int = 0) -> torch.Tensor:
-    """Causal/windowed flash attention over (B, H, S, d) — the prefill hot
-    spot; `softcap` c turns each score x into c · tanh(x / c) (None: no
-    softcap; under autograd the backward kernel carries the cap); with
-    `causal`, the first `prefix` positions attend to each other in both
-    directions (key j valid for query i iff j <= max(i, prefix - 1): the
-    reference's M-RoPE vision block; 0 is plain causal attention). Returns
-    (B, H, S, d) in q's dtype.
+    """Flash attention of q (B, H, Sq, d) over k, v (B, H, Sk, d) — the
+    prefill hot spot. Query i sits at key position i + Sk - Sq: with
+    `causal` key j is valid for it iff j <= i + Sk - Sq (Sk >= Sq; Sk > Sq
+    is attention against a KV cache of Sk - Sq earlier positions), and
+    with a `window` w iff also j > i + Sk - Sq - w; without `causal` every
+    key is valid (the encoder-decoder's encoder at Sq = Sk and its
+    cross-attention at Sq != Sk). `softcap` c turns each score x into
+    c · tanh(x / c) (None: no softcap; under autograd the backward kernel
+    carries the cap); with `causal` and Sq = Sk, the first `prefix`
+    positions attend to each other in both directions (key j valid for
+    query i iff j <= max(i, prefix - 1): the reference's M-RoPE vision
+    block; 0 is plain causal attention). Returns (B, H, Sq, d) in q's
+    dtype.
 
     The reference's `block_q`, `block_k` and `interpret` arguments are
-    TPU-only and not taken; S need not be a multiple of any block.
+    TPU-only and not taken, and its kernel takes one S; neither length
+    need be a multiple of any block here.
     """
     return flash_attention_blocks(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,

@@ -31,9 +31,11 @@ config and needs `--arch` (`yi_6b`, `yi_9b`, `deepseek_7b`, `gemma2_27b`,
 whose local layers decode into ring caches of min(window, prompt + steps
 + 1) slots, the MoE archs `mixtral_8x22b` and `kimi_k2_1t_a32b`, the
 recurrent archs `xlstm_125m` and `recurrentgemma_2b`, whose recurrent
-layers step an O(1) state, or `qwen2_vl_72b`, which decodes as the
-reference does, with plain RoPE at the index and no vision input); the
-full config is `serve(get_config(arch), init_params(...), ...)`.
+layers step an O(1) state, `qwen2_vl_72b`, which decodes as the
+reference does, with plain RoPE at the index and no vision input, or the
+encoder-decoder `seamless_m4t_medium`, whose encoder runs once over f32
+zero frames as in the reference); the full config is
+`serve(get_config(arch), init_params(...), ...)`.
 """
 from __future__ import annotations
 
@@ -49,10 +51,14 @@ def serve(cfg, params, prompts: np.ndarray, steps: int = 8) -> np.ndarray:
 
     The prefill is teacher-forced through `decode_step`, one token at a
     time, as in the reference (a chunked prefill through `forward` is the
-    production variant); then each step feeds back the argmax. Runs under
-    `torch.inference_mode()`; the tokens stay on the device until the end.
+    production variant); then each step feeds back the argmax. An
+    encoder-decoder config encodes once first, as the reference does, over
+    f32 zero frames (B, audio_frames, d_model) (the reference's stub of
+    an audio input), and every step attends over that `enc_out`. Runs
+    under `torch.inference_mode()`; the tokens stay on the device until
+    the end.
     """
-    from repro_torch.models import decode_step, init_decode_state
+    from repro_torch.models import decode_step, encode, init_decode_state
 
     b, s0 = prompts.shape
     if s0 < 1:
@@ -61,15 +67,22 @@ def serve(cfg, params, prompts: np.ndarray, steps: int = 8) -> np.ndarray:
     with torch.inference_mode():
         state = init_decode_state(cfg, b, max_len=s0 + steps + 1,
                                   device=device)
+        enc_out = None
+        if cfg.is_enc_dec:
+            audio = torch.zeros((b, cfg.audio_frames, cfg.d_model),
+                                dtype=torch.float32, device=device)
+            enc_out = encode(cfg, params, audio)
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                device=device)
         for t in range(s0):
-            logits, state = decode_step(cfg, params, toks[:, t:t + 1], state)
+            logits, state = decode_step(cfg, params, toks[:, t:t + 1], state,
+                                        enc_out=enc_out)
         out = []
         tok = torch.argmax(logits, dim=-1)
         for _ in range(steps):
             out.append(tok[:, 0])
-            logits, state = decode_step(cfg, params, tok, state)
+            logits, state = decode_step(cfg, params, tok, state,
+                                        enc_out=enc_out)
             tok = torch.argmax(logits, dim=-1)
         if not out:
             return np.zeros((b, 0), np.int32)
@@ -256,7 +269,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "gcn", "continuous"),
                     default="lm")
-    ap.add_argument("--arch", help="lm mode: arch id, e.g. yi_6b")
+    ap.add_argument("--arch", help="lm mode: any arch id of the registry, "
+                    "e.g. yi_6b or seamless_m4t_medium")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--steps", type=int, default=8)

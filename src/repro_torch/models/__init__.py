@@ -1,4 +1,5 @@
-"""Models served by the port: the paper's GCN and the dense GQA LMs.
+"""Models served by the port: the paper's GCN and the LM zoo (decoder
+stacks of every block kind and the encoder-decoder).
 
 `params_from_numpy` is the GCN's; the LM's is
 `repro_torch.models.transformer.params_from_numpy`.
@@ -13,6 +14,7 @@ from repro_torch.models.gcn import (
 )
 from repro_torch.models.transformer import (
     decode_step,
+    encode,
     forward,
     init_decode_state,
     init_params,
@@ -21,7 +23,7 @@ from repro_torch.models.transformer import (
 )
 
 __all__ = ["ArchConfig", "BlockKind",
-           "init_params", "forward", "lm_loss", "init_decode_state",
-           "decode_step", "param_count",
+           "init_params", "encode", "forward", "lm_loss",
+           "init_decode_state", "decode_step", "param_count",
            "GCNConfig", "gcn_forward", "gcn_init", "gcn_loss",
            "params_from_numpy"]

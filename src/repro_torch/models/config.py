@@ -1,6 +1,5 @@
 """Architecture configuration of the LM zoo: the same dataclass as
-`repro.models.config`, copied whole (it is pure data). The port's
-transformer runs the dense `ATTN` subset and raises on the rest."""
+`repro.models.config`, copied whole (it is pure data)."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,25 +1,28 @@
 """Transformer building blocks of the LM path: RMSNorm, RoPE and
-Qwen2-VL's multimodal M-RoPE, GQA self-attention through the flash kernel
+Qwen2-VL's multimodal M-RoPE, GQA attention through the flash kernel
 (differentiable: its backward is the hand-written backward kernel), within
 a sliding window and with an attention softcap where the config asks
 (Gemma-2), with the vision block's bidirectional prefix under M-RoPE
-(Qwen2-VL), SwiGLU MLP, and the top-k MoE feed-forward with the
-reference's capacity-bounded dispatch (Mixtral 8x22B, Kimi K2).
+(Qwen2-VL), against a KV cache (`cache=`) or an encoder's K/V
+(`cross_kv=`, the encoder-decoder's cross-attention and SeamlessM4T's
+bidirectional encoder), SwiGLU MLP, and the top-k MoE feed-forward with
+the reference's capacity-bounded dispatch (Mixtral 8x22B, Kimi K2).
 
 Conventions, as in `repro.models.layers`:
   * params are dicts of tensors; weights stored (in_dim, out_dim).
   * activations (B, S, D); attention internals (B, H, S, hd).
   * every function takes `cfg` first where it needs one.
+  * mixed operands promote as JAX promotes them (`matmul`, `mm`): a f32
+    activation times a bf16 weight is a f32 product.
 
-Not ported yet, each raising where the reference would take it:
-attention with a KV cache (`cache=`; the decode path attends through
-`transformer.decode_step`) or with encoder K/V (`cross_kv=`), both
-ROADMAP.md queue 1 item 8.3; and the sharding hints (`mesh_axes`, item
-9).
+Left out, each raising where the reference would take it: a key mask for
+cross-attention (`cross_mask`; no reference caller passes one, and the
+kernels take no per-row key mask) and the sharding hints (`mesh_axes`,
+ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,13 +30,26 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 
-_ENC_DEC = "ROADMAP.md queue 1 item 8.3, the encoder-decoder"
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two, as `jnp.matmul` (the
+    reference's `@`) computes a product of mixed operands: f32 times bf16
+    is a f32 product. `torch.matmul` itself refuses mixed dtypes."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
 
 
 def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Matmul in the activation dtype: bf16 in, bf16 out, the products
     summed in f32 by cuBLAS on the card (the reference pins its dot to the
-    activation dtype for the same wire width)."""
+    activation dtype for the same wire width). Mixed operands multiply in
+    their promoted dtype, as `jnp.dot` promotes them, and the product
+    takes a's dtype (the reference's preferred_element_type): the encoder
+    of a bf16 SeamlessM4T runs in f32 on the f32 frames `serve` feeds it."""
+    if a.dtype != w.dtype:
+        return mm(a, w).to(a.dtype)
     return torch.matmul(a, w)
 
 
@@ -121,61 +137,129 @@ def attention(
     positions: torch.Tensor,             # (B, S) or (3, B, S) for M-RoPE
     *,
     sliding_window: Optional[int] = None,
-    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache: Optional[Dict[str, Any]] = None,
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cross_mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, None]:
-    """Causal GQA self-attention over the whole sequence through
-    `ops.flash_attention`. KV heads are repeated to hq as in the
-    reference (`repeat_interleave`, so autograd sums dK and dV over each
-    group, as `jnp.repeat`'s transpose does); the kernel never materializes
-    the S×S scores, so the reference's query chunking has no counterpart.
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """GQA attention through `ops.flash_attention`, as the reference's
+    `attention`: causal self-attention over the sequence, or against a KV
+    cache (`cache`), or cross-attention over an encoder's K/V (`cross_kv`).
+    KV heads are repeated to hq as in the reference (`repeat_interleave`,
+    so autograd sums dK and dV over each group, as `jnp.repeat`'s
+    transpose does); the kernel never materializes the scores, so the
+    reference's query chunking has no counterpart. The kernel softcaps the
+    scores by `cfg.attn_softcap` before the mask, as the reference's
+    `_attn_core` does. Returns (out (B, S, D) in x's dtype, the new cache
+    or None).
 
-    `positions` are the tokens' positions 0..S-1 (`transformer.
-    _build_positions`): RoPE reads them; the causal mask, and with
-    `sliding_window` w the window (keys j > i - w), are by index. Under
-    M-RoPE (`cfg.mrope_sections`) positions are (3, B, S), q and k rotate
-    by `apply_mrope`, and the causal mask has the bidirectional prefix of
-    `mrope_prefix`: the reference's mask by temporal id, which makes the
-    vision block attend to itself in both directions. The kernel softcaps
-    the scores by `cfg.attn_softcap` before the mask, as the reference's
-    `_attn_core` does. Returns (out (B, S, D), None): there is no cache to
-    return.
+    Self-attention: `positions` are the tokens' positions 0..S-1
+    (`transformer._build_positions`): RoPE reads them; the causal mask, and
+    with `sliding_window` w the window (keys j > i - w), are by index.
+    Under M-RoPE (`cfg.mrope_sections`) positions are (3, B, S), q and k
+    rotate by `apply_mrope`, and the causal mask has the bidirectional
+    prefix of `mrope_prefix`: the reference's mask by temporal id, which
+    makes the vision block attend to itself in both directions.
+
+    `cross_kv` = (k, v), each (B, n_kv_heads, Sk, hd), already projected:
+    no RoPE on q or k, no mask (every key is valid), `cache` ignored, as
+    in the reference. q is projected from x; the kernel runs in the
+    promoted dtype of q, k and v (f32 K/V from a f32 encoder output give a
+    f32 q, exactly its bf16 values, on the f32 route), as `_attn_core`
+    computes the scores in f32 and the probabilities in v's dtype. At
+    S = 1 without autograd (the decode step) the decode kernel takes it,
+    one query per head over lens = Sk keys; otherwise the flash kernel,
+    non-causal, with a key length of its own. `cross_mask` (a per-row key
+    mask, which no reference caller passes) raises NotImplementedError.
+
+    `cache` = {"k", "v": (B, n_kv_heads, L, hd), "len": an int or a 0-d
+    tensor, read on the host once a call}: this call's K and V (after
+    RoPE) are written at [len, len + S) of the cache tensors, in place, and
+    the returned cache holds the same tensors with "len" = len + S (the
+    reference returns new arrays). The queries attend causally over the
+    first len + S keys, query i at key position len + i (the reference's
+    mask kv_pos <= q_pos & kv_pos < len + S), within the window where
+    given. The kernel masks by index and the reference by position, so
+    positions other than len + arange(S) raise ValueError (for M-RoPE, the
+    temporal ids), as does len + S past the cache.
     """
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be >= 1, got "
                          f"{sliding_window}")
-    if cache is not None:
+    if cross_mask is not None:
         raise NotImplementedError(
-            f"attention with a KV cache is not ported yet ({_ENC_DEC}); "
-            "decode through transformer.decode_step")
-    if cross_kv is not None or cross_mask is not None:
-        raise NotImplementedError(
-            f"cross-attention is not ported yet ({_ENC_DEC})")
-    prefix = 0
-    if cfg.mrope_sections is not None:
-        prefix = mrope_prefix(cfg, positions)
+            "cross_mask (a per-row key mask for cross-attention) is not "
+            "ported: no caller of the reference passes one, and the flash "
+            "and decode kernels take no per-row key mask")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     group = hq // hkv
+    softcap = cfg.attn_softcap
 
     q = matmul(x, p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
-    k = matmul(x, p["wk"]).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = matmul(x, p["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
-    if cfg.mrope_sections is not None:
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    new_cache = None
+    window, causal, prefix = sliding_window or 0, True, 0
+    if cross_kv is not None:
+        k, v = cross_kv
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        if s == 1 and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v))):
+            lens = torch.full((b,), k.shape[2], dtype=torch.int32,
+                              device=q.device)
+            out = ops.decode_attention(q[:, :, 0], k, v, lens,
+                                       softcap=softcap)
+            out = out.reshape(b, 1, hq * hd)
+            return matmul(out.to(x.dtype), p["wo"]), None
+        window, causal = 0, False
     else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = matmul(x, p["wk"]).reshape(b, s, hkv, hd).transpose(1, 2)
+        v = matmul(x, p["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
+        if cfg.mrope_sections is not None:
+            if cache is None:
+                prefix = mrope_prefix(cfg, positions)
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        if cache is not None:
+            k, v, new_cache = _cache_write(cache, k, v, positions)
+            dt = torch.promote_types(q.dtype, k.dtype)
+            q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if group > 1:
         k = torch.repeat_interleave(k, group, dim=1)
         v = torch.repeat_interleave(v, group, dim=1)
-    out = ops.flash_attention(q, k, v, causal=True,
-                              window=sliding_window or 0,
-                              softcap=cfg.attn_softcap, prefix=prefix)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, prefix=prefix)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return matmul(out.to(x.dtype), p["wo"]), None
+    return matmul(out.to(x.dtype), p["wo"]), new_cache
+
+
+def _cache_write(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor) -> tuple:
+    """Write k, v (B, n_kv, S, hd) at [len, len + S) of the cache, in
+    place: (the cache's first len + S keys and values, the new cache).
+    Raises ValueError where the kernel's mask by index would not be the
+    reference's mask by position, or the cache is too short."""
+    idx = cache["len"]
+    n, s = int(idx), k.shape[2]
+    cap = cache["k"].shape[2]
+    if n < 0 or n + s > cap:
+        raise ValueError(f"a cache of {cap} positions cannot take {s} more "
+                         f"at len {n}")
+    q_pos = positions if positions.dim() == 2 else positions[0]
+    want = torch.arange(n, n + s, device=q_pos.device)
+    if not torch.equal(q_pos, want.to(q_pos.dtype).expand_as(q_pos)):
+        raise ValueError(f"attention with a cache takes the positions len + "
+                         f"arange(S) = {n}..{n + s - 1} (the kernel masks by "
+                         f"index, the reference by position), got "
+                         f"{q_pos.tolist()}")
+    ck, cv = cache["k"], cache["v"]
+    ck[:, :, n:n + s] = k.to(ck.dtype)
+    cv[:, :, n:n + s] = v.to(cv.dtype)
+    return (ck[:, :, :n + s], cv[:, :, :n + s],
+            {"k": ck, "v": cv, "len": idx + s})
 
 
 def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,231 @@
+"""Stacked per-layer params and the scan paths of
+`repro.models.stacked`.
+
+The reference stacks the params of each position of the arch's block
+pattern (its "unit") along a leading axis and runs `lax.scan` over the
+repeats, so that XLA compiles one unit, not every layer. Here the scan is
+a Python loop over views of the stacked leaves, and the layers are the
+unrolled path's own (`transformer._layer_apply`, `_encoder_layer`,
+`decode_layers`), so both paths compute the same function on the same
+weights. The layout is the reference's:
+
+  * params["scan"][j]: the unit's j-th layer of every repeat, each leaf
+    (R, ...), R = n_layers // len(unit);
+  * params["rest"]: the n_layers % len(unit) layers after them, unstacked;
+  * params["enc_scan"]: the encoder's layers, each leaf (encoder_layers,
+    ...), for an encoder-decoder;
+  * the other leaves (embed, final_norm, lm_head, enc_norm, vision_proj,
+    audio_proj) as in `init_params`.
+
+`init_params_stacked` draws what `init_params` draws from the same
+generator; `params_from_numpy_stacked` carries the reference's stacked
+tree across; `stack_params` and `unstack_params` convert between the two
+layouts. With `cfg.remat` under autograd, `forward_scan` checkpoints each
+repeat of the unit and `encode_scan` each encoder layer, as the
+reference's scan bodies are checkpointed; the remainder layers are not.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ArchConfig, BlockKind
+
+
+def unit_kinds(cfg: ArchConfig) -> List[BlockKind]:
+    """The block pattern the scan repeats: `cfg.block_pattern`, else the
+    first `local_global_pattern` kinds, else the first layer's kind."""
+    if cfg.block_pattern:
+        return [BlockKind(b) for b in cfg.block_pattern]
+    kinds = cfg.blocks()
+    if cfg.local_global_pattern:
+        return kinds[: cfg.local_global_pattern]
+    return kinds[:1]
+
+
+def group_split(cfg: ArchConfig) -> Tuple[int, int]:
+    """(repeats R, remainder layers)."""
+    u = len(unit_kinds(cfg))
+    return cfg.n_layers // u, cfg.n_layers % u
+
+
+def _stack(trees: List[Any]) -> Any:
+    """The trees' leaves stacked along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, np.ndarray):
+        return np.stack(trees)
+    return torch.stack(trees)
+
+
+def _view(tree: Any, i: int) -> Any:
+    """Entry i of every stacked leaf (views, not copies)."""
+    if isinstance(tree, Mapping):
+        return {k: _view(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _group(cfg: ArchConfig, layers: List[Any]) -> Tuple[List[Any], List[Any]]:
+    """Per-layer trees in layer order as (scan, rest)."""
+    u = len(unit_kinds(cfg))
+    r, _ = group_split(cfg)
+    scan = [_stack([layers[rep * u + j] for rep in range(r)])
+            for j in range(u)] if r else []
+    return scan, list(layers[r * u:])
+
+
+def _layers(cfg: ArchConfig, scan: List[Any], rest: List[Any]) -> List[Any]:
+    """The per-layer trees in layer order, views into `scan`."""
+    r, _ = group_split(cfg)
+    return [_view(unit_j, rep) for rep in range(r) for unit_j in scan] \
+        + list(rest)
+
+
+def stack_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """`init_params`' layout (tensors or numpy arrays) in the stacked one."""
+    out = {k: v for k, v in params.items()
+           if k not in ("layers", "enc_layers")}
+    out["scan"], out["rest"] = _group(cfg, params["layers"])
+    if cfg.is_enc_dec:
+        out["enc_scan"] = _stack(params["enc_layers"])
+    return out
+
+
+def unstack_params(cfg: ArchConfig, params: Dict[str, Any]
+                   ) -> Dict[str, Any]:
+    """The stacked layout in `init_params`' (each layer's leaves views of
+    the stacked ones)."""
+    out = {k: v for k, v in params.items()
+           if k not in ("scan", "rest", "enc_scan")}
+    out["layers"] = _layers(cfg, params["scan"], params["rest"])
+    if cfg.is_enc_dec:
+        out["enc_layers"] = [_view(params["enc_scan"], i)
+                             for i in range(cfg.encoder_layers)]
+    return out
+
+
+def init_params_stacked(cfg: ArchConfig, generator: torch.Generator,
+                        device: "str | torch.device" = "cuda"
+                        ) -> Dict[str, Any]:
+    """The weights `init_params(cfg, generator, device)` draws, stacked:
+    the same values, as the reference's `init_params_stacked` draws what
+    its `init_params` draws."""
+    return stack_params(cfg, T.init_params(cfg, generator, device))
+
+
+def params_from_numpy_stacked(cfg: ArchConfig, tree: Mapping[str, Any],
+                              device: "str | torch.device"
+                              ) -> Dict[str, Any]:
+    """Carry the reference's stacked param tree (numpy leaves) onto
+    `device`, values and dtypes unchanged; raises where its structure or
+    shapes differ from `cfg`'s (`transformer.params_from_numpy`)."""
+    flat = unstack_params(cfg, {k: v for k, v in tree.items()})
+    return stack_params(cfg, T.params_from_numpy(cfg, flat, device))
+
+
+def encode_scan(cfg: ArchConfig, params: Dict[str, Any],
+                audio_embeds: torch.Tensor) -> torch.Tensor:
+    """`transformer.encode` over the stacked encoder layers."""
+    enc = {"audio_proj": params["audio_proj"],
+           "enc_norm": params["enc_norm"],
+           "enc_layers": [_view(params["enc_scan"], i)
+                          for i in range(cfg.encoder_layers)]}
+    return T.encode(cfg, enc, audio_embeds)
+
+
+def _unit_apply(cfg: ArchConfig, kinds: List[BlockKind], scan: List[Any],
+                rep: int, x: torch.Tensor, positions: torch.Tensor,
+                enc_out: Optional[torch.Tensor]) -> tuple:
+    """Repeat `rep` of the unit: (x, its aux loss)."""
+    aux = torch.zeros((), device=x.device)
+    for kind, unit_j in zip(kinds, scan):
+        x, a = T._layer_apply(cfg, kind, _view(unit_j, rep), x, positions,
+                              enc_out)
+        aux = aux + a
+    return x, aux
+
+
+def forward_scan(cfg: ArchConfig, params: Dict[str, Any],
+                 tokens: torch.Tensor,
+                 vision_embeds: Optional[torch.Tensor] = None,
+                 audio_embeds: Optional[torch.Tensor] = None,
+                 last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`transformer.forward` over stacked params: (logits, aux loss), the
+    logits of the last position alone with `last_only` (a serving
+    prefill's next token)."""
+    enc_out = (encode_scan(cfg, params, audio_embeds)
+               if T.needs_audio(cfg, audio_embeds) else None)
+    x, positions = T._embed(cfg, params, tokens, vision_embeds)
+    kinds = unit_kinds(cfg)
+    r, _ = group_split(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), device=x.device)
+    for rep in range(r):
+        if remat:
+            x, a = checkpoint(_unit_apply, cfg, kinds, params["scan"], rep,
+                              x, positions, enc_out, use_reentrant=False)
+        else:
+            x, a = _unit_apply(cfg, kinds, params["scan"], rep, x,
+                               positions, enc_out)
+        aux = aux + a
+    blocks = cfg.blocks()
+    for i, p in enumerate(params["rest"]):
+        x, a = T._layer_apply(cfg, blocks[r * len(kinds) + i], p, x,
+                              positions, enc_out)
+        aux = aux + a
+    if last_only:
+        x = x[:, -1:]
+    return T._logits(cfg, params, x), aux
+
+
+def lm_loss_scan(cfg: ArchConfig, params: Dict[str, Any],
+                 tokens: torch.Tensor, labels: torch.Tensor,
+                 vision_embeds=None, audio_embeds=None) -> torch.Tensor:
+    """Mean next-token NLL (+ 0.01 × aux) of `forward_scan`, in f32, as
+    the reference's: log Z by the running max, the gold logit picked out
+    (the reference's one-hot einsum, which sums one nonzero product)."""
+    logits, aux = forward_scan(cfg, params, tokens, vision_embeds,
+                               audio_embeds)
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold) + 0.01 * aux
+
+
+def init_decode_state_stacked(cfg: ArchConfig, batch: int, max_len: int,
+                              dtype: Optional[torch.dtype] = None, *,
+                              device: "str | torch.device" = "cuda"
+                              ) -> Dict[str, Any]:
+    """`init_decode_state` grouped like the params: state["scan"][j] with
+    leaves (R, ...) for unit position j, state["rest"] unrolled."""
+    flat = T.init_decode_state(cfg, batch, max_len, dtype, device=device)
+    scan, rest = _group(cfg, flat["layers"])
+    return {"pos": flat["pos"], "scan": scan, "rest": rest}
+
+
+def decode_step_scan(cfg: ArchConfig, params: Dict[str, Any],
+                     token: torch.Tensor, state: Dict[str, Any],
+                     enc_out: Optional[torch.Tensor] = None) -> tuple:
+    """`transformer.decode_step` over stacked params and state: (logits,
+    new state). The stacked state is updated in place: caches are written
+    through views of the stacked tensors, and each recurrent layer's new
+    state is copied into its slice; the new state holds the same tensors
+    with `pos` advanced by one."""
+    states = _layers(cfg, state["scan"], state["rest"])
+    logits, new = T.decode_layers(
+        cfg, params, _layers(cfg, params["scan"], params["rest"]), states,
+        token, state["pos"], enc_out)
+    for old, st in zip(states, new):
+        if st is not old:
+            for name, t in st.items():
+                old[name].copy_(t)
+    r, _ = group_split(cfg)
+    rest = states[r * len(unit_kinds(cfg)):]
+    return logits, {"pos": state["pos"] + 1, "scan": state["scan"],
+                    "rest": rest}

@@ -1,5 +1,5 @@
-"""The decoder stack of `repro.models.transformer` without the encoder and
-the audio frontend: every layer an `ATTN` block (RMSNorm, causal GQA
+"""The stacks of `repro.models.transformer`: a decoder whose every layer is
+an `ATTN` block (RMSNorm, causal GQA
 self-attention with RoPE, RMSNorm, SwiGLU MLP), as in Yi-6B, Yi-9B and
 DeepSeek-7B, or with M-RoPE and the vision input, as in Qwen2-VL-72B; a
 `LOCAL_ATTN` block, the same within a sliding window, as
@@ -10,6 +10,17 @@ them; or a recurrent block (`models.recurrent`): `SLSTM` and `MLSTM`, as
 xLSTM-125M mixes them, and `RGLRU` (a GeLU gate times the temporal conv
 and RG-LRU branch), as RecurrentGemma-2B alternates two with a local
 attention layer. A recurrent block has an MLP only where `cfg.d_ff` is set.
+
+The encoder-decoder (SeamlessM4T-medium, `cfg.encoder_layers` > 0):
+`encode` projects precomputed audio frames (B, frames, d_model) by
+`audio_proj` (the reference's stub of a speech frontend) and runs the
+encoder's `ATTN` layers bidirectionally (self-attention through
+`cross_kv` against itself: no RoPE, no mask), then `enc_norm`; every
+decoder layer carries `ln_x` and `xattn` and, in `forward` and
+`decode_step`, attends after its self-attention over the encoder output
+(cross-attention, K and V projected from `enc_out` in every layer on every
+call, as the reference does). A config without an encoder ignores
+`audio_embeds`, as the reference's does.
 
 As in the reference, only `LOCAL_ATTN` layers take `sliding_window`: an
 MoE config's layers are all `MOE` blocks, which attend over every earlier
@@ -39,8 +50,7 @@ not the forward's (ROADMAP.md queue 3, R6).
 `torch.utils.checkpoint` per layer here, taken only while autograd records
 (never under `torch.no_grad()` or `torch.inference_mode()`): the backward
 recomputes each layer's forward, flash launch included. The sharding hints
-(`mesh_axes`) have no argument. The encoder-decoder and the audio input
-raise `NotImplementedError` (ROADMAP.md queue 1 item 8.3).
+(`mesh_axes`) have no argument.
 """
 from __future__ import annotations
 
@@ -56,7 +66,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ArchConfig, BlockKind
 
-_ITEM = "ROADMAP.md queue 1 item 8.3"
 _ATTENTION = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE)
 # The param key of each recurrent block kind, as the reference names it.
 _RECURRENT_KEY = {BlockKind.MLSTM: "mlstm", BlockKind.SLSTM: "slstm",
@@ -65,18 +74,6 @@ _RECURRENT_KEY = {BlockKind.MLSTM: "mlstm", BlockKind.SLSTM: "slstm",
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    unported = [name for name, on in (
-        ("an encoder-decoder", cfg.is_enc_dec),
-        ("an audio frontend", cfg.audio_frames > 0),
-    ) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported to repro_torch "
-            f"yet ({_ITEM}); the port runs decoder stacks of every block "
-            "kind, with M-RoPE and the vision input")
 
 
 # --------------------------------------------------------------------------
@@ -118,34 +115,47 @@ def _param_spec(cfg: ArchConfig) -> Dict[str, Any]:
                 "lambda": ((w,), _Fill(0.6)),
                 "w_out": ((w, d), w ** -0.5)}
 
-    def layer(kind: BlockKind) -> Dict[str, Any]:
+    def attn() -> Dict[str, Any]:
+        return {"wq": ((d, hq * hd), s), "wk": ((d, hkv * hd), s),
+                "wv": ((d, hkv * hd), s),
+                "wo": ((hq * hd, d), (hq * hd) ** -0.5)}
+
+    def layer(kind: BlockKind, cross: bool) -> Dict[str, Any]:
         p: Dict[str, Any] = {"ln1": ((d,), None)}
         if kind not in _ATTENTION:
             p[_RECURRENT_KEY[kind]] = recurrent(kind)
             if cfg.d_ff:
                 p["ln2"] = ((d,), None)
                 p["mlp"] = mlp()
-            return p
-        p["attn"] = {"wq": ((d, hq * hd), s), "wk": ((d, hkv * hd), s),
-                     "wv": ((d, hkv * hd), s),
-                     "wo": ((hq * hd, d), (hq * hd) ** -0.5)}
-        p["ln2"] = ((d,), None)
-        if kind == BlockKind.MOE:            # the reference's _init_moe
-            e, f = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
-            p["moe"] = {"w_router": ((d, e), s), "w_gate": ((e, d, f), s),
-                        "w_up": ((e, d, f), s),
-                        "w_down": ((e, f, d), f ** -0.5)}
-        elif cfg.d_ff:
-            p["mlp"] = mlp()
+        else:
+            p["attn"] = attn()
+            p["ln2"] = ((d,), None)
+            if kind == BlockKind.MOE:            # the reference's _init_moe
+                e, f = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
+                p["moe"] = {"w_router": ((d, e), s),
+                            "w_gate": ((e, d, f), s),
+                            "w_up": ((e, d, f), s),
+                            "w_down": ((e, f, d), f ** -0.5)}
+            elif cfg.d_ff:
+                p["mlp"] = mlp()
+        if cross:                 # every decoder layer of an encoder-decoder
+            p["ln_x"] = ((d,), None)
+            p["xattn"] = attn()
         return p
 
     spec: Dict[str, Any] = {"embed": ((cfg.vocab, d), s),
                             "final_norm": ((d,), None)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.vocab), s)
-    spec["layers"] = [layer(kind) for kind in cfg.blocks()]
+    spec["layers"] = [layer(kind, cfg.is_enc_dec) for kind in cfg.blocks()]
+    if cfg.is_enc_dec:
+        spec["enc_layers"] = [layer(BlockKind.ATTN, False)
+                              for _ in range(cfg.encoder_layers)]
+        spec["enc_norm"] = ((d,), None)
     if cfg.n_vision_tokens:         # the stub projection of patch embeddings
         spec["vision_proj"] = ((d, d), s)
+    if cfg.audio_frames:            # ... and of audio frame embeddings
+        spec["audio_proj"] = ((d, d), s)
     return spec
 
 
@@ -173,7 +183,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     constant lambda, as the reference draws them, made on `device` in
     `cfg.dtype` one tensor at a time from `generator` (a generator on that
     device)."""
-    _check_supported(cfg)
     device = torch.device(device)
     if generator.device.type != device.type:
         raise ValueError(f"the generator lies on {generator.device}, the "
@@ -198,7 +207,6 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
     `jax.tree_util.tree_map(np.asarray, params)`) onto `device`, values and
     dtypes unchanged; raises where its structure or shapes differ from
     `cfg`'s."""
-    _check_supported(cfg)
 
     def carry(path, leaf, arr):
         arr = np.asarray(arr)
@@ -251,12 +259,30 @@ def _recurrent_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     return (gate * R.rglru_train(rp, lin)) @ rp["w_out"]
 
 
+def _cross_attend(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
+                  positions: torch.Tensor,
+                  enc_out: torch.Tensor) -> torch.Tensor:
+    """A decoder layer's cross-attention block: x plus attention of
+    rms_norm(x, ln_x) over K and V projected from `enc_out` (B, frames,
+    d_model) by `xattn`, in the promoted dtype of the two (a f32 encoder
+    output gives f32 K and V under bf16 weights, as the reference's `@`)."""
+    b, frames, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    ek, ev = (L.mm(enc_out, p["xattn"][w]).reshape(
+        b, frames, hkv, hd).transpose(1, 2) for w in ("wk", "wv"))
+    out, _ = L.attention(cfg, p["xattn"], L.rms_norm(x, p["ln_x"]),
+                         positions, cross_kv=(ek, ev))
+    return x + out
+
+
 def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
-                 x: torch.Tensor, positions: torch.Tensor
+                 x: torch.Tensor, positions: torch.Tensor,
+                 enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block: (x, aux loss). Only a LOCAL_ATTN block attends within
-    `cfg.sliding_window`, as the reference's; a recurrent block adds its
-    mixer's output, then its MLP where it has one."""
+    `cfg.sliding_window`, as the reference's; with `enc_out` an attention
+    block attends over it after its self-attention; a recurrent block adds
+    its mixer's output, then its MLP where it has one."""
     h = L.rms_norm(x, p["ln1"])
     if kind not in _ATTENTION:
         x = x + _recurrent_apply(cfg, kind, p, h)
@@ -267,6 +293,8 @@ def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     attn_out, _ = L.attention(cfg, p["attn"], h, positions,
                               sliding_window=window)
     x = x + attn_out
+    if enc_out is not None:
+        x = _cross_attend(cfg, p, x, positions, enc_out)
     ffn_out, aux = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
     if ffn_out is not None:
         x = x + ffn_out
@@ -305,6 +333,82 @@ def _logits(cfg: ArchConfig, params: Dict[str, Any],
     return logits
 
 
+def _encoder_layer(cfg: ArchConfig, p: Dict[str, Any], e: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """One encoder layer: bidirectional self-attention, routed as the
+    reference routes it through `cross_kv` against itself (no RoPE, no
+    mask), then the MLP."""
+    b, frames, _ = e.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    h = L.rms_norm(e, p["ln1"])
+    ek, ev = (L.mm(h, p["attn"][w]).reshape(b, frames, hkv, hd).transpose(
+        1, 2) for w in ("wk", "wv"))
+    out, _ = L.attention(cfg, p["attn"], h, positions, cross_kv=(ek, ev))
+    e = e + out
+    if "mlp" in p:
+        e = e + L.mlp(p["mlp"], L.rms_norm(e, p["ln2"]))
+    return e
+
+
+def encode(cfg: ArchConfig, params: Dict[str, Any],
+           audio_embeds: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frontend frames
+    `audio_embeds` (B, frames, d_model), as the reference's `encode`:
+    `audio_proj` (multiplied in the promoted dtype, then rounded to the
+    frames' dtype), each encoder layer (`_encoder_layer`; one flash launch
+    each, non-causal, Sq = Sk = frames, or the decode kernel at one frame
+    without autograd), then `enc_norm`. The activations keep the frames'
+    dtype: the f32 frames of `launch.serve.serve` run a bf16 model's
+    encoder in f32, as in the reference. With `cfg.remat` under autograd
+    each layer goes through `torch.utils.checkpoint`, as `forward`'s do.
+    Returns (B, frames, d_model); compute it once per request batch and
+    pass it to every `decode_step`."""
+    b, frames = audio_embeds.shape[:2]
+    e = L.mm(audio_embeds, params["audio_proj"]).to(audio_embeds.dtype)
+    positions = torch.arange(frames, dtype=torch.int32,
+                             device=e.device)[None, :].expand(b, frames)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in params["enc_layers"]:
+        if remat:
+            e = checkpoint(_encoder_layer, cfg, p, e, positions,
+                           use_reentrant=False)
+        else:
+            e = _encoder_layer(cfg, p, e, positions)
+    return L.rms_norm(e, params["enc_norm"])
+
+
+def needs_audio(cfg: ArchConfig,
+                audio_embeds: Optional[torch.Tensor]) -> bool:
+    """Whether `forward` runs the encoder: True for an encoder-decoder
+    config, which then needs `audio_embeds` (ValueError without them,
+    where the reference asserts); False otherwise, `audio_embeds` or
+    not."""
+    if cfg.is_enc_dec and audio_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs "
+                         "audio_embeds (B, frames, d_model), the encoder's "
+                         "frames")
+    return cfg.is_enc_dec
+
+
+def _embed(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
+           vision_embeds: Optional[torch.Tensor]) -> tuple:
+    """The decoder's input: (x (B, S, d_model), positions), the first
+    n_vision_tokens embeddings replaced by the projected `vision_embeds`
+    where the config has a vision frontend and they are given."""
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    nv = cfg.n_vision_tokens
+    if nv and vision_embeds is not None:
+        if vision_embeds.shape != (b, nv, cfg.d_model):
+            raise ValueError(f"vision_embeds must be ({b}, {nv}, "
+                             f"{cfg.d_model}), got "
+                             f"{tuple(vision_embeds.shape)}")
+        vis = (vision_embeds.float() @ params["vision_proj"].float()).to(
+            x.dtype)
+        x = torch.cat([vis, x[:, nv:]], dim=1)
+    return x, _build_positions(cfg, b, s, x.device)
+
+
 def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             vision_embeds: Optional[torch.Tensor] = None,
             audio_embeds: Optional[torch.Tensor] = None
@@ -322,31 +426,25 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     and rounds once to the activation dtype. As in the reference,
     `vision_embeds` is ignored by a config without a vision frontend, and
     a vision config without it attends with the same positions and mask
-    over the token embeddings alone."""
-    _check_supported(cfg)
-    if audio_embeds is not None:
-        raise NotImplementedError(f"audio inputs are not ported yet "
-                                  f"({_ITEM})")
-    b, s = tokens.shape
-    x = params["embed"][tokens]
-    nv = cfg.n_vision_tokens
-    if nv and vision_embeds is not None:
-        if vision_embeds.shape != (b, nv, cfg.d_model):
-            raise ValueError(f"vision_embeds must be ({b}, {nv}, "
-                             f"{cfg.d_model}), got "
-                             f"{tuple(vision_embeds.shape)}")
-        vis = (vision_embeds.float() @ params["vision_proj"].float()).to(
-            x.dtype)
-        x = torch.cat([vis, x[:, nv:]], dim=1)
-    positions = _build_positions(cfg, b, s, x.device)
+    over the token embeddings alone.
+
+    An encoder-decoder config (`cfg.is_enc_dec`) needs `audio_embeds`
+    (B, frames, d_model), which `encode` runs first (ValueError without
+    them, where the reference asserts); every decoder layer then attends
+    over the encoder output, one more flash launch a layer (non-causal, Sq
+    = S, Sk = frames). A config without an encoder ignores
+    `audio_embeds`, as the reference's does."""
+    enc_out = (encode(cfg, params, audio_embeds)
+               if needs_audio(cfg, audio_embeds) else None)
+    x, positions = _embed(cfg, params, tokens, vision_embeds)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), device=x.device)
     for kind, p in zip(cfg.blocks(), params["layers"]):
         if remat:
             x, aux = checkpoint(_layer_apply, cfg, kind, p, x, positions,
-                                use_reentrant=False)
+                                enc_out, use_reentrant=False)
         else:
-            x, aux = _layer_apply(cfg, kind, p, x, positions)
+            x, aux = _layer_apply(cfg, kind, p, x, positions, enc_out)
         aux_total = aux_total + aux
     return _logits(cfg, params, x), aux_total
 
@@ -380,7 +478,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     state: f32 whatever `dtype` (the mLSTM's c, n, m; the sLSTM's c, n, h,
     m; the RG-LRU's h), but the RG-LRU's conv window (B, conv_width - 1,
     W), in `dtype`."""
-    _check_supported(cfg)
     dt = dtype or _dtype(cfg)
     layers: List[Dict[str, torch.Tensor]] = []
     for kind in cfg.blocks():
@@ -476,14 +573,30 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
     layers alone has no bound, as in the reference. An MOE layer routes the
     step's B tokens together, its capacity reckoned from T = B, as the
     reference's `moe_ffn` does.
+
+    With `enc_out` (`encode`'s output) each decoder layer that has
+    `xattn` attends over it after its self-attention, K and V projected
+    from it again on every step, as in the reference: the decode kernel
+    with lens = frames, one more launch a layer. Without it the
+    cross-attention blocks are skipped, as the reference skips them.
     """
-    _check_supported(cfg)
-    if enc_out is not None:
-        raise NotImplementedError(f"encoder outputs are not ported yet "
-                                  f"({_ITEM})")
+    logits, layers = decode_layers(cfg, params, params["layers"],
+                                   state["layers"], token, state["pos"],
+                                   enc_out)
+    return logits, {"pos": state["pos"] + 1, "layers": layers}
+
+
+def decode_layers(cfg: ArchConfig, params: Dict[str, Any],
+                  layer_params: List[Dict[str, Any]],
+                  layer_states: List[Dict[str, torch.Tensor]],
+                  token: torch.Tensor, pos: int,
+                  enc_out: Optional[torch.Tensor] = None) -> tuple:
+    """`decode_step`'s body over the decoder layers' params and states in
+    layer order (`models.stacked` passes views of its stacked leaves):
+    (logits (B, 1, V), the layers' new states). Caches are written in
+    place; a recurrent layer's new state is a new dict of new tensors."""
     b = token.shape[0]
-    pos = state["pos"]
-    full = [st["k"].shape[2] for st in state["layers"]
+    full = [st["k"].shape[2] for st in layer_states
             if "k" in st and "slot_pos" not in st]
     if pos < 0 or (full and pos >= min(full)):
         raise ValueError(f"position {pos} is outside the cache of "
@@ -492,8 +605,8 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
     kinds = cfg.blocks()
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     lens: Dict[int, torch.Tensor] = {}       # by valid length
-    layers = list(state["layers"])
-    for li, p in enumerate(params["layers"]):
+    layers = list(layer_states)
+    for li, p in enumerate(layer_params):
         st, kind = layers[li], kinds[li]
         h = L.rms_norm(x, p["ln1"])
         if kind not in _ATTENTION:
@@ -508,7 +621,9 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
         if n not in lens:
             lens[n] = torch.full((b,), n, dtype=torch.int32, device=x.device)
         x = x + _decode_attn(cfg, p["attn"], h, st, pos, posb, lens[n])
+        if enc_out is not None and "xattn" in p:
+            x = _cross_attend(cfg, p, x, posb, enc_out)
         ffn_out, _ = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
         if ffn_out is not None:
             x = x + ffn_out
-    return _logits(cfg, params, x), {"pos": pos + 1, "layers": layers}
+    return _logits(cfg, params, x), layers

@@ -254,6 +254,69 @@ def test_flash_softcap_matches_attn_core(causal, window, softcap):
         assert float((out - plain).abs().max()) > 0.1
 
 
+@pytest.mark.parametrize("softcap", [None, 1.0])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (5, 17, False, 0), (1, 31, False, 0), (40, 16, False, 0),
+    (33, 64, False, 0), (24, 40, True, 0), (24, 40, True, 7),
+    (1, 40, True, 0), (1, 40, True, 5)])
+def test_flash_key_length_of_its_own_matches_attn_core(sq, sk, causal,
+                                                       window, softcap):
+    """Both plain flash directions with Sq != Sk against the reference's
+    `_attn_core` and `jax.vjp` of it: non-causal (cross-attention, every
+    key valid), and causal with query i at key position i + Sk - Sq (the
+    reference's cache mask kv_pos <= q_pos for q_pos = len + i), within a
+    window where given. float32, atol 1e-5 on the output and on dq, dk,
+    dv."""
+    rng = np.random.default_rng(sq * 1000 + sk + window)
+    b, h, d = 2, 3, 16
+    q = _normal(rng, (b, h, sq, d))
+    k, v = (_normal(rng, (b, h, sk, d)) for _ in range(2))
+    dout = _normal(rng, (b, h, sq, d))
+    q_pos, kv_pos = np.arange(sq) + sk - sq, np.arange(sk)
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask &= kv_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= kv_pos[None, :] > q_pos[:, None] - window
+    mask = jnp.asarray(np.broadcast_to(mask, (b, sq, sk)))
+    ref, vjp = jax.vjp(
+        lambda q_, k_, v_: r_layers._attn_core(q_, k_, v_, mask, softcap),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp(jnp.asarray(dout))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    out = p_ops.flash_attention(qt, kt, vt, causal=causal, window=window,
+                                softcap=softcap)
+    out.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=F32_TOL)
+    for got, want in zip((qt.grad, kt.grad, vt.grad), ref_grads):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=F32_TOL)
+
+
+def test_flash_refuses_lengths_the_kernels_cannot_mask():
+    """Causal with Sk < Sq (the first rows would have no key) and a prefix
+    with Sq != Sk raise ValueError in both plain versions, as the CUDA
+    wrappers do before any launch; Sk = 0 is no key length at all."""
+    q, k = torch.zeros((1, 2, 8, 16)), torch.zeros((1, 2, 5, 16))
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="Sk >= Sq"):
+        p_flash.flash_attention_plain(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="Sk >= Sq"):
+        p_flash.flash_attention_bwd_plain(q, k, k, q, q, lse, causal=True)
+    with pytest.raises(ValueError, match="prefix"):
+        p_flash.flash_attention_plain(k, q, q, causal=True, prefix=3)
+    with pytest.raises(ValueError, match="Sk >= Sq"):
+        p_flash.flash_attention_cuda(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="Sk >= 1"):
+        p_flash.flash_attention_plain(q, k[:, :, :0], k[:, :, :0],
+                                      causal=False)
+    out = p_flash.flash_attention_plain(q, k, k, causal=False)
+    assert out.shape == q.shape
+
+
 def _decode_case(ring: bool, softcap: float, seed: int):
     """A one-token decode layer for both packages: the reference's cfg,
     weights, input and state (a full cache of 24 positions at pos 17, or a

@@ -1,7 +1,7 @@
 """The port's public names against the JAX package's: for each subpackage
 of `repro` that declares `__all__`, the port's `__all__` holds every name
-but those still to port (`STILL_TO_PORT`, ROADMAP queue 1 item 8), and each
-name resolves. `kernels` exports the four wrappers and `ref`, as
+but those still to port (`STILL_TO_PORT`, empty since `models.encode`
+came with the encoder-decoder), and each name resolves. `kernels` exports the four wrappers and `ref`, as
 `repro.kernels` does, and importing it builds nothing. `train` holds the
 reference's names exactly since the LM half of the train loop and the
 gradient compression were ported."""
@@ -17,11 +17,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ["checkpoint", "core", "data", "io", "kernels", "models",
                "runtime", "sparse", "train"]
-# Names of the reference's `__all__`s the port does not have yet. A later
-# slice that ports one removes it here.
-STILL_TO_PORT = {
-    "models": {"encode"},
-}
+# Names of the reference's `__all__`s the port does not have yet: none.
+STILL_TO_PORT = {}
 # Subpackages whose `__all__` must equal the reference's exactly.
 EQUAL = ["data", "kernels", "runtime", "sparse", "train"]
 

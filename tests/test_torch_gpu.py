@@ -3,14 +3,16 @@ flash-attention and GQA flash-decode kernels against their plain PyTorch
 versions (the SpMM also at the autotuner's bucket widths; both attention
 kernels also with Gemma-2's attention softcap and at RecurrentGemma's head
 dim 256, in both directions, and the flash kernels with Qwen2-VL's
-bidirectional vision prefix), and the
+bidirectional vision prefix and with a key length of their own, the
+encoder-decoder's), and the
 serving engine (sharded, with replicated workers and a warm start among
 them, autotuned, through edge-delta updates, and under the continuous
 serving loop), the differentiable
 engine and its fused layer, the schedulers' execute mode, a coalesced
 stream, and the dense LM's forward, decode and serve on the card against
 themselves on the CPU or against float64 (Gemma-2's past its window and
-its rings' wrap among them, and the recurrent archs'); and that importing the
+its rings' wrap among them, the recurrent archs' and SeamlessM4T's); and
+that importing the
 kernels package builds nothing until the first launch.
 
 Marked `gpu`: each test decides inside itself whether a card is present
@@ -1808,5 +1810,143 @@ def test_recurrent_archs_on_card_match_cpu(arch):
             np.testing.assert_allclose(card[name].float().cpu().numpy(),
                                        cpu[name].float().numpy(), atol=1e-4)
     prompts = tokens[:, :20].numpy().astype(np.int32)
+    np.testing.assert_array_equal(serve(cfg, on_card, prompts, steps=5),
+                                  serve(cfg, params, prompts, steps=5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,window", [
+    # Non-causal with a key length of its own (cross-attention) across
+    # both routes' tiles.
+    (2, 3, 1, 17, 64, False, 0),
+    (2, 3, 31, 64, 64, False, 0),
+    (2, 3, 65, 1000, 128, False, 0),
+    (1, 2, 512, 1024, 64, False, 0),
+    (1, 2, 130, 40, 128, False, 0),
+    (1, 2, 65, 300, 256, False, 0),
+    # The encoder: non-causal at Sq = Sk.
+    (2, 2, 129, 129, 64, False, 0),
+    # Causal with off = Sk - Sq > 0 (attention against a KV cache).
+    (2, 3, 1, 100, 128, True, 0),
+    (2, 3, 64, 200, 128, True, 0),
+    (1, 2, 130, 1000, 64, True, 100),
+    (1, 2, 65, 300, 256, True, 50),
+])
+def test_flash_key_length_of_its_own_matches_plain_versions(
+        b, h, sq, sk, d, causal, window, dtype):
+    """Both directions with q (B, H, Sq, d) and k, v (B, H, Sk, d) against
+    their plain versions on both routes: the forward within ATTN_TOL, dQ,
+    dK, dV within BWD_TOL; launches counted as cross where Sq != Sk and as
+    non-causal without the mask."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q, dout = _attn_inputs((b, h, sq, d), dtype, dev, seed=sq + sk)[:2]
+    k, v = _attn_inputs((b, h, sk, d), dtype, dev, seed=sq + sk + 1)[:2]
+    kw = {"causal": causal, "window": window}
+    counts = (fmod.FLASH_CROSS_LAUNCHES, fmod.FLASH_BWD_CROSS_LAUNCHES,
+              fmod.FLASH_NONCAUSAL_LAUNCHES, fmod.FLASH_BWD_NONCAUSAL_LAUNCHES)
+    with torch.no_grad():
+        out = fmod.flash_attention_cuda(q, k, v, **kw)
+        o, lse = fmod.flash_attention_lse_cuda(q, k, v, **kw)
+        got = fmod.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal,
+                                            window)
+        plain = fmod.flash_attention_plain(q, k, v, **kw)
+        want = fmod.flash_attention_bwd_plain(q, k, v, o, dout, lse, causal,
+                                              window)
+    torch.cuda.synchronize()
+    cross, free = int(sq != sk), int(not causal)
+    assert (fmod.FLASH_CROSS_LAUNCHES, fmod.FLASH_BWD_CROSS_LAUNCHES,
+            fmod.FLASH_NONCAUSAL_LAUNCHES,
+            fmod.FLASH_BWD_NONCAUSAL_LAUNCHES) == (
+        counts[0] + 2 * cross, counts[1] + cross, counts[2] + 2 * free,
+        counts[3] + free)
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+    _bwd_close(got, want)
+
+
+def test_flash_refuses_lengths_before_any_launch():
+    """Causal with Sk < Sq and a prefix with Sq != Sk raise on the card
+    before a launch is made or counted."""
+    dev = _card()
+    from repro_torch.kernels import flash_attn as fmod
+    q = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.bfloat16)
+    k = q[:, :, :32].contiguous()
+    before = fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES
+    with pytest.raises(ValueError, match="Sk >= Sq"):
+        fmod.flash_attention_cuda(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="Sk >= Sq"):
+        fmod.flash_attention_bwd_cuda(
+            q, k, k, q, q, torch.zeros((1, 2, 64), device=dev), True)
+    with pytest.raises(ValueError, match="prefix"):
+        fmod.flash_attention_cuda(q, k, k, causal=False, prefix=4)
+    assert (fmod.FLASH_LAUNCHES, fmod.FLASH_BWD_LAUNCHES) == before
+
+
+def test_seamless_on_card_matches_cpu():
+    """SeamlessM4T's SMOKE config in f32: `encode`, `forward`, `lm_loss`
+    gradients (the cross and encoder attentions through both flash
+    directions, non-causal), teacher-forced `decode_step(enc_out=)` (the
+    cross step through the decode kernel) and `serve`, the card against
+    the CPU (the plain versions)."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn as dmod
+    from repro_torch.kernels import flash_attn as fmod
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (
+        decode_step, encode, forward, init_decode_state, init_params,
+        lm_loss,
+    )
+    from repro_torch.train.optim import tree_leaves, tree_map
+    cfg = get_config("seamless_m4t_medium", smoke=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=gen)
+    audio = torch.randn((2, cfg.audio_frames, cfg.d_model), generator=gen)
+    before = (fmod.FLASH_CROSS_LAUNCHES, fmod.FLASH_BWD_NONCAUSAL_LAUNCHES,
+              dmod.DECODE_LAUNCHES)
+    grads = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        live = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+        loss = lm_loss(cfg, live, tokens.to(device),
+                       torch.roll(tokens, -1, 1).to(device),
+                       audio_embeds=audio.to(device))
+        grads[name] = [g.cpu() for g in torch.autograd.grad(
+            loss, tree_leaves(live))]
+    for g_card, g_cpu in zip(grads["card"], grads["cpu"]):
+        scale = max(float(g_cpu.abs().max()), 1e-30)
+        assert float((g_card - g_cpu).abs().max()) <= 1e-4 * scale
+    steps = {}
+    with torch.inference_mode():
+        np.testing.assert_allclose(
+            encode(cfg, on_card, audio.to(dev)).cpu().numpy(),
+            encode(cfg, params, audio).numpy(), atol=1e-4)
+        ref, _ = forward(cfg, params, tokens, audio_embeds=audio)
+        out, _ = forward(cfg, on_card, tokens.to(dev),
+                         audio_embeds=audio.to(dev))
+        for name, p, device in (("cpu", params, "cpu"),
+                                ("card", on_card, dev)):
+            enc = encode(cfg, p, audio.to(device))
+            state = init_decode_state(cfg, 2, 26, device=device)
+            rows = []
+            for t in range(24):
+                logits, state = decode_step(cfg, p, tokens[:, t:t + 1].to(
+                    device), state, enc_out=enc)
+                rows.append(logits[:, 0].cpu())
+            steps[name] = torch.stack(rows, 1)
+    n = cfg.n_layers
+    assert fmod.FLASH_CROSS_LAUNCHES - before[0] == 2 * n      # fwd, loss
+    assert fmod.FLASH_BWD_NONCAUSAL_LAUNCHES - before[1] == \
+        n + cfg.encoder_layers
+    assert dmod.DECODE_LAUNCHES - before[2] == 2 * n * 24
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(steps["card"].numpy(), steps["cpu"].numpy(),
+                               atol=1e-4)
+    prompts = tokens[:, :10].numpy().astype(np.int32)
     np.testing.assert_array_equal(serve(cfg, on_card, prompts, steps=5),
                                   serve(cfg, params, prompts, steps=5))

@@ -55,8 +55,10 @@ DENSE = ("yi_6b", "yi_9b", "deepseek_7b")
 MOE = ("mixtral_8x22b", "kimi_k2_1t_a32b")
 RECURRENT = ("xlstm_125m", "recurrentgemma_2b")
 # Qwen2-VL's model tests (M-RoPE, the vision input) are in
-# tests/test_torch_qwen.py.
-PORTED = DENSE + ("gemma2_27b",) + MOE + RECURRENT + ("qwen2_vl_72b",)
+# tests/test_torch_qwen.py, SeamlessM4T's (the encoder-decoder) in
+# tests/test_torch_encdec.py.
+PORTED = DENSE + ("gemma2_27b",) + MOE + RECURRENT + ("qwen2_vl_72b",
+                                                      "seamless_m4t_medium")
 AUX_TOL = 1e-6
 
 
@@ -140,38 +142,44 @@ def test_dense_configs_equal_reference(arch, smoke):
 
 
 def test_registry_matches_reference_and_refuses_unported_archs():
+    """Every arch of the reference's registry is ported now, so `get_config`
+    returns a config for each id (the name stays from when one was
+    refused); an unknown id still raises."""
     assert p_configs.arch_ids() == r_configs.arch_ids()
     assert p_configs.SHAPES == r_configs.SHAPES
-    unported = set(r_configs.arch_ids()) - set(PORTED)
-    assert len(unported) == 1
-    for arch in sorted(unported):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            p_configs.get_config(arch)
+    assert set(r_configs.arch_ids()) == set(PORTED)
+    for arch in p_configs.arch_ids():
+        assert p_configs.get_config(arch).name == r_configs.get_config(
+            arch).name
     with pytest.raises(KeyError):
         p_configs.get_config("no_such_arch")
     assert p_configs.get_config("yi-6b").name == "yi-6b"     # alias
 
 
 def test_model_refuses_unported_configs():
-    """An encoder-decoder and an audio frontend raise; a sliding window, an
-    attention softcap, MoE layers, recurrent blocks, M-RoPE and a vision
-    frontend are ported now and build (the vision frontend with its
-    `vision_proj`)."""
+    """Every config field of the reference's zoo builds now: a sliding
+    window, an attention softcap, MoE layers, recurrent blocks, M-RoPE, a
+    vision frontend (with its `vision_proj`), and since the
+    encoder-decoder came, an encoder (`enc_layers`, `enc_norm`, and
+    `ln_x` and `xattn` in every decoder layer) and an audio frontend
+    (`audio_proj`). The name stays from when the last two raised."""
     base = p_configs.get_config("yi_6b", smoke=True)
-    for bad in (dict(encoder_layers=2), dict(audio_frames=16)):
-        cfg = dataclasses.replace(base, **bad)
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            p_tf.init_params(cfg, torch.Generator(), device="cpu")
     for ported in (dict(sliding_window=8), dict(attn_softcap=50.0),
                    dict(sliding_window=8, local_global_pattern=2),
                    dict(n_experts=4, top_k=2, expert_d_ff=32),
                    dict(block_pattern=("rglru", "attn")),
                    dict(mrope_sections=(2, 3, 3)),
-                   dict(mrope_sections=(2, 3, 3), n_vision_tokens=4)):
+                   dict(mrope_sections=(2, 3, 3), n_vision_tokens=4),
+                   dict(encoder_layers=2), dict(audio_frames=16),
+                   dict(encoder_layers=2, audio_frames=16)):
         cfg = dataclasses.replace(base, **ported)
         params = p_tf.init_params(cfg, torch.Generator(), device="cpu")
         assert len(params["layers"]) == cfg.n_layers
         assert ("vision_proj" in params) == bool(cfg.n_vision_tokens)
+        assert ("audio_proj" in params) == bool(cfg.audio_frames)
+        assert len(params.get("enc_layers", [])) == cfg.encoder_layers
+        assert all(("xattn" in p) == cfg.is_enc_dec
+                   for p in params["layers"])
 
 
 def test_params_from_numpy_carries_every_leaf(model):
@@ -355,18 +363,26 @@ def test_serve_matches_reference(model):
 
 
 def test_attention_refuses_unported_arguments():
-    """A KV cache and cross-attention still raise, and the MoE
-    feed-forward (ported now) refuses sharding hints; a sliding window and
-    the softcap are taken (the window must be at least 1)."""
+    """A key mask for cross-attention (`cross_mask`) raises, and the MoE
+    feed-forward refuses sharding hints; a KV cache and cross-attention
+    are taken since the encoder-decoder came (tests/test_torch_encdec.py
+    holds them to the reference), as are a sliding window and the softcap
+    (the window must be at least 1)."""
     cfg = p_configs.get_config("yi_6b", smoke=True)
     params = p_tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     p = params["layers"][0]["attn"]
     x = torch.zeros((1, 4, cfg.d_model))
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="cache"):
-        p_layers.attention(cfg, p, x, pos, cache={"k": x, "v": x, "len": 0})
-    with pytest.raises(NotImplementedError, match="cross"):
-        p_layers.attention(cfg, p, x, pos, cross_kv=(x, x))
+    kv = torch.zeros((1, cfg.n_kv_heads, 6, cfg.hd))
+    with pytest.raises(NotImplementedError, match="cross_mask"):
+        p_layers.attention(cfg, p, x, pos, cross_kv=(kv, kv),
+                           cross_mask=torch.ones((1, 6), dtype=torch.bool))
+    out, _ = p_layers.attention(cfg, p, x, pos, cross_kv=(kv, kv))
+    assert out.shape == x.shape
+    cache = {"k": torch.zeros((1, cfg.n_kv_heads, 8, cfg.hd)),
+             "v": torch.zeros((1, cfg.n_kv_heads, 8, cfg.hd)), "len": 0}
+    out, new = p_layers.attention(cfg, p, x, pos, cache=cache)
+    assert out.shape == x.shape and new["len"] == 4
     moe_cfg = p_configs.get_config("mixtral_8x22b", smoke=True)
     moe_p = p_tf.init_params(moe_cfg, torch.Generator().manual_seed(0),
                              "cpu")["layers"][0]["moe"]
