@@ -257,7 +257,42 @@ non-zero without a result line:
                (60.9 GB of weights), as lm_serve (decode launches = 12 x
                160, flash launches = 12), the decode-vs-forward check under
                MOE_FLIP_RULE.
- 29. rgemma_check — RecurrentGemma-2B's widths cut to 2 float32 layers
+ 29. moe_train_check — Mixtral 8x22B's widths cut to 2 f32 layers, no
+               remat, one sequence of 512 tokens: `lm_loss` gradients
+               through the flash kernel and the backward (f32 FMA routes)
+               against float64 autograd of the script's own forward, routed
+               as the port routed (the picks `RouterSpy` saw, so no
+               near-tie flips a token's expert) and with the aux term, in
+               passes of at most 7 GiB of float64 tensors; every layer
+               tensor (attention, norms, w_router, w_gate, w_up, w_down)
+               and the final norm within LM_GRAD_REL_TOL, the loss within
+               LM_REL_TOL; the picks float64 would make otherwise and the
+               dropped assignments printed.
+ 30. moe_train — Mixtral 8x22B's bf16 CONFIG cut to 1 layer, remat on
+               (2.91e9 parameters): `train_loop` with Adafactor, two
+               microbatches of TokenPipeline(32768, 512, 4) a step, int8 EF
+               compression, 4 steps; the first loss within
+               LM_TRAIN_LOSS_TOL of float64 (routed as the port's forward
+               routed step 0's batch, the aux term added), step 0's batch
+               lower after the steps; every flash forward, recompute and
+               backward on the tensor-core route at d = 128, none
+               softcapped. Prints ms per step, tokens/s, peak bytes, one
+               profiled step by kind, step 0's aux losses and dropped
+               assignments per microbatch.
+ 31. moe_shard_map_check — `models.moe_shard_map` on a one-rank NCCL
+               group (a HashStore) under a (1, 1) ("data", "model")
+               DeviceMesh: one Mixtral layer's experts at published widths,
+               2 x 128 tokens at capacity factor 8; the output, aux and
+               gradients (x, router, the three banks) against `moe_ffn`'s
+               in f32 within LM_REL_TOL and LM_GRAD_REL_TOL, the bf16
+               output within LM_BF16_TOL; the all-to-all bytes and one
+               call's time printed.
+ 32. mesh_check — a child process on the "fake" process-group backend:
+               `make_production_mesh` over 256 and 512 ranks, Mixtral's and
+               Kimi K2's full-size stacked meta params through
+               `tree_pspecs` and `tree_placements`, every leaf
+               `distribute_tensor`ed with the local shape its spec implies.
+ 33. rgemma_check — RecurrentGemma-2B's widths cut to 2 float32 layers
                (an RG-LRU, then a local attention layer at head dim 256):
                `forward` on one 2112-token sequence (the window of 2048
                bites) and teacher-forced `decode_step` over it (the ring of
@@ -266,20 +301,20 @@ non-zero without a result line:
                the wrap and the last 64, within LM_REL_TOL; flash launches
                = 1, decode launches = 2112, every one on the f32 FMA route
                at d = 256.
- 30. xlstm_check — xLSTM-125M's widths cut to 2 float32 layers (an sLSTM,
+ 34. xlstm_check — xLSTM-125M's widths cut to 2 float32 layers (an sLSTM,
                then an mLSTM), batch 2 x 128: `forward` and teacher-forced
                decode against the script's own float64 forward (both
                blocks stepped over time) within LM_REL_TOL; no attention
                launch at all.
- 31. rgemma_serve — full RecurrentGemma-2B (26 layers, bf16, 7.1 GB of
+ 35. rgemma_serve — full RecurrentGemma-2B (26 layers, bf16, 7.1 GB of
                weights from --seed), as lm_serve: `serve` (decode launches =
                8 x 160: its 8 local layers), `forward` on one 4096-token
                sequence (flash launches = 8; the window bites) and the
                decode-vs-forward check; every launch on the tensor-core
                route at d = 256.
- 32. xlstm_serve — full xLSTM-125M (12 layers, bf16), as lm_serve with a
+ 36. xlstm_serve — full xLSTM-125M (12 layers, bf16), as lm_serve with a
                2048-token prefill; no attention launch.
- 33. rgemma_train_check — rgemma_check's model (an RG-LRU, then a local
+ 37. rgemma_train_check — rgemma_check's model (an RG-LRU, then a local
                layer at d = 256, float32) on one 2112-token sequence, no
                remat: `lm_loss` gradients through the flash kernel and the
                backward's d = 256 instance (f32 FMA routes), the RG-LRU
@@ -288,7 +323,7 @@ non-zero without a result line:
                tensor and the final norm within LM_GRAD_REL_TOL (the
                embedding's and head's checked finite); one flash and one
                backward launch, both at d = 256.
- 34. rgemma_train — RecurrentGemma-2B's bf16 CONFIG at full width and
+ 38. rgemma_train — RecurrentGemma-2B's bf16 CONFIG at full width and
                depth (26 layers, 8 local, remat on): `train_loop` with
                Adafactor, two microbatches of TokenPipeline(256000, 4096,
                1) a step (the window of 2048 bites in the backward), int8
@@ -298,7 +333,7 @@ non-zero without a result line:
                tensor-core route at d = 256, 16 backward launches a step.
                Prints ms per step, tokens/s, peak bytes and one profiled
                step by kind.
- 35. qwen_check — Qwen2-VL-72B's widths cut to 2 float32 layers, batch 2 x
+ 39. qwen_check — Qwen2-VL-72B's widths cut to 2 float32 layers, batch 2 x
                512 with 256 vision embeddings from --seed: `forward` with
                them against the script's own float64 forward (M-RoPE, the
                vision block's bidirectional mask), teacher-forced
@@ -308,13 +343,13 @@ non-zero without a result line:
                among them) within LM_GRAD_REL_TOL; every flash launch,
                forward and backward, with the prefix of 256 on the f32 FMA
                route.
- 36. qwen_serve — Qwen2-VL-72B's bf16 CONFIG cut to 32 of 80 layers (61.3
+ 40. qwen_serve — Qwen2-VL-72B's bf16 CONFIG cut to 32 of 80 layers (61.3
                GB of weights), as lm_serve: `serve` (decode launches = 32 x
                160), `forward` on one 4096-token sequence with 256 vision
                embeddings (flash launches = 32, every one with the prefix
                of 256 on the tensor-core route), and decode against a
                forward without M-RoPE and the prefix (QWEN_DECODE_RULE).
- 37. seamless_check — SeamlessM4T-medium's widths (the full vocabulary of
+ 41. seamless_check — SeamlessM4T-medium's widths (the full vocabulary of
                256,206) cut to 2 encoder and 2 decoder layers, float32,
                batch 2 x 512 over 1024 frames from --seed: `encode`,
                `forward` and teacher-forced `decode_step(enc_out=)`
@@ -324,7 +359,7 @@ non-zero without a result line:
                among them) within LM_GRAD_REL_TOL; every launch on the f32
                FMA route, the encoder's and the cross-attention's flash
                launches non-causal, the cross ones at Sq != Sk.
- 38. seamless_serve — full SeamlessM4T-medium (12 + 12 layers, bf16, 1.96
+ 42. seamless_serve — full SeamlessM4T-medium (12 + 12 layers, bf16, 1.96
                GB of weights from --seed): `serve` (the reference's f32
                zero frames encoded once, 12 flash launches on the f32
                route; per step 12 self-attention decode launches on the
@@ -333,7 +368,7 @@ non-zero without a result line:
                (36 flash launches, 12 of them cross at Sq = 4096, Sk =
                1024), and a teacher-forced decode held to that prefill
                within LM_BF16_TOL.
- 39. seamless_train — SeamlessM4T-medium's bf16 CONFIG at full width and
+ 43. seamless_train — SeamlessM4T-medium's bf16 CONFIG at full width and
                depth, remat on: `train_loop` with Adafactor, two
                microbatches of TokenPipeline(256206, 512, 4) a step, each
                with (4, 1024, 1024) bf16 frames from --seed, int8 EF, 4
@@ -341,20 +376,20 @@ non-zero without a result line:
                step 0's batch lower after the steps; every flash forward,
                recompute and backward on the tensor-core route, the
                encoder's and cross-attention's non-causal.
- 40. stacked_check — `models.stacked` in float32 at full width:
+ 44. stacked_check — `models.stacked` in float32 at full width:
                seamless_check's model and RecurrentGemma-2B cut to 4
                layers (its unit of 3 once, one remainder layer):
                `forward_scan` and teacher-forced `decode_step_scan`
                against `forward` and `decode_step` on the same weights
                within the reference test's atol 2e-4 and rtol 1e-4,
                bit-for-bit equality printed.
- 41. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
+ 45. experts — one Kimi K2 layer's expert bank (384 experts, 33.8 GB of
                bf16 in pinned host memory, drawn on the card from --seed)
                streamed through `StreamedWeightProvider(2 GiB, align 8,
                depth 2)`: 16 blocks of 24 experts, each block's range and
                shapes, sampled rows bit for bit against the host bank, the
                uploaded bytes the bank's; prints the StreamStats and GB/s.
- 42. timing  — each kernel, its plain version and a PyTorch yardstick the
+ 46. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound;
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
@@ -389,7 +424,7 @@ non-zero without a result line:
                backward (4, 16, 512, 64) over 1024 frames, the encoder
                (4, 16, 1024, 64) both ways) beside SDPA without a mask, and
                the decode kernel's cross step (4, 16, 1, 64) over 1024.
- 43. phase_seconds, kernels — each phase's seconds; the summary line
+ 47. phase_seconds, kernels — each phase's seconds; the summary line
                (softcapped, d = 256, prefixed, cross (Sq != Sk) and
                non-causal launches by path among it, the backward's by
                route, softcap, d = 256 and prefix), then the card's name
@@ -398,7 +433,8 @@ non-zero without a result line:
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
 warm, tune, update, partition, continuous, lm_check, lm_train_check, each
 run of lm_train, lm_serve, gemma_check, gemma_serve, gemma_train_check,
-gemma_train, moe_check, mixtral_serve, rgemma_check, xlstm_check,
+gemma_train, moe_check, mixtral_serve, moe_train_check, moe_train,
+rgemma_check, xlstm_check,
 rgemma_serve, xlstm_serve, rgemma_train_check, rgemma_train, qwen_check,
 qwen_serve, seamless_check, seamless_serve, seamless_train, stacked_check)
 runs with the launch counters set
@@ -512,6 +548,23 @@ GEMMA_TRAIN_STEPS = 4          # gemma_train: Adafactor steps of 2 x (4, 512)
 # little room for the 4096-token prefill.
 MIXTRAL_SERVE_LAYERS = 12
 EXPERTS_BUDGET = 2 << 30       # experts: 2 GiB blocks, 24 Kimi K2 experts
+# moe_train_check: Mixtral's widths at 2 f32 layers hold 5.4e9 parameters,
+# 21.6 GB, and as much again in gradients; the float64 side takes its
+# gradients in passes of at most 7 GiB of float64 tensors (an expert bank
+# of w_gate, w_up or w_down is 6.4 GB).
+MOE_TRAIN_CHECK_LAYERS = 2
+MOE_F64_GROUP_BYTES = 7 << 30
+# moe_train: Mixtral's bf16 CONFIG cut to 1 layer, 2.91e9 parameters;
+# train_loop holds about 20 bytes a parameter (bf16 weights, the f32
+# accumulator, the old and new f32 error feedback, its int8 copy).
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_STEPS = 4
+# moe_shard_map_check: 2 x 128 tokens through one Mixtral layer's experts
+# on a one-rank mesh, at the reference test's capacity factor (nothing
+# drops, so moe_ffn computes the same function).
+SHARD_MAP_TOKENS = (2, 128)
+SHARD_MAP_CAPACITY = 8.0
+MESH_WORLDS = (256, 512)       # mesh_check: both production meshes
 # mixtral_serve's decode-vs-forward rule. The prefill routes each layer's
 # 4096 tokens through one (4096, 6144) x (6144, 8) bf16 router product and
 # the decode step one token through a (1, 6144) one, and their inputs
@@ -3276,7 +3329,15 @@ def _ckpt(on: bool, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False) if on else fn(*args)
 
 
-def f64_moe(cfg, p, h, per_position: bool = False, routes=None):
+def _f64_expert(rows, wg, wu, wd):
+    """One expert's SwiGLU on its rows (float64), its weights converted
+    here: under `_ckpt` the float64 copies live for one call at a time."""
+    import torch.nn.functional as F
+    return (F.silu(rows @ _f64(wg)) * (rows @ _f64(wu))) @ _f64(wd)
+
+
+def f64_moe(cfg, p, h, per_position: bool = False, routes=None,
+            pinned=None, aux=None, ckpt: bool = False):
     """The top-k MoE feed-forward in float64, written from the
     architecture: the router softmax, top-k renormalised, each expert's
     assignments in (token, slot) order of which the first `cap` are kept
@@ -3285,23 +3346,33 @@ def f64_moe(cfg, p, h, per_position: bool = False, routes=None):
     to its token. Tokens route together over the whole batch, or, with
     `per_position`, one position of the batch at a time, as decode_step
     routes them. Appends each routing's (T, k) sorted expert ids to
-    `routes` where given."""
+    `routes` where given. `pinned` (T, k) expert ids of a routing of the
+    batch, in slot order, take the place of float64's own picks (the port's routing of the same
+    tokens, from `RouterSpy.picks`), their weights float64's probabilities
+    renormalised; `routes` still records float64's own. `aux` collects the
+    load-balancing loss, e·Σ(me·ce)/k of the mean probabilities and the
+    picks' counts over T. Each expert converts its weights itself, under
+    `ckpt` in a checkpoint."""
     import torch
-    import torch.nn.functional as F
     b, s, d = h.shape
     e, k = cfg.n_experts, cfg.top_k
-    wr, wg, wu, wd = (_f64(p[n]) for n in ("w_router", "w_gate", "w_up",
-                                            "w_down"))
+    wr = _f64(p["w_router"])
     groups = [h[:, i:i + 1] for i in range(s)] if per_position else [h]
     outs = []
     for g in groups:
         t = g.shape[0] * g.shape[1]
         xf = g.reshape(t, d)
         probs = torch.softmax(xf @ wr, -1)
-        top_p, top_e = torch.topk(probs, k, -1)
-        top_p = top_p / top_p.sum(-1, keepdim=True)
+        top_e = torch.topk(probs, k, -1).indices
         if routes is not None:
             routes.append(top_e.sort(-1).values)
+        if pinned is not None:
+            top_e = pinned.reshape(t, k)
+        top_p = probs.gather(-1, top_e)
+        top_p = top_p / top_p.sum(-1, keepdim=True)
+        if aux is not None:
+            ce = torch.bincount(top_e.reshape(-1), minlength=e).double() / t
+            aux.append(e * (probs.mean(0) * ce).sum() / k)
         cap = max(1, int(cfg.capacity_factor * t * k / e))
         cap = (cap + 63) // 64 * 64
         flat_e, flat_w = top_e.reshape(-1), top_p.reshape(-1)
@@ -3311,8 +3382,8 @@ def f64_moe(cfg, p, h, per_position: bool = False, routes=None):
             idx = (flat_e == ex).nonzero()[:, 0][:cap]
             if idx.numel() == 0:
                 continue
-            rows = xf[tok[idx]]
-            y = (F.silu(rows @ wg[ex]) * (rows @ wu[ex])) @ wd[ex]
+            y = _ckpt(ckpt, _f64_expert, xf[tok[idx]], p["w_gate"][ex],
+                      p["w_up"][ex], p["w_down"][ex])
             out = out.index_add(0, tok[idx], y * flat_w[idx, None])
         outs.append(out.reshape(g.shape))
     return torch.cat(outs, 1)
@@ -3422,7 +3493,7 @@ def f64_encode(cfg, params, audio, ckpt: bool = False):
 
 def f64_hidden(cfg, params, tokens, ckpt: bool = False,
                per_position: bool = False, routes=None, vision=None,
-               audio=None):
+               audio=None, pinned=None, aux=None):
     """The decoder stack in float64 with plain torch ops, written from the
     architecture (RMSNorm with 1 + scale, RoPE on halves, causal softmax
     attention with KV heads repeated, within `cfg.sliding_window` on the
@@ -3440,8 +3511,10 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
     over the encoder output (RMSNorm by ln_x, q from it, k and v from the
     encoder output by `xattn`, no mask, no RoPE). Attention in groups of 8
     heads, so that no float64 temporary holds a whole layer's scores; with
-    `ckpt` each head group and each MLP is checkpointed for the
-    backward."""
+    `ckpt` each head group, each MLP and each expert is checkpointed for
+    the backward. `pinned` lists the MoE layers' routings to take in
+    place of float64's own, one a layer, and `aux` collects their
+    load-balancing losses (`f64_moe`)."""
     import torch
     import torch.nn.functional as F
 
@@ -3481,6 +3554,7 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
         return (F.silu(h @ _f64(wg)) * (h @ _f64(wu))) @ _f64(wd)
 
     causal = t_ids[None, :] <= t_ids[:, None]
+    pins = iter(pinned or [])
     enc = None if audio is None else f64_encode(cfg, params, audio, ckpt)
     x = _f64(params["embed"][tokens])
     if vision is not None:
@@ -3523,7 +3597,8 @@ def f64_hidden(cfg, params, tokens, ckpt: bool = False,
                 xa["wo"])
         h = _f64_norm(x, p["ln2"])
         if "moe" in p:
-            x = x + f64_moe(cfg, p["moe"], h, per_position, routes)
+            x = x + f64_moe(cfg, p["moe"], h, per_position, routes,
+                            pinned=next(pins, None), aux=aux, ckpt=ckpt)
         else:
             m = p["mlp"]
             x = x + _ckpt(ckpt, mlp, h, m["w_gate"], m["w_up"], m["w_down"])
@@ -4092,12 +4167,14 @@ def phase_gemma_check(fmod, dmod, seed: int) -> dict:
 
 class RouterSpy:
     """While active (and `on`), records for each call of the port's
-    `moe_ffn` the (T, k) expert ids its router picks, sorted: the router
-    recomputed from the call's inputs with the same ops (no attention
-    kernel, so the launch counts are untouched)."""
+    `moe_ffn` the (T, k) expert ids its router picks, in slot order
+    (`picks`) and sorted (`routes`), and the call's aux loss (`aux`,
+    detached): the router recomputed from the call's inputs with the same
+    ops and the same tie order, a stable sort (no attention kernel, so the
+    launch counts are untouched)."""
 
     def __init__(self, on: bool = True):
-        self.on, self.routes = on, []
+        self.on, self.routes, self.picks, self.aux = on, [], [], []
 
     def __enter__(self):
         from repro_torch.models import layers
@@ -4109,16 +4186,25 @@ class RouterSpy:
             import torch
             with torch.no_grad():
                 logits = x.reshape(-1, x.shape[-1]) @ p["w_router"]
-                top = torch.topk(torch.softmax(logits.float(), -1),
-                                 cfg.top_k, -1).indices
+                top = torch.sort(torch.softmax(logits.float(), -1),
+                                 dim=-1, descending=True,
+                                 stable=True).indices[:, :cfg.top_k]
+                self.picks.append(top)
                 self.routes.append(top.sort(-1).values)
-            return self._orig(cfg, p, x, mesh_axes)
+            out = self._orig(cfg, p, x, mesh_axes)
+            self.aux.append(out[1].detach())
+            return out
 
         layers.moe_ffn = spy
         return self
 
     def __exit__(self, *exc):
         self._layers.moe_ffn = self._orig
+
+
+def picks_unlike(ours, theirs) -> int:
+    """Tokens whose sorted (T, k) picks differ between two routings."""
+    return sum(int((a != b).any(-1).sum()) for a, b in zip(ours, theirs))
 
 
 def dropped(cfg, routes) -> int:
@@ -4266,11 +4352,15 @@ def phase_xlstm_serve(fmod, dmod, seed: int) -> dict:
 
 
 def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False,
-                vision=None, audio=None):
-    """Mean next-token NLL of `f64_lm_forward`, in float64 (dense stacks:
-    no aux loss). With `ckpt` the head and loss run in checkpointed chunks
+                vision=None, audio=None, pinned=None, routes=None):
+    """Mean next-token NLL of `f64_lm_forward`, in float64, plus 0.01 ×
+    the MoE layers' load-balancing losses, as the reference's loss adds
+    them (0 for other stacks). `pinned` and `routes` go to `f64_hidden`:
+    the MoE layers route as the port routed, and float64's own picks are
+    recorded. With `ckpt` the head and loss run in checkpointed chunks
     of 520 tokens, so that the backward holds one chunk's float64 logits
-    at a time, and `f64_hidden` checkpoints its head groups and MLPs."""
+    at a time, and `f64_hidden` checkpoints its head groups, MLPs and
+    experts."""
     import torch
 
     def nll_sum(x, lbl):
@@ -4278,13 +4368,15 @@ def f64_lm_loss(cfg, params, tokens, labels, ckpt: bool = False,
         gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
         return (torch.logsumexp(logits, -1) - gold).sum()
 
+    aux = []
     x = f64_hidden(cfg, params, tokens, ckpt=ckpt, vision=vision,
-                   audio=audio)
+                   audio=audio, pinned=pinned, routes=routes, aux=aux)
     if not ckpt:
-        return nll_sum(x, labels) / labels.numel()
-    total = sum(_ckpt(True, nll_sum, x[:, c:c + 520], labels[:, c:c + 520])
-                for c in range(0, tokens.shape[1], 520))
-    return total / labels.numel()
+        nll = nll_sum(x, labels) / labels.numel()
+    else:
+        nll = sum(_ckpt(True, nll_sum, x[:, c:c + 520], labels[:, c:c + 520])
+                  for c in range(0, tokens.shape[1], 520)) / labels.numel()
+    return nll + 0.01 * sum(aux) if aux else nll
 
 
 def phase_lm_train_check(fmod, dmod, seed: int) -> dict:
@@ -4553,8 +4645,23 @@ def phase_lm_train(fmod, dmod, seed: int) -> dict:
     return launches
 
 
+def _groups(sizes: list, budget) -> list:
+    """Consecutive runs of indices whose sizes sum to at most `budget` (a
+    size above it alone); one run of all when `budget` is None."""
+    if budget is None:
+        return [list(range(len(sizes)))]
+    runs, run, total = [], [], 0
+    for i, n in enumerate(sizes):
+        if run and total + n > budget:
+            runs.append(run)
+            run, total = [], 0
+        run.append(i)
+        total += n
+    return runs + [run] if run else runs
+
+
 def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None,
-               audio=None) -> tuple:
+               audio=None, f64_group_bytes=None) -> tuple:
     """`lm_loss` gradients of the float32 `cfg` (no remat) through the
     flash kernels against float64 autograd of the script's own forward
     (`f64_lm_loss`, checkpointed), per tensor within LM_GRAD_REL_TOL, for
@@ -4563,8 +4670,13 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None,
     `audio_proj`; the loss within LM_REL_TOL. The embedding's and the
     head's gradients are checked finite, not compared: their float64
     copies would take gigabytes beside the rest (the float64 side converts
-    them on the fly in chunks). Returns (the launches of the port's step,
-    the fields its phase line prints)."""
+    them on the fly in chunks). A MoE stack's float64 side routes as the
+    port's step routed (`RouterSpy` picks, so a near-tie cannot flip a
+    token's expert) and adds the aux term; the tokens whose float64 picks
+    would differ are counted. With `f64_group_bytes` the float64 gradients
+    are taken in passes, each over consecutive compared tensors of at most
+    that many float64 bytes (one Mixtral expert bank is 6.4 GB). Returns
+    (the launches of the port's step, the fields its phase line prints)."""
     import torch
     from repro_torch.models import lm_loss, param_count
     from repro_torch.train.optim import tree_leaves, tree_map
@@ -4576,8 +4688,9 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None,
     sync()
     zero_attn_counts(fmod, dmod)                     # the step starts
     t0 = time.perf_counter()
-    loss = lm_loss(cfg, live, tokens, labels, vision_embeds=vision,
-                   audio_embeds=audio)
+    with RouterSpy(cfg.is_moe) as spy:
+        loss = lm_loss(cfg, live, tokens, labels, vision_embeds=vision,
+                       audio_embeds=audio)
     grads = torch.autograd.grad(loss, tree_leaves(live))
     sync()
     seconds = time.perf_counter() - t0
@@ -4595,21 +4708,29 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None,
         t.requires_grad_(False)
     torch.cuda.empty_cache()
     leaves = tree_leaves(params)
-    p64 = {i: leaves[i].detach().double().requires_grad_(True)
-           for i in compared}
-    it = iter(range(len(leaves)))
-    tree64 = tree_map(lambda t: p64.get(next(it), t), params)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loss64 = f64_lm_loss(cfg, tree64, tokens, labels, ckpt=True,
-                         vision=vision, audio=audio)
-    grads64 = torch.autograd.grad(loss64, [p64[i] for i in compared])
+    errs, routes64, loss64 = {}, [], None
+    runs = _groups([8 * leaves[i].numel() for i in compared],
+                   f64_group_bytes)
+    for run in runs:
+        group = [compared[j] for j in run]
+        p64 = {i: leaves[i].detach().double().requires_grad_(True)
+               for i in group}
+        it = iter(range(len(leaves)))
+        tree64 = tree_map(lambda t: p64.get(next(it), t), params)
+        l64 = f64_lm_loss(cfg, tree64, tokens, labels, ckpt=True,
+                          vision=vision, audio=audio, pinned=spy.picks,
+                          routes=routes64 if loss64 is None else None)
+        grads64 = torch.autograd.grad(l64, [p64[i] for i in group])
+        loss64 = float(l64.detach()) if loss64 is None else loss64
+        errs.update({names[i]: float((grads[i].double() - g64).abs().max())
+                     / max(float(g64.abs().max()), 1e-30)
+                     for i, g64 in zip(group, grads64)})
+        del p64, tree64, grads64, l64
+        torch.cuda.empty_cache()
     f64_s = time.perf_counter() - t0
     peak64 = torch.cuda.max_memory_allocated()
-    errs = {names[i]: float((grads[i].double() - g64).abs().max())
-            / max(float(g64.abs().max()), 1e-30)
-            for i, g64 in zip(compared, grads64)}
-    loss64 = float(loss64.detach())
     loss_err = abs(loss - loss64)
     worst = max(errs, key=errs.get)
     if not all(unchecked.values()) or (vision is not None
@@ -4634,7 +4755,14 @@ def grad_check(fmod, dmod, label: str, cfg, params, tokens, vision=None,
                                  "flash_bwd": counts["flash_bwd_routes"]},
            "peak_allocated_bytes": peak,
            "peak_allocated_bytes_float64": peak64}
-    del live, grads, p64, tree64, grads64
+    if cfg.is_moe:
+        out.update({"aux_by_layer": [float(a) for a in spy.aux],
+                    "dropped_assignments": [dropped(cfg, r)
+                                            for r in spy.routes],
+                    "router_picks_unlike_float64": picks_unlike(
+                        spy.routes, routes64),
+                    "float64_passes": len(runs)})
+    del live, grads
     torch.cuda.empty_cache()
     return counts, out
 
@@ -4746,7 +4874,11 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
     microbatches of TokenPipeline(vocab, seq, batch) a step and int8
     error-feedback compression, `steps` steps; the first loss within
     LM_TRAIN_LOSS_TOL of the float64 loss of the same batch, and the loss
-    of that batch lower after the steps than before. Every flash forward,
+    of that batch lower after the steps than before. A MoE config's
+    float64 loss routes step 0's batch as the port's forward routes it
+    (`RouterSpy` over a forward of each microbatch before the run) and
+    adds the aux term; the phase prints those forwards' aux losses and
+    dropped assignments, and the tokens float64 would route otherwise. Every flash forward,
     recompute and backward on the tensor-core route, with the softcap and
     at d = 256 exactly where the config asks, none with a prefix. An
     encoder-decoder config's batches carry bf16 frames (`with_audio`): its
@@ -4772,12 +4904,28 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
 
     first = next(batches([]))
     audio = first.get("audio_embeds")
-    with torch.no_grad():                # step 0's batch in float64
-        loss64 = sum(float(f64_lm_loss(
+    spies = [RouterSpy(cfg.is_moe) for _ in range(accum)]
+    routes64, moe = [], {}
+    with torch.no_grad():
+        if cfg.is_moe:                   # step 0's routing, microbatch by
+            for i, spy in enumerate(spies):  # microbatch, as the step's
+                with spy:                # forward routes it
+                    lm_loss(cfg, params, first["tokens"][i],
+                            first["labels"][i])
+        loss64 = sum(float(f64_lm_loss(  # step 0's batch in float64
             cfg, params, first["tokens"][i], first["labels"][i],
             ckpt=cfg.is_enc_dec,
-            audio=None if audio is None else audio[i]))
+            audio=None if audio is None else audio[i],
+            pinned=spies[i].picks, routes=routes64))
             for i in range(accum)) / accum
+    if cfg.is_moe:
+        moe = {"first_step_aux_by_microbatch": [
+                   [float(a) for a in spy.aux] for spy in spies],
+               "dropped_assignments_by_microbatch": [
+                   [dropped(cfg, r) for r in spy.routes] for spy in spies],
+               "router_picks_unlike_float64": picks_unlike(
+                   [r for spy in spies for r in spy.routes], routes64)}
+    del spies
     torch.cuda.empty_cache()
     lc = TrainLoopConfig(optimizer="adafactor", grad_accum=accum,
                          compress=True, max_steps=steps)
@@ -4858,7 +5006,7 @@ def train_phase(fmod, dmod, seed: int, label: str, cfg, seq: int,
                                  "flash_bwd": counts["flash_bwd_noncausal"]},
           "encoder_layers": cfg.encoder_layers,
           "audio_frames": cfg.audio_frames if cfg.is_enc_dec else 0,
-          "peak_allocated_bytes": peak, "profiled_step": profiled})
+          **moe, "peak_allocated_bytes": peak, "profiled_step": profiled})
     del params, out_params, out_state, info, first, audio
     torch.cuda.empty_cache()
     return counts
@@ -5424,8 +5572,7 @@ def phase_moe_check(fmod, dmod, seed: int) -> dict:
                                  routes=d_routes)
     n, s_len = cfg.n_layers, LM_PROMPT
     # Port decode: call t·n + l; float64 per position: call l·S + t.
-    other = {"forward": sum(int((a != b).any(-1).sum())
-                            for a, b in zip(f_spy.routes, f_routes)),
+    other = {"forward": picks_unlike(f_spy.routes, f_routes),
              "decode": sum(int((d_spy.routes[t * n + li]
                                 != d_routes[li * s_len + t]).any(-1).sum())
                            for li in range(n) for t in range(s_len))}
@@ -5473,6 +5620,249 @@ def phase_mixtral_serve(fmod, dmod, seed: int) -> dict:
     route, none softcapped."""
     return serve_phase(fmod, dmod, seed, "mixtral_8x22b", LM_PREFILL,
                        "mixtral_serve", n_layers=MIXTRAL_SERVE_LAYERS)
+
+
+def phase_moe_train_check(fmod, dmod, seed: int) -> dict:
+    """Mixtral 8x22B's published widths cut to MOE_TRAIN_CHECK_LAYERS f32
+    layers, no remat, one sequence of LM_TRAIN_SEQ tokens: `grad_check`
+    through the flash kernels and the backward (f32 FMA routes, d = 128)
+    against float64 autograd routed as the port routed, with the aux term,
+    in passes of at most MOE_F64_GROUP_BYTES; every layer tensor (the
+    attention's, the norms, w_router, w_gate, w_up, w_down) and the final
+    norm within LM_GRAD_REL_TOL. Returns the launches."""
+    import torch
+    from repro_torch.configs.mixtral_8x22b import CONFIG
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=MOE_TRAIN_CHECK_LAYERS,
+                              dtype="float32", remat=False)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 13)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (1, LM_TRAIN_SEQ), device=DEV,
+                           generator=gen)
+    counts, out = grad_check(fmod, dmod, "moe_train_check", cfg, params,
+                             tokens, f64_group_bytes=MOE_F64_GROUP_BYTES)
+    check_step_launches("moe_train_check", counts, cfg.n_layers, "f32_fma",
+                        capped=False, wide=False, prefix=False)
+    moe = [n for n in out["grad_rel_err_vs_float64"] if "/moe/" in n]
+    if len(moe) != 4 * cfg.n_layers:
+        raise AssertionError(f"moe_train_check: compared {moe}")
+    emit({"phase": "moe_train_check",
+          "config": f"mixtral-8x22b width, {cfg.n_layers} layers, float32, "
+                    "no remat", "experts": cfg.n_experts, "top_k": cfg.top_k,
+          "capacity_factor": cfg.capacity_factor, **out})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe_train(fmod, dmod, seed: int) -> dict:
+    """Mixtral 8x22B's bf16 CONFIG (remat on, published widths) cut to
+    MOE_TRAIN_LAYERS layer: `train_phase` with two microbatches of
+    TokenPipeline(32768, 512, 4), MOE_TRAIN_STEPS steps; every launch on
+    the tensor-core route at d = 128, none softcapped."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    return train_phase(fmod, dmod, seed, "moe_train", cfg, LM_TRAIN_SEQ,
+                       LM_TRAIN_BATCH, MOE_TRAIN_STEPS)
+
+
+def phase_moe_shard_map_check(seed: int) -> dict:
+    """`models.moe_shard_map` on the card: a one-rank NCCL process group
+    (a HashStore, world size 1) under a (1, 1) ("data", "model")
+    DeviceMesh; one Mixtral layer's experts at published widths, 2 x 128
+    tokens at capacity factor SHARD_MAP_CAPACITY. In f32 the output, aux
+    and the gradients of Σ out·g + aux (x, the router and the three banks)
+    against `moe_ffn`'s at the same weights, within LM_REL_TOL and
+    LM_GRAD_REL_TOL; in bf16 the output within LM_BF16_TOL and the
+    gradients finite and nonzero. Prints the all-to-all bytes a call and
+    the time of one call beside `moe_ffn`'s."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.mixtral_8x22b import CONFIG
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import moe_ffn
+    from repro_torch.models.moe_shard_map import moe_ffn_shard_map
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(CONFIG, n_layers=1, dtype="float32",
+                              capacity_factor=SHARD_MAP_CAPACITY)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 14)
+    bank = init_params(cfg, gen, device=DEV)["layers"][0]["moe"]
+    torch.cuda.empty_cache()
+    x = torch.randn((*SHARD_MAP_TOKENS, cfg.d_model), device=DEV,
+                    generator=gen)
+    g = torch.randn(x.shape, device=DEV, generator=gen)
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(DEV, (1, 1),
+                                mesh_dim_names=("data", "model"))
+
+        def run(fn, p, xin):
+            p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            xin = xin.detach().requires_grad_(True)
+            out, aux = fn(p, xin)
+            loss = torch.sum(out.float() * g) + aux
+            grads = torch.autograd.grad(loss, [xin, *p.values()])
+            return out.detach(), aux.detach(), dict(zip(["x", *p], grads))
+
+        def sharded(p, xin):
+            return moe_ffn_shard_map(cfg, p, xin, mesh, ("data",), "model")
+
+        def plain(p, xin):
+            return moe_ffn(cfg, p, xin)
+
+        rec = {}
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            p = {k: v.to(dt) for k, v in bank.items()}
+            xd = x.to(dt)
+            out_sm, aux_sm, g_sm = run(sharded, p, xd)
+            out_ref, aux_ref, g_ref = run(plain, p, xd)
+            errs = {"out": rel_err(out_sm, out_ref),
+                    "aux": abs(float(aux_sm) - float(aux_ref))
+                    / abs(float(aux_ref))}
+            grad_errs = {k: rel_err(g_sm[k], g_ref[k]) for k in g_ref}
+            nonzero = {k: bool(torch.isfinite(v).all() and v.abs().max() > 0)
+                       for k, v in g_sm.items()}
+            del g_sm, g_ref
+            with torch.no_grad():
+                ms = cuda_ms(lambda: sharded(p, xd), 5)
+                ms_plain = cuda_ms(lambda: plain(p, xd), 5)
+            t = x.shape[0] * x.shape[1]
+            cap = max(1, int(cfg.capacity_factor * t * cfg.top_k / 1))
+            slots = (cap + 7) // 8 * 8
+            rec[dtype] = {
+                "rel_err_vs_moe_ffn": errs, "grad_rel_err_vs_moe_ffn":
+                    grad_errs, "grads_finite_nonzero": nonzero,
+                "aux": float(aux_sm), "ms": ms, "moe_ffn_ms": ms_plain,
+                "all_to_all_bytes": 2 * slots * cfg.d_model
+                * xd.element_size() + slots * 8,
+                "slots": slots}
+            tol = LM_REL_TOL if dtype == "float32" else LM_BF16_TOL
+            bad = not all(nonzero.values()) or errs["out"] > tol or (
+                dtype == "float32" and (errs["aux"] > LM_REL_TOL or max(
+                    grad_errs.values()) > LM_GRAD_REL_TOL))
+            if bad:
+                raise AssertionError(f"moe_shard_map_check {dtype}: "
+                                     f"{rec[dtype]}")
+            del p, xd
+            torch.cuda.empty_cache()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "moe_shard_map_check", "config": "mixtral-8x22b width, "
+          "one layer's experts", "mesh": [1, 1], "backend": backend,
+          "tokens": list(SHARD_MAP_TOKENS),
+          "capacity_factor": SHARD_MAP_CAPACITY,
+          "exchange": "autograd.Function over all_to_all_single, its "
+                      "backward the reverse exchange",
+          "functional_all_to_all_single_autograd": hasattr(
+              fc, "all_to_all_single_autograd"),
+          "tol": {"float32": [LM_REL_TOL, LM_GRAD_REL_TOL],
+                  "bfloat16": LM_BF16_TOL}, **rec})
+    del bank, x, g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_child(device_type: str) -> None:
+    """mesh_check's child (its own process: it makes process groups of
+    256 and 512 ranks on the "fake" backend): each production mesh,
+    Mixtral's and Kimi K2's full-size meta params, stacked and the first
+    layer unstacked (where the per-layer rules apply: the expert banks
+    (E, d, f) and the attention's projections), and each leaf
+    `distribute_tensor`ed by `tree_placements`, its local shape beside the
+    one its spec implies. Prints one JSON line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import init_params
+    from repro_torch.models.stacked import init_params_stacked
+
+    def walk(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, f"{path}/{k}" if path else k)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from walk(v, f"{path}/{i}" if path else str(i))
+        else:
+            yield path, tree
+
+    out = {}
+    for world in MESH_WORLDS:
+        t0 = time.perf_counter()
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+        mesh = M.make_production_mesh(multi_pod=world == 512,
+                                      device_type=device_type)
+        rec = {"names": list(mesh.mesh_dim_names), "shape": list(mesh.shape),
+               "data_axes": list(M.data_axes(mesh)), "leaves": 0,
+               "mismatch": {}, "specs": {}}
+        for arch in ("mixtral_8x22b", "kimi_k2_1t_a32b"):
+            cfg = get_config(arch)
+            flat = init_params(cfg, None, device="meta")
+            for tree in (init_params_stacked(cfg, None, device="meta"),
+                         {**flat, "layers": flat["layers"][:1]}):
+                specs = dict(walk(S.tree_pspecs(tree, mesh, fsdp=True)))
+                places = dict(walk(S.tree_placements(tree, mesh,
+                                                     fsdp=True)))
+                for path, leaf in walk(tree):
+                    local = tuple(distribute_tensor(
+                        leaf, mesh, list(places[path])).to_local().shape)
+                    want = S.local_shape(leaf.shape, specs[path], mesh)
+                    rec["leaves"] += 1
+                    rec["specs"][f"{arch}:{path}"] = [str(specs[path]),
+                                                      list(local)]
+                    if local != want:
+                        rec["mismatch"][f"{arch}:{path}"] = [list(local),
+                                                             list(want)]
+        rec["seconds"] = time.perf_counter() - t0
+        out[str(world)] = rec
+        dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def phase_mesh_check() -> dict:
+    """`launch.mesh` and `launch.sharding` on this machine's torch, in a
+    child process on the "fake" process-group backend: both production
+    meshes ((16, 16) over 256 ranks, (2, 16, 16) over 512, CUDA meshes),
+    and every Mixtral and Kimi K2 full-size meta leaf (stacked, and the
+    first layer unstacked) distributed by its `tree_placements` with the
+    local shape its PartitionSpec implies."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.mesh_child({DEV!r})")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh_check child: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for world in MESH_WORLDS:
+        rec = out[str(world)]
+        names = (["pod"] if world == 512 else []) + ["data", "model"]
+        if rec["names"] != names or rec["mismatch"] or rec["leaves"] < 20 \
+                or rec["data_axes"] != names[:-1]:
+            raise AssertionError(f"mesh_check {world}: {rec}")
+    emit({"phase": "mesh_check", "backend": "fake", "seconds": seconds,
+          **{w: {k: v for k, v in rec.items() if k != "specs"}
+             for w, rec in out.items()},
+          "layer0_moe_specs": {
+              w: {k: v for k, v in rec["specs"].items()
+                  if k.split(":")[1].startswith("layers/0/moe/")}
+              for w, rec in out.items()}})
+    return out
 
 
 def phase_experts(seed: int) -> dict:
@@ -6245,6 +6635,12 @@ def run(args) -> None:
                             args.seed)
     lm["mixtral_serve"] = timed("mixtral_serve", phase_mixtral_serve, fmod,
                                 dmod, args.seed)
+    lm["moe_train_check"] = timed("moe_train_check", phase_moe_train_check,
+                                  fmod, dmod, args.seed)
+    lm["moe_train"] = timed("moe_train", phase_moe_train, fmod, dmod,
+                            args.seed)
+    timed("moe_shard_map_check", phase_moe_shard_map_check, args.seed)
+    timed("mesh_check", phase_mesh_check)
     lm["rgemma_check"] = timed("rgemma_check", phase_rgemma_check, fmod,
                                dmod, args.seed)
     lm["xlstm_check"] = timed("xlstm_check", phase_xlstm_check, fmod, dmod,
@@ -6285,8 +6681,8 @@ def run(args) -> None:
         return {route: sum(r[route] for r in routes) for route in routes[0]}
 
     train_paths = [p for p in lm if p.startswith(
-        ("lm_train", "gemma_train", "rgemma_train", "qwen_check",
-         "seamless_check", "seamless_train"))]
+        ("lm_train", "gemma_train", "moe_train", "rgemma_train",
+         "qwen_check", "seamless_check", "seamless_train"))]
     flash_paths = {"lm_check": lm["lm_check"]["flash"],
                    **{p: lm[p]["flash"] for p in train_paths},
                    "lm_serve_prefill": lm["lm_serve"]["flash"],

@@ -17,8 +17,9 @@ Conventions, as in `repro.models.layers`:
 
 Left out, each raising where the reference would take it: a key mask for
 cross-attention (`cross_mask`; no reference caller passes one, and the
-kernels take no per-row key mask) and the sharding hints (`mesh_axes`,
-ROADMAP.md queue 1 item 9).
+kernels take no per-row key mask) and the sharding hints (`mesh_axes`:
+`with_sharding_constraint`s that only the dry run over a mesh reads, which
+comes with `launch/dryrun.py`, ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -284,12 +285,13 @@ def moe_ffn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     which is the reference's `.at[tok_id].add` with tok_id = repeat(
     arange(T), k), with no atomics. On the card `torch.bincount` waits
     for the device once a call (it reads the largest expert id).
-    `mesh_axes` (the reference's sharding hints) must be None (ROADMAP.md
-    item 9).
+    `mesh_axes` (the reference's sharding hints) must be None: they come
+    with the dry run (`launch/dryrun.py`, ROADMAP.md queue 1 item 9).
     """
     if mesh_axes is not None:
-        raise NotImplementedError("sharding hints (mesh_axes) are not "
-                                  "ported (ROADMAP.md queue 1 item 9)")
+        raise NotImplementedError(
+            "sharding hints (mesh_axes) are not ported: they come with the "
+            "dry run, launch/dryrun.py (ROADMAP.md queue 1 item 9)")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s

@@ -109,12 +109,13 @@ def unstack_params(cfg: ArchConfig, params: Dict[str, Any]
     return out
 
 
-def init_params_stacked(cfg: ArchConfig, generator: torch.Generator,
+def init_params_stacked(cfg: ArchConfig,
+                        generator: Optional[torch.Generator],
                         device: "str | torch.device" = "cuda"
                         ) -> Dict[str, Any]:
     """The weights `init_params(cfg, generator, device)` draws, stacked:
     the same values, as the reference's `init_params_stacked` draws what
-    its `init_params` draws."""
+    its `init_params` draws (on the meta device, shapes alone)."""
     return stack_params(cfg, T.init_params(cfg, generator, device))
 
 

@@ -177,17 +177,25 @@ def _map_spec(spec: Any, tree: Any, fn, path: str = "") -> Any:
     return fn(path, spec, tree)
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
                 device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     """Random weights N(0, std²), zero norm scales and the RG-LRU's
     constant lambda, as the reference draws them, made on `device` in
     `cfg.dtype` one tensor at a time from `generator` (a generator on that
-    device)."""
+    device). On the meta device, with `generator` None, nothing is drawn:
+    the shapes and dtypes alone, as `jax.eval_shape` gives them."""
     device = torch.device(device)
-    if generator.device.type != device.type:
-        raise ValueError(f"the generator lies on {generator.device}, the "
-                         f"params go to {device}")
     dt = _dtype(cfg)
+    if device.type == "meta":
+        if generator is not None:
+            raise ValueError("the meta device draws nothing: pass "
+                             "generator=None")
+        return _map_spec(_param_spec(cfg), None, lambda path, leaf, _:
+                         torch.empty(leaf[0], dtype=dt, device=device))
+    if generator is None or generator.device.type != device.type:
+        raise ValueError(f"the generator lies on "
+                         f"{getattr(generator, 'device', None)}, the params "
+                         f"go to {device}")
 
     def draw(path, leaf, _):
         shape, std = leaf

@@ -66,7 +66,8 @@ def make_train_step(cfg: ArchConfig, loop_cfg: TrainLoopConfig,
     if loop_cfg.mesh_axes is not None:
         raise NotImplementedError(
             "mesh_axes (data-parallel meshes) are not ported to repro_torch "
-            "yet (ROADMAP.md queue 1 item 9)")
+            "yet: they come with the dry run, launch/dryrun.py (ROADMAP.md "
+            "queue 1 item 9)")
     loss_fn = loss_fn or (
         lambda params, batch: lm_loss(
             cfg, params, batch["tokens"], batch["labels"],

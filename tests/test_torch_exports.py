@@ -4,7 +4,10 @@ but those still to port (`STILL_TO_PORT`, empty since `models.encode`
 came with the encoder-decoder), and each name resolves. `kernels` exports the four wrappers and `ref`, as
 `repro.kernels` does, and importing it builds nothing. `train` holds the
 reference's names exactly since the LM half of the train loop and the
-gradient compression were ported."""
+gradient compression were ported. The launch layer's modules and
+`models.moe_shard_map`, which no `__all__` lists, hold every public
+top-level name of their reference modules."""
+import ast
 import importlib
 import os
 import pathlib
@@ -21,6 +24,11 @@ SUBPACKAGES = ["checkpoint", "core", "data", "io", "kernels", "models",
 STILL_TO_PORT = {}
 # Subpackages whose `__all__` must equal the reference's exactly.
 EQUAL = ["data", "kernels", "runtime", "sparse", "train"]
+# Modules without an `__all__`, held to their reference's top-level names;
+# a tree of NamedShardings becomes one of DTensor placements.
+MODULES = ["launch.mesh", "launch.sharding", "launch.specs",
+           "models.moe_shard_map"]
+RENAMED = {"tree_shardings": "tree_placements"}
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
@@ -65,3 +73,21 @@ def test_importing_kernels_builds_nothing():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("mod", MODULES)
+def test_port_modules_hold_the_reference_top_level_names(mod):
+    path = ROOT / "src" / "repro" / (mod.replace(".", "/") + ".py")
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+    public = {n for n in names if not n.startswith("_")}
+    assert public
+    port = importlib.import_module(f"repro_torch.{mod}")
+    missing = sorted(n for n in public if not hasattr(port, RENAMED.get(n, n)))
+    assert not missing

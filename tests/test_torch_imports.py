@@ -79,6 +79,9 @@ SLICE_MODULES = [
     # The serving loop and supervisor slice.
     "repro_torch.runtime.serving_loop", "repro_torch.runtime.supervisor",
     "repro_torch.data.tokens", "repro_torch.kernels",
+    # The launch layer and the expert-parallel MoE.
+    "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+    "repro_torch.launch.specs", "repro_torch.models.moe_shard_map",
 ]
 
 
