@@ -292,6 +292,23 @@ non-zero without a result line:
                Kimi K2's full-size stacked meta params through
                `tree_pspecs` and `tree_placements`, every leaf
                `distribute_tensor`ed with the local shape its spec implies.
+ 32b. hints_check — the sharding hints on a one-rank NCCL group under a
+               (1, 1) DeviceMesh: bf16 Yi-6B at full width cut to 2 layers,
+               DTensor params from `tree_placements`, `forward` and
+               `lm_loss` with MESH_AXES_SINGLE against the plain calls (bit
+               for bit, else within LM_BF16_TOL and the reason printed), 2
+               flash launches each through the operator; one bf16 Mixtral
+               layer's `moe_ffn` with its two hints within LM_BF16_TOL.
+ 32c. dryrun_check — `launch.dryrun.run_cell` for Yi-6B train_4k on the
+               single-pod mesh and Mixtral decode_32k on the two-pod mesh,
+               each in a child process on the "fake" backend, both started
+               after gemma_train at nice 10 and collected before timing,
+               the fake tensors on "cuda": ok, the per-device
+               argument bytes the local-shard sum of the cell's specs;
+               params, per-device argument, temp and output bytes, FLOPs,
+               collective bytes by kind, trace seconds and the phase's
+               beside DRYRUN_TARGET_S printed (planning numbers, not
+               measurements).
  33. rgemma_check — RecurrentGemma-2B's widths cut to 2 float32 layers
                (an RG-LRU, then a local attention layer at head dim 256):
                `forward` on one 2112-token sequence (the window of 2048
@@ -436,8 +453,8 @@ run of lm_train, lm_serve, gemma_check, gemma_serve, gemma_train_check,
 gemma_train, moe_check, mixtral_serve, moe_train_check, moe_train,
 rgemma_check, xlstm_check,
 rgemma_serve, xlstm_serve, rgemma_train_check, rgemma_train, qwen_check,
-qwen_serve, seamless_check, seamless_serve, seamless_train, stacked_check)
-runs with the launch counters set
+qwen_serve, seamless_check, seamless_serve, seamless_train, stacked_check,
+hints_check) runs with the launch counters set
 to 0 just before it and read just after. It needs no network and one card, and
 exits non-zero when no card is visible or when the package is not beside
 it.
@@ -565,6 +582,20 @@ MOE_TRAIN_STEPS = 4
 SHARD_MAP_TOKENS = (2, 128)
 SHARD_MAP_CAPACITY = 8.0
 MESH_WORLDS = (256, 512)       # mesh_check: both production meshes
+# hints_check: bf16 Yi-6B cut to 2 layers, 2 x 512 tokens, and one bf16
+# Mixtral layer over 2 x 256 tokens, on a one-rank (1, 1) mesh.
+HINTS_LAYERS = 2
+HINTS_TOKENS = (2, 512)
+HINTS_MOE_TOKENS = (2, 256)
+# dryrun_check: a dense train cell and an MoE decode cell on the two-pod
+# mesh, each in a child process of its own, both at once. Mixtral, not
+# Kimi K2 (61 layers), is the MoE arch with fewer layers to trace. The
+# phase's target is DRYRUN_TARGET_S; a child is stopped at
+# DRYRUN_TIMEOUT_S.
+DRYRUN_CELLS = (("yi_6b", "train_4k", False),
+                ("mixtral_8x22b", "decode_32k", True))
+DRYRUN_TARGET_S = 180.0
+DRYRUN_TIMEOUT_S = 600.0
 # mixtral_serve's decode-vs-forward rule. The prefill routes each layer's
 # 4096 tokens through one (4096, 6144) x (6144, 8) bf16 router product and
 # the decode step one token through a (1, 6144) one, and their inputs
@@ -5865,6 +5896,252 @@ def phase_mesh_check() -> dict:
     return out
 
 
+def phase_hints_check(fmod, dmod, seed: int) -> dict:
+    """The sharding hints on the card: one NCCL rank (a HashStore) under a
+    (1, 1) ("data", "model") DeviceMesh, bf16 Yi-6B at full width cut to
+    HINTS_LAYERS layers, every param a DTensor placed by `tree_placements`,
+    the tokens by `batch_pspec`. `forward` and `lm_loss` with
+    MESH_AXES_SINGLE against the same calls on the plain tensors: bit for
+    bit, else within LM_BF16_TOL with the reason printed; each run's flash
+    launches counted through the operator (one a layer). Then one bf16
+    Mixtral layer's `moe_ffn` at published widths with its two hints on
+    DTensors against the plain call, within LM_BF16_TOL. Returns the
+    launches of the hinted forward and loss."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL
+    from repro_torch.configs.yi_6b import CONFIG
+    from repro_torch.launch.sharding import (batch_pspec, placements,
+                                             tree_placements)
+    from repro_torch.models import forward, init_params, lm_loss
+    from repro_torch.models.layers import moe_ffn
+    from repro_torch.models.transformer import MESH_AXES_SINGLE
+    from repro_torch.train.optim import tree_map
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(CONFIG, n_layers=HINTS_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 30)
+    params = init_params(cfg, gen, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, HINTS_TOKENS, device=DEV,
+                           generator=gen)
+    labels = torch.roll(tokens, -1, dims=1)
+    moe_cfg = dataclasses.replace(MIXTRAL, n_layers=1)
+    bank = init_params(moe_cfg, gen, device=DEV)["layers"][0]["moe"]
+    x = torch.randn((*HINTS_MOE_TOKENS, moe_cfg.d_model), device=DEV,
+                    generator=gen).to(torch.bfloat16)
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(DEV, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        dp = tree_map(lambda t, p: distribute_tensor(t, mesh, list(p)),
+                      params, tree_placements(params, mesh))
+        tok_pl = list(placements(batch_pspec(tokens.shape, mesh), mesh))
+        d_tok, d_lab = (distribute_tensor(t, mesh, tok_pl)
+                        for t in (tokens, labels))
+        rec, counts = {}, {}
+        with torch.no_grad():
+            want_logits, _ = forward(cfg, params, tokens)
+            want_loss = lm_loss(cfg, params, tokens, labels)
+            zero_attn_counts(fmod, dmod)             # hinted forward starts
+            got_logits, _ = forward(cfg, dp, d_tok,
+                                    mesh_axes=MESH_AXES_SINGLE)
+            counts["forward"] = attn_counts(fmod, dmod)  # ... and ends here
+            zero_attn_counts(fmod, dmod)             # hinted loss starts
+            got_loss = lm_loss(cfg, dp, d_tok, d_lab,
+                               mesh_axes=MESH_AXES_SINGLE)
+            counts["lm_loss"] = attn_counts(fmod, dmod)  # ... and ends here
+            rec["logits_placements"] = str(got_logits.placements)
+            got_logits = got_logits.to_local()
+            got_loss = got_loss.full_tensor()
+            for name, got, want in (("logits", got_logits, want_logits),
+                                    ("loss", got_loss, want_loss)):
+                equal = torch.equal(got, want)
+                rec[name] = {"bit_equal": equal,
+                             "rel_err": rel_err(got, want)}
+                if not equal:
+                    rec[name]["why"] = (
+                        "the hinted call's DTensor ops ran other kernels "
+                        "than the plain call's on the same local tensors")
+            del want_logits, got_logits
+            moe_want, aux_want = moe_ffn(moe_cfg, bank, x)
+            bank_pl = tree_placements({"moe": bank}, mesh)["moe"]
+            d_bank = {k: distribute_tensor(v, mesh, list(bank_pl[k]))
+                      for k, v in bank.items()}
+            with implicit_replication():
+                moe_got, aux_got = moe_ffn(
+                    moe_cfg, d_bank,
+                    distribute_tensor(x, mesh, list(placements(
+                        batch_pspec(x.shape, mesh), mesh))),
+                    mesh_axes=MESH_AXES_SINGLE)
+            moe_got = moe_got.full_tensor()
+            rec["moe_ffn"] = {"bit_equal": torch.equal(moe_got, moe_want),
+                              "rel_err": rel_err(moe_got, moe_want),
+                              "aux_equal": bool(torch.equal(
+                                  aux_got.full_tensor(), aux_want))}
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    for label, c in counts.items():
+        if (c["flash"], c["flash_bwd"], c["decode"]) != (HINTS_LAYERS, 0, 0):
+            raise AssertionError(f"hints_check {label}: launches {c}, want "
+                                 f"{HINTS_LAYERS} flash forwards")
+    for name in ("logits", "loss", "moe_ffn"):
+        if rec[name]["rel_err"] > LM_BF16_TOL:
+            raise AssertionError(f"hints_check {name}: {rec[name]}")
+    emit({"phase": "hints_check", "config": "yi-6b width, 2 bf16 layers; "
+          "one bf16 mixtral-8x22b layer's moe_ffn", "mesh": [1, 1],
+          "backend": backend, "tokens": list(HINTS_TOKENS),
+          "moe_tokens": list(HINTS_MOE_TOKENS), "tol": LM_BF16_TOL,
+          "launches": {k: {"flash": c["flash"], "decode": c["decode"]}
+                       for k, c in counts.items()}, **rec})
+    del params, dp, bank, x
+    torch.cuda.empty_cache()
+    return add_counts(*counts.values())
+
+
+def dryrun_child(arch: str, shape: str, multi_pod: bool) -> None:
+    """dryrun_check's child (its own process: the dry run's fake world of
+    512 ranks): `launch.dryrun.run_cell` on the card machine, the fake
+    tensors on "cuda", and beside it the per-device argument bytes the
+    cell's specs imply (`launch.sharding` on the full-size meta trees).
+    Prints one JSON line. Runs at nice 10, beside the card phases."""
+    os.nice(10)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models.stacked import (init_decode_state_stacked,
+                                            init_params_stacked)
+    from repro_torch.train.optim import make_optimizer, tree_leaves
+
+    t0 = time.perf_counter()
+    res = D.run_cell(arch, shape, multi_pod)
+    seconds = time.perf_counter() - t0
+    cfg, spec = get_config(arch), SHAPES[shape]
+    mesh = AbstractMesh((2, 16, 16), ("pod", "data", "model")) \
+        if multi_pod else AbstractMesh((16, 16), ("data", "model"))
+    params = init_params_stacked(cfg, None, device="meta")
+    header = D.cell_header(cfg, spec, params)
+    p_specs = S.tree_pspecs(params, mesh, fsdp=header["fsdp"])
+    trees = [(params, p_specs)]
+    batch = input_specs(cfg, spec)
+    trees.append((batch, {k: S.batch_pspec(v.shape, mesh)
+                          for k, v in batch.items()}))
+    if spec["kind"] == "train":
+        opt = make_optimizer(header["optimizer"])[0](params)
+        trees.append((opt, S.opt_state_pspecs(opt, p_specs, mesh)))
+    elif spec["kind"] == "decode":
+        state = init_decode_state_stacked(cfg, spec["global_batch"],
+                                          spec["seq_len"], device="meta")
+        trees.append((state, S.state_pspecs(state, mesh)))
+
+    def local_bytes(tree, specs) -> int:
+        leaves = tree_leaves(tree)
+        spec_leaves = tree_leaves(specs)
+        return sum(4 if isinstance(t, int) else math.prod(
+            S.local_shape(t.shape, sp, mesh)) * t.element_size()
+            for t, sp in zip(leaves, spec_leaves))
+
+    res["spec_argument_bytes"] = sum(local_bytes(t, sp) for t, sp in trees)
+    res["child_seconds"] = seconds
+    print(json.dumps(res), flush=True)
+
+
+# Processes started by this run that outlive a phase (dryrun_check's
+# children); `main` stops them, whatever happens.
+CHILDREN = []
+
+
+def start_dryrun_check() -> dict:
+    """Start dryrun_check's children: DRYRUN_CELLS, each `run_cell` in a
+    process of its own on the "fake" backend, which lowers its own CPU
+    priority (nice 10), their output to temporary files. They trace beside the card phases that follow (no storage on
+    the card: the fake tensors allocate nothing), and
+    `phase_dryrun_check` collects them before the timing phase."""
+    import tempfile
+    run = {"started": time.perf_counter(), "children": []}
+    for arch, shape, multi in DRYRUN_CELLS:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+             f"import chip_smoke; chip_smoke.dryrun_child({arch!r}, "
+             f"{shape!r}, {multi!r})"],
+            cwd=ROOT, stdout=out, stderr=err, text=True)
+        CHILDREN.append(proc)
+        run["children"].append((proc, out, err))
+    return run
+
+
+def phase_dryrun_check(run: dict) -> dict:
+    """`launch.dryrun` on this machine's torch: collects the children
+    `start_dryrun_check` started (DRYRUN_CELLS, the fake tensors on
+    "cuda", so that the attention nodes are the kernels' operators),
+    stopping them at DRYRUN_TIMEOUT_S from their start. Each must come
+    back ok, with its per-device argument bytes equal to the local-shard
+    sum of its specs. Prints each cell's params, per-device argument,
+    temp and output bytes, FLOPs, collective bytes by kind and trace
+    seconds, the seconds from the children's start beside DRYRUN_TARGET_S
+    and the seconds this phase waited for them. The figures are planning
+    numbers on the fake backend, not measurements of the card."""
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for proc, out, err in run["children"]:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
+                time.perf_counter() - run["started"])))
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read()))
+    finally:
+        for proc, _, _ in run["children"]:
+            proc.kill()
+    waited = time.perf_counter() - t0
+    seconds = time.perf_counter() - run["started"]
+    procs = [proc for proc, _, _ in run["children"]]
+    cells = {}
+    for (arch, shape, multi), p, (out, err) in zip(DRYRUN_CELLS, procs,
+                                                   outs):
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun_check {arch} {shape}: "
+                                 f"{err[-3000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        name = f"{arch}__{shape}__{'multi' if multi else 'single'}"
+        if not res.get("ok"):
+            raise AssertionError(f"dryrun_check {name}: {res.get('error')} "
+                                 f"{res.get('traceback')}")
+        mem = res["memory"]
+        if mem["argument_bytes"] != res["spec_argument_bytes"]:
+            raise AssertionError(f"dryrun_check {name}: argument bytes "
+                                 f"{mem['argument_bytes']}, its specs "
+                                 f"{res['spec_argument_bytes']}")
+        cells[name] = {
+            "params": res["params"], "fsdp": res["fsdp"],
+            "optimizer": res.get("optimizer"), "memory": mem,
+            "flops": res["cost"]["flops"],
+            "bytes_accessed": res["cost"]["bytes_accessed"],
+            "collective_bytes": res["collectives"]["bytes"],
+            "collective_bytes_by_kind": res["collectives"]["by_kind"],
+            "collective_count": res["collectives"]["count"],
+            "body_flops": res["body"]["cost"]["flops"],
+            "trace_s": res["lower_s"], "count_s": res["compile_s"],
+            "cell_s": res["elapsed_s"], "child_s": res["child_seconds"]}
+    import torch
+    emit({"phase": "dryrun_check", "backend": "fake", "device_type": "cuda",
+          "seconds": seconds, "waited_s": waited,
+          "target_s": DRYRUN_TARGET_S, "nice": 10,
+          "torch": torch.__version__,
+          "note": "per-device planning numbers on the fake backend, not "
+                  "measurements of the card", "cells": cells})
+    return cells
+
+
 def phase_experts(seed: int) -> dict:
     """One Kimi K2 layer's expert bank at published widths (384 experts of
     w_gate, w_up (7168, 2048) and w_down (2048, 7168), bf16: 33.8 GB) in
@@ -6631,6 +6908,9 @@ def run(args) -> None:
                                     args.seed)
     lm["gemma_train"] = timed("gemma_train", phase_gemma_train, fmod, dmod,
                               args.seed)
+    # After gemma_train, the run's peak of card memory (the children each
+    # take a CUDA context).
+    dryrun = start_dryrun_check()
     lm["moe_check"] = timed("moe_check", phase_moe_check, fmod, dmod,
                             args.seed)
     lm["mixtral_serve"] = timed("mixtral_serve", phase_mixtral_serve, fmod,
@@ -6641,6 +6921,8 @@ def run(args) -> None:
                             args.seed)
     timed("moe_shard_map_check", phase_moe_shard_map_check, args.seed)
     timed("mesh_check", phase_mesh_check)
+    lm["hints_check"] = timed("hints_check", phase_hints_check, fmod, dmod,
+                              args.seed)
     lm["rgemma_check"] = timed("rgemma_check", phase_rgemma_check, fmod,
                                dmod, args.seed)
     lm["xlstm_check"] = timed("xlstm_check", phase_xlstm_check, fmod, dmod,
@@ -6667,6 +6949,7 @@ def run(args) -> None:
     lm["stacked_check"] = timed("stacked_check", phase_stacked_check, fmod,
                                 dmod, args.seed)
     timed("experts", phase_experts, args.seed)
+    timed("dryrun_check", phase_dryrun_check, dryrun)
     timing = timed("timing", phase_timing, kmod, fmod, dmod, plans, h_main,
                    h_lj, h_train, g_train, args.seed, tuned)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
@@ -6698,7 +6981,8 @@ def run(args) -> None:
                    "qwen_serve_reference_forward":
                        lm["qwen_serve"]["flash_reference_forward"],
                    "seamless_serve": lm["seamless_serve"]["flash"],
-                   "stacked_check": lm["stacked_check"]["flash"]}
+                   "stacked_check": lm["stacked_check"]["flash"],
+                   "hints_check": lm["hints_check"]["flash"]}
     bwd_paths = {p: lm[p]["flash_bwd"] for p in train_paths}
 
     def by_route(kernel: str, routes=("tensor_core", "f32_fma")) -> dict:
@@ -6930,7 +7214,11 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    run(args)
+    try:
+        run(args)
+    finally:
+        for proc in CHILDREN:
+            proc.kill()
     return 0
 
 

@@ -17,8 +17,10 @@ On the card the cache axis is cut into splits, each a thread block, and a
 second kernel combines them; `DECODE_LAUNCHES` counts the pair as one. f16
 and bf16 take the tensor-core split kernel, f32 the f32 FMA one
 (`flash_attn.ROUTES`).
-`decode_attention_blocks` dispatches on where the tensors lie: CPU tensors
-take the plain version, CUDA tensors launch the kernels or raise.
+The kernels are the operator `torch.ops.repro_torch.decode_attn`, which
+dispatches on where the tensors lie: CPU tensors take the plain version,
+CUDA tensors launch the kernels or raise, meta and fake tensors get a
+shape, and a DTensor's local shards take one of those.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import entry
 from repro_torch.kernels.flash_attn import (
@@ -127,23 +131,21 @@ def _launch_fn():
                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lens: torch.Tensor,
-                          softcap: Optional[float] = None) -> torch.Tensor:
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lens: torch.Tensor, softcap: float) -> torch.Tensor:
     """Launch the split and combine kernels on PyTorch's current stream (no
-    synchronise). Returns (B, n_kv, group, d) in q's dtype; raises on any
-    operand the kernels do not take. `lens` stays on the card: no host
-    sync. The SM count and the split plan are cached, and the scratch is
-    one allocation from PyTorch's caching allocator (allocations were the
-    largest part of the wrapper's host time, as
-    scripts/decode_wrapper_time.py measures it)."""
+    synchronise): the CUDA implementation of `decode_attn`. Returns (B,
+    n_kv, group, d) in q's dtype; raises on any operand the kernels do not
+    take. `lens` stays on the card: no host sync. The SM count and the
+    split plan are cached, and the scratch is one allocation from PyTorch's
+    caching allocator (allocations were the largest part of the wrapper's
+    host time, as scripts/decode_wrapper_time.py measures it)."""
     global DECODE_LAUNCHES, DECODE_SOFTCAP_LAUNCHES, DECODE_WIDE_LAUNCHES
     _check(q, k, v, lens)
-    cap = softcap_value(softcap)
+    cap = softcap_value(softcap or None)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
-    no_grad_guard("decode_attention_cuda", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v), ("lens", lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -182,10 +184,68 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+# The kernels as the operator `torch.ops.repro_torch.decode_attn` (q, k, v,
+# lens, softcap) → out, softcap 0.0 for none: the kernels as its CUDA
+# implementation (counted), the plain version as its CPU one, a fake
+# implementation, a FLOP formula and a DTensor sharding rule, as
+# `flash_attn.LIB` registers the flash kernels. It has no autograd formula:
+# the kernel only serves, and `decode_attention_cuda` refuses a graph.
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+LIB.define("decode_attn(Tensor q, Tensor k, Tensor v, Tensor lens, "
+           "float softcap) -> Tensor")
+LIB.impl("decode_attn", _launch, "CUDA")
+LIB.impl("decode_attn", lambda q, k, v, lens, softcap: decode_attention_plain(
+    q, k, v, lens, softcap or None), "CPU")
+
+
+@torch.library.register_fake("repro_torch::decode_attn")
+def _decode_attn_fake(q, k, v, lens, softcap):
+    _check(q, k, v, lens)
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attn)
+def _decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """4·B·Hq·S·d, S the cache's length: the two products of the
+    reference's `_decode_attn`, every cache position included. The kernel
+    reads only the first lens[b] positions, so this is the reference's
+    count, not the kernel's work."""
+    b, n_kv, group, d = q_shape
+    return 4 * b * n_kv * group * k_shape[2] * d
+
+
+def register_sharding() -> None:
+    """The operator's DTensor sharding rule (`ops.register_dtensor_rules`
+    calls it once): batch (lens with it) and KV heads may be sharded; the
+    cache's length and the head dim are not."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.decode_attn.default)
+    def _rule(q, k, v, lens, softcap):
+        r, b, h = Replicate(), Shard(0), Shard(1)
+        return [([r], [r, r, r, r, None]), ([b], [b, b, b, b, None]),
+                ([h], [h, h, h, r, None])]
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lens: torch.Tensor,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """The kernels through `decode_attn` on CUDA tensors: (B, n_kv, group,
+    d) in q's dtype. Raises on CPU tensors and where autograd would record
+    the call, before any launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
+                         f"{q.device}")
+    return decode_attention_blocks(q, k, v, lens, softcap)
+
+
 def decode_attention_blocks(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lens: torch.Tensor,
                             softcap: Optional[float] = None) -> torch.Tensor:
-    """The kernels for CUDA tensors, the plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lens, softcap)
-    return decode_attention_cuda(q, k, v, lens, softcap)
+    """`decode_attn`: the kernels for CUDA tensors, the plain version for CPU
+    tensors, a shape for meta and fake ones, each local shard for a
+    DTensor; refuses a graph (`no_grad_guard`)."""
+    no_grad_guard("decode_attention_cuda", q, k, v)
+    return torch.ops.repro_torch.decode_attn(q, k, v, lens,
+                                             softcap_value(softcap))

@@ -44,10 +44,11 @@ and dK, dQ as above from that dS (D is unchanged).
 On the card both directions take their tensor-core kernels for f16 and
 bf16 and their f32 FMA kernels for f32 (`ROUTES`, `BWD_ROUTES`; the
 sources say why).
-`FlashAttention` is the autograd Function over both; `flash_attention_cuda`
-and `flash_attention_blocks` go through it when a gradient is asked for.
-`flash_attention_blocks` dispatches on where the tensors lie: CPU tensors
-take the plain versions, CUDA tensors launch the kernels or raise.
+Both directions are operators, `torch.ops.repro_torch.flash_attn` and
+`flash_attn_bwd` (below), and the forward's backward is the backward
+operator. The operators dispatch on where the tensors lie: CPU tensors take
+the plain versions, CUDA tensors launch the kernels or raise, meta and fake
+tensors get shapes alone, and a DTensor's local shards take one of those.
 """
 from __future__ import annotations
 
@@ -56,14 +57,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from repro_torch.kernels.build import entry
 
 # Kernel launches made in this process, in all, by route, with a softcap,
 # at d > 128, with a prefix P > 0, with Sq != Sk (cross) and without the
-# causal mask: the forward by `flash_attention_cuda` (inference and
-# `FlashAttention.forward`, the recompute of a checkpointed layer among
-# them), the backward by `flash_attention_bwd_cuda`
-# (`FlashAttention.backward`).
+# causal mask: the forward by `flash_attn`'s CUDA implementation (inference
+# and training, the recompute of a checkpointed layer among them), the
+# backward by `flash_attn_bwd`'s.
 FLASH_LAUNCHES = 0
 FLASH_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 FLASH_SOFTCAP_LAUNCHES = 0
@@ -291,30 +293,28 @@ def _check_cuda(name: str, causal: bool, window: int,
 
 
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, window: int, with_lse: bool,
-                    softcap: Optional[float] = None, prefix: int = 0
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One forward launch on PyTorch's current stream (no synchronise);
-    writes lse only when asked (inference passes a null pointer)."""
+                    causal: bool, window: int, softcap: float,
+                    prefix: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One forward launch on PyTorch's current stream (no synchronise),
+    writing out and lse: the CUDA implementation of `flash_attn`."""
     global FLASH_LAUNCHES, FLASH_SOFTCAP_LAUNCHES, FLASH_WIDE_LAUNCHES, \
         FLASH_PREFIX_LAUNCHES, FLASH_CROSS_LAUNCHES, FLASH_NONCAUSAL_LAUNCHES
     _check(q, k, v)
-    cap = _check_cuda("flash_attention_cuda", causal, window, softcap,
+    cap = _check_cuda("flash_attention_cuda", causal, window, softcap or None,
                       prefix, q=q, k=k, v=v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32,
-                      device=q.device) if with_lse else None
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 b, h, sq, sk, d, int(causal), window, int(prefix),
-                 1.0 / d ** 0.5, cap, DTYPE_CODES[q.dtype], stream)
+                 lse.data_ptr(), b, h, sq, sk, d, int(causal), window,
+                 int(prefix), 1.0 / d ** 0.5, cap, DTYPE_CODES[q.dtype],
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
                            f"{err}")
@@ -333,46 +333,24 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, *, causal: bool = True,
-                             window: int = 0,
-                             softcap: Optional[float] = None,
-                             prefix: int = 0
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel as training launches it: (out, lse (B, H, Sq)
-    f32), recording no graph (`FlashAttention` is the differentiable
-    entry)."""
-    return _launch_forward(q, k, v, causal, window, with_lse=True,
-                           softcap=softcap, prefix=prefix)
-
-
-def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, out: torch.Tensor,
-                             dout: torch.Tensor, lse: torch.Tensor,
-                             causal: bool = True, window: int = 0,
-                             softcap: Optional[float] = None,
-                             prefix: int = 0
-                             ) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's
-    current stream, counted as one launch: (dq, dk, dv), dq like q, dk and
-    dv like k. `causal`, `window`, `softcap` and `prefix` are the
-    forward's, whose lse (over the softcapped scores) this takes. Raises on
-    any operand the kernels do not take, d > BWD_MAX_HEAD_DIM first
-    (`refuse_wide_backward`)."""
+def _launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, dout: torch.Tensor,
+                     lse: torch.Tensor, causal: bool, window: int,
+                     softcap: float, prefix: int) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels (D pre-pass, dK/dV, dQ) on PyTorch's current
+    stream, counted as one launch: the CUDA implementation of
+    `flash_attn_bwd`. Refuses d > BWD_MAX_HEAD_DIM before any launch."""
     global FLASH_BWD_LAUNCHES, FLASH_BWD_SOFTCAP_LAUNCHES, \
         FLASH_BWD_WIDE_LAUNCHES, FLASH_BWD_PREFIX_LAUNCHES, \
         FLASH_BWD_CROSS_LAUNCHES, FLASH_BWD_NONCAUSAL_LAUNCHES
     refuse_wide_backward(q.shape[-1])
     _check(q, k, v, out, dout)
-    cap = _check_cuda("flash_attention_bwd_cuda", causal, window, softcap,
-                      prefix, q=q, k=k, v=v, out=out, dout=dout, lse=lse)
+    cap = _check_cuda("flash_attention_bwd_cuda", causal, window,
+                      softcap or None, prefix, q=q, k=k, v=v, out=out,
+                      dout=dout, lse=lse)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
-            lse.device != q.device:
-        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32 on "
-                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} "
-                         f"on {lse.device}")
+    _check_lse(lse, q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if q.numel() == 0:
@@ -403,62 +381,171 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Flash attention under autograd: the forward kernel writes lse beside
-    the output, the backward kernel reads both, with the same softcap and
-    prefix. CPU tensors take the plain versions of both directions; CUDA
-    tensors launch the kernels, and their backward refuses d >
-    BWD_MAX_HEAD_DIM (`refuse_wide_backward`) before any launch."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int,
-                softcap: Optional[float] = None, prefix: int = 0):
-        cap = softcap_value(softcap) or None
-        if q.device.type == "cpu":
-            out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
-                                                 window=window, softcap=cap,
-                                                 prefix=prefix)
-        else:
-            out, lse = _launch_forward(q, k, v, causal, window,
-                                       with_lse=True, softcap=cap,
-                                       prefix=prefix)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window, ctx.softcap = causal, window, cap
-        ctx.prefix = prefix
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type != "cpu":
-            refuse_wide_backward(q.shape[-1])
-        dout = dout.contiguous()
-        bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
-               else flash_attention_bwd_cuda)
-        dq, dk, dv = bwd(q, k, v, out, dout, lse, ctx.causal, ctx.window,
-                         ctx.softcap, prefix=ctx.prefix)
-        return dq, dk, dv, None, None, None, None
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    b, h, sq, _ = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
+            lse.device != q.device:
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} "
+                         f"on {lse.device}")
 
 
-def _wants_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+# --------------------------------------------------------------------------
+# The kernels as operators: `torch.ops.repro_torch.flash_attn` (q, k, v,
+# causal, window, softcap, prefix) → (out, lse) and `flash_attn_bwd` (q, k,
+# v, out, dout, lse, causal, window, softcap, prefix) → (dq, dk, dv), with
+# softcap 0.0 for none. Each has the kernel as its CUDA implementation
+# (counted), the plain version as its CPU one, a fake (shape-only)
+# implementation for meta and fake tensors, a FLOP formula and a DTensor
+# sharding rule; the forward's backward is the backward operator. So a trace
+# (`torch.compile`, the dry run) keeps each call as one node, and a DTensor
+# call runs the operator on each rank's local shard.
+# --------------------------------------------------------------------------
+
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+LIB.define("flash_attn(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+           "float softcap, int prefix) -> (Tensor, Tensor)")
+LIB.define("flash_attn_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+           "Tensor dout, Tensor lse, bool causal, int window, float softcap, "
+           "int prefix) -> (Tensor, Tensor, Tensor)")
+LIB.impl("flash_attn", _launch_forward, "CUDA")
+LIB.impl("flash_attn_bwd", _launch_backward, "CUDA")
+LIB.impl("flash_attn", lambda q, k, v, causal, window, softcap, prefix:
+         flash_attention_plain_lse(q, k, v, causal=causal, window=window,
+                                   softcap=softcap or None, prefix=prefix),
+         "CPU")
+LIB.impl("flash_attn_bwd", lambda q, k, v, out, dout, lse, causal, window,
+         softcap, prefix: flash_attention_bwd_plain(
+             q, k, v, out, dout, lse, causal, window, softcap or None,
+             prefix), "CPU")
+
+
+@torch.library.register_fake("repro_torch::flash_attn")
+def _flash_attn_fake(q, k, v, causal, window, softcap, prefix):
+    _check(q, k, v)
+    check_lengths(q.shape[2], k.shape[2], causal, prefix_value(prefix))
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::flash_attn_bwd")
+def _flash_attn_bwd_fake(q, k, v, out, dout, lse, causal, window, softcap,
+                         prefix):
+    _check(q, k, v, out, dout)
+    _check_lse(lse, q)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal, window, softcap, prefix = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.mark_non_differentiable(lse)
+    ctx.args = (causal, window, softcap, prefix)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attn_bwd(
+        q, k, v, out, dout.contiguous(), lse, *ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+torch.library.register_autograd("repro_torch::flash_attn", _flash_backward,
+                                setup_context=_flash_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn)
+def _flash_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """4·B·H·Sq·Sk·d: the two products of the reference's `_attn_core`
+    (scores and probabilities times V), masked pairs included. The kernel
+    skips masked tiles, so this is the reference's count, not the kernel's
+    work."""
+    b, h, sq, d = q_shape
+    return 4 * b * h * sq * k_shape[2] * d
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn_bwd)
+def _flash_bwd_flops(q_shape, k_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    """8·B·H·Sq·Sk·d: the transposes of `_attn_core`'s two products (dQ, dK
+    from the scores', dP, dV from the values'), masked pairs included, as
+    `jax.grad` of the reference counts them; the kernels' recompute of the
+    scores is not counted, as the reference's autodiff keeps them."""
+    b, h, sq, d = q_shape
+    return 8 * b * h * sq * k_shape[2] * d
+
+
+def register_sharding() -> None:
+    """The operators' DTensor sharding rules (`ops.register_dtensor_rules`
+    calls it once): batch and heads may be sharded, sequence and head dim
+    are not, since each (batch, head) row of attention is independent of
+    every other."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attn.default)
+    def _fwd(q, k, v, causal, window, softcap, prefix):
+        rest = [None] * 4
+        return [([p, p], [p, p, p, *rest])
+                for p in (Replicate(), Shard(0), Shard(1))]
+
+    @register_sharding(torch.ops.repro_torch.flash_attn_bwd.default)
+    def _bwd(q, k, v, out, dout, lse, causal, window, softcap, prefix):
+        rest = [None] * 4
+        return [([p, p, p], [p] * 6 + rest)
+                for p in (Replicate(), Shard(0), Shard(1))]
+
+
+def _cuda_args(name: str, q, k, v, causal, window, softcap, prefix) -> float:
+    """The checks of a CUDA entry before the operator is called (so that a
+    CPU tensor raises and counts nothing): the softcap as the operator
+    takes it."""
+    _check(q, k, v)
+    return _check_cuda(name, causal, window, softcap, prefix, q=q, k=k, v=v)
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0,
+                             softcap: Optional[float] = None,
+                             prefix: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel through `flash_attn`: (out, lse (B, H, Sq) f32)."""
+    cap = _cuda_args("flash_attention_cuda", q, k, v, causal, window,
+                     softcap, prefix)
+    return torch.ops.repro_torch.flash_attn(q, k, v, causal, window, cap,
+                                            prefix)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor,
+                             causal: bool = True, window: int = 0,
+                             softcap: Optional[float] = None,
+                             prefix: int = 0
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels through `flash_attn_bwd`: (dq, dk, dv), dq like
+    q, dk and dv like k. `causal`, `window`, `softcap` and `prefix` are the
+    forward's, whose lse (over the softcapped scores) this takes. Raises on
+    any operand the kernels do not take, d > BWD_MAX_HEAD_DIM first
+    (`refuse_wide_backward`)."""
+    refuse_wide_backward(q.shape[-1])
+    _check(q, k, v, out, dout)
+    cap = _check_cuda("flash_attention_bwd_cuda", causal, window, softcap,
+                      prefix, q=q, k=k, v=v, out=out, dout=dout, lse=lse)
+    return torch.ops.repro_torch.flash_attn_bwd(q, k, v, out, dout, lse,
+                                                causal, window, cap, prefix)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: Optional[float] = None,
                          prefix: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
-    Returns (B, H, Sq, d) in q's dtype; raises on any operand the kernel does
-    not take. Where a gradient is asked for, the launch goes through
-    `FlashAttention`, which also writes lse and launches the backward."""
-    if _wants_grad(q, k, v):
-        _check(q, k, v)
-        _check_cuda("flash_attention_cuda", causal, window, softcap, prefix,
-                    q=q, k=k, v=v)
-        return FlashAttention.apply(q, k, v, causal, window, softcap, prefix)
-    return _launch_forward(q, k, v, causal, window, with_lse=False,
-                           softcap=softcap, prefix=prefix)[0]
+    """The forward kernel through `flash_attn` on PyTorch's current stream
+    (no synchronise): (B, H, Sq, d) in q's dtype; raises on any operand the
+    kernel does not take. Under autograd its backward is `flash_attn_bwd`."""
+    return flash_attention_lse_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, prefix=prefix)[0]
 
 
 def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
@@ -466,12 +553,9 @@ def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
                            window: int = 0,
                            softcap: Optional[float] = None,
                            prefix: int = 0) -> torch.Tensor:
-    """The kernels for CUDA tensors, their plain versions for CPU tensors,
-    through `FlashAttention` where a gradient is asked for."""
-    if q.device.type != "cpu":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, prefix=prefix)
-    if _wants_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, softcap, prefix)
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, prefix=prefix)
+    """`flash_attn`'s output: the kernels for CUDA tensors, their plain
+    versions for CPU tensors, a shape for meta and fake ones, each local
+    shard for a DTensor."""
+    return torch.ops.repro_torch.flash_attn(
+        q, k, v, causal, window, softcap_value(softcap),
+        prefix_value(prefix))[0]

@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_attn as _decode_mod
+from repro_torch.kernels import flash_attn as _flash_mod
 from repro_torch.kernels.bcsr_spmm import (
     bcsr_spmm_blocks,
     fused_gcn_layer_blocks,
@@ -14,6 +16,34 @@ from repro_torch.kernels.bcsr_spmm import (
 from repro_torch.kernels.decode_attn import decode_attention_blocks
 from repro_torch.kernels.flash_attn import flash_attention_blocks
 from repro_torch.sparse.formats import BlockELL
+
+
+_DTENSOR_RULES = []
+
+
+def register_dtensor_rules() -> None:
+    """The attention operators' DTensor sharding rules, registered once,
+    by the first caller that works with DTensors (`transformer.on_mesh`,
+    the dry run): importing DTensor takes about a second, which a process
+    that never uses it does not pay."""
+    if not _DTENSOR_RULES:
+        _flash_mod.register_sharding()
+        _decode_mod.register_sharding()
+        _DTENSOR_RULES.append(True)
+
+
+def fit_groups(t: torch.Tensor, dim: int, groups: int) -> torch.Tensor:
+    """t with `dim` replicated on each mesh axis whose shards would cut
+    one of its `groups` groups (a DTensor's; a plain tensor as it is):
+    DTensor cannot split a dim sharded over more ranks than it has groups
+    (Yi-6B's 4 KV heads, Mixtral's 8, over a model axis of 16)."""
+    mesh = getattr(t, "device_mesh", None)
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_shard(dim) and groups % mesh.size(i) else p
+          for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
 
 
 def _brick_tensors(ell: BlockELL) -> tuple:
@@ -64,7 +94,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n_q % n_kv:
         raise ValueError(f"{n_q} query heads do not group over {n_kv} KV "
                          "heads")
-    qg = q.reshape(b_sz, n_kv, n_q // n_kv, d).contiguous()
+    qg = fit_groups(q, 1, n_kv).reshape(b_sz, n_kv, n_q // n_kv,
+                                        d).contiguous()
     out = decode_attention_blocks(
         qg, k.contiguous(), v.contiguous(),
         lens.to(device=q.device, dtype=torch.int32).contiguous(), softcap)

@@ -15,11 +15,9 @@ Conventions, as in `repro.models.layers`:
   * mixed operands promote as JAX promotes them (`matmul`, `mm`): a f32
     activation times a bf16 weight is a f32 product.
 
-Left out, each raising where the reference would take it: a key mask for
+Left out, raising where the reference would take it: a key mask for
 cross-attention (`cross_mask`; no reference caller passes one, and the
-kernels take no per-row key mask) and the sharding hints (`mesh_axes`:
-`with_sharding_constraint`s that only the dry run over a mesh reads, which
-comes with `launch/dryrun.py`, ROADMAP.md queue 1 item 9).
+kernels take no per-row key mask).
 """
 from __future__ import annotations
 
@@ -52,6 +50,16 @@ def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if a.dtype != w.dtype:
         return mm(a, w).to(a.dtype)
     return torch.matmul(a, w)
+
+
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """t (B, S, heads·hd) → (B, heads, S, hd). Under DTensor a last dim
+    sharded over more ranks than it has heads cannot be split (a shard
+    would hold part of a head: Yi-6B's 4 KV heads over a model axis of
+    16), so that dim is replicated first, as GSPMD re-lays it out."""
+    b, s, width = t.shape
+    return ops.fit_groups(t, 2, heads).reshape(
+        b, s, heads, width // heads).transpose(1, 2)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -196,7 +204,7 @@ def attention(
     group = hq // hkv
     softcap = cfg.attn_softcap
 
-    q = matmul(x, p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
+    q = split_heads(matmul(x, p["wq"]), hq)
     new_cache = None
     window, causal, prefix = sliding_window or 0, True, 0
     if cross_kv is not None:
@@ -214,8 +222,8 @@ def attention(
             return matmul(out.to(x.dtype), p["wo"]), None
         window, causal = 0, False
     else:
-        k = matmul(x, p["wk"]).reshape(b, s, hkv, hd).transpose(1, 2)
-        v = matmul(x, p["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
+        k = split_heads(matmul(x, p["wk"]), hkv)
+        v = split_heads(matmul(x, p["wv"]), hkv)
         if cfg.mrope_sections is not None:
             if cache is None:
                 prefix = mrope_prefix(cfg, positions)
@@ -229,12 +237,34 @@ def attention(
             dt = torch.promote_types(q.dtype, k.dtype)
             q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if group > 1:
-        k = torch.repeat_interleave(k, group, dim=1)
-        v = torch.repeat_interleave(v, group, dim=1)
+        k, v = _repeat_kv(k, group), _repeat_kv(v, group)
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap, prefix=prefix)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return matmul(out.to(x.dtype), p["wo"]), new_cache
+
+
+def _repeat_kv(t: torch.Tensor, group: int) -> torch.Tensor:
+    """Each KV head of t (B, n_kv, S, hd) repeated `group` times along the
+    heads. Under DTensor the repeated heads keep t's layout, so that their
+    gradient comes back to it before the repeat's backward folds the group
+    (DTensor cannot fold heads sharded over more ranks than there are KV
+    heads); a no-op forward."""
+    out = torch.repeat_interleave(t, group, dim=1)
+    if hasattr(t, "device_mesh"):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return out
+
+
+def _replicate(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh axis; a plain tensor as it is."""
+    mesh = getattr(t, "device_mesh", None)
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def _cache_write(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
@@ -279,23 +309,26 @@ def moe_ffn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     cap = max(1, int(cf·T·k/e)) rounded up to a multiple of 64; each
     (token, slot) assignment's rank in its expert from a stable argsort,
     the histogram and its starts; an assignment ranked at or past cap is
-    dropped (sent to the pad slot e·cap, weight 0); each slot gathers its
+    dropped (weight 0, its row the last slot's); each slot gathers its
     token (the zero row for an empty slot); the experts run as three
     batched products; each token sums its k weighted rows in slot order,
     which is the reference's `.at[tok_id].add` with tok_id = repeat(
-    arange(T), k), with no atomics. On the card `torch.bincount` waits
-    for the device once a call (it reads the largest expert id).
-    `mesh_axes` (the reference's sharding hints) must be None: they come
-    with the dry run (`launch/dryrun.py`, ROADMAP.md queue 1 item 9).
+    arange(T), k), with no atomics. The histogram is a scatter-add into E
+    counts, the same integers as `bincount`, of a shape that does not
+    depend on the data (so a trace takes it, and the card does not wait).
+    With `mesh_axes` the dispatched rows and the experts' outputs (E, cap,
+    d) are hinted experts over "model", slots over the data axes, as the
+    reference's two `with_sharding_constraint`s (`transformer._shard`).
     """
-    if mesh_axes is not None:
-        raise NotImplementedError(
-            "sharding hints (mesh_axes) are not ported: they come with the "
-            "dry run, launch/dryrun.py (ROADMAP.md queue 1 item 9)")
+    from repro_torch.models.transformer import _shard
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    xf = x.reshape(t, d)
+    # Under the hints xf stays at x's layout (tokens over the data axes;
+    # a no-op forward) so that its gradient comes back there: DTensor's
+    # reshape cannot take a gradient split over both mesh axes back to
+    # (B, S, D).
+    xf = _shard(x.reshape(t, d), mesh_axes, ("data", None))
     dev = x.device
 
     gate_logits = matmul(xf, p["w_router"])                      # (T, E)
@@ -309,7 +342,8 @@ def moe_ffn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     flat_e = top_e.reshape(-1)                                   # (T·k,)
     flat_w = top_p.reshape(-1)
-    hist = torch.bincount(flat_e, minlength=e)
+    hist = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add(
+        0, flat_e, torch.ones_like(flat_e))
     # Load-balancing auxiliary loss (Switch-style); ce is the mean over
     # tokens of each expert's one-hot count.
     me = probs.mean(dim=0)
@@ -321,25 +355,38 @@ def moe_ffn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     order = torch.argsort(flat_e, stable=True)
     starts = torch.cumsum(hist, 0) - hist
     ranks_sorted = torch.arange(t * k, device=dev) - starts[flat_e[order]]
-    pos = torch.empty_like(ranks_sorted)
-    pos[order] = ranks_sorted
+    pos = torch.empty_like(ranks_sorted).index_put((order,), ranks_sorted)
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(pos, e * cap))
     # Token ids into slots (kept slots are distinct), the dropped ones
     # into the pad slot e·cap, which no expert reads; then gather rows.
     token_for_slot = torch.full((e * cap + 1,), t, dtype=torch.long,
-                                device=dev)
-    token_for_slot[slot] = torch.arange(t, device=dev).repeat_interleave(k)
-    xf_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-    dispatched = xf_pad[token_for_slot[:e * cap]].reshape(e, cap, d)
+                                device=dev).index_put(
+        (slot,), torch.arange(t, device=dev).repeat_interleave(k))
+    # An empty slot holds token id t and takes the zero row, as the
+    # reference's gather from [xf; 0] gives it (a where, not that
+    # concatenation: T + 1 rows do not shard evenly under the hints).
+    token_for_slot = token_for_slot[:e * cap]
+    dispatched = torch.where((token_for_slot < t)[:, None],
+                             xf[token_for_slot.clamp_max(t - 1)], 0.0)
+    dispatched = ops.fit_groups(dispatched, 0, e).reshape(e, cap, d)
+    dispatched = _shard(dispatched, mesh_axes, ("model", "data", None))
 
     hidden = F.silu(torch.bmm(dispatched, p["w_gate"])) \
         * torch.bmm(dispatched, p["w_up"])
-    expert_out = torch.bmm(hidden, p["w_down"]).reshape(e * cap, d)
-    expert_out = torch.cat([expert_out, expert_out.new_zeros((1, d))])
-
-    gathered = expert_out[slot] * (flat_w * keep)[:, None].to(x.dtype)
+    expert_out = _shard(torch.bmm(hidden, p["w_down"]), mesh_axes,
+                        ("model", "data", None))
+    # Row (expert, rank) of each kept assignment; a dropped one reads the
+    # last slot's row, weighted by 0, as the reference's gather clamps its
+    # out-of-range slot e·cap. Two indices, not the flat slot: the (E, cap)
+    # axes are sharded over two mesh axes under the hints; and under
+    # DTensor both replicated (T·k integers), as torch 2.11's DTensor
+    # cannot gather by an index sharded over two mesh axes beside another.
+    rows = [_replicate(i) for i in (torch.where(keep, flat_e, e - 1),
+                                    torch.where(keep, pos, cap - 1))]
+    gathered = expert_out[rows[0], rows[1]] \
+        * (flat_w * keep)[:, None].to(x.dtype)
     gathered = gathered.reshape(t, k, d)
     out = gathered[:, 0]
     for j in range(1, k):                # the reference's order of adds

@@ -23,6 +23,8 @@ tree across; `stack_params` and `unstack_params` convert between the two
 layouts. With `cfg.remat` under autograd, `forward_scan` checkpoints each
 repeat of the unit and `encode_scan` each encoder layer, as the
 reference's scan bodies are checkpointed; the remainder layers are not.
+Each path takes the sharding hints (`mesh_axes`) where the reference's
+does (`transformer._shard`).
 """
 from __future__ import annotations
 
@@ -129,74 +131,102 @@ def params_from_numpy_stacked(cfg: ArchConfig, tree: Mapping[str, Any],
     return stack_params(cfg, T.params_from_numpy(cfg, flat, device))
 
 
+@T.on_mesh
 def encode_scan(cfg: ArchConfig, params: Dict[str, Any],
-                audio_embeds: torch.Tensor) -> torch.Tensor:
+                audio_embeds: torch.Tensor, mesh_axes=None) -> torch.Tensor:
     """`transformer.encode` over the stacked encoder layers."""
     enc = {"audio_proj": params["audio_proj"],
            "enc_norm": params["enc_norm"],
            "enc_layers": [_view(params["enc_scan"], i)
                           for i in range(cfg.encoder_layers)]}
-    return T.encode(cfg, enc, audio_embeds)
+    return T.encode(cfg, enc, audio_embeds, mesh_axes)
 
 
-def _unit_apply(cfg: ArchConfig, kinds: List[BlockKind], scan: List[Any],
-                rep: int, x: torch.Tensor, positions: torch.Tensor,
-                enc_out: Optional[torch.Tensor]) -> tuple:
-    """Repeat `rep` of the unit: (x, its aux loss)."""
+def _unit_apply(cfg: ArchConfig, u_kinds: List[BlockKind],
+                unit_params: List[Any], x: torch.Tensor,
+                positions: torch.Tensor, mesh_axes=None,
+                enc_out: Optional[torch.Tensor] = None) -> tuple:
+    """One repeat of the unit, `unit_params[j]` the params of its j-th
+    layer: (x, its aux loss)."""
     aux = torch.zeros((), device=x.device)
-    for kind, unit_j in zip(kinds, scan):
-        x, a = T._layer_apply(cfg, kind, _view(unit_j, rep), x, positions,
-                              enc_out)
+    for kind, p in zip(u_kinds, unit_params):
+        x, a = T._layer_apply(cfg, kind, p, x, positions, mesh_axes, enc_out)
         aux = aux + a
     return x, aux
 
 
+@T.on_mesh
 def forward_scan(cfg: ArchConfig, params: Dict[str, Any],
                  tokens: torch.Tensor,
                  vision_embeds: Optional[torch.Tensor] = None,
                  audio_embeds: Optional[torch.Tensor] = None,
+                 mesh_axes=None,
                  last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """`transformer.forward` over stacked params: (logits, aux loss), the
     logits of the last position alone with `last_only` (a serving
     prefill's next token)."""
-    enc_out = (encode_scan(cfg, params, audio_embeds)
+    x, positions = T._embed(cfg, params, tokens, vision_embeds, mesh_axes)
+    enc_out = (encode_scan(cfg, params, audio_embeds, mesh_axes)
                if T.needs_audio(cfg, audio_embeds) else None)
-    x, positions = T._embed(cfg, params, tokens, vision_embeds)
     kinds = unit_kinds(cfg)
     r, _ = group_split(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
     for rep in range(r):
+        unit = [_view(unit_j, rep) for unit_j in params["scan"]]
         if remat:
-            x, a = checkpoint(_unit_apply, cfg, kinds, params["scan"], rep,
-                              x, positions, enc_out, use_reentrant=False)
+            x, a = checkpoint(_unit_apply, cfg, kinds, unit, x, positions,
+                              mesh_axes, enc_out, use_reentrant=False)
         else:
-            x, a = _unit_apply(cfg, kinds, params["scan"], rep, x,
-                               positions, enc_out)
+            x, a = _unit_apply(cfg, kinds, unit, x, positions, mesh_axes,
+                               enc_out)
         aux = aux + a
     blocks = cfg.blocks()
     for i, p in enumerate(params["rest"]):
         x, a = T._layer_apply(cfg, blocks[r * len(kinds) + i], p, x,
-                              positions, enc_out)
+                              positions, mesh_axes, enc_out)
         aux = aux + a
     if last_only:
         x = x[:, -1:]
-    return T._logits(cfg, params, x), aux
+    # The vocabulary stays sharded over "model" (a sharded softmax in the
+    # loss), as in the reference.
+    return T._shard(T._logits(cfg, params, x), mesh_axes,
+                    ("data", None, "model")), aux
 
 
 def lm_loss_scan(cfg: ArchConfig, params: Dict[str, Any],
                  tokens: torch.Tensor, labels: torch.Tensor,
-                 vision_embeds=None, audio_embeds=None) -> torch.Tensor:
+                 vision_embeds=None, audio_embeds=None,
+                 mesh_axes=None) -> torch.Tensor:
     """Mean next-token NLL (+ 0.01 × aux) of `forward_scan`, in f32, as
-    the reference's: log Z by the running max, the gold logit picked out
-    (the reference's one-hot einsum, which sums one nonzero product)."""
+    the reference's shard-friendly loss: log Z by the running max, the gold
+    logit by the one-hot einsum, which keeps the vocabulary sharded over
+    "model" under the hints (no gather of the logits) and sums one nonzero
+    product, so it is the gold logit exactly."""
     logits, aux = forward_scan(cfg, params, tokens, vision_embeds,
-                               audio_embeds)
+                               audio_embeds, mesh_axes)
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True)
     logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    onehot = (labels.long()[..., None] == _vocab_ids(cfg, logits, mesh_axes)
+              ).float()
+    onehot = T._shard(onehot, mesh_axes, ("data", None, "model"))
+    gold = torch.einsum("bsv,bsv->bs", logits, onehot)
     return torch.mean(logz - gold) + 0.01 * aux
+
+
+def _vocab_ids(cfg: ArchConfig, logits: torch.Tensor,
+               mesh_axes) -> torch.Tensor:
+    """0..V-1 on the logits' device; under the hints a DTensor sharded over
+    "model", so that the one-hot is made shard by shard."""
+    ids = torch.arange(cfg.vocab, device=logits.device)
+    if mesh_axes is None or not hasattr(logits, "device_mesh"):
+        return ids
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = logits.device_mesh
+    ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    return T._shard(ids, mesh_axes, ("model",))
 
 
 def init_decode_state_stacked(cfg: ArchConfig, batch: int, max_len: int,
@@ -210,14 +240,17 @@ def init_decode_state_stacked(cfg: ArchConfig, batch: int, max_len: int,
     return {"pos": flat["pos"], "scan": scan, "rest": rest}
 
 
+@T.on_mesh
 def decode_step_scan(cfg: ArchConfig, params: Dict[str, Any],
                      token: torch.Tensor, state: Dict[str, Any],
-                     enc_out: Optional[torch.Tensor] = None) -> tuple:
+                     enc_out: Optional[torch.Tensor] = None,
+                     mesh_axes=None) -> tuple:
     """`transformer.decode_step` over stacked params and state: (logits,
     new state). The stacked state is updated in place: caches are written
     through views of the stacked tensors, and each recurrent layer's new
     state is copied into its slice; the new state holds the same tensors
-    with `pos` advanced by one."""
+    with `pos` advanced by one. `mesh_axes` is taken and, as in the
+    reference, read nowhere."""
     states = _layers(cfg, state["scan"], state["rest"])
     logits, new = T.decode_layers(
         cfg, params, _layers(cfg, params["scan"], params["rest"]), states,

@@ -49,11 +49,21 @@ not the forward's (ROADMAP.md queue 3, R6).
 `cfg.remat`, `jax.checkpoint` per layer in the reference, is
 `torch.utils.checkpoint` per layer here, taken only while autograd records
 (never under `torch.no_grad()` or `torch.inference_mode()`): the backward
-recomputes each layer's forward, flash launch included. The sharding hints
-(`mesh_axes`) have no argument.
+recomputes each layer's forward, flash launch included.
+
+Sharding hints: with `mesh_axes` (`MESH_AXES_SINGLE` or `MESH_AXES_MULTI`)
+and DTensor params on a `DeviceMesh`, `_shard` redistributes the
+activations at the reference's points (the embeddings, each layer's output,
+the encoder's input and the logits), where the reference places a
+`with_sharding_constraint`; `moe_ffn` takes its two. Without `mesh_axes`
+nothing is redistributed. With `mesh_axes` and plain tensors `_shard`
+raises RuntimeError, as the reference's constraint raises outside a mesh.
+`decode_step` takes `mesh_axes` and, as the reference's, reads no hint.
 """
 from __future__ import annotations
 
+import functools
+import sys
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -74,6 +84,62 @@ _RECURRENT_KEY = {BlockKind.MLSTM: "mlstm", BlockKind.SLSTM: "slstm",
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _shard(x: torch.Tensor, mesh_axes, spec) -> torch.Tensor:
+    """mesh_axes: None (no hints) or {"data": axes, "model": axis}. spec
+    entries are "data"/"model"/None and resolve per mesh, so the same model
+    code runs on single-pod (data, model) and multi-pod (pod, data, model)
+    meshes, as the reference's `_shard` resolves them. x, a DTensor, is
+    redistributed to the placements the resolved spec means on its mesh
+    (`launch.sharding.placements`); a plain tensor raises RuntimeError, as
+    `with_sharding_constraint` raises outside a mesh, and so does an axis
+    the mesh lacks."""
+    if mesh_axes is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.sharding import P, placements
+    spec = P(*(mesh_axes.get(a, None) if isinstance(a, str) else a
+               for a in spec))
+    if not isinstance(x, DTensor):
+        raise RuntimeError(
+            f"a sharding hint {spec} needs a DTensor on a DeviceMesh, got a "
+            f"plain tensor: with mesh_axes, give the params as DTensors "
+            f"(launch.sharding.tree_placements), as the reference's "
+            f"with_sharding_constraint needs a mesh in context")
+    mesh = x.device_mesh
+    names = {n for e in spec for n in (e if isinstance(e, tuple) else (e,))
+             if n is not None}
+    if not names <= set(mesh.mesh_dim_names):
+        raise ValueError(f"the hint {spec} names axes "
+                         f"{sorted(names - set(mesh.mesh_dim_names))} that "
+                         f"the mesh {mesh.mesh_dim_names} lacks")
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+MESH_AXES_SINGLE = {"data": ("data",), "model": "model"}
+MESH_AXES_MULTI = {"data": ("pod", "data"), "model": "model"}
+
+
+def on_mesh(fn):
+    """Run `fn` with the plain tensors the model makes beside DTensor
+    params (positions, RoPE frequencies, the MoE's slot indices) taken as
+    replicated on their mesh: DTensor's `implicit_replication`, the
+    counterpart of the reference's mesh in context, with the attention
+    operators' sharding rules registered. A process that has not imported
+    DTensor holds no DTensor, and its calls run as they are. Inside a
+    trace (`torch.compile`, the dry run) the context cannot be entered, so
+    the tracer enters it around the call."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if torch.compiler.is_compiling() or \
+                "torch.distributed.tensor" not in sys.modules:
+            return fn(*args, **kwargs)
+        from torch.distributed.tensor.experimental import implicit_replication
+        ops.register_dtensor_rules()
+        with implicit_replication():
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 # --------------------------------------------------------------------------
@@ -243,11 +309,12 @@ def param_count(params: Any) -> int:
 # --------------------------------------------------------------------------
 
 def _ffn(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
-         h2: torch.Tensor) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+         h2: torch.Tensor, mesh_axes=None
+         ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The block's feed-forward on the normed residual: (out or None, aux
-    loss f32; 0 but for MoE)."""
+    loss f32; 0 but for MoE, which takes the hints)."""
     if kind == BlockKind.MOE:
-        return L.moe_ffn(cfg, p["moe"], h2)
+        return L.moe_ffn(cfg, p["moe"], h2, mesh_axes)
     zero = torch.zeros((), device=h2.device)
     if "mlp" in p:
         return L.mlp(p["mlp"], h2), zero
@@ -276,37 +343,39 @@ def _cross_attend(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
     output gives f32 K and V under bf16 weights, as the reference's `@`)."""
     b, frames, _ = enc_out.shape
     hkv, hd = cfg.n_kv_heads, cfg.hd
-    ek, ev = (L.mm(enc_out, p["xattn"][w]).reshape(
-        b, frames, hkv, hd).transpose(1, 2) for w in ("wk", "wv"))
+    ek, ev = (L.split_heads(L.mm(enc_out, p["xattn"][w]), hkv)
+              for w in ("wk", "wv"))
     out, _ = L.attention(cfg, p["xattn"], L.rms_norm(x, p["ln_x"]),
                          positions, cross_kv=(ek, ev))
     return x + out
 
 
 def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
-                 x: torch.Tensor, positions: torch.Tensor,
+                 x: torch.Tensor, positions: torch.Tensor, mesh_axes=None,
                  enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One block: (x, aux loss). Only a LOCAL_ATTN block attends within
-    `cfg.sliding_window`, as the reference's; with `enc_out` an attention
-    block attends over it after its self-attention; a recurrent block adds
-    its mixer's output, then its MLP where it has one."""
+    """One block: (x, aux loss), x hinted batch-sharded on the way out.
+    Only a LOCAL_ATTN block attends within `cfg.sliding_window`, as the
+    reference's; with `enc_out` an attention block attends over it after
+    its self-attention; a recurrent block adds its mixer's output, then its
+    MLP where it has one."""
     h = L.rms_norm(x, p["ln1"])
+    aux = torch.zeros((), device=x.device)
     if kind not in _ATTENTION:
         x = x + _recurrent_apply(cfg, kind, p, h)
         if "mlp" in p:
             x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
-        return x, torch.zeros((), device=x.device)
-    window = cfg.sliding_window if kind == BlockKind.LOCAL_ATTN else None
-    attn_out, _ = L.attention(cfg, p["attn"], h, positions,
-                              sliding_window=window)
-    x = x + attn_out
-    if enc_out is not None:
-        x = _cross_attend(cfg, p, x, positions, enc_out)
-    ffn_out, aux = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
-    if ffn_out is not None:
-        x = x + ffn_out
-    return x, aux
+    else:
+        window = cfg.sliding_window if kind == BlockKind.LOCAL_ATTN else None
+        attn_out, _ = L.attention(cfg, p["attn"], h, positions,
+                                  sliding_window=window)
+        x = x + attn_out
+        if enc_out is not None:
+            x = _cross_attend(cfg, p, x, positions, enc_out)
+        ffn_out, aux = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]), mesh_axes)
+        if ffn_out is not None:
+            x = x + ffn_out
+    return _shard(x, mesh_axes, ("data", None, None)), aux
 
 
 def _build_positions(cfg: ArchConfig, b: int, s: int,
@@ -349,8 +418,8 @@ def _encoder_layer(cfg: ArchConfig, p: Dict[str, Any], e: torch.Tensor,
     b, frames, _ = e.shape
     hkv, hd = cfg.n_kv_heads, cfg.hd
     h = L.rms_norm(e, p["ln1"])
-    ek, ev = (L.mm(h, p["attn"][w]).reshape(b, frames, hkv, hd).transpose(
-        1, 2) for w in ("wk", "wv"))
+    ek, ev = (L.split_heads(L.mm(h, p["attn"][w]), hkv)
+              for w in ("wk", "wv"))
     out, _ = L.attention(cfg, p["attn"], h, positions, cross_kv=(ek, ev))
     e = e + out
     if "mlp" in p:
@@ -358,8 +427,9 @@ def _encoder_layer(cfg: ArchConfig, p: Dict[str, Any], e: torch.Tensor,
     return e
 
 
+@on_mesh
 def encode(cfg: ArchConfig, params: Dict[str, Any],
-           audio_embeds: torch.Tensor) -> torch.Tensor:
+           audio_embeds: torch.Tensor, mesh_axes=None) -> torch.Tensor:
     """The bidirectional encoder over precomputed frontend frames
     `audio_embeds` (B, frames, d_model), as the reference's `encode`:
     `audio_proj` (multiplied in the promoted dtype, then rounded to the
@@ -370,11 +440,14 @@ def encode(cfg: ArchConfig, params: Dict[str, Any],
     encoder in f32, as in the reference. With `cfg.remat` under autograd
     each layer goes through `torch.utils.checkpoint`, as `forward`'s do.
     Returns (B, frames, d_model); compute it once per request batch and
-    pass it to every `decode_step`."""
+    pass it to every `decode_step`. With `mesh_axes` the projected frames
+    are hinted batch-sharded, as the reference's."""
     b, frames = audio_embeds.shape[:2]
     e = L.mm(audio_embeds, params["audio_proj"]).to(audio_embeds.dtype)
-    positions = torch.arange(frames, dtype=torch.int32,
-                             device=e.device)[None, :].expand(b, frames)
+    e = _shard(e, mesh_axes, ("data", None, None))
+    positions = _replicated(torch.arange(
+        frames, dtype=torch.int32, device=e.device)[None, :].expand(
+            b, frames), e)
     remat = cfg.remat and torch.is_grad_enabled()
     for p in params["enc_layers"]:
         if remat:
@@ -398,13 +471,33 @@ def needs_audio(cfg: ArchConfig,
     return cfg.is_enc_dec
 
 
+def _replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """t, made alike on every rank, as a replicated DTensor on `like`'s
+    mesh where `like` is a DTensor, else t: positions that autograd saves
+    for the backward (RoPE's angles), which runs without the implicit
+    replication of `on_mesh`."""
+    if not hasattr(like, "device_mesh"):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def _embed(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
-           vision_embeds: Optional[torch.Tensor]) -> tuple:
+           vision_embeds: Optional[torch.Tensor], mesh_axes=None) -> tuple:
     """The decoder's input: (x (B, S, d_model), positions), the first
     n_vision_tokens embeddings replaced by the projected `vision_embeds`
-    where the config has a vision frontend and they are given."""
+    where the config has a vision frontend and they are given; with
+    `mesh_axes` the embeddings are hinted batch-sharded before the vision
+    input goes in, as in the reference."""
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    # `F.embedding`, not indexing: the same rows, and its backward is the
+    # embedding's own operator, for which DTensor has a rule in every torch
+    # the port meets (the index_put of indexing's backward has none in
+    # 2.11 for tokens sharded over the data axes).
+    x = _shard(F.embedding(tokens, params["embed"]), mesh_axes,
+               ("data", None, None))
     nv = cfg.n_vision_tokens
     if nv and vision_embeds is not None:
         if vision_embeds.shape != (b, nv, cfg.d_model):
@@ -414,13 +507,14 @@ def _embed(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
         vis = (vision_embeds.float() @ params["vision_proj"].float()).to(
             x.dtype)
         x = torch.cat([vis, x[:, nv:]], dim=1)
-    return x, _build_positions(cfg, b, s, x.device)
+    return x, _replicated(_build_positions(cfg, b, s, x.device), x)
 
 
+@on_mesh
 def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             vision_embeds: Optional[torch.Tensor] = None,
-            audio_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            audio_embeds: Optional[torch.Tensor] = None,
+            mesh_axes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int on the params' device → (logits (B, S, V), aux
     loss f32: the sum of the MoE layers', 0 for dense and recurrent
     stacks). One flash-attention launch per attention layer on the card,
@@ -441,31 +535,51 @@ def forward(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     them, where the reference asserts); every decoder layer then attends
     over the encoder output, one more flash launch a layer (non-causal, Sq
     = S, Sk = frames). A config without an encoder ignores
-    `audio_embeds`, as the reference's does."""
-    enc_out = (encode(cfg, params, audio_embeds)
+    `audio_embeds`, as the reference's does.
+
+    With `mesh_axes` and DTensor params and tokens, the activations are
+    hinted at the reference's points (`_shard`) and the logits end
+    batch-sharded with the vocabulary over "model"."""
+    x, positions = _embed(cfg, params, tokens, vision_embeds, mesh_axes)
+    enc_out = (encode(cfg, params, audio_embeds, mesh_axes)
                if needs_audio(cfg, audio_embeds) else None)
-    x, positions = _embed(cfg, params, tokens, vision_embeds)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), device=x.device)
     for kind, p in zip(cfg.blocks(), params["layers"]):
         if remat:
             x, aux = checkpoint(_layer_apply, cfg, kind, p, x, positions,
-                                enc_out, use_reentrant=False)
+                                mesh_axes, enc_out, use_reentrant=False)
         else:
-            x, aux = _layer_apply(cfg, kind, p, x, positions, enc_out)
+            x, aux = _layer_apply(cfg, kind, p, x, positions, mesh_axes,
+                                  enc_out)
         aux_total = aux_total + aux
-    return _logits(cfg, params, x), aux_total
+    return _shard(_logits(cfg, params, x), mesh_axes,
+                  ("data", None, "model")), aux_total
 
 
+@on_mesh
 def lm_loss(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
             labels: torch.Tensor, vision_embeds=None,
-            audio_embeds=None) -> torch.Tensor:
+            audio_embeds=None, mesh_axes=None) -> torch.Tensor:
     """Mean next-token NLL (+ 0.01 × aux), in f32 over the vocabulary."""
-    logits, aux = forward(cfg, params, tokens, vision_embeds, audio_embeds)
+    logits, aux = forward(cfg, params, tokens, vision_embeds, audio_embeds,
+                          mesh_axes)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold) + 0.01 * aux
+    gold = _settled(torch.gather(logits, -1, labels.long()[..., None]))
+    return torch.mean(logz - gold[..., 0]) + 0.01 * aux
+
+
+def _settled(t: torch.Tensor) -> torch.Tensor:
+    """t with a DTensor's pending reductions done (its partial placements
+    replicated); a plain tensor as it is. A gather over the vocabulary
+    sharded by the hints leaves a masked partial result that must be
+    reduced at its own rank, before it is indexed."""
+    if not hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
 
 
 # --------------------------------------------------------------------------
@@ -534,9 +648,9 @@ def _decode_attn(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     because each key got RoPE at its own position when it was written."""
     b = h.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (h @ p["wq"]).reshape(b, 1, hq, hd).transpose(1, 2)
-    k_new = (h @ p["wk"]).reshape(b, 1, hkv, hd).transpose(1, 2)
-    v_new = (h @ p["wv"]).reshape(b, 1, hkv, hd).transpose(1, 2)
+    q = L.split_heads(h @ p["wq"], hq)
+    k_new = L.split_heads(h @ p["wk"], hkv)
+    v_new = L.split_heads(h @ p["wv"], hkv)
     q = L.apply_rope(q, posb, cfg.rope_theta)
     k_new = L.apply_rope(k_new, posb, cfg.rope_theta)
     slot = pos
@@ -566,9 +680,10 @@ def _recurrent_step(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     return (gate * rec) @ rp["w_out"], {"h": h_st, "conv": conv}
 
 
+@on_mesh
 def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
-                state: Dict[str, Any], enc_out: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                state: Dict[str, Any], enc_out: Optional[torch.Tensor] = None,
+                mesh_axes=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token (B, 1) int → (logits (B, 1, V), new state).
 
     The caches are updated in place (the reference returns new arrays), so
@@ -587,6 +702,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], token: torch.Tensor,
     from it again on every step, as in the reference: the decode kernel
     with lens = frames, one more launch a layer. Without it the
     cross-attention blocks are skipped, as the reference skips them.
+    `mesh_axes` is taken and, as in the reference, read nowhere.
     """
     logits, layers = decode_layers(cfg, params, params["layers"],
                                    state["layers"], token, state["pos"],
@@ -609,29 +725,43 @@ def decode_layers(cfg: ArchConfig, params: Dict[str, Any],
     if pos < 0 or (full and pos >= min(full)):
         raise ValueError(f"position {pos} is outside the cache of "
                          f"{min(full) if full else 'any length'}")
-    x = params["embed"][token]
+    # A vocabulary-sharded table gives masked partial rows: summed here,
+    # as the prefill's hint sums them.
+    x = _settled(F.embedding(token, params["embed"]))
     kinds = cfg.blocks()
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     lens: Dict[int, torch.Tensor] = {}       # by valid length
     layers = list(layer_states)
     for li, p in enumerate(layer_params):
-        st, kind = layers[li], kinds[li]
-        h = L.rms_norm(x, p["ln1"])
-        if kind not in _ATTENTION:
-            y, layers[li] = _recurrent_step(cfg, kind, p, h, st)
-            x = x + y
-            if "mlp" in p:
-                x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
-            continue
-        n = pos + 1
-        if "slot_pos" in st:
-            n = min(n, st["k"].shape[2])
-        if n not in lens:
-            lens[n] = torch.full((b,), n, dtype=torch.int32, device=x.device)
-        x = x + _decode_attn(cfg, p["attn"], h, st, pos, posb, lens[n])
-        if enc_out is not None and "xattn" in p:
-            x = _cross_attend(cfg, p, x, posb, enc_out)
-        ffn_out, _ = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
-        if ffn_out is not None:
-            x = x + ffn_out
+        x, layers[li] = decode_layer(cfg, kinds[li], p, layers[li], x, pos,
+                                     posb, lens, enc_out)
     return _logits(cfg, params, x), layers
+
+
+def decode_layer(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
+                 st: Dict[str, torch.Tensor], x: torch.Tensor, pos: int,
+                 posb: torch.Tensor, lens: Dict[int, torch.Tensor],
+                 enc_out: Optional[torch.Tensor] = None) -> tuple:
+    """One layer of `decode_layers` on x (B, 1, d_model): (x, the layer's
+    new state), a cache written in place. `posb` (B, 1) holds `pos`; `lens`
+    caches the (B,) valid lengths by value across a step's layers."""
+    h = L.rms_norm(x, p["ln1"])
+    if kind not in _ATTENTION:
+        y, st = _recurrent_step(cfg, kind, p, h, st)
+        x = x + y
+        if "mlp" in p:
+            x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+        return x, st
+    n = pos + 1
+    if "slot_pos" in st:
+        n = min(n, st["k"].shape[2])
+    if n not in lens:
+        lens[n] = torch.full((x.shape[0],), n, dtype=torch.int32,
+                             device=x.device)
+    x = x + _decode_attn(cfg, p["attn"], h, st, pos, posb, lens[n])
+    if enc_out is not None and "xattn" in p:
+        x = _cross_attend(cfg, p, x, posb, enc_out)
+    ffn_out, _ = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
+    if ffn_out is not None:
+        x = x + ffn_out
+    return x, st

@@ -9,10 +9,13 @@ backward kernel (`kernels.flash_attn.FlashAttention`). The step runs
 eagerly: `jax.jit` has no counterpart here.
 
 `train_loop` drives steps and checkpoints every `checkpoint_every` steps
-through `repro_torch.checkpoint`, resumable from `start_step`.
-Data-parallel meshes (`mesh_axes`) are not ported (ROADMAP.md queue 1
-item 9): on one card the compressed gradients are quantized and
-dequantized in place of the reduce.
+through `repro_torch.checkpoint`, resumable from `start_step`. With
+`mesh_axes` the loss takes the sharding hints, and the params, optimizer
+state and batch are DTensors on one `DeviceMesh` (`launch.sharding`): the
+gradients reduce where DTensor places the reduction, and the int8
+compression's scale is the max over the whole logical gradient, as the
+reference's is under GSPMD. Without a mesh the compressed gradients are
+quantized and dequantized in place of the reduce.
 
 `make_gcn_train_step` / `gcn_train_loop` drive the paper's workload:
 gradients flow through `AiresSpGEMM`'s autograd Function, so every
@@ -28,7 +31,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.gcn import gcn_loss
-from repro_torch.models.transformer import lm_loss
+from repro_torch.models.transformer import lm_loss, on_mesh
 from repro_torch.train.compression import (
     compress_grads, decompress_grads, ef_init,
 )
@@ -62,17 +65,16 @@ def make_train_step(cfg: ArchConfig, loop_cfg: TrainLoopConfig,
     `grad_accum`. With `compress` and an `ef` tree the gradients go through
     `compress_grads` and `decompress_grads` before the update. The loss is
     a detached 0-d f32 tensor; the params returned do not require grad.
+    `loop_cfg.mesh_axes` goes to `lm_loss`: its hints need DTensor params
+    and batch, and raise on plain tensors, as the reference's do outside a
+    mesh.
     """
-    if loop_cfg.mesh_axes is not None:
-        raise NotImplementedError(
-            "mesh_axes (data-parallel meshes) are not ported to repro_torch "
-            "yet: they come with the dry run, launch/dryrun.py (ROADMAP.md "
-            "queue 1 item 9)")
     loss_fn = loss_fn or (
         lambda params, batch: lm_loss(
             cfg, params, batch["tokens"], batch["labels"],
             vision_embeds=batch.get("vision_embeds"),
-            audio_embeds=batch.get("audio_embeds")))
+            audio_embeds=batch.get("audio_embeds"),
+            mesh_axes=loop_cfg.mesh_axes))
     _, opt_update = make_optimizer(loop_cfg.optimizer, lr=loop_cfg.lr)
 
     def micro_grads(params, batch):
@@ -87,6 +89,7 @@ def make_train_step(cfg: ArchConfig, loop_cfg: TrainLoopConfig,
                               loss, leaves, allow_unused=True))])
         return loss.detach(), tree_map(lambda _: next(grads), params)
 
+    @on_mesh
     def train_step(params, opt_state, batch, ef=None):
         device = _device_of(params)
         batch = {k: torch.as_tensor(v, device=device)
@@ -94,8 +97,7 @@ def make_train_step(cfg: ArchConfig, loop_cfg: TrainLoopConfig,
         if loop_cfg.grad_accum > 1:
             loss = torch.zeros((), dtype=torch.float32, device=device)
             grads = tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=device), params)
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(loop_cfg.grad_accum):
                 micro_loss, micro = micro_grads(
                     params, {k: v[i] for k, v in batch.items()})

@@ -403,7 +403,8 @@ def test_softcapped_flash_under_autograd_raises():
     for call in (
             lambda *t: p_ops.flash_attention(*t, softcap=1.0),
             lambda *t: p_flash.flash_attention_blocks(*t, softcap=1.0),
-            lambda *t: p_flash.FlashAttention.apply(*t, True, 0, 1.0)):
+            lambda *t: torch.ops.repro_torch.flash_attn(*t, True, 0, 1.0,
+                                                         0)[0]):
         live = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
         out = call(*live)
         assert out.requires_grad

@@ -27,7 +27,7 @@ EQUAL = ["data", "kernels", "runtime", "sparse", "train"]
 # Modules without an `__all__`, held to their reference's top-level names;
 # a tree of NamedShardings becomes one of DTensor placements.
 MODULES = ["launch.mesh", "launch.sharding", "launch.specs",
-           "models.moe_shard_map"]
+           "launch.dryrun", "launch.hlo_analysis", "models.moe_shard_map"]
 RENAMED = {"tree_shardings": "tree_placements"}
 
 

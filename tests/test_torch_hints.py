@@ -1,0 +1,281 @@
+"""The sharding hints (`mesh_axes`) over DTensor against the reference's
+`with_sharding_constraint`s.
+
+One run for all cases: 8 `gloo` ranks over a (2, 4) ("data", "model")
+DeviceMesh (a FileStore under tmp_path, no port), each leaf of the params
+a DTensor placed by `launch.sharding.tree_placements`, the tokens by
+`batch_pspec`, running `forward` and `lm_loss` (and its gradients) with
+`MESH_AXES_SINGLE`; beside them, the reference jitted on 8 XLA host
+devices in a subprocess (--xla_force_host_platform_device_count=8) with
+the same specs under its mesh (Auto axes: GSPMD's, for which the reference
+wrote its hints). Yi-6B's and Mixtral's SMOKE configs, the
+reference's params carried across, the same numpy tokens. The port's
+DTensor results are held to the single-process port on plain tensors and
+to the reference, the logits within test_torch_lm.py's LOGIT_TOL, the loss
+within its LOSS_TOL, the gradients within test_torch_lm_train.py's
+LM_GRAD_TOL relative to each tensor's largest value, and `compress_grads`'
+int8 scales on the DTensor gradients to the single process's.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as r_configs
+from repro.models import transformer as r_tf
+from repro_torch.models import transformer as p_tf
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+LOGIT_TOL = 1e-4          # tests/test_torch_lm.py's, on forward's logits
+LOSS_TOL = 1e-5           # ... on lm_loss
+LM_GRAD_TOL = 1e-5        # tests/test_torch_lm_train.py's, relative
+ARCHS = ("yi_6b", "mixtral_8x22b")
+B, S = 4, 16
+
+_REFERENCE = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import numpy as np, jax, jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from repro.configs import get_config
+    from repro.kernels.compat import use_mesh
+    from repro.launch.sharding import batch_pspec, tree_shardings
+    from repro.models.transformer import (MESH_AXES_SINGLE, forward,
+                                          init_params, lm_loss)
+
+    d = sys.argv[1]
+    # GSPMD's axes, for which the hints are constraints: JAX 0.9's default
+    # (Explicit) turns with_sharding_constraint into an assert.
+    mesh = jax.make_mesh((2, 4), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    out = {}
+    for arch in sys.argv[2:]:
+        cfg = get_config(arch, smoke=True)
+        inp = dict(np.load(f"{d}/{arch}.npz"))
+        params = init_params(cfg, jax.random.PRNGKey(5))
+        p_sh = tree_shardings(params, mesh)
+        t_sh = NamedSharding(mesh, batch_pspec(inp["tokens"].shape, mesh))
+        tokens = jnp.asarray(inp["tokens"])
+        labels = jnp.asarray(inp["labels"])
+        with use_mesh(mesh):
+            logits, aux = jax.jit(
+                lambda p, t: forward(cfg, p, t, mesh_axes=MESH_AXES_SINGLE),
+                in_shardings=(p_sh, t_sh))(params, tokens)
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p, t, l: lm_loss(cfg, p, t, l,
+                                        mesh_axes=MESH_AXES_SINGLE)),
+                in_shardings=(p_sh, t_sh, t_sh))(params, tokens, labels)
+        out[f"{arch}/logits"], out[f"{arch}/aux"] = (np.asarray(logits),
+                                                     np.asarray(aux))
+        out[f"{arch}/loss"] = np.asarray(loss)
+        flat, _ = jax.tree_util.tree_flatten_with_path(grads)
+        for path, g in flat:
+            out[f"{arch}/grad/" + jax.tree_util.keystr(path)] = np.asarray(g)
+    np.savez(f"{d}/reference.npz", **out)
+""")
+
+_RANK = textwrap.dedent("""
+    import sys
+    import numpy as np, torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import (batch_pspec, placements,
+                                             tree_placements)
+    from repro_torch.models.transformer import (MESH_AXES_SINGLE, forward,
+                                                lm_loss, params_from_numpy)
+    from repro_torch.train.compression import compress_grads, ef_init
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    torch.set_num_threads(1)
+    d, rank = sys.argv[1], int(sys.argv[2])
+    dist.init_process_group("gloo", store=dist.FileStore(f"{d}/store", 8),
+                            rank=rank, world_size=8)
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    out = {}
+    for arch in sys.argv[3:]:
+        cfg = get_config(arch, smoke=True)
+        inp = dict(np.load(f"{d}/{arch}.npz"))
+        tree = np.load(f"{d}/{arch}_params.npz")
+        params = params_from_numpy(cfg, _unflatten(tree), "cpu")
+        places = tree_placements(params, mesh)
+        dp = tree_map(lambda t, p: distribute_tensor(t, mesh, list(p)),
+                      params, places)
+        tok_pl = list(placements(batch_pspec(inp["tokens"].shape, mesh),
+                                 mesh))
+        tokens = distribute_tensor(torch.from_numpy(inp["tokens"]), mesh,
+                                   tok_pl)
+        labels = distribute_tensor(torch.from_numpy(inp["labels"]), mesh,
+                                   tok_pl)
+        with torch.no_grad():
+            logits, aux = forward(cfg, dp, tokens, mesh_axes=MESH_AXES_SINGLE)
+        out[f"{arch}/placements"] = np.array(str(logits.placements))
+        out[f"{arch}/logits"] = logits.full_tensor().numpy()
+        out[f"{arch}/aux"] = (aux.full_tensor() if isinstance(aux, DTensor)
+                              else aux).numpy()
+        live = tree_map(lambda t: t.detach().requires_grad_(True), dp)
+        loss = lm_loss(cfg, live, tokens, labels, mesh_axes=MESH_AXES_SINGLE)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        out[f"{arch}/loss"] = loss.full_tensor().detach().numpy()
+        for i, g in enumerate(grads):
+            out[f"{arch}/grad/{i}"] = g.full_tensor().numpy()
+        _, scales, _ = compress_grads(list(grads), ef_init(list(grads)))
+        for i, sc in enumerate(scales):
+            out[f"{arch}/scale/{i}"] = sc.full_tensor().numpy()
+    if rank == 0:
+        np.savez(f"{d}/port.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+""")
+
+# The rank script's helper: the reference's params tree from its flattened
+# npz ("layers/0/attn/wq" keys).
+_UNFLATTEN = textwrap.dedent("""
+    def _unflatten(npz):
+        root = {}
+        for key in npz.files:
+            *path, leaf = key.split("/")
+            node = root
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = npz[key]
+
+        def lists(n):
+            if isinstance(n, dict):
+                if n and all(k.isdigit() for k in n):
+                    return [lists(n[str(i)]) for i in range(len(n))]
+                return {k: lists(v) for k, v in n.items()}
+            return n
+        return lists(root)
+""")
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flatten(sub, f"{prefix}{key}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _flatten(sub, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _single(arch, inp):
+    """The single-process port on plain tensors: logits, aux, loss and the
+    gradients in `tree_leaves` order."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.optim import tree_leaves, tree_map
+    cfg = get_config(arch, smoke=True)
+    tree = jax.tree_util.tree_map(np.asarray, r_tf.init_params(
+        r_configs.get_config(arch, smoke=True), jax.random.PRNGKey(5)))
+    params = p_tf.params_from_numpy(cfg, tree, "cpu")
+    tokens = torch.from_numpy(inp["tokens"])
+    labels = torch.from_numpy(inp["labels"])
+    with torch.no_grad():
+        logits, aux = p_tf.forward(cfg, params, tokens)
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss = p_tf.lm_loss(cfg, live, tokens, labels)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return logits.numpy(), aux.numpy(), loss.detach().numpy(), \
+        [g.numpy() for g in grads]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """The reference's results, the 8 ranks' and the single process's,
+    from one run of each."""
+    d = tmp_path_factory.mktemp("hints")
+    inputs = {}
+    for arch in ARCHS:
+        r_cfg = r_configs.get_config(arch, smoke=True)
+        tokens = np.random.default_rng(7).integers(
+            0, r_cfg.vocab, size=(B, S), dtype=np.int32)
+        inputs[arch] = {"tokens": tokens,
+                        "labels": np.roll(tokens, -1, axis=-1)}
+        np.savez(d / f"{arch}.npz", **inputs[arch])
+        np.savez(d / f"{arch}_params.npz", **_flatten(jax.tree_util.tree_map(
+            np.asarray, r_tf.init_params(r_cfg, jax.random.PRNGKey(5)))))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    rank = _UNFLATTEN + _RANK
+    procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE, str(d),
+                               *ARCHS], env=env, cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)]
+    procs += [subprocess.Popen([sys.executable, "-c", rank, str(d), str(r),
+                                *ARCHS], env=env, cwd=ROOT,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True) for r in range(8)]
+    try:
+        single = {arch: _single(arch, inputs[arch]) for arch in ARCHS}
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    return (dict(np.load(d / "reference.npz")), dict(np.load(d / "port.npz")),
+            single)
+
+
+def _ref_grads(ref, arch):
+    """The reference's gradients in the port's `tree_leaves` order (the
+    reference's keystr paths sorted as the port's dicts are walked)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.optim import tree_leaves
+    cfg = get_config(arch, smoke=True)
+    order = tree_leaves(p_tf._map_spec(
+        p_tf._param_spec(cfg), None,
+        lambda path, leaf, _: "".join(
+            f"[{p}]" if p.isdigit() else f"['{p}']"
+            for p in path.strip("/").replace("[", "/").replace("]", "")
+            .split("/") if p)))
+    return [ref[f"{arch}/grad/{key}"] for key in order]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_hinted_forward_matches_single_process_and_reference(run, arch):
+    ref, port, single = run
+    assert str(port[f"{arch}/placements"]) == \
+        "(Shard(dim=0), Shard(dim=2))"
+    for want in (single[arch][0], ref[f"{arch}/logits"]):
+        np.testing.assert_allclose(port[f"{arch}/logits"], want,
+                                   atol=LOGIT_TOL)
+    for want in (single[arch][1], ref[f"{arch}/aux"]):
+        assert abs(float(port[f"{arch}/aux"]) - float(want)) <= LOSS_TOL
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_hinted_loss_and_gradients_match(run, arch):
+    ref, port, single = run
+    for want in (single[arch][2], ref[f"{arch}/loss"]):
+        assert abs(float(port[f"{arch}/loss"]) - float(want)) <= LOSS_TOL
+    ref_grads = _ref_grads(ref, arch)
+    assert len(ref_grads) == len(single[arch][3])
+    for i, (s_g, r_g) in enumerate(zip(single[arch][3], ref_grads)):
+        got = port[f"{arch}/grad/{i}"]
+        for want in (s_g, r_g):
+            scale = max(float(np.abs(want).max()), 1e-30)
+            assert got.shape == want.shape
+            assert float(np.abs(got - want).max()) <= LM_GRAD_TOL * scale, i
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_hinted_int8_scales_span_the_whole_gradient(run, arch):
+    """`compress_grads` on the ranks' DTensor gradients takes each scale
+    over the whole logical gradient (max |g| / 127 + 1e-12, reduced over
+    the shards), as the reference's is under GSPMD: the single-process
+    scales within LM_GRAD_TOL."""
+    from repro_torch.train.compression import compress_grads, ef_init
+    _, port, single = run
+    grads = [torch.from_numpy(g) for g in single[arch][3]]
+    _, scales, _ = compress_grads(grads, ef_init(grads))
+    for i, want in enumerate(scales):
+        got = float(port[f"{arch}/scale/{i}"])
+        assert abs(got - float(want)) <= LM_GRAD_TOL * float(want), i

@@ -82,6 +82,8 @@ SLICE_MODULES = [
     # The launch layer and the expert-parallel MoE.
     "repro_torch.launch.mesh", "repro_torch.launch.sharding",
     "repro_torch.launch.specs", "repro_torch.models.moe_shard_map",
+    # The dry run.
+    "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
 ]
 
 

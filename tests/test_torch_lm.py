@@ -362,12 +362,53 @@ def test_serve_matches_reference(model):
     np.testing.assert_array_equal(out, np.asarray(ref))
 
 
+def _moe_hints_as_the_reference(x):
+    """The MoE feed-forward's sharding hints: on plain tensors, outside a
+    mesh, the port raises RuntimeError where the reference's
+    `with_sharding_constraint` does; on a one-rank (1, 1) mesh with DTensor
+    params and input they are taken, and the output and aux loss are the
+    unhinted call's, bit for bit."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.dryrun import fake_world
+    r_cfg = r_configs.get_config("mixtral_8x22b", smoke=True)
+    r_p = r_tf.init_params(r_cfg, jax.random.PRNGKey(0))["layers"][0]["moe"]
+    with pytest.raises(RuntimeError, match="mesh"):
+        r_layers.moe_ffn(r_cfg, r_p, jnp.zeros((1, 4, r_cfg.d_model)),
+                         mesh_axes=r_tf.MESH_AXES_SINGLE)
+    cfg = p_configs.get_config("mixtral_8x22b", smoke=True)
+    p = p_tf.init_params(cfg, torch.Generator().manual_seed(0),
+                         "cpu")["layers"][0]["moe"]
+    x = torch.randn((2, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    with pytest.raises(RuntimeError, match="mesh"):
+        p_layers.moe_ffn(cfg, p, x, mesh_axes=p_tf.MESH_AXES_SINGLE)
+    want = p_layers.moe_ffn(cfg, p, x)
+    with fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+
+        def dist(t):
+            return DTensor.from_local(t, mesh, [Replicate(), Replicate()],
+                                      run_check=False)
+
+        with implicit_replication():
+            got = p_layers.moe_ffn(cfg, {k: dist(v) for k, v in p.items()},
+                                   dist(x), mesh_axes=p_tf.MESH_AXES_SINGLE)
+    for g, w in zip(got, want):
+        assert isinstance(g, DTensor)
+        assert torch.equal(g.to_local(), w)
+
+
 def test_attention_refuses_unported_arguments():
-    """A key mask for cross-attention (`cross_mask`) raises, and the MoE
-    feed-forward refuses sharding hints; a KV cache and cross-attention
-    are taken since the encoder-decoder came (tests/test_torch_encdec.py
-    holds them to the reference), as are a sliding window and the softcap
-    (the window must be at least 1)."""
+    """A key mask for cross-attention (`cross_mask`) raises; a KV cache and
+    cross-attention are taken since the encoder-decoder came
+    (tests/test_torch_encdec.py holds them to the reference), as are a
+    sliding window and the softcap (the window must be at least 1), and
+    since the dry run the MoE feed-forward's sharding hints
+    (`_moe_hints_as_the_reference`). The name is kept from when more of
+    these were refused, for the name-by-name comparison of test runs."""
     cfg = p_configs.get_config("yi_6b", smoke=True)
     params = p_tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     p = params["layers"][0]["attn"]
@@ -383,11 +424,7 @@ def test_attention_refuses_unported_arguments():
              "v": torch.zeros((1, cfg.n_kv_heads, 8, cfg.hd)), "len": 0}
     out, new = p_layers.attention(cfg, p, x, pos, cache=cache)
     assert out.shape == x.shape and new["len"] == 4
-    moe_cfg = p_configs.get_config("mixtral_8x22b", smoke=True)
-    moe_p = p_tf.init_params(moe_cfg, torch.Generator().manual_seed(0),
-                             "cpu")["layers"][0]["moe"]
-    with pytest.raises(NotImplementedError, match="mesh_axes"):
-        p_layers.moe_ffn(moe_cfg, moe_p, x, mesh_axes={"data": ("data",)})
+    _moe_hints_as_the_reference(x)
     with pytest.raises(ValueError, match="sliding_window"):
         p_layers.attention(cfg, p, x, pos, sliding_window=0)
     out, _ = p_layers.attention(dataclasses.replace(cfg, attn_softcap=30.0),

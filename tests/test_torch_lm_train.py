@@ -10,8 +10,8 @@ RecurrentGemma-2B's and xLSTM-125M's, the recurrent blocks differentiated
 as plain PyTorch; Qwen2-VL's, M-RoPE with the vision block's
 bidirectional prefix),
 where the port's attention takes the kernels' plain versions under
-`FlashAttention`, its autograd Function, the softcapped backward among
-them; the reference trains through XLA's autodiff of its jnp
+the `flash_attn` operator and its autograd formula, the softcapped
+backward among them; the reference trains through XLA's autodiff of its jnp
 `_attn_core`, which has no Pallas backward.
 
 Tolerances, each for float32 arithmetic summed in another order:
@@ -45,6 +45,7 @@ from repro.models import transformer as r_tf
 from repro_torch import train as p_train
 from repro_torch.kernels import flash_attn as p_flash
 from repro_torch.models import transformer as p_tf
+from repro_torch.train.optim import tree_map
 
 GRAD_TOL = 2e-5
 LM_GRAD_TOL = 1e-5
@@ -183,7 +184,8 @@ BWD_CASES = [(True, 0, 16, 0), (True, 7, 16, 0), (False, 0, 16, 0),
     ids=[f"{c}-{w}" if (d, p) == (16, 0) else f"{c}-{w}-d{d}-prefix{p}"
          for c, w, d, p in BWD_CASES])
 def test_attention_backward_matches_reference(causal, window, d, prefix):
-    """`FlashAttention.backward` on CPU tensors (the plain backward) and
+    """The `flash_attn` operator's backward on CPU tensors (the plain
+    backward) and
     `flash_attention_bwd_plain` against `jax.grad` of the reference's
     `_attn_core` on the same q, k, v and cotangent, under the reference's
     mask (with a prefix, the one `attention` builds from M-RoPE's temporal
@@ -231,7 +233,7 @@ def test_attention_backward_matches_reference(causal, window, d, prefix):
                                            (False, 9)])
 def test_attention_backward_softcap_matches_reference(causal, window,
                                                       softcap):
-    """The softcapped backward: `FlashAttention` on CPU tensors and
+    """The softcapped backward: the `flash_attn` operator on CPU tensors and
     `flash_attention_bwd_plain` with the softcap against `jax.grad` of the
     reference's `_attn_core` with it (cap 1 bites on every score, cap 50
     as Gemma-2's), causal and windowed; lse over the softcapped scores."""
@@ -401,6 +403,53 @@ def test_train_step_matches_reference(models, name, optimizer, accum,
 
 
 def test_train_step_refuses_meshes():
-    cfg = p_tf.ArchConfig(**dataclasses.asdict(CONFIGS["yi_6b"]()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        p_train.make_train_step(cfg, p_train.TrainLoopConfig(mesh_axes=True))
+    """The sharding hints in the train step (the name is kept from when
+    `make_train_step` refused `mesh_axes`, for the name-by-name comparison
+    of test runs). Outside a mesh, on plain tensors, the port's step raises
+    RuntimeError where the reference's does (its `with_sharding_constraint`
+    needs a mesh in context). On a one-rank (1, 1) mesh with DTensor params,
+    optimizer state, batch and error feedback, the hinted step with int8
+    compression gives the plain step's loss, params, state and residual,
+    bit for bit."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro.train import optim as r_optim
+    from repro_torch.launch.dryrun import fake_world
+    r_cfg, r_params, p_cfg, p_params = _model("yi_6b")
+    batch = _batch(r_cfg, (2, 8), seed=4)
+    r_init, _ = r_optim.make_optimizer("adamw", lr=3e-4)
+    r_step = r_train.make_train_step(r_cfg, r_train.TrainLoopConfig(
+        mesh_axes=r_tf.MESH_AXES_SINGLE))
+    with pytest.raises(RuntimeError, match="mesh"):
+        r_step(r_params, r_init(r_params),
+               {k: jnp.asarray(v) for k, v in batch.items()})
+    loop = p_train.TrainLoopConfig(compress=True,
+                                   mesh_axes=p_tf.MESH_AXES_SINGLE)
+    p_init, _ = p_train.make_optimizer("adamw", lr=3e-4)
+    step = p_train.make_train_step(p_cfg, loop)
+    with pytest.raises(RuntimeError, match="mesh"):
+        step(p_params, p_init(p_params), batch)
+
+    plain = p_train.make_train_step(p_cfg, dataclasses.replace(
+        loop, mesh_axes=None))
+    want = plain(p_params, p_init(p_params), batch,
+                 p_train.ef_init(p_params))
+    with fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+
+        def dist(t):
+            return DTensor.from_local(t, mesh, [Replicate(), Replicate()],
+                                      run_check=False) \
+                if isinstance(t, torch.Tensor) else t
+
+        d_params = tree_map(dist, p_params)
+        got = step(d_params, p_init(d_params),
+                   {k: dist(torch.from_numpy(v)) for k, v in batch.items()},
+                   p_train.ef_init(d_params))
+    assert isinstance(got[0], DTensor)
+    got = [tree_map(lambda t: t.to_local() if isinstance(t, DTensor)
+                    else t, part) for part in got]
+    for g, w in zip(_flat(got), _flat(list(want))):
+        assert g == w
+        np.testing.assert_array_equal(_flat(got)[g], _flat(list(want))[w])
