@@ -185,6 +185,13 @@ non-zero without a result line:
                give them, the refusals (causal with Sk < Sq, a prefix with
                Sq != Sk) before any launch, and the decode kernel over
                SeamlessM4T's 1024 frames (its cross step) in f32 and bf16.
+               The two kernels of the decode over a slice of the head dim
+               (`decode_hd_cases`): decode_scores within HD_SCORES_TOL and
+               decode_softmax_v (on the plain scores) within ATTN_TOL, at
+               hints_check's caches, at the production slices HD_YI_SLICE
+               and HD_MIXTRAL_SLICE (d' = 8 of 128) with per-sequence lens,
+               in f32 with lens 0 and 1, with a softcap of 50 and at 16
+               query heads of d' = 256 in f16.
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
@@ -298,17 +305,34 @@ non-zero without a result line:
                `lm_loss` with MESH_AXES_SINGLE against the plain calls (bit
                for bit, else within LM_BF16_TOL and the reason printed), 2
                flash launches each through the operator; one bf16 Mixtral
-               layer's `moe_ffn` with its two hints within LM_BF16_TOL.
- 32c. dryrun_check — `launch.dryrun.run_cell` for Yi-6B train_4k on the
-               single-pod mesh and Mixtral decode_32k on the two-pod mesh,
-               each in a child process on the "fake" backend, both started
+               layer's `moe_ffn` with its two hints within LM_BF16_TOL;
+               then that Yi-6B's `decode_step`, 8 teacher-forced steps on
+               DTensor caches placed by `state_pspecs` (each rank writes
+               and reads its own shard), every step's logits and the
+               caches bit for bit against the plain step's, 2 decode
+               launches a step through the operator; then the same steps
+               with the caches' head dim placed over "model" (as
+               `state_pspecs` places it where the KV heads do not divide
+               over that axis): 2 launches a step of decode_scores and of
+               decode_softmax_v with the scores' all-reduce between them,
+               none of the decode kernel, the logits within LM_BF16_TOL of
+               the plain step's.
+ 32c. dryrun_check — `launch.dryrun.run_cell` for Yi-6B train_4k,
+               xLSTM-125M prefill_32k (the sLSTM's loop one operator) and
+               Qwen2-VL-72B prefill_32k (M-RoPE, the vision prefix) on the
+               single-pod mesh and Mixtral decode_32k on the two-pod mesh
+               (its 8 KV heads do not divide over 16: decode_scores and
+               decode_softmax_v traced on each rank's head-dim slice),
+               each in a child process on the "fake" backend, all started
                after gemma_train at nice 10 and collected before timing,
-               the fake tensors on "cuda": ok, the per-device
-               argument bytes the local-shard sum of the cell's specs;
-               params, per-device argument, temp and output bytes, FLOPs,
-               collective bytes by kind, trace seconds and the phase's
-               beside DRYRUN_TARGET_S printed (planning numbers, not
-               measurements).
+               the fake tensors on "cuda": ok, the per-device argument
+               bytes the local-shard sum of the cell's specs, Mixtral's
+               collective bytes below its local caches' (printed beside
+               DRYRUN_MOVED_CACHE_BYTES, the figure when the cache write
+               moved them); params, per-device argument, temp and output
+               bytes, FLOPs, collective bytes by kind, trace seconds and
+               the phase's beside DRYRUN_TARGET_S printed (planning
+               numbers, not measurements).
  33. rgemma_check — RecurrentGemma-2B's widths cut to 2 float32 layers
                (an RG-LRU, then a local attention layer at head dim 256):
                `forward` on one 2112-token sequence (the window of 2048
@@ -407,7 +431,9 @@ non-zero without a result line:
                shapes, sampled rows bit for bit against the host bank, the
                uploaded bytes the bank's; prints the StreamStats and GB/s.
  46. timing  — each kernel, its plain version and a PyTorch yardstick the
-               port never calls, at the main paths' shapes, with the bound;
+               port never calls, at the main paths' shapes, with the bound
+               (decode_scores and decode_softmax_v at HD_YI_SLICE and
+               HD_MIXTRAL_SLICE, bf16, no yardstick);
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
                with X·W at the rate of its three TF32 products; the SpMM
@@ -444,7 +470,8 @@ non-zero without a result line:
  47. phase_seconds, kernels — each phase's seconds; the summary line
                (softcapped, d = 256, prefixed, cross (Sq != Sk) and
                non-causal launches by path among it, the backward's by
-               route, softcap, d = 256 and prefix), then the card's name
+               route, softcap, d = 256 and prefix; decode_scores and
+               decode_softmax_v from hints_check), then the card's name
                and power limit, then the result line.
 
 Each main path (serve, layer, train, schedule, epoch, passes, shard,
@@ -583,17 +610,41 @@ SHARD_MAP_TOKENS = (2, 128)
 SHARD_MAP_CAPACITY = 8.0
 MESH_WORLDS = (256, 512)       # mesh_check: both production meshes
 # hints_check: bf16 Yi-6B cut to 2 layers, 2 x 512 tokens, and one bf16
-# Mixtral layer over 2 x 256 tokens, on a one-rank (1, 1) mesh.
+# Mixtral layer over 2 x 256 tokens, on a one-rank (1, 1) mesh; then that
+# Yi-6B's decode, HINTS_DECODE_STEPS teacher-forced steps into caches of
+# HINTS_DECODE_LEN positions placed by `state_pspecs`.
 HINTS_LAYERS = 2
 HINTS_TOKENS = (2, 512)
 HINTS_MOE_TOKENS = (2, 256)
-# dryrun_check: a dense train cell and an MoE decode cell on the two-pod
-# mesh, each in a child process of its own, both at once. Mixtral, not
-# Kimi K2 (61 layers), is the MoE arch with fewer layers to trace. The
-# phase's target is DRYRUN_TARGET_S; a child is stopped at
-# DRYRUN_TIMEOUT_S.
+HINTS_DECODE_STEPS = 8
+HINTS_DECODE_LEN = 64
+# The decode over a slice of the head dim (decode_scores, decode_softmax_v)
+# at the per-rank shapes of the production decode cells whose KV heads do
+# not divide over "model" (16), each rank holding 8 of the 128 head dims:
+# (b, n_kv, group, S, d') for Yi-6B decode_32k on the single-pod mesh (128
+# sequences over "data" 16) and Mixtral 8x22B decode_32k on the two-pod
+# mesh (over "pod" x "data" 32).
+HD_YI_SLICE = (8, 4, 8, 32768, 8)
+HD_MIXTRAL_SLICE = (4, 8, 6, 32768, 8)
+# decode_scores against its plain version, per element: f32 sums of d'
+# products in another order, |s| about sqrt(d') for unit inputs: an f32
+# gap of a few ulps of the products' sum.
+HD_SCORES_TOL = (1e-5, 1e-4)
+# dryrun_check: a dense train cell, an MoE decode cell on the two-pod
+# mesh and the prefill cells of the recurrent xLSTM-125M and of
+# Qwen2-VL-72B (M-RoPE and the vision prefix), each in a child process of
+# its own, all at once. Mixtral, not Kimi K2 (61 layers), is the MoE arch
+# with fewer layers to trace. The phase's target is DRYRUN_TARGET_S; a
+# child is stopped at DRYRUN_TIMEOUT_S.
 DRYRUN_CELLS = (("yi_6b", "train_4k", False),
-                ("mixtral_8x22b", "decode_32k", True))
+                ("mixtral_8x22b", "decode_32k", True),
+                ("xlstm_125m", "prefill_32k", False),
+                ("qwen2_vl_72b", "prefill_32k", False))
+# Mixtral decode_32k's collective bytes a device when the decode step's
+# cache write moved the caches between layouts (61.65 GB, 60.17 GB of it
+# all-to-all, on "NVIDIA H100 80GB HBM3, 700.00 W", torch 2.11): printed
+# beside the cell's. The cell must now move less than its local caches.
+DRYRUN_MOVED_CACHE_BYTES = 61.65e9
 DRYRUN_TARGET_S = 180.0
 DRYRUN_TIMEOUT_S = 600.0
 # mixtral_serve's decode-vs-forward rule. The prefill routes each layer's
@@ -2743,6 +2794,72 @@ def decode_inputs(b, n_kv, group, s_len, dtype, gen, lens=None, d=128):
     return q, k, v, lens
 
 
+def hd_compare(dmod, label: str, shape, dtype: str, gen, softcap=None,
+               lens=None) -> list:
+    """The two kernels of the decode over a slice of the head dim against
+    their plain versions on the same inputs: decode_scores on q (b, n_kv,
+    group, d') and k (b, n_kv, S, d') within HD_SCORES_TOL, then
+    decode_softmax_v on the plain scores and v within ATTN_TOL, scale 1 /
+    sqrt(16 d') (the slice one of 16). Two cases."""
+    import torch
+    b, n_kv, group, s_len, d = shape
+    q, k, v, drawn = decode_inputs(b, n_kv, group, s_len, dtype, gen, d=d)
+    lens = drawn if lens is None else torch.tensor(
+        lens, dtype=torch.int32, device=DEV)
+    scale = 1.0 / (16 * d) ** 0.5
+    cases = []
+    s_plain = dmod.decode_scores_plain(q, k, lens)
+    for name, out, plain, (rtol, atol) in (
+            ("decode_scores", dmod.decode_scores(q, k, lens), s_plain,
+             HD_SCORES_TOL),
+            ("decode_softmax_v",
+             dmod.decode_softmax_v(s_plain, v, lens, scale, softcap),
+             dmod.decode_softmax_v_plain(s_plain, v, lens, scale, softcap),
+             ATTN_TOL[dtype])):
+        sync()
+        if out.dtype != plain.dtype or out.shape != plain.shape:
+            raise AssertionError(f"{name}: {label}: kernel gave {out.dtype} "
+                                 f"{tuple(out.shape)}, plain {plain.dtype} "
+                                 f"{tuple(plain.shape)}")
+        delta = (out.float() - plain.float()).abs()
+        mag = plain.float().abs()
+        ratio = float((delta / (rtol * mag + atol)).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name}: {label}: |kernel - plain| "
+                                 f"exceeds {rtol}·|plain| + {atol} by a "
+                                 f"factor {ratio} (max |Δ| "
+                                 f"{float(delta.max())})")
+        cases.append({"case": f"{name}: {label}", "shape": list(shape),
+                      "dtype": dtype, "softcap": softcap,
+                      "lens": [int(x) for x in lens[:8]],
+                      "max_abs_err": float(delta.max()),
+                      "max_err_over_limit": ratio,
+                      "max_abs_plain": float(mag.max()), "rtol": rtol,
+                      "atol": atol})
+    return cases
+
+
+def decode_hd_cases(dmod, gen) -> list:
+    """hd_compare at the main path's shapes (hints_check's caches, the
+    production slices HD_YI_SLICE and HD_MIXTRAL_SLICE) and at its edges:
+    f32, a softcap, 16 query heads a KV head, d' = 256, lens of 0, 1 and
+    at a P tile's edges."""
+    b, steps = HINTS_TOKENS[0], HINTS_DECODE_STEPS
+    return (hd_compare(dmod, "hints_check's decode step", (
+                b, 4, 8, HINTS_DECODE_LEN, 128), "bfloat16", gen,
+                lens=[steps] * b)
+            + hd_compare(dmod, "Yi-6B decode_32k's slice", HD_YI_SLICE,
+                         "bfloat16", gen)
+            + hd_compare(dmod, "Mixtral 8x22B decode_32k's slice",
+                         HD_MIXTRAL_SLICE, "bfloat16", gen)
+            + hd_compare(dmod, "f32, ragged", (4, 2, 5, 1000, 64),
+                         "float32", gen, lens=[0, 1, 64, 1000])
+            + hd_compare(dmod, "softcap 50", (2, 4, 8, 300, 32),
+                         "bfloat16", gen, softcap=50.0, lens=[63, 300])
+            + hd_compare(dmod, "group 16 at d' = 256", (2, 1, 16, 129, 256),
+                         "float16", gen, lens=[65, 129]))
+
+
 def phase_attn(fmod, dmod, seed: int) -> dict:
     """Both attention kernels against their plain versions on the card;
     returns each kernel's largest error at the shapes lm_check and lm_serve
@@ -2811,6 +2928,8 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
     cases += backward_d256_cases(fmod, gen)
     cases += prefix_cases(fmod, gen)
     cases += cross_cases(fmod, dmod, gen)
+    hd = decode_hd_cases(dmod, gen)
+    cases += hd
     emit({"phase": "attn", "cases": cases,
           "backward_cases_seconds": time.perf_counter() - t0,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -2833,7 +2952,10 @@ def phase_attn(fmod, dmod, seed: int) -> dict:
                for name in ("flash", "backward")},
             **{f"{name}_seamless": max(c["max_abs_err"] for c in seamless
                                        if c["case"].startswith(name))
-               for name in ("flash", "backward", "decode")}}
+               for name in ("flash", "backward", "decode")},
+            **{name: max(c["max_abs_err"] for c in hd
+                         if c["case"].startswith(name + ":"))
+               for name in ("decode_scores", "decode_softmax_v")}}
 
 
 def softcap_cases(fmod, dmod, gen) -> list:
@@ -3689,7 +3811,7 @@ def zero_attn_counts(fmod, dmod) -> None:
     fmod.FLASH_BWD_WIDE_LAUNCHES = 0
     fmod.FLASH_PREFIX_LAUNCHES = fmod.FLASH_BWD_PREFIX_LAUNCHES = 0
     for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES,
-                   fmod.FLASH_BWD_ROUTE_LAUNCHES):
+                   fmod.FLASH_BWD_ROUTE_LAUNCHES, dmod.DECODE_HD_LAUNCHES):
         for route in routes:
             routes[route] = 0
 
@@ -3712,7 +3834,8 @@ def attn_counts(fmod, dmod) -> dict:
             "decode": dmod.DECODE_LAUNCHES,
             "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES),
             "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES,
-            "decode_wide": dmod.DECODE_WIDE_LAUNCHES}
+            "decode_wide": dmod.DECODE_WIDE_LAUNCHES,
+            **dmod.DECODE_HD_LAUNCHES}
 
 
 def check_wide(label: str, counts: dict, kernel: str, wide: bool) -> None:
@@ -5905,18 +6028,31 @@ def phase_hints_check(fmod, dmod, seed: int) -> dict:
     bit, else within LM_BF16_TOL with the reason printed; each run's flash
     launches counted through the operator (one a layer). Then one bf16
     Mixtral layer's `moe_ffn` at published widths with its two hints on
-    DTensors against the plain call, within LM_BF16_TOL. Returns the
-    launches of the hinted forward and loss."""
+    DTensors against the plain call, within LM_BF16_TOL. Then the Yi-6B
+    model's `decode_step`, HINTS_DECODE_STEPS teacher-forced steps from
+    the tokens, on DTensor caches of HINTS_DECODE_LEN positions placed by
+    `state_pspecs` (each rank writes and reads its own shard), against the
+    plain step on plain caches: every step's logits and the last caches
+    bit for bit, HINTS_LAYERS decode launches a step through the operator.
+    Then the same decode with the caches' head dim placed over "model", as
+    `state_pspecs` places it where the KV heads do not divide over that
+    axis: each layer a step through the two kernels of the decode over a
+    slice of the head dim (`decode_scores`, the all-reduce of the scores
+    over "model", `decode_softmax_v`), HINTS_LAYERS launches of each a
+    step and none of the decode kernel, the logits within LM_BF16_TOL of
+    the plain step's (another kernel's sums). Returns the launches of the
+    hinted forward, loss and both decodes."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import Shard, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL
     from repro_torch.configs.yi_6b import CONFIG
     from repro_torch.launch.sharding import (batch_pspec, placements,
-                                             tree_placements)
-    from repro_torch.models import forward, init_params, lm_loss
+                                             state_pspecs, tree_placements)
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params, lm_loss)
     from repro_torch.models.layers import moe_ffn
     from repro_torch.models.transformer import MESH_AXES_SINGLE
     from repro_torch.train.optim import tree_map
@@ -5982,21 +6118,89 @@ def phase_hints_check(fmod, dmod, seed: int) -> dict:
                               "rel_err": rel_err(moe_got, moe_want),
                               "aux_equal": bool(torch.equal(
                                   aux_got.full_tensor(), aux_want))}
+            del moe_want, moe_got, d_bank
+            want_state = init_decode_state(cfg, tokens.shape[0],
+                                           HINTS_DECODE_LEN, device=DEV)
+            got_state = init_decode_state(cfg, tokens.shape[0],
+                                          HINTS_DECODE_LEN, device=DEV)
+            st_specs = state_pspecs(got_state, mesh)
+            got_state["layers"] = [
+                {k: distribute_tensor(t, mesh, list(placements(sp[k], mesh)))
+                 for k, t in layer.items()}
+                for layer, sp in zip(got_state["layers"],
+                                     st_specs["layers"])]
+            step_pl = list(placements(batch_pspec((tokens.shape[0], 1),
+                                                  mesh), mesh))
+            want_steps, got_steps = [], []
+            for i in range(HINTS_DECODE_STEPS):
+                tok = tokens[:, i:i + 1].contiguous()
+                lg, want_state = decode_step(cfg, params, tok, want_state)
+                want_steps.append(lg)
+            zero_attn_counts(fmod, dmod)             # hinted decode starts
+            for i in range(HINTS_DECODE_STEPS):
+                tok = distribute_tensor(tokens[:, i:i + 1].contiguous(),
+                                        mesh, step_pl)
+                lg, got_state = decode_step(cfg, dp, tok, got_state)
+                got_steps.append(lg)
+            counts["decode"] = attn_counts(fmod, dmod)  # ... and ends here
+            got_all = torch.cat([g.full_tensor() for g in got_steps], 1)
+            want_all = torch.cat(want_steps, 1)
+            caches = [torch.equal(g[k].full_tensor(), w[k])
+                      for g, w in zip(got_state["layers"],
+                                      want_state["layers"]) for k in w]
+            rec["decode"] = {"steps": HINTS_DECODE_STEPS,
+                             "cache_len": HINTS_DECODE_LEN,
+                             "bit_equal": torch.equal(got_all, want_all),
+                             "caches_bit_equal": all(caches),
+                             "rel_err": rel_err(got_all, want_all)}
+            del want_state, got_state
+            hd_state = init_decode_state(cfg, tokens.shape[0],
+                                         HINTS_DECODE_LEN, device=DEV)
+            hd_pl = [Shard(0), Shard(3)]   # batch over "data", hd "model"
+            hd_state["layers"] = [
+                {k: distribute_tensor(t, mesh, hd_pl)
+                 for k, t in layer.items()} for layer in hd_state["layers"]]
+            hd_steps = []
+            zero_attn_counts(fmod, dmod)             # head-dim decode starts
+            for i in range(HINTS_DECODE_STEPS):
+                tok = distribute_tensor(tokens[:, i:i + 1].contiguous(),
+                                        mesh, step_pl)
+                lg, hd_state = decode_step(cfg, dp, tok, hd_state)
+                hd_steps.append(lg)
+            counts["decode_head_dim"] = attn_counts(fmod, dmod)  # ... ends
+            hd_all = torch.cat([g.full_tensor() for g in hd_steps], 1)
+            rec["decode_head_dim"] = {
+                "steps": HINTS_DECODE_STEPS, "cache_len": HINTS_DECODE_LEN,
+                "cache_placements": str(hd_state["layers"][0]["k"]
+                                        .placements),
+                "rel_err": rel_err(hd_all, want_all),
+                "bit_equal": torch.equal(hd_all, want_all)}
+            del hd_state, hd_all
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
+    n_dec = HINTS_LAYERS * HINTS_DECODE_STEPS
     for label, c in counts.items():
-        if (c["flash"], c["flash_bwd"], c["decode"]) != (HINTS_LAYERS, 0, 0):
+        want = {"decode": (0, 0, n_dec, 0, 0),
+                "decode_head_dim": (0, 0, 0, n_dec, n_dec)}.get(
+                    label, (HINTS_LAYERS, 0, 0, 0, 0))
+        if (c["flash"], c["flash_bwd"], c["decode"], c["decode_scores"],
+                c["decode_softmax_v"]) != want:
             raise AssertionError(f"hints_check {label}: launches {c}, want "
-                                 f"{HINTS_LAYERS} flash forwards")
-    for name in ("logits", "loss", "moe_ffn"):
+                                 f"(flash, backward, decode, decode_scores, "
+                                 f"decode_softmax_v) {want}")
+    for name in ("logits", "loss", "moe_ffn", "decode_head_dim"):
         if rec[name]["rel_err"] > LM_BF16_TOL:
             raise AssertionError(f"hints_check {name}: {rec[name]}")
+    if not (rec["decode"]["bit_equal"] and rec["decode"]["caches_bit_equal"]):
+        raise AssertionError(f"hints_check decode: {rec['decode']}")
     emit({"phase": "hints_check", "config": "yi-6b width, 2 bf16 layers; "
           "one bf16 mixtral-8x22b layer's moe_ffn", "mesh": [1, 1],
           "backend": backend, "tokens": list(HINTS_TOKENS),
           "moe_tokens": list(HINTS_MOE_TOKENS), "tol": LM_BF16_TOL,
-          "launches": {k: {"flash": c["flash"], "decode": c["decode"]}
+          "launches": {k: {"flash": c["flash"], "decode": c["decode"],
+                           "decode_scores": c["decode_scores"],
+                           "decode_softmax_v": c["decode_softmax_v"]}
                        for k, c in counts.items()}, **rec})
     del params, dp, bank, x
     torch.cuda.empty_cache()
@@ -6039,7 +6243,14 @@ def dryrun_child(arch: str, shape: str, multi_pod: bool) -> None:
     elif spec["kind"] == "decode":
         state = init_decode_state_stacked(cfg, spec["global_batch"],
                                           spec["seq_len"], device="meta")
-        trees.append((state, S.state_pspecs(state, mesh)))
+        st_specs = S.state_pspecs(state, mesh)
+        trees.append((state, st_specs))
+        res["spec_cache_bytes"] = sum(
+            math.prod(S.local_shape(unit[k].shape, sp[k], mesh))
+            * unit[k].element_size()
+            for unit, sp in zip(state["scan"] + state["rest"],
+                                st_specs["scan"] + st_specs["rest"])
+            for k in ("k", "v") if k in unit)
 
     def local_bytes(tree, specs) -> int:
         leaves = tree_leaves(tree)
@@ -6121,6 +6332,12 @@ def phase_dryrun_check(run: dict) -> dict:
             raise AssertionError(f"dryrun_check {name}: argument bytes "
                                  f"{mem['argument_bytes']}, its specs "
                                  f"{res['spec_argument_bytes']}")
+        if "spec_cache_bytes" in res and arch == "mixtral_8x22b":
+            if res["collectives"]["bytes"] >= res["spec_cache_bytes"]:
+                raise AssertionError(
+                    f"dryrun_check {name}: {res['collectives']['bytes']} "
+                    f"collective bytes, not below the local caches' "
+                    f"{res['spec_cache_bytes']}")
         cells[name] = {
             "params": res["params"], "fsdp": res["fsdp"],
             "optimizer": res.get("optimizer"), "memory": mem,
@@ -6132,6 +6349,11 @@ def phase_dryrun_check(run: dict) -> dict:
             "body_flops": res["body"]["cost"]["flops"],
             "trace_s": res["lower_s"], "count_s": res["compile_s"],
             "cell_s": res["elapsed_s"], "child_s": res["child_seconds"]}
+        if "spec_cache_bytes" in res:
+            cells[name]["local_cache_bytes"] = res["spec_cache_bytes"]
+        if arch == "mixtral_8x22b":
+            cells[name]["moved_cache_collective_bytes"] = \
+                DRYRUN_MOVED_CACHE_BYTES
     import torch
     emit({"phase": "dryrun_check", "backend": "fake", "device_type": "cuda",
           "seconds": seconds, "waited_s": waited,
@@ -6596,10 +6818,11 @@ def time_flash_noncausal(fmod, seed: int, shape, sk: int, repeats: int,
     return out
 
 
-def device_ms(fn, repeats: int) -> float:
+def device_ms(fn, repeats: int) -> "float | None":
     """Device time per call of `fn`, which launches each of its kernels
     once: the mean duration of each kernel over a torch.profiler trace of
-    `repeats` calls, summed over the kernels. Unlike cuda_ms it leaves out
+    `repeats` calls, summed over the kernels (None where the trace kept no
+    kernel of the calls). Unlike cuda_ms it leaves out
     the gaps in which the card waits for the host; the mean, not the sum
     over `repeats`, because the trace may miss a call's kernels."""
     import torch
@@ -6615,6 +6838,8 @@ def device_ms(fn, repeats: int) -> float:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        return None                   # the trace kept no kernel: unmeasured
     return sum(sum(us) / len(us) for us in by_name.values()) / 1e3
 
 
@@ -6670,6 +6895,52 @@ def time_decode(dmod, seed: int, b: int, s_len: int,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_share": 1e3 * max(t_ops, t_bytes) / ms,
             "achieved_bytes_per_s": nbytes / (ms * 1e-3)}
+
+
+def time_decode_hd(dmod, seed: int, shape, repeats: int = 20) -> dict:
+    """The two kernels of the decode over a slice of the head dim at one
+    rank's shape (b, n_kv, group, S, d'), bf16, every cache full, each
+    beside its plain version; `ms` per eager call, `device_ms` on the
+    card. No PyTorch call computes either function (masked scores in f32
+    from bf16 operands; a softmax of given scores applied to V), so
+    `library_ms` is None."""
+    import torch
+    b, n_kv, group, s_len, d = shape
+    gen = torch.Generator(device=DEV).manual_seed(seed + 31)
+    lens = torch.full((b,), s_len, dtype=torch.int32, device=DEV)
+    q, k, v, lens = decode_inputs(b, n_kv, group, s_len, "bfloat16", gen,
+                                  lens=lens, d=d)
+    s = dmod.decode_scores_plain(q, k, lens)
+    scale = 1.0 / (16 * d) ** 0.5
+    calls = {"decode_scores": (lambda: dmod.decode_scores(q, k, lens),
+                               lambda: dmod.decode_scores_plain(q, k, lens)),
+             "decode_softmax_v": (
+                 lambda: dmod.decode_softmax_v(s, v, lens, scale),
+                 lambda: dmod.decode_softmax_v_plain(s, v, lens, scale))}
+    rows, esz = b * n_kv * s_len, k.element_size()
+    # Bytes each must move, each input read once and each output written
+    # once: scores read q, K and lens and write s; softmax_v reads s, V
+    # and lens and writes out (q's shape).
+    nbytes = {"decode_scores": q.numel() * esz + rows * d * esz
+              + s.numel() * 4 + 4 * b,
+              "decode_softmax_v": s.numel() * 4 + rows * d * esz
+              + q.numel() * esz + 4 * b}
+    flops = 2.0 * rows * group * d
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        t_ops = flops / PEAK_F32_FLOPS
+        t_bytes = nbytes[name] / PEAK_BYTES_PER_S
+        ms = cuda_ms(kernel, repeats)
+        out[name] = {"shape": list(shape), "dtype": "bfloat16",
+                     "ms": ms, "device_ms": device_ms(kernel, repeats),
+                     "plain_ms": cuda_ms(plain, 3, warmup=1),
+                     "library_ms": None, "flops": flops,
+                     "min_bytes": nbytes[name],
+                     "bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes",
+                     "bound_share": 1e3 * max(t_ops, t_bytes) / ms}
+    return out
 
 
 def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
@@ -6750,6 +7021,9 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
         "decode_attention_seamless_cross": time_decode(
             dmod, seed, LM_BATCH, SEAMLESS_FRAMES, repeats=200,
             n_kv=SEAMLESS_HEADS, group=1, d=SEAMLESS_HD),
+        # The decode over a slice of the head dim at the production slices.
+        "decode_hd_yi": time_decode_hd(dmod, seed, HD_YI_SLICE),
+        "decode_hd_mixtral": time_decode_hd(dmod, seed, HD_MIXTRAL_SLICE),
     }
     emit({"phase": "timing", **timing,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -7182,7 +7456,24 @@ def run(args) -> None:
          "max_abs_err_seamless": attn_err["decode_seamless"],
          "seamless_cross_step": {
              k: timing["decode_attention_seamless_cross"][k]
-             for k in (*keys, "device_ms", "q", "kv", "splits")}}]})
+             for k in (*keys, "device_ms", "q", "kv", "splits")}},
+        *({"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_attn_hd.cu",
+           "replaces": "src/repro/kernels/decode_attn.py:68",
+           "replaces_note": "with decode_attention, where the caches' head "
+                            "dim is sharded: the scores' sum over the "
+                            "ranks comes between the two kernels",
+           "launches": lm["hints_check"][name],
+           "launches_by_path": {"hints_check": lm["hints_check"][name]},
+           "max_abs_err": attn_err[name],
+           **{k: timing["decode_hd_yi"][name][k] for k in keys},
+           "yi_6b_decode_32k_slice": {
+               k: timing["decode_hd_yi"][name][k]
+               for k in (*keys, "device_ms", "shape")},
+           "mixtral_decode_32k_slice": {
+               k: timing["decode_hd_mixtral"][name][k]
+               for k in (*keys, "device_ms", "shape")}}
+          for name in ("decode_scores", "decode_softmax_v"))]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,20 @@ The kernels are the operator `torch.ops.repro_torch.decode_attn`, which
 dispatches on where the tensors lie: CPU tensors take the plain version,
 CUDA tensors launch the kernels or raise, meta and fake tensors get a
 shape, and a DTensor's local shards take one of those.
+
+Where the caches are sharded along the head dim, a rank holds q, k and v
+for d' of the d head dims, and the decode is cut at the sum of the scores
+over the ranks (`csrc/decode_attn_hd.cu`, the same TPU kernel's other
+half):
+
+    decode_scores     s[b, h, g, t] = q[b, h, g] · k[b, h, t]  (t < lens[b],
+                                      else 0), float32
+    decode_softmax_v  out[b, h, g] = Σ_{t < lens[b]} softmax_t(cap(s·scale))
+                                     v[b, h, t], in v's dtype
+
+with the caller's all-reduce of s between them (`models.transformer.
+_decode_attn_split_hd`). Each is an operator as `decode_attn` is, one
+launch each, counted in `DECODE_HD_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -48,6 +62,8 @@ DECODE_LAUNCHES = 0
 DECODE_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 DECODE_SOFTCAP_LAUNCHES = 0
 DECODE_WIDE_LAUNCHES = 0     # at head dims 129-256 (NC = 16)
+# Launches of the head-dim-slice kernels (csrc/decode_attn_hd.cu).
+DECODE_HD_LAUNCHES = {"decode_scores": 0, "decode_softmax_v": 0}
 
 MAX_GROUP = 16         # must match MAX_GROUP in csrc/decode_attn.cu
 TILE = 64              # cache positions per shared tile (TILE in the source)
@@ -249,3 +265,184 @@ def decode_attention_blocks(q: torch.Tensor, k: torch.Tensor,
     no_grad_guard("decode_attention_cuda", q, k, v)
     return torch.ops.repro_torch.decode_attn(q, k, v, lens,
                                              softcap_value(softcap))
+
+
+# --------------------------------------------------------------------------
+# The decode over a slice of the head dim: scores, then softmax · V.
+# --------------------------------------------------------------------------
+
+def _check_hd(q, k, lens) -> None:
+    """q (B, n_kv, group, d) against k or v (B, n_kv, S, d) and lens (B,)
+    int32, as `_check` holds them, with group <= MAX_GROUP and d <=
+    MAX_HEAD_DIM."""
+    _check(q, k, k, lens)
+    if q.shape[2] > MAX_GROUP or q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"{q.shape[2]} query heads per KV head (at most "
+                         f"{MAX_GROUP}) at head dim {q.shape[3]} (at most "
+                         f"{MAX_HEAD_DIM})")
+
+
+def _valid(lens: torch.Tensor, s_len: int) -> torch.Tensor:
+    """(B, 1, 1, S): position t is valid for sequence b (t < lens[b])."""
+    return (torch.arange(s_len, device=lens.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+
+
+def decode_scores_plain(q: torch.Tensor, k: torch.Tensor,
+                        lens: torch.Tensor) -> torch.Tensor:
+    """The plain version of `decode_scores`: q · k over this slice of the
+    head dim in float32, (B, n_kv, group, S), 0 at positions >= lens[b]."""
+    _check_hd(q, k, lens)
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float())
+    return s.masked_fill(~_valid(lens, k.shape[2]), 0.0)
+
+
+def decode_softmax_v_plain(s: torch.Tensor, v: torch.Tensor,
+                           lens: torch.Tensor, scale: float,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """The plain version of `decode_softmax_v`: the summed scores s (B,
+    n_kv, group, S) float32 scaled and softcapped, masked past lens[b],
+    softmaxed and applied to v (B, n_kv, S, d); (B, n_kv, group, d) in v's
+    dtype, 0 where lens[b] is 0."""
+    _check_softmax_v(s, v, lens)
+    logits = apply_softcap(s * scale, softcap_value(softcap))
+    logits = logits.masked_fill(~_valid(lens, v.shape[2]), float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / denom).to(v.dtype)
+
+
+def _check_softmax_v(s, v, lens) -> None:
+    if s.dim() != 4 or s.dtype != torch.float32 or v.dim() != 4 or \
+            (s.shape[0], s.shape[1], s.shape[3]) != (v.shape[0], v.shape[1],
+                                                     v.shape[2]):
+        raise ValueError(f"s must be (B, n_kv, group, S) float32 over v "
+                         f"(B, n_kv, S, d), got {tuple(s.shape)} {s.dtype}, "
+                         f"{tuple(v.shape)}")
+    if s.shape[2] > MAX_GROUP or v.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"{s.shape[2]} query heads per KV head (at most "
+                         f"{MAX_GROUP}) at head dim {v.shape[3]} (at most "
+                         f"{MAX_HEAD_DIM})")
+    if tuple(lens.shape) != (s.shape[0],) or lens.dtype != torch.int32:
+        raise ValueError(f"lens must be ({s.shape[0]},) int32, got "
+                         f"{tuple(lens.shape)} {lens.dtype}")
+    if v.dtype not in DTYPE_CODES:
+        raise TypeError(f"v must be one of {list(DTYPE_CODES)}, got "
+                        f"{v.dtype}")
+    if len({s.device, v.device, lens.device}) != 1:
+        raise ValueError("s, v and lens must lie on one device")
+
+
+def _launch_hd(name: str, argtypes: list, out: torch.Tensor, *args):
+    """Launch `name`'s kernel on PyTorch's current stream of out's card (no
+    synchronise) and count it."""
+    fn = entry(f"{name}_launch", argtypes)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    DECODE_HD_LAUNCHES[name] += 1
+    return out
+
+
+def _cuda_operands(name: str, *tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}'s operands must be contiguous")
+
+
+def _launch_scores(q, k, lens) -> torch.Tensor:
+    """The CUDA implementation of `decode_scores`."""
+    _check_hd(q, k, lens)
+    _cuda_operands("decode_scores", q, k, lens)
+    b, n_kv, group, d = q.shape
+    s_len = k.shape[2]
+    out = torch.empty((b, n_kv, group, s_len), dtype=torch.float32,
+                      device=q.device)
+    return _launch_hd(
+        "decode_scores", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p], out, q.data_ptr(), k.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), b, n_kv, group, s_len, d,
+        DTYPE_CODES[q.dtype])
+
+
+def _launch_softmax_v(s, v, lens, scale, softcap) -> torch.Tensor:
+    """The CUDA implementation of `decode_softmax_v`."""
+    _check_softmax_v(s, v, lens)
+    _cuda_operands("decode_softmax_v", s, v, lens)
+    b, n_kv, group, s_len = s.shape
+    d = v.shape[3]
+    out = torch.empty((b, n_kv, group, d), dtype=v.dtype, device=v.device)
+    return _launch_hd(
+        "decode_softmax_v", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p], out,
+        s.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), b, n_kv,
+        group, s_len, d, float(scale), softcap_value(softcap or None),
+        DTYPE_CODES[v.dtype])
+
+
+# The two kernels as the operators `torch.ops.repro_torch.decode_scores` (q,
+# k, lens) → s and `decode_softmax_v` (s, v, lens, scale, softcap) → out,
+# softcap 0.0 for none: as `decode_attn`, the kernels for CUDA tensors, the
+# plain versions for CPU ones, fake implementations and FLOP formulas. A
+# caller gives them a rank's local tensors, so they need no DTensor rule.
+LIB.define("decode_scores(Tensor q, Tensor k, Tensor lens) -> Tensor")
+LIB.define("decode_softmax_v(Tensor s, Tensor v, Tensor lens, float scale, "
+           "float softcap) -> Tensor")
+LIB.impl("decode_scores", _launch_scores, "CUDA")
+LIB.impl("decode_scores", decode_scores_plain, "CPU")
+LIB.impl("decode_softmax_v", _launch_softmax_v, "CUDA")
+LIB.impl("decode_softmax_v", lambda s, v, lens, scale, softcap:
+         decode_softmax_v_plain(s, v, lens, scale, softcap or None), "CPU")
+
+
+@torch.library.register_fake("repro_torch::decode_scores")
+def _decode_scores_fake(q, k, lens):
+    _check_hd(q, k, lens)
+    return q.new_empty((*q.shape[:3], k.shape[2]), dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::decode_softmax_v")
+def _decode_softmax_v_fake(s, v, lens, scale, softcap):
+    _check_softmax_v(s, v, lens)
+    return v.new_empty((*s.shape[:3], v.shape[3]))
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_scores)
+def _decode_scores_flops(q_shape, k_shape, *args, out_shape=None,
+                         **kwargs) -> int:
+    """2·B·Hq·S·d' for the slice's d' head dims, every cache position
+    included, as `_decode_flops` counts; the two operators' sum over the
+    ranks of the head dim is `decode_attn`'s count."""
+    b, n_kv, group, d = q_shape
+    return 2 * b * n_kv * group * k_shape[2] * d
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_softmax_v)
+def _decode_softmax_v_flops(s_shape, v_shape, *args, out_shape=None,
+                            **kwargs) -> int:
+    """2·B·Hq·S·d': P · V over the slice, every cache position
+    included."""
+    b, n_kv, group, s_len = s_shape
+    return 2 * b * n_kv * group * s_len * v_shape[3]
+
+
+def decode_scores(q: torch.Tensor, k: torch.Tensor,
+                  lens: torch.Tensor) -> torch.Tensor:
+    """`decode_scores`: the kernel for CUDA tensors, the plain version for
+    CPU ones, a shape for meta and fake ones; refuses a graph."""
+    no_grad_guard("decode_scores", q, k)
+    return torch.ops.repro_torch.decode_scores(q, k, lens)
+
+
+def decode_softmax_v(s: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+                     scale: float,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """`decode_softmax_v`: as `decode_scores` dispatches."""
+    no_grad_guard("decode_softmax_v", s, v)
+    return torch.ops.repro_torch.decode_softmax_v(s, v, lens, float(scale),
+                                                  softcap_value(softcap))

@@ -23,9 +23,9 @@ _DTENSOR_RULES = []
 
 def register_dtensor_rules() -> None:
     """The attention operators' DTensor sharding rules, registered once,
-    by the first caller that works with DTensors (`transformer.on_mesh`,
-    the dry run): importing DTensor takes about a second, which a process
-    that never uses it does not pay."""
+    by the first caller that works with DTensors (`transformer.
+    register_dtensor_rules`): importing DTensor takes about a second, which
+    a process that never uses it does not pay."""
     if not _DTENSOR_RULES:
         _flash_mod.register_sharding()
         _decode_mod.register_sharding()
@@ -44,6 +44,18 @@ def fit_groups(t: torch.Tensor, dim: int, groups: int) -> torch.Tensor:
     pl = [Replicate() if p.is_shard(dim) and groups % mesh.size(i) else p
           for i, p in enumerate(t.placements)]
     return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., H, hd) → (..., H · hd), the heads side by side. A DTensor
+    whose heads are not sharded (`fit_groups` replicated them) is merged
+    by concatenation, whose backward slices the gradient, where a
+    reshape's backward would split a gradient DTensor may have sharded
+    over more ranks than there are heads; anything else by a reshape."""
+    if hasattr(t, "placements") and not any(
+            p.is_shard(t.dim() - 2) for p in t.placements):
+        return torch.cat(t.unbind(-2), dim=-1)
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
 
 
 def _brick_tensors(ell: BlockELL) -> tuple:
@@ -100,6 +112,31 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qg, k.contiguous(), v.contiguous(),
         lens.to(device=q.device, dtype=torch.int32).contiguous(), softcap)
     return out.reshape(b_sz, n_q, d)
+
+
+def decode_scores(q: torch.Tensor, k: torch.Tensor,
+                  lens: torch.Tensor) -> torch.Tensor:
+    """The decode's scores over a slice of the head dim: q (B, n_kv, group,
+    d'), k (B, n_kv, S, d') the slice's d' head dims, lens (B,) valid
+    positions per sequence; (B, n_kv, group, S) float32, q · k unscaled at
+    positions < lens[b], 0 past them. Summed over the slices, they are the
+    scores `decode_softmax_v` takes."""
+    return _decode_mod.decode_scores(
+        q.contiguous(), k.contiguous(),
+        lens.to(device=q.device, dtype=torch.int32).contiguous())
+
+
+def decode_softmax_v(s: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+                     scale: float,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """The rest of the decode over a slice of the head dim: the summed
+    scores s (B, n_kv, group, S) float32 times `scale`, softcapped by
+    `softcap` (None: none), softmaxed over the first lens[b] positions and
+    applied to v (B, n_kv, S, d'); (B, n_kv, group, d') in v's dtype."""
+    return _decode_mod.decode_softmax_v(
+        s.contiguous(), v.contiguous(),
+        lens.to(device=v.device, dtype=torch.int32).contiguous(), scale,
+        softcap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -30,10 +30,24 @@ Per cell this:
 A trace unrolls the port's Python loop over layers, so the step's own
 figures already hold all R repeats of the unit: `total_*` is the step's
 own count, not module + (R − 1) × body as XLA's count of a `while` body
-needs. The body is there for the per-unit view.
+needs. The body is there for the per-unit view. The sLSTM's loop over
+time is not unrolled: a trace keeps it as one operator
+(`torch.ops.repro_torch.slstm_scan`, its backward `slstm_scan_bwd`), whose
+FLOP formulas count its products at every one of the S steps, as a walk
+of the reference's jaxpr counts a `scan` body S times; its bytes are its
+operands' and outputs', once.
+
+A decode cell's caches lie on the ranks as `launch.sharding.state_pspecs`
+places them, and each rank writes the token's K and V into its own shard
+and attends over it (`transformer.LayerSlice`, `write_local`): only the
+token's tensors, the attention scores of a head-dim-sharded cache and a
+recurrent layer's state move, not the caches. The trace runs as rank 0
+of the fake world.
 
 The attention kernels are traced as their operators
-(`torch.ops.repro_torch.flash_attn`, `flash_attn_bwd`, `decode_attn`):
+(`torch.ops.repro_torch.flash_attn`, `flash_attn_bwd`, `decode_attn`, and
+`decode_scores` with `decode_softmax_v` where a cache's head dim is
+sharded):
 their FLOP formulas are the reference's einsums' counts. On a machine with
 a card the fake tensors lie on "cuda", elsewhere on "cpu"; the figures are
 per-device planning numbers on the fake backend, not measurements.
@@ -41,11 +55,14 @@ per-device planning numbers on the fake backend, not measurements.
 A process takes one world, the "fake" process group of 512 ranks, made at
 the first cell and kept: the single-pod mesh (16, 16) spans its ranks
 0-255 and the two-pod mesh (2, 16, 16) all of them (`production_mesh`),
-so that `--mesh both` runs both in one process.
+so that `--mesh both` runs both in one process. With `--jobs N` each
+cell runs in a process of its own instead, N at once, its output in
+OUT/<cell>.log.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k --mesh multi
   python -m repro_torch.launch.dryrun --all [--mesh both] [--out results/dryrun]
+      [--jobs N]
 """
 from __future__ import annotations
 
@@ -54,6 +71,8 @@ import contextlib
 import json
 import math
 import os
+import subprocess
+import sys
 import time
 import traceback
 from typing import Any, Dict, List, Optional
@@ -189,8 +208,7 @@ def _tracing(device: str):
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
-    from repro_torch.kernels.ops import register_dtensor_rules
-    register_dtensor_rules()
+    T.register_dtensor_rules()
     torch._dynamo.reset()
     DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding\
         .cache_clear()
@@ -631,6 +649,44 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     return result
 
 
+def _status(res: Dict[str, Any]) -> str:
+    return ("OK" if res.get("ok")
+            else ("SKIP: " + res["skipped"]) if "skipped" in res
+            else "FAIL: " + res.get("error", "?"))
+
+
+def _run_jobs(cells: list, args) -> None:
+    """Each cell in a process of its own (this module with --force), at
+    most `args.jobs` at once, its output in OUT/<cell>.log; `[run ]` as
+    each starts and `[done]` as each ends, from its JSON."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    pending, running = list(cells), []
+    while pending or running:
+        while pending and len(running) < args.jobs:
+            arch, shape, mp, name, path = pending.pop(0)
+            log = open(os.path.join(args.out, name + ".log"), "w")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh",
+                   "multi" if mp else "single", "--out", args.out,
+                   "--force"] + (["--no-body"] if args.no_body else [])
+            print(f"[run ] {name}", flush=True)
+            running.append((name, path, log, time.time(), subprocess.Popen(
+                cmd, env=env, stdout=log, stderr=subprocess.STDOUT)))
+        time.sleep(0.5)
+        for item in [r for r in running if r[4].poll() is not None]:
+            name, path, log, t0, proc = item
+            log.close()
+            running.remove(item)
+            res = (json.load(open(path)) if os.path.exists(path) else
+                   {"error": f"no result (exit {proc.returncode}; see "
+                             f"{name}.log)"})
+            print(f"[done] {name}: {_status(res)} "
+                  f"({round(time.time() - t0, 1)}s)", flush=True)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -641,33 +697,36 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--no-body", action="store_true")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--jobs", type=int, default=0,
+                    help="run each cell in a process of its own, this many "
+                         "at once (0: every cell in this process)")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
-    cells = []
     archs = arch_ids() if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
+    cells = []
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                cells.append((arch, shape, mp))
+                name = f"{arch}__{shape}__{'multi' if mp else 'single'}"
+                path = os.path.join(args.out, name + ".json")
+                if os.path.exists(path) and not args.force:
+                    print(f"[skip] {name} (exists)")
+                    continue
+                cells.append((arch, shape, mp, name, path))
+    if args.jobs > 0:
+        _run_jobs(cells, args)
+        return
 
-    for arch, shape, mp in cells:
-        name = f"{arch}__{shape}__{'multi' if mp else 'single'}"
-        path = os.path.join(args.out, name + ".json")
-        if os.path.exists(path) and not args.force:
-            print(f"[skip] {name} (exists)")
-            continue
+    for arch, shape, mp, name, path in cells:
         print(f"[run ] {name}", flush=True)
         res = run_cell(arch, shape, mp, body_costs=not args.no_body)
         with open(path, "w") as f:
             json.dump(res, f, indent=1)
-        status = ("OK" if res.get("ok")
-                  else ("SKIP: " + res["skipped"]) if "skipped" in res
-                  else "FAIL: " + res.get("error", "?"))
-        print(f"[done] {name}: {status} ({res.get('elapsed_s', 0)}s)",
+        print(f"[done] {name}: {_status(res)} ({res.get('elapsed_s', 0)}s)",
               flush=True)
 
 

@@ -101,10 +101,10 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE positions must be (3, B, S), got "
                          f"{tuple(positions.shape)}")
     freqs = _rope_freqs(hd, theta, x.device)                  # (hd/2,)
-    sec = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(list(sections), device=x.device))        # (hd/2,)
-    pos_per_slot = positions.float()[sec]                     # (hd/2, B, S)
+    # Each slot's id stream, by slicing (a DTensor takes no tensor index).
+    pos = positions.float()
+    pos_per_slot = torch.cat([pos[i:i + 1].expand(n, -1, -1)
+                              for i, n in enumerate(sections)])  # (hd/2,B,S)
     ang = pos_per_slot.permute(1, 2, 0)[:, None] * freqs      # (B,1,S,hd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -119,7 +119,10 @@ def mrope_prefix(cfg: ArchConfig, positions: torch.Tensor) -> int:
     gives the first P positions t = 0 and text position i t = i - P + 1,
     for which that is key j <= max(i, P - 1) by index, the kernels' mask.
     Raises ValueError for temporal ids of any other layout, and for S < P,
-    where the reference cannot build positions either."""
+    where the reference cannot build positions either. Under a trace
+    (`torch.compile`, the dry run), where the ids are values the trace
+    cannot read and the model's own `_build_positions` made them, the
+    layout is not checked: P is the config's."""
     if positions.dim() != 3 or positions.shape[0] != 3:
         raise ValueError(f"{cfg.name}: M-RoPE positions must be (3, B, S), "
                          f"got {tuple(positions.shape)}")
@@ -127,6 +130,8 @@ def mrope_prefix(cfg: ArchConfig, positions: torch.Tensor) -> int:
     if s < nv:
         raise ValueError(f"{cfg.name}: {s} positions, fewer than the "
                          f"{nv} vision tokens")
+    if torch.compiler.is_compiling():
+        return nv
     want = torch.clamp_min(torch.arange(s, device=positions.device) - nv + 1,
                            0)
     if not torch.equal(positions[0], want.to(positions.dtype).expand_as(
@@ -240,7 +245,7 @@ def attention(
         k, v = _repeat_kv(k, group), _repeat_kv(v, group)
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap, prefix=prefix)
-    out = out.transpose(1, 2).reshape(b, s, hq * hd)
+    out = ops.merge_heads(out.transpose(1, 2))
     return matmul(out.to(x.dtype), p["wo"]), new_cache
 
 

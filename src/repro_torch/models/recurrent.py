@@ -16,7 +16,12 @@ later step in bf16. Elementwise ops promote alike in both libraries.
 scan here: ceil(log2 S) rounds of (a1·a2, a2·b1 + b2), the same
 recurrence summed in another order. `slstm_train`'s `lax.scan` is a loop
 over time, the four input projections computed for every position before
-it, so that only h_prev @ R stays inside.
+it, so that only h_prev @ R stays inside. Under a trace (`torch.compile`,
+the dry run) the loop is one operator, `torch.ops.repro_torch.slstm_scan`,
+with its backward `slstm_scan_bwd`: a trace that unrolled it would hold S
+copies of the step, forward and backward. Their FLOP formulas count the
+loop's products at every step, as a walk of the reference's `scan` counts
+its body S times, and their DTensor rules let the batch be sharded.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels.ops import fit_groups, merge_heads
 
 Params = Dict[str, torch.Tensor]
 _RGLRU_C = 8.0
@@ -46,10 +54,11 @@ def rms_head_norm(h: torch.Tensor, scale: torch.Tensor,
                   n_heads: int) -> torch.Tensor:
     """Per-head RMS group norm used by xLSTM outputs."""
     shape = h.shape
-    hh = h.reshape(*shape[:-1], n_heads, shape[-1] // n_heads)
+    hh = fit_groups(h, h.dim() - 1, n_heads).reshape(
+        *shape[:-1], n_heads, shape[-1] // n_heads)
     var = torch.mean(torch.square(hh.float()), dim=-1, keepdim=True)
     hh = hh * torch.rsqrt(var + 1e-6)
-    return (hh.reshape(shape) * (1.0 + scale)).to(h.dtype)
+    return (merge_heads(hh) * (1.0 + scale)).to(h.dtype)
 
 
 def mlstm_train(p: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -59,7 +68,8 @@ def mlstm_train(p: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     hd = d // n_heads
 
     def split(w):
-        return (x @ w).reshape(b, s, n_heads, hd).transpose(1, 2)
+        return fit_groups(x @ w, 2, n_heads).reshape(
+            b, s, n_heads, hd).transpose(1, 2)
 
     q, k, v = split(p["wq"]), split(p["wk"]), split(p["wv"])
     i_pre = (x @ p["wi"]).reshape(b, s, n_heads).transpose(1, 2)  # (B,H,S)
@@ -81,7 +91,7 @@ def mlstm_train(p: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     norm = torch.maximum(torch.abs(w.sum(dim=-1, keepdim=True)),
                          torch.exp(-m))
     h = torch.einsum("bhtu,bhud->bhtd", w / norm, v.float())
-    h = h.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+    h = merge_heads(h.transpose(1, 2)).to(x.dtype)
     return rms_head_norm(h, p["gn"], n_heads) @ p["wo"]
 
 
@@ -97,6 +107,19 @@ def mlstm_init_state(batch: int, n_heads: int, hd: int,
     }
 
 
+def _batch_only(t: torch.Tensor) -> torch.Tensor:
+    """t (a DTensor's) replicated on every mesh dim but those that shard
+    its batch (dim 0); a plain tensor as it is. DTensor's einsum cannot
+    take a bmm batch dim flattened from two sharded dims (batch and
+    heads)."""
+    if not hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [p if p == Shard(0) else Replicate() for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(t.device_mesh,
+                                                             pl)
+
+
 def mlstm_step(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
                n_heads: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, 1, D) one token; returns (y (B, 1, D), new state)."""
@@ -105,11 +128,13 @@ def mlstm_step(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     xt = x[:, 0]
 
     def split(w):
-        return (xt @ w).reshape(b, n_heads, hd)
+        return _batch_only(fit_groups(xt @ w, 1, n_heads).reshape(
+            b, n_heads, hd))
 
     q, k, v = split(p["wq"]), split(p["wk"]), split(p["wv"])
-    i_pre = (xt @ p["wi"]).reshape(b, n_heads).float()
-    f_pre = (xt @ p["wf"]).reshape(b, n_heads).float()
+    state = {name: _batch_only(t) for name, t in state.items()}
+    i_pre = _batch_only((xt @ p["wi"]).reshape(b, n_heads).float())
+    f_pre = _batch_only((xt @ p["wf"]).reshape(b, n_heads).float())
     log_f = F.logsigmoid(f_pre)
 
     m_new = torch.maximum(log_f + state["m"], i_pre)
@@ -145,11 +170,12 @@ def slstm_init_state(batch: int, d: int, dtype: torch.dtype = torch.float32,
     return {"c": full(0.0), "n": full(1.0), "h": full(0.0), "m": full(0.0)}
 
 
-def _slstm_cell(p: Params, state: Dict[str, torch.Tensor], xt: torch.Tensor,
-                xw: Tuple[torch.Tensor, ...] = ()
+def _slstm_cell(p: Params, state: Dict[str, torch.Tensor],
+                xt: "torch.Tensor | None", xw: Tuple[torch.Tensor, ...] = ()
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One sLSTM step; xt (B, D), and `xw` its four input projections
-    xt @ (wz, wi_g, wf_g, wo_g) where already computed."""
+    xt @ (wz, wi_g, wf_g, wo_g) where already computed (xt None: h in
+    their dtype)."""
     h_prev = state["h"]
     if not xw:
         xw = tuple(xt @ p[name] for name in _SLSTM_IN)
@@ -165,22 +191,153 @@ def _slstm_cell(p: Params, state: Dict[str, torch.Tensor], xt: torch.Tensor,
     c = f_g * state["c"] + i_g * torch.tanh(zi).float()
     n = torch.clamp_min(f_g * state["n"] + i_g, 1e-6)
     h = torch.sigmoid(oo).float() * (c / n)
-    h = h.to(xt.dtype)
+    h = h.to(xw[0].dtype if xt is None else xt.dtype)
     return {"c": c, "n": n, "h": h, "m": m_new}, h
 
 
 def slstm_train(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) → (B, S, D); a loop over time."""
-    b, s, d = x.shape
-    state = slstm_init_state(b, d, torch.float32, device=x.device)
-    # The carried h is in the emitted h's dtype (the activation dtype).
-    state["h"] = state["h"].to(x.dtype)
+    """x (B, S, D) → (B, S, D); a loop over time (under a trace, the
+    `slstm_scan` operator)."""
     xw = [x @ p[name] for name in _SLSTM_IN]           # every position
+    rec = [p[name] for name in _SLSTM_REC]
+    loop = (torch.ops.repro_torch.slstm_scan if torch.compiler.is_compiling()
+            else _slstm_loop)
+    return loop(*xw, *rec) @ p["wo"]
+
+
+def _slstm_loop(z, i, f, o, rz, ri, rf, ro) -> torch.Tensor:
+    """The loop over time of `slstm_train` on its input projections (B, S,
+    D) each: the emitted h (B, S, D)."""
+    b, s, d = z.shape
+    p = dict(zip(_SLSTM_REC, (rz, ri, rf, ro)))
+    state = slstm_init_state(b, d, torch.float32, device=z.device)
+    # The carried h is in the emitted h's dtype (the activation dtype).
+    state["h"] = state["h"].to(z.dtype)
     hs = []
     for t in range(s):
-        state, h = _slstm_cell(p, state, x[:, t], tuple(w[:, t] for w in xw))
+        state, h = _slstm_cell(p, state, None,
+                               tuple(w[:, t] for w in (z, i, f, o)))
         hs.append(h)
-    return torch.stack(hs, dim=1) @ p["wo"]
+    return torch.stack(hs, dim=1)
+
+
+def _slstm_loop_bwd(z, i, f, o, rz, ri, rf, ro, dh):
+    """The gradients of `_slstm_loop` for the cotangent dh, by autograd
+    through the loop."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (z, i, f, o, rz, ri, rf, ro)]
+        return tuple(torch.autograd.grad(_slstm_loop(*ins), ins, dh))
+
+
+# The loop as operators: `slstm_scan` (z, i, f, o, rz, ri, rf, ro) → h and
+# `slstm_scan_bwd` (the same, dh) → their eight gradients. Each runs the
+# loop (by autograd for the backward) on any device; a trace keeps each
+# call as one node, with a fake implementation, a FLOP formula and a
+# DTensor rule.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("slstm_scan(Tensor z, Tensor i, Tensor f, Tensor o, Tensor rz, "
+            "Tensor ri, Tensor rf, Tensor ro) -> Tensor")
+_LIB.define("slstm_scan_bwd(Tensor z, Tensor i, Tensor f, Tensor o, "
+            "Tensor rz, Tensor ri, Tensor rf, Tensor ro, Tensor dh) -> "
+            "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, "
+            "Tensor)")
+_LIB.impl("slstm_scan", _slstm_loop, "CompositeExplicitAutograd")
+_LIB.impl("slstm_scan_bwd", _slstm_loop_bwd, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::slstm_scan")
+def _slstm_scan_fake(z, i, f, o, rz, ri, rf, ro):
+    return torch.empty_like(z)
+
+
+@torch.library.register_fake("repro_torch::slstm_scan_bwd")
+def _slstm_scan_bwd_fake(z, i, f, o, rz, ri, rf, ro, dh):
+    return tuple(torch.empty_like(t) for t in (z, i, f, o, rz, ri, rf, ro))
+
+
+def _slstm_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _slstm_backward(ctx, dh):
+    return torch.ops.repro_torch.slstm_scan_bwd(*ctx.saved_tensors,
+                                                dh.contiguous())
+
+
+torch.library.register_autograd("repro_torch::slstm_scan", _slstm_backward,
+                                setup_context=_slstm_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def _slstm_scan_flops(z_shape, *args, out_shape=None, **kwargs) -> int:
+    """4 · 2·B·S·D·D: h_prev @ (rz, ri, rf, ro) at each of the S steps."""
+    b, s, d = z_shape
+    return 8 * b * s * d * d
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_bwd)
+def _slstm_scan_bwd_flops(z_shape, *args, out_shape=None, **kwargs) -> int:
+    """Twice the forward's: each step's dh_prev = dg @ Rᵀ and dR += h_prevᵀ
+    @ dg for the four gates, as `jax.grad` of the reference's scan counts
+    them; the recompute of the forward is not counted."""
+    b, s, d = z_shape
+    return 16 * b * s * d * d
+
+
+_DTENSOR_RULES = []
+
+
+def register_sharding() -> None:
+    """DTensor rules for the loop and `F.logsigmoid`, registered once
+    (`transformer.register_dtensor_rules` calls it). The loop: everything
+    replicated, or the batch sharded with the recurrent weights
+    replicated (their gradients then partial sums). `log_sigmoid_forward`
+    and its backward are pointwise; the forward's buffer is an empty
+    (0,) tensor on CUDA (replicated), x's shape elsewhere."""
+    if _DTENSOR_RULES:
+        return
+    _DTENSOR_RULES.append(True)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+    r, b = Replicate(), Shard(0)
+
+    @register_sharding(torch.ops.repro_torch.slstm_scan.default)
+    def _fwd(*args):
+        return [([r], [r] * 8), ([b], [b] * 4 + [r] * 4)]
+
+    @register_sharding(torch.ops.repro_torch.slstm_scan_bwd.default)
+    def _bwd(*args):
+        return [([r] * 8, [r] * 9),
+                ([b] * 4 + [Partial()] * 4, [b] * 4 + [r] * 4 + [b])]
+
+    def pointwise(x):
+        return [r] + [Shard(d) for d in range(len(x.shape))]
+
+    def empty_on_cuda(x, pl):
+        return r if x.mesh.device_type == "cuda" else pl
+
+    @register_sharding(aten.log_sigmoid_forward.default)
+    def _logsig(x):
+        return [([pl, empty_on_cuda(x, pl)], [pl]) for pl in pointwise(x)]
+
+    @register_sharding(aten.log_sigmoid_backward.default)
+    def _logsig_bwd(dy, x, buffer):
+        return [([pl], [pl, pl, empty_on_cuda(x, pl)])
+                for pl in pointwise(x)]
+
+    # cumsum's backward flips (the mLSTM's decay); torch 2.11's DTensor
+    # has no rule for flip, later versions have their own.
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    if not any(aten.flip.default in getattr(prop, name, {}) for name in (
+            "op_strategy_funcs", "op_single_dim_strategy_funcs")):
+        @register_sharding(aten.flip.default)
+        def _flip(x, dims):
+            flipped = {d % len(x.shape) for d in dims}
+            return [([pl], [pl, None]) for pl in pointwise(x)
+                    if not (pl.is_shard() and pl.dim in flipped)]
 
 
 def slstm_step(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
@@ -243,7 +400,8 @@ def temporal_conv_train(p: Params, x: torch.Tensor,
                         width: int) -> torch.Tensor:
     """Causal depthwise conv1d (B, S, W), kernel (width, W), summed tap by
     tap in x's dtype from the integer 0, as the reference's `sum`."""
-    pad = F.pad(x, (0, 0, width - 1, 0))
+    pad = torch.cat([x.new_zeros((x.shape[0], width - 1, x.shape[2])), x],
+                    dim=1)
     out = 0
     for i in range(width):
         out = out + pad[:, i:i + x.shape[1]] * p["conv_w"][i]

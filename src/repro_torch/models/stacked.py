@@ -250,16 +250,23 @@ def decode_step_scan(cfg: ArchConfig, params: Dict[str, Any],
     through views of the stacked tensors, and each recurrent layer's new
     state is copied into its slice; the new state holds the same tensors
     with `pos` advanced by one. `mesh_axes` is taken and, as in the
-    reference, read nowhere."""
-    states = _layers(cfg, state["scan"], state["rest"])
+    reference, read nowhere. A DTensor leaf's layer is a
+    `transformer.LayerSlice`, written on each rank's local shard."""
+    r, _ = group_split(cfg)
+    states = [{k: T.LayerSlice(t, (rep,)) if hasattr(t, "device_mesh")
+               else t[rep] for k, t in unit_j.items()}
+              for rep in range(r) for unit_j in state["scan"]] \
+        + list(state["rest"])
     logits, new = T.decode_layers(
         cfg, params, _layers(cfg, params["scan"], params["rest"]), states,
         token, state["pos"], enc_out)
-    for old, st in zip(states, new):
-        if st is not old:
+    for kind, old, st in zip(cfg.blocks(), states, new):
+        if kind not in T._ATTENTION:          # a new state: copied back
             for name, t in st.items():
-                old[name].copy_(t)
-    r, _ = group_split(cfg)
+                if isinstance(old[name], T.LayerSlice):
+                    T.write_local(old[name], t)
+                else:
+                    old[name].copy_(t)
     rest = states[r * len(unit_kinds(cfg)):]
     return logits, {"pos": state["pos"] + 1, "scan": state["scan"],
                     "rest": rest}

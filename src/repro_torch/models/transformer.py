@@ -59,6 +59,9 @@ the encoder's input and the logits), where the reference places a
 nothing is redistributed. With `mesh_axes` and plain tensors `_shard`
 raises RuntimeError, as the reference's constraint raises outside a mesh.
 `decode_step` takes `mesh_axes` and, as the reference's, reads no hint.
+With DTensor caches (placed by `launch.sharding.state_pspecs`) each rank
+writes the token's K and V into its own shard and attends over it
+(`_decode_attn_local`), so that no cache moves.
 """
 from __future__ import annotations
 
@@ -121,13 +124,23 @@ MESH_AXES_SINGLE = {"data": ("data",), "model": "model"}
 MESH_AXES_MULTI = {"data": ("pod", "data"), "model": "model"}
 
 
+def register_dtensor_rules() -> None:
+    """The DTensor sharding rules of the operators the model calls: the
+    attention kernels' (`ops.register_dtensor_rules`) and the sLSTM loop's
+    and `F.logsigmoid`'s (`recurrent.register_sharding`), each once. The
+    callers that turn DTensor on call it: `on_mesh` and the dry run."""
+    ops.register_dtensor_rules()
+    R.register_sharding()
+
+
 def on_mesh(fn):
     """Run `fn` with the plain tensors the model makes beside DTensor
     params (positions, RoPE frequencies, the MoE's slot indices) taken as
     replicated on their mesh: DTensor's `implicit_replication`, the
-    counterpart of the reference's mesh in context, with the attention
-    operators' sharding rules registered. A process that has not imported
-    DTensor holds no DTensor, and its calls run as they are. Inside a
+    counterpart of the reference's mesh in context, with the operators'
+    sharding rules registered (`register_dtensor_rules`). A process that
+    has not imported DTensor holds no DTensor, and its calls run as they
+    are. Inside a
     trace (`torch.compile`, the dry run) the context cannot be entered, so
     the tracer enters it around the call."""
     @functools.wraps(fn)
@@ -136,7 +149,7 @@ def on_mesh(fn):
                 "torch.distributed.tensor" not in sys.modules:
             return fn(*args, **kwargs)
         from torch.distributed.tensor.experimental import implicit_replication
-        ops.register_dtensor_rules()
+        register_dtensor_rules()
         with implicit_replication():
             return fn(*args, **kwargs)
     return wrapped
@@ -656,12 +669,231 @@ def _decode_attn(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     slot = pos
     if "slot_pos" in state:
         slot = pos % state["k"].shape[2]
+    if _is_sharded(state["k"]):
+        out = _decode_attn_local(cfg, state, q[:, :, 0], k_new[:, :, 0],
+                                 v_new[:, :, 0], pos, slot, lens)
+        return out.reshape(b, 1, hq * hd).to(h.dtype) @ p["wo"]
+    if "slot_pos" in state:
         state["slot_pos"][slot] = pos
     state["k"][:, :, slot] = k_new[:, :, 0].to(state["k"].dtype)
     state["v"][:, :, slot] = v_new[:, :, 0].to(state["v"].dtype)
     out = ops.decode_attention(q[:, :, 0], state["k"], state["v"], lens,
                                softcap=cfg.attn_softcap)
     return out.reshape(b, 1, hq * hd).to(h.dtype) @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# The decode step on sharded caches: each rank writes and reads its own
+# shard, and only the token's (B, heads, hd) tensors and the scores move.
+# --------------------------------------------------------------------------
+
+class LayerSlice:
+    """Entry `lead` (a tuple of leading indices) of a stacked DTensor
+    state leaf, for `decode_layers`: the decode step reads and writes it on
+    each rank's local shard (`read`, `write_local`), never through a
+    DTensor view, which would gather the stacked dim first."""
+
+    def __init__(self, leaf: torch.Tensor, lead: Tuple[int, ...]):
+        self.leaf, self.lead = leaf, lead
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.leaf.shape[len(self.lead):]
+
+    def read(self) -> torch.Tensor:
+        """The entry as a DTensor, placed as the leaf on its own dims and
+        replicated on the mesh dims that shard the stacked dims: there the
+        rank whose shard holds the entry gives it and the others zeros,
+        summed, so that one entry moves and not the stack."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        leaf, nl = self.leaf, len(self.lead)
+        local = leaf.to_local()
+        at = _local_index(leaf, self.lead)
+        part = local[at] if at is not None else local.new_zeros(
+            local.shape[nl:])
+        stacked = [pl.is_shard() and pl.dim < nl for pl in leaf.placements]
+        placed = [Partial() if st else type(pl)(pl.dim - nl)
+                  if pl.is_shard() else pl
+                  for pl, st in zip(leaf.placements, stacked)]
+        out = DTensor.from_local(part, leaf.device_mesh, placed,
+                                 run_check=False, shape=self.shape,
+                                 stride=_contiguous_stride(self.shape))
+        if not any(stacked):
+            return out
+        return out.redistribute(leaf.device_mesh, [
+            Replicate() if st else pl for pl, st in zip(placed, stacked)])
+
+
+def _is_sharded(t) -> bool:
+    return isinstance(t, LayerSlice) or hasattr(t, "device_mesh")
+
+
+def _leaf_lead(t) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    return (t.leaf, t.lead) if isinstance(t, LayerSlice) else (t, ())
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(n)
+        n *= size
+    return tuple(reversed(stride))
+
+
+def _local_box(t: torch.Tensor, placements=None) -> Tuple[list, list]:
+    """(local shape, global offset) of this rank's shard of the DTensor t
+    under `placements` (t's own by default), each sharded dim split evenly
+    over its mesh dims in mesh order, as `launch.sharding` places them.
+    DTensor's own `compute_local_shape_and_global_offset` builds the
+    offsets as tensors, which a trace cannot read back as ints."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    shape, off = list(t.shape), [0] * t.dim()
+    for i, pl in enumerate(placements or t.placements):
+        if pl.is_shard():
+            d = pl.dim
+            if shape[d] % mesh.size(i):
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
+                                 f"split evenly over mesh dim {i}")
+            shape[d] //= mesh.size(i)
+            off[d] += coord[i] * shape[d]
+    return shape, off
+
+
+def _local_index(leaf: torch.Tensor, lead: Tuple[int, ...]):
+    """`lead`'s index into the DTensor leaf's local shard, None where the
+    shard does not hold it."""
+    shape, off = _local_box(leaf)
+    if all(off[j] <= i < off[j] + shape[j] for j, i in enumerate(lead)):
+        return tuple(i - off[j] for j, i in enumerate(lead))
+    return None
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "device_mesh") else t
+
+
+def write_local(dst, value: torch.Tensor, index: tuple = ()) -> None:
+    """dst[lead + index] = value for `dst` a DTensor or a `LayerSlice` of
+    one, each rank writing the part its local shard holds, so that none of
+    dst moves: `index` holds ints and full slices over the leading dims
+    after the lead, `value` (a DTensor, or a plain tensor taken as the
+    same on every rank) has the selected part's global shape. A rank whose
+    shard holds none of it writes nothing; every rank must call (a DTensor
+    value is gathered first)."""
+    full = _full(value)
+    leaf, lead = _leaf_lead(dst)
+    index = lead + tuple(index)
+    shape, off = _local_box(leaf)
+    local_idx, part = [], []
+    for dim in range(leaf.dim()):
+        i = index[dim] if dim < len(index) else slice(None)
+        lo, n = off[dim], shape[dim]
+        if isinstance(i, int):
+            if not lo <= i < lo + n:
+                return
+            local_idx.append(i - lo)
+        else:
+            local_idx.append(slice(None))
+            part.append(slice(lo, lo + n))
+    leaf.to_local()[tuple(local_idx)] = full[tuple(part)].to(leaf.dtype)
+
+
+def _decode_attn_local(cfg: ArchConfig, state: Dict[str, Any],
+                       q: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, pos: int, slot: int,
+                       lens: torch.Tensor) -> torch.Tensor:
+    """`_decode_attn`'s write and attention on DTensor caches (B, n_kv, L,
+    hd), or `LayerSlice`s of stacked ones, placed as `launch.sharding.
+    state_pspecs` places them: q (B, hq, hd), k_new and v_new (B, n_kv,
+    hd) are gathered (a token's worth) and each rank
+
+      * writes the slot of its own shard (and `slot_pos`'s, where it holds
+        the slot), as the reference's GSPMD updates its slice in place;
+      * attends over the part of its shard it works on: its shard's rows,
+        split further by batch on the mesh dims that replicate the cache
+        (where the batch divides), none where it holds another layer of a
+        stack sharded by layer. With whole head dims that is the decode
+        kernel on local tensors; with the head dim sharded, the two
+        kernels of the decode over a slice of it, the partial scores
+        summed over the head dim's mesh dims between them
+        (`_decode_attn_split_hd`), so that the cache never moves;
+      * returns its part as a DTensor (B, hq, hd), batch-sharded where the
+        work was, else replicated (summed from the rank that holds the
+        layer)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    leaf, lead = _leaf_lead(state["k"])
+    mesh, nl = leaf.device_mesh, len(lead)
+    b_all, hq, hd = q.shape
+    n_kv = k_new.shape[1]
+    write_local(state["k"], k_new, (slice(None), slice(None), slot))
+    write_local(state["v"], v_new, (slice(None), slice(None), slot))
+    if "slot_pos" in state:
+        write_local(state["slot_pos"], torch.tensor(
+            pos, dtype=torch.int32, device=leaf.to_local().device), (slot,))
+
+    # The part this rank attends over: its shard, the batch split further
+    # on the mesh dims that replicate the cache.
+    work = list(leaf.placements)
+    split = 1
+    for i, pl in enumerate(work):
+        if pl.is_replicate() and b_all % (split * mesh.size(i)) == 0:
+            work[i], split = Shard(nl), split * mesh.size(i)
+        elif pl.is_shard(nl):
+            split *= mesh.size(i)
+    if any(pl.is_shard(nl + 2) for pl in work):
+        raise ValueError("a cache sharded along its positions is not "
+                         "supported (launch.sharding.state_pspecs never "
+                         "shards them)")
+    shape, off = _local_box(leaf, work)
+    b0, bl, h0, hl, d0, dl = (off[nl], shape[nl], off[nl + 1],
+                              shape[nl + 1], off[nl + 3], shape[nl + 3])
+    group = hq // n_kv
+    qb = _full(q).reshape(b_all, n_kv, group, hd)[
+        b0:b0 + bl, h0:h0 + hl, :, d0:d0 + dl].contiguous()
+    hd_dims = [i for i, pl in enumerate(work) if pl.is_shard(nl + 3)]
+    at = _local_index(leaf, lead)
+    if at is not None:
+        l_off = _local_box(leaf)[1]
+        rows = slice(b0 - l_off[nl], b0 - l_off[nl] + bl)
+        kb = leaf.to_local()[at][rows]
+        vb = _leaf_lead(state["v"])[0].to_local()[at][rows]
+        lb = lens[b0:b0 + bl]
+        if hd_dims:
+            out = _decode_attn_split_hd(cfg, qb, kb, vb, lb, hd, mesh,
+                                        hd_dims)
+        else:
+            out = ops.decode_attention(
+                qb.reshape(bl, hl * group, hd), kb, vb, lb,
+                softcap=cfg.attn_softcap).reshape(bl, hl, group, hd)
+    else:
+        out = qb.new_zeros((bl, hl, group, dl))
+    dims = {nl: Shard(0), nl + 1: Shard(1), nl + 3: Shard(3)}
+    placed = [Partial() if nl and pl.is_shard(0) else
+              dims[pl.dim] if pl.is_shard() else Replicate() for pl in work]
+    out = DTensor.from_local(out, mesh, placed, run_check=False,
+                             shape=(b_all, n_kv, group, hd),
+                             stride=(n_kv * group * hd, group * hd, hd, 1))
+    out = out.redistribute(mesh, [pl if pl == Shard(0) else Replicate()
+                                  for pl in placed])
+    return out.reshape(b_all, hq, hd)
+
+
+def _decode_attn_split_hd(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lens: torch.Tensor, hd: int,
+                          mesh, mesh_dims: List[int]) -> torch.Tensor:
+    """The decode on a slice of the head dim: q (B, n_kv, group, d), k, v
+    (B, n_kv, L, d) for d of the hd. The partial scores of the slice
+    (`ops.decode_scores`) are summed over `mesh_dims`, the mesh dims that
+    shard the head dim, and softmaxed and applied to the slice of V
+    (`ops.decode_softmax_v`): the output's d slice."""
+    from torch.distributed import _functional_collectives as funcol
+    s = ops.decode_scores(q, k, lens)
+    for i in mesh_dims:
+        s = funcol.all_reduce(s, "sum", (mesh, i))
+    return ops.decode_softmax_v(s, v, lens, 1.0 / hd ** 0.5,
+                                cfg.attn_softcap)
 
 
 def _recurrent_step(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
@@ -747,6 +979,8 @@ def decode_layer(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     caches the (B,) valid lengths by value across a step's layers."""
     h = L.rms_norm(x, p["ln1"])
     if kind not in _ATTENTION:
+        st = {name: t.read() if isinstance(t, LayerSlice) else t
+              for name, t in st.items()}
         y, st = _recurrent_step(cfg, kind, p, h, st)
         x = x + y
         if "mlp" in p:

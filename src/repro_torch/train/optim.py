@@ -130,7 +130,9 @@ def adafactor_update(params: Params, grads: Params, state: dict, lr=1e-2,
         rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
         u.div_(torch.clamp_min(rms / clip_threshold, 1.0))
         p32 = p.to(torch.float32)
-        step = u.add_(weight_decay * p32).mul_(lr)
+        # Added into the decay's temporary, not into u: a DTensor u may be
+        # a pending sum, which takes no in-place add of a sharded tensor.
+        step = (weight_decay * p32).add_(u).mul_(lr)
         return torch.sub(p32, step, out=step).to(p.dtype), new_s
 
     new_p, new_s = _unzip(params, tree_map(upd, params, grads,

@@ -15,12 +15,14 @@
     world of 8 ranks (`dryrun.fake_world` says why), beside the
     reference's.
   * On a 1 × 1 mesh, the train and prefill steps of the dense (Yi-6B),
-    Gemma-2 and Mixtral SMOKE configs: `cost.flops` equals, to relative
+    Gemma-2, Mixtral, xLSTM-125M and Qwen2-VL-72B SMOKE configs (the last
+    with its vision embeddings): `cost.flops` equals, to relative
     FLOPS_RTOL, the reference's matrix-product FLOPs, counted by walking
     the jaxpr of its step (`dot_general` at 2·m·n·k times its batch, times
     the enclosing `scan` lengths). The attention operators count the
-    reference's einsums (`kernels.flash_attn`'s FLOP formulas), so no op is
-    left out for these archs.
+    reference's einsums (`kernels.flash_attn`'s FLOP formulas) and the
+    sLSTM's loop operator its products at every time step
+    (`models.recurrent`'s), so no op is left out for these archs.
 """
 import functools
 import json
@@ -94,6 +96,9 @@ def _keys(d, prefix=""):
     return out
 
 
+FLOPS_ARCHS = ("yi_6b", "gemma2_27b", "mixtral_8x22b", "xlstm_125m",
+               "qwen2_vl_72b")
+
 _PORT = textwrap.dedent("""
     import json, sys
     import torch
@@ -103,6 +108,7 @@ _PORT = textwrap.dedent("""
     from repro_torch.models.transformer import MESH_AXES_SINGLE
 
     small, part = json.loads(sys.argv[1]), sys.argv[2]
+    FLOPS_ARCHS = json.loads(sys.argv[3])
     out = {}
     with D.fake_world(8):
         if part == "small":
@@ -115,7 +121,7 @@ _PORT = textwrap.dedent("""
         else:
             one = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.long),
                              mesh_dim_names=("data", "model"))
-            for arch in ("yi_6b", "gemma2_27b", "mixtral_8x22b"):
+            for arch in FLOPS_ARCHS:
                 for kind in ("train", "prefill"):
                     out[f"{arch}/{kind}"] = D.dryrun_cell(
                         get_config(arch, smoke=True), small[kind], one,
@@ -133,8 +139,9 @@ def runs():
                                json.dumps(SMALL), *part], env=env, cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
-             for code, part in ((_REFERENCE, ()), (_PORT, ("small",)),
-                                (_PORT, ("flops",)))]
+             for code, part in ((_REFERENCE, ()),
+                                (_PORT, ("small", json.dumps(FLOPS_ARCHS))),
+                                (_PORT, ("flops", json.dumps(FLOPS_ARCHS))))]
     try:
         outs = [p.communicate(timeout=400) for p in procs]
     finally:
@@ -271,21 +278,27 @@ def _reference_flops(arch, kind) -> int:
                             jax.random.PRNGKey(0))
     tok = jax.ShapeDtypeStruct((shape["global_batch"], shape["seq_len"]),
                                jnp.int32)
+    # The batch's vision embeddings where the arch takes them, as the
+    # port's cell gets them from `input_specs`.
+    from repro.launch.specs import input_specs
+    vis = input_specs(cfg, shape).get("vision_embeds")
     if kind == "prefill":
-        return _dot_flops(jax.make_jaxpr(lambda p, t: r_st.forward_scan(
-            cfg, p, t, last_only=True)[0])(params, tok).jaxpr)
+        return _dot_flops(jax.make_jaxpr(lambda p, t, v: r_st.forward_scan(
+            cfg, p, t, vision_embeds=v, last_only=True)[0])(
+                params, tok, vis).jaxpr)
     opt_init, opt_update = r_make_optimizer("adamw", lr=1e-4)
 
-    def step(p, o, t, lab):
+    def step(p, o, t, lab, v):
         loss, g = jax.value_and_grad(
-            lambda p_: r_st.lm_loss_scan(cfg, p_, t, lab))(p)
+            lambda p_: r_st.lm_loss_scan(cfg, p_, t, lab,
+                                         vision_embeds=v))(p)
         return loss, *opt_update(p, g, o)
 
     return _dot_flops(jax.make_jaxpr(step)(
-        params, jax.eval_shape(opt_init, params), tok, tok).jaxpr)
+        params, jax.eval_shape(opt_init, params), tok, tok, vis).jaxpr)
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "gemma2_27b", "mixtral_8x22b"])
+@pytest.mark.parametrize("arch", FLOPS_ARCHS)
 @pytest.mark.parametrize("kind", ["train", "prefill"])
 def test_flops_are_the_reference_dot_products(runs, arch, kind):
     got = runs[2][f"{arch}/{kind}"]

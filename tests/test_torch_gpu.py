@@ -1,5 +1,6 @@
 """Card tests of the port: the CUDA Block-ELL SpMM, fused GCN-layer,
-flash-attention and GQA flash-decode kernels against their plain PyTorch
+flash-attention and GQA flash-decode kernels (and the decode over a slice
+of the head dim) against their plain PyTorch
 versions (the SpMM also at the autotuner's bucket widths; both attention
 kernels also with Gemma-2's attention softcap and at RecurrentGemma's head
 dim 256, in both directions, and the flash kernels with Qwen2-VL's
@@ -893,6 +894,44 @@ def test_decode_kernel_matches_plain_version(b, n_kv, group, s, d, lens,
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                plain.float().cpu().numpy(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("b,n_kv,group,s,d,lens", [
+    (2, 4, 8, 64, 128, (8, 64)),          # hints_check's, whole head dims
+    (8, 4, 8, 4096, 8, None),             # a production slice, d' = 8
+    (2, 1, 16, 129, 256, (0, 65)),        # group 16, d' = 256, lens 0
+    (3, 2, 5, 300, 32, (63, 64, 65)),     # lens at a P tile's edges
+])
+def test_decode_hd_kernels_match_plain_versions(b, n_kv, group, s, d, lens,
+                                                dtype):
+    """The decode over a slice of the head dim (`decode_scores`, then
+    `decode_softmax_v` with and without a softcap) against the plain
+    versions, one launch each counted."""
+    _card()
+    from repro_torch.kernels import decode_attn as p_dec
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(s + d + 1)
+    q = torch.randn((b, n_kv, group, d), generator=gen).to("cuda", dt)
+    k, v = (torch.randn((b, n_kv, s, d), generator=gen).to("cuda", dt)
+            for _ in range(2))
+    lens = (torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
+            if lens is None else torch.tensor(lens, dtype=torch.int32))
+    lens = lens.cuda()
+    before = dict(p_dec.DECODE_HD_LAUNCHES)
+    s_plain = p_dec.decode_scores_plain(q, k, lens)
+    s_got = p_dec.decode_scores(q, k, lens)
+    torch.testing.assert_close(s_got, s_plain, rtol=1e-5, atol=1e-4)
+    for cap in (None, 30.0):
+        got = p_dec.decode_softmax_v(s_plain, v, lens, 0.05, cap)
+        want = p_dec.decode_softmax_v_plain(s_plain, v, lens, 0.05, cap)
+        rtol = {"float32": 0.0, "float16": 2.0 ** -10,
+                "bfloat16": 2.0 ** -7}[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=4e-6)
+    assert p_dec.DECODE_HD_LAUNCHES == {
+        "decode_scores": before["decode_scores"] + 1,
+        "decode_softmax_v": before["decode_softmax_v"] + 2}
 
 
 def test_attention_kernels_refuse_grad_and_cpu_tensors():

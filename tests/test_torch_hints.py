@@ -15,6 +15,14 @@ to the reference, the logits within test_torch_lm.py's LOGIT_TOL, the loss
 within its LOSS_TOL, the gradients within test_torch_lm_train.py's
 LM_GRAD_TOL relative to each tensor's largest value, and `compress_grads`'
 int8 scales on the DTensor gradients to the single process's.
+
+The same ranks run `decode_step` for Yi-6B's and Gemma-2's SMOKE configs
+(Gemma-2's local layers on rings of 16 slots, past their wrap) with the
+caches DTensors placed by `launch.sharding.state_pspecs`, each rank
+writing and reading its own shard: with the params replicated DTensors,
+every step's logits and the final caches (and rings' `slot_pos`) equal the
+single process's plain `decode_step` bit for bit; with the params placed
+by `tree_placements`, the logits are within LOGIT_TOL.
 """
 import os
 import pathlib
@@ -36,7 +44,9 @@ LOGIT_TOL = 1e-4          # tests/test_torch_lm.py's, on forward's logits
 LOSS_TOL = 1e-5           # ... on lm_loss
 LM_GRAD_TOL = 1e-5        # tests/test_torch_lm_train.py's, relative
 ARCHS = ("yi_6b", "mixtral_8x22b")
+DECODE_ARCHS = ("yi_6b", "gemma2_27b")
 B, S = 4, 16
+DECODE_STEPS, DECODE_LEN = 20, 24     # past Gemma-2 SMOKE's window of 16
 
 _REFERENCE = textwrap.dedent("""
     import os, sys
@@ -129,6 +139,7 @@ _RANK = textwrap.dedent("""
         _, scales, _ = compress_grads(list(grads), ef_init(list(grads)))
         for i, sc in enumerate(scales):
             out[f"{arch}/scale/{i}"] = sc.full_tensor().numpy()
+    out.update(_decode(d, mesh))
     if rank == 0:
         np.savez(f"{d}/port.npz", **out)
     dist.barrier()
@@ -157,6 +168,141 @@ _UNFLATTEN = textwrap.dedent("""
 """)
 
 
+# The rank script's decode: `decode_step` on caches placed by
+# `state_pspecs`, params replicated ("rep") or by `tree_placements`
+# ("tree"); each step's logits and the last state, gathered.
+_DECODE = textwrap.dedent("""
+    def _decode(d, mesh):
+        from torch.distributed.tensor import Replicate
+        from repro_torch.launch.sharding import state_pspecs
+        from repro_torch.models.transformer import (decode_step,
+                                                    init_decode_state)
+        out = {}
+        for arch in DECODE_ARCHS:
+            cfg = get_config(arch, smoke=True)
+            params = params_from_numpy(
+                cfg, _unflatten(np.load(f"{d}/{arch}_params.npz")), "cpu")
+            toks = torch.from_numpy(np.load(f"{d}/{arch}_decode.npy"))
+            for mode in ("rep", "tree"):
+                places = (tree_map(lambda _: (Replicate(), Replicate()),
+                                   params) if mode == "rep"
+                          else tree_placements(params, mesh))
+                dp = tree_map(lambda t, p: distribute_tensor(t, mesh,
+                                                             list(p)),
+                              params, places)
+                state = init_decode_state(cfg, toks.shape[0], DECODE_LEN,
+                                          device="cpu")
+                specs = state_pspecs(state, mesh)
+                state["layers"] = [
+                    {k: distribute_tensor(t, mesh,
+                                          list(placements(sp[k], mesh)))
+                     for k, t in layer.items()}
+                    for layer, sp in zip(state["layers"], specs["layers"])]
+                tok_pl = list(placements(
+                    batch_pspec((toks.shape[0], 1), mesh), mesh))
+                logits = []
+                with torch.no_grad():
+                    for i in range(toks.shape[1]):
+                        tok = distribute_tensor(
+                            toks[:, i:i + 1].contiguous(), mesh, tok_pl)
+                        lg, state = decode_step(cfg, dp, tok, state)
+                        logits.append(lg.full_tensor().numpy())
+                out[f"{arch}/{mode}/logits"] = np.concatenate(logits, 1)
+                for li, layer in enumerate(state["layers"]):
+                    for k, t in layer.items():
+                        out[f"{arch}/{mode}/state/{li}/{k}"] = (
+                            t.full_tensor().numpy())
+            out.update(_decode_stacked(cfg, arch, params, toks, mesh))
+        out.update(_decode_recurrent_stack(mesh))
+        return out
+
+    def _decode_recurrent_stack(mesh):
+        # xLSTM SMOKE at 4 layers, two (sLSTM, mLSTM) units, so that
+        # `state_pspecs` shards the stacked recurrent states' layer dim
+        # over "data": `decode_step_scan` with params replicated reads each
+        # layer's state from the rank that holds it (`LayerSlice.read`),
+        # beside the plain `decode_step` on this rank's plain tensors.
+        import dataclasses
+        from torch.distributed.tensor import Replicate
+        from repro_torch.launch.sharding import state_pspecs
+        from repro_torch.models.stacked import (decode_step_scan,
+                                                init_decode_state_stacked,
+                                                stack_params)
+        from repro_torch.models.transformer import (decode_step,
+                                                    init_decode_state,
+                                                    init_params)
+        cfg = dataclasses.replace(get_config("xlstm_125m", smoke=True),
+                                  n_layers=4)
+        params = init_params(cfg, torch.Generator().manual_seed(7),
+                             device="cpu")
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, size=(4, 6), dtype=np.int64))
+        sp = tree_map(lambda t: distribute_tensor(t, mesh, [Replicate()] * 2),
+                      stack_params(cfg, params))
+        state = init_decode_state_stacked(cfg, 4, 8, device="cpu")
+        specs = state_pspecs(state, mesh)
+        state["scan"] = [
+            {k: distribute_tensor(t, mesh, list(placements(s[k], mesh)))
+             for k, t in unit.items()}
+            for unit, s in zip(state["scan"], specs["scan"])]
+        plain = init_decode_state(cfg, 4, 8, device="cpu")
+        tok_pl = list(placements(batch_pspec((4, 1), mesh), mesh))
+        got, want = [], []
+        with torch.no_grad():
+            for i in range(toks.shape[1]):
+                tok = toks[:, i:i + 1].contiguous()
+                lg, state = decode_step_scan(
+                    cfg, sp, distribute_tensor(tok, mesh, tok_pl), state)
+                got.append(lg.full_tensor().numpy())
+                lg, plain = decode_step(cfg, params, tok, plain)
+                want.append(lg.numpy())
+        return {"xlstm4/stacked/logits": np.concatenate(got, 1),
+                "xlstm4/plain/logits": np.concatenate(want, 1),
+                "xlstm4/stacked/placements": np.array(str(
+                    state["scan"][1]["c"].placements)),
+                "xlstm4/stacked/c": state["scan"][1]["c"].full_tensor()
+                .numpy(),
+                "xlstm4/plain/c": np.stack([plain["layers"][i]["c"].numpy()
+                                            for i in (1, 3)])}
+
+    def _decode_stacked(cfg, arch, params, toks, mesh):
+        # `decode_step_scan` on the stacked state placed by `state_pspecs`:
+        # the layer dim over "data" where it divides, the head dim over
+        # "model"; params replicated.
+        from torch.distributed.tensor import Replicate
+        from repro_torch.launch.sharding import state_pspecs
+        from repro_torch.models.stacked import (decode_step_scan,
+                                                init_decode_state_stacked,
+                                                stack_params)
+        sp = tree_map(lambda t: distribute_tensor(t, mesh, [Replicate()] * 2),
+                      stack_params(cfg, params))
+        state = init_decode_state_stacked(cfg, toks.shape[0], DECODE_LEN,
+                                          device="cpu")
+        specs = state_pspecs(state, mesh)
+        for part in ("scan", "rest"):
+            state[part] = [
+                {k: distribute_tensor(t, mesh, list(placements(s[k], mesh)))
+                 for k, t in unit.items()}
+                for unit, s in zip(state[part], specs[part])]
+        tok_pl = list(placements(batch_pspec((toks.shape[0], 1), mesh),
+                                 mesh))
+        logits = []
+        with torch.no_grad():
+            for i in range(toks.shape[1]):
+                tok = distribute_tensor(toks[:, i:i + 1].contiguous(), mesh,
+                                        tok_pl)
+                lg, state = decode_step_scan(cfg, sp, tok, state)
+                logits.append(lg.full_tensor().numpy())
+        out = {f"{arch}/stacked/logits": np.concatenate(logits, 1),
+               f"{arch}/stacked/placements": np.array(str(
+                   state["scan"][0]["k"].placements))}
+        for j, unit in enumerate(state["scan"]):
+            for k, t in unit.items():
+                out[f"{arch}/stacked/scan/{j}/{k}"] = t.full_tensor().numpy()
+        return out
+""")
+
+
 def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         return {k: v for key, sub in tree.items()
@@ -165,6 +311,26 @@ def _flatten(tree, prefix=""):
         return {k: v for i, sub in enumerate(tree)
                 for k, v in _flatten(sub, f"{prefix}{i}/").items()}
     return {prefix[:-1]: np.asarray(tree)}
+
+
+def _single_decode(arch, toks):
+    """The single process's plain `decode_step` on the same params and
+    tokens: (each step's logits (B, steps, V), the last state's layers)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=True)
+    tree = jax.tree_util.tree_map(np.asarray, r_tf.init_params(
+        r_configs.get_config(arch, smoke=True), jax.random.PRNGKey(5)))
+    params = p_tf.params_from_numpy(cfg, tree, "cpu")
+    state = p_tf.init_decode_state(cfg, toks.shape[0], DECODE_LEN,
+                                   device="cpu")
+    logits = []
+    with torch.no_grad():
+        for i in range(toks.shape[1]):
+            lg, state = p_tf.decode_step(
+                cfg, params, torch.from_numpy(toks[:, i:i + 1]).contiguous(),
+                state)
+            logits.append(lg.numpy())
+    return np.concatenate(logits, 1), state["layers"]
 
 
 def _single(arch, inp):
@@ -200,10 +366,18 @@ def run(tmp_path_factory):
         inputs[arch] = {"tokens": tokens,
                         "labels": np.roll(tokens, -1, axis=-1)}
         np.savez(d / f"{arch}.npz", **inputs[arch])
+    decode_toks = {}
+    for arch in dict.fromkeys(ARCHS + DECODE_ARCHS):
+        r_cfg = r_configs.get_config(arch, smoke=True)
         np.savez(d / f"{arch}_params.npz", **_flatten(jax.tree_util.tree_map(
             np.asarray, r_tf.init_params(r_cfg, jax.random.PRNGKey(5)))))
+        if arch in DECODE_ARCHS:
+            decode_toks[arch] = np.random.default_rng(11).integers(
+                0, r_cfg.vocab, size=(B, DECODE_STEPS), dtype=np.int64)
+            np.save(d / f"{arch}_decode.npy", decode_toks[arch])
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    rank = _UNFLATTEN + _RANK
+    rank = (f"DECODE_ARCHS = {DECODE_ARCHS!r}\nDECODE_LEN = {DECODE_LEN}\n"
+            + _UNFLATTEN + _DECODE + _RANK)
     procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE, str(d),
                                *ARCHS], env=env, cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -214,6 +388,8 @@ def run(tmp_path_factory):
                                text=True) for r in range(8)]
     try:
         single = {arch: _single(arch, inputs[arch]) for arch in ARCHS}
+        single.update({f"{arch}/decode": _single_decode(arch, toks)
+                       for arch, toks in decode_toks.items()})
         errs = [p.communicate(timeout=240)[1] for p in procs]
     finally:
         for p in procs:
@@ -279,3 +455,64 @@ def test_hinted_int8_scales_span_the_whole_gradient(run, arch):
     for i, want in enumerate(scales):
         got = float(port[f"{arch}/scale/{i}"])
         assert abs(got - float(want)) <= LM_GRAD_TOL * float(want), i
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_hinted_decode_on_sharded_caches_is_the_plain_decode(run, arch):
+    """Replicated DTensor params, caches placed by `state_pspecs`: every
+    step's logits and the last caches (and `slot_pos`) bit for bit."""
+    _, port, single = run
+    logits, layers = single[f"{arch}/decode"]
+    np.testing.assert_array_equal(port[f"{arch}/rep/logits"], logits)
+    assert len(layers) > 0
+    for li, layer in enumerate(layers):
+        for k, t in layer.items():
+            np.testing.assert_array_equal(
+                port[f"{arch}/rep/state/{li}/{k}"], t.numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_hinted_decode_with_sharded_params_matches(run, arch):
+    """Params placed by `tree_placements` as well: the row-parallel
+    products sum their partial sums over the ranks, so the logits are
+    held within LOGIT_TOL, not bit for bit."""
+    _, port, single = run
+    logits, _ = single[f"{arch}/decode"]
+    np.testing.assert_allclose(port[f"{arch}/tree/logits"], logits,
+                               atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_hinted_stacked_decode_on_head_dim_shards_matches(run, arch):
+    """`decode_step_scan` on the stacked caches `state_pspecs` places (the
+    head dim over "model", Yi-6B's two layers over "data"), so that each
+    rank attends over a slice of the head dim and the partial scores are
+    summed over "model": every step's logits within LOGIT_TOL of the
+    plain step's, and each stacked cache leaf's layers the plain caches
+    within the same."""
+    from repro_torch.models.stacked import unit_kinds
+    _, port, single = run
+    logits, layers = single[f"{arch}/decode"]
+    assert "Shard(dim=4)" in str(port[f"{arch}/stacked/placements"])
+    np.testing.assert_allclose(port[f"{arch}/stacked/logits"], logits,
+                               atol=LOGIT_TOL)
+    from repro_torch.configs import get_config
+    u = len(unit_kinds(get_config(arch, smoke=True)))
+    for li, layer in enumerate(layers):
+        for k, t in layer.items():
+            got = port[f"{arch}/stacked/scan/{li % u}/{k}"][li // u]
+            np.testing.assert_allclose(got, t.numpy(), atol=LOGIT_TOL,
+                                       err_msg=k)
+
+
+def test_hinted_stacked_decode_reads_recurrent_states_from_their_rank(run):
+    """xLSTM SMOKE at 4 layers, its stacked recurrent states' layer dim
+    over "data": each layer's state is read from the rank that holds it
+    and written back there, and every step's logits and the last mLSTM
+    states equal the plain `decode_step`'s within LOGIT_TOL."""
+    _, port, _ = run
+    assert "Shard(dim=0)" in str(port["xlstm4/stacked/placements"])
+    np.testing.assert_allclose(port["xlstm4/stacked/logits"],
+                               port["xlstm4/plain/logits"], atol=LOGIT_TOL)
+    np.testing.assert_allclose(port["xlstm4/stacked/c"],
+                               port["xlstm4/plain/c"], atol=LOGIT_TOL)

@@ -249,3 +249,42 @@ def test_temporal_conv_step_matches_reference_and_its_parallel_form():
     np.testing.assert_allclose(_np(torch.cat(ys, 1)),
                                _np(p_rec.temporal_conv_train(pp, px, 4)),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_scan_operator_is_the_loop_and_its_gradient(dtype):
+    """`torch.ops.repro_torch.slstm_scan`, the loop a trace keeps as one
+    node: applied to the input projections and wo, the reference's
+    `slstm_train` within tolerance, and `slstm_train`'s eager loop bit
+    for bit; its backward operator, the gradients of the eager loop (the
+    same autograd, so bit for bit) and, in f32, of `jax.grad` of the
+    reference within F32. Its FLOP formulas count 4 · 2·B·S·D² forward and
+    twice that backward."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rp, pp = _params("slstm", dtype)
+    rx, px = _x((B, S, 64), 7, dtype)
+    xw = [px @ pp[n] for n in p_rec._SLSTM_IN]
+    rec = [pp[n] for n in p_rec._SLSTM_REC]
+    hs = torch.ops.repro_torch.slstm_scan(*xw, *rec)
+    assert torch.equal(hs @ pp["wo"], p_rec.slstm_train(pp, px))
+    _close(hs @ pp["wo"], r_rec.slstm_train(rp, rx), dtype)
+
+    dh = _pt(jnp.asarray(np.random.default_rng(3).standard_normal(
+        (B, S, 64)), jnp.dtype(dtype)))
+    grads = torch.ops.repro_torch.slstm_scan_bwd(*xw, *rec, dh)
+    live = [t.detach().requires_grad_(True) for t in (*xw, *rec)]
+    want = torch.autograd.grad(p_rec._slstm_loop(*live), live, dh)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    if dtype == "float32":
+        dx = grads[:4]
+        got_dx = sum(g @ pp[n].T for g, n in zip(dx, p_rec._SLSTM_IN))
+        r_dx = jax.grad(lambda x: jnp.sum(
+            r_rec.slstm_train(dict(rp, wo=jnp.eye(64)), x)
+            * jnp.asarray(dh.numpy())))(rx)
+        _close(got_dx, r_dx)
+
+    meta = [t.to("meta") for t in (*xw, *rec, dh)]
+    with FlopCounterMode(display=False) as counter:
+        torch.ops.repro_torch.slstm_scan(*meta[:-1])
+        torch.ops.repro_torch.slstm_scan_bwd(*meta)
+    assert counter.get_total_flops() == 3 * 8 * B * S * 64 * 64
