@@ -190,8 +190,10 @@ non-zero without a result line:
                decode_softmax_v (on the plain scores) within ATTN_TOL, at
                hints_check's caches, at the production slices HD_YI_SLICE
                and HD_MIXTRAL_SLICE (d' = 8 of 128) with per-sequence lens,
-               in f32 with lens 0 and 1, with a softcap of 50 and at 16
-               query heads of d' = 256 in f16.
+               in f32 with lens 0 and 1, with a softcap of 50, at 16
+               query heads of d' = 256 in f16 and of d' = 8 in bf16, and
+               with lens inside a split and at the edges of the kernels'
+               splits and chunks on this card (`hd_edge_lens`).
  19. lm_check — Yi-6B width cut to 4 layers, float32, batch 2 x 128
                tokens: `forward` and a teacher-forced `decode_step` at every
                position against the script's own float64 forward; flash
@@ -319,7 +321,9 @@ non-zero without a result line:
                the plain step's.
  32c. dryrun_check — `launch.dryrun.run_cell` for Yi-6B train_4k,
                xLSTM-125M prefill_32k (the sLSTM's loop one operator) and
-               Qwen2-VL-72B prefill_32k (M-RoPE, the vision prefix) on the
+               decode_32k (each rank updating its shard of the mLSTM
+               state), Qwen2-VL-72B prefill_32k (M-RoPE, the vision
+               prefix; FSDP, each layer read from its shards) on the
                single-pod mesh and Mixtral decode_32k on the two-pod mesh
                (its 8 KV heads do not divide over 16: decode_scores and
                decode_softmax_v traced on each rank's head-dim slice),
@@ -329,7 +333,12 @@ non-zero without a result line:
                bytes the local-shard sum of the cell's specs, Mixtral's
                collective bytes below its local caches' (printed beside
                DRYRUN_MOVED_CACHE_BYTES, the figure when the cache write
-               moved them); params, per-device argument, temp and output
+               moved them), Qwen2-VL's all-gather bytes within
+               DRYRUN_GATHER_WEIGHTS times its params' bytes over "model"
+               plus its layers' K and V (gathered over "model": 8 KV
+               heads over 16) and xLSTM decode's collectives below its argument bytes
+               (each beside DRYRUN_BEFORE, the figure before those
+               repairs); params, per-device argument, temp and output
                bytes, FLOPs, collective bytes by kind, trace seconds and
                the phase's beside DRYRUN_TARGET_S printed (planning
                numbers, not measurements).
@@ -432,8 +441,9 @@ non-zero without a result line:
                uploaded bytes the bank's; prints the StreamStats and GB/s.
  46. timing  — each kernel, its plain version and a PyTorch yardstick the
                port never calls, at the main paths' shapes, with the bound
-               (decode_scores and decode_softmax_v at HD_YI_SLICE and
-               HD_MIXTRAL_SLICE, bf16, no yardstick);
+               (decode_scores and decode_softmax_v at HD_YI_SLICE,
+               HD_MIXTRAL_SLICE and hints_check's shape, bf16, each with
+               the route it took, no yardstick);
                the GCN kernels' bound counted on the bricks' nonzeros and,
                beside it, on every brick entry, and the fused layer's also
                with X·W at the rate of its three TF32 products; the SpMM
@@ -639,7 +649,25 @@ HD_SCORES_TOL = (1e-5, 1e-4)
 DRYRUN_CELLS = (("yi_6b", "train_4k", False),
                 ("mixtral_8x22b", "decode_32k", True),
                 ("xlstm_125m", "prefill_32k", False),
-                ("qwen2_vl_72b", "prefill_32k", False))
+                ("qwen2_vl_72b", "prefill_32k", False),
+                ("xlstm_125m", "decode_32k", False))
+# Two cells' figures before the stacked layers were read from their shards
+# (Qwen2-VL-72B prefill_32k's all-gather bytes a device, FSDP gathering
+# every stacked weight whole for each layer) and before the mLSTM's decode
+# step updated its state on each rank's shard (xLSTM-125M decode_32k's
+# collective bytes, the state gathered each step): printed beside the
+# cells' own ("NVIDIA H100 80GB HBM3, 700.00 W", torch 2.11). Qwen2-VL's
+# all-gather must now stay within twice its params' bytes a device over
+# "model" (DRYRUN_GATHER_WEIGHTS) plus its K and V projections, which every
+# layer gathers over "model" because its 8 KV heads do not divide over 16
+# (`ops.fit_groups`; the same gather is all that the two-pod cell, which
+# never gathered a stack, does); xLSTM's collectives below its argument
+# bytes.
+DRYRUN_BEFORE = {"qwen2_vl_72b__prefill_32k__single": {
+                     "all_gather_bytes": 724.44e9},
+                 "xlstm_125m__decode_32k__single": {
+                     "collective_bytes": 1.373e9}}
+DRYRUN_GATHER_WEIGHTS = 2.0
 # Mixtral decode_32k's collective bytes a device when the decode step's
 # cache write moved the caches between layouts (61.65 GB, 60.17 GB of it
 # all-to-all, on "NVIDIA H100 80GB HBM3, 700.00 W", torch 2.11): printed
@@ -2839,11 +2867,26 @@ def hd_compare(dmod, label: str, shape, dtype: str, gen, softcap=None,
     return cases
 
 
+def hd_edge_lens(dmod, b: int, n_kv: int, group: int, s_len: int) -> list:
+    """lens for a (b, n_kv, group, s_len) case at the edges of the blocks
+    the kernels cut the positions into on this card: one short of, at and
+    one past the end of decode_softmax_v's first split and decode_scores'
+    first chunk, and inside a later split, clipped to s_len."""
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    split, _ = dmod.hd_split_plan(b, n_kv, group, s_len, n_sm)
+    chunk = dmod.hd_scores_chunk(b, n_kv, s_len, n_sm)
+    lens = [split - 1, split, split + 1, chunk - 1, chunk + 1,
+            2 * split + split // 2]
+    return [min(s_len, x) for x in lens[:b]]
+
+
 def decode_hd_cases(dmod, gen) -> list:
     """hd_compare at the main path's shapes (hints_check's caches, the
     production slices HD_YI_SLICE and HD_MIXTRAL_SLICE) and at its edges:
-    f32, a softcap, 16 query heads a KV head, d' = 256, lens of 0, 1 and
-    at a P tile's edges."""
+    f32, a softcap, 16 query heads a KV head at d' = 8 and 256, lens of 0,
+    1, inside a split and at the edges of the kernels' splits and chunks
+    (`hd_edge_lens`)."""
     b, steps = HINTS_TOKENS[0], HINTS_DECODE_STEPS
     return (hd_compare(dmod, "hints_check's decode step", (
                 b, 4, 8, HINTS_DECODE_LEN, 128), "bfloat16", gen,
@@ -2857,7 +2900,15 @@ def decode_hd_cases(dmod, gen) -> list:
             + hd_compare(dmod, "softcap 50", (2, 4, 8, 300, 32),
                          "bfloat16", gen, softcap=50.0, lens=[63, 300])
             + hd_compare(dmod, "group 16 at d' = 256", (2, 1, 16, 129, 256),
-                         "float16", gen, lens=[65, 129]))
+                         "float16", gen, lens=[65, 129])
+            + hd_compare(dmod, "group 16 at d' = 8", (3, 2, 16, 4096, 8),
+                         "bfloat16", gen, lens=[4096, 1, 1500])
+            + hd_compare(dmod, "lens at split and chunk edges",
+                         (6, 2, 8, 4096, 8), "bfloat16", gen,
+                         lens=hd_edge_lens(dmod, 6, 2, 8, 4096))
+            + hd_compare(dmod, "lens at split edges, f32, d' = 64",
+                         (6, 1, 4, 3000, 64), "float32", gen,
+                         lens=hd_edge_lens(dmod, 6, 1, 4, 3000)))
 
 
 def phase_attn(fmod, dmod, seed: int) -> dict:
@@ -3811,7 +3862,8 @@ def zero_attn_counts(fmod, dmod) -> None:
     fmod.FLASH_BWD_WIDE_LAUNCHES = 0
     fmod.FLASH_PREFIX_LAUNCHES = fmod.FLASH_BWD_PREFIX_LAUNCHES = 0
     for routes in (fmod.FLASH_ROUTE_LAUNCHES, dmod.DECODE_ROUTE_LAUNCHES,
-                   fmod.FLASH_BWD_ROUTE_LAUNCHES, dmod.DECODE_HD_LAUNCHES):
+                   fmod.FLASH_BWD_ROUTE_LAUNCHES, dmod.DECODE_HD_LAUNCHES,
+                   dmod.DECODE_HD_SCORES_ROUTE_LAUNCHES):
         for route in routes:
             routes[route] = 0
 
@@ -3835,6 +3887,8 @@ def attn_counts(fmod, dmod) -> dict:
             "decode_routes": dict(dmod.DECODE_ROUTE_LAUNCHES),
             "decode_softcap": dmod.DECODE_SOFTCAP_LAUNCHES,
             "decode_wide": dmod.DECODE_WIDE_LAUNCHES,
+            "decode_scores_routes": dict(
+                dmod.DECODE_HD_SCORES_ROUTE_LAUNCHES),
             **dmod.DECODE_HD_LAUNCHES}
 
 
@@ -6354,6 +6408,31 @@ def phase_dryrun_check(run: dict) -> dict:
         if arch == "mixtral_8x22b":
             cells[name]["moved_cache_collective_bytes"] = \
                 DRYRUN_MOVED_CACHE_BYTES
+        if name in DRYRUN_BEFORE:
+            cells[name]["before"] = DRYRUN_BEFORE[name]
+        if arch == "qwen2_vl_72b":
+            # The params' bytes a device sharded over "model" alone, and
+            # each layer's K and V for the rank's sequences, bf16.
+            from repro_torch.configs import SHAPES, get_config
+            cfg, spec = get_config(arch), SHAPES[shape]
+            weights = 2 * res["params"] / 16
+            kv = (cfg.n_layers * 2 * spec["global_batch"] // 16
+                  * spec["seq_len"] * cfg.n_kv_heads * cfg.hd * 2)
+            gathered = res["collectives"]["by_kind"].get("all-gather", 0)
+            cells[name]["model_sharded_param_bytes"] = weights
+            cells[name]["kv_projection_bytes"] = kv
+            if gathered > DRYRUN_GATHER_WEIGHTS * weights + kv:
+                raise AssertionError(
+                    f"dryrun_check {name}: {gathered} bytes of all-gather "
+                    f"a device, over {DRYRUN_GATHER_WEIGHTS} x the "
+                    f"{weights} bytes of its model-sharded params and "
+                    f"its layers' {kv} bytes of K and V")
+        if arch == "xlstm_125m" and shape == "decode_32k" and \
+                res["collectives"]["bytes"] >= mem["argument_bytes"]:
+            raise AssertionError(
+                f"dryrun_check {name}: {res['collectives']['bytes']} "
+                f"collective bytes, not below its "
+                f"{mem['argument_bytes']} argument bytes")
     import torch
     emit({"phase": "dryrun_check", "backend": "fake", "device_type": "cuda",
           "seconds": seconds, "waited_s": waited,
@@ -6901,8 +6980,10 @@ def time_decode_hd(dmod, seed: int, shape, repeats: int = 20) -> dict:
     """The two kernels of the decode over a slice of the head dim at one
     rank's shape (b, n_kv, group, S, d'), bf16, every cache full, each
     beside its plain version; `ms` per eager call, `device_ms` on the
-    card. No PyTorch call computes either function (masked scores in f32
-    from bf16 operands; a softmax of given scores applied to V), so
+    card, and the route each took (decode_scores' by its C entry point's
+    choice, `HD_SCORES_ROUTES`; decode_softmax_v has one: a split kernel and
+    the combine). No PyTorch call computes either function (masked scores
+    in f32 from bf16 operands; a softmax of given scores applied to V), so
     `library_ms` is None."""
     import torch
     b, n_kv, group, s_len, d = shape
@@ -6926,12 +7007,19 @@ def time_decode_hd(dmod, seed: int, shape, repeats: int = 20) -> dict:
               "decode_softmax_v": s.numel() * 4 + rows * d * esz
               + q.numel() * esz + 4 * b}
     flops = 2.0 * rows * group * d
+    before = dict(dmod.DECODE_HD_SCORES_ROUTE_LAUNCHES)
+    dmod.decode_scores(q, k, lens)
+    routes = {"decode_scores": [r for r, n in
+                                dmod.DECODE_HD_SCORES_ROUTE_LAUNCHES.items()
+                                if n != before[r]][0],
+              "decode_softmax_v": "split_combine"}
     out = {}
     for name, (kernel, plain) in calls.items():
         t_ops = flops / PEAK_F32_FLOPS
         t_bytes = nbytes[name] / PEAK_BYTES_PER_S
         ms = cuda_ms(kernel, repeats)
         out[name] = {"shape": list(shape), "dtype": "bfloat16",
+                     "kernel_route": routes[name],
                      "ms": ms, "device_ms": device_ms(kernel, repeats),
                      "plain_ms": cuda_ms(plain, 3, warmup=1),
                      "library_ms": None, "flops": flops,
@@ -7024,6 +7112,9 @@ def phase_timing(kmod, fmod, dmod, plans, h_main, h_lj, h_train, g_train,
         # The decode over a slice of the head dim at the production slices.
         "decode_hd_yi": time_decode_hd(dmod, seed, HD_YI_SLICE),
         "decode_hd_mixtral": time_decode_hd(dmod, seed, HD_MIXTRAL_SLICE),
+        # hints_check's decode at its longest cache, the whole head dim.
+        "decode_hd_hints": time_decode_hd(dmod, seed, (
+            HINTS_TOKENS[0], 4, 8, HINTS_DECODE_LEN, 128)),
     }
     emit({"phase": "timing", **timing,
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -7467,12 +7558,13 @@ def run(args) -> None:
            "launches_by_path": {"hints_check": lm["hints_check"][name]},
            "max_abs_err": attn_err[name],
            **{k: timing["decode_hd_yi"][name][k] for k in keys},
-           "yi_6b_decode_32k_slice": {
-               k: timing["decode_hd_yi"][name][k]
-               for k in (*keys, "device_ms", "shape")},
-           "mixtral_decode_32k_slice": {
-               k: timing["decode_hd_mixtral"][name][k]
-               for k in (*keys, "device_ms", "shape")}}
+           **{label: {k: timing[key][name][k]
+                      for k in (*keys, "device_ms", "shape", "kernel_route",
+                                "bound_share")}
+              for label, key in (("yi_6b_decode_32k_slice", "decode_hd_yi"),
+                                 ("mixtral_decode_32k_slice",
+                                  "decode_hd_mixtral"),
+                                 ("hints_check_shape", "decode_hd_hints"))}}
           for name in ("decode_scores", "decode_softmax_v"))]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

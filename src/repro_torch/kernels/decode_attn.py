@@ -33,8 +33,12 @@ half):
                                      v[b, h, t], in v's dtype
 
 with the caller's all-reduce of s between them (`models.transformer.
-_decode_attn_split_hd`). Each is an operator as `decode_attn` is, one
-launch each, counted in `DECODE_HD_LAUNCHES`.
+_decode_attn_split_hd`). Each is an operator as `decode_attn` is, counted
+once a call in `DECODE_HD_LAUNCHES`: `decode_scores` blocks over chunks of
+positions, by the route its C entry point picks (`HD_SCORES_ROUTES`: "mma",
+the tensor cores, for f16 and bf16 at d' a multiple of 16, else "fma"),
+`decode_softmax_v` a split kernel over the positions and the decode's
+combine kernel.
 """
 from __future__ import annotations
 
@@ -62,8 +66,11 @@ DECODE_LAUNCHES = 0
 DECODE_ROUTE_LAUNCHES = {"tensor_core": 0, "f32_fma": 0}
 DECODE_SOFTCAP_LAUNCHES = 0
 DECODE_WIDE_LAUNCHES = 0     # at head dims 129-256 (NC = 16)
-# Launches of the head-dim-slice kernels (csrc/decode_attn_hd.cu).
+# Launches of the head-dim-slice kernels (csrc/decode_attn_hd.cu), and of
+# decode_scores by the route its C entry point took (`HD_SCORES_ROUTES`).
 DECODE_HD_LAUNCHES = {"decode_scores": 0, "decode_softmax_v": 0}
+HD_SCORES_ROUTES = ("fma", "mma")
+DECODE_HD_SCORES_ROUTE_LAUNCHES = dict.fromkeys(HD_SCORES_ROUTES, 0)
 
 MAX_GROUP = 16         # must match MAX_GROUP in csrc/decode_attn.cu
 TILE = 64              # cache positions per shared tile (TILE in the source)
@@ -76,6 +83,15 @@ TILE = 64              # cache positions per shared tile (TILE in the source)
 BLOCKS_PER_SM = 8
 BLOCKS_PER_SM_WIDE = 4
 _MAX_CHUNK = 4096      # positions per split, so long caches split anyway
+# The head-dim-slice kernels' blocks (256 threads; eight fit on an SM)
+# wanted for each SM: two waves. decode_scores' chunks are multiples of
+# HD_SCORES_STEP positions (a block's step); decode_softmax_v's splits are
+# multiples of 32 and at most HD_SPLIT_MAX, their group x chunk f32 scores
+# in at most HD_SPLIT_SMEM bytes of shared memory.
+HD_BLOCKS_PER_SM = 16
+HD_SCORES_STEP = 256
+HD_SPLIT_MAX = 512
+HD_SPLIT_SMEM = 48 * 1024
 
 
 def _check(q, k, v, lens) -> None:
@@ -355,34 +371,69 @@ def _cuda_operands(name: str, *tensors) -> None:
             raise ValueError(f"{name}'s operands must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def hd_scores_chunk(b: int, n_kv: int, s_len: int, n_sm: int) -> int:
+    """Positions a `decode_scores` block takes: a multiple of
+    HD_SCORES_STEP, short enough for HD_BLOCKS_PER_SM blocks on each of the
+    card's `n_sm` SMs."""
+    want = -(-HD_BLOCKS_PER_SM * n_sm // (b * n_kv))
+    return -(-(-(-s_len // want)) // HD_SCORES_STEP) * HD_SCORES_STEP
+
+
+@functools.lru_cache(maxsize=None)
+def hd_split_plan(b: int, n_kv: int, group: int, s_len: int,
+                  n_sm: int) -> tuple:
+    """(chunk, n_splits) of `decode_softmax_v`: positions a split, a
+    multiple of 32, at most HD_SPLIT_MAX and HD_SPLIT_SMEM bytes of scores,
+    short enough for HD_BLOCKS_PER_SM blocks on each SM."""
+    most = min(HD_SPLIT_MAX, HD_SPLIT_SMEM // (4 * group) // 32 * 32)
+    want = -(-HD_BLOCKS_PER_SM * n_sm // (b * n_kv))
+    chunk = min(most, -(-(-(-s_len // want)) // 32) * 32)
+    return chunk, -(-s_len // chunk)
+
+
 def _launch_scores(q, k, lens) -> torch.Tensor:
-    """The CUDA implementation of `decode_scores`."""
+    """The CUDA implementation of `decode_scores`; counts the route its C
+    entry point took."""
     _check_hd(q, k, lens)
     _cuda_operands("decode_scores", q, k, lens)
     b, n_kv, group, d = q.shape
     s_len = k.shape[2]
     out = torch.empty((b, n_kv, group, s_len), dtype=torch.float32,
                       device=q.device)
-    return _launch_hd(
-        "decode_scores", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p], out, q.data_ptr(), k.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, n_kv, group, s_len, d,
-        DTYPE_CODES[q.dtype])
+    chunk = hd_scores_chunk(b, n_kv, s_len, sm_count(q.device.index))
+    route = ctypes.c_int(-1)
+    _launch_hd(
+        "decode_scores", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p], out,
+        q.data_ptr(), k.data_ptr(), lens.data_ptr(), out.data_ptr(), b, n_kv,
+        group, s_len, d, chunk, DTYPE_CODES[q.dtype], ctypes.byref(route))
+    DECODE_HD_SCORES_ROUTE_LAUNCHES[HD_SCORES_ROUTES[route.value]] += 1
+    return out
 
 
 def _launch_softmax_v(s, v, lens, scale, softcap) -> torch.Tensor:
-    """The CUDA implementation of `decode_softmax_v`."""
+    """The CUDA implementation of `decode_softmax_v`: the split kernel and
+    the combine, their f32 scratch one allocation."""
     _check_softmax_v(s, v, lens)
     _cuda_operands("decode_softmax_v", s, v, lens)
     b, n_kv, group, s_len = s.shape
     d = v.shape[3]
     out = torch.empty((b, n_kv, group, d), dtype=v.dtype, device=v.device)
+    chunk, n_splits = hd_split_plan(b, n_kv, group, s_len,
+                                    sm_count(v.device.index))
+    # m_part and l_part (b, n_kv, n_splits, group), acc_part (..., d).
+    n_part = b * n_kv * n_splits * group
+    scratch = torch.empty(n_part * (2 + d), dtype=torch.float32,
+                          device=v.device)
+    m_part = scratch.data_ptr()
     return _launch_hd(
-        "decode_softmax_v", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        "decode_softmax_v", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
         + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p], out,
-        s.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), b, n_kv,
-        group, s_len, d, float(scale), softcap_value(softcap or None),
-        DTYPE_CODES[v.dtype])
+        s.data_ptr(), v.data_ptr(), lens.data_ptr(), m_part,
+        m_part + 4 * n_part, m_part + 8 * n_part, out.data_ptr(), b, n_kv,
+        group, s_len, d, chunk, n_splits, float(scale),
+        softcap_value(softcap or None), DTYPE_CODES[v.dtype])
 
 
 # The two kernels as the operators `torch.ops.repro_torch.decode_scores` (q,

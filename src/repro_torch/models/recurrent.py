@@ -61,6 +61,20 @@ def rms_head_norm(h: torch.Tensor, scale: torch.Tensor,
     return (merge_heads(hh) * (1.0 + scale)).to(h.dtype)
 
 
+def batch_only(t: torch.Tensor) -> torch.Tensor:
+    """t (a DTensor's) replicated on every mesh dim but those that shard
+    its batch (dim 0), pending partial sums summed; a plain tensor as it
+    is. DTensor's einsum cannot take a bmm batch dim flattened from two
+    sharded dims (batch and heads), and a decode step's token activations
+    are cheaper to move than any weight."""
+    if not hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [p if p == Shard(0) else Replicate() for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(t.device_mesh,
+                                                             pl)
+
+
 def mlstm_train(p: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """x (B, S, D) → (B, S, D). Stabilized parallel form (xLSTM eq. 2x):
     the (B, H, S, S) decay matrix and scores in f32."""
@@ -68,8 +82,8 @@ def mlstm_train(p: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     hd = d // n_heads
 
     def split(w):
-        return fit_groups(x @ w, 2, n_heads).reshape(
-            b, s, n_heads, hd).transpose(1, 2)
+        return batch_only(fit_groups(x @ w, 2, n_heads).reshape(
+            b, s, n_heads, hd).transpose(1, 2))
 
     q, k, v = split(p["wq"]), split(p["wk"]), split(p["wv"])
     i_pre = (x @ p["wi"]).reshape(b, s, n_heads).transpose(1, 2)  # (B,H,S)
@@ -107,36 +121,14 @@ def mlstm_init_state(batch: int, n_heads: int, hd: int,
     }
 
 
-def _batch_only(t: torch.Tensor) -> torch.Tensor:
-    """t (a DTensor's) replicated on every mesh dim but those that shard
-    its batch (dim 0); a plain tensor as it is. DTensor's einsum cannot
-    take a bmm batch dim flattened from two sharded dims (batch and
-    heads)."""
-    if not hasattr(t, "device_mesh"):
-        return t
-    from torch.distributed.tensor import Replicate, Shard
-    pl = [p if p == Shard(0) else Replicate() for p in t.placements]
-    return t if pl == list(t.placements) else t.redistribute(t.device_mesh,
-                                                             pl)
-
-
-def mlstm_step(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
-               n_heads: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B, 1, D) one token; returns (y (B, 1, D), new state)."""
-    b, _, d = x.shape
-    hd = d // n_heads
-    xt = x[:, 0]
-
-    def split(w):
-        return _batch_only(fit_groups(xt @ w, 1, n_heads).reshape(
-            b, n_heads, hd))
-
-    q, k, v = split(p["wq"]), split(p["wk"]), split(p["wv"])
-    state = {name: _batch_only(t) for name, t in state.items()}
-    i_pre = _batch_only((xt @ p["wi"]).reshape(b, n_heads).float())
-    f_pre = _batch_only((xt @ p["wf"]).reshape(b, n_heads).float())
+def _mlstm_update(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  i_pre: torch.Tensor, f_pre: torch.Tensor,
+                  state: Dict[str, torch.Tensor], hd: int) -> tuple:
+    """The mLSTM's state update for one token and the two sums its output
+    divides: (num (B, H, hd), n·qs (B, H), new state). k, q and the state's
+    c, n may hold a slice of the key dim e (c's last), and then num and n·qs
+    are that slice's partial sums; v and c's value dim stay whole."""
     log_f = F.logsigmoid(f_pre)
-
     m_new = torch.maximum(log_f + state["m"], i_pre)
     i_g = torch.exp(i_pre - m_new)[..., None]
     f_g = torch.exp(log_f + state["m"] - m_new)[..., None]
@@ -147,11 +139,96 @@ def mlstm_step(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     n = f_g * state["n"] + i_g * k.float()
     qs = q.float() * kq_scale
     num = torch.einsum("bhde,bhe->bhd", c, qs)
-    den = torch.maximum(torch.abs(torch.einsum("bhe,bhe->bh", n, qs)),
-                        torch.exp(-m_new))[..., None]
-    h = (num / den).reshape(b, 1, d).to(x.dtype)
+    nq = torch.einsum("bhe,bhe->bh", n, qs)
+    return num, nq, {"c": c, "n": n, "m": m_new}
+
+
+def _mlstm_out(num: torch.Tensor, nq: torch.Tensor,
+               m: torch.Tensor) -> torch.Tensor:
+    """The mLSTM's output h (B, H, hd) from the whole sums."""
+    return num / torch.maximum(torch.abs(nq), torch.exp(-m))[..., None]
+
+
+def _mlstm_step_sharded(q, k, v, i_pre, f_pre, state, hd: int) -> tuple:
+    """`_mlstm_update` and `_mlstm_out` on DTensor states, each rank on its
+    own shard of c (B, H, hd, e) as `launch.sharding.state_pspecs` places
+    it, so that c never moves:
+
+      * k and q are taken as c's slices of batch, heads and e; v and the
+        gates as its batch and heads, v's value dim whole;
+      * n and m are brought to c's layout (n's e with c's e), each O(B·H·hd),
+        a token's worth;
+      * the update runs on local tensors, which keeps DTensor's einsum out
+        of it, and with it the limit `batch_only` works around (a bmm
+        batch dim flattened from sharded batch and heads);
+      * the partial num and n·qs are summed over the mesh dims that shard
+        e, and only then come abs, maximum and the division.
+
+    Returns (h (B, H, hd) replicated over the mesh dims that shard e, the
+    new state placed as the old)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    c = state["c"]
+    mesh, pc = c.device_mesh, list(c.placements)
+    if any(pl.is_shard(2) or pl.is_partial() for pl in pc):
+        raise ValueError(f"an mLSTM state c placed {pc} (its value dim "
+                         f"sharded, or partial) is not supported")
+    e_dims = [i for i, pl in enumerate(pc) if pl.is_shard(3)]
+    p_n = [Shard(2) if i in e_dims else pl for i, pl in enumerate(pc)]
+    p_bh = [Replicate() if i in e_dims else pl for i, pl in enumerate(pc)]
+
+    def local(t, placed):
+        return t.redistribute(mesh, placed).to_local()
+
+    m = local(state["m"], p_bh)
+    num, nq, new = _mlstm_update(
+        local(q, p_n), local(k, p_n), local(v, p_bh), local(i_pre, p_bh),
+        local(f_pre, p_bh),
+        {"c": c.to_local(), "n": local(state["n"], p_n), "m": m}, hd)
+    for i in e_dims:
+        num = funcol.all_reduce(num, "sum", (mesh, i))
+        nq = funcol.all_reduce(nq, "sum", (mesh, i))
+
+    def placed(t, like, places):
+        out = DTensor.from_local(t, mesh, places, run_check=False,
+                                 shape=like.shape, stride=like.stride())
+        return out.redistribute(mesh, list(like.placements))
+
+    h = _mlstm_out(num, nq, new["m"])
+    h = DTensor.from_local(h, mesh, p_bh, run_check=False,
+                           shape=(*c.shape[:3],),
+                           stride=(c.shape[1] * c.shape[2], c.shape[2], 1))
+    return h, {"c": placed(new["c"], c, pc),
+               "n": placed(new["n"], state["n"], p_n),
+               "m": placed(new["m"], state["m"], p_bh)}
+
+
+def mlstm_step(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
+               n_heads: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, 1, D) one token; returns (y (B, 1, D), new state). With
+    DTensor states each rank updates its own shard of them
+    (`_mlstm_step_sharded`)."""
+    b, _, d = x.shape
+    hd = d // n_heads
+    xt = x[:, 0]
+    sharded = hasattr(state["c"], "device_mesh")
+    keep = (lambda t: t) if sharded else batch_only
+
+    def split(w):
+        return keep(fit_groups(xt @ w, 1, n_heads).reshape(b, n_heads, hd))
+
+    q, k, v = split(p["wq"]), split(p["wk"]), split(p["wv"])
+    i_pre = keep((xt @ p["wi"]).reshape(b, n_heads).float())
+    f_pre = keep((xt @ p["wf"]).reshape(b, n_heads).float())
+    if sharded:
+        h, new = _mlstm_step_sharded(q, k, v, i_pre, f_pre, state, hd)
+        h = batch_only(h)
+    else:
+        num, nq, new = _mlstm_update(q, k, v, i_pre, f_pre, state, hd)
+        h = _mlstm_out(num, nq, new["m"])
+    h = h.reshape(b, 1, d).to(x.dtype)
     y = rms_head_norm(h, p["gn"], n_heads) @ p["wo"]
-    return y, {"c": c, "n": n, "m": m_new}
+    return y, new
 
 
 # --------------------------------------------------------------------------

@@ -65,11 +65,89 @@ def _stack(trees: List[Any]) -> Any:
     return torch.stack(trees)
 
 
-def _view(tree: Any, i: int) -> Any:
-    """Entry i of every stacked leaf (views, not copies)."""
+def _view(tree: Any, i: int, path: Optional[str] = None) -> Any:
+    """Entry i of every stacked leaf: a view of a plain tensor; of a
+    DTensor, the entry read from the local shards
+    (`transformer.LayerSlice.read`), which moves that one entry where the
+    stacked dim is sharded and nothing where it is not, never the whole
+    stack. Both carry gradients.
+
+    With `path` (the keys above the tree; the forward paths give it), a
+    DTensor entry of one or two dims is then placed over "model" as the
+    unstacked layout places that layer's leaf (`launch.sharding.
+    param_pspec` on its path, without FSDP): the stacked layout shards
+    every leaf's last dim over "model", and with a row-parallel product
+    (attn/wo, mlp/w_down) or a norm placed so, DTensor would gather every
+    weight that the next product needs. A decode step's products take a
+    token each, so without `path` an entry keeps the stacked placement,
+    under which DTensor moves the token's activations rather than weights,
+    but for a norm's scale, which is replicated (or every product after
+    the norm would gather its input again)."""
     if isinstance(tree, Mapping):
-        return {k: _view(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: _view(v, i, None if path is None else
+                         f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if not hasattr(tree, "device_mesh"):
+        return tree[i]
+    from torch.distributed.tensor import Replicate, Shard
+    entry = T.LayerSlice(tree, (i,)).read()
+    mesh = entry.device_mesh
+    if path is not None and entry.dim() <= 2:
+        dims = _unstacked_dims(path, tuple(entry.shape),
+                               tuple(mesh.mesh_dim_names),
+                               tuple(mesh.size(m) for m in range(mesh.ndim)))
+        want = [Shard(d) if d >= 0 else Replicate() for d in dims]
+        for m, (have, pl) in enumerate(zip(entry.placements, want)):
+            if have.is_shard() and pl.is_shard() and have.dim != pl.dim:
+                entry = _move_shard(entry, m, pl.dim)
+    elif entry.dim() == 1:
+        want = [Replicate()] * mesh.ndim
+    else:
+        return entry
+    return entry if want == list(entry.placements) else \
+        entry.redistribute(mesh, want)
+
+
+@torch.compiler.assume_constant_result
+def _unstacked_dims(path: str, shape: tuple, names: tuple,
+                    sizes: tuple) -> tuple:
+    """For each mesh dim (names, sizes), the dim of a layer's leaf (its
+    path and shape) that the unstacked layout shards over it, -1 for none,
+    by `launch.sharding.param_pspec` without FSDP. A trace takes the result
+    as a constant: the rules match paths by regular expressions, which
+    dynamo does not trace on every torch the port meets."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.sharding import param_pspec
+    spec = param_pspec(path, shape, AbstractMesh(sizes, names))
+    owner = {name: d for d, entry in enumerate(spec)
+             for name in (entry if isinstance(entry, tuple) else (entry,))
+             if name is not None}
+    return tuple(owner.get(name, -1) for name in names)
+
+
+def _move_shard(t: torch.Tensor, mesh_dim: int, dim: int) -> torch.Tensor:
+    """The DTensor t, sharded on `mesh_dim` along another dim, sharded
+    along `dim` instead (which that mesh dim divides, as `param_pspec`
+    places it), by one all-to-all of its local shard: DTensor's own
+    redistribution falls back to a gather on a CPU mesh. Carries
+    gradients."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, src = t.device_mesh, t.placements[mesh_dim].dim
+    n = mesh.size(mesh_dim)
+    local = t.to_local()
+    # Rank j is sent chunk j along `dim`; what it gets is stacked by
+    # sender (axis 0), the chunk next (axis 1), then the other dims, src
+    # among them at `at`; the senders are then joined into src.
+    parts = local.movedim(dim, 0).unflatten(0, (n, -1)).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        parts, None, None, (mesh, mesh_dim)))
+    at = 2 + (src if src < dim else src - 1)
+    local = got.movedim(0, at - 1).flatten(at - 1, at).movedim(0, dim)
+    placed = [Shard(dim) if m == mesh_dim else pl
+              for m, pl in enumerate(t.placements)]
+    return DTensor.from_local(local, mesh, placed, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def _group(cfg: ArchConfig, layers: List[Any]) -> Tuple[List[Any], List[Any]]:
@@ -137,7 +215,7 @@ def encode_scan(cfg: ArchConfig, params: Dict[str, Any],
     """`transformer.encode` over the stacked encoder layers."""
     enc = {"audio_proj": params["audio_proj"],
            "enc_norm": params["enc_norm"],
-           "enc_layers": [_view(params["enc_scan"], i)
+           "enc_layers": [_view(params["enc_scan"], i, "")
                           for i in range(cfg.encoder_layers)]}
     return T.encode(cfg, enc, audio_embeds, mesh_axes)
 
@@ -173,7 +251,7 @@ def forward_scan(cfg: ArchConfig, params: Dict[str, Any],
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
     for rep in range(r):
-        unit = [_view(unit_j, rep) for unit_j in params["scan"]]
+        unit = [_view(unit_j, rep, "") for unit_j in params["scan"]]
         if remat:
             x, a = checkpoint(_unit_apply, cfg, kinds, unit, x, positions,
                               mesh_axes, enc_out, use_reentrant=False)

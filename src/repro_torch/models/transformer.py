@@ -372,23 +372,47 @@ def _layer_apply(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     reference's; with `enc_out` an attention block attends over it after
     its self-attention; a recurrent block adds its mixer's output, then its
     MLP where it has one."""
-    h = L.rms_norm(x, p["ln1"])
+    # Each branch's output is hinted as the residual stream is, so that a
+    # row-parallel product's partial sums are all-reduced: DTensor would
+    # rather scatter them along the hidden dim, and every later product
+    # would then gather its weight. Each branch's input has its gradient's
+    # partial sums all-reduced likewise (`_grad_settled`).
+    def res(y):
+        return _shard(y, mesh_axes, ("data", None, None))
+
+    h = _grad_settled(L.rms_norm(x, p["ln1"]), mesh_axes)
     aux = torch.zeros((), device=x.device)
     if kind not in _ATTENTION:
-        x = x + _recurrent_apply(cfg, kind, p, h)
+        x = x + res(_recurrent_apply(cfg, kind, p, h))
         if "mlp" in p:
-            x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+            x = x + res(L.mlp(p["mlp"], _grad_settled(
+                L.rms_norm(x, p["ln2"]), mesh_axes)))
     else:
         window = cfg.sliding_window if kind == BlockKind.LOCAL_ATTN else None
         attn_out, _ = L.attention(cfg, p["attn"], h, positions,
                                   sliding_window=window)
-        x = x + attn_out
+        x = x + res(attn_out)
         if enc_out is not None:
             x = _cross_attend(cfg, p, x, positions, enc_out)
-        ffn_out, aux = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]), mesh_axes)
+        ffn_out, aux = _ffn(cfg, kind, p, _grad_settled(
+            L.rms_norm(x, p["ln2"]), mesh_axes), mesh_axes)
         if ffn_out is not None:
-            x = x + ffn_out
-    return _shard(x, mesh_axes, ("data", None, None)), aux
+            x = x + res(ffn_out)
+    return res(x), aux
+
+
+def _grad_settled(t: torch.Tensor, mesh_axes) -> torch.Tensor:
+    """t as it is, its gradient with pending partial sums all-reduced
+    (`DTensor.from_local` brings a gradient back to its placements), under
+    the hints; DTensor would otherwise carry the partial sums of a
+    column-parallel product's input gradient on, and gather the weights
+    of the products before it."""
+    if mesh_axes is None or not hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.to_local(), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def _build_positions(cfg: ArchConfig, b: int, s: int,
@@ -689,9 +713,10 @@ def _decode_attn(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 
 class LayerSlice:
     """Entry `lead` (a tuple of leading indices) of a stacked DTensor
-    state leaf, for `decode_layers`: the decode step reads and writes it on
-    each rank's local shard (`read`, `write_local`), never through a
-    DTensor view, which would gather the stacked dim first."""
+    leaf: a decode state's, which the decode step reads and writes on each
+    rank's local shard (`read`, `write_local`), or a param's, which
+    `models.stacked` reads; never through a DTensor view, which would
+    gather the stacked dim first."""
 
     def __init__(self, leaf: torch.Tensor, lead: Tuple[int, ...]):
         self.leaf, self.lead = leaf, lead
@@ -704,13 +729,21 @@ class LayerSlice:
         """The entry as a DTensor, placed as the leaf on its own dims and
         replicated on the mesh dims that shard the stacked dims: there the
         rank whose shard holds the entry gives it and the others zeros,
-        summed, so that one entry moves and not the stack."""
-        from torch.distributed.tensor import DTensor, Partial, Replicate
+        summed, so that one entry moves and not the stack. Where the
+        stacked dims are not sharded, each rank takes the entry from its
+        own shard and nothing moves. Gradients flow back to the holder's
+        shard; the other ranks' zeros are an empty slice of their shard
+        summed, so that every rank's backward runs the same collectives."""
+        from torch.distributed.tensor import DTensor, Partial
         leaf, nl = self.leaf, len(self.lead)
         local = leaf.to_local()
         at = _local_index(leaf, self.lead)
-        part = local[at] if at is not None else local.new_zeros(
-            local.shape[nl:])
+        if at is not None:
+            part = local[at]
+        elif local.requires_grad:
+            part = local.flatten(0, nl - 1)[:0].sum(0)
+        else:
+            part = local.new_zeros(local.shape[nl:])
         stacked = [pl.is_shard() and pl.dim < nl for pl in leaf.placements]
         placed = [Partial() if st else type(pl)(pl.dim - nl)
                   if pl.is_shard() else pl
@@ -720,8 +753,7 @@ class LayerSlice:
                                  stride=_contiguous_stride(self.shape))
         if not any(stacked):
             return out
-        return out.redistribute(leaf.device_mesh, [
-            Replicate() if st else pl for pl, st in zip(placed, stacked)])
+        return out.redistribute(leaf.device_mesh, _entry_placements(leaf, nl))
 
 
 def _is_sharded(t) -> bool:
@@ -780,10 +812,20 @@ def write_local(dst, value: torch.Tensor, index: tuple = ()) -> None:
     dst moves: `index` holds ints and full slices over the leading dims
     after the lead, `value` (a DTensor, or a plain tensor taken as the
     same on every rank) has the selected part's global shape. A rank whose
-    shard holds none of it writes nothing; every rank must call (a DTensor
-    value is gathered first)."""
-    full = _full(value)
+    shard holds none of it writes nothing; every rank must call. A DTensor
+    value of a whole entry (a recurrent layer's new state) is placed as
+    `LayerSlice.read` places the entry and written from its local shard;
+    any other is gathered first."""
     leaf, lead = _leaf_lead(dst)
+    if not index and hasattr(value, "device_mesh") and \
+            value.device_mesh == leaf.device_mesh:
+        value = value.redistribute(leaf.device_mesh,
+                                   _entry_placements(leaf, len(lead)))
+        at = _local_index(leaf, lead)
+        if at is not None:
+            leaf.to_local()[at] = value.to_local().to(leaf.dtype)
+        return
+    full = _full(value)
     index = lead + tuple(index)
     shape, off = _local_box(leaf)
     local_idx, part = [], []
@@ -798,6 +840,15 @@ def write_local(dst, value: torch.Tensor, index: tuple = ()) -> None:
             local_idx.append(slice(None))
             part.append(slice(lo, lo + n))
     leaf.to_local()[tuple(local_idx)] = full[tuple(part)].to(leaf.dtype)
+
+
+def _entry_placements(leaf: torch.Tensor, nl: int) -> list:
+    """The placements of an entry of the DTensor leaf's first nl dims, as
+    `LayerSlice.read` gives it: the leaf's moved down nl dims, replicated
+    on the mesh dims that shard one of those nl dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [(Replicate() if pl.dim < nl else Shard(pl.dim - nl))
+            if pl.is_shard() else pl for pl in leaf.placements]
 
 
 def _decode_attn_local(cfg: ArchConfig, state: Dict[str, Any],
@@ -982,9 +1033,9 @@ def decode_layer(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
         st = {name: t.read() if isinstance(t, LayerSlice) else t
               for name, t in st.items()}
         y, st = _recurrent_step(cfg, kind, p, h, st)
-        x = x + y
+        x = x + R.batch_only(y)
         if "mlp" in p:
-            x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+            x = x + R.batch_only(L.mlp(p["mlp"], L.rms_norm(x, p["ln2"])))
         return x, st
     n = pos + 1
     if "slot_pos" in st:
@@ -992,10 +1043,15 @@ def decode_layer(cfg: ArchConfig, kind: BlockKind, p: Dict[str, Any],
     if n not in lens:
         lens[n] = torch.full((x.shape[0],), n, dtype=torch.int32,
                              device=x.device)
-    x = x + _decode_attn(cfg, p["attn"], h, st, pos, posb, lens[n])
+    # Each branch's output is summed and replicated but for its batch
+    # (`recurrent.batch_only`), a token's worth: kept partial or sharded
+    # along the hidden dim, the residual would make the next products
+    # gather their weights.
+    x = x + R.batch_only(_decode_attn(cfg, p["attn"], h, st, pos, posb,
+                                      lens[n]))
     if enc_out is not None and "xattn" in p:
         x = _cross_attend(cfg, p, x, posb, enc_out)
     ffn_out, _ = _ffn(cfg, kind, p, L.rms_norm(x, p["ln2"]))
     if ffn_out is not None:
-        x = x + ffn_out
+        x = x + R.batch_only(ffn_out)
     return x, st

@@ -23,6 +23,13 @@ writing and reading its own shard: with the params replicated DTensors,
 every step's logits and the final caches (and rings' `slot_pos`) equal the
 single process's plain `decode_step` bit for bit; with the params placed
 by `tree_placements`, the logits are within LOGIT_TOL.
+
+The same ranks also run `mlstm_step` on states placed by `state_pspecs`
+(each rank updating its own shard of c and summing the partial numerator
+and denominator over the key dim's mesh dims) against the plain step,
+within MLSTM_TOL, and stacked Yi-6B with FSDP on (`forward_scan`,
+`lm_loss_scan` and its gradients, each layer read from the rank that holds
+it) against the plain calls.
 """
 import os
 import pathlib
@@ -43,6 +50,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 LOGIT_TOL = 1e-4          # tests/test_torch_lm.py's, on forward's logits
 LOSS_TOL = 1e-5           # ... on lm_loss
 LM_GRAD_TOL = 1e-5        # tests/test_torch_lm_train.py's, relative
+MLSTM_TOL = 1e-6          # f32, relative: the key dim's sums reordered
 ARCHS = ("yi_6b", "mixtral_8x22b")
 DECODE_ARCHS = ("yi_6b", "gemma2_27b")
 B, S = 4, 16
@@ -214,6 +222,103 @@ _DECODE = textwrap.dedent("""
                             t.full_tensor().numpy())
             out.update(_decode_stacked(cfg, arch, params, toks, mesh))
         out.update(_decode_recurrent_stack(mesh))
+        out.update(_mlstm_sharded(mesh))
+        out.update(_fsdp_stacked(mesh))
+        return out
+
+    def _mlstm_sharded(mesh):
+        # `mlstm_step` on states placed by `state_pspecs`, unstacked (heads
+        # over "model") and as a stacked leaf's layer (the key dim over
+        # "model", the partial sums all-reduced), beside the plain step on
+        # this rank's plain tensors; x and the params replicated.
+        from torch.distributed.tensor import Replicate
+        from repro_torch.launch.sharding import state_pspecs
+        from repro_torch.models import recurrent as R
+        from repro_torch.models.transformer import LayerSlice
+        rng = np.random.default_rng(13)
+        b, h, hd = 4, 4, 16
+        d = h * hd
+        shapes = dict(wq=(d, d), wk=(d, d), wv=(d, d), wi=(d, h), wf=(d, h),
+                      gn=(d,), wo=(d, d))
+        p = {k: torch.from_numpy(0.2 * rng.standard_normal(sh).astype(
+            np.float32)) for k, sh in shapes.items()}
+        rp = {k: distribute_tensor(t, mesh, [Replicate()] * 2)
+              for k, t in p.items()}
+        xs = torch.from_numpy(rng.standard_normal((6, b, 1, d)).astype(
+            np.float32))
+        out = {}
+        for layout in ("flat", "stacked"):
+            plain = R.mlstm_init_state(b, h, hd)
+            if layout == "flat":
+                specs = state_pspecs(plain, mesh)
+                st = {k: distribute_tensor(t, mesh,
+                                           list(placements(specs[k], mesh)))
+                      for k, t in plain.items()}
+            else:
+                specs = state_pspecs({"s": {k: t[None] for k, t in
+                                            plain.items()}}, mesh)["s"]
+                st = {k: LayerSlice(distribute_tensor(
+                    t[None].clone(), mesh, list(placements(specs[k], mesh))),
+                    (0,)).read() for k, t in plain.items()}
+            ys, want = [], []
+            with torch.no_grad():
+                for x in xs:
+                    y, st = R.mlstm_step(
+                        rp, distribute_tensor(x, mesh, [Replicate()] * 2), st,
+                        h)
+                    ys.append(y.full_tensor().numpy())
+                    y, plain = R.mlstm_step(p, x, plain, h)
+                    want.append(y.numpy())
+            out[f"mlstm/{layout}/placements"] = np.array(str(
+                st["c"].placements))
+            out[f"mlstm/{layout}/y"] = np.stack(ys)
+            out[f"mlstm/{layout}/plain/y"] = np.stack(want)
+            for k in st:
+                out[f"mlstm/{layout}/{k}"] = st[k].full_tensor().numpy()
+                out[f"mlstm/{layout}/plain/{k}"] = plain[k].numpy()
+        return out
+
+    def _fsdp_stacked(mesh):
+        # Yi-6B SMOKE at 4 layers, stacked, its params placed by
+        # `tree_placements` with FSDP on (each stacked leaf's layer dim over
+        # "data"): `forward_scan` and `lm_loss_scan` with the hints, and the
+        # loss's gradients, beside the same on this rank's plain tensors.
+        import dataclasses
+        from repro_torch.models.stacked import (forward_scan, lm_loss_scan,
+                                                stack_params)
+        from repro_torch.models.transformer import init_params
+        cfg = dataclasses.replace(get_config("yi_6b", smoke=True),
+                                  n_layers=4)
+        params = stack_params(cfg, init_params(
+            cfg, torch.Generator().manual_seed(5), device="cpu"))
+        places = tree_placements(params, mesh, fsdp=True)
+        dp = tree_map(lambda t, p: distribute_tensor(t, mesh, list(p)),
+                      params, places)
+        rng = np.random.default_rng(17)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 16)))
+        labels = torch.roll(tokens, -1, -1)
+        tok_pl = list(placements(batch_pspec(tokens.shape, mesh), mesh))
+        dt, dl = (distribute_tensor(t, mesh, tok_pl) for t in (tokens,
+                                                               labels))
+        out = {"fsdp/placements": np.array(str(
+            dp["scan"][0]["attn"]["wq"].placements))}
+        with torch.no_grad():
+            out["fsdp/logits"] = forward_scan(
+                cfg, dp, dt, mesh_axes=MESH_AXES_SINGLE)[0].full_tensor(
+                ).numpy()
+            out["fsdp/plain/logits"] = forward_scan(cfg, params,
+                                                    tokens)[0].numpy()
+        for name, tree, args in (("fsdp", dp, (dt, dl)),
+                                 ("fsdp/plain", params, (tokens, labels))):
+            live = tree_map(lambda t: t.detach().requires_grad_(True), tree)
+            loss = lm_loss_scan(cfg, live, *args, mesh_axes=(
+                MESH_AXES_SINGLE if tree is dp else None))
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+            full = [g.full_tensor() if tree is dp else g for g in grads]
+            out[f"{name}/loss"] = (loss.full_tensor() if tree is dp
+                                   else loss).detach().numpy()
+            for i, g in enumerate(full):
+                out[f"{name}/grad/{i}"] = g.numpy()
         return out
 
     def _decode_recurrent_stack(mesh):
@@ -503,6 +608,43 @@ def test_hinted_stacked_decode_on_head_dim_shards_matches(run, arch):
             got = port[f"{arch}/stacked/scan/{li % u}/{k}"][li // u]
             np.testing.assert_allclose(got, t.numpy(), atol=LOGIT_TOL,
                                        err_msg=k)
+
+
+@pytest.mark.parametrize("layout", ("flat", "stacked"))
+def test_hinted_mlstm_step_on_sharded_states_matches(run, layout):
+    """`mlstm_step` on states placed by `state_pspecs` (the stacked
+    layout's c sharded along its key dim, so that each rank updates its
+    shard and the partial numerator and denominator are summed over
+    "model"): each step's output and the last c, n and m equal the plain
+    step's within 1e-6 of each tensor's largest value (the sums are taken
+    in another order)."""
+    _, port, _ = run
+    want_dim = "Shard(dim=3)" if layout == "stacked" else "Shard(dim=1)"
+    assert want_dim in str(port[f"mlstm/{layout}/placements"])
+    for k in ("y", "c", "n", "m"):
+        got, want = port[f"mlstm/{layout}/{k}"], \
+            port[f"mlstm/{layout}/plain/{k}"]
+        scale = float(np.abs(want).max())
+        assert float(np.abs(got - want).max()) <= MLSTM_TOL * scale, k
+
+
+def test_hinted_fsdp_stacked_forward_loss_and_gradients_match(run):
+    """Stacked Yi-6B SMOKE at 4 layers, params placed with FSDP on (each
+    layer read from the rank that holds it): `forward_scan`'s logits within
+    LOGIT_TOL, `lm_loss_scan` within LOSS_TOL and its gradients within
+    LM_GRAD_TOL of each tensor's largest value, against the plain calls."""
+    _, port, _ = run
+    assert "Shard(dim=0)" in str(port["fsdp/placements"])
+    np.testing.assert_allclose(port["fsdp/logits"], port["fsdp/plain/logits"],
+                               atol=LOGIT_TOL)
+    assert abs(float(port["fsdp/loss"]) - float(port["fsdp/plain/loss"])) \
+        <= LOSS_TOL
+    n = len([k for k in port if k.startswith("fsdp/plain/grad/")])
+    assert n > 0
+    for i in range(n):
+        got, want = port[f"fsdp/grad/{i}"], port[f"fsdp/plain/grad/{i}"]
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(got - want).max()) <= LM_GRAD_TOL * scale, i
 
 
 def test_hinted_stacked_decode_reads_recurrent_states_from_their_rank(run):
